@@ -1,0 +1,7 @@
+"""Public API: Model, synchronous Session, Result, Token."""
+
+from .model import Model
+from .session import Session
+from .types import Result, Token
+
+__all__ = ["Model", "Session", "Result", "Token"]

@@ -1,0 +1,78 @@
+"""Model API mirroring the reference Python binding's Model class
+(port of april_asr_tpu/api/model.py; reference
+bindings/python/april_asr/_april.py:59-96, april_api.h:58-74)."""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..config import DecodeConfig, EngineConfig
+from ..models.lstm_transducer import FLOAT_CHUNK_MSG, cast_weights, quantize_weights
+from ..models.loader import ModelRuntime, load_model
+
+
+def apply_precision(weights, precision: str):
+    """The serving precision policy. "int8": per-channel int8 copies of the
+    encoder layer matrices (quantized from the f32 originals), then the
+    other matrices cast to bf16. The float chunk encoder is not ported yet,
+    so "f32" and "bf16" raise."""
+    if precision == "int8":
+        return cast_weights(quantize_weights(weights), torch.bfloat16)
+    if precision in (None, "", "f32", "float32", "bf16", "bfloat16"):
+        raise NotImplementedError(FLOAT_CHUNK_MSG)
+    raise ValueError(f"unknown precision {precision!r} (f32 | bf16 | int8)")
+
+
+class Model:
+    """A loaded `.april` speech-to-text model on one device. Sessions
+    created from the same Model share its weights and engine programs."""
+
+    def __init__(
+        self,
+        path: str | os.PathLike,
+        precision: Optional[str] = "int8",
+        device=None,
+    ):
+        """`precision` selects the serving numerics; this port serves
+        "int8" (the default). `device` defaults to CUDA; pass "cpu" to run
+        the kernels' plain PyTorch versions."""
+        self._rt: ModelRuntime = load_model(path, device=device)
+        precision = precision or os.environ.get("APRIL_PRECISION")
+        self._rt.weights = apply_precision(self._rt.weights, precision)
+        self._engines: Dict[Tuple[int, int], object] = {}
+        self._lock = threading.Lock()
+
+    def get_name(self) -> str:
+        return self._rt.name
+
+    def get_description(self) -> str:
+        return self._rt.description
+
+    def get_language(self) -> str:
+        return self._rt.language
+
+    def get_sample_rate(self) -> int:
+        return self._rt.sample_rate
+
+    @property
+    def runtime(self) -> ModelRuntime:
+        return self._rt
+
+    def _get_program(self, batch: int, cfg: Optional[EngineConfig] = None,
+                     dcfg: Optional[DecodeConfig] = None):
+        """Cached engine program shared across sessions of the same shape."""
+        from ..engine.step import build_engine
+
+        cfg = cfg or EngineConfig()
+        dcfg = dcfg or DecodeConfig()
+        key = (batch, cfg.chunk_samples)
+        with self._lock:
+            prog = self._engines.get(key)
+            if prog is None:
+                prog = build_engine(self._rt, batch, cfg, dcfg)
+                self._engines[key] = prog
+            return prog

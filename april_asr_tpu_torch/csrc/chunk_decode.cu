@@ -1,0 +1,394 @@
+// Kernel 4: the whole chunk's greedy transducer decode in one launch.
+//
+// Replaces april_asr_tpu/ops/decode_pallas.py `chunk_decode_fused`
+// (`_chunk_decode_kernel`). On the TPU the grid is (session tiles, P pulls)
+// with the decode state in VMEM scratch across the sequential pull axis;
+// here one block owns TSD sessions and loops over the P pulls and the 3
+// rounds of the early-emit ramp itself, with the decode state (context,
+// dout, 72-token window, heads, clocks) in shared memory throughout. Per
+// round:
+//   1. lazy decoder refresh for sessions whose context changed:
+//      dout = bf16(relu(T0[c0] + T1[c1])) @ dec_proj + b   (threads over d, J)
+//   2. joiner for sessions still active: bf16(tanh(eout + dout)) @ W + b
+//      (threads over the vocab; f32 sums of exact bf16 products)
+//   3. blank-excluded argmax (one warp per session, first index on ties)
+//   4. every heuristic of decode_step_pre (decode/greedy.py), one thread per
+//      session: early-emit ramp, repeat guard, punctuation margin, digit-dot
+//      exception, forced finalize, 72-token window with word-split finalize,
+//      silence decay, confident-blank dedup, long-silence reset.
+// Each pull first adds stride_ms to the time of sessions that pull.
+//
+// Bound on the H100: the joiner and dec_proj reads. Every round re-reads
+// W (J x V bf16, 0.5 MB) and, for refreshing sessions, dec_proj (0.5 MB)
+// from L2; the multiply-adds are 2 x J x (V + d) per session-round. TSD = 4
+// sessions share each weight read. The vocabulary is not padded: the loops
+// run to V, which is what the TPU kernel's -1e30 pad columns amount to.
+// No fast-math: tanhf as written.
+
+#include "common.cuh"
+
+#define TSD 4
+#define NT 256
+#define NEG_INF_F (-1e30f)
+
+#define OP_FIX_PREV_EOS 1
+#define OP_FINAL 2
+#define OP_RESET_TOKENS 4
+#define OP_APPEND 8
+#define OP_PARTIAL 16
+#define OP_POP 32
+#define OP_SILENCE 64
+#define FLAG_WB 1
+#define FLAG_EOS 2
+#define MASK_WB 1
+#define MASK_EOS 2
+#define MASK_PUNCT 4
+#define MASK_DIGIT 8
+#define MASK_DOT 16
+#define FLAG_SHIFT 16
+
+struct DecCfg {
+  int P, S, J, d, V, T, blank, stride;
+  float ramp[3];
+  float punct_margin, conf_margin, conf_penalty, long_sil_ms, decay_ms;
+};
+
+struct SessState {
+  int ctx0, ctx1, nd, head, last_call, time, last_emit, sil, done, mi, valid;
+  float mv, bv;
+};
+
+__device__ __forceinline__ int tmask_at(const int* tmask, int v, int V) {
+  return (v >= 0 && v < V) ? tmask[v] : 0;
+}
+
+// decode_step_pre for one session and one round; words is its T-slot window.
+__device__ void heuristics(SessState& st, int* words, const int* tmask, const DecCfg& c, int r,
+                           int& e_ops, int& e_tok, float& e_lp, int& e_flags, int& e_time,
+                           int& e_fink) {
+  const int T = c.T;
+  const bool active = !st.done;
+  const int mi = st.mi;
+  const float mv = st.mv, bv = st.bv;
+  const bool was_cleared = st.ctx1 == c.blank;
+  const bool eq_prev = st.ctx1 == mi;
+  const float eff = eq_prev ? 0.f : c.ramp[r];
+  bool is_blank = __fsub_rn(bv, eff) > mv;
+
+  const int mask_max = tmask_at(tmask, mi, c.V);
+  const bool wb = (mask_max & MASK_WB) != 0;
+  bool eos = (mask_max & MASK_EOS) != 0;
+  bool punct = (mask_max & MASK_PUNCT) != 0;
+
+  int head = st.head;
+  const int hp = max(head - 1, 0);
+  const int prev_word = words[hp];
+  const int prev_tok = prev_word & ((1 << FLAG_SHIFT) - 1);
+  const int prev_flags = prev_word >> FLAG_SHIFT;
+  const int mask_prev = tmask_at(tmask, prev_tok, c.V);
+  const bool digit_exc = punct && head > 0 && (mask_prev & MASK_DIGIT) && (mask_max & MASK_DOT);
+  eos = eos && !digit_exc;
+  punct = punct && !digit_exc;
+  const int tok_flags = (wb ? FLAG_WB : 0) | (eos ? FLAG_EOS : 0);
+
+  const bool boost = !was_cleared && punct && !eq_prev && (mv > __fsub_rn(bv, c.punct_margin));
+  is_blank = is_blank && !boost;
+  const bool nb = active && !is_blank;
+  const bool bl = active && is_blank;
+
+  int ops = 0, tok = 0, flags = 0, fink = 0;
+  float lp = 0.f;
+
+  // ---- non-blank path
+  if (nb) {
+    st.last_emit = st.time;
+    st.ctx0 = st.ctx1;
+    st.ctx1 = mi;
+  }
+  bool need_dec = nb;
+  bool is_final = nb && head >= T - 1;
+  const bool check = nb && head > 0 && wb;
+  const bool prev_is_eos = (mask_prev & MASK_EOS) != 0;
+  const bool fix_prev = check && prev_is_eos && (prev_flags & FLAG_EOS) == 0;
+  if (fix_prev) {
+    words[hp] |= (FLAG_EOS << FLAG_SHIFT);
+    ops |= OP_FIX_PREV_EOS;
+  }
+  is_final = is_final || (check && prev_is_eos);
+
+  int sow = -1;  // last word start in (2, head - 1]
+  for (int i = 3; i <= head - 1 && i < T; ++i)
+    if ((words[i] >> FLAG_SHIFT) & FLAG_WB) sow = i;
+  const bool full_fin = is_final && head > 0 && (wb || sow < 0);
+  const bool shift_fin = is_final && head > 0 && !wb && sow >= 0;
+  if (full_fin) {
+    ops |= OP_FINAL;
+    fink = head;
+    st.last_call = head;
+    head = 0;
+  }
+  if (shift_fin) {
+    ops |= OP_FINAL;
+    fink = sow;
+    for (int i = 0; i < head - sow; ++i) words[i] = words[i + sow];
+    head -= sow;
+  }
+  const bool no_room = nb && head >= T - 1;
+  if (no_room) {
+    ops |= OP_RESET_TOKENS;
+    head = 0;
+  }
+  const int new_word = mi | (tok_flags << FLAG_SHIFT);
+  if (nb) {
+    words[min(max(head, 0), T - 1)] = new_word;
+    head += 1;
+    ops |= OP_APPEND | OP_PARTIAL;
+    tok = mi;
+    lp = mv;
+    flags = tok_flags;
+    st.last_call = head;
+    st.sil = 0;
+  }
+  const int time_ev = active ? st.time : 0;
+
+  // ---- blank path
+  const float t_since = (float)(st.time - st.last_emit);
+  const float decayed = __fsub_rn(mv, __fdiv_rn(t_since, c.decay_ms));
+  const bool confident = !eq_prev && (decayed > __fsub_rn(bv, c.conf_margin));
+  const bool long_sil = t_since >= c.long_sil_ms;
+  const bool ls = bl && long_sil;
+  if (ls && head > 0) {
+    ops |= OP_FINAL;
+    fink = head;
+    st.last_call = head;
+    head = 0;
+  }
+  if (ls && st.ctx0 != c.blank) {
+    st.ctx0 = st.ctx1 = c.blank;
+    need_dec = true;
+  }
+  if (ls && st.sil == 0) ops |= OP_SILENCE;
+  if (ls) st.sil = 1;
+
+  const bool conf = bl && !long_sil && confident;
+  const int hc = min(max(head, 0), T - 1);
+  const int stale = words[hc] & ((1 << FLAG_SHIFT) - 1);
+  const bool dedup = (st.last_call == head + 1) && (stale == mi);
+  const bool conf_emit = conf && !dedup;
+  if (conf_emit) {
+    words[hc] = new_word;
+    ops |= OP_APPEND | OP_PARTIAL | OP_POP;
+    tok = mi;
+    lp = __fsub_rn(mv, c.conf_penalty);
+    flags = tok_flags;
+    st.last_call = head + 1;
+  }
+  const bool bare = bl && !long_sil && !confident && (st.last_call != head);
+  if (bare) {
+    ops |= OP_PARTIAL;
+    st.last_call = head;
+  }
+
+  st.head = head;
+  st.nd = need_dec ? 1 : 0;
+  st.done = st.done || is_blank;
+  e_ops = ops; e_tok = tok; e_lp = lp; e_flags = flags; e_time = time_ev; e_fink = fink;
+}
+
+__global__ void __launch_bounds__(NT) chunk_decode_kernel(
+    const float* __restrict__ eouts, const int* __restrict__ can,
+    const int* __restrict__ ctx_in, const float* __restrict__ dout_in,
+    const int* __restrict__ nd_in, const int* __restrict__ words_in,
+    const int* __restrict__ head_in, const int* __restrict__ lastcall_in,
+    const int* __restrict__ time_in, const int* __restrict__ lastemit_in,
+    const int* __restrict__ sil_in, const float* __restrict__ dec_table,
+    const uint16_t* __restrict__ dp, const float* __restrict__ dpb,
+    const uint16_t* __restrict__ W, const float* __restrict__ jb,
+    const int* __restrict__ tmask, int* __restrict__ ctx_out, float* __restrict__ dout_out,
+    int* __restrict__ words_out, int* __restrict__ nd_out, int* __restrict__ head_out,
+    int* __restrict__ lastcall_out, int* __restrict__ time_out, int* __restrict__ lastemit_out,
+    int* __restrict__ sil_out, int* __restrict__ ev_ops, int* __restrict__ ev_tok,
+    float* __restrict__ ev_lp, int* __restrict__ ev_flags, int* __restrict__ ev_time,
+    int* __restrict__ ev_fink, DecCfg c) {
+  extern __shared__ float4 smem_f4[];
+  const int J = c.J, d = c.d, V = c.V, T = c.T, S = c.S;
+  const int Dm = J > d ? J : d;
+  float* dout = reinterpret_cast<float*>(smem_f4);  // [TSD][J]
+  float* tv = dout + TSD * J;                        // [TSD][Dm]
+  float* logits = tv + TSD * Dm;                     // [TSD][V]
+  int* words = reinterpret_cast<int*>(logits + TSD * V);  // [TSD][T]
+  __shared__ SessState st[TSD];
+
+  const int s0 = blockIdx.x * TSD;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid < TSD) {
+    const int s = s0 + tid;
+    SessState& q = st[tid];
+    q.valid = s < S;
+    if (q.valid) {
+      q.ctx0 = ctx_in[2 * s];
+      q.ctx1 = ctx_in[2 * s + 1];
+      q.nd = nd_in[s];
+      q.head = head_in[s];
+      q.last_call = lastcall_in[s];
+      q.time = time_in[s];
+      q.last_emit = lastemit_in[s];
+      q.sil = sil_in[s];
+    } else {
+      q.ctx0 = q.ctx1 = c.blank;
+      q.nd = q.head = q.last_call = q.time = q.last_emit = 0;
+      q.sil = 1;
+    }
+  }
+  for (int i = tid; i < TSD * J; i += NT) {
+    const int si = i / J, s = s0 + si;
+    dout[i] = s < S ? dout_in[(size_t)s * J + (i - si * J)] : 0.f;
+  }
+  for (int i = tid; i < TSD * T; i += NT) {
+    const int si = i / T, s = s0 + si;
+    words[i] = s < S ? words_in[(size_t)s * T + (i - si * T)] : 0;
+  }
+  __syncthreads();
+
+  for (int p = 0; p < c.P; ++p) {
+    if (tid < TSD) {
+      SessState& q = st[tid];
+      const int cn = q.valid ? (can[(size_t)p * S + s0 + tid] != 0) : 0;
+      q.time += c.stride * cn;
+      q.done = !cn;
+    }
+    __syncthreads();
+    for (int r = 0; r < 3; ++r) {
+      // 1. lazy decoder refresh
+      for (int i = tid; i < TSD * d; i += NT) {
+        const int si = i / d, k = i - si * d;
+        if (!st[si].nd) continue;
+        const float pre = __fadd_rn(dec_table[(size_t)st[si].ctx0 * d + k],
+                                    dec_table[((size_t)V + st[si].ctx1) * d + k]);
+        tv[si * Dm + k] = round_bf16(fmaxf(pre, 0.f));
+      }
+      __syncthreads();
+      for (int i = tid; i < TSD * J; i += NT) {
+        const int si = i / J, j = i - si * J;
+        if (!st[si].nd) continue;
+        float acc = 0.f;
+        for (int k = 0; k < d; ++k) acc = fmaf(tv[si * Dm + k], bf16_to_f32(dp[(size_t)k * J + j]), acc);
+        dout[i] = __fadd_rn(acc, dpb[j]);
+      }
+      __syncthreads();
+      // 2. joiner for the sessions still active
+      for (int i = tid; i < TSD * J; i += NT) {
+        const int si = i / J, j = i - si * J;
+        if (st[si].done) continue;
+        const float e = eouts[((size_t)p * S + s0 + si) * J + j];
+        tv[si * Dm + j] = round_bf16(tanhf(__fadd_rn(e, dout[i])));
+      }
+      __syncthreads();
+      bool any_active = false;
+#pragma unroll
+      for (int si = 0; si < TSD; ++si) any_active = any_active || !st[si].done;
+      if (any_active) {
+        for (int v = tid; v < V; v += NT) {
+          float acc[TSD];
+#pragma unroll
+          for (int si = 0; si < TSD; ++si) acc[si] = 0.f;
+          for (int j = 0; j < J; ++j) {
+            const float w = bf16_to_f32(W[(size_t)j * V + v]);
+#pragma unroll
+            for (int si = 0; si < TSD; ++si) acc[si] = fmaf(tv[si * Dm + j], w, acc[si]);
+          }
+#pragma unroll
+          for (int si = 0; si < TSD; ++si) logits[si * V + v] = __fadd_rn(acc[si], jb[v]);
+        }
+      }
+      __syncthreads();
+      // 3. blank-excluded argmax, one warp per session
+      if (warp < TSD && !st[warp].done) {
+        float best = -INFINITY;
+        int bi = 0x7fffffff;
+        for (int v = lane; v < V; v += 32) {
+          const float lv = v == c.blank ? NEG_INF_F : logits[warp * V + v];
+          if (lv > best) { best = lv; bi = v; }
+        }
+        for (int o = 16; o > 0; o >>= 1) {
+          const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+          const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+          if (ob > best || (ob == best && oi < bi)) { best = ob; bi = oi; }
+        }
+        if (lane == 0) {
+          st[warp].mi = bi;
+          st[warp].mv = best;
+          st[warp].bv = logits[warp * V + c.blank];
+        }
+      }
+      __syncthreads();
+      // 4. heuristics, one thread per session
+      if (tid < TSD) {
+        SessState& q = st[tid];
+        int e_ops = 0, e_tok = 0, e_flags = 0, e_time = 0, e_fink = 0;
+        float e_lp = 0.f;
+        if (q.done) {
+          q.nd = 0;  // inactive: no emission, no context change
+        } else {
+          heuristics(q, words + tid * T, tmask, c, r, e_ops, e_tok, e_lp, e_flags, e_time, e_fink);
+        }
+        if (q.valid) {
+          const size_t e = ((size_t)p * S + s0 + tid) * 3 + r;
+          ev_ops[e] = e_ops; ev_tok[e] = e_tok; ev_lp[e] = e_lp;
+          ev_flags[e] = e_flags; ev_time[e] = e_time; ev_fink[e] = e_fink;
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  if (tid < TSD && st[tid].valid) {
+    const int s = s0 + tid;
+    const SessState& q = st[tid];
+    ctx_out[2 * s] = q.ctx0;
+    ctx_out[2 * s + 1] = q.ctx1;
+    nd_out[s] = q.nd;
+    head_out[s] = q.head;
+    lastcall_out[s] = q.last_call;
+    time_out[s] = q.time;
+    lastemit_out[s] = q.last_emit;
+    sil_out[s] = q.sil;
+  }
+  for (int i = tid; i < TSD * J; i += NT) {
+    const int si = i / J, s = s0 + si;
+    if (s < S) dout_out[(size_t)s * J + (i - si * J)] = dout[i];
+  }
+  for (int i = tid; i < TSD * T; i += NT) {
+    const int si = i / T, s = s0 + si;
+    if (s < S) words_out[(size_t)s * T + (i - si * T)] = words[i];
+  }
+}
+
+extern "C" int chunk_decode(
+    const float* eouts, const int* can, const int* ctx_in, const float* dout_in, const int* nd_in,
+    const int* words_in, const int* head_in, const int* lastcall_in, const int* time_in,
+    const int* lastemit_in, const int* sil_in, const float* dec_table, const uint16_t* dp,
+    const float* dpb, const uint16_t* W, const float* jb, const int* tmask, int* ctx_out,
+    float* dout_out, int* words_out, int* nd_out, int* head_out, int* lastcall_out,
+    int* time_out, int* lastemit_out, int* sil_out, int* ev_ops, int* ev_tok, float* ev_lp,
+    int* ev_flags, int* ev_time, int* ev_fink, int P, int S, int J, int d, int V, int T,
+    int blank, int stride, float ramp0, float ramp1, float ramp2, float punct_margin,
+    float conf_margin, float conf_penalty, float long_sil_ms, float decay_ms, void* stream) {
+  DecCfg c;
+  c.P = P; c.S = S; c.J = J; c.d = d; c.V = V; c.T = T; c.blank = blank; c.stride = stride;
+  c.ramp[0] = ramp0; c.ramp[1] = ramp1; c.ramp[2] = ramp2;
+  c.punct_margin = punct_margin; c.conf_margin = conf_margin; c.conf_penalty = conf_penalty;
+  c.long_sil_ms = long_sil_ms; c.decay_ms = decay_ms;
+  const int Dm = J > d ? J : d;
+  const size_t smem = sizeof(float) * (size_t)TSD * (J + Dm + V) + sizeof(int) * (size_t)TSD * T;
+  cudaError_t err = allow_smem(chunk_decode_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((S + TSD - 1) / TSD);
+  chunk_decode_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+      eouts, can, ctx_in, dout_in, nd_in, words_in, head_in, lastcall_in, time_in, lastemit_in,
+      sil_in, dec_table, dp, dpb, W, jb, tmask, ctx_out, dout_out, words_out, nd_out, head_out,
+      lastcall_out, time_out, lastemit_out, sil_out, ev_ops, ev_tok, ev_lp, ev_flags, ev_time,
+      ev_fink, c);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,361 @@
+"""Batched engine step: audio chunk -> fbank -> encoder -> decode events
+(port of april_asr_tpu/engine/step.py, the native chunk-encoder branch).
+
+One step advances every session by one audio chunk: the fbank accept
+(kernel 1), one ring read of every pull window, one batched conv embed, the
+12-layer int8 chunk encoder over all P pulls (kernels 2 and 3 per layer),
+and the whole chunk's greedy decode (kernel 4). Handler-visible actions
+leave the device as the compact APR4 event blob, bit-identical in layout to
+the JAX package's (see the layout note below). The flush program reproduces
+_aas_flush (src/april_session.c:547-564) as masked pull rounds, each an
+encoder pass at P = 1 through kernels 2 and 3 and a decode through kernel 4
+at P = 1.
+
+Event blob layout (per sub-blob; one int32 vector):
+  [0] BLOB_MAGIC  [1] S  [2] K cell capacity  [3] stride_ms
+  [4, 4+S) per-session event count   [4+S, 4+2S) per-session base time_ms
+  [.., +K) cell word0 = ops(7b) | flags(2b)<<7 | final_k(7b)<<9 | tok(14b)<<16
+  [.., +K) cell logprob, f32 bits   [.., +K/4) cell dt in stride units, u8 x4
+Cells are session-major in (round, inner-step) order; past the event count
+the cells repeat the JAX package's padding exactly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import DecodeConfig, EngineConfig
+from ..decode import events as ev
+from ..decode.greedy import init_decode_state, vocab_tables_device
+from ..frontend.fbank import (
+    FbankLayout,
+    fbank_accept_batch,
+    fbank_advance,
+    fbank_advance_n,
+    fbank_flush_pad,
+    fbank_front_batch,
+    fbank_init,
+    fbank_peek,
+)
+from ..models.lstm_transducer import FLOAT_CHUNK_MSG, is_quantized
+from ..models.loader import ModelRuntime
+from ..ops.decode_kernels import EVENT_KEYS, chunk_decode
+
+INNER_STEPS_EMIT = (1.0, 0.0, 0.0)  # early-emit ramp (april_session.c:449-453)
+BLOB_MAGIC = 0x41505234  # "APR4"
+BLOB_HEADER = 4
+
+
+def events_budget(rounds: int, cfg_budget: int = 0) -> int:
+    """Per-session compact-cell budget for a program with `rounds` pulls."""
+    if cfg_budget > 0:
+        return cfg_budget
+    return max(8, -(-rounds * 3 // 5))
+
+
+class PackedEvents(NamedTuple):
+    """Step/flush event outputs: the compact `blob` (read every tick) and
+    the `dense` [S, R, 2I+1] tensor (read only when the blob overflows)."""
+
+    blob: torch.Tensor
+    dense: torch.Tensor
+
+
+def _as_i32(x: torch.Tensor) -> torch.Tensor:
+    """Wrap an int64 tensor to int32 two's complement (jnp int32 overflow)."""
+    x = torch.remainder(x + (1 << 31), 1 << 32) - (1 << 31)
+    return x.to(torch.int32)
+
+
+def pack_events(events: Dict[str, torch.Tensor], base_time: torch.Tensor, stride_ms: int,
+                budget: int = 0) -> PackedEvents:
+    """Events {key: [S, R, I]} -> PackedEvents, on the events' device."""
+    dev = events["ops"].device
+    i64 = torch.int64
+    word0 = (
+        events["ops"].to(i64)
+        | (events["flags"].to(i64) << 7)
+        | (events["final_k"].to(i64) << 9)
+        | (events["tok"].to(i64) << 16)
+    )
+    word0 = _as_i32(word0)
+    lp = events["logprob"].to(torch.float32).contiguous().view(torch.int32)
+    time = events["time_ms"][:, :, :1].to(torch.int32)
+    dense = torch.cat([word0, lp, time], dim=2)
+
+    S, R, I = word0.shape
+    if R > 255:
+        raise ValueError(f"{R} rounds overflow the 8-bit cell dt (max 255)")
+    N = R * I
+    K = S * events_budget(R, budget)
+    base_time = base_time.to(torch.int32)
+
+    mask = events["ops"].reshape(S, N) != 0
+    midx = torch.cumsum(mask.to(i64), dim=1) - 1
+    counts = mask.sum(dim=1).to(torch.int32)
+    srcn = torch.zeros((S, N), dtype=i64, device=dev)
+    rows, cols = mask.nonzero(as_tuple=True)
+    srcn[rows, midx[rows, cols]] = cols
+    cum = torch.cumsum(counts.to(i64), dim=0)
+    k_ids = torch.arange(K, dtype=i64, device=dev)
+    n_ge = torch.searchsorted(cum, k_ids, right=True)
+    s_k = torch.clamp(n_ge, max=S - 1)
+    off_k = torch.where(n_ge > 0, cum[torch.clamp(n_ge - 1, min=0)], torch.zeros_like(n_ge))
+    j_k = torch.clamp(k_ids - off_k, 0, N - 1)
+    n_k = srcn.reshape(-1)[torch.clamp(s_k * N + j_k, 0, S * N - 1)]
+    src = s_k * N + n_k
+
+    dt = torch.div(
+        events["time_ms"].to(i64) - base_time.to(i64)[:, None, None], stride_ms,
+        rounding_mode="floor",
+    ).reshape(S * N)
+    w0_k = word0.reshape(-1)[src]
+    lp_k = lp.reshape(-1)[src]
+    dt_k = torch.clamp(dt[src], 0, 255)
+    Kp = -(-K // 4) * 4
+    dt_p = torch.nn.functional.pad(dt_k, (0, Kp - K)).reshape(Kp // 4, 4)
+    dt_w = _as_i32(dt_p[:, 0] | (dt_p[:, 1] << 8) | (dt_p[:, 2] << 16) | (dt_p[:, 3] << 24))
+    header = torch.tensor([BLOB_MAGIC, S, K, stride_ms], dtype=torch.int32, device=dev)
+    blob = torch.cat([header, counts, base_time, w0_k, lp_k, dt_w])
+    return PackedEvents(blob=blob, dense=dense)
+
+
+def unpack_events_np(packed) -> Dict[str, np.ndarray]:
+    """Dense-tensor unpack (accepts a PackedEvents or a raw dense array)."""
+    if isinstance(packed, PackedEvents):
+        packed = packed.dense
+    arr = packed.cpu().numpy() if isinstance(packed, torch.Tensor) else np.asarray(packed)
+    I = (arr.shape[2] - 1) // 2
+    w = arr[:, :, :I]
+    return {
+        "ops": w & 0x7F,
+        "flags": (w >> 7) & 0x3,
+        "final_k": (w >> 9) & 0x7F,
+        "tok": (w >> 16) & 0x3FFF,
+        "logprob": np.ascontiguousarray(arr[:, :, I : 2 * I]).view(np.float32),
+        "time_ms": arr[:, :, 2 * I],
+    }
+
+
+def iter_blobs(arr: np.ndarray):
+    """Split a host copy of the blob vector into sub-blobs; yields
+    (slot_base, sub_blob)."""
+    pos = 0
+    base = 0
+    n = arr.shape[0]
+    while pos < n:
+        if arr[pos] != BLOB_MAGIC:
+            raise ValueError(f"bad event blob magic at {pos}: {arr[pos]:#x}")
+        S = int(arr[pos + 1])
+        K = int(arr[pos + 2])
+        size = BLOB_HEADER + 2 * S + 2 * K + (-(-K // 4))
+        yield base, arr[pos : pos + size]
+        pos += size
+        base += S
+
+
+def unpack_blob_np(sub: np.ndarray) -> Dict[str, np.ndarray]:
+    """Decode one sub-blob into per-cell arrays (host-side, little-endian)."""
+    S, K, stride = int(sub[1]), int(sub[2]), int(sub[3])
+    o = BLOB_HEADER
+    counts = sub[o : o + S]
+    base_time = sub[o + S : o + 2 * S]
+    w0 = sub[o + 2 * S : o + 2 * S + K]
+    lp = np.ascontiguousarray(sub[o + 2 * S + K : o + 2 * S + 2 * K]).view(np.float32)
+    dt = np.ascontiguousarray(sub[o + 2 * S + 2 * K :]).view(np.uint8)[:K]
+    total = int(counts.sum())
+    sess = np.repeat(np.arange(S), counts) if total <= K else None
+    return {
+        "S": S, "K": K, "stride": stride, "counts": counts, "base_time": base_time,
+        "total": total, "overflow": total > K, "session": sess,
+        "ops": w0 & 0x7F, "flags": (w0 >> 7) & 0x3, "final_k": (w0 >> 9) & 0x7F,
+        "tok": (w0 >> 16) & 0x3FFF, "logprob": lp, "dt": dt,
+    }
+
+
+@dataclasses.dataclass
+class EngineProgram:
+    """The batched step/flush programs for one model + chunk size."""
+
+    rt: ModelRuntime
+    layout: FbankLayout
+    cfg: EngineConfig
+    dcfg: DecodeConfig
+    step: Callable  # (weights, state, audio_i16 [S, chunk], n [S]) -> (state, PackedEvents)
+    flush: Callable  # (weights, state, do_flush [S]) -> (state, PackedEvents)
+    batch: int
+
+
+def init_engine_state(prog: EngineProgram, weights=None) -> Dict:
+    """Fresh state for `prog.batch` sessions on the model's device; the
+    decoder is primed with the all-blank context (april_session.c:432-438)."""
+    rt = prog.rt
+    w = rt.weights if weights is None else weights
+    S, dev, dims = prog.batch, rt.device, rt.dims
+    dstate = init_decode_state(S, dims.context, dims.joiner_dim, rt.blank_id, prog.dcfg, dev)
+    dstate["dout"] = rt.decoder_step(w, dstate["context"])
+    dstate["dout_init"] = torch.ones(S, dtype=torch.bool, device=dev)
+    (L, dh), (_, dc) = rt.state_shapes
+    return {
+        "fbank": fbank_init(prog.layout, S, dev),
+        "h": torch.zeros((L, S, dh), dtype=torch.float32, device=dev),
+        "c": torch.zeros((L, S, dc), dtype=torch.float32, device=dev),
+        "decode": dstate,
+    }
+
+
+def build_engine(
+    rt: ModelRuntime,
+    batch: int,
+    cfg: EngineConfig | None = None,
+    dcfg: DecodeConfig | None = None,
+) -> EngineProgram:
+    """Step and flush programs over `batch` session slots on rt.device."""
+    cfg = cfg or EngineConfig()
+    dcfg = dcfg or DecodeConfig()
+    if not is_quantized(rt.weights):
+        raise NotImplementedError(FLOAT_CHUNK_MSG)
+    layout = FbankLayout.build(rt.fbank_opts, cfg.chunk_samples)
+    vt = vocab_tables_device(rt.vocab)
+    blank = rt.blank_id
+    stride = layout.opts.segment_stride_ms
+    seg = layout.opts.pull_segment_count
+    step_rows = layout.opts.pull_segment_step
+    P = layout.max_pulls_per_step
+    dev = rt.device
+
+    def decode(weights, eouts, can, dstate):
+        return chunk_decode(
+            eouts, can, dstate,
+            weights["dec_table"], weights["dec_proj_t"], weights["dec_proj_b"],
+            weights["join_t"], weights["join_b"], vt,
+            blank_id=blank, stride_ms=int(stride), emit_ramp=INNER_STEPS_EMIT, dcfg=dcfg,
+        )
+
+    def step(weights, state, audio_i16, n):
+        audio = audio_i16.to(torch.float32) / 32768.0  # april_session.c:520-522
+        n = n.to(torch.int32)
+        fb = fbank_accept_batch(layout, state["fbank"], audio, n)
+        h, c, dstate = state["h"], state["c"], state["decode"]
+        S = n.shape[0]
+        W = (P - 1) * step_rows + seg
+        front = fbank_front_batch(layout, fb, W)  # [S, W, mel]
+        can = fb["fifo_len"][None, :] >= (
+            seg + step_rows * torch.arange(P, dtype=torch.int32, device=dev)[:, None]
+        )  # [P, S]
+        windows = torch.stack([front[:, i * step_rows : i * step_rows + seg] for i in range(P)])
+        y0 = rt.encoder_embed(weights, windows.reshape(P * S, seg, -1)).reshape(P, S, -1)
+        eouts, h, c = rt.encoder_chunk(weights, y0, h, c, can)
+        dstate, events = decode(weights, eouts, can, dstate)
+        n_pulled = torch.clamp(
+            torch.div(fb["fifo_len"] - seg, step_rows, rounding_mode="floor") + 1, 0, P
+        )
+        fb = fbank_advance_n(layout, fb, n_pulled)
+        events = {k: v.permute(1, 0, 2) for k, v in events.items()}  # [S, P, 3]
+        new_state = {"fbank": fb, "h": h, "c": c, "decode": dstate}
+        return new_state, pack_events(events, state["decode"]["time_ms"], stride,
+                                      cfg.events_per_session)
+
+    def pull_once(weights, fb, h, c, dstate):
+        """One pull: peek, encoder at P = 1 (gated by `can`), decode at
+        P = 1 (which adds stride * can to time_ms), advance."""
+        can = fb["fifo_len"] >= seg
+        x = fbank_peek(layout, fb)
+        eout, h, c = rt.encoder_step(weights, x, h, c, can)
+        dstate, events = decode(weights, eout[None], can[None], dstate)
+        fb = fbank_advance(layout, fb, can)
+        return fb, h, c, dstate, {k: v[0] for k, v in events.items()}
+
+    def _sel(mask, a, b):
+        return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b)
+
+    def gated_pull(weights, fb, h, c, dstate, do):
+        fb_gated = dict(fb)
+        fb_gated["fifo_len"] = torch.where(do, fb["fifo_len"], torch.zeros_like(fb["fifo_len"]))
+        fb2, h, c, dstate, events = pull_once(weights, fb_gated, h, c, dstate)
+        fb = {k: _sel(do, fb2[k], fb[k]) for k in fb}
+        return fb, h, c, dstate, events
+
+    def flush_round(weights, fb, h, c, dstate, flushing):
+        """One `while fbank_flush: aas_infer` round: pad to seg where the
+        debt bound allows, then one pull."""
+        padded, did = fbank_flush_pad(layout, fb)
+        do = flushing & did
+        fb = {k: _sel(do, padded[k], fb[k]) for k in fb}
+        return gated_pull(weights, fb, h, c, dstate, do)
+
+    # derived flush bounds (engine/step.py of the JAX package)
+    pad_pull_rounds = ((seg - 1) + 3 * seg) // step_rows + 1
+    FLUSH_BLOCK = 3200  # the reference's two fixed zero blocks (SEGSIZE)
+    hop = layout.opts.sample_freq * layout.opts.frame_shift_ms // 1000
+
+    def flush(weights, state, do_flush):
+        """_aas_flush (:547-564) for the masked sessions."""
+        fb, h, c, dstate = state["fbank"], state["h"], state["c"], state["decode"]
+        do_flush = do_flush.to(torch.bool)
+        S = do_flush.shape[0]
+        pulls = []
+        # Phase A: drain + pad rounds until the debt bound stops padding
+        for _ in range(pad_pull_rounds):
+            fb, h, c, dstate, e = flush_round(weights, fb, h, c, dstate, do_flush)
+            pulls.append(e)
+        # Phase B: two fixed 3200-sample zero blocks, each followed by
+        # pad-free drain pulls
+        zeros = torch.zeros((S, layout.chunk), dtype=torch.float32, device=dev)
+        for _ in range(2):
+            rem = FLUSH_BLOCK
+            while rem > 0:
+                take = min(layout.chunk, rem)
+                rem -= take
+                nz = torch.where(do_flush, take, 0).to(torch.int32)
+                fb = fbank_accept_batch(layout, fb, zeros, nz)
+                for _ in range((take // hop + seg) // step_rows + 1):
+                    fb, h, c, dstate, e = gated_pull(weights, fb, h, c, dstate, do_flush)
+                    pulls.append(e)
+        # Phase C: drain + pad rounds again
+        for _ in range(pad_pull_rounds):
+            fb, h, c, dstate, e = flush_round(weights, fb, h, c, dstate, do_flush)
+            pulls.append(e)
+        # Phase D: finalize + clear context + silence
+        dstate = dict(dstate)
+        head = dstate["head"]
+        fin = do_flush & (head > 0)
+        zi = torch.zeros(S, dtype=torch.int32, device=dev)
+        evD = {
+            "ops": (fin.to(torch.int32) * ev.OP_FINAL)
+            | ((do_flush & ~dstate["emitted_silence"]).to(torch.int32) * ev.OP_SILENCE),
+            "tok": zi,
+            "logprob": torch.zeros(S, dtype=torch.float32, device=dev),
+            "flags": zi,
+            "time_ms": dstate["time_ms"],
+            "final_k": torch.where(fin, head, zi),
+        }
+        dstate["last_call"] = torch.where(fin, head, dstate["last_call"])
+        dstate["head"] = torch.where(fin, zi, head)
+        do_clear = do_flush & (dstate["context"][:, 0] != blank)
+        dstate["context"] = torch.where(
+            do_clear[:, None], torch.full_like(dstate["context"], blank), dstate["context"]
+        )
+        new_dout = rt.decoder_step(weights, dstate["context"])
+        dstate["dout"] = torch.where(do_clear[:, None], new_dout, dstate["dout"])
+        dstate["need_dec"] = dstate["need_dec"] & ~do_clear
+        dstate["emitted_silence"] = dstate["emitted_silence"] | do_flush
+
+        events = {}
+        for k in EVENT_KEYS:
+            grp = torch.stack([e[k] for e in pulls], dim=1)  # [S, pulls, 3]
+            last = torch.zeros((S, 1, 3), dtype=grp.dtype, device=dev)
+            last[:, 0, 0] = evD[k]
+            events[k] = torch.cat([grp, last], dim=1)
+        new_state = {"fbank": fb, "h": h, "c": c, "decode": dstate}
+        return new_state, pack_events(events, state["decode"]["time_ms"], stride,
+                                      cfg.events_per_session)
+
+    return EngineProgram(
+        rt=rt, layout=layout, cfg=cfg, dcfg=dcfg,
+        step=torch.no_grad()(step), flush=torch.no_grad()(flush), batch=batch,
+    )

@@ -1,0 +1,238 @@
+"""Native batched LSTM-transducer forward (port of
+april_asr_tpu/models/lstm_transducer.py): the conv embed, the int8
+split-form chunk encoder, and the stateless decoder.
+
+Parameters are a flat dict of tensors with the JAX package's key names and
+layouts (pre-transposed matrices, stacked [L, ...] layer leaves). The chunk
+encoder runs each layer as kernel 2 (recurrent core) then kernel 3
+(residual + FFN + BasicNorm) on int8 weights; there is no float chunk path
+yet (`lstm_layer_chunk_fused` is queued).
+
+The int8 helpers `_q8_rows`/`_q8_mm` live beside the kernels' plain
+versions (ops/lstm_kernels.py `_rowq8`, `_q8_mm`). Products the JAX package
+leaves to XLA stay plain PyTorch here: `_mm` rounds the activation to the
+weight dtype and accumulates in f32, so a bf16 weight sees a bf16-rounded
+operand and an f32 sum, exactly as
+`jnp.dot(x.astype(w.dtype), w, preferred_element_type=f32)` computes it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.activations import double_swish
+from ..ops.lstm_kernels import ffn_norm_i8, lstm_layer_chunk_rec_i8
+
+
+@dataclasses.dataclass(frozen=True)
+class TransducerDims:
+    mel: int = 80
+    segment_size: int = 9
+    segment_step: int = 4
+    d_model: int = 512
+    hidden: int = 1024
+    ffn: int = 2048
+    joiner_dim: int = 512
+    vocab: int = 500
+    layers: int = 12
+    context: int = 2
+    decoder_groups: int = 128
+    conv_channels: Tuple[int, int, int] = (8, 32, 32)
+
+    @property
+    def conv_freq_out(self) -> int:
+        return ((self.mel - 1) // 2 - 1) // 2
+
+    @property
+    def subsampled_t(self) -> int:
+        t = self.segment_size
+        t = (t - 3) // 2 + 1
+        t = (t - 3) // 2 + 1
+        return t
+
+
+Params = Dict[str, torch.Tensor]
+
+DERIVED_KEYS = frozenset({"dec_table"})
+QUANT_TARGETS = ("w_ih_t", "w_hh_t", "w_hr_t", "ff1_t", "ff2_t")
+
+FLOAT_CHUNK_MSG = (
+    "the float chunk encoder (lstm_layer_chunk_fused, f32/bf16 serving) is not "
+    "ported yet; serve with precision='int8'"
+)
+
+
+def is_derived(key: str) -> bool:
+    """True for inference-only derived params (decoder tables, int8 copies
+    and scales) that are never exported or dtype-cast."""
+    return key in DERIVED_KEYS or key.endswith("_q8") or key.endswith("_q8s")
+
+
+def init_transducer_params(seed: int, dims: TransducerDims, device="cpu") -> Params:
+    """Random f32 init with the JAX package's shapes and scales, drawn from a
+    numpy generator (the values differ from `jax.random`'s)."""
+    rng = np.random.default_rng(seed)
+    d, H, F, J, V, L = dims.d_model, dims.hidden, dims.ffn, dims.joiner_dim, dims.vocab, dims.layers
+    c1, c2, c3 = dims.conv_channels
+
+    def w(shape, scale=None):
+        scale = scale if scale is not None else 1.0 / np.sqrt(shape[0])
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    z = lambda *s: np.zeros(s, np.float32)  # noqa: E731
+    p = {
+        "conv1_w": w((c1, 1, 3, 3), 0.3), "conv1_b": z(c1),
+        "conv2_w": w((c2, c1, 3, 3), 0.1), "conv2_b": z(c2),
+        "conv3_w": w((c3, c2, 3, 3), 0.1), "conv3_b": z(c3),
+        "embed_out_w": w((c3 * dims.conv_freq_out, d)), "embed_out_b": z(d),
+        "w_ih_t": w((L, d, 4 * H), 0.05), "w_hh_t": w((L, d, 4 * H), 0.05),
+        "bias": z(L, 4 * H), "w_hr_t": w((L, H, d), 0.05),
+        "ff1_t": w((L, d, F)), "ff1_b": z(L, F),
+        "ff2_t": w((L, F, d)), "ff2_b": z(L, d),
+        "norm_eps": np.full((L,), 0.25, np.float32),
+        "enc_proj_t": w((d, J)), "enc_proj_b": z(J),
+        "dec_embed": w((V, d), 0.5),
+        "dec_conv_w": w((d, d // dims.decoder_groups, dims.context), 0.3),
+        "dec_proj_t": w((d, J)), "dec_proj_b": z(J),
+        "join_t": w((J, V)), "join_b": z(V),
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in p.items()}
+
+
+def cast_weights(params: Params, dtype) -> Params:
+    """Cast matrix/embedding weights (ndim >= 2, f32, not derived) to
+    `dtype`; biases, norm eps and derived tables stay f32."""
+    return {
+        k: v.to(dtype) if v.ndim >= 2 and not is_derived(k) and v.dtype == torch.float32 else v
+        for k, v in params.items()
+    }
+
+
+def quantize_weights(params: Params) -> Params:
+    """Add per-output-channel symmetric int8 copies `<name>_q8` (int8) and
+    `<name>_q8s` (f32 [L, 1, out]) of the encoder layer matrices, calibrated
+    on the stored originals (call before cast_weights)."""
+    out = dict(params)
+    for name in QUANT_TARGETS:
+        if name not in params or name + "_q8" in params:
+            continue
+        w = params[name].float()
+        amax = w.abs().amax(dim=-2, keepdim=True)
+        s = torch.clamp_min(amax, 1e-12) * (1.0 / 127.0)
+        out[name + "_q8"] = torch.round(w / s).to(torch.int8)
+        out[name + "_q8s"] = s
+    return out
+
+
+def is_quantized(params: Params) -> bool:
+    return "w_ih_t_q8" in params
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with x rounded to w's dtype first and f32 accumulation."""
+    return x.to(w.dtype).float() @ w.float()
+
+
+def conv_subsample(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """[S, T, mel] -> [S, T', d_model] via the 3-conv stack (NCHW / OIHW)."""
+    h = x[:, None, :, :]
+
+    def conv(h, wname, bname, stride, pad):
+        w = params[wname]
+        y = torch.nn.functional.conv2d(
+            h.to(w.dtype).float(), w.float(), stride=stride, padding=pad
+        )
+        return double_swish(y + params[bname].float()[None, :, None, None])
+
+    h = conv(h, "conv1_w", "conv1_b", 1, 1)
+    h = conv(h, "conv2_w", "conv2_b", 2, 0)
+    h = conv(h, "conv3_w", "conv3_b", 2, 0)
+    s, ch, t, f = h.shape
+    h = h.permute(0, 2, 1, 3).reshape(s, t, ch * f)
+    return _mm(h, params["embed_out_w"]) + params["embed_out_b"].float()
+
+
+def encoder_embed(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Stateless front half of the encoder: [N, segment, mel] -> [N, d_model]."""
+    return conv_subsample(params, x)[:, 0, :]
+
+
+def _lstm_stack_chunk_q8(params: Params, y, h, c, gate=None):
+    """Layer-major whole-chunk int8 stack: for every layer, kernel 2 over all
+    P steps, then kernel 3 over the P*S rows. `gate` [P, S] must be a
+    per-session prefix mask; masked steps keep the carried h/c and give
+    garbage y rows that the decode masks off."""
+    P, S, d = y.shape
+    L = params["w_ih_t_q8"].shape[0]
+    n_pulls = None if gate is None else gate.to(torch.int32).sum(dim=0, dtype=torch.int32)
+    hs, cs = [], []
+    for l in range(L):
+        hseq, h_new, c_new = lstm_layer_chunk_rec_i8(
+            y, h[l], c[l],
+            params["w_ih_t_q8"][l], params["w_ih_t_q8s"][l],
+            params["w_hh_t_q8"][l], params["w_hh_t_q8s"][l],
+            params["bias"][l],
+            params["w_hr_t_q8"][l], params["w_hr_t_q8s"][l],
+            n_pulls,
+        )
+        y = ffn_norm_i8(
+            y.reshape(P * S, d), hseq.reshape(P * S, d),
+            params["ff1_t_q8"][l], params["ff1_t_q8s"][l], params["ff1_b"][l],
+            params["ff2_t_q8"][l], params["ff2_t_q8s"][l], params["ff2_b"][l],
+            params["norm_eps"][l],
+        ).reshape(P, S, d)
+        hs.append(h_new)
+        cs.append(c_new)
+    return y, torch.stack(hs), torch.stack(cs)
+
+
+def encoder_chunk(params: Params, y, h, c, can=None):
+    """Whole-chunk streaming encoder: y [P, S, d] embedded pulls, can
+    optional [P, S] prefix mask -> (eout [P, S, J], h', c')."""
+    if not is_quantized(params):
+        raise NotImplementedError(FLOAT_CHUNK_MSG)
+    y = y.contiguous()
+    y, h_new, c_new = _lstm_stack_chunk_q8(params, y, h, c, can)
+    eout = _mm(y, params["enc_proj_t"]) + params["enc_proj_b"].float()
+    return eout, h_new, c_new
+
+
+def encoder_step(params: Params, x, h, c, gate=None):
+    """One streaming step: a [S, segment, mel] window -> (eout [S, J], h', c'),
+    run through the chunk kernels at P = 1 (`gate` [S] keeps h/c)."""
+    y = encoder_embed(params, x)[None]
+    can = None if gate is None else gate[None]
+    eout, h2, c2 = encoder_chunk(params, y, h, c, can)
+    return eout[0], h2, c2
+
+
+def precompute_decoder_tables(params: Params, dims: TransducerDims) -> Params:
+    """Add the derived `dec_table` [ctx, V, d]: the grouped context conv is
+    linear per position, so its pre-ReLU output is a sum of per-position
+    token table rows."""
+    if "dec_table" in params:
+        return params
+    V, d = params["dec_embed"].shape
+    groups = dims.decoder_groups
+    gin = gout = d // groups
+    emb = params["dec_embed"].float().reshape(V, groups, gin)
+    w = params["dec_conv_w"].float().reshape(groups, gout, gin, dims.context)
+    table = torch.einsum("vgi,goik->kvgo", emb, w).reshape(dims.context, V, d)
+    out = dict(params)
+    out["dec_table"] = table.contiguous()
+    return out
+
+
+def decoder_step(params: Params, context: torch.Tensor, dims: TransducerDims) -> torch.Tensor:
+    """Stateless decoder from the precomputed tables: [S, ctx] -> [S, J]."""
+    ctx = context.long()
+    pre = params["dec_table"][0][ctx[:, 0]]
+    for k in range(1, dims.context):
+        pre = pre + params["dec_table"][k][ctx[:, k]]
+    y = torch.relu(pre)
+    return _mm(y, params["dec_proj_t"]) + params["dec_proj_b"].float()
+

@@ -1,0 +1,163 @@
+"""Kernel 4: the whole chunk's greedy decode in one launch.
+
+Port of `chunk_decode_fused` (april_asr_tpu/ops/decode_pallas.py,
+`_chunk_decode_kernel`). For each of P pulls and up to 3 masked rounds
+(early-emit ramp 1, 0, 0): the lazy decoder refresh (dec-table rows of the
+2-token context, ReLU, dec_proj), the joiner tanh(eout + dout) @ W + b, the
+blank-excluded argmax, and every heuristic of `decode_step_pre`. The decode
+state stays on chip across pulls; only per-pull event records and the final
+state are written out. Each pull adds stride_ms to the time of sessions
+that pull (`can`), as the engine's per-pull loop does.
+
+`chunk_decode` takes the plain PyTorch version (the engine's per-pull loop
+of decoder refresh + joiner + `decode_step_pre`) for CPU tensors and
+launches csrc/chunk_decode.cu for CUDA tensors; it never falls back.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from ..decode.greedy import NEG_INF, decode_step_pre
+from . import cuda_build
+
+EVENT_KEYS = ("ops", "tok", "logprob", "flags", "time_ms", "final_k")
+
+_MASKS: dict = {}
+
+
+def _mask_on(vt, dev) -> torch.Tensor:
+    """The packed vocab bitmask as an int32 device tensor (cached)."""
+    key = (id(vt["mask"]), str(dev))
+    m = _MASKS.get(key)
+    if m is None:
+        m = _MASKS[key] = torch.as_tensor(vt["mask"], dtype=torch.int32).to(dev)
+    return m
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x.to(w.dtype).float() @ w.float()
+
+
+def joiner_prologue(eout, dout, w_t, b, blank_id: int):
+    """(max_idx, max_val, blank_val) of tanh(eout + dout) @ W + b with the
+    blank column excluded from the argmax (first index on ties)."""
+    logits = _mm(torch.tanh(eout + dout), w_t) + b.float()
+    V = logits.shape[1]
+    masked = torch.where(
+        torch.arange(V, device=logits.device)[None, :] == blank_id,
+        torch.tensor(NEG_INF, dtype=torch.float32, device=logits.device),
+        logits,
+    )
+    return masked.argmax(dim=1).to(torch.int32), masked.amax(dim=1), logits[:, blank_id]
+
+
+def decoder_refresh(ctx, dec_table, dec_proj_t, dec_proj_b):
+    pre = dec_table[0][ctx[:, 0].long()] + dec_table[1][ctx[:, 1].long()]
+    return _mm(torch.relu(pre), dec_proj_t) + dec_proj_b.float()
+
+
+def chunk_decode_plain(eouts, can, dstate, dec_table, dec_proj_t, dec_proj_b, w_t, b,
+                       vt, *, blank_id, stride_ms, emit_ramp, dcfg):
+    P = eouts.shape[0]
+    dstate = dict(dstate)
+    per_pull = []
+    for p in range(P):
+        can_p = can[p]
+        dstate["time_ms"] = (dstate["time_ms"] + stride_ms * can_p.to(torch.int32)).to(torch.int32)
+        done = ~can_p
+        rounds = []
+        for ee in emit_ramp:
+            new_dout = decoder_refresh(dstate["context"], dec_table, dec_proj_t, dec_proj_b)
+            dstate["dout"] = torch.where(dstate["need_dec"][:, None], new_dout, dstate["dout"])
+            mi, mv, bv = joiner_prologue(eouts[p], dstate["dout"], w_t, b, blank_id)
+            dstate, evt, is_blank, need_dec = decode_step_pre(
+                dstate, mi, mv, bv, ~done, ee, blank_id, vt, dcfg
+            )
+            dstate["need_dec"] = need_dec
+            done = done | is_blank
+            rounds.append(evt)
+        per_pull.append({k: torch.stack([e[k] for e in rounds], dim=1) for k in EVENT_KEYS})
+    events = {k: torch.stack([e[k] for e in per_pull], dim=0) for k in EVENT_KEYS}
+    return dstate, events
+
+
+def chunk_decode_cuda(eouts, can, dstate, dec_table, dec_proj_t, dec_proj_b, w_t, b,
+                      vt, *, blank_id, stride_ms, emit_ramp, dcfg):
+    P, S, J = eouts.shape
+    d = dec_table.shape[2]
+    V = w_t.shape[1]
+    T = dcfg.max_active_tokens
+    R = len(emit_ramp)
+    dev = eouts.device
+    if R != 3 or dec_table.shape[0] != 2:
+        raise ValueError("chunk_decode: needs 3 rounds and a 2-token context")
+    if dec_proj_t.dtype != torch.bfloat16 or w_t.dtype != torch.bfloat16:
+        raise ValueError("chunk_decode: dec_proj_t and join_t must be bfloat16 (int8 serving)")
+    checks = (
+        (eouts, torch.float32, (P, S, J)), (dec_table, torch.float32, (2, V, d)),
+        (dec_proj_t, torch.bfloat16, (d, J)), (w_t, torch.bfloat16, (J, V)),
+        (dec_proj_b, torch.float32, (J,)), (b, torch.float32, (V,)),
+        (dstate["dout"], torch.float32, (S, J)),
+        (dstate["context"], torch.int32, (S, 2)),
+        (dstate["token_words"], torch.int32, (S, T)),
+    )
+    for t, dt, shape in checks:
+        if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"chunk_decode: expected contiguous {dt} {shape}, got {t.dtype} {tuple(t.shape)}"
+            )
+    i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
+    can_i = i32(can)
+    nd_i = i32(dstate["need_dec"])
+    sil_i = i32(dstate["emitted_silence"])
+    scal_in = [i32(dstate[k]) for k in ("head", "last_call", "time_ms", "last_emit_ms")]
+    tmask = _mask_on(vt, dev)
+    out_ctx = torch.empty_like(dstate["context"])
+    out_dout = torch.empty_like(dstate["dout"])
+    out_words = torch.empty_like(dstate["token_words"])
+    out_scal = [torch.empty(S, dtype=torch.int32, device=dev) for _ in range(6)]
+    ev = {k: torch.empty((P, S, R), dtype=torch.float32 if k == "logprob" else torch.int32,
+                         device=dev) for k in EVENT_KEYS}
+    fn = cuda_build.bind("chunk_decode", "chunk_decode", 32, 8, 8)
+    cuda_build.COUNTS["chunk_decode"] += 1
+    rc = fn(
+        eouts.data_ptr(), can_i.data_ptr(),
+        dstate["context"].data_ptr(), dstate["dout"].data_ptr(), nd_i.data_ptr(),
+        dstate["token_words"].data_ptr(), *[t.data_ptr() for t in scal_in], sil_i.data_ptr(),
+        dec_table.data_ptr(), dec_proj_t.data_ptr(), dec_proj_b.data_ptr(),
+        w_t.data_ptr(), b.data_ptr(), tmask.data_ptr(),
+        out_ctx.data_ptr(), out_dout.data_ptr(), out_words.data_ptr(),
+        *[t.data_ptr() for t in out_scal],
+        *[ev[k].data_ptr() for k in EVENT_KEYS],
+        P, S, J, d, V, T, blank_id, stride_ms,
+        *[float(x) for x in emit_ramp],
+        float(dcfg.punctuation_margin), float(dcfg.confident_margin),
+        float(dcfg.confident_logprob_penalty), float(dcfg.long_silence_ms),
+        float(dcfg.silence_decay_ms),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check(rc, "chunk_decode")
+    nd, head, last_call, time_ms, last_emit, sil = out_scal
+    state = dict(dstate)
+    state.update(
+        context=out_ctx, dout=out_dout, need_dec=nd != 0, token_words=out_words,
+        head=head, last_call=last_call, time_ms=time_ms, last_emit_ms=last_emit,
+        emitted_silence=sil != 0,
+    )
+    return state, ev
+
+
+def chunk_decode(eouts, can, dstate, dec_table, dec_proj_t, dec_proj_b, w_t, b, vt, *,
+                 blank_id: int, stride_ms: int, emit_ramp, dcfg) -> Tuple[dict, Dict[str, torch.Tensor]]:
+    """eouts [P, S, J], can [P, S] bool -> (dstate', events {key: [P, S, 3]}).
+    State keys as decode/greedy.init_decode_state; `dout_init` passes through."""
+    kw = dict(blank_id=blank_id, stride_ms=stride_ms, emit_ramp=tuple(emit_ramp), dcfg=dcfg)
+    args = (eouts, can, dstate, dec_table, dec_proj_t, dec_proj_b, w_t, b, vt)
+    if eouts.device.type == "cpu":
+        return chunk_decode_plain(*args, **kw)
+    if eouts.device.type != "cuda":
+        raise ValueError(f"chunk_decode: unsupported device {eouts.device}")
+    return chunk_decode_cuda(*args, **kw)

@@ -1,0 +1,552 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (april_asr_tpu_torch) on one GPU.
+
+Builds the port's four CUDA kernels from csrc/, holds each against its plain
+PyTorch version at the flagship serving shapes, checks the int8 streaming
+engine against the CPU (plain) engine on a small model, drives a flagship
+BatchEngine and a synchronous Session, and prints the results.
+
+    python3 chip_smoke.py                      # every phase (as the check runs it)
+    python3 chip_smoke.py --phases build,kernels
+
+Phases (each fails the run on error):
+  build      nvcc for every csrc/*.cu, all started at once
+  kernels    each kernel against its plain version: timed at S=256, P=27,
+             F=101, checked again at S=3, P=5 (ragged tiles)
+  reference  a tiny random model: CUDA engine vs CPU engine, same streams
+  engine     flagship random model, int8, BatchEngine S=256, 1 s chunks,
+             10 ticks of tone bursts then flush; launch counts and timing
+  session    one synchronous Session, 200 ms feeds over 3 s, then flush
+
+Output: one line per kernel and per phase, then a JSON line
+{"kernels": [...]}, the `nvidia-smi` name and power limit, and as the last
+line {"ok": true, "device": {...}}. Without a CUDA device, or without the
+package beside it, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+PHASES = ("build", "kernels", "reference", "engine", "session")
+
+# H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s and ops/s by type
+HBM_BPS = 3.35e12
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+
+S_FLAG, CHUNK_1S = 256, 16000
+DEV = "cuda"
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi unavailable"
+
+
+def bound_ms(n_bytes: float, ops: dict):
+    """Least time for the work: bytes over the memory rate vs operations
+    over the peak rate of their type (summed over types)."""
+    t_mem = n_bytes / HBM_BPS
+    t_ops = sum(n / PEAK_OPS[k] for k, n in ops.items())
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
+
+
+def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Median CUDA-event time of one call of `fn` (after warm-up)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def _ulp_close(got, want, what):
+    """f32 ulps apart except isolated int8 rounding flips: at most 1% of
+    elements beyond 1e-5 and none beyond 0.1."""
+    d = (got.float() - want.float()).abs()
+    frac = float((d > 1e-5).float().mean())
+    mx = float(d.max())
+    if frac >= 0.01 or mx >= 0.1 or not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: {frac:.4f} of elements beyond 1e-5, max {mx:.3g}")
+    return mx
+
+
+def _stat_close(got, want, what, mean_tol=5e-3, p99_tol=0.05):
+    d = (got.float() - want.float()).abs().flatten().cpu().numpy()
+    if d.mean() >= mean_tol or np.percentile(d, 99) >= p99_tol:
+        raise AssertionError(f"{what}: mean {d.mean():.5f} p99 {np.percentile(d, 99):.5f}")
+
+
+def flagship_model(tmp: str, seed: int = 0, dims=None):
+    """A flagship-width random native .april (blank logit biased +2.0 as
+    bench.py does), written with the port's save_april and loaded at int8."""
+    from april_asr_tpu_torch.api import Model
+    from april_asr_tpu_torch.models.export import make_model_parameters, save_april
+    from april_asr_tpu_torch.models.lstm_transducer import TransducerDims, init_transducer_params
+    from april_asr_tpu_torch.testing import default_tokens
+
+    dims = dims or TransducerDims()
+    p = init_transducer_params(seed, dims)
+    p["join_b"][0] += 2.0
+    path = os.path.join(tmp, "flagship.april")
+    save_april(path, dims, p, make_model_parameters(dims, default_tokens(dims.vocab)),
+               name="flagship-random")
+    return Model(path, precision="int8", device=DEV)
+
+
+def require_launches(what: str) -> dict:
+    """The launch counts since the last reset; fails if a kernel of the
+    path never launched."""
+    from april_asr_tpu_torch.ops import cuda_build
+
+    launches = dict(cuda_build.COUNTS)
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels never launched: {missing}")
+    return launches
+
+
+# -- phases -------------------------------------------------------------------
+
+
+def phase_build(card):
+    from april_asr_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    logs = cuda_build.build_all()
+    dt = time.perf_counter() - t0
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "Used" in line or "error" in line.lower():
+                print(f"  nvcc {name}: {line.strip()}")
+    print(f"build: {len(logs)} sources in {dt:.1f} s ({card})")
+
+
+def check_kernels(model, S: int, P: int, seed: int) -> dict:
+    """Each kernel's wrapper and its plain version on the same inputs at S
+    sessions and P pulls (F = 101 frames), held to the stated tolerances.
+    Returns {name: (kernel call, plain call, max abs err, bound, shape)}."""
+    from april_asr_tpu_torch.config import DecodeConfig
+    from april_asr_tpu_torch.decode.greedy import init_decode_state, vocab_tables_device
+    from april_asr_tpu_torch.engine.step import INNER_STEPS_EMIT
+    from april_asr_tpu_torch.frontend.fbank import FbankLayout
+    from april_asr_tpu_torch.ops import decode_kernels as DK
+    from april_asr_tpu_torch.ops import fbank_kernels as FK
+    from april_asr_tpu_torch.ops import lstm_kernels as LK
+
+    rt = model.runtime
+    w = rt.weights
+    dims = rt.dims
+    dev = torch.device(DEV)
+    rng = np.random.default_rng(seed)
+    layout = FbankLayout.build(rt.fbank_opts, CHUNK_1S)
+    F = layout.max_frames
+    d, H, Fn, J, V = dims.d_model, dims.hidden, dims.ffn, dims.joiner_dim, dims.vocab
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    out = {}
+
+    # 1. fbank_i8: [S, L] hop-row buffers of PCM16 values -> [S, F, 80]
+    c = FK.fbank_constants(layout, dev)
+    L = layout.buf_len
+    pcm = (rng.normal(0, 0.25, (S, L)) * 32768).clip(-32768, 32767).astype(np.int16)
+    buf = t(pcm.astype(np.float32) / 32768.0)
+    kf = lambda: FK.logmel_rows_from_buf_i8(layout, buf)  # noqa: E731
+    pf = lambda: FK.logmel_rows_from_buf_i8_plain(c, buf, F)  # noqa: E731
+    got, want = kf(), pf()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+    K, N2, nb = c["n_views"] * c["shift"], 2 * c["nfft"], c["bins"]
+    b = bound_ms(S * L * 4 + S * F * nb * 4 + K * N2 * 3 + c["nfft"] * nb * 4,
+                 {"int8": 2 * 2 * S * F * K * N2,
+                  "bf16": 2 * S * F * K * N2 + 3 * 2 * S * F * c["nfft"] * nb})
+    out["fbank_i8"] = (kf, pf, float((got - want).abs().max()), b, f"buf[{S},{L}] F={F}")
+
+    # 2. lstm_rec_i8: one layer's recurrent core over P steps (layer 0)
+    x = t(rng.normal(size=(P, S, d)).astype(np.float32))
+    h0 = t((rng.normal(size=(S, d)) * 0.3).astype(np.float32))
+    c0 = t((rng.normal(size=(S, H)) * 0.3).astype(np.float32))
+    n_pulls = t(rng.integers(0, P + 1, size=S).astype(np.int32))
+    la = (w["w_ih_t_q8"][0], w["w_ih_t_q8s"][0], w["w_hh_t_q8"][0], w["w_hh_t_q8s"][0],
+          w["bias"][0], w["w_hr_t_q8"][0], w["w_hr_t_q8s"][0])
+    kf = lambda: LK.lstm_layer_chunk_rec_i8(x, h0, c0, *la, n_pulls)  # noqa: E731
+    pf = lambda: LK.lstm_rec_plain(x, h0, c0, n_pulls, *la)  # noqa: E731
+    got, want = kf(), pf()
+    torch.cuda.synchronize()
+    err = max(_ulp_close(g, wv, f"lstm_rec_i8 {k}") for g, wv, k in zip(got, want, ("hseq", "h", "c")))
+    b = bound_ms(2 * P * S * d * 4 + 2 * S * (d + H) * 4 + 2 * d * 4 * H + H * d + (8 * H + d) * 4,
+                 {"int8": 2 * P * S * (2 * d * 4 * H + H * d)})
+    out["lstm_rec_i8"] = (kf, pf, err, b, f"x[{P},{S},{d}] H={H}")
+
+    # 3. ffn_norm_i8 over the flattened P*S rows (layer 0)
+    R = P * S
+    xr = x.reshape(R, d)
+    hs = t(rng.normal(size=(R, d)).astype(np.float32))
+    fa = (w["ff1_t_q8"][0], w["ff1_t_q8s"][0], w["ff1_b"][0],
+          w["ff2_t_q8"][0], w["ff2_t_q8s"][0], w["ff2_b"][0], w["norm_eps"][0])
+    kf = lambda: LK.ffn_norm_i8(xr, hs, *fa)  # noqa: E731
+    pf = lambda: LK.ffn_norm_plain(xr, hs, *fa)  # noqa: E731
+    got, want = kf(), pf()
+    torch.cuda.synchronize()
+    b = bound_ms(3 * R * d * 4 + 2 * d * Fn + (2 * Fn + 2 * d) * 4, {"int8": 2 * R * d * Fn * 2})
+    out["ffn_norm_i8"] = (kf, pf, _ulp_close(got, want, "ffn_norm_i8"), b, f"rows[{R},{d}] ffn={Fn}")
+
+    # 4. chunk_decode: P pulls x 3 rounds, aged state so every heuristic runs
+    dcfg = DecodeConfig()
+    T = dcfg.max_active_tokens
+    st = init_decode_state(S, dims.context, J, rt.blank_id, dcfg, dev)
+    st.update(
+        head=t(rng.integers(0, T, size=S).astype(np.int32)),
+        token_words=t((rng.integers(0, V, size=(S, T))
+                       | (rng.integers(0, 4, size=(S, T)) << 16)).astype(np.int32)),
+        time_ms=torch.full((S,), 4000, dtype=torch.int32, device=dev),
+        last_emit_ms=t(rng.integers(0, 4000, size=S).astype(np.int32)),
+        last_call=t(rng.integers(0, T, size=S).astype(np.int32)),
+        context=t(rng.integers(0, V, size=(S, 2)).astype(np.int32)),
+        need_dec=t(rng.random(S) < 0.5),
+        emitted_silence=t(rng.random(S) < 0.5),
+        dout=t(rng.normal(size=(S, J)).astype(np.float32)),
+    )
+    eouts = t((rng.normal(size=(P, S, J)) * 2.0).astype(np.float32))
+    can = t(np.arange(P)[:, None] < rng.integers(0, P + 1, size=S)[None, :])
+    dargs = (eouts, can, st, w["dec_table"], w["dec_proj_t"], w["dec_proj_b"], w["join_t"],
+             w["join_b"], vocab_tables_device(rt.vocab))
+    dkw = dict(blank_id=rt.blank_id, stride_ms=layout.opts.segment_stride_ms,
+               emit_ramp=INNER_STEPS_EMIT, dcfg=dcfg)
+    kf = lambda: DK.chunk_decode(*dargs, **dkw)  # noqa: E731
+    pf = lambda: DK.chunk_decode_plain(*dargs, **dkw)  # noqa: E731
+    (gs, ge), (ws, we) = kf(), pf()
+    torch.cuda.synchronize()
+    for k in ("ops", "tok", "flags", "time_ms", "final_k"):
+        if not torch.equal(ge[k], we[k]):
+            raise AssertionError(f"chunk_decode events[{k}] differ from the plain version")
+    for k in ("context", "token_words", "head", "last_call", "time_ms", "last_emit_ms",
+              "need_dec", "emitted_silence"):
+        if not torch.equal(gs[k], ws[k]):
+            raise AssertionError(f"chunk_decode state[{k}] differs from the plain version")
+    # dout: an f32 sum of the same bf16-rounded products taken in another
+    # order (1e-5). logprob: the joiner rounds tanh(eout + dout) to bf16, so
+    # an ulp of dout can flip that rounding and move one product term by up
+    # to 2^-8 of |tanh| * |w| (~3e-4 here): 1e-3, the bound the CPU parity
+    # test holds bf16 weights to
+    torch.testing.assert_close(gs["dout"], ws["dout"], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(ge["logprob"], we["logprob"], atol=1e-3, rtol=1e-3)
+    err = max(float((ge["logprob"] - we["logprob"]).abs().max()),
+              float((gs["dout"] - ws["dout"]).abs().max()))
+    n_ev = int((ge["ops"] != 0).sum())
+    if n_ev < P * S // 4:
+        raise AssertionError(f"chunk_decode: only {n_ev} events, heuristics not exercised")
+    # the work this run's data needs: joiner rows for active (session, pull,
+    # round) cells; decoder refreshes after emissions and for sessions that
+    # entered with need_dec
+    n_act = int((ge["time_ms"] != 0).sum())
+    n_ref = int(st["need_dec"].sum()) + int(((ge["ops"] & 8) != 0).sum())
+    b = bound_ms(
+        P * S * (J + 1) * 4 + 6 * P * S * 3 * 4 + S * (2 * J + 2 * T + 16) * 4
+        + 2 * V * d * 4 + d * J * 2 + J * V * 2 + (J + 2 * V) * 4,
+        {"bf16": n_act * 2 * J * V + n_ref * 2 * d * J},
+    )
+    out["chunk_decode"] = (kf, pf, err, b,
+                           f"eouts[{P},{S},{J}] V={V} events={n_ev} active_cells={n_act}")
+    return out
+
+
+SOURCES = {
+    "fbank_i8": ("april_asr_tpu_torch/csrc/fbank_i8.cu", "april_asr_tpu/ops/fbank_pallas.py:457"),
+    "lstm_rec_i8": ("april_asr_tpu_torch/csrc/lstm_i8.cu", "april_asr_tpu/ops/lstm_pallas.py:1147"),
+    "ffn_norm_i8": ("april_asr_tpu_torch/csrc/lstm_i8.cu", "april_asr_tpu/ops/lstm_pallas.py:1264"),
+    "chunk_decode": ("april_asr_tpu_torch/csrc/chunk_decode.cu",
+                     "april_asr_tpu/ops/decode_pallas.py:440"),
+}
+
+
+def phase_kernels(model, card, reps: int = 20):
+    """The four kernels at the engine cell's shapes (S=256, P=27, F=101):
+    checked and timed against their plain versions; then checked again at
+    S=3, P=5, where every kernel's last tile is ragged."""
+    from april_asr_tpu_torch.frontend.fbank import FbankLayout
+
+    P = FbankLayout.build(model.runtime.fbank_opts, CHUNK_1S).max_pulls_per_step
+    rows = []
+    for name, (kf, pf, err, (b_ms, b_by), shape) in check_kernels(model, S_FLAG, P, seed=1).items():
+        k_ms = cuda_ms(kf, reps)
+        p_ms = cuda_ms(pf, 3 if name == "chunk_decode" else 5, warmup=1)
+        source, replaces = SOURCES[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": 0, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+        print(f"kernel {name}: max_abs_err={err:.3g} ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) library_ms=none shape={shape} ({card})")
+    ragged = check_kernels(model, 3, 5, seed=2)
+    print("kernels at ragged shapes S=3 P=5: " + ", ".join(
+        f"{n} max_abs_err={v[2]:.3g}" for n, v in ragged.items()))
+    return rows
+
+
+def _tone_bufs(S, chunk, rate, n=8, seed=0):
+    """bench.py-style tone bursts: n distinct [S, chunk] int16 buffers."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(chunk) / rate
+    bufs = []
+    for i in range(n):
+        gate = (np.sin(2 * np.pi * 1.3 * t + i) > -0.2).astype(np.float32)
+        base = 0.35 * np.sin(2 * np.pi * (180 + 60 * i) * t) * gate
+        bufs.append(((base[None, :] + rng.normal(0, 0.05, size=(S, chunk))) * 20000).astype(np.int16))
+    return bufs
+
+
+def phase_reference(card, ticks: int = 6):
+    """Small model, same weights and audio, the CUDA engine (kernels) and
+    the CPU engine (plain versions) in lockstep: fbank rows within kernel
+    1's bound, h/c within the repo's cross-implementation bound, and every
+    session's events, callbacks and integer decode state equal up to the
+    first decision the plain decode took by a near-tie (testing.NEAR_TIE):
+    random weights are chaotic, and tanhf on the card and PyTorch's CPU tanh
+    differ by ulps that int8 re-quantization can amplify."""
+    from april_asr_tpu_torch.config import EngineConfig
+    from april_asr_tpu_torch.engine.batch import BatchEngine
+    from april_asr_tpu_torch.engine.step import unpack_events_np
+    from april_asr_tpu_torch.models.export import make_model_parameters
+    from april_asr_tpu_torch.models.loader import native_runtime
+    from april_asr_tpu_torch.models.lstm_transducer import (
+        TransducerDims, cast_weights, init_transducer_params, quantize_weights)
+    from april_asr_tpu_torch.testing import (
+        INT_DECODE, DecisionMargins, capture_events, check_parting, default_tokens)
+
+    dims = TransducerDims(d_model=128, hidden=128, ffn=256, joiner_dim=128, vocab=64,
+                          layers=3, decoder_groups=32, conv_channels=(4, 8, 8))
+    p = init_transducer_params(3, dims)
+    p["join_b"][0] += 2.0
+    mp = make_model_parameters(dims, default_tokens(dims.vocab))
+    S, chunk = 8, 3200
+    bufs = _tone_bufs(S, chunk, 16000, seed=4)
+    eng, evs, recs = {}, {}, {}
+    for side, dev in (("dev", DEV), ("cpu", "cpu")):
+        w = cast_weights(quantize_weights({k: v.to(dev) for k, v in p.items()}), torch.bfloat16)
+        rt = native_runtime("ref", "", "en-us", mp, dims, w, dev)
+        eng[side] = BatchEngine(rt, batch=S, cfg=EngineConfig(chunk_samples=chunk))
+        evs[side], recs[side] = [], [[] for _ in range(S)]
+        capture_events(eng[side].prog, unpack_events_np, evs[side])
+        for i in range(S):
+            eng[side].alloc(lambda r, toks, i=i, rec=recs[side]: rec.append(
+                (int(r), tuple((t.token_id, t.time_ms) for t in toks))))
+
+    def advance(e, k):
+        if k < ticks:
+            for i in range(S):
+                e.feed(i, bufs[k % len(bufs)][i])
+            e.tick()
+        else:
+            e.flush(np.ones(S, bool))
+
+    parted = {}
+    margins = DecisionMargins()  # recorded on the CPU (plain) engine only
+    for k in range(ticks + 1):
+        margins.reset()
+        advance(eng["dev"], k)
+        with margins:
+            advance(eng["cpu"], k)
+        torch.cuda.synchronize()
+        a, b = eng["dev"].state, eng["cpu"].state
+        torch.testing.assert_close(a["fbank"]["fifo"].cpu(), b["fbank"]["fifo"], atol=2e-5, rtol=1e-4)
+        _stat_close(a["h"].cpu(), b["h"], f"reference h step {k}")
+        _stat_close(a["c"].cpu(), b["c"], f"reference c step {k}")
+        n_cells = evs["cpu"][-1]["ops"].shape[1] * evs["cpu"][-1]["ops"].shape[2]
+        check_parting(
+            k, evs["cpu"][-1], evs["dev"][-1], margins.per_cell(n_cells), recs["cpu"], recs["dev"],
+            {key: b["decode"][key].numpy() for key in INT_DECODE},
+            {key: a["decode"][key].cpu().numpy() for key in INT_DECODE}, parted,
+        )
+    n = sum(len(r) for r in recs["cpu"])
+    if n == 0:
+        raise AssertionError("reference: no callbacks")
+    print(f"reference: {S} sessions x {ticks} ticks + flush, {n} callbacks; "
+          f"{S - len(parted)} sessions identical end to end, parted at near-ties "
+          f"(step, cell, margin): {parted} ({card})")
+
+
+def phase_engine(model, card, ticks: int = 10):
+    from april_asr_tpu_torch.config import EngineConfig
+    from april_asr_tpu_torch.engine.batch import BatchEngine
+    from april_asr_tpu_torch.ops import cuda_build
+
+    rt = model.runtime
+    S, chunk = S_FLAG, CHUNK_1S
+    bufs = _tone_bufs(S, chunk, rt.sample_rate)
+    eng = BatchEngine(rt, batch=S, cfg=EngineConfig(chunk_samples=chunk))
+    n_cb = [0]
+
+    def handler(r, toks):
+        n_cb[0] += 1
+
+    slots = [eng.alloc(handler) for _ in range(S)]
+    torch.cuda.synchronize()
+    cuda_build.reset_counts()
+    tick_ms = []
+    for k in range(ticks):
+        for s in slots:
+            eng.feed(s, bufs[k % len(bufs)][s])
+        t0 = time.perf_counter()
+        eng.tick()
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    eng.flush(np.ones(S, bool))
+    torch.cuda.synchronize()
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    launches = require_launches("engine")
+    st = eng.state
+    for name, t in (("h", st["h"]), ("c", st["c"]), ("dout", st["decode"]["dout"]),
+                    ("fifo", st["fbank"]["fifo"])):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"engine: non-finite {name}")
+    if n_cb[0] == 0:
+        raise AssertionError("engine: no callbacks")
+
+    # the device step alone (no staging, no host replay), on the live state
+    audio = torch.from_numpy(bufs[0]).to(DEV)
+    n = torch.full((S,), chunk, dtype=torch.int32, device=DEV)
+    step_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.prog.step(eng.weights, eng.state, audio, n)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    med_tick = float(np.median(tick_ms[1:]))
+    med_step = float(np.median(step_ms))
+    aps = S * chunk / rt.sample_rate / (med_tick / 1e3)
+    print(f"engine: S={S} chunk={chunk / rt.sample_rate:g} s P={eng.prog.layout.max_pulls_per_step} ticks={ticks} "
+          f"tick_ms median={med_tick:.2f} (first {tick_ms[0]:.1f}) step_ms median={med_step:.2f} "
+          f"flush_ms={flush_ms:.1f} audio_s_per_s={aps:.1f} callbacks={n_cb[0]} "
+          f"launches={json.dumps(launches)} ({card})")
+    profile_step(lambda: eng.prog.step(eng.weights, eng.state, audio, n), card)
+    return launches
+
+
+def profile_step(step, card, n: int = 2):
+    """Device time by kernel over `n` engine steps (torch.profiler) and the
+    device's busy share of the wall time. Measurement only: if the
+    profiler records no device time here, says so and goes on."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device-side rows only (kernels, copies): a host op's row repeats the
+    # device time of the kernels it launched
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_us = sum(r[1] for r in rows)
+    if not rows:
+        print(f"profile: no device time recorded; busy share not measured ({card})")
+        return
+    rows.sort(key=lambda r: -r[1])
+    top = "; ".join(f"{k[:48]} {t / n / 1e3:.2f} ms x{c // n}" for k, t, c in rows[:8])
+    print(f"profile: {n} steps, device busy {busy_us / n / 1e3:.2f} ms of {wall_us / n / 1e3:.2f} ms "
+          f"wall per step (busy share {busy_us / wall_us:.3f}); per step: {top} ({card})")
+
+
+def phase_session(model, card):
+    from april_asr_tpu_torch.api import Result, Session
+    from april_asr_tpu_torch.ops import cuda_build
+
+    rate = model.get_sample_rate()
+    pcm = _tone_bufs(1, 3 * rate, rate, n=1, seed=9)[0][0]
+    got = []
+    sess = Session(model, lambda r, toks: got.append((r, "".join(t.token for t in toks))))
+    torch.cuda.synchronize()
+    cuda_build.reset_counts()
+    t0 = time.perf_counter()
+    for off in range(0, len(pcm), 3200):
+        sess.feed_pcm16(pcm[off : off + 3200].tobytes())
+    sess.flush()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    P = sess._engine.prog.layout.max_pulls_per_step
+    sess.close()
+    launches = require_launches("session")
+    if not got:
+        raise AssertionError("session: no callbacks")
+    kinds = {Result(r).name: sum(1 for x in got if x[0] == r) for r in {x[0] for x in got}}
+    print(f"session: 3 s in 200 ms feeds + flush in {dt:.2f} s, P={P}, callbacks={kinds}, "
+          f"launches={json.dumps(launches)} ({card})")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES))
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one GPU", file=sys.stderr)
+        return 2
+    try:
+        import april_asr_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the april_asr_tpu_torch package is not importable: {e}", file=sys.stderr)
+        return 2
+
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"python {sys.version.split()[0]}")
+    torch.cuda.set_device(0)
+    kernels, launches = [], None
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        if "build" in phases:
+            phase_build(card)
+        model = None
+        if {"kernels", "engine", "session"} & set(phases):
+            t0 = time.perf_counter()
+            model = flagship_model(tmp)
+            print(f"model: flagship random .april written and loaded at int8 in "
+                  f"{time.perf_counter() - t0:.1f} s")
+        if "kernels" in phases:
+            kernels = phase_kernels(model, card)
+        if "reference" in phases:
+            phase_reference(card)
+        if "engine" in phases:
+            launches = phase_engine(model, card)
+        if "session" in phases:
+            phase_session(model, card)
+    if launches is not None:
+        for k in kernels:
+            k["launches"] = launches[k["name"]]
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,149 @@
+"""Port parity: `.april` I/O, weight carry-over, and the port's boundaries.
+
+* A native `.april` written by the JAX `save_april` loads in the port with
+  equal params, vocab tables and tensors; one written by the port reads
+  back equal in the JAX package.
+* `from_jax_params` carries bf16 leaves through a uint16 view, bit for bit.
+* The port imports neither jax nor april_asr_tpu (nor does chip_smoke.py),
+  never runs on the CPU unless asked, and raises (never falls back) on what
+  this slice does not serve: f32/bf16 precision and ONNX-form models.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from april_asr_tpu.io.container import read_container as j_read_container
+from april_asr_tpu.io.params import build_vocab_tables as j_build_vocab_tables
+from april_asr_tpu.models import lstm_transducer as JM
+from april_asr_tpu.models.export import make_model_parameters as j_mmp
+from april_asr_tpu.models.export import save_april as j_save_april
+from april_asr_tpu.testing import default_tokens
+from april_asr_tpu_torch.io.container import read_container
+from april_asr_tpu_torch.models import lstm_transducer as TM
+from april_asr_tpu_torch.models.convert import from_jax_params, to_torch
+from april_asr_tpu_torch.models.export import make_model_parameters, save_april
+from april_asr_tpu_torch.models.loader import load_model
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DIMS_KW = dict(d_model=64, hidden=96, ffn=128, joiner_dim=64, vocab=40, layers=2,
+               decoder_groups=16, conv_channels=(4, 8, 8))
+
+
+@pytest.fixture(scope="module")
+def jax_native(tmp_path_factory):
+    dims = JM.TransducerDims(**DIMS_KW)
+    params = JM.init_transducer_params(jax.random.PRNGKey(1), dims)
+    path = str(tmp_path_factory.mktemp("io") / "jax_native.april")
+    j_save_april(path, dims, {k: np.asarray(v) for k, v in params.items()},
+                 j_mmp(dims, default_tokens(dims.vocab)), name="io-test", form="native")
+    return path, dims, params
+
+
+def test_jax_native_loads_in_port(jax_native):
+    path, dims, params = jax_native
+    rt = load_model(path, device="cpu")
+    assert rt.dims == TM.TransducerDims(**DIMS_KW)
+    assert rt.name == "io-test" and rt.kind == "native"
+    for k, v in params.items():
+        np.testing.assert_array_equal(rt.weights[k].numpy(), np.asarray(v), err_msg=k)
+    jvt = j_build_vocab_tables(j_read_container(path).params)
+    for f in ("word_boundary", "single_char", "end_sentence", "punctuation", "starts_digit", "is_dot"):
+        np.testing.assert_array_equal(getattr(rt.vocab, f), getattr(jvt, f), err_msg=f)
+    # the derived decoder table equals the JAX one (a 4-term f32 contraction)
+    jt = np.asarray(JM.precompute_decoder_tables(params, dims)["dec_table"])
+    np.testing.assert_allclose(rt.weights["dec_table"].numpy(), jt, atol=1e-6, rtol=1e-6)
+
+
+def test_port_native_reads_back_in_jax(tmp_path):
+    from april_asr_tpu.models.loader import load_model as j_load_model
+
+    dims = TM.TransducerDims(**DIMS_KW)
+    params = TM.init_transducer_params(5, dims)
+    path = str(tmp_path / "port_native.april")
+    save_april(path, dims, params, make_model_parameters(dims, default_tokens(dims.vocab)),
+               name="port-written")
+    c_port, c_jax = read_container(path), j_read_container(path)
+    assert (c_jax.name, c_jax.model_type, c_jax.params.tokens) == (
+        "port-written", c_port.model_type, c_port.params.tokens)
+    jrt = j_load_model(path)
+    assert jrt.dims == JM.TransducerDims(**DIMS_KW)
+    for k, v in params.items():
+        np.testing.assert_array_equal(np.asarray(jrt.weights[k]), v.numpy(), err_msg=k)
+
+
+def test_from_jax_params_bf16_bits():
+    x = jnp.asarray(np.random.default_rng(0).normal(size=(5, 7)), jnp.bfloat16)
+    a = np.asarray(x)  # ml_dtypes bfloat16
+    for src in (a, a.view(np.uint16)):
+        t = to_torch(src)
+        assert t.dtype == torch.bfloat16
+        np.testing.assert_array_equal(t.view(torch.int16).numpy(), a.view(np.int16))
+    out = from_jax_params({"w": a, "s": np.ones(3, np.float32), "q": np.ones(2, np.int8)})
+    assert (out["w"].dtype, out["s"].dtype, out["q"].dtype) == (torch.bfloat16, torch.float32, torch.int8)
+
+
+def test_no_silent_cpu(jax_native, monkeypatch):
+    from april_asr_tpu_torch.api import Model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(jax_native[0], precision="int8")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_model(jax_native[0], device="cuda")
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_float_precisions_raise(jax_native, precision):
+    from april_asr_tpu_torch.api import Model
+
+    with pytest.raises(NotImplementedError, match="lstm_layer_chunk_fused"):
+        Model(jax_native[0], precision=precision, device="cpu")
+
+
+def test_onnx_form_raises(tmp_path):
+    dims = JM.TransducerDims(**DIMS_KW)
+    params = JM.init_transducer_params(jax.random.PRNGKey(2), dims)
+    path = str(tmp_path / "onnx.april")
+    j_save_april(path, dims, {k: np.asarray(v) for k, v in params.items()},
+                 j_mmp(dims, default_tokens(dims.vocab)), form="onnx")
+    with pytest.raises(NotImplementedError, match="ONNX"):
+        load_model(path, device="cpu")
+
+
+def test_import_guard():
+    """Importing the port and every module in it pulls in neither jax nor
+    april_asr_tpu; chip_smoke.py imports neither."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import april_asr_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'april_asr_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'april_asr_tpu')]\n"
+        "print(len([k for k in sys.modules if k.startswith('april_asr_tpu_torch')]))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+    roots = {n.split(".")[0] for n in names}
+    assert not roots & {"jax", "jaxlib", "ml_dtypes", "april_asr_tpu"}, roots
+    assert "april_asr_tpu_torch" in roots
