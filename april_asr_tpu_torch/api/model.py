@@ -11,19 +11,21 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..config import DecodeConfig, EngineConfig
-from ..models.lstm_transducer import FLOAT_CHUNK_MSG, cast_weights, quantize_weights
+from ..models.lstm_transducer import cast_weights, quantize_weights
 from ..models.loader import ModelRuntime, load_model
 
 
-def apply_precision(weights, precision: str):
-    """The serving precision policy. "int8": per-channel int8 copies of the
-    encoder layer matrices (quantized from the f32 originals), then the
-    other matrices cast to bf16. The float chunk encoder is not ported yet,
-    so "f32" and "bf16" raise."""
+def apply_precision(weights, precision: Optional[str]):
+    """The serving precision policy: "f32" (or None/"": the weights as
+    loaded), "bf16" (matrix weights cast to bf16, f32 accumulation), or
+    "int8" (per-channel int8 copies of the encoder layer matrices, quantized
+    from the f32 originals, then the matrices cast to bf16)."""
+    if precision in (None, "", "f32", "float32"):
+        return weights
+    if precision in ("bf16", "bfloat16"):
+        return cast_weights(weights, torch.bfloat16)
     if precision == "int8":
         return cast_weights(quantize_weights(weights), torch.bfloat16)
-    if precision in (None, "", "f32", "float32", "bf16", "bfloat16"):
-        raise NotImplementedError(FLOAT_CHUNK_MSG)
     raise ValueError(f"unknown precision {precision!r} (f32 | bf16 | int8)")
 
 
@@ -34,12 +36,14 @@ class Model:
     def __init__(
         self,
         path: str | os.PathLike,
-        precision: Optional[str] = "int8",
+        precision: Optional[str] = None,
         device=None,
     ):
-        """`precision` selects the serving numerics; this port serves
-        "int8" (the default). `device` defaults to CUDA; pass "cpu" to run
-        the kernels' plain PyTorch versions."""
+        """`precision` selects the serving numerics: "f32", "bf16" or
+        "int8" (see `apply_precision`); it defaults to the APRIL_PRECISION
+        environment variable, else the weights as loaded (f32). `device`
+        defaults to CUDA; pass "cpu" to run the kernels' plain PyTorch
+        versions."""
         self._rt: ModelRuntime = load_model(path, device=device)
         precision = precision or os.environ.get("APRIL_PRECISION")
         self._rt.weights = apply_precision(self._rt.weights, precision)

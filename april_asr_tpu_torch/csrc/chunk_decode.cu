@@ -8,9 +8,13 @@
 // dout, 72-token window, heads, clocks) in shared memory throughout. Per
 // round:
 //   1. lazy decoder refresh for sessions whose context changed:
-//      dout = bf16(relu(T0[c0] + T1[c1])) @ dec_proj + b   (threads over d, J)
-//   2. joiner for sessions still active: bf16(tanh(eout + dout)) @ W + b
-//      (threads over the vocab; f32 sums of exact bf16 products)
+//      dout = wd(relu(T0[c0] + T1[c1])) @ dec_proj + b   (threads over d, J)
+//   2. joiner for sessions still active: wd(tanh(eout + dout)) @ W + b
+//      (threads over the vocab; f32 sums)
+//   where wd(.) rounds to the weight type, as the TPU kernel's
+//   `y.astype(dp_ref.dtype)` does: bf16 weights see bf16-rounded
+//   activations and exact products, f32 weights unrounded activations and
+//   true f32 FMAs (the kernel is instantiated for both weight types).
 //   3. blank-excluded argmax (one warp per session, first index on ties)
 //   4. every heuristic of decode_step_pre (decode/greedy.py), one thread per
 //      session: early-emit ramp, repeat guard, punctuation margin, digit-dot
@@ -19,7 +23,7 @@
 // Each pull first adds stride_ms to the time of sessions that pull.
 //
 // Bound on the H100: the joiner and dec_proj reads. Every round re-reads
-// W (J x V bf16, 0.5 MB) and, for refreshing sessions, dec_proj (0.5 MB)
+// W (J x V: 0.5 MB bf16, 1 MB f32) and, for refreshing sessions, dec_proj
 // from L2; the multiply-adds are 2 x J x (V + d) per session-round. TSD = 4
 // sessions share each weight read. The vocabulary is not padded: the loops
 // run to V, which is what the TPU kernel's -1e30 pad columns amount to.
@@ -195,6 +199,7 @@ __device__ void heuristics(SessState& st, int* words, const int* tmask, const De
   e_ops = ops; e_tok = tok; e_lp = lp; e_flags = flags; e_time = time_ev; e_fink = fink;
 }
 
+template <typename WT>
 __global__ void __launch_bounds__(NT) chunk_decode_kernel(
     const float* __restrict__ eouts, const int* __restrict__ can,
     const int* __restrict__ ctx_in, const float* __restrict__ dout_in,
@@ -202,8 +207,8 @@ __global__ void __launch_bounds__(NT) chunk_decode_kernel(
     const int* __restrict__ head_in, const int* __restrict__ lastcall_in,
     const int* __restrict__ time_in, const int* __restrict__ lastemit_in,
     const int* __restrict__ sil_in, const float* __restrict__ dec_table,
-    const uint16_t* __restrict__ dp, const float* __restrict__ dpb,
-    const uint16_t* __restrict__ W, const float* __restrict__ jb,
+    const void* __restrict__ dp_v, const float* __restrict__ dpb,
+    const void* __restrict__ W_v, const float* __restrict__ jb,
     const int* __restrict__ tmask, int* __restrict__ ctx_out, float* __restrict__ dout_out,
     int* __restrict__ words_out, int* __restrict__ nd_out, int* __restrict__ head_out,
     int* __restrict__ lastcall_out, int* __restrict__ time_out, int* __restrict__ lastemit_out,
@@ -211,6 +216,8 @@ __global__ void __launch_bounds__(NT) chunk_decode_kernel(
     float* __restrict__ ev_lp, int* __restrict__ ev_flags, int* __restrict__ ev_time,
     int* __restrict__ ev_fink, DecCfg c) {
   extern __shared__ float4 smem_f4[];
+  const WT* __restrict__ dp = static_cast<const WT*>(dp_v);
+  const WT* __restrict__ W = static_cast<const WT*>(W_v);
   const int J = c.J, d = c.d, V = c.V, T = c.T, S = c.S;
   const int Dm = J > d ? J : d;
   float* dout = reinterpret_cast<float*>(smem_f4);  // [TSD][J]
@@ -266,14 +273,14 @@ __global__ void __launch_bounds__(NT) chunk_decode_kernel(
         if (!st[si].nd) continue;
         const float pre = __fadd_rn(dec_table[(size_t)st[si].ctx0 * d + k],
                                     dec_table[((size_t)V + st[si].ctx1) * d + k]);
-        tv[si * Dm + k] = round_bf16(fmaxf(pre, 0.f));
+        tv[si * Dm + k] = Wt<WT>::act(fmaxf(pre, 0.f));
       }
       __syncthreads();
       for (int i = tid; i < TSD * J; i += NT) {
         const int si = i / J, j = i - si * J;
         if (!st[si].nd) continue;
         float acc = 0.f;
-        for (int k = 0; k < d; ++k) acc = fmaf(tv[si * Dm + k], bf16_to_f32(dp[(size_t)k * J + j]), acc);
+        for (int k = 0; k < d; ++k) acc = fmaf(tv[si * Dm + k], Wt<WT>::ld(dp, (size_t)k * J + j), acc);
         dout[i] = __fadd_rn(acc, dpb[j]);
       }
       __syncthreads();
@@ -282,7 +289,7 @@ __global__ void __launch_bounds__(NT) chunk_decode_kernel(
         const int si = i / J, j = i - si * J;
         if (st[si].done) continue;
         const float e = eouts[((size_t)p * S + s0 + si) * J + j];
-        tv[si * Dm + j] = round_bf16(tanhf(__fadd_rn(e, dout[i])));
+        tv[si * Dm + j] = Wt<WT>::act(tanhf(__fadd_rn(e, dout[i])));
       }
       __syncthreads();
       bool any_active = false;
@@ -294,7 +301,7 @@ __global__ void __launch_bounds__(NT) chunk_decode_kernel(
 #pragma unroll
           for (int si = 0; si < TSD; ++si) acc[si] = 0.f;
           for (int j = 0; j < J; ++j) {
-            const float w = bf16_to_f32(W[(size_t)j * V + v]);
+            const float w = Wt<WT>::ld(W, (size_t)j * V + v);
 #pragma unroll
             for (int si = 0; si < TSD; ++si) acc[si] = fmaf(tv[si * Dm + j], w, acc[si]);
           }
@@ -365,15 +372,16 @@ __global__ void __launch_bounds__(NT) chunk_decode_kernel(
   }
 }
 
+// w_f32 selects the type of dec_proj and W (1: f32, 0: bf16).
 extern "C" int chunk_decode(
     const float* eouts, const int* can, const int* ctx_in, const float* dout_in, const int* nd_in,
     const int* words_in, const int* head_in, const int* lastcall_in, const int* time_in,
-    const int* lastemit_in, const int* sil_in, const float* dec_table, const uint16_t* dp,
-    const float* dpb, const uint16_t* W, const float* jb, const int* tmask, int* ctx_out,
+    const int* lastemit_in, const int* sil_in, const float* dec_table, const void* dp,
+    const float* dpb, const void* W, const float* jb, const int* tmask, int* ctx_out,
     float* dout_out, int* words_out, int* nd_out, int* head_out, int* lastcall_out,
     int* time_out, int* lastemit_out, int* sil_out, int* ev_ops, int* ev_tok, float* ev_lp,
     int* ev_flags, int* ev_time, int* ev_fink, int P, int S, int J, int d, int V, int T,
-    int blank, int stride, float ramp0, float ramp1, float ramp2, float punct_margin,
+    int blank, int stride, int w_f32, float ramp0, float ramp1, float ramp2, float punct_margin,
     float conf_margin, float conf_penalty, float long_sil_ms, float decay_ms, void* stream) {
   DecCfg c;
   c.P = P; c.S = S; c.J = J; c.d = d; c.V = V; c.T = T; c.blank = blank; c.stride = stride;
@@ -382,10 +390,11 @@ extern "C" int chunk_decode(
   c.long_sil_ms = long_sil_ms; c.decay_ms = decay_ms;
   const int Dm = J > d ? J : d;
   const size_t smem = sizeof(float) * (size_t)TSD * (J + Dm + V) + sizeof(int) * (size_t)TSD * T;
-  cudaError_t err = allow_smem(chunk_decode_kernel, smem);
+  const auto kern = w_f32 ? chunk_decode_kernel<float> : chunk_decode_kernel<uint16_t>;
+  cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + TSD - 1) / TSD);
-  chunk_decode_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+  kern<<<grid, NT, smem, (cudaStream_t)stream>>>(
       eouts, can, ctx_in, dout_in, nd_in, words_in, head_in, lastcall_in, time_in, lastemit_in,
       sil_in, dec_table, dp, dpb, W, jb, tmask, ctx_out, dout_out, words_out, nd_out, head_out,
       lastcall_out, time_out, lastemit_out, sil_out, ev_ops, ev_tok, ev_lp, ev_flags, ev_time,

@@ -53,6 +53,32 @@ __device__ __forceinline__ float warp_rowq8(const float* v, int n, int8_t* q, in
   return s;
 }
 
+// Weight access by type (float, or uint16_t holding bf16 bits): one weight
+// or four consecutive weights as floats, and the activation rounding that
+// jnp.dot(x.astype(wd), w, preferred_element_type=f32) applies first.
+template <typename WT>
+struct Wt;
+
+template <>
+struct Wt<float> {
+  static __device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
+  static __device__ __forceinline__ float4 ld4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+  static __device__ __forceinline__ float act(float x) { return x; }
+};
+
+template <>
+struct Wt<uint16_t> {
+  static __device__ __forceinline__ float ld(const uint16_t* p, size_t i) { return bf16_to_f32(p[i]); }
+  static __device__ __forceinline__ float4 ld4(const uint16_t* p) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+  }
+  static __device__ __forceinline__ float act(float x) { return round_bf16(x); }
+};
+
 // Allows `bytes` of dynamic shared memory for `kern` (needed above 48 KB).
 template <typename K>
 static cudaError_t allow_smem(K kern, size_t bytes) {

@@ -2,14 +2,15 @@
 (port of april_asr_tpu/engine/step.py, the native chunk-encoder branch).
 
 One step advances every session by one audio chunk: the fbank accept
-(kernel 1), one ring read of every pull window, one batched conv embed, the
-12-layer int8 chunk encoder over all P pulls (kernels 2 and 3 per layer),
+(kernel 1 for int8 engines, else kernel 5), one ring read of every pull
+window, one batched conv embed, the 12-layer chunk encoder over all P pulls
+(kernels 2 and 3 per layer at int8, kernel 10 per layer at f32 or bf16),
 and the whole chunk's greedy decode (kernel 4). Handler-visible actions
 leave the device as the compact APR4 event blob, bit-identical in layout to
 the JAX package's (see the layout note below). The flush program reproduces
 _aas_flush (src/april_session.c:547-564) as masked pull rounds, each an
-encoder pass at P = 1 through kernels 2 and 3 and a decode through kernel 4
-at P = 1.
+encoder pass at P = 1 through the same encoder kernels and a decode through
+kernel 4 at P = 1.
 
 Event blob layout (per sub-blob; one int32 vector):
   [0] BLOB_MAGIC  [1] S  [2] K cell capacity  [3] stride_ms
@@ -41,7 +42,7 @@ from ..frontend.fbank import (
     fbank_init,
     fbank_peek,
 )
-from ..models.lstm_transducer import FLOAT_CHUNK_MSG, is_quantized
+from ..models.lstm_transducer import is_quantized
 from ..models.loader import ModelRuntime
 from ..ops.decode_kernels import EVENT_KEYS, chunk_decode
 
@@ -217,9 +218,10 @@ def build_engine(
     """Step and flush programs over `batch` session slots on rt.device."""
     cfg = cfg or EngineConfig()
     dcfg = dcfg or DecodeConfig()
-    if not is_quantized(rt.weights):
-        raise NotImplementedError(FLOAT_CHUNK_MSG)
     layout = FbankLayout.build(rt.fbank_opts, cfg.chunk_samples)
+    # int8-serving engines (weights with `_q8` copies) run the int8-DFT
+    # frontend, every other engine the bf16x3 one (JAX engine/step.py:481-486)
+    dft_i8 = is_quantized(rt.weights)
     vt = vocab_tables_device(rt.vocab)
     blank = rt.blank_id
     stride = layout.opts.segment_stride_ms
@@ -239,7 +241,7 @@ def build_engine(
     def step(weights, state, audio_i16, n):
         audio = audio_i16.to(torch.float32) / 32768.0  # april_session.c:520-522
         n = n.to(torch.int32)
-        fb = fbank_accept_batch(layout, state["fbank"], audio, n)
+        fb = fbank_accept_batch(layout, state["fbank"], audio, n, dft_i8)
         h, c, dstate = state["h"], state["c"], state["decode"]
         S = n.shape[0]
         W = (P - 1) * step_rows + seg
@@ -312,7 +314,7 @@ def build_engine(
                 take = min(layout.chunk, rem)
                 rem -= take
                 nz = torch.where(do_flush, take, 0).to(torch.int32)
-                fb = fbank_accept_batch(layout, fb, zeros, nz)
+                fb = fbank_accept_batch(layout, fb, zeros, nz, dft_i8)
                 for _ in range((take // hop + seg) // step_rows + 1):
                     fb, h, c, dstate, e = gated_pull(weights, fb, h, c, dstate, do_flush)
                     pulls.append(e)

@@ -3,9 +3,9 @@ april_asr_tpu/frontend/fbank.py).
 
 Each engine step accepts one audio chunk per session, forms the hop-aligned
 sample buffer (leftover + phase-rolled chunk), runs the frame DSP for every
-session at once (kernel 1, ops/fbank_kernels.py) and appends the new log-mel
-rows to a fixed-capacity ring per session. State is a dict of tensors with a
-leading session axis S:
+session at once (kernel 5, or kernel 1 for int8 engines; ops/fbank_kernels.py)
+and appends the new log-mel rows to a fixed-capacity ring per session. State
+is a dict of tensors with a leading session axis S:
 
   leftover     f32 [S, leftover_cap]  zero-padded beyond leftover_len
   leftover_len i32 [S]
@@ -134,13 +134,14 @@ def _roll_right(x: torch.Tensor, amt: torch.Tensor) -> torch.Tensor:
 
 
 def fbank_accept_batch(
-    layout: FbankLayout, state: FbankState, wave: torch.Tensor, n: torch.Tensor
+    layout: FbankLayout, state: FbankState, wave: torch.Tensor, n: torch.Tensor,
+    dft_i8: bool = False,
 ) -> FbankState:
     """Accept up to `layout.chunk` samples per session (`wave[s, :n[s]]`
-    valid). The frame DSP is the int8-DFT kernel (the int8 serving path's
-    frontend, engine/step.py of the JAX package selects it for int8
-    engines)."""
-    from ..ops.fbank_kernels import logmel_rows_from_buf_i8
+    valid). The frame DSP is the bf16x3 DFT (kernel 5), or with `dft_i8`
+    the int8 DFT (kernel 1), which the engine selects for int8 engines as
+    engine/step.py of the JAX package does."""
+    from ..ops.fbank_kernels import logmel_rows_from_buf, logmel_rows_from_buf_i8
 
     shift = layout.opts.window_shift
     n = n.to(torch.int32)
@@ -155,7 +156,7 @@ def fbank_accept_batch(
         raise NotImplementedError(
             "buffer too short for in-kernel framing (logmel_rows_fused is not ported yet)"
         )
-    rows = logmel_rows_from_buf_i8(layout, buf)
+    rows = (logmel_rows_from_buf_i8 if dft_i8 else logmel_rows_from_buf)(layout, buf)
     return _accept_commit(layout, state, buf, rows, total)
 
 

@@ -1,16 +1,22 @@
 """Native batched LSTM-transducer forward (port of
-april_asr_tpu/models/lstm_transducer.py): the conv embed, the int8
-split-form chunk encoder, and the stateless decoder.
+april_asr_tpu/models/lstm_transducer.py): the conv embed, the chunk
+encoder, and the stateless decoder.
 
 Parameters are a flat dict of tensors with the JAX package's key names and
 layouts (pre-transposed matrices, stacked [L, ...] layer leaves). The chunk
-encoder runs each layer as kernel 2 (recurrent core) then kernel 3
-(residual + FFN + BasicNorm) on int8 weights; there is no float chunk path
-yet (`lstm_layer_chunk_fused` is queued).
+encoder is layer-major. With int8 copies of the layer matrices
+(`quantize_weights`) each layer is kernel 2 (recurrent core) then kernel 3
+(residual + FFN + BasicNorm); with f32 or bf16 weights each layer is one
+call of kernel 10 (`lstm_layer_chunk_fused`).
+
+Kernel 10 runs at every P, the flush's P = 1 and a 200 ms Session's P = 7
+included, so the card never runs a plain version. The JAX package takes its
+XLA path below P = 12 (`CHUNK_MIN_PULLS`), which computes the same function
+with f32 sums in another order (it folds the bias into the x-side gates).
 
 The int8 helpers `_q8_rows`/`_q8_mm` live beside the kernels' plain
 versions (ops/lstm_kernels.py `_rowq8`, `_q8_mm`). Products the JAX package
-leaves to XLA stay plain PyTorch here: `_mm` rounds the activation to the
+leaves to XLA stay plain PyTorch here: `dot_wd` rounds the activation to the
 weight dtype and accumulates in f32, so a bf16 weight sees a bf16-rounded
 operand and an f32 sum, exactly as
 `jnp.dot(x.astype(w.dtype), w, preferred_element_type=f32)` computes it.
@@ -24,7 +30,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from ..ops.activations import double_swish
+from ..ops.activations import dot_wd, double_swish
+from ..ops.lstm_float_kernels import lstm_layer_chunk_fused
 from ..ops.lstm_kernels import ffn_norm_i8, lstm_layer_chunk_rec_i8
 
 
@@ -59,11 +66,6 @@ Params = Dict[str, torch.Tensor]
 
 DERIVED_KEYS = frozenset({"dec_table"})
 QUANT_TARGETS = ("w_ih_t", "w_hh_t", "w_hr_t", "ff1_t", "ff2_t")
-
-FLOAT_CHUNK_MSG = (
-    "the float chunk encoder (lstm_layer_chunk_fused, f32/bf16 serving) is not "
-    "ported yet; serve with precision='int8'"
-)
 
 
 def is_derived(key: str) -> bool:
@@ -132,11 +134,6 @@ def is_quantized(params: Params) -> bool:
     return "w_ih_t_q8" in params
 
 
-def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w with x rounded to w's dtype first and f32 accumulation."""
-    return x.to(w.dtype).float() @ w.float()
-
-
 def conv_subsample(params: Params, x: torch.Tensor) -> torch.Tensor:
     """[S, T, mel] -> [S, T', d_model] via the 3-conv stack (NCHW / OIHW)."""
     h = x[:, None, :, :]
@@ -153,7 +150,7 @@ def conv_subsample(params: Params, x: torch.Tensor) -> torch.Tensor:
     h = conv(h, "conv3_w", "conv3_b", 2, 0)
     s, ch, t, f = h.shape
     h = h.permute(0, 2, 1, 3).reshape(s, t, ch * f)
-    return _mm(h, params["embed_out_w"]) + params["embed_out_b"].float()
+    return dot_wd(h, params["embed_out_w"]) + params["embed_out_b"].float()
 
 
 def encoder_embed(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -161,14 +158,37 @@ def encoder_embed(params: Params, x: torch.Tensor) -> torch.Tensor:
     return conv_subsample(params, x)[:, 0, :]
 
 
+def _n_pulls(gate):
+    """A [P, S] prefix mask as per-session live-step counts [S] int32."""
+    return None if gate is None else gate.to(torch.int32).sum(dim=0, dtype=torch.int32)
+
+
+def _lstm_stack_chunk(params: Params, y, h, c, gate=None):
+    """Layer-major whole-chunk float stack (f32 or bf16 weights): one call
+    of kernel 10 per layer. `gate` [P, S] must be a per-session prefix mask;
+    masked steps keep the carried h/c and give garbage y rows that the
+    decode masks off."""
+    n_pulls = _n_pulls(gate)
+    hs, cs = [], []
+    for l in range(params["w_ih_t"].shape[0]):
+        y, h_new, c_new = lstm_layer_chunk_fused(
+            y, h[l], c[l],
+            params["w_ih_t"][l], params["w_hh_t"][l], params["bias"][l], params["w_hr_t"][l],
+            params["ff1_t"][l], params["ff1_b"][l], params["ff2_t"][l], params["ff2_b"][l],
+            params["norm_eps"][l],
+            n_pulls,
+        )
+        hs.append(h_new)
+        cs.append(c_new)
+    return y, torch.stack(hs), torch.stack(cs)
+
+
 def _lstm_stack_chunk_q8(params: Params, y, h, c, gate=None):
     """Layer-major whole-chunk int8 stack: for every layer, kernel 2 over all
-    P steps, then kernel 3 over the P*S rows. `gate` [P, S] must be a
-    per-session prefix mask; masked steps keep the carried h/c and give
-    garbage y rows that the decode masks off."""
+    P steps, then kernel 3 over the P*S rows. `gate` as `_lstm_stack_chunk`."""
     P, S, d = y.shape
     L = params["w_ih_t_q8"].shape[0]
-    n_pulls = None if gate is None else gate.to(torch.int32).sum(dim=0, dtype=torch.int32)
+    n_pulls = _n_pulls(gate)
     hs, cs = [], []
     for l in range(L):
         hseq, h_new, c_new = lstm_layer_chunk_rec_i8(
@@ -193,17 +213,15 @@ def _lstm_stack_chunk_q8(params: Params, y, h, c, gate=None):
 def encoder_chunk(params: Params, y, h, c, can=None):
     """Whole-chunk streaming encoder: y [P, S, d] embedded pulls, can
     optional [P, S] prefix mask -> (eout [P, S, J], h', c')."""
-    if not is_quantized(params):
-        raise NotImplementedError(FLOAT_CHUNK_MSG)
-    y = y.contiguous()
-    y, h_new, c_new = _lstm_stack_chunk_q8(params, y, h, c, can)
-    eout = _mm(y, params["enc_proj_t"]) + params["enc_proj_b"].float()
+    stack = _lstm_stack_chunk_q8 if is_quantized(params) else _lstm_stack_chunk
+    y, h_new, c_new = stack(params, y.contiguous(), h, c, can)
+    eout = dot_wd(y, params["enc_proj_t"]) + params["enc_proj_b"].float()
     return eout, h_new, c_new
 
 
 def encoder_step(params: Params, x, h, c, gate=None):
     """One streaming step: a [S, segment, mel] window -> (eout [S, J], h', c'),
-    run through the chunk kernels at P = 1 (`gate` [S] keeps h/c)."""
+    run through the chunk encoder at P = 1 (`gate` [S] keeps h/c)."""
     y = encoder_embed(params, x)[None]
     can = None if gate is None else gate[None]
     eout, h2, c2 = encoder_chunk(params, y, h, c, can)
@@ -234,5 +252,5 @@ def decoder_step(params: Params, context: torch.Tensor, dims: TransducerDims) ->
     for k in range(1, dims.context):
         pre = pre + params["dec_table"][k][ctx[:, k]]
     y = torch.relu(pre)
-    return _mm(y, params["dec_proj_t"]) + params["dec_proj_b"].float()
+    return dot_wd(y, params["dec_proj_t"]) + params["dec_proj_b"].float()
 

@@ -27,7 +27,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fbank_i8", "lstm_i8", "chunk_decode")
+SOURCES = ("fbank_i8", "lstm_i8", "chunk_decode", "fbank_bf16x3", "lstm_chunk")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -38,8 +38,10 @@ _lock = threading.Lock()
 
 # Launch counts per kernel: each wrapper adds one where it launches its
 # kernel, and nowhere else (the CPU path and the plain versions never count).
+# A kernel built for two weight types counts each under its own key.
 COUNTS: Dict[str, int] = {
     "fbank_i8": 0, "lstm_rec_i8": 0, "ffn_norm_i8": 0, "chunk_decode": 0,
+    "chunk_decode_f32": 0, "fbank_bf16x3": 0, "lstm_chunk_f32": 0, "lstm_chunk_bf16": 0,
 }
 
 

@@ -7,7 +7,10 @@ Port of `chunk_decode_fused` (april_asr_tpu/ops/decode_pallas.py,
 blank-excluded argmax, and every heuristic of `decode_step_pre`. The decode
 state stays on chip across pulls; only per-pull event records and the final
 state are written out. Each pull adds stride_ms to the time of sessions
-that pull (`can`), as the engine's per-pull loop does.
+that pull (`can`), as the engine's per-pull loop does. `dec_proj_t` and
+`join_t` may be bf16 (int8 and bf16 serving) or f32 (serving as loaded); the
+CUDA kernel is instantiated for both and counts under `chunk_decode` and
+`chunk_decode_f32`.
 
 `chunk_decode` takes the plain PyTorch version (the engine's per-pull loop
 of decoder refresh + joiner + `decode_step_pre`) for CPU tensors and
@@ -22,6 +25,7 @@ import torch
 
 from ..decode.greedy import NEG_INF, decode_step_pre
 from . import cuda_build
+from .activations import dot_wd
 
 EVENT_KEYS = ("ops", "tok", "logprob", "flags", "time_ms", "final_k")
 
@@ -37,14 +41,10 @@ def _mask_on(vt, dev) -> torch.Tensor:
     return m
 
 
-def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return x.to(w.dtype).float() @ w.float()
-
-
 def joiner_prologue(eout, dout, w_t, b, blank_id: int):
     """(max_idx, max_val, blank_val) of tanh(eout + dout) @ W + b with the
     blank column excluded from the argmax (first index on ties)."""
-    logits = _mm(torch.tanh(eout + dout), w_t) + b.float()
+    logits = dot_wd(torch.tanh(eout + dout), w_t) + b.float()
     V = logits.shape[1]
     masked = torch.where(
         torch.arange(V, device=logits.device)[None, :] == blank_id,
@@ -56,7 +56,7 @@ def joiner_prologue(eout, dout, w_t, b, blank_id: int):
 
 def decoder_refresh(ctx, dec_table, dec_proj_t, dec_proj_b):
     pre = dec_table[0][ctx[:, 0].long()] + dec_table[1][ctx[:, 1].long()]
-    return _mm(torch.relu(pre), dec_proj_t) + dec_proj_b.float()
+    return dot_wd(torch.relu(pre), dec_proj_t) + dec_proj_b.float()
 
 
 def chunk_decode_plain(eouts, can, dstate, dec_table, dec_proj_t, dec_proj_b, w_t, b,
@@ -94,11 +94,12 @@ def chunk_decode_cuda(eouts, can, dstate, dec_table, dec_proj_t, dec_proj_b, w_t
     dev = eouts.device
     if R != 3 or dec_table.shape[0] != 2:
         raise ValueError("chunk_decode: needs 3 rounds and a 2-token context")
-    if dec_proj_t.dtype != torch.bfloat16 or w_t.dtype != torch.bfloat16:
-        raise ValueError("chunk_decode: dec_proj_t and join_t must be bfloat16 (int8 serving)")
+    wd = w_t.dtype
+    if wd not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"chunk_decode: join_t must be bfloat16 or float32, got {wd}")
     checks = (
         (eouts, torch.float32, (P, S, J)), (dec_table, torch.float32, (2, V, d)),
-        (dec_proj_t, torch.bfloat16, (d, J)), (w_t, torch.bfloat16, (J, V)),
+        (dec_proj_t, wd, (d, J)), (w_t, wd, (J, V)),
         (dec_proj_b, torch.float32, (J,)), (b, torch.float32, (V,)),
         (dstate["dout"], torch.float32, (S, J)),
         (dstate["context"], torch.int32, (S, 2)),
@@ -121,8 +122,9 @@ def chunk_decode_cuda(eouts, can, dstate, dec_table, dec_proj_t, dec_proj_b, w_t
     out_scal = [torch.empty(S, dtype=torch.int32, device=dev) for _ in range(6)]
     ev = {k: torch.empty((P, S, R), dtype=torch.float32 if k == "logprob" else torch.int32,
                          device=dev) for k in EVENT_KEYS}
-    fn = cuda_build.bind("chunk_decode", "chunk_decode", 32, 8, 8)
-    cuda_build.COUNTS["chunk_decode"] += 1
+    w_f32 = int(wd == torch.float32)
+    fn = cuda_build.bind("chunk_decode", "chunk_decode", 32, 9, 8)
+    cuda_build.COUNTS["chunk_decode_f32" if w_f32 else "chunk_decode"] += 1
     rc = fn(
         eouts.data_ptr(), can_i.data_ptr(),
         dstate["context"].data_ptr(), dstate["dout"].data_ptr(), nd_i.data_ptr(),
@@ -132,7 +134,7 @@ def chunk_decode_cuda(eouts, can, dstate, dec_table, dec_proj_t, dec_proj_b, w_t
         out_ctx.data_ptr(), out_dout.data_ptr(), out_words.data_ptr(),
         *[t.data_ptr() for t in out_scal],
         *[ev[k].data_ptr() for k in EVENT_KEYS],
-        P, S, J, d, V, T, blank_id, stride_ms,
+        P, S, J, d, V, T, blank_id, stride_ms, w_f32,
         *[float(x) for x in emit_ramp],
         float(dcfg.punctuation_margin), float(dcfg.confident_margin),
         float(dcfg.confident_logprob_penalty), float(dcfg.long_silence_ms),

@@ -1,16 +1,25 @@
-"""Kernel 1: the int8-DFT fbank frame DSP (hop-row buffer -> log-mel rows).
+"""Kernels 1 and 5: the fbank frame DSP (hop-row buffer -> log-mel rows).
 
-Port of `logmel_rows_from_buf_i8` (april_asr_tpu/ops/fbank_pallas.py,
-`_buf_kernel_i8`). Frames are formed from the hop rows of each session's
-sample buffer; the DC removal, pre-emphasis and Povey window are folded into
-the DFT matrix in float64 (`_folded_dft`). PCM16 samples split exactly into
+Frames are formed from the hop rows of each session's sample buffer; the DC
+removal, pre-emphasis and Povey window are folded into the DFT matrix in
+float64 (`_folded_dft`). Two kernels compute the spectrum from there:
+
+Kernel 1, port of `logmel_rows_from_buf_i8` (april_asr_tpu/ops/
+fbank_pallas.py, `_buf_kernel_i8`), for int8 engines. PCM16 samples split exactly into
 two int8 planes (a = floor(p/256), b = rint(p - 256a) - 128) that contract
 with the int8 hi plane of the folded DFT in exact int32; the hi plane's
 residual is one bf16 dot with f32 accumulation. Then the power spectrum, the
 bf16x3 mel projection (`_dot3`) and log(max(K_EPS, .)).
 
-`logmel_rows_from_buf_i8` takes the plain PyTorch version for a CPU tensor
-and launches csrc/fbank_i8.cu for a CUDA tensor; it never falls back.
+Kernel 5, port of `logmel_rows_from_buf` (`_buf_kernel`), for every other
+engine. Per hop-row view, the samples split exactly into bf16 hi/lo planes
+and contract with the bf16 hi/lo planes of the zero-padded folded DFT, the
+lo*lo term dropped (`_dot3`); the view sums add up in view order. Then the
+same power, bf16x3 mel projection and log.
+
+Each dispatcher takes the plain PyTorch version for a CPU tensor and
+launches its CUDA kernel (csrc/fbank_i8.cu, csrc/fbank_bf16x3.cu) for a CUDA
+tensor; it never falls back.
 """
 
 from __future__ import annotations
@@ -86,7 +95,12 @@ def fbank_constants(layout, device) -> dict:
     rlo_p[:padded] = rlo
     mel = mel_banks(o.num_bins, nfft, padded, o.sample_freq, o.mel_low, o.mel_high).T
     mel_hi, mel_lo = _split_bf16(mel)
+    dpad = np.zeros((K, 2 * nfft), np.float32)
+    dpad[:padded] = _folded_dft(padded, nfft, o.remove_dc_offset, o.preemph_coeff)
+    d_hi, d_lo = _split_bf16(dpad)
     c = {
+        "d_hi": d_hi.contiguous().to(device),
+        "d_lo": d_lo.contiguous().to(device),
         "dhi": torch.from_numpy(dhi_p).to(device),
         "rlo": torch.from_numpy(rlo_p).to(torch.bfloat16).to(device),
         "s_hi": torch.from_numpy(s_hi).to(device),
@@ -168,3 +182,53 @@ def logmel_rows_from_buf_i8(layout, buf: torch.Tensor) -> torch.Tensor:
     if buf.device.type != "cuda":
         raise ValueError(f"fbank_i8: unsupported device {buf.device}")
     return logmel_rows_from_buf_i8_cuda(c, buf, F)
+
+
+def logmel_rows_from_buf_plain(c: dict, buf: torch.Tensor, F: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel 5: buf [S, L] -> rows [S, F, bins]."""
+    S, L = buf.shape
+    shift, n_views, nfft = c["shift"], c["n_views"], c["nfft"]
+    b3 = buf.reshape(S, L // shift, shift)
+    acc = None
+    for v in range(n_views):
+        xv = b3[:, v : v + F, :].reshape(S * F, shift)
+        rows = slice(v * shift, (v + 1) * shift)
+        part = _dot3(xv, c["d_hi"][rows], c["d_lo"][rows])
+        acc = part if acc is None else acc + part
+    re, im = acc[:, :nfft], acc[:, nfft:]
+    power = re * re + im * im
+    mel = _dot3(power, c["mel_hi"], c["mel_lo"])
+    rows = torch.log(torch.clamp_min(mel, float(K_EPS)))
+    return rows.reshape(S, F, -1)
+
+
+def logmel_rows_from_buf_cuda(c: dict, buf: torch.Tensor, F: int) -> torch.Tensor:
+    S, L = buf.shape
+    shift = c["shift"]
+    if buf.dtype != torch.float32 or not buf.is_contiguous():
+        raise ValueError("fbank_bf16x3: buf must be contiguous float32")
+    if L % shift or L // shift < F + c["n_views"] - 1:
+        raise ValueError(f"fbank_bf16x3: buffer of {L} samples cannot frame {F} rows")
+    out = torch.empty((S, F, c["bins"]), dtype=torch.float32, device=buf.device)
+    fn = cuda_build.bind("fbank_bf16x3", "fbank_bf16x3", 6, 7)
+    cuda_build.COUNTS["fbank_bf16x3"] += 1
+    rc = fn(
+        buf.data_ptr(), c["d_hi"].data_ptr(), c["d_lo"].data_ptr(),
+        c["mel_hi"].data_ptr(), c["mel_lo"].data_ptr(), out.data_ptr(),
+        S, L // shift, F, shift, c["n_views"], c["nfft"], c["bins"],
+        torch.cuda.current_stream(buf.device).cuda_stream,
+    )
+    cuda_build.check(rc, "fbank_bf16x3")
+    return out
+
+
+def logmel_rows_from_buf(layout, buf: torch.Tensor) -> torch.Tensor:
+    """[S, L] hop-aligned sample buffers -> [S, max_frames, num_bins] by the
+    bf16x3 DFT (kernel 5)."""
+    c = fbank_constants(layout, buf.device)
+    F = layout.max_frames
+    if buf.device.type == "cpu":
+        return logmel_rows_from_buf_plain(c, buf, F)
+    if buf.device.type != "cuda":
+        raise ValueError(f"fbank_bf16x3: unsupported device {buf.device}")
+    return logmel_rows_from_buf_cuda(c, buf, F)

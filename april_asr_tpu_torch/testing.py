@@ -64,6 +64,7 @@ class DecisionMargins:
 
     def __enter__(self):
         from .ops import decode_kernels as dk
+        from .ops.activations import dot_wd
 
         self._dk = dk
         self._orig = (dk.joiner_prologue, dk.decode_step_pre)
@@ -71,7 +72,7 @@ class DecisionMargins:
         orig_prologue, orig_step = self._orig
 
         def prologue(eout, dout, w_t, b, blank_id):
-            logits = dk._mm(torch.tanh(eout + dout), w_t) + b.float()
+            logits = dot_wd(torch.tanh(eout + dout), w_t) + b.float()
             logits[:, blank_id] = float("-inf")
             top2 = logits.topk(2, dim=1).values
             self._gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (april_asr_tpu_torch) on one GPU.
 
-Builds the port's four CUDA kernels from csrc/, holds each against its plain
-PyTorch version at the flagship serving shapes, checks the int8 streaming
-engine against the CPU (plain) engine on a small model, drives a flagship
-BatchEngine and a synchronous Session, and prints the results.
+Builds the port's CUDA kernels from csrc/, holds each against its plain
+PyTorch version at the flagship serving shapes, checks the streaming engine
+against the CPU (plain) engine on a small model at int8 and at f32, drives a
+flagship BatchEngine at int8, bf16 and f32 and a synchronous Session at int8
+and at f32 (the weights as loaded), and prints the results.
 
     python3 chip_smoke.py                      # every phase (as the check runs it)
     python3 chip_smoke.py --phases build,kernels
@@ -12,11 +13,16 @@ BatchEngine and a synchronous Session, and prints the results.
 Phases (each fails the run on error):
   build      nvcc for every csrc/*.cu, all started at once
   kernels    each kernel against its plain version: timed at S=256, P=27,
-             F=101, checked again at S=3, P=5 (ragged tiles)
-  reference  a tiny random model: CUDA engine vs CPU engine, same streams
-  engine     flagship random model, int8, BatchEngine S=256, 1 s chunks,
-             10 ticks of tone bursts then flush; launch counts and timing
-  session    one synchronous Session, 200 ms feeds over 3 s, then flush
+             F=101, checked again at S=3, P=5 (ragged tiles); the int8
+             kernels on int8 weights, kernel 10 on f32 and on bf16 weights,
+             the chunk decode on bf16 and on f32 weights
+  reference  a tiny random model: CUDA engine vs CPU engine, same streams,
+             at int8 and at f32
+  engine     flagship random model, BatchEngine S=256, 1 s chunks, 10 ticks
+             of tone bursts then flush, at int8, bf16 and f32; launch
+             counts, timing and the profiler's busy share
+  session    one synchronous Session, 200 ms feeds over 3 s, then flush: at
+             int8, and from Model(path) with no precision (f32 as loaded)
 
 Output: one line per kernel and per phase, then a JSON line
 {"kernels": [...]}, the `nvidia-smi` name and power limit, and as the last
@@ -97,10 +103,9 @@ def _stat_close(got, want, what, mean_tol=5e-3, p99_tol=0.05):
         raise AssertionError(f"{what}: mean {d.mean():.5f} p99 {np.percentile(d, 99):.5f}")
 
 
-def flagship_model(tmp: str, seed: int = 0, dims=None):
+def flagship_april(tmp: str, seed: int = 0, dims=None) -> str:
     """A flagship-width random native .april (blank logit biased +2.0 as
-    bench.py does), written with the port's save_april and loaded at int8."""
-    from april_asr_tpu_torch.api import Model
+    bench.py does), written with the port's save_april; returns its path."""
     from april_asr_tpu_torch.models.export import make_model_parameters, save_april
     from april_asr_tpu_torch.models.lstm_transducer import TransducerDims, init_transducer_params
     from april_asr_tpu_torch.testing import default_tokens
@@ -111,18 +116,29 @@ def flagship_model(tmp: str, seed: int = 0, dims=None):
     path = os.path.join(tmp, "flagship.april")
     save_april(path, dims, p, make_model_parameters(dims, default_tokens(dims.vocab)),
                name="flagship-random")
-    return Model(path, precision="int8", device=DEV)
+    return path
 
 
-def require_launches(what: str) -> dict:
+# The kernels each serving precision's path launches (cuda_build.COUNTS keys)
+PATH_KERNELS = {
+    "int8": ("fbank_i8", "lstm_rec_i8", "ffn_norm_i8", "chunk_decode"),
+    "bf16": ("fbank_bf16x3", "lstm_chunk_bf16", "chunk_decode"),
+    "f32": ("fbank_bf16x3", "lstm_chunk_f32", "chunk_decode_f32"),
+}
+
+
+def require_launches(what: str, precision: str) -> dict:
     """The launch counts since the last reset; fails if a kernel of the
-    path never launched."""
+    precision's path never launched or a kernel of another path did."""
     from april_asr_tpu_torch.ops import cuda_build
 
-    launches = dict(cuda_build.COUNTS)
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"{what}: kernels never launched: {missing}")
+    keys = PATH_KERNELS[precision]
+    launches = {k: v for k, v in cuda_build.COUNTS.items() if v or k in keys}
+    missing = [k for k in keys if launches[k] == 0]
+    stray = [k for k in launches if k not in keys]
+    if missing or stray:
+        raise AssertionError(f"{what}: kernels never launched: {missing}; "
+                             f"kernels of another path launched: {stray}")
     return launches
 
 
@@ -142,44 +158,125 @@ def phase_build(card):
     print(f"build: {len(logs)} sources in {dt:.1f} s ({card})")
 
 
-def check_kernels(model, S: int, P: int, seed: int) -> dict:
-    """Each kernel's wrapper and its plain version on the same inputs at S
-    sessions and P pulls (F = 101 frames), held to the stated tolerances.
-    Returns {name: (kernel call, plain call, max abs err, bound, shape)}."""
+def _check_decode(rt, S: int, P: int, rng, dev, t) -> tuple:
+    """chunk_decode on `rt`'s decode weights (bf16 or f32): P pulls x 3
+    rounds from an aged state, so every heuristic runs."""
     from april_asr_tpu_torch.config import DecodeConfig
     from april_asr_tpu_torch.decode.greedy import init_decode_state, vocab_tables_device
     from april_asr_tpu_torch.engine.step import INNER_STEPS_EMIT
-    from april_asr_tpu_torch.frontend.fbank import FbankLayout
     from april_asr_tpu_torch.ops import decode_kernels as DK
+
+    w, dims = rt.weights, rt.dims
+    d, J, V = dims.d_model, dims.joiner_dim, dims.vocab
+    dcfg = DecodeConfig()
+    T = dcfg.max_active_tokens
+    st = init_decode_state(S, dims.context, J, rt.blank_id, dcfg, dev)
+    st.update(
+        head=t(rng.integers(0, T, size=S).astype(np.int32)),
+        token_words=t((rng.integers(0, V, size=(S, T))
+                       | (rng.integers(0, 4, size=(S, T)) << 16)).astype(np.int32)),
+        time_ms=torch.full((S,), 4000, dtype=torch.int32, device=dev),
+        last_emit_ms=t(rng.integers(0, 4000, size=S).astype(np.int32)),
+        last_call=t(rng.integers(0, T, size=S).astype(np.int32)),
+        context=t(rng.integers(0, V, size=(S, 2)).astype(np.int32)),
+        need_dec=t(rng.random(S) < 0.5),
+        emitted_silence=t(rng.random(S) < 0.5),
+        dout=t(rng.normal(size=(S, J)).astype(np.float32)),
+    )
+    eouts = t((rng.normal(size=(P, S, J)) * 2.0).astype(np.float32))
+    can = t(np.arange(P)[:, None] < rng.integers(0, P + 1, size=S)[None, :])
+    dargs = (eouts, can, st, w["dec_table"], w["dec_proj_t"], w["dec_proj_b"], w["join_t"],
+             w["join_b"], vocab_tables_device(rt.vocab))
+    dkw = dict(blank_id=rt.blank_id, stride_ms=rt.fbank_opts.segment_stride_ms,
+               emit_ramp=INNER_STEPS_EMIT, dcfg=dcfg)
+    kf = lambda: DK.chunk_decode(*dargs, **dkw)  # noqa: E731
+    pf = lambda: DK.chunk_decode_plain(*dargs, **dkw)  # noqa: E731
+    (gs, ge), (ws, we) = kf(), pf()
+    torch.cuda.synchronize()
+    for k in ("ops", "tok", "flags", "time_ms", "final_k"):
+        if not torch.equal(ge[k], we[k]):
+            raise AssertionError(f"chunk_decode events[{k}] differ from the plain version")
+    for k in ("context", "token_words", "head", "last_call", "time_ms", "last_emit_ms",
+              "need_dec", "emitted_silence"):
+        if not torch.equal(gs[k], ws[k]):
+            raise AssertionError(f"chunk_decode state[{k}] differs from the plain version")
+    # dout: an f32 sum of the same products taken in another order (1e-5).
+    # logprob with bf16 weights: the joiner rounds tanh(eout + dout) to bf16,
+    # so an ulp of dout can flip that rounding and move one product term by
+    # up to 2^-8 of |tanh| * |w| (~3e-4 here): 1e-3, the bound the CPU parity
+    # test holds bf16 weights to. With f32 weights nothing is rounded to
+    # bf16, so logprob is held to the f32 sum-order bound, 1e-5, as dout.
+    f32 = w["join_t"].dtype == torch.float32
+    lp_tol = 1e-5 if f32 else 1e-3
+    torch.testing.assert_close(gs["dout"], ws["dout"], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(ge["logprob"], we["logprob"], atol=lp_tol, rtol=lp_tol)
+    err = max(float((ge["logprob"] - we["logprob"]).abs().max()),
+              float((gs["dout"] - ws["dout"]).abs().max()))
+    n_ev = int((ge["ops"] != 0).sum())
+    if n_ev < P * S // 4:
+        raise AssertionError(f"chunk_decode: only {n_ev} events, heuristics not exercised")
+    # the work this run's data needs: joiner rows for active (session, pull,
+    # round) cells; decoder refreshes after emissions and for sessions that
+    # entered with need_dec
+    n_act = int((ge["time_ms"] != 0).sum())
+    n_ref = int(st["need_dec"].sum()) + int(((ge["ops"] & 8) != 0).sum())
+    wb = 4 if f32 else 2
+    b = bound_ms(
+        P * S * (J + 1) * 4 + 6 * P * S * 3 * 4 + S * (2 * J + 2 * T + 16) * 4
+        + 2 * V * d * 4 + (d * J + J * V) * wb + (J + 2 * V) * 4,
+        {"f32" if f32 else "bf16": n_act * 2 * J * V + n_ref * 2 * d * J},
+    )
+    return kf, pf, err, b, f"eouts[{P},{S},{J}] V={V} events={n_ev} active_cells={n_act}"
+
+
+def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
+    """Each kernel's wrapper and its plain version on the same inputs at S
+    sessions and P pulls (F = 101 frames), held to the stated tolerances;
+    `models` maps "int8", "bf16" and "f32" to the flagship Model at that
+    precision. Returns {name: (kernel call, plain call, max abs err, bound,
+    shape)}."""
+    from april_asr_tpu_torch.frontend.fbank import FbankLayout
     from april_asr_tpu_torch.ops import fbank_kernels as FK
+    from april_asr_tpu_torch.ops import lstm_float_kernels as LF
     from april_asr_tpu_torch.ops import lstm_kernels as LK
 
-    rt = model.runtime
+    rt = models["int8"].runtime
     w = rt.weights
     dims = rt.dims
     dev = torch.device(DEV)
     rng = np.random.default_rng(seed)
     layout = FbankLayout.build(rt.fbank_opts, CHUNK_1S)
     F = layout.max_frames
-    d, H, Fn, J, V = dims.d_model, dims.hidden, dims.ffn, dims.joiner_dim, dims.vocab
+    d, H, Fn = dims.d_model, dims.hidden, dims.ffn
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     out = {}
 
-    # 1. fbank_i8: [S, L] hop-row buffers of PCM16 values -> [S, F, 80]
+    # 1. fbank_i8 and 5. fbank_bf16x3: [S, L] hop-row buffers of PCM16
+    # values -> [S, F, 80]. Both sum exact products in f32 in another order
+    # than the plain version: the repo's fbank kernel bound, atol 2e-5,
+    # rtol 1e-4 (tests/test_fbank_pallas.py:64-69)
     c = FK.fbank_constants(layout, dev)
     L = layout.buf_len
     pcm = (rng.normal(0, 0.25, (S, L)) * 32768).clip(-32768, 32767).astype(np.int16)
     buf = t(pcm.astype(np.float32) / 32768.0)
-    kf = lambda: FK.logmel_rows_from_buf_i8(layout, buf)  # noqa: E731
-    pf = lambda: FK.logmel_rows_from_buf_i8_plain(c, buf, F)  # noqa: E731
-    got, want = kf(), pf()
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
-    K, N2, nb = c["n_views"] * c["shift"], 2 * c["nfft"], c["bins"]
-    b = bound_ms(S * L * 4 + S * F * nb * 4 + K * N2 * 3 + c["nfft"] * nb * 4,
-                 {"int8": 2 * 2 * S * F * K * N2,
-                  "bf16": 2 * S * F * K * N2 + 3 * 2 * S * F * c["nfft"] * nb})
-    out["fbank_i8"] = (kf, pf, float((got - want).abs().max()), b, f"buf[{S},{L}] F={F}")
+    # the function's DFT has one row per sample of the padded window; the
+    # kernels' whole 160-row views add zero rows past it, not counted here
+    K = layout.opts.padded_window_size
+    N2, nb, nfft = 2 * c["nfft"], c["bins"], c["nfft"]
+    mel_ops = 3 * 2 * S * F * nfft * nb
+    for name, kf, pf, tab_bytes, ops in (
+        ("fbank_i8", lambda: FK.logmel_rows_from_buf_i8(layout, buf),
+         lambda: FK.logmel_rows_from_buf_i8_plain(c, buf, F), K * N2 * 3,
+         {"int8": 2 * 2 * S * F * K * N2, "bf16": 2 * S * F * K * N2 + mel_ops}),
+        ("fbank_bf16x3", lambda: FK.logmel_rows_from_buf(layout, buf),
+         lambda: FK.logmel_rows_from_buf_plain(c, buf, F), K * N2 * 4,
+         {"bf16": 3 * 2 * S * F * K * N2 + mel_ops}),
+    ):
+        got, want = kf(), pf()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+        b = bound_ms(S * L * 4 + S * F * nb * 4 + tab_bytes + nfft * nb * 4, ops)
+        out[name] = (kf, pf, float((got - want).abs().max()), b, f"buf[{S},{L}] F={F}")
 
     # 2. lstm_rec_i8: one layer's recurrent core over P steps (layer 0)
     x = t(rng.normal(size=(P, S, d)).astype(np.float32))
@@ -210,63 +307,39 @@ def check_kernels(model, S: int, P: int, seed: int) -> dict:
     b = bound_ms(3 * R * d * 4 + 2 * d * Fn + (2 * Fn + 2 * d) * 4, {"int8": 2 * R * d * Fn * 2})
     out["ffn_norm_i8"] = (kf, pf, _ulp_close(got, want, "ffn_norm_i8"), b, f"rows[{R},{d}] ffn={Fn}")
 
-    # 4. chunk_decode: P pulls x 3 rounds, aged state so every heuristic runs
-    dcfg = DecodeConfig()
-    T = dcfg.max_active_tokens
-    st = init_decode_state(S, dims.context, J, rt.blank_id, dcfg, dev)
-    st.update(
-        head=t(rng.integers(0, T, size=S).astype(np.int32)),
-        token_words=t((rng.integers(0, V, size=(S, T))
-                       | (rng.integers(0, 4, size=(S, T)) << 16)).astype(np.int32)),
-        time_ms=torch.full((S,), 4000, dtype=torch.int32, device=dev),
-        last_emit_ms=t(rng.integers(0, 4000, size=S).astype(np.int32)),
-        last_call=t(rng.integers(0, T, size=S).astype(np.int32)),
-        context=t(rng.integers(0, V, size=(S, 2)).astype(np.int32)),
-        need_dec=t(rng.random(S) < 0.5),
-        emitted_silence=t(rng.random(S) < 0.5),
-        dout=t(rng.normal(size=(S, J)).astype(np.float32)),
-    )
-    eouts = t((rng.normal(size=(P, S, J)) * 2.0).astype(np.float32))
-    can = t(np.arange(P)[:, None] < rng.integers(0, P + 1, size=S)[None, :])
-    dargs = (eouts, can, st, w["dec_table"], w["dec_proj_t"], w["dec_proj_b"], w["join_t"],
-             w["join_b"], vocab_tables_device(rt.vocab))
-    dkw = dict(blank_id=rt.blank_id, stride_ms=layout.opts.segment_stride_ms,
-               emit_ramp=INNER_STEPS_EMIT, dcfg=dcfg)
-    kf = lambda: DK.chunk_decode(*dargs, **dkw)  # noqa: E731
-    pf = lambda: DK.chunk_decode_plain(*dargs, **dkw)  # noqa: E731
-    (gs, ge), (ws, we) = kf(), pf()
-    torch.cuda.synchronize()
-    for k in ("ops", "tok", "flags", "time_ms", "final_k"):
-        if not torch.equal(ge[k], we[k]):
-            raise AssertionError(f"chunk_decode events[{k}] differ from the plain version")
-    for k in ("context", "token_words", "head", "last_call", "time_ms", "last_emit_ms",
-              "need_dec", "emitted_silence"):
-        if not torch.equal(gs[k], ws[k]):
-            raise AssertionError(f"chunk_decode state[{k}] differs from the plain version")
-    # dout: an f32 sum of the same bf16-rounded products taken in another
-    # order (1e-5). logprob: the joiner rounds tanh(eout + dout) to bf16, so
-    # an ulp of dout can flip that rounding and move one product term by up
-    # to 2^-8 of |tanh| * |w| (~3e-4 here): 1e-3, the bound the CPU parity
-    # test holds bf16 weights to
-    torch.testing.assert_close(gs["dout"], ws["dout"], atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(ge["logprob"], we["logprob"], atol=1e-3, rtol=1e-3)
-    err = max(float((ge["logprob"] - we["logprob"]).abs().max()),
-              float((gs["dout"] - ws["dout"]).abs().max()))
-    n_ev = int((ge["ops"] != 0).sum())
-    if n_ev < P * S // 4:
-        raise AssertionError(f"chunk_decode: only {n_ev} events, heuristics not exercised")
-    # the work this run's data needs: joiner rows for active (session, pull,
-    # round) cells; decoder refreshes after emissions and for sessions that
-    # entered with need_dec
-    n_act = int((ge["time_ms"] != 0).sum())
-    n_ref = int(st["need_dec"].sum()) + int(((ge["ops"] & 8) != 0).sum())
-    b = bound_ms(
-        P * S * (J + 1) * 4 + 6 * P * S * 3 * 4 + S * (2 * J + 2 * T + 16) * 4
-        + 2 * V * d * 4 + d * J * 2 + J * V * 2 + (J + 2 * V) * 4,
-        {"bf16": n_act * 2 * J * V + n_ref * 2 * d * J},
-    )
-    out["chunk_decode"] = (kf, pf, err, b,
-                           f"eouts[{P},{S},{J}] V={V} events={n_ev} active_cells={n_act}")
+    # 10. lstm_chunk: one whole float layer over P steps (layer 0), gated.
+    # f32 weights: true f32 products summed in another order, atol 1e-4,
+    # rtol 1e-4 (5.25e-6 measured on the H100 at S=256, P=27), so a kernel
+    # with TF32 or bf16-rounded products (errors ~1e-3 on these unit-scale
+    # rows) fails. bf16 weights: an f32 ulp can flip the bf16 rounding of an
+    # activation, moving a product by 2^-8 of itself: the repo's bf16 bound,
+    # atol 5e-2, rtol 1e-3 (tests/test_lstm_pallas.py:56)
+    for prec, atol, rtol in (("f32", 1e-4, 1e-4), ("bf16", 5e-2, 1e-3)):
+        wl = models[prec].runtime.weights
+        lw = tuple(wl[k][0] for k in ("w_ih_t", "w_hh_t", "bias", "w_hr_t", "ff1_t", "ff1_b",
+                                       "ff2_t", "ff2_b", "norm_eps"))
+        kf = lambda lw=lw: LF.lstm_layer_chunk_fused(x, h0, c0, *lw, n_pulls)  # noqa: E731
+        pf = lambda lw=lw: LF.lstm_layer_chunk_plain(x, h0, c0, *lw, n_pulls)  # noqa: E731
+        got, want = kf(), pf()
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, wv, k in zip(got, want, ("y", "h", "c")):
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"lstm_chunk_{prec} {k}: non-finite values")
+            torch.testing.assert_close(g, wv, atol=atol, rtol=rtol, msg=f"lstm_chunk_{prec} {k}")
+            err = max(err, float((g - wv).abs().max()))
+        wb = wl["w_ih_t"].element_size()
+        b = bound_ms(
+            2 * P * S * d * 4 + 2 * S * (d + H) * 4 + S * 4
+            + (2 * d * 4 * H + H * d + 2 * d * Fn) * wb
+            + (4 * H + Fn + d) * wl["bias"].element_size() + 4,
+            {prec: 2 * P * S * (2 * d * 4 * H + H * d + 2 * d * Fn)},
+        )
+        out[f"lstm_chunk_{prec}"] = (kf, pf, err, b, f"x[{P},{S},{d}] H={H} ffn={Fn}")
+
+    # 4. chunk_decode on bf16 (int8 and bf16 serving) and f32 decode weights
+    out["chunk_decode"] = _check_decode(rt, S, P, rng, dev, t)
+    out["chunk_decode_f32"] = _check_decode(models["f32"].runtime, S, P, rng, dev, t)
     return out
 
 
@@ -276,20 +349,28 @@ SOURCES = {
     "ffn_norm_i8": ("april_asr_tpu_torch/csrc/lstm_i8.cu", "april_asr_tpu/ops/lstm_pallas.py:1264"),
     "chunk_decode": ("april_asr_tpu_torch/csrc/chunk_decode.cu",
                      "april_asr_tpu/ops/decode_pallas.py:440"),
+    "fbank_bf16x3": ("april_asr_tpu_torch/csrc/fbank_bf16x3.cu",
+                     "april_asr_tpu/ops/fbank_pallas.py:280"),
+    "lstm_chunk_f32": ("april_asr_tpu_torch/csrc/lstm_chunk.cu",
+                       "april_asr_tpu/ops/lstm_pallas.py:237"),
+    "lstm_chunk_bf16": ("april_asr_tpu_torch/csrc/lstm_chunk.cu",
+                        "april_asr_tpu/ops/lstm_pallas.py:237"),
+    "chunk_decode_f32": ("april_asr_tpu_torch/csrc/chunk_decode.cu",
+                         "april_asr_tpu/ops/decode_pallas.py:440"),
 }
 
 
-def phase_kernels(model, card, reps: int = 20):
-    """The four kernels at the engine cell's shapes (S=256, P=27, F=101):
-    checked and timed against their plain versions; then checked again at
+def phase_kernels(models, card, reps: int = 20):
+    """Every kernel at the engine cell's shapes (S=256, P=27, F=101):
+    checked and timed against its plain version; then checked again at
     S=3, P=5, where every kernel's last tile is ragged."""
     from april_asr_tpu_torch.frontend.fbank import FbankLayout
 
-    P = FbankLayout.build(model.runtime.fbank_opts, CHUNK_1S).max_pulls_per_step
+    P = FbankLayout.build(models["int8"].runtime.fbank_opts, CHUNK_1S).max_pulls_per_step
     rows = []
-    for name, (kf, pf, err, (b_ms, b_by), shape) in check_kernels(model, S_FLAG, P, seed=1).items():
+    for name, (kf, pf, err, (b_ms, b_by), shape) in check_kernels(models, S_FLAG, P, seed=1).items():
         k_ms = cuda_ms(kf, reps)
-        p_ms = cuda_ms(pf, 3 if name == "chunk_decode" else 5, warmup=1)
+        p_ms = cuda_ms(pf, 3 if name.startswith("chunk_decode") else 5, warmup=1)
         source, replaces = SOURCES[name]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -298,7 +379,7 @@ def phase_kernels(model, card, reps: int = 20):
         })
         print(f"kernel {name}: max_abs_err={err:.3g} ms={k_ms:.4f} plain_ms={p_ms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}) library_ms=none shape={shape} ({card})")
-    ragged = check_kernels(model, 3, 5, seed=2)
+    ragged = check_kernels(models, 3, 5, seed=2)
     print("kernels at ragged shapes S=3 P=5: " + ", ".join(
         f"{n} max_abs_err={v[2]:.3g}" for n, v in ragged.items()))
     return rows
@@ -316,21 +397,23 @@ def _tone_bufs(S, chunk, rate, n=8, seed=0):
     return bufs
 
 
-def phase_reference(card, ticks: int = 6):
+def phase_reference(card, precision: str, ticks: int = 6):
     """Small model, same weights and audio, the CUDA engine (kernels) and
-    the CPU engine (plain versions) in lockstep: fbank rows within kernel
-    1's bound, h/c within the repo's cross-implementation bound, and every
-    session's events, callbacks and integer decode state equal up to the
-    first decision the plain decode took by a near-tie (testing.NEAR_TIE):
-    random weights are chaotic, and tanhf on the card and PyTorch's CPU tanh
-    differ by ulps that int8 re-quantization can amplify."""
+    the CPU engine (plain versions) in lockstep at `precision`: fbank rows
+    within the fbank kernels' bound, h/c within the repo's
+    cross-implementation bound, and every session's events, callbacks and
+    integer decode state equal up to the first decision the plain decode
+    took by a near-tie (testing.NEAR_TIE): random weights are chaotic, and
+    tanhf on the card and PyTorch's CPU tanh differ by ulps, which int8
+    re-quantization can amplify. At f32 nothing is re-quantized or rounded
+    to bf16, so every session is expected identical end to end."""
     from april_asr_tpu_torch.config import EngineConfig
+    from april_asr_tpu_torch.api.model import apply_precision
     from april_asr_tpu_torch.engine.batch import BatchEngine
     from april_asr_tpu_torch.engine.step import unpack_events_np
     from april_asr_tpu_torch.models.export import make_model_parameters
     from april_asr_tpu_torch.models.loader import native_runtime
-    from april_asr_tpu_torch.models.lstm_transducer import (
-        TransducerDims, cast_weights, init_transducer_params, quantize_weights)
+    from april_asr_tpu_torch.models.lstm_transducer import TransducerDims, init_transducer_params
     from april_asr_tpu_torch.testing import (
         INT_DECODE, DecisionMargins, capture_events, check_parting, default_tokens)
 
@@ -343,7 +426,7 @@ def phase_reference(card, ticks: int = 6):
     bufs = _tone_bufs(S, chunk, 16000, seed=4)
     eng, evs, recs = {}, {}, {}
     for side, dev in (("dev", DEV), ("cpu", "cpu")):
-        w = cast_weights(quantize_weights({k: v.to(dev) for k, v in p.items()}), torch.bfloat16)
+        w = apply_precision({k: v.to(dev) for k, v in p.items()}, precision)
         rt = native_runtime("ref", "", "en-us", mp, dims, w, dev)
         eng[side] = BatchEngine(rt, batch=S, cfg=EngineConfig(chunk_samples=chunk))
         evs[side], recs[side] = [], [[] for _ in range(S)]
@@ -381,12 +464,12 @@ def phase_reference(card, ticks: int = 6):
     n = sum(len(r) for r in recs["cpu"])
     if n == 0:
         raise AssertionError("reference: no callbacks")
-    print(f"reference: {S} sessions x {ticks} ticks + flush, {n} callbacks; "
+    print(f"reference {precision}: {S} sessions x {ticks} ticks + flush, {n} callbacks; "
           f"{S - len(parted)} sessions identical end to end, parted at near-ties "
           f"(step, cell, margin): {parted} ({card})")
 
 
-def phase_engine(model, card, ticks: int = 10):
+def phase_engine(model, card, precision: str, ticks: int = 10):
     from april_asr_tpu_torch.config import EngineConfig
     from april_asr_tpu_torch.engine.batch import BatchEngine
     from april_asr_tpu_torch.ops import cuda_build
@@ -415,7 +498,7 @@ def phase_engine(model, card, ticks: int = 10):
     eng.flush(np.ones(S, bool))
     torch.cuda.synchronize()
     flush_ms = (time.perf_counter() - t0) * 1e3
-    launches = require_launches("engine")
+    launches = require_launches(f"engine {precision}", precision)
     st = eng.state
     for name, t in (("h", st["h"]), ("c", st["c"]), ("dout", st["decode"]["dout"]),
                     ("fifo", st["fbank"]["fifo"])):
@@ -437,7 +520,7 @@ def phase_engine(model, card, ticks: int = 10):
     med_tick = float(np.median(tick_ms[1:]))
     med_step = float(np.median(step_ms))
     aps = S * chunk / rt.sample_rate / (med_tick / 1e3)
-    print(f"engine: S={S} chunk={chunk / rt.sample_rate:g} s P={eng.prog.layout.max_pulls_per_step} ticks={ticks} "
+    print(f"engine {precision}: S={S} chunk={chunk / rt.sample_rate:g} s P={eng.prog.layout.max_pulls_per_step} ticks={ticks} "
           f"tick_ms median={med_tick:.2f} (first {tick_ms[0]:.1f}) step_ms median={med_step:.2f} "
           f"flush_ms={flush_ms:.1f} audio_s_per_s={aps:.1f} callbacks={n_cb[0]} "
           f"launches={json.dumps(launches)} ({card})")
@@ -474,7 +557,7 @@ def profile_step(step, card, n: int = 2):
           f"wall per step (busy share {busy_us / wall_us:.3f}); per step: {top} ({card})")
 
 
-def phase_session(model, card):
+def phase_session(model, card, precision: str):
     from april_asr_tpu_torch.api import Result, Session
     from april_asr_tpu_torch.ops import cuda_build
 
@@ -492,12 +575,13 @@ def phase_session(model, card):
     dt = time.perf_counter() - t0
     P = sess._engine.prog.layout.max_pulls_per_step
     sess.close()
-    launches = require_launches("session")
+    launches = require_launches(f"session {precision}", precision)
     if not got:
         raise AssertionError("session: no callbacks")
     kinds = {Result(r).name: sum(1 for x in got if x[0] == r) for r in {x[0] for x in got}}
-    print(f"session: 3 s in 200 ms feeds + flush in {dt:.2f} s, P={P}, callbacks={kinds}, "
+    print(f"session {precision}: 3 s in 200 ms feeds + flush in {dt:.2f} s, P={P}, callbacks={kinds}, "
           f"launches={json.dumps(launches)} ({card})")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -518,28 +602,43 @@ def main(argv=None) -> int:
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"python {sys.version.split()[0]}")
     torch.cuda.set_device(0)
-    kernels, launches = [], None
+    from april_asr_tpu_torch.api import Model
+
+    kernels, launches = [], {}
+
+    def record(counts, precision):
+        # each kernel's launches come from the first path run that owns it
+        for k in PATH_KERNELS[precision]:
+            launches.setdefault(k, counts[k])
+
     t_start = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         if "build" in phases:
             phase_build(card)
-        model = None
+        models = {}
         if {"kernels", "engine", "session"} & set(phases):
             t0 = time.perf_counter()
-            model = flagship_model(tmp)
-            print(f"model: flagship random .april written and loaded at int8 in "
-                  f"{time.perf_counter() - t0:.1f} s")
+            path = flagship_april(tmp)
+            models["int8"] = Model(path, precision="int8", device=DEV)
+            models["bf16"] = Model(path, precision="bf16", device=DEV)
+            models["f32"] = Model(path, device=DEV)  # no precision: f32 as loaded
+            print(f"model: flagship random .april written and loaded at int8, bf16 and f32 "
+                  f"in {time.perf_counter() - t0:.1f} s")
         if "kernels" in phases:
-            kernels = phase_kernels(model, card)
+            kernels = phase_kernels(models, card)
         if "reference" in phases:
-            phase_reference(card)
+            phase_reference(card, "int8")
+            phase_reference(card, "f32")
         if "engine" in phases:
-            launches = phase_engine(model, card)
+            record(phase_engine(models["int8"], card, "int8"), "int8")
+            record(phase_engine(models["bf16"], card, "bf16"), "bf16")
+            record(phase_engine(models["f32"], card, "f32"), "f32")
         if "session" in phases:
-            phase_session(model, card)
-    if launches is not None:
-        for k in kernels:
-            k["launches"] = launches[k["name"]]
+            record(phase_session(models["int8"], card, "int8"), "int8")
+            # Model(path) with no precision: the weights as loaded (f32)
+            record(phase_session(models["f32"], card, "f32"), "f32")
+    for k in kernels:
+        k["launches"] = launches.get(k["name"], 0)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

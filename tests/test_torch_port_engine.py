@@ -13,10 +13,17 @@
   (tests/test_lstm_int8.py:69-80: one ulp of tanh can flip an int8
   rounding), and the replayed callbacks and integer decode state must be
   equal up to a decision the port took by a near-tie margin.
+* The same stream served as loaded (no precision on either side: f32) and
+  at bf16. The JAX frontend runs kernel 5 (interpret mode), the port's
+  bf16x3 path; at 8 slots the JAX encoder takes its XLA chunk path (kernel
+  10 runs only at 12 <= P <= 56 with S a multiple of 128) and its decode
+  the per-pull scan (the chunk decode kernel needs S a multiple of 128):
+  the same functions, with f32 sums in another order. The fbank ring is
+  held to kernel 5's bound, the rest as at int8.
 * Trained model: the tiny tone-coded model trained with the JAX trainer, as
-  tests/test_trained_e2e.py does, served by the port's Model(precision=
-  "int8") and a synchronous Session, must give exactly the training
-  transcripts.
+  tests/test_trained_e2e.py does, served by the port's Model at int8, bf16
+  and f32 and a synchronous Session, must give exactly the training
+  transcripts at every precision.
 """
 
 import numpy as np
@@ -78,6 +85,15 @@ def _slots(engine, recs):
 
 @pytest.mark.parametrize("chunk,ticks", [(16000, 3), (3200, 6)])
 def test_random_weight_stream_matches_jax(random_april, monkeypatch, chunk, ticks):
+    _stream_parity(random_april, monkeypatch, chunk, ticks, "int8")
+
+
+@pytest.mark.parametrize("precision,chunk,ticks", [(None, 16000, 3), ("bf16", 3200, 6)])
+def test_float_stream_matches_jax(random_april, monkeypatch, precision, chunk, ticks):
+    _stream_parity(random_april, monkeypatch, chunk, ticks, precision)
+
+
+def _stream_parity(random_april, monkeypatch, chunk, ticks, precision):
     """Event by event, every session's decode equals the JAX package's up to
     the first event cell where the two part, and the port took that cell's
     decision by less than NEAR_TIE (a near-tie, where an ulp upstream may
@@ -94,8 +110,9 @@ def test_random_weight_stream_matches_jax(random_april, monkeypatch, chunk, tick
         INT_DECODE, DecisionMargins, capture_events, check_parting)
 
     monkeypatch.setenv("APRIL_PALLAS", "1")
-    jm = JModel(random_april, precision="int8")
-    tm = Model(random_april, precision="int8", device="cpu")
+    monkeypatch.delenv("APRIL_PRECISION", raising=False)
+    jm = JModel(random_april, precision=precision)
+    tm = Model(random_april, precision=precision, device="cpu")
     je = JBatchEngine(jm.runtime, batch=S, cfg=JEngineConfig(chunk_samples=chunk))
     te = BatchEngine(tm.runtime, batch=S, cfg=EngineConfig(chunk_samples=chunk))
     assert te.prog.layout.max_pulls_per_step == je.prog.layout.max_pulls_per_step
@@ -139,7 +156,7 @@ def test_random_weight_stream_matches_jax(random_april, monkeypatch, chunk, tick
     n_cb = sum(len(r) for r in jrec)
     assert n_cb > S * ticks  # the decode emitted, not just silence
     assert any(r[0] == int(Result.FINAL_RECOGNITION) for rec in jrec for r in rec)
-    print(f"chunk {chunk}: sessions parted at near-ties (step, cell, margin): {parted}")
+    print(f"{precision} chunk {chunk}: sessions parted at near-ties (step, cell, margin): {parted}")
 
 
 def test_encoder_chunk_matches_jax(random_april, monkeypatch):
@@ -217,11 +234,12 @@ def trained(tmp_path_factory):
     return str(native_april), pairs
 
 
-def test_trained_int8_session_exact_transcripts(trained):
+@pytest.mark.parametrize("precision", ["int8", "bf16", "f32"])
+def test_trained_int8_session_exact_transcripts(trained, precision):
     from april_asr_tpu.io.wav import read_wav
 
     path, pairs = trained
-    model = Model(path, precision="int8", device="cpu")
+    model = Model(path, precision=precision, device="cpu")
     hyps = []
     for wav, _ in pairs:
         samples, _ = read_wav(wav)

@@ -3,13 +3,14 @@
 The port's plain `fbank_i8` (april_asr_tpu_torch/ops/fbank_kernels.py) is
 held against the JAX package's Pallas kernel `logmel_rows_from_buf_i8` run
 in interpret mode, and the port's `fbank_accept_batch` against the JAX one
-on the same int8-DFT path (APRIL_PALLAS=1, S a multiple of the kernel's
-8-session tile). Both sides split PCM16 exactly into int8 planes and
-accumulate those dots exactly, so they differ only in f32 summation order of
-the bf16 residual and mel dots: the bound is tests/test_fbank_pallas.py's
-atol=2e-5, rtol=1e-4. Against the float64 oracle the frontend budget is
-2e-3 (the int8 DFT's own error, measured ~1.4e-3 worst case in the JAX
-package's notes).
+on the same path (APRIL_PALLAS=1, S a multiple of the kernels' 8-session
+tile): the int8 DFT (`dft_i8=True`, int8 engines) and the bf16x3 DFT of
+kernel 5 (`dft_i8=False`, every other engine; the kernel itself is tested in
+tests/test_torch_port_float.py). Both sides split the samples exactly into
+int8 (or bf16) planes and sum exact products, so they differ only in f32
+summation order: the bound is tests/test_fbank_pallas.py's atol=2e-5,
+rtol=1e-4. Against the float64 oracle the frontend budget is 2e-3 (the int8
+DFT's own error, measured ~1.4e-3 worst case in the JAX package's notes).
 """
 
 import jax
@@ -51,13 +52,13 @@ def test_fbank_i8_plain_matches_jax_interpret(chunk):
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
 
 
-def _run_accepts(monkeypatch, chunk, sizes, seed):
+def _run_accepts(monkeypatch, chunk, sizes, seed, dft_i8):
     jl = jfb.FbankLayout.build(JFbankOptions(), chunk)
     tl = tfb.FbankLayout.build(FbankOptions(), chunk)
     waves = _pcm((S, sum(sizes)), seed)
     monkeypatch.setenv("APRIL_PALLAS", "1")
     jst = jax.vmap(lambda _: jfb.fbank_init(jl))(jnp.arange(S))
-    jaccept = jax.jit(lambda s, w, n: jfb.fbank_accept_batch(jl, s, w, n, dft_i8=True))
+    jaccept = jax.jit(lambda s, w, n: jfb.fbank_accept_batch(jl, s, w, n, dft_i8=dft_i8))
     tst = tfb.fbank_init(tl, S, "cpu")
     o = 0
     for k, sz in enumerate(sizes):
@@ -68,14 +69,25 @@ def _run_accepts(monkeypatch, chunk, sizes, seed):
             w[s, : n[s]] = waves[s, o : o + n[s]]
         o += sz
         jst = jaccept(jst, jnp.asarray(w), jnp.asarray(n))
-        tst = tfb.fbank_accept_batch(tl, tst, torch.from_numpy(w), torch.from_numpy(n))
+        tst = tfb.fbank_accept_batch(tl, tst, torch.from_numpy(w), torch.from_numpy(n), dft_i8)
     return jl, jst, tst, waves
 
 
-@pytest.mark.parametrize("chunk,sizes", [(3200, [3200, 777, 3200, 1501, 2900]),
-                                          (16000, [16000, 9001, 16000])])
+ACCEPTS = [(3200, [3200, 777, 3200, 1501, 2900]), (16000, [16000, 9001, 16000])]
+
+
+@pytest.mark.parametrize("chunk,sizes", ACCEPTS)
 def test_accept_batch_matches_jax(monkeypatch, chunk, sizes):
-    jl, jst, tst, _ = _run_accepts(monkeypatch, chunk, sizes, seed=11)
+    _check_accepts(monkeypatch, chunk, sizes, dft_i8=True)
+
+
+@pytest.mark.parametrize("chunk,sizes", ACCEPTS)
+def test_accept_batch_float_matches_jax(monkeypatch, chunk, sizes):
+    _check_accepts(monkeypatch, chunk, sizes, dft_i8=False)
+
+
+def _check_accepts(monkeypatch, chunk, sizes, dft_i8):
+    jl, jst, tst, _ = _run_accepts(monkeypatch, chunk, sizes, seed=11, dft_i8=dft_i8)
     for k in ("fifo_len", "fifo_off", "fifo_len_f", "leftover_len", "dropped"):
         np.testing.assert_array_equal(tst[k].numpy(), np.asarray(jst[k]), err_msg=k)
     # the leftover is moved, never computed: it is the same samples
@@ -90,7 +102,16 @@ def test_accept_batch_matches_jax(monkeypatch, chunk, sizes):
 
 def test_accept_batch_matches_f64_oracle():
     """Streaming rows (hop-unaligned feeds, leftover carry) within 2e-3 of
-    the float64 oracle, and the same row count."""
+    the float64 oracle, and the same row count: the int8 DFT."""
+    _check_oracle(dft_i8=True)
+
+
+def test_accept_batch_float_matches_f64_oracle():
+    """The same for the bf16x3 DFT (kernel 5)."""
+    _check_oracle(dft_i8=False)
+
+
+def _check_oracle(dft_i8):
     chunk = 3200
     tl = tfb.FbankLayout.build(FbankOptions(), chunk)
     sizes = [3200, 777, 3200, 1501]
@@ -103,7 +124,8 @@ def test_accept_batch_matches_f64_oracle():
         w[:, :sz] = waves[:, o : o + sz]
         o += sz
         before = st["fifo_len"].clone()
-        st = tfb.fbank_accept_batch(tl, st, torch.from_numpy(w), torch.full((S,), sz, dtype=torch.int32))
+        st = tfb.fbank_accept_batch(tl, st, torch.from_numpy(w),
+                                    torch.full((S,), sz, dtype=torch.int32), dft_i8)
         for s in range(S):
             for i in range(int(before[s]), int(st["fifo_len"][s])):
                 rows[s].append(st["fifo"][s, (int(st["fifo_off"][s]) + i) % tl.fifo_rows].numpy())

@@ -4,9 +4,13 @@
   equal params, vocab tables and tensors; one written by the port reads
   back equal in the JAX package.
 * `from_jax_params` carries bf16 leaves through a uint16 view, bit for bit.
+* The serving precision policy matches the JAX package's: no precision
+  (and no APRIL_PRECISION) serves the weights as loaded (f32), "bf16" casts
+  the matrices, "int8" adds the int8 copies; every key and dtype equal, and
+  f32 and bf16 models serve a Session through flush.
 * The port imports neither jax nor april_asr_tpu (nor does chip_smoke.py),
   never runs on the CPU unless asked, and raises (never falls back) on what
-  this slice does not serve: f32/bf16 precision and ONNX-form models.
+  it does not serve: ONNX-form models.
 """
 
 import ast
@@ -100,12 +104,54 @@ def test_no_silent_cpu(jax_native, monkeypatch):
         load_model(jax_native[0], device="cuda")
 
 
+def _same_weights_policy(tw, jw):
+    """The port's weights have the JAX runtime's keys, each in its dtype."""
+    assert set(tw) == set(jw)
+    for k, v in jw.items():
+        assert str(tw[k].dtype) == "torch." + str(np.asarray(v).dtype), k
+
+
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
-def test_float_precisions_raise(jax_native, precision):
+def test_float_precisions_serve(jax_native, precision):
+    """Each float precision loads with no int8 copies, matrices of its dtype
+    (the JAX policy's keys and dtypes) and serves a Session through flush."""
+    from april_asr_tpu.api import Model as JModel
+    from april_asr_tpu_torch.api import Model, Result, Session
+
+    m = Model(jax_native[0], precision=precision, device="cpu")
+    w = m.runtime.weights
+    _same_weights_policy(w, JModel(jax_native[0], precision=precision).runtime.weights)
+    assert not any(k.endswith(("_q8", "_q8s")) for k in w)
+    want = {"f32": torch.float32, "bf16": torch.bfloat16}[precision]
+    for k in ("w_ih_t", "w_hh_t", "w_hr_t", "ff1_t", "ff2_t", "enc_proj_t", "dec_proj_t", "join_t"):
+        assert w[k].dtype == want, k
+    got = []
+    sess = Session(m, lambda r, toks: got.append(r))
+    pcm = (np.random.default_rng(0).normal(0, 0.3, 9600) * 20000).astype(np.int16)
+    for off in range(0, len(pcm), 3200):
+        sess.feed_pcm16(pcm[off : off + 3200].tobytes())
+    sess.flush()
+    sess.close()
+    assert Result.SILENCE in got  # the flush ran to its last phase
+
+
+def test_default_precision(jax_native, monkeypatch):
+    """No precision argument: APRIL_PRECISION if set, else the weights as
+    loaded (f32), as the JAX Model; an explicit precision wins."""
+    from april_asr_tpu.api import Model as JModel
     from april_asr_tpu_torch.api import Model
 
-    with pytest.raises(NotImplementedError, match="lstm_layer_chunk_fused"):
-        Model(jax_native[0], precision=precision, device="cpu")
+    path = jax_native[0]
+    monkeypatch.delenv("APRIL_PRECISION", raising=False)
+    w = Model(path, device="cpu").runtime.weights
+    _same_weights_policy(w, JModel(path).runtime.weights)
+    assert w["w_ih_t"].dtype == torch.float32 and "w_ih_t_q8" not in w
+    for env, dtype, q8 in (("bf16", torch.bfloat16, False), ("int8", torch.bfloat16, True)):
+        monkeypatch.setenv("APRIL_PRECISION", env)
+        w = Model(path, device="cpu").runtime.weights
+        _same_weights_policy(w, JModel(path).runtime.weights)
+        assert (w["w_ih_t"].dtype, "w_ih_t_q8" in w) == (dtype, q8), env
+    assert Model(path, precision="f32", device="cpu").runtime.weights["w_ih_t"].dtype == torch.float32
 
 
 def test_onnx_form_raises(tmp_path):

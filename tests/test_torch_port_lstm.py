@@ -137,11 +137,3 @@ def test_stack_matches_jax_kernels(qparams, inputs, pulls):
     _assert_stat_close(np.where(live, ty.numpy(), 0), np.where(live, np.asarray(jy), 0), name="y")
     _assert_stat_close(th.numpy(), jh, name="h")
     _assert_stat_close(tc.numpy(), jc, name="c")
-
-
-def test_encoder_chunk_requires_int8(qparams, inputs):
-    _, tp = qparams
-    f32 = {k: v for k, v in tp.items() if not k.endswith(("_q8", "_q8s"))}
-    y, h, c, _ = inputs
-    with pytest.raises(NotImplementedError, match="lstm_layer_chunk_fused"):
-        TM.encoder_chunk(f32, torch.from_numpy(y), torch.from_numpy(h), torch.from_numpy(c))
