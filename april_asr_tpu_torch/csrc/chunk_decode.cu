@@ -372,7 +372,10 @@ __global__ void __launch_bounds__(NT) chunk_decode_kernel(
   }
 }
 
-// w_f32 selects the type of dec_proj and W (1: f32, 0: bf16).
+// w_f32 selects the type of dec_proj and W (1: f32, 0: bf16). Returns
+// minus the shared memory bytes a block needs when the device allows a block
+// fewer (a vocabulary too large for the [TSD][V] logits rows), nothing
+// launched; else cudaGetLastError() of the launch.
 extern "C" int chunk_decode(
     const float* eouts, const int* can, const int* ctx_in, const float* dout_in, const int* nd_in,
     const int* words_in, const int* head_in, const int* lastcall_in, const int* time_in,
@@ -390,8 +393,14 @@ extern "C" int chunk_decode(
   c.long_sil_ms = long_sil_ms; c.decay_ms = decay_ms;
   const int Dm = J > d ? J : d;
   const size_t smem = sizeof(float) * (size_t)TSD * (J + Dm + V) + sizeof(int) * (size_t)TSD * T;
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > (size_t)limit) return -(int)smem;
   const auto kern = w_f32 ? chunk_decode_kernel<float> : chunk_decode_kernel<uint16_t>;
-  cudaError_t err = allow_smem(kern, smem);
+  err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + TSD - 1) / TSD);
   kern<<<grid, NT, smem, (cudaStream_t)stream>>>(

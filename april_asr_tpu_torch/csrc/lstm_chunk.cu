@@ -15,10 +15,11 @@
 // It writes hseq[t] = h_new and keeps h/c where t >= n_pulls[s] (prefix
 // gate); masked steps still write a finite hseq row.
 //
-// lstm_chunk_ffn: over tiles of RT = 16 of the flattened P*S rows,
-// y = x + hseq, mid = DoubleSwish(dot(y, ff1) + b1), ff = dot(mid, ff2) + b2,
-// BasicNorm (y + ff) * rsqrtf(mean((y + ff)^2) + eps). The [16, ffn] mid
-// tile lives in dynamic shared memory and never reaches device memory.
+// float_ffn_kernel<WT, 16, 8> (csrc/ffn_norm.cuh, shared with kernel 12):
+// over tiles of RT = 16 of the flattened P*S rows, y = x + hseq,
+// mid = DoubleSwish(dot(y, ff1) + b1), ff = dot(mid, ff2) + b2, BasicNorm
+// (y + ff) * rsqrtf(mean((y + ff)^2) + eps). The [16, ffn] mid tile lives
+// in dynamic shared memory and never reaches device memory.
 //
 // Products: every dot rounds its activation to the weight type first and
 // accumulates in f32, as jnp.dot(x.astype(wd), w, preferred_element_type=
@@ -43,19 +44,12 @@
 // (__fadd_rn/__fmul_rn, no FMA contraction) in the JAX op order; tanhf and
 // rsqrtf are CUDA's (no fast-math).
 
-#include "common.cuh"
+#include "ffn_norm.cuh"
 
 #define TS 4        // sessions per block (lstm_chunk_rec)
-#define RT 16       // rows per block (lstm_chunk_ffn)
-#define RG 8        // rows per thread item (lstm_chunk_ffn)
+#define RT 16       // rows per block (float_ffn_kernel)
+#define RG 8        // rows per thread item (float_ffn_kernel)
 #define NTHREADS 256
-
-__device__ __forceinline__ void fma4(float (&a)[4], float v, const float4& w) {
-  a[0] = fmaf(v, w.x, a[0]);
-  a[1] = fmaf(v, w.y, a[1]);
-  a[2] = fmaf(v, w.z, a[2]);
-  a[3] = fmaf(v, w.w, a[3]);
-}
 
 template <typename WT>
 __global__ void __launch_bounds__(NTHREADS) lstm_chunk_rec(
@@ -178,95 +172,6 @@ __global__ void __launch_bounds__(NTHREADS) lstm_chunk_rec(
   }
 }
 
-template <typename WT>
-__global__ void __launch_bounds__(NTHREADS) lstm_chunk_ffn(
-    const float* __restrict__ x, const float* __restrict__ hs, const void* __restrict__ ff1_v,
-    const void* __restrict__ f1b, const void* __restrict__ ff2_v, const void* __restrict__ f2b,
-    const float* __restrict__ eps, float* __restrict__ out, int R, int d, int F, int f1b_bf16,
-    int f2b_bf16) {
-  extern __shared__ float4 smem_f4[];
-  const WT* __restrict__ ff1 = static_cast<const WT*>(ff1_v);
-  const WT* __restrict__ ff2 = static_cast<const WT*>(ff2_v);
-  float* y = reinterpret_cast<float*>(smem_f4);  // [RT][d] y, then y + ff
-  float* ya = y + RT * d;                        // [RT][d] act(y)
-  float* ma = ya + RT * d;                       // [RT][F] act(DoubleSwish(mid))
-
-  const int r0 = blockIdx.x * RT;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nwarps = NTHREADS / 32;
-
-  for (int i = tid; i < RT * d; i += NTHREADS) {
-    const int r = i / d, row = r0 + r;
-    const size_t gi = (size_t)row * d + (i - r * d);
-    const float v = row < R ? __fadd_rn(x[gi], hs[gi]) : 0.f;
-    y[i] = v;
-    ya[i] = Wt<WT>::act(v);
-  }
-  __syncthreads();
-
-  // ff1 + bias + DoubleSwish: items are (column group of 4, group of RG rows)
-  for (int it = tid; it < (F / 4) * (RT / RG); it += NTHREADS) {
-    const int cg = it % (F / 4), rb = (it / (F / 4)) * RG;
-    float acc[RG][4];
-#pragma unroll
-    for (int r = 0; r < RG; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
-    const WT* w = ff1 + cg * 4;
-    for (int k = 0; k < d; ++k) {
-      const float4 a = Wt<WT>::ld4(w + (size_t)k * F);
-#pragma unroll
-      for (int r = 0; r < RG; ++r) fma4(acc[r], ya[(rb + r) * d + k], a);
-    }
-#pragma unroll
-    for (int r = 0; r < RG; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = cg * 4 + j;
-        const float m = __fadd_rn(acc[r][j], load_vec(f1b, col, f1b_bf16));
-        ma[(rb + r) * F + col] = Wt<WT>::act(__fmul_rn(m, sig_tanh(__fsub_rn(m, 1.f))));
-      }
-  }
-  __syncthreads();
-
-  // ff2 + bias + residual (in place: each (row, column) has one owner)
-  for (int it = tid; it < (d / 4) * (RT / RG); it += NTHREADS) {
-    const int cg = it % (d / 4), rb = (it / (d / 4)) * RG;
-    float acc[RG][4];
-#pragma unroll
-    for (int r = 0; r < RG; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
-    const WT* w = ff2 + cg * 4;
-    for (int k = 0; k < F; ++k) {
-      const float4 a = Wt<WT>::ld4(w + (size_t)k * d);
-#pragma unroll
-      for (int r = 0; r < RG; ++r) fma4(acc[r], ma[(rb + r) * F + k], a);
-    }
-#pragma unroll
-    for (int r = 0; r < RG; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = cg * 4 + j;
-        const float ff = __fadd_rn(acc[r][j], load_vec(f2b, col, f2b_bf16));
-        y[(rb + r) * d + col] = __fadd_rn(y[(rb + r) * d + col], ff);
-      }
-  }
-  __syncthreads();
-
-  // BasicNorm, one warp per row
-  const float e = eps[0];
-  for (int r = warp; r < RT; r += nwarps) {
-    const int row = r0 + r;
-    if (row >= R) continue;
-    float ss = 0.f;
-    for (int k = lane; k < d; k += 32) ss = __fadd_rn(ss, __fmul_rn(y[r * d + k], y[r * d + k]));
-    ss = warp_sum(ss);
-    const float rs = rsqrtf(__fadd_rn(__fdiv_rn(ss, (float)d), e));
-    for (int k = lane; k < d; k += 32) out[(size_t)row * d + k] = __fmul_rn(y[r * d + k], rs);
-  }
-}
-
 // One whole layer over P steps: the recurrence, then the FFN rows. hseq is
 // the wrapper's [P, S, d] scratch; y [P, S, d], h2 [S, d], c2 [S, H] are
 // the outputs. w_bf16 selects the weight type (1: bf16, 0: f32).
@@ -277,7 +182,7 @@ extern "C" int lstm_chunk(const float* x, const float* h, const float* c, const 
                           int S, int d, int H, int F, int w_bf16, int bias_bf16, int f1b_bf16,
                           int f2b_bf16, void* stream) {
   const auto rec = w_bf16 ? lstm_chunk_rec<uint16_t> : lstm_chunk_rec<float>;
-  const auto ffn = w_bf16 ? lstm_chunk_ffn<uint16_t> : lstm_chunk_ffn<float>;
+  const auto ffn = w_bf16 ? float_ffn_kernel<uint16_t, RT, RG> : float_ffn_kernel<float, RT, RG>;
   const size_t rec_smem = sizeof(float) * (size_t)TS * (3 * d + 2 * H);
   cudaError_t err = allow_smem(rec, rec_smem);
   if (err != cudaSuccess) return (int)err;
@@ -286,10 +191,10 @@ extern "C" int lstm_chunk(const float* x, const float* h, const float* c, const 
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int R = P * S;
-  const size_t ffn_smem = sizeof(float) * (size_t)RT * (2 * d + F);
+  const size_t ffn_smem = ffn_float_smem<RT>(d, F);
   err = allow_smem(ffn, ffn_smem);
   if (err != cudaSuccess) return (int)err;
-  ffn<<<(R + RT - 1) / RT, NTHREADS, ffn_smem, (cudaStream_t)stream>>>(
+  ffn<<<(R + RT - 1) / RT, FFN_NT, ffn_smem, (cudaStream_t)stream>>>(
       x, hseq, ff1, f1b, ff2, f2b, eps, y, R, d, F, f1b_bf16, f2b_bf16);
   return (int)cudaGetLastError();
 }

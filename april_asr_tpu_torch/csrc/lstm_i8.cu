@@ -19,8 +19,9 @@
 // consecutive hidden units (one coalesced char4 per gate row) so the cell
 // needs no exchange between threads.
 //
-// ffn_norm_i8 replaces `ffn_norm_i8` (`_ffn_norm_kernel_i8`): over tiles of
-// RT = 16 rows of the flattened P*S rows, y = x + hseq, _rowq8(y), int8 ff1,
+// ffn_norm_i8 replaces `ffn_norm_i8` (`_ffn_norm_kernel_i8`) with
+// ffn_norm_kernel<16, 8> (csrc/ffn_norm.cuh, shared with kernel 7): over
+// tiles of RT = 16 of the flattened P*S rows, y = x + hseq, _rowq8(y), int8 ff1,
 // DoubleSwish, _rowq8(mid), int8 ff2, residual, BasicNorm
 // y * rsqrtf(mean(y^2) + eps). The [16, ffn] mid tile (128 KB f32 at
 // ffn = 2048) lives in dynamic shared memory and never reaches device
@@ -32,7 +33,7 @@
 // rsqrtf are CUDA's (no fast-math): they can differ from XLA's by an ulp,
 // which may flip an isolated int8 rounding downstream.
 
-#include "common.cuh"
+#include "ffn_norm.cuh"
 
 #define TS 2        // sessions per block (lstm_rec_i8)
 #define RT 16       // rows per block (ffn_norm_i8)
@@ -182,117 +183,8 @@ __global__ void __launch_bounds__(NTHREADS) lstm_rec_kernel(
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS) ffn_norm_kernel(
-    const float* __restrict__ x, const float* __restrict__ hs, const int8_t* __restrict__ ff1,
-    const float* __restrict__ ff1s, const void* __restrict__ f1b, const int8_t* __restrict__ ff2,
-    const float* __restrict__ ff2s, const void* __restrict__ f2b, const float* __restrict__ eps,
-    float* __restrict__ out, int R, int d, int F, int f1b_bf16, int f2b_bf16) {
-  extern __shared__ float4 smem_f4[];
-  float* y = reinterpret_cast<float*>(smem_f4);  // [RT][d]
-  float* mid = y + RT * d;                       // [RT][F]
-  float* sc = mid + RT * F;                      // [2][RT]
-  int8_t* yq = reinterpret_cast<int8_t*>(sc + 2 * RT);  // [RT][d]
-  int8_t* mq = yq + RT * d;                      // [RT][F]
-
-  const int r0 = blockIdx.x * RT;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nwarps = NTHREADS / 32;
-
-  for (int i = tid; i < RT * d; i += NTHREADS) {
-    int r = i / d, row = r0 + r;
-    size_t gi = (size_t)row * d + (i - r * d);
-    y[i] = row < R ? __fadd_rn(x[gi], hs[gi]) : 0.f;
-  }
-  __syncthreads();
-  for (int r = warp; r < RT; r += nwarps) {
-    float s = warp_rowq8(y + r * d, d, yq + r * d, lane);
-    if (lane == 0) sc[r] = s;
-  }
-  __syncthreads();
-
-  // ff1 + DoubleSwish: items are (column group of 4, half of the rows)
-  for (int it = tid; it < (F / 4) * (RT / RG); it += NTHREADS) {
-    const int cg = it % (F / 4), rb = (it / (F / 4)) * RG;
-    int acc[RG][4];
-#pragma unroll
-    for (int r = 0; r < RG; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[r][j] = 0;
-    const int8_t* w = ff1 + cg * 4;
-    for (int k = 0; k < d; ++k) {
-      const char4 a = *reinterpret_cast<const char4*>(w + (size_t)k * F);
-#pragma unroll
-      for (int r = 0; r < RG; ++r) {
-        const int v = yq[(rb + r) * d + k];
-        acc[r][0] += v * a.x; acc[r][1] += v * a.y; acc[r][2] += v * a.z; acc[r][3] += v * a.w;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < RG; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = cg * 4 + j;
-        float m = __fadd_rn(__fmul_rn((float)acc[r][j], __fmul_rn(sc[rb + r], ff1s[col])),
-                            load_vec(f1b, col, f1b_bf16));
-        mid[(rb + r) * F + col] = __fmul_rn(m, sig_tanh(__fsub_rn(m, 1.f)));
-      }
-  }
-  __syncthreads();
-  for (int r = warp; r < RT; r += nwarps) {
-    float s = warp_rowq8(mid + r * F, F, mq + r * F, lane);
-    if (lane == 0) sc[RT + r] = s;
-  }
-  __syncthreads();
-
-  // ff2 + bias + residual (in place: each (row, column) has one owner)
-  for (int it = tid; it < (d / 4) * (RT / RG); it += NTHREADS) {
-    const int cg = it % (d / 4), rb = (it / (d / 4)) * RG;
-    int acc[RG][4];
-#pragma unroll
-    for (int r = 0; r < RG; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[r][j] = 0;
-    const int8_t* w = ff2 + cg * 4;
-    for (int k = 0; k < F; ++k) {
-      const char4 a = *reinterpret_cast<const char4*>(w + (size_t)k * d);
-#pragma unroll
-      for (int r = 0; r < RG; ++r) {
-        const int v = mq[(rb + r) * F + k];
-        acc[r][0] += v * a.x; acc[r][1] += v * a.y; acc[r][2] += v * a.z; acc[r][3] += v * a.w;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < RG; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = cg * 4 + j;
-        const float ff = __fadd_rn(
-            __fmul_rn((float)acc[r][j], __fmul_rn(sc[RT + rb + r], ff2s[col])),
-            load_vec(f2b, col, f2b_bf16));
-        y[(rb + r) * d + col] = __fadd_rn(y[(rb + r) * d + col], ff);
-      }
-  }
-  __syncthreads();
-
-  // BasicNorm, one warp per row
-  const float e = eps[0];
-  for (int r = warp; r < RT; r += nwarps) {
-    const int row = r0 + r;
-    if (row >= R) continue;
-    float ss = 0.f;
-    for (int k = lane; k < d; k += 32) ss = __fadd_rn(ss, __fmul_rn(y[r * d + k], y[r * d + k]));
-    ss = warp_sum(ss);
-    const float rs = rsqrtf(__fadd_rn(__fdiv_rn(ss, (float)d), e));
-    for (int k = lane; k < d; k += 32) out[(size_t)row * d + k] = __fmul_rn(y[r * d + k], rs);
-  }
-}
-
 static size_t rec_smem(int d, int H) {
   return sizeof(float) * (size_t)(TS * d * 2 + TS * H * 2 + 4 * TS) + (size_t)TS * (2 * d + H);
-}
-
-static size_t ffn_smem(int d, int F) {
-  return sizeof(float) * (size_t)(RT * d + RT * F + 2 * RT) + (size_t)RT * (d + F);
 }
 
 extern "C" int lstm_rec_i8(const float* x, const float* h, const float* c, const int* npulls,
@@ -313,11 +205,12 @@ extern "C" int ffn_norm_i8(const float* x, const float* hs, const int8_t* ff1, c
                            const void* f1b, const int8_t* ff2, const float* ff2s, const void* f2b,
                            const float* eps, float* out, int R, int d, int F, int f1b_bf16,
                            int f2b_bf16, void* stream) {
-  const size_t smem = ffn_smem(d, F);
-  cudaError_t err = allow_smem(ffn_norm_kernel, smem);
+  const auto kern = ffn_norm_kernel<RT, RG>;
+  const size_t smem = ffn_i8_smem<RT>(d, F);
+  cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((R + RT - 1) / RT);
-  ffn_norm_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+  kern<<<grid, FFN_NT, smem, (cudaStream_t)stream>>>(
       x, hs, ff1, ff1s, f1b, ff2, ff2s, f2b, eps, out, R, d, F, f1b_bf16, f2b_bf16);
   return (int)cudaGetLastError();
 }

@@ -40,6 +40,30 @@ def vocab_tables_device(vt: VocabTables) -> Dict[str, np.ndarray]:
     return {"mask": mask}
 
 
+def vocab_mask_on(vt: Dict[str, np.ndarray], dev) -> torch.Tensor:
+    """The packed vocab bitmask as an int32 tensor on `dev`, copied once and
+    kept in `vt` beside the host array."""
+    key = f"mask@{dev}"
+    t = vt.get(key)
+    if t is None:
+        t = vt[key] = torch.as_tensor(vt["mask"], dtype=torch.int32).to(dev)
+    return t
+
+
+_F32_CONSTS: Dict[tuple, torch.Tensor] = {}
+
+
+def _f32_on(v: float, dev) -> torch.Tensor:
+    """A 0-dim f32 tensor of v on `dev`, copied once: the decode step's
+    thresholds, without a host-to-device copy per call (a tensor, not a
+    Python scalar: CUDA divides by a host scalar through its reciprocal)."""
+    key = (float(v), str(dev))
+    t = _F32_CONSTS.get(key)
+    if t is None:
+        t = _F32_CONSTS[key] = torch.tensor(v, dtype=torch.float32, device=dev)
+    return t
+
+
 def init_decode_state(
     batch: int, context_size: int, joiner_dim: int, blank_id: int, cfg: DecodeConfig,
     device="cpu",
@@ -97,9 +121,9 @@ def decode_step_pre(
     evt = {"ops": zero, "tok": zero, "logprob": torch.zeros(S, device=dev),
            "flags": zero, "time_ms": zero, "final_k": zero}
     pos = torch.arange(T, device=dev)[None, :]
-    t_mask = torch.as_tensor(vt["mask"], dtype=i32, device=dev)
+    t_mask = vocab_mask_on(vt, dev)
     max_idx = max_idx.to(i32)
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    f32 = lambda v: _f32_on(v, dev)  # noqa: E731
 
     last_ctx = state["context"][:, -1]
     was_cleared = last_ctx == blank_id

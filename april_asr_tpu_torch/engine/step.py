@@ -5,12 +5,18 @@ One step advances every session by one audio chunk: the fbank accept
 (kernel 1 for int8 engines, else kernel 5), one ring read of every pull
 window, one batched conv embed, the 12-layer chunk encoder over all P pulls
 (kernels 2 and 3 per layer at int8, kernel 10 per layer at f32 or bf16),
-and the whole chunk's greedy decode (kernel 4). Handler-visible actions
+then the greedy decode: the whole chunk's in one launch of kernel 4 where
+the JAX package's gate `chunk_decode_supported` passes, else pull by pull
+through `inner_decode`, as the JAX step's scan does. Handler-visible actions
 leave the device as the compact APR4 event blob, bit-identical in layout to
-the JAX package's (see the layout note below). The flush program reproduces
-_aas_flush (src/april_session.c:547-564) as masked pull rounds, each an
-encoder pass at P = 1 through the same encoder kernels and a decode through
-kernel 4 at P = 1.
+the JAX package's (see the layout note below).
+
+The flush program reproduces _aas_flush (src/april_session.c:547-564) as
+masked pull rounds, each `pull_once` as in the JAX package: the one-step
+encoder (kernel 7 per layer at int8, kernel 12 at f32 or bf16), the h/c
+select by the pull mask, and `inner_decode`, three rounds of
+`decoder_joiner_argmax` (kernel 8, or the decoder step and kernel 9 where
+the gate `dj_supported` refuses) and `decode_step_pre`.
 
 Event blob layout (per sub-blob; one int32 vector):
   [0] BLOB_MAGIC  [1] S  [2] K cell capacity  [3] stride_ms
@@ -31,6 +37,7 @@ import torch
 
 from ..config import DecodeConfig, EngineConfig
 from ..decode import events as ev
+from ..decode import greedy
 from ..decode.greedy import init_decode_state, vocab_tables_device
 from ..frontend.fbank import (
     FbankLayout,
@@ -44,7 +51,7 @@ from ..frontend.fbank import (
 )
 from ..models.lstm_transducer import is_quantized
 from ..models.loader import ModelRuntime
-from ..ops.decode_kernels import EVENT_KEYS, chunk_decode
+from ..ops.decode_kernels import EVENT_KEYS, chunk_decode, chunk_decode_supported
 
 INNER_STEPS_EMIT = (1.0, 0.0, 0.0)  # early-emit ramp (april_session.c:449-453)
 BLOB_MAGIC = 0x41505234  # "APR4"
@@ -230,13 +237,49 @@ def build_engine(
     P = layout.max_pulls_per_step
     dev = rt.device
 
+    def chunk_decode_fits(weights, eouts) -> bool:
+        """The JAX step's choice between kernel 4 and the per-pull scan."""
+        _, S, J = eouts.shape
+        return chunk_decode_supported(S, J, weights["dec_table"].shape[2], rt.dims.context,
+                                      weights["join_t"].shape[1])
+
+    def inner_decode(weights, eout, can, dstate):
+        """The <= 3-symbol masked inner loop of one pull (JAX step.py
+        `inner_decode`, its decoder_joiner_argmax branch): events {key: [S, 3]}."""
+        dstate = dict(dstate)
+        done = ~can
+        evts = []
+        for ee in INNER_STEPS_EMIT:
+            mi, mv, bv, dstate["dout"] = rt.decoder_joiner_argmax(
+                weights, dstate["context"], dstate["need_dec"], dstate["dout"], eout
+            )
+            dstate, evt, is_blank, need_dec = greedy.decode_step_pre(
+                dstate, mi, mv, bv, ~done, ee, blank, vt, dcfg
+            )
+            dstate["need_dec"] = need_dec
+            done = done | is_blank
+            evts.append(evt)
+        return dstate, {k: torch.stack([e[k] for e in evts], dim=1) for k in EVENT_KEYS}
+
+    def add_time(dstate, can):
+        dstate = dict(dstate)
+        dstate["time_ms"] = (dstate["time_ms"] + stride * can.to(torch.int32)).to(torch.int32)
+        return dstate
+
     def decode(weights, eouts, can, dstate):
-        return chunk_decode(
-            eouts, can, dstate,
-            weights["dec_table"], weights["dec_proj_t"], weights["dec_proj_b"],
-            weights["join_t"], weights["join_b"], vt,
-            blank_id=blank, stride_ms=int(stride), emit_ramp=INNER_STEPS_EMIT, dcfg=dcfg,
-        )
+        """eouts [P, S, J], can [P, S] -> (dstate', events {key: [P, S, 3]})."""
+        if chunk_decode_fits(weights, eouts):
+            return chunk_decode(
+                eouts, can, dstate,
+                weights["dec_table"], weights["dec_proj_t"], weights["dec_proj_b"],
+                weights["join_t"], weights["join_b"], vt,
+                blank_id=blank, stride_ms=int(stride), emit_ramp=INNER_STEPS_EMIT, dcfg=dcfg,
+            )
+        per_pull = []
+        for p in range(eouts.shape[0]):
+            dstate, e = inner_decode(weights, eouts[p], can[p], add_time(dstate, can[p]))
+            per_pull.append(e)
+        return dstate, {k: torch.stack([e[k] for e in per_pull]) for k in EVENT_KEYS}
 
     def step(weights, state, audio_i16, n):
         audio = audio_i16.to(torch.float32) / 32768.0  # april_session.c:520-522
@@ -263,14 +306,19 @@ def build_engine(
                                       cfg.events_per_session)
 
     def pull_once(weights, fb, h, c, dstate):
-        """One pull: peek, encoder at P = 1 (gated by `can`), decode at
-        P = 1 (which adds stride * can to time_ms), advance."""
+        """One pull (JAX step.py `pull_once`): peek, time_ms += stride * can,
+        the ungated one-step encoder, h/c kept where the pull is masked, the
+        inner decode, advance. Returns the states and [S, 3] events."""
         can = fb["fifo_len"] >= seg
         x = fbank_peek(layout, fb)
-        eout, h, c = rt.encoder_step(weights, x, h, c, can)
-        dstate, events = decode(weights, eout[None], can[None], dstate)
+        dstate = add_time(dstate, can)
+        eout, h2, c2 = rt.encoder_step(weights, x, h, c)
+        m3 = can[None, :, None]
+        h = torch.where(m3, h2, h)
+        c = torch.where(m3, c2, c)
+        dstate, events = inner_decode(weights, eout, can, dstate)
         fb = fbank_advance(layout, fb, can)
-        return fb, h, c, dstate, {k: v[0] for k, v in events.items()}
+        return fb, h, c, dstate, events
 
     def _sel(mask, a, b):
         return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b)

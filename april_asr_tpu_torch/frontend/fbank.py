@@ -251,9 +251,7 @@ def fbank_flush_pad(layout: FbankLayout, state: FbankState) -> Tuple[FbankState,
     rel = torch.remainder(torch.arange(R, device=dev)[None, :] - state["fifo_off"][:, None], R)
     pad_mask = did[:, None] & (rel >= state["fifo_len"][:, None]) & (rel < seg)
     new_state = dict(state)
-    new_state["fifo"] = torch.where(
-        pad_mask[:, :, None], torch.tensor(log_eps, dtype=torch.float32, device=dev), state["fifo"]
-    )
+    new_state["fifo"] = torch.where(pad_mask[:, :, None], log_eps, state["fifo"])
     new_state["fifo_len"] = torch.where(
         did, torch.clamp_min(state["fifo_len"], seg), state["fifo_len"]
     ).to(torch.int32)

@@ -27,10 +27,14 @@ from ..io.params import ModelParameters, VocabTables, build_vocab_tables
 from ..io.safetensors import load_safetensors_bytes
 from .lstm_transducer import (
     TransducerDims,
+    decoder_joiner_argmax,
     decoder_step,
     encoder_chunk,
     encoder_embed,
+    encoder_recurrent,
     encoder_step,
+    joiner_argmax,
+    joiner_logits,
     precompute_decoder_tables,
 )
 
@@ -43,12 +47,18 @@ ONNX_SLICE_MSG = (
 
 @dataclasses.dataclass
 class ModelRuntime:
-    """Batched model functions plus metadata (the native LSTM family).
+    """Batched model functions plus metadata (the native LSTM family), with
+    the blank id and dims bound as in the JAX package's loader.
 
     encoder_embed(w, x[N, seg, mel]) -> [N, d]
     encoder_chunk(w, y[P, S, d], h[L, S, d], c[L, S, H], can[P, S]) -> (eout[P, S, J], h', c')
-    encoder_step(w, x[S, seg, mel], h, c, gate[S]) -> (eout[S, J], h', c')
+    encoder_recurrent(w, y[S, d], h, c, gate[S] | None) -> (eout[S, J], h', c')
+    encoder_step(w, x[S, seg, mel], h, c) -> (eout[S, J], h', c')   (ungated)
     decoder_step(w, context[S, ctx]) -> dout[S, J]
+    joiner(w, eout[S, J], dout[S, J]) -> logits[S, V]
+    joiner_argmax(w, eout, dout) -> (max_idx[S], max_val[S], blank_val[S])
+    decoder_joiner_argmax(w, context, need_dec[S], dout, eout)
+        -> (max_idx, max_val, blank_val, dout'[S, J])
     """
 
     name: str
@@ -63,8 +73,12 @@ class ModelRuntime:
     device: torch.device
     encoder_embed: Callable
     encoder_chunk: Callable
+    encoder_recurrent: Callable
     encoder_step: Callable
     decoder_step: Callable
+    joiner: Callable
+    joiner_argmax: Callable
+    decoder_joiner_argmax: Callable
     state_shapes: tuple
 
     @property
@@ -100,6 +114,7 @@ def native_runtime(
 ) -> ModelRuntime:
     """A runtime over native f32 weights already on `device`."""
     weights = precompute_decoder_tables(weights, dims)
+    blank = p.blank_id
     return ModelRuntime(
         name=name,
         description=description,
@@ -113,8 +128,14 @@ def native_runtime(
         device=torch.device(device),
         encoder_embed=encoder_embed,
         encoder_chunk=encoder_chunk,
+        encoder_recurrent=encoder_recurrent,
         encoder_step=encoder_step,
         decoder_step=lambda w, ctx: decoder_step(w, ctx, dims),
+        joiner=joiner_logits,
+        joiner_argmax=lambda w, e, d: joiner_argmax(w, e, d, blank),
+        decoder_joiner_argmax=lambda w, ctx, nd, dout, e: decoder_joiner_argmax(
+            w, ctx, nd, dout, e, blank, dims
+        ),
         state_shapes=((dims.layers, dims.d_model), (dims.layers, dims.hidden)),
     )
 

@@ -1,18 +1,22 @@
 """Native batched LSTM-transducer forward (port of
-april_asr_tpu/models/lstm_transducer.py): the conv embed, the chunk
-encoder, and the stateless decoder.
+april_asr_tpu/models/lstm_transducer.py): the conv embed, the chunk and
+one-step encoders, the stateless decoder and the joiner.
 
 Parameters are a flat dict of tensors with the JAX package's key names and
 layouts (pre-transposed matrices, stacked [L, ...] layer leaves). The chunk
-encoder is layer-major. With int8 copies of the layer matrices
-(`quantize_weights`) each layer is kernel 2 (recurrent core) then kernel 3
-(residual + FFN + BasicNorm); with f32 or bf16 weights each layer is one
-call of kernel 10 (`lstm_layer_chunk_fused`).
+encoder (the engine's step) is layer-major. With int8 copies of the layer
+matrices (`quantize_weights`) each layer is kernel 2 (recurrent core) then
+kernel 3 (residual + FFN + BasicNorm); with f32 or bf16 weights each layer
+is one call of kernel 10 (`lstm_layer_chunk_fused`), at every P, where the
+JAX package takes its XLA path below P = 12 (`CHUNK_MIN_PULLS`): the same
+function with f32 sums in another order.
 
-Kernel 10 runs at every P, the flush's P = 1 and a 200 ms Session's P = 7
-included, so the card never runs a plain version. The JAX package takes its
-XLA path below P = 12 (`CHUNK_MIN_PULLS`), which computes the same function
-with f32 sums in another order (it folds the bias into the x-side gates).
+The one-step encoder (`encoder_step`/`encoder_recurrent`, the engine's
+per-pull path and so every flush) runs one kernel per layer, kernel 7
+(`lstm_layer_fused_i8`) with int8 copies, else kernel 12
+(`lstm_layer_fused`), as the JAX package does at 128-multiple widths. The
+per-pull decode runs `decoder_joiner_argmax`: kernel 8 where the JAX gate
+`dj_supported` passes, else the decoder step and kernel 9.
 
 The int8 helpers `_q8_rows`/`_q8_mm` live beside the kernels' plain
 versions (ops/lstm_kernels.py `_rowq8`, `_q8_mm`). Products the JAX package
@@ -31,8 +35,14 @@ import numpy as np
 import torch
 
 from ..ops.activations import dot_wd, double_swish
-from ..ops.lstm_float_kernels import lstm_layer_chunk_fused
-from ..ops.lstm_kernels import ffn_norm_i8, lstm_layer_chunk_rec_i8
+from ..ops.decode_kernels import dj_supported
+from ..ops.joiner_kernels import (
+    decoder_joiner_argmax_fused,
+    joiner_argmax_fused,
+    joiner_logits_plain,
+)
+from ..ops.lstm_float_kernels import lstm_layer_chunk_fused, lstm_layer_fused
+from ..ops.lstm_kernels import ffn_norm_i8, lstm_layer_chunk_rec_i8, lstm_layer_fused_i8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,13 +229,42 @@ def encoder_chunk(params: Params, y, h, c, can=None):
     return eout, h_new, c_new
 
 
-def encoder_step(params: Params, x, h, c, gate=None):
-    """One streaming step: a [S, segment, mel] window -> (eout [S, J], h', c'),
-    run through the chunk encoder at P = 1 (`gate` [S] keeps h/c)."""
-    y = encoder_embed(params, x)[None]
-    can = None if gate is None else gate[None]
-    eout, h2, c2 = encoder_chunk(params, y, h, c, can)
-    return eout[0], h2, c2
+STEP_I8_KEYS = ("w_ih_t_q8", "w_ih_t_q8s", "w_hh_t_q8", "w_hh_t_q8s", "bias",
+                 "w_hr_t_q8", "w_hr_t_q8s", "ff1_t_q8", "ff1_t_q8s", "ff1_b",
+                 "ff2_t_q8", "ff2_t_q8s", "ff2_b", "norm_eps")
+STEP_KEYS = ("w_ih_t", "w_hh_t", "bias", "w_hr_t", "ff1_t", "ff1_b", "ff2_t", "ff2_b",
+              "norm_eps")
+
+
+def _lstm_stack_step(params: Params, x, h, c, gate=None):
+    """One timestep through all L layers: x [S, d], h [L, S, d], c [L, S, H]
+    -> (y [S, d], h', c'), one launch of kernel 7 (int8 copies) or kernel 12
+    per layer. `gate` (optional [S]) keeps the carried h/c of masked
+    sessions, blended as the kernels do."""
+    q = is_quantized(params)
+    layer = lstm_layer_fused_i8 if q else lstm_layer_fused
+    keys = STEP_I8_KEYS if q else STEP_KEYS
+    hs, cs = [], []
+    for l in range(h.shape[0]):
+        x, h_new, c_new = layer(x, h[l], c[l], *(params[k][l] for k in keys), gate)
+        hs.append(h_new)
+        cs.append(c_new)
+    return x, torch.stack(hs), torch.stack(cs)
+
+
+def encoder_recurrent(params: Params, y, h, c, gate=None):
+    """Recurrent back half: embedded [S, d] -> (eout [S, J], h', c');
+    `gate` (optional [S]) keeps the carried h/c of masked sessions (their
+    eout is still computed; the decode masks it)."""
+    y, h_new, c_new = _lstm_stack_step(params, y.contiguous(), h, c, gate)
+    eout = dot_wd(y, params["enc_proj_t"]) + params["enc_proj_b"].float()
+    return eout, h_new, c_new
+
+
+def encoder_step(params: Params, x, h, c):
+    """One streaming encoder step, ungated: a [S, segment, mel] window ->
+    (eout [S, J], h', c')."""
+    return encoder_recurrent(params, encoder_embed(params, x), h, c)
 
 
 def precompute_decoder_tables(params: Params, dims: TransducerDims) -> Params:
@@ -254,3 +293,34 @@ def decoder_step(params: Params, context: torch.Tensor, dims: TransducerDims) ->
     y = torch.relu(pre)
     return dot_wd(y, params["dec_proj_t"]) + params["dec_proj_b"].float()
 
+
+
+def joiner_logits(params: Params, eout: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """[S, J] + [S, J] -> [S, vocab] logits (the tanh joiner)."""
+    return joiner_logits_plain(eout, dout, params["join_t"], params["join_b"])
+
+
+def joiner_argmax(params: Params, eout: torch.Tensor, dout: torch.Tensor, blank_id: int):
+    """(max_idx, max_val, blank_val) of the joiner without the [S, vocab]
+    logits: kernel 9 on CUDA, at any vocabulary size."""
+    return joiner_argmax_fused(eout, dout, params["join_t"], params["join_b"], blank_id=blank_id)
+
+
+def decoder_joiner_argmax(params: Params, ctx, need_dec, dout, eout, blank_id: int,
+                          dims: TransducerDims):
+    """One round of the lazy-dout decode: refresh dout where `need_dec`,
+    then the joiner and argmax. Kernel 8 where the JAX gate passes, else the
+    decoder step, the `need_dec` select and kernel 9, as the JAX package
+    does. Returns (max_idx, max_val, blank_val, dout')."""
+    S, J = eout.shape
+    w_t = params["join_t"]
+    if dj_supported(S, J, params["dec_table"].shape[2], dims.context,
+                    vocab=w_t.shape[1], w_itemsize=w_t.element_size()):
+        return decoder_joiner_argmax_fused(
+            ctx, need_dec, dout, eout, params["dec_table"], params["dec_proj_t"],
+            params["dec_proj_b"], w_t, params["join_b"], blank_id=blank_id,
+        )
+    new_dout = decoder_step(params, ctx, dims)
+    dout = torch.where(need_dec[:, None], new_dout, dout)
+    mi, mv, bv = joiner_argmax(params, eout, dout, blank_id)
+    return mi, mv, bv, dout

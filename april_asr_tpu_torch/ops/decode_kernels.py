@@ -1,4 +1,5 @@
-"""Kernel 4: the whole chunk's greedy decode in one launch.
+"""Kernel 4: the whole chunk's greedy decode in one launch, and the gates
+that choose between it and the per-pull decode.
 
 Port of `chunk_decode_fused` (april_asr_tpu/ops/decode_pallas.py,
 `_chunk_decode_kernel`). For each of P pulls and up to 3 masked rounds
@@ -12,9 +13,20 @@ that pull (`can`), as the engine's per-pull loop does. `dec_proj_t` and
 CUDA kernel is instantiated for both and counts under `chunk_decode` and
 `chunk_decode_f32`.
 
-`chunk_decode` takes the plain PyTorch version (the engine's per-pull loop
-of decoder refresh + joiner + `decode_step_pre`) for CPU tensors and
-launches csrc/chunk_decode.cu for CUDA tensors; it never falls back.
+`chunk_decode` takes the plain PyTorch version (per pull and round, kernel
+8's plain version then `decode_step_pre`) for CPU tensors and launches
+csrc/chunk_decode.cu for CUDA tensors; it never falls back.
+
+`chunk_decode_supported` and `dj_supported` are the port's copies of the
+JAX package's gates (decode_pallas.py `chunk_decode_supported`,
+joiner_pallas.py `dj_supported`): the engine's step runs kernel 4 only where
+the first passes, and the per-pull decode runs kernel 8 only where the
+second passes (else kernel 9). They keep JAX's formulas, which bound the
+vocabulary-sized operands by the TPU's VMEM budget, so the port takes the
+same route as the JAX package for every model. They drop JAX's
+`S % block_s` term, since the CUDA kernels take ragged session tiles, and
+size the budget's activation tiles at JAX's block for S, or 128 sessions
+where JAX has none. They read only shapes, never the device.
 """
 
 from __future__ import annotations
@@ -23,40 +35,47 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..decode.greedy import NEG_INF, decode_step_pre
+from ..decode import greedy
 from . import cuda_build
-from .activations import dot_wd
+from .joiner_kernels import decoder_joiner_argmax_plain
 
 EVENT_KEYS = ("ops", "tok", "logprob", "flags", "time_ms", "final_k")
 
-_MASKS: dict = {}
+_VMEM_BUDGET = 56 * 1024 * 1024  # the JAX gates' bound on resident bytes
 
 
-def _mask_on(vt, dev) -> torch.Tensor:
-    """The packed vocab bitmask as an int32 device tensor (cached)."""
-    key = (id(vt["mask"]), str(dev))
-    m = _MASKS.get(key)
-    if m is None:
-        m = _MASKS[key] = torch.as_tensor(vt["mask"], dtype=torch.int32).to(dev)
-    return m
+def _gate_block_s(S: int) -> int:
+    """JAX's session block for S (`_pick_block_s`), or 128 where it has none."""
+    return next((b for b in (512, 256, 128) if S % b == 0), 128)
 
 
-def joiner_prologue(eout, dout, w_t, b, blank_id: int):
-    """(max_idx, max_val, blank_val) of tanh(eout + dout) @ W + b with the
-    blank column excluded from the argmax (first index on ties)."""
-    logits = dot_wd(torch.tanh(eout + dout), w_t) + b.float()
-    V = logits.shape[1]
-    masked = torch.where(
-        torch.arange(V, device=logits.device)[None, :] == blank_id,
-        torch.tensor(NEG_INF, dtype=torch.float32, device=logits.device),
-        logits,
-    )
-    return masked.argmax(dim=1).to(torch.int32), masked.amax(dim=1), logits[:, blank_id]
+def chunk_decode_supported(S: int, J: int, d: int, context: int, vocab: int) -> bool:
+    """True where the JAX package runs its whole-chunk decode kernel for
+    these shapes (less its `S % block_s` term): 2-token context,
+    128-multiple widths, and the vocabulary-sized operands within its
+    budget. At d = J = 512 kernel 4's shared memory holds every vocabulary
+    this passes; narrower models (d or J of 128 or 256) pass vocabularies
+    above ~13.4k tokens that it cannot hold, and its wrapper raises."""
+    if not (context == 2 and J % 128 == 0 and d % 128 == 0):
+        return False
+    Vp = -(-vocab // 128) * 128 if vocab else 0
+    resident = 2 * Vp * d * 4 + J * Vp * 4 + d * J * 4 + _gate_block_s(S) * (6 * J + 64) * 4
+    return resident <= _VMEM_BUDGET
 
 
-def decoder_refresh(ctx, dec_table, dec_proj_t, dec_proj_b):
-    pre = dec_table[0][ctx[:, 0].long()] + dec_table[1][ctx[:, 1].long()]
-    return dot_wd(torch.relu(pre), dec_proj_t) + dec_proj_b.float()
+def dj_supported(S: int, J: int, d: int, context: int, vocab: int = 0, w_itemsize: int = 4) -> bool:
+    """True where the JAX package runs kernel 8 (`decoder_joiner_argmax_fused`)
+    for these shapes (less its `S % block_s` term); elsewhere its per-pull
+    decode runs the decoder step and kernel 9."""
+    if not (context == 2 and J % 128 == 0 and d % 128 == 0):
+        return False
+    if vocab:
+        Vp = -(-vocab // 128) * 128
+        resident = (2 * Vp * d * 4 + J * Vp * w_itemsize + d * J * w_itemsize
+                    + _gate_block_s(S) * (4 * J + 16) * 4)
+        if resident > _VMEM_BUDGET:
+            return False
+    return True
 
 
 def chunk_decode_plain(eouts, can, dstate, dec_table, dec_proj_t, dec_proj_b, w_t, b,
@@ -70,10 +89,11 @@ def chunk_decode_plain(eouts, can, dstate, dec_table, dec_proj_t, dec_proj_b, w_
         done = ~can_p
         rounds = []
         for ee in emit_ramp:
-            new_dout = decoder_refresh(dstate["context"], dec_table, dec_proj_t, dec_proj_b)
-            dstate["dout"] = torch.where(dstate["need_dec"][:, None], new_dout, dstate["dout"])
-            mi, mv, bv = joiner_prologue(eouts[p], dstate["dout"], w_t, b, blank_id)
-            dstate, evt, is_blank, need_dec = decode_step_pre(
+            mi, mv, bv, dstate["dout"] = decoder_joiner_argmax_plain(
+                dstate["context"], dstate["need_dec"], dstate["dout"], eouts[p],
+                dec_table, dec_proj_t, dec_proj_b, w_t, b, blank_id,
+            )
+            dstate, evt, is_blank, need_dec = greedy.decode_step_pre(
                 dstate, mi, mv, bv, ~done, ee, blank_id, vt, dcfg
             )
             dstate["need_dec"] = need_dec
@@ -115,7 +135,7 @@ def chunk_decode_cuda(eouts, can, dstate, dec_table, dec_proj_t, dec_proj_b, w_t
     nd_i = i32(dstate["need_dec"])
     sil_i = i32(dstate["emitted_silence"])
     scal_in = [i32(dstate[k]) for k in ("head", "last_call", "time_ms", "last_emit_ms")]
-    tmask = _mask_on(vt, dev)
+    tmask = greedy.vocab_mask_on(vt, dev)
     out_ctx = torch.empty_like(dstate["context"])
     out_dout = torch.empty_like(dstate["dout"])
     out_words = torch.empty_like(dstate["token_words"])
@@ -124,7 +144,6 @@ def chunk_decode_cuda(eouts, can, dstate, dec_table, dec_proj_t, dec_proj_b, w_t
                          device=dev) for k in EVENT_KEYS}
     w_f32 = int(wd == torch.float32)
     fn = cuda_build.bind("chunk_decode", "chunk_decode", 32, 9, 8)
-    cuda_build.COUNTS["chunk_decode_f32" if w_f32 else "chunk_decode"] += 1
     rc = fn(
         eouts.data_ptr(), can_i.data_ptr(),
         dstate["context"].data_ptr(), dstate["dout"].data_ptr(), nd_i.data_ptr(),
@@ -141,7 +160,14 @@ def chunk_decode_cuda(eouts, can, dstate, dec_table, dec_proj_t, dec_proj_b, w_t
         float(dcfg.silence_decay_ms),
         torch.cuda.current_stream(dev).cuda_stream,
     )
+    if rc < 0:
+        raise ValueError(
+            f"chunk_decode: V={V}, J={J}, d={d}, T={T} need {-rc} bytes of shared memory per "
+            "block, more than this device allows one block; chunk_decode_supported refuses "
+            "such shapes"
+        )
     cuda_build.check(rc, "chunk_decode")
+    cuda_build.COUNTS["chunk_decode_f32" if w_f32 else "chunk_decode"] += 1
     nd, head, last_call, time_ms, last_emit, sil = out_scal
     state = dict(dstate)
     state.update(

@@ -1,0 +1,151 @@
+"""Kernels 8 and 9: one round of the greedy decode's joiner and argmax.
+
+Ports of april_asr_tpu/ops/joiner_pallas.py:
+
+* `joiner_argmax_fused` (kernel 9, `_kernel`): logits =
+  wd(tanh(eout + dout)) @ join_t + join_b, where wd(.) rounds to the type
+  of `join_t` (bf16 or f32) and the sum is f32; returns (max_idx, max_val,
+  blank_val) with the blank column excluded from the max (NEG_INF, first
+  index on ties). Any vocabulary size, unpadded.
+* `decoder_joiner_argmax_fused` (kernel 8, `_dj_kernel`): first the lazy
+  decoder refresh, pre = dec_table[0][c0] + dec_table[1][c1] (exact f32 row
+  gathers, which is what the TPU kernel's one-hot f32 contraction computes),
+  new = wd(relu(pre)) @ dec_proj_t + dec_proj_b, and the blend
+  dout' = nd * new + (1 - nd) * dout with nd = need_dec as f32; then kernel
+  9's joiner and argmax on dout'. Returns (max_idx, max_val, blank_val,
+  dout').
+
+The plain versions are the decode's only joiner and refresh: the whole-chunk
+decode's plain version (ops/decode_kernels.py) runs them too. Each wrapper
+takes the plain version for CPU tensors and launches csrc/joiner.cu for CUDA
+tensors (counted as `joiner_argmax`/`joiner_argmax_f32` and
+`dec_joiner`/`dec_joiner_f32` by weight type); it never falls back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..decode.greedy import NEG_INF
+from . import cuda_build
+from .activations import dot_wd
+from .lstm_kernels import _check
+
+
+def joiner_logits_plain(eout, dout, w_t, b):
+    """[S, J] + [S, J] -> [S, V] logits: wd(tanh(eout + dout)) @ w_t + b."""
+    return dot_wd(torch.tanh(eout + dout), w_t) + b.float()
+
+
+def joiner_argmax_plain(eout, dout, w_t, b, blank_id: int):
+    logits = joiner_logits_plain(eout, dout, w_t, b)
+    V = logits.shape[1]
+    masked = torch.where(
+        torch.arange(V, device=logits.device)[None, :] == blank_id,
+        torch.tensor(NEG_INF, dtype=torch.float32, device=logits.device),
+        logits,
+    )
+    return masked.argmax(dim=1).to(torch.int32), masked.amax(dim=1), logits[:, blank_id]
+
+
+def decoder_refresh(ctx, dec_table, dec_proj_t, dec_proj_b):
+    """The 2-token decoder from its tables: [S, 2] -> [S, J]."""
+    pre = dec_table[0][ctx[:, 0].long()] + dec_table[1][ctx[:, 1].long()]
+    return dot_wd(torch.relu(pre), dec_proj_t) + dec_proj_b.float()
+
+
+def decoder_joiner_argmax_plain(ctx, need_dec, dout, eout, dec_table, dec_proj_t, dec_proj_b,
+                                w_t, b, blank_id: int):
+    nd = need_dec.float()[:, None]
+    new = decoder_refresh(ctx, dec_table, dec_proj_t, dec_proj_b)
+    dout = nd * new + (1.0 - nd) * dout
+    mi, mv, bv = joiner_argmax_plain(eout, dout, w_t, b, blank_id)
+    return mi, mv, bv, dout
+
+
+def _weight_type(w_t, what: str) -> int:
+    """1 for f32 weights, 0 for bf16; raises for any other type."""
+    if w_t.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what}: join_t must be bfloat16 or float32, got {w_t.dtype}")
+    return int(w_t.dtype == torch.float32)
+
+
+def _outputs(S: int, dev):
+    """max_idx, max_val, blank_val, and the kernel's [S] argmax-key scratch."""
+    return (torch.empty(S, dtype=torch.int32, device=dev),
+            torch.empty(S, dtype=torch.float32, device=dev),
+            torch.empty(S, dtype=torch.float32, device=dev),
+            torch.empty(S, dtype=torch.int64, device=dev))
+
+
+def joiner_argmax_cuda(eout, dout, w_t, b, blank_id: int):
+    S, J = eout.shape
+    V = w_t.shape[1]
+    w_f32 = _weight_type(w_t, "joiner_argmax")
+    for t, dt, shape, what in ((eout, torch.float32, (S, J), "eout"),
+                               (dout, torch.float32, (S, J), "dout"),
+                               (w_t, w_t.dtype, (J, V), "join_t"), (b, torch.float32, (V,), "join_b")):
+        _check(t, dt, shape, f"joiner_argmax {what}")
+    mi, mv, bv, keys = _outputs(S, eout.device)
+    fn = cuda_build.bind("joiner", "joiner_argmax", 8, 5)
+    cuda_build.COUNTS["joiner_argmax_f32" if w_f32 else "joiner_argmax"] += 1
+    rc = fn(
+        eout.data_ptr(), dout.data_ptr(), w_t.data_ptr(), b.data_ptr(),
+        mi.data_ptr(), mv.data_ptr(), bv.data_ptr(), keys.data_ptr(), S, J, V, blank_id, w_f32,
+        torch.cuda.current_stream(eout.device).cuda_stream,
+    )
+    cuda_build.check(rc, "joiner_argmax")
+    return mi, mv, bv
+
+
+def joiner_argmax_fused(eout, dout, w_t, b, *, blank_id: int):
+    """eout/dout [S, J] f32, w_t [J, V], b [V] -> (max_idx [S] i32,
+    max_val [S], blank_val [S])."""
+    if eout.device.type == "cpu":
+        return joiner_argmax_plain(eout, dout, w_t, b, blank_id)
+    if eout.device.type != "cuda":
+        raise ValueError(f"joiner_argmax: unsupported device {eout.device}")
+    return joiner_argmax_cuda(eout, dout, w_t, b, blank_id)
+
+
+def decoder_joiner_argmax_cuda(ctx, need_dec, dout, eout, dec_table, dec_proj_t, dec_proj_b,
+                               w_t, b, blank_id: int):
+    S, J = eout.shape
+    V = w_t.shape[1]
+    d = dec_table.shape[2]
+    w_f32 = _weight_type(w_t, "dec_joiner")
+    nd = need_dec.to(torch.float32).contiguous()
+    for t, dt, shape, what in (
+        (ctx, torch.int32, (S, 2), "context"), (nd, torch.float32, (S,), "need_dec"),
+        (dout, torch.float32, (S, J), "dout"), (eout, torch.float32, (S, J), "eout"),
+        (dec_table, torch.float32, (2, V, d), "dec_table"), (dec_proj_t, w_t.dtype, (d, J), "dec_proj_t"),
+        (dec_proj_b, torch.float32, (J,), "dec_proj_b"), (w_t, w_t.dtype, (J, V), "join_t"),
+        (b, torch.float32, (V,), "join_b"),
+    ):
+        _check(t, dt, shape, f"dec_joiner {what}")
+    mi, mv, bv, keys = _outputs(S, eout.device)
+    dout2 = torch.empty_like(dout)
+    fn = cuda_build.bind("joiner", "dec_joiner", 14, 6)
+    cuda_build.COUNTS["dec_joiner_f32" if w_f32 else "dec_joiner"] += 1
+    rc = fn(
+        ctx.data_ptr(), nd.data_ptr(), dout.data_ptr(), eout.data_ptr(), dec_table.data_ptr(),
+        dec_proj_t.data_ptr(), dec_proj_b.data_ptr(), w_t.data_ptr(), b.data_ptr(),
+        mi.data_ptr(), mv.data_ptr(), bv.data_ptr(), dout2.data_ptr(), keys.data_ptr(),
+        S, J, d, V, blank_id, w_f32,
+        torch.cuda.current_stream(eout.device).cuda_stream,
+    )
+    cuda_build.check(rc, "dec_joiner")
+    return mi, mv, bv, dout2
+
+
+def decoder_joiner_argmax_fused(ctx, need_dec, dout, eout, dec_table, dec_proj_t, dec_proj_b,
+                                w_t, b, *, blank_id: int):
+    """ctx [S, 2] i32, need_dec [S] bool, dout/eout [S, J] f32, dec_table
+    [2, V, d] f32, dec_proj_t [d, J] and w_t [J, V] bf16 or f32 ->
+    (max_idx [S] i32, max_val [S], blank_val [S], dout' [S, J])."""
+    args = (ctx, need_dec, dout, eout, dec_table, dec_proj_t, dec_proj_b, w_t, b, blank_id)
+    if eout.device.type == "cpu":
+        return decoder_joiner_argmax_plain(*args)
+    if eout.device.type != "cuda":
+        raise ValueError(f"dec_joiner: unsupported device {eout.device}")
+    return decoder_joiner_argmax_cuda(*args)

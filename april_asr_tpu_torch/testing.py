@@ -7,7 +7,6 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
-import torch
 
 
 def default_tokens(vocab: int, blank_id: int = 0) -> List[bytes]:
@@ -33,16 +32,17 @@ def default_tokens(vocab: int, blank_id: int = 0) -> List[bytes]:
 
 
 class DecisionMargins:
-    """Records, for every round of the plain greedy decode
-    (ops/decode_kernels.chunk_decode_plain) and every session, the smallest
-    margin by which a float decision was taken: blank against the best token
-    (with the early-emit bonus), the best token against the second best, and
-    the punctuation and confident-blank thresholds where they applied
-    (inf for sessions not decoding in that round). Int8 re-quantization
-    turns an f32 ulp into a logit shift of about 1e-3, so two
-    implementations may take a decision apart only where its margin is
-    small; parity checks use this to show that the first event where two
-    streams part was a near-tie.
+    """Records, for every round of the plain greedy decode (the plain joiner
+    `ops/joiner_kernels.joiner_argmax_plain`, then `decode_step_pre`, in the
+    whole-chunk decode and in the per-pull `inner_decode` alike) and every
+    session, the smallest margin by which a float decision was taken: blank
+    against the best token (with the early-emit bonus), the best token
+    against the second best, and the punctuation and confident-blank
+    thresholds where they applied (inf for sessions not decoding in that
+    round). Int8 re-quantization turns an f32 ulp into a logit shift of
+    about 1e-3, so two implementations may take a decision apart only where
+    its margin is small; parity checks use this to show that the first
+    event where two streams part was a near-tie.
 
         with DecisionMargins() as m:
             engine.tick()
@@ -63,16 +63,16 @@ class DecisionMargins:
         return np.concatenate([m, pad])
 
     def __enter__(self):
-        from .ops import decode_kernels as dk
-        from .ops.activations import dot_wd
+        from .decode import greedy
+        from .ops import joiner_kernels as jk
 
-        self._dk = dk
-        self._orig = (dk.joiner_prologue, dk.decode_step_pre)
+        self._mods = (jk, greedy)
+        self._orig = (jk.joiner_argmax_plain, greedy.decode_step_pre)
         self._gap = None
         orig_prologue, orig_step = self._orig
 
         def prologue(eout, dout, w_t, b, blank_id):
-            logits = dot_wd(torch.tanh(eout + dout), w_t) + b.float()
+            logits = jk.joiner_logits_plain(eout, dout, w_t, b)
             logits[:, blank_id] = float("-inf")
             top2 = logits.topk(2, dim=1).values
             self._gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
@@ -82,11 +82,12 @@ class DecisionMargins:
             self._record(state, max_idx, max_val, blank_val, active, early_emit, blank_id, vt, cfg)
             return orig_step(state, max_idx, max_val, blank_val, active, early_emit, blank_id, vt, cfg)
 
-        dk.joiner_prologue, dk.decode_step_pre = prologue, step
+        jk.joiner_argmax_plain, greedy.decode_step_pre = prologue, step
         return self
 
     def __exit__(self, *exc):
-        self._dk.joiner_prologue, self._dk.decode_step_pre = self._orig
+        jk, greedy = self._mods
+        jk.joiner_argmax_plain, greedy.decode_step_pre = self._orig
 
     def _record(self, state, mi, mv, bv, active, early_emit, blank_id, vt, cfg):
         from .decode.greedy import MASK_PUNCT

@@ -5,7 +5,8 @@ Builds the port's CUDA kernels from csrc/, holds each against its plain
 PyTorch version at the flagship serving shapes, checks the streaming engine
 against the CPU (plain) engine on a small model at int8 and at f32, drives a
 flagship BatchEngine at int8, bf16 and f32 and a synchronous Session at int8
-and at f32 (the weights as loaded), and prints the results.
+and at f32 (the weights as loaded), serves a flagship-width model with a
+16,383-token vocabulary, and prints the results.
 
     python3 chip_smoke.py                      # every phase (as the check runs it)
     python3 chip_smoke.py --phases build,kernels
@@ -14,15 +15,21 @@ Phases (each fails the run on error):
   build      nvcc for every csrc/*.cu, all started at once
   kernels    each kernel against its plain version: timed at S=256, P=27,
              F=101, checked again at S=3, P=5 (ragged tiles); the int8
-             kernels on int8 weights, kernel 10 on f32 and on bf16 weights,
-             the chunk decode on bf16 and on f32 weights
+             kernels on int8 weights, kernels 10 and 12 on f32 and on bf16
+             weights, the chunk decode and kernels 8 and 9 on bf16 and on
+             f32 decode weights, kernel 9 again at V=16,383
   reference  a tiny random model: CUDA engine vs CPU engine, same streams,
-             at int8 and at f32
+             at int8 and at f32 (the flush runs kernels 7, 12 and 8)
   engine     flagship random model, BatchEngine S=256, 1 s chunks, 10 ticks
-             of tone bursts then flush, at int8, bf16 and f32; launch
-             counts, timing and the profiler's busy share
+             of tone bursts then flush, at int8, bf16 and f32; the step's
+             and the flush's launch counts checked apart, timing and the
+             profiler's busy share of a step and of a flush
   session    one synchronous Session, 200 ms feeds over 3 s, then flush: at
              int8, and from Model(path) with no precision (f32 as loaded)
+  vocab      a flagship-width model with 16,383 tokens, which kernel 4
+             cannot hold: the CUDA engine vs the CPU engine at S=8 (f32),
+             then BatchEngine S=256 at f32 and bf16, 3 ticks and a flush,
+             decoding through kernel 9 alone
 
 Output: one line per kernel and per phase, then a JSON line
 {"kernels": [...]}, the `nvidia-smi` name and power limit, and as the last
@@ -43,7 +50,7 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("build", "kernels", "reference", "engine", "session")
+PHASES = ("build", "kernels", "reference", "engine", "session", "vocab")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s and ops/s by type
 HBM_BPS = 3.35e12
@@ -113,26 +120,36 @@ def flagship_april(tmp: str, seed: int = 0, dims=None) -> str:
     dims = dims or TransducerDims()
     p = init_transducer_params(seed, dims)
     p["join_b"][0] += 2.0
-    path = os.path.join(tmp, "flagship.april")
+    path = os.path.join(tmp, f"flagship-v{dims.vocab}.april")
     save_april(path, dims, p, make_model_parameters(dims, default_tokens(dims.vocab)),
                name="flagship-random")
     return path
 
 
-# The kernels each serving precision's path launches (cuda_build.COUNTS keys)
+# The kernels each path launches (cuda_build.COUNTS keys), in the step and
+# in the flush: the step runs the chunk encoder and, where the JAX gate
+# passes, kernel 4; the flush runs the one-step encoder and the per-pull
+# decode (kernel 8, or kernel 9 where its gate refuses).
 PATH_KERNELS = {
-    "int8": ("fbank_i8", "lstm_rec_i8", "ffn_norm_i8", "chunk_decode"),
-    "bf16": ("fbank_bf16x3", "lstm_chunk_bf16", "chunk_decode"),
-    "f32": ("fbank_bf16x3", "lstm_chunk_f32", "chunk_decode_f32"),
+    "int8": {"step": ("fbank_i8", "lstm_rec_i8", "ffn_norm_i8", "chunk_decode"),
+             "flush": ("fbank_i8", "lstm_step_i8", "dec_joiner")},
+    "bf16": {"step": ("fbank_bf16x3", "lstm_chunk_bf16", "chunk_decode"),
+             "flush": ("fbank_bf16x3", "lstm_step_bf16", "dec_joiner")},
+    "f32": {"step": ("fbank_bf16x3", "lstm_chunk_f32", "chunk_decode_f32"),
+            "flush": ("fbank_bf16x3", "lstm_step_f32", "dec_joiner_f32")},
+    "vocab f32": {"step": ("fbank_bf16x3", "lstm_chunk_f32", "joiner_argmax_f32"),
+                  "flush": ("fbank_bf16x3", "lstm_step_f32", "joiner_argmax_f32")},
+    "vocab bf16": {"step": ("fbank_bf16x3", "lstm_chunk_bf16", "joiner_argmax"),
+                   "flush": ("fbank_bf16x3", "lstm_step_bf16", "joiner_argmax")},
 }
 
 
-def require_launches(what: str, precision: str) -> dict:
+def require_launches(what: str, path: str, half: str) -> dict:
     """The launch counts since the last reset; fails if a kernel of the
-    precision's path never launched or a kernel of another path did."""
+    path's step or flush (`half`) never launched, or any other kernel did."""
     from april_asr_tpu_torch.ops import cuda_build
 
-    keys = PATH_KERNELS[precision]
+    keys = PATH_KERNELS[path][half]
     launches = {k: v for k, v in cuda_build.COUNTS.items() if v or k in keys}
     missing = [k for k in keys if launches[k] == 0]
     stray = [k for k in launches if k not in keys]
@@ -140,6 +157,14 @@ def require_launches(what: str, precision: str) -> dict:
         raise AssertionError(f"{what}: kernels never launched: {missing}; "
                              f"kernels of another path launched: {stray}")
     return launches
+
+
+def _merge(*counts) -> dict:
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 # -- phases -------------------------------------------------------------------
@@ -229,6 +254,57 @@ def _check_decode(rt, S: int, P: int, rng, dev, t) -> tuple:
     return kf, pf, err, b, f"eouts[{P},{S},{J}] V={V} events={n_ev} active_cells={n_act}"
 
 
+def _check_joiner(rt, S: int, rng, dev, t, refresh: bool) -> tuple:
+    """Kernel 8 (`refresh`: decoder refresh, then joiner and argmax) or
+    kernel 9 (joiner and argmax) on `rt`'s decode weights at S sessions.
+    max_idx must be equal wherever the plain version's top two non-blank
+    logits differ by more than 1e-4; max_val, blank_val and dout' are held to
+    atol 1e-4: f32 sums of the same products in another order differ by f32
+    ulps of these unit-scale logits."""
+    from april_asr_tpu_torch.ops import joiner_kernels as JK
+    from april_asr_tpu_torch.ops.activations import dot_wd
+
+    w, dims = rt.weights, rt.dims
+    d, J, V, blank = dims.d_model, dims.joiner_dim, dims.vocab, rt.blank_id
+    eout = t((rng.normal(size=(S, J)) * 2.0).astype(np.float32))
+    dout = t(rng.normal(size=(S, J)).astype(np.float32))
+    ctx = t(rng.integers(0, V, size=(S, 2)).astype(np.int32))
+    nd = t(rng.random(S) < 0.5)
+    dec = (w["dec_table"], w["dec_proj_t"], w["dec_proj_b"], w["join_t"], w["join_b"])
+    if refresh:
+        kf = lambda: JK.decoder_joiner_argmax_fused(ctx, nd, dout, eout, *dec, blank_id=blank)  # noqa: E731
+        pf = lambda: JK.decoder_joiner_argmax_plain(ctx, nd, dout, eout, *dec, blank)  # noqa: E731
+    else:
+        kf = lambda: JK.joiner_argmax_fused(eout, dout, w["join_t"], w["join_b"], blank_id=blank)  # noqa: E731
+        pf = lambda: JK.joiner_argmax_plain(eout, dout, w["join_t"], w["join_b"], blank)  # noqa: E731
+    got, want = kf(), pf()
+    torch.cuda.synchronize()
+    f32 = w["join_t"].dtype == torch.float32
+    name = ("dec_joiner" if refresh else "joiner_argmax") + ("_f32" if f32 else "")
+    logits = dot_wd(torch.tanh(eout + (want[3] if refresh else dout)), w["join_t"]) + w["join_b"]
+    logits[:, blank] = -float("inf")
+    top2 = logits.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-4
+    if float(clear.float().mean()) < 0.9:
+        raise AssertionError(f"{name}: only {int(clear.sum())} of {S} rows clear of a near-tie")
+    if not torch.equal(got[0][clear], want[0][clear]):
+        raise AssertionError(f"{name}: max_idx differs from the plain version")
+    err = 0.0
+    for i, what in ((1, "max_val"), (2, "blank_val"), (3, "dout'"))[: 3 if refresh else 2]:
+        torch.testing.assert_close(got[i], want[i], atol=1e-4, rtol=0, msg=f"{name} {what}")
+        err = max(err, float((got[i] - want[i]).abs().max()))
+    wb = 4 if f32 else 2
+    n_bytes = S * (2 * J * 4 + 12) + J * V * wb + V * 4
+    ops = 2 * S * J * V
+    if refresh:
+        # the refresh reads only the table rows the contexts name
+        rows = len(torch.unique(ctx[:, 0])) + len(torch.unique(ctx[:, 1]))
+        n_bytes += S * (8 + 1 + J * 4) + rows * d * 4 + d * J * wb + J * 4
+        ops += 2 * S * d * J
+    b = bound_ms(n_bytes, {"f32" if f32 else "bf16": ops})
+    return kf, pf, err, b, f"eout[{S},{J}] d={d} V={V}"
+
+
 def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
     """Each kernel's wrapper and its plain version on the same inputs at S
     sessions and P pulls (F = 101 frames), held to the stated tolerances;
@@ -236,6 +312,7 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
     precision. Returns {name: (kernel call, plain call, max abs err, bound,
     shape)}."""
     from april_asr_tpu_torch.frontend.fbank import FbankLayout
+    from april_asr_tpu_torch.models import lstm_transducer as TM
     from april_asr_tpu_torch.ops import fbank_kernels as FK
     from april_asr_tpu_torch.ops import lstm_float_kernels as LF
     from april_asr_tpu_torch.ops import lstm_kernels as LK
@@ -340,6 +417,51 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
     # 4. chunk_decode on bf16 (int8 and bf16 serving) and f32 decode weights
     out["chunk_decode"] = _check_decode(rt, S, P, rng, dev, t)
     out["chunk_decode_f32"] = _check_decode(models["f32"].runtime, S, P, rng, dev, t)
+
+    # 7. lstm_step_i8 and 12. lstm_step_f32/bf16: one layer's timestep
+    # (layer 0) at the flush's shapes, ungated as the engine runs it, and
+    # checked once more gated. Int8 to f32 ulps except isolated int8
+    # rounding flips; f32 and bf16 at kernel 10's bounds, as above.
+    xs = t(rng.normal(size=(S, d)).astype(np.float32))
+    gate = t(rng.random(S) < 0.5)
+    for name, prec, kfn, pfn, keys in (
+        ("lstm_step_i8", "int8", LK.lstm_layer_fused_i8, LK.lstm_layer_fused_i8_plain, TM.STEP_I8_KEYS),
+        ("lstm_step_f32", "f32", LF.lstm_layer_fused, LF.lstm_layer_fused_plain, TM.STEP_KEYS),
+        ("lstm_step_bf16", "bf16", LF.lstm_layer_fused, LF.lstm_layer_fused_plain, TM.STEP_KEYS),
+    ):
+        wl = models[prec].runtime.weights
+        sa = tuple(wl[k][0] for k in keys)
+        err = 0.0
+        for g in (None, gate):
+            got, want = kfn(xs, h0, c0, *sa, g), pfn(xs, h0, c0, *sa, g)
+            torch.cuda.synchronize()
+            for gv, wv, k in zip(got, want, ("y", "h", "c")):
+                what = f"{name} {k}{' gated' if g is not None else ''}"
+                if prec == "int8":
+                    err = max(err, _ulp_close(gv, wv, what))
+                    continue
+                if not torch.isfinite(gv).all():
+                    raise AssertionError(f"{what}: non-finite values")
+                atol, rtol = (1e-4, 1e-4) if prec == "f32" else (5e-2, 1e-3)
+                torch.testing.assert_close(gv, wv, atol=atol, rtol=rtol, msg=what)
+                err = max(err, float((gv - wv).abs().max()))
+        wb = 1 if prec == "int8" else wl["w_ih_t"].element_size()
+        scales = (2 * 4 * H + 2 * d + Fn) * 4 if prec == "int8" else 0
+        b = bound_ms(
+            4 * S * (4 * d + 2 * H) + (2 * d * 4 * H + H * d + 2 * d * Fn) * wb + scales
+            + (4 * H + Fn + d) * wl["bias"].element_size() + 4,
+            {prec: 2 * S * (2 * d * 4 * H + H * d + 2 * d * Fn)},
+        )
+        out[name] = (lambda kfn=kfn, sa=sa: kfn(xs, h0, c0, *sa),
+                     lambda pfn=pfn, sa=sa: pfn(xs, h0, c0, *sa), err, b, f"x[{S},{d}] H={H} ffn={Fn}")
+
+    # 8. dec_joiner and 9. joiner_argmax on bf16 and f32 decode weights, and
+    # kernel 9 on the 16,383-token model's bf16 and f32 weights
+    for prec, sfx in (("bf16", ""), ("f32", "_f32")):
+        out["dec_joiner" + sfx] = _check_joiner(models[prec].runtime, S, rng, dev, t, refresh=True)
+        out["joiner_argmax" + sfx] = _check_joiner(models[prec].runtime, S, rng, dev, t, refresh=False)
+        out[f"joiner_argmax{sfx}_v16383"] = _check_joiner(models["vocab " + prec].runtime, S, rng,
+                                                          dev, t, refresh=False)
     return out
 
 
@@ -357,13 +479,31 @@ SOURCES = {
                         "april_asr_tpu/ops/lstm_pallas.py:237"),
     "chunk_decode_f32": ("april_asr_tpu_torch/csrc/chunk_decode.cu",
                          "april_asr_tpu/ops/decode_pallas.py:440"),
+    "lstm_step_i8": ("april_asr_tpu_torch/csrc/lstm_step.cu", "april_asr_tpu/ops/lstm_pallas.py:426"),
+    "lstm_step_f32": ("april_asr_tpu_torch/csrc/lstm_step.cu",
+                      "april_asr_tpu/ops/lstm_pallas.py:1370"),
+    "lstm_step_bf16": ("april_asr_tpu_torch/csrc/lstm_step.cu",
+                       "april_asr_tpu/ops/lstm_pallas.py:1370"),
+    "dec_joiner": ("april_asr_tpu_torch/csrc/joiner.cu", "april_asr_tpu/ops/joiner_pallas.py:218"),
+    "joiner_argmax": ("april_asr_tpu_torch/csrc/joiner.cu", "april_asr_tpu/ops/joiner_pallas.py:74"),
+    "dec_joiner_f32": ("april_asr_tpu_torch/csrc/joiner.cu",
+                       "april_asr_tpu/ops/joiner_pallas.py:218"),
+    "joiner_argmax_f32": ("april_asr_tpu_torch/csrc/joiner.cu",
+                          "april_asr_tpu/ops/joiner_pallas.py:74"),
+    "joiner_argmax_v16383": ("april_asr_tpu_torch/csrc/joiner.cu",
+                             "april_asr_tpu/ops/joiner_pallas.py:74"),
+    "joiner_argmax_f32_v16383": ("april_asr_tpu_torch/csrc/joiner.cu",
+                                 "april_asr_tpu/ops/joiner_pallas.py:74"),
 }
+# the launch counter of a row that times a kernel at a second shape
+COUNT_KEY = {"joiner_argmax_v16383": "joiner_argmax", "joiner_argmax_f32_v16383": "joiner_argmax_f32"}
 
 
 def phase_kernels(models, card, reps: int = 20):
-    """Every kernel at the engine cell's shapes (S=256, P=27, F=101):
-    checked and timed against its plain version; then checked again at
-    S=3, P=5, where every kernel's last tile is ragged."""
+    """Every kernel at the engine cell's shapes (S=256, P=27, F=101; the
+    one-step kernels at the flush's S=256): checked and timed against its
+    plain version; then checked again at S=3, P=5, where every kernel's
+    last tile is ragged."""
     from april_asr_tpu_torch.frontend.fbank import FbankLayout
 
     P = FbankLayout.build(models["int8"].runtime.fbank_opts, CHUNK_1S).max_pulls_per_step
@@ -397,42 +537,28 @@ def _tone_bufs(S, chunk, rate, n=8, seed=0):
     return bufs
 
 
-def phase_reference(card, precision: str, ticks: int = 6):
-    """Small model, same weights and audio, the CUDA engine (kernels) and
-    the CPU engine (plain versions) in lockstep at `precision`: fbank rows
-    within the fbank kernels' bound, h/c within the repo's
+def _lockstep(rt_dev, rt_cpu, S: int, chunk: int, ticks: int, seed: int, what: str, card):
+    """The CUDA engine (kernels) and the CPU engine (plain versions) on the
+    same weights and audio, in lockstep over `ticks` steps and a flush:
+    fbank rows within the fbank kernels' bound, h/c within the repo's
     cross-implementation bound, and every session's events, callbacks and
     integer decode state equal up to the first decision the plain decode
     took by a near-tie (testing.NEAR_TIE): random weights are chaotic, and
     tanhf on the card and PyTorch's CPU tanh differ by ulps, which int8
-    re-quantization can amplify. At f32 nothing is re-quantized or rounded
-    to bf16, so every session is expected identical end to end."""
+    re-quantization can amplify."""
     from april_asr_tpu_torch.config import EngineConfig
-    from april_asr_tpu_torch.api.model import apply_precision
     from april_asr_tpu_torch.engine.batch import BatchEngine
     from april_asr_tpu_torch.engine.step import unpack_events_np
-    from april_asr_tpu_torch.models.export import make_model_parameters
-    from april_asr_tpu_torch.models.loader import native_runtime
-    from april_asr_tpu_torch.models.lstm_transducer import TransducerDims, init_transducer_params
-    from april_asr_tpu_torch.testing import (
-        INT_DECODE, DecisionMargins, capture_events, check_parting, default_tokens)
+    from april_asr_tpu_torch.testing import INT_DECODE, DecisionMargins, capture_events, check_parting
 
-    dims = TransducerDims(d_model=128, hidden=128, ffn=256, joiner_dim=128, vocab=64,
-                          layers=3, decoder_groups=32, conv_channels=(4, 8, 8))
-    p = init_transducer_params(3, dims)
-    p["join_b"][0] += 2.0
-    mp = make_model_parameters(dims, default_tokens(dims.vocab))
-    S, chunk = 8, 3200
-    bufs = _tone_bufs(S, chunk, 16000, seed=4)
+    bufs = _tone_bufs(S, chunk, rt_dev.sample_rate, seed=seed)
     eng, evs, recs = {}, {}, {}
-    for side, dev in (("dev", DEV), ("cpu", "cpu")):
-        w = apply_precision({k: v.to(dev) for k, v in p.items()}, precision)
-        rt = native_runtime("ref", "", "en-us", mp, dims, w, dev)
+    for side, rt in (("dev", rt_dev), ("cpu", rt_cpu)):
         eng[side] = BatchEngine(rt, batch=S, cfg=EngineConfig(chunk_samples=chunk))
         evs[side], recs[side] = [], [[] for _ in range(S)]
         capture_events(eng[side].prog, unpack_events_np, evs[side])
         for i in range(S):
-            eng[side].alloc(lambda r, toks, i=i, rec=recs[side]: rec.append(
+            eng[side].alloc(lambda r, toks, i=i, rec=recs[side]: rec[i].append(
                 (int(r), tuple((t.token_id, t.time_ms) for t in toks))))
 
     def advance(e, k):
@@ -453,8 +579,8 @@ def phase_reference(card, precision: str, ticks: int = 6):
         torch.cuda.synchronize()
         a, b = eng["dev"].state, eng["cpu"].state
         torch.testing.assert_close(a["fbank"]["fifo"].cpu(), b["fbank"]["fifo"], atol=2e-5, rtol=1e-4)
-        _stat_close(a["h"].cpu(), b["h"], f"reference h step {k}")
-        _stat_close(a["c"].cpu(), b["c"], f"reference c step {k}")
+        _stat_close(a["h"].cpu(), b["h"], f"{what} h step {k}")
+        _stat_close(a["c"].cpu(), b["c"], f"{what} c step {k}")
         n_cells = evs["cpu"][-1]["ops"].shape[1] * evs["cpu"][-1]["ops"].shape[2]
         check_parting(
             k, evs["cpu"][-1], evs["dev"][-1], margins.per_cell(n_cells), recs["cpu"], recs["dev"],
@@ -463,13 +589,40 @@ def phase_reference(card, precision: str, ticks: int = 6):
         )
     n = sum(len(r) for r in recs["cpu"])
     if n == 0:
-        raise AssertionError("reference: no callbacks")
-    print(f"reference {precision}: {S} sessions x {ticks} ticks + flush, {n} callbacks; "
+        raise AssertionError(f"{what}: no callbacks")
+    print(f"{what}: {S} sessions x {ticks} ticks + flush, {n} callbacks; "
           f"{S - len(parted)} sessions identical end to end, parted at near-ties "
           f"(step, cell, margin): {parted} ({card})")
 
 
-def phase_engine(model, card, precision: str, ticks: int = 10):
+def phase_reference(card, precision: str, ticks: int = 6):
+    """A tiny model (3 layers, d 128), S=8, 200 ms chunks: `_lockstep` at
+    `precision`. The steps run the chunk kernels, the flush kernels 7 or 12
+    and kernel 8. At f32 nothing is re-quantized or rounded to bf16, so
+    every session is expected identical end to end."""
+    from april_asr_tpu_torch.api.model import apply_precision
+    from april_asr_tpu_torch.models.export import make_model_parameters
+    from april_asr_tpu_torch.models.loader import native_runtime
+    from april_asr_tpu_torch.models.lstm_transducer import TransducerDims, init_transducer_params
+    from april_asr_tpu_torch.testing import default_tokens
+
+    dims = TransducerDims(d_model=128, hidden=128, ffn=256, joiner_dim=128, vocab=64,
+                          layers=3, decoder_groups=32, conv_channels=(4, 8, 8))
+    p = init_transducer_params(3, dims)
+    p["join_b"][0] += 2.0
+    mp = make_model_parameters(dims, default_tokens(dims.vocab))
+    rts = [native_runtime("ref", "", "en-us", mp, dims,
+                          apply_precision({k: v.to(dev) for k, v in p.items()}, precision), dev)
+           for dev in (DEV, "cpu")]
+    _lockstep(*rts, S=8, chunk=3200, ticks=ticks, seed=4, what=f"reference {precision}", card=card)
+
+
+def phase_engine(model, card, path: str, ticks: int = 10, flushes: int = 5):
+    """BatchEngine S=256, 1 s chunks: `ticks` steps, then a flush of every
+    slot; the step's and the flush's launches checked apart (PATH_KERNELS),
+    then `flushes` - 1 more flushes, each after one more tick of audio; their
+    times (median and range), and the profiler's view of one step and one
+    flush."""
     from april_asr_tpu_torch.config import EngineConfig
     from april_asr_tpu_torch.engine.batch import BatchEngine
     from april_asr_tpu_torch.ops import cuda_build
@@ -494,11 +647,21 @@ def phase_engine(model, card, precision: str, ticks: int = 10):
         eng.tick()
         torch.cuda.synchronize()
         tick_ms.append((time.perf_counter() - t0) * 1e3)
-    t0 = time.perf_counter()
-    eng.flush(np.ones(S, bool))
-    torch.cuda.synchronize()
-    flush_ms = (time.perf_counter() - t0) * 1e3
-    launches = require_launches(f"engine {precision}", precision)
+    step_counts = require_launches(f"engine {path} step", path, "step")
+    cuda_build.reset_counts()
+    flush_ms = []
+    for k in range(flushes):
+        if k:
+            for s in slots:
+                eng.feed(s, bufs[k % len(bufs)][s])
+            eng.tick()
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.flush(np.ones(S, bool))
+        torch.cuda.synchronize()
+        flush_ms.append((time.perf_counter() - t0) * 1e3)
+        if not k:
+            flush_counts = require_launches(f"engine {path} flush", path, "flush")
     st = eng.state
     for name, t in (("h", st["h"]), ("c", st["c"]), ("dout", st["decode"]["dout"]),
                     ("fifo", st["fbank"]["fifo"])):
@@ -507,40 +670,54 @@ def phase_engine(model, card, precision: str, ticks: int = 10):
     if n_cb[0] == 0:
         raise AssertionError("engine: no callbacks")
 
-    # the device step alone (no staging, no host replay), on the live state
+    # the device programs alone (no staging, no host replay), on the live state
     audio = torch.from_numpy(bufs[0]).to(DEV)
     n = torch.full((S,), chunk, dtype=torch.int32, device=DEV)
-    step_ms = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.prog.step(eng.weights, eng.state, audio, n)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    med_tick = float(np.median(tick_ms[1:]))
-    med_step = float(np.median(step_ms))
+    do = torch.ones(S, dtype=torch.bool, device=DEV)
+    run_step = lambda: eng.prog.step(eng.weights, eng.state, audio, n)  # noqa: E731
+    run_flush = lambda: eng.prog.flush(eng.weights, eng.state, do)  # noqa: E731
+
+    def wall_ms(fn, reps):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def spread(ms):
+        return f"median={np.median(ms):.1f} (min {min(ms):.1f}, max {max(ms):.1f}, n {len(ms)})"
+
+    med_step = float(np.median(wall_ms(run_step, 5)))
+    prog_flush = wall_ms(run_flush, 5)
+    med_tick = float(np.median(tick_ms[1:])) if ticks > 1 else tick_ms[0]
     aps = S * chunk / rt.sample_rate / (med_tick / 1e3)
-    print(f"engine {precision}: S={S} chunk={chunk / rt.sample_rate:g} s P={eng.prog.layout.max_pulls_per_step} ticks={ticks} "
-          f"tick_ms median={med_tick:.2f} (first {tick_ms[0]:.1f}) step_ms median={med_step:.2f} "
-          f"flush_ms={flush_ms:.1f} audio_s_per_s={aps:.1f} callbacks={n_cb[0]} "
-          f"launches={json.dumps(launches)} ({card})")
-    profile_step(lambda: eng.prog.step(eng.weights, eng.state, audio, n), card)
-    return launches
+    print(f"engine {path}: S={S} chunk={chunk / rt.sample_rate:g} s P={eng.prog.layout.max_pulls_per_step} "
+          f"V={rt.dims.vocab} ticks={ticks} tick_ms median={med_tick:.2f} (first {tick_ms[0]:.1f}) "
+          f"step_ms median={med_step:.2f} flush_ms {spread(flush_ms)} "
+          f"flush_program_ms {spread(prog_flush)} "
+          f"audio_s_per_s={aps:.1f} callbacks={n_cb[0]} step_launches={json.dumps(step_counts)} "
+          f"flush_launches={json.dumps(flush_counts)} ({card})")
+    profile(run_step, card, f"engine {path} step")
+    profile(run_flush, card, f"engine {path} flush", n=1)
+    return _merge(step_counts, flush_counts)
 
 
-def profile_step(step, card, n: int = 2):
-    """Device time by kernel over `n` engine steps (torch.profiler) and the
+def profile(run, card, what: str, n: int = 2):
+    """Device time by kernel over `n` calls of `run` (torch.profiler) and the
     device's busy share of the wall time. Measurement only: if the
     profiler records no device time here, says so and goes on."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as tprofile
 
-    step()
+    run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            step()
+            run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side rows only (kernels, copies): a host op's row repeats the
@@ -549,12 +726,13 @@ def profile_step(step, card, n: int = 2):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(r[1] for r in rows)
     if not rows:
-        print(f"profile: no device time recorded; busy share not measured ({card})")
+        print(f"profile {what}: no device time recorded; busy share not measured ({card})")
         return
     rows.sort(key=lambda r: -r[1])
     top = "; ".join(f"{k[:48]} {t / n / 1e3:.2f} ms x{c // n}" for k, t, c in rows[:8])
-    print(f"profile: {n} steps, device busy {busy_us / n / 1e3:.2f} ms of {wall_us / n / 1e3:.2f} ms "
-          f"wall per step (busy share {busy_us / wall_us:.3f}); per step: {top} ({card})")
+    print(f"profile {what}: {n} calls, device busy {busy_us / n / 1e3:.2f} ms of "
+          f"{wall_us / n / 1e3:.2f} ms wall per call (busy share {busy_us / wall_us:.3f}); "
+          f"per call: {top} ({card})")
 
 
 def phase_session(model, card, precision: str):
@@ -570,18 +748,59 @@ def phase_session(model, card, precision: str):
     t0 = time.perf_counter()
     for off in range(0, len(pcm), 3200):
         sess.feed_pcm16(pcm[off : off + 3200].tobytes())
+    torch.cuda.synchronize()
+    feed_s = time.perf_counter() - t0
+    step_counts = require_launches(f"session {precision} feeds", precision, "step")
+    cuda_build.reset_counts()
+    t1 = time.perf_counter()
     sess.flush()
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    flush_s = time.perf_counter() - t1
     P = sess._engine.prog.layout.max_pulls_per_step
     sess.close()
-    launches = require_launches(f"session {precision}", precision)
+    flush_counts = require_launches(f"session {precision} flush", precision, "flush")
     if not got:
         raise AssertionError("session: no callbacks")
     kinds = {Result(r).name: sum(1 for x in got if x[0] == r) for r in {x[0] for x in got}}
-    print(f"session {precision}: 3 s in 200 ms feeds + flush in {dt:.2f} s, P={P}, callbacks={kinds}, "
-          f"launches={json.dumps(launches)} ({card})")
-    return launches
+    print(f"session {precision}: 3 s in 200 ms feeds + flush in {feed_s + flush_s:.2f} s "
+          f"(feeds {feed_s:.2f} s, flush {flush_s:.2f} s), P={P}, callbacks={kinds}, "
+          f"step_launches={json.dumps(step_counts)} flush_launches={json.dumps(flush_counts)} ({card})")
+    return _merge(step_counts, flush_counts)
+
+
+def phase_vocab(models, path: str, card) -> dict:
+    """A flagship-width model with 16,383 tokens (the most a .april holds).
+    Kernel 4 cannot hold its [V] logits rows in shared memory, so its
+    wrapper refuses it, and the JAX gates route it to the per-pull decode
+    through kernel 9. Then the CUDA engine against the CPU engine at S=8
+    (`_lockstep`, f32 as loaded) and BatchEngine S=256 at f32 and bf16."""
+    from april_asr_tpu_torch.api import Model
+    from april_asr_tpu_torch.config import DecodeConfig
+    from april_asr_tpu_torch.decode.greedy import init_decode_state, vocab_tables_device
+    from april_asr_tpu_torch.engine.step import INNER_STEPS_EMIT
+    from april_asr_tpu_torch.ops import decode_kernels as DK
+
+    rt = models["vocab f32"].runtime
+    w, dims = rt.weights, rt.dims
+    st = init_decode_state(8, 2, dims.joiner_dim, rt.blank_id, DecodeConfig(), DEV)
+    eouts = torch.zeros((1, 8, dims.joiner_dim), dtype=torch.float32, device=DEV)
+    try:
+        DK.chunk_decode(eouts, torch.ones((1, 8), dtype=torch.bool, device=DEV), st,
+                        w["dec_table"], w["dec_proj_t"], w["dec_proj_b"], w["join_t"], w["join_b"],
+                        vocab_tables_device(rt.vocab), blank_id=rt.blank_id, stride_ms=40,
+                        emit_ramp=INNER_STEPS_EMIT, dcfg=DecodeConfig())
+    except ValueError as e:
+        print(f"vocab: kernel 4 refuses V={dims.vocab}: {e}")
+    else:
+        raise AssertionError(f"vocab: kernel 4 took V={dims.vocab}")
+    if DK.chunk_decode_supported(S_FLAG, dims.joiner_dim, dims.d_model, dims.context, dims.vocab):
+        raise AssertionError("vocab: the chunk decode gate passes V=16383")
+    t0 = time.perf_counter()
+    _lockstep(rt, Model(path, device="cpu").runtime, S=8, chunk=CHUNK_1S, ticks=3, seed=5,
+              what="vocab f32 lockstep", card=card)
+    print(f"vocab: lockstep in {time.perf_counter() - t0:.1f} s")
+    return _merge(phase_engine(models["vocab f32"], card, "vocab f32", ticks=3),
+                  phase_engine(models["vocab bf16"], card, "vocab bf16", ticks=3))
 
 
 def main(argv=None) -> int:
@@ -603,19 +822,22 @@ def main(argv=None) -> int:
           f"python {sys.version.split()[0]}")
     torch.cuda.set_device(0)
     from april_asr_tpu_torch.api import Model
+    from april_asr_tpu_torch.models.lstm_transducer import TransducerDims
 
     kernels, launches = [], {}
 
-    def record(counts, precision):
-        # each kernel's launches come from the first path run that owns it
-        for k in PATH_KERNELS[precision]:
-            launches.setdefault(k, counts[k])
+    def record(counts, path):
+        # each kernel's launches come from the first path run that owns it,
+        # its step and flush together
+        for half in ("step", "flush"):
+            for k in PATH_KERNELS[path][half]:
+                launches.setdefault(k, counts[k])
 
     t_start = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         if "build" in phases:
             phase_build(card)
-        models = {}
+        models, vocab_path = {}, None
         if {"kernels", "engine", "session"} & set(phases):
             t0 = time.perf_counter()
             path = flagship_april(tmp)
@@ -624,21 +846,31 @@ def main(argv=None) -> int:
             models["f32"] = Model(path, device=DEV)  # no precision: f32 as loaded
             print(f"model: flagship random .april written and loaded at int8, bf16 and f32 "
                   f"in {time.perf_counter() - t0:.1f} s")
+        if {"kernels", "vocab"} & set(phases):
+            t0 = time.perf_counter()
+            vocab_path = flagship_april(tmp, dims=TransducerDims(vocab=16383))
+            models["vocab f32"] = Model(vocab_path, device=DEV)
+            models["vocab bf16"] = Model(vocab_path, precision="bf16", device=DEV)
+            print(f"model: flagship-width random .april with 16,383 tokens written and loaded at "
+                  f"f32 and bf16 in {time.perf_counter() - t0:.1f} s")
         if "kernels" in phases:
             kernels = phase_kernels(models, card)
         if "reference" in phases:
             phase_reference(card, "int8")
             phase_reference(card, "f32")
         if "engine" in phases:
-            record(phase_engine(models["int8"], card, "int8"), "int8")
-            record(phase_engine(models["bf16"], card, "bf16"), "bf16")
-            record(phase_engine(models["f32"], card, "f32"), "f32")
+            for prec in ("int8", "bf16", "f32"):
+                record(phase_engine(models[prec], card, prec), prec)
         if "session" in phases:
             record(phase_session(models["int8"], card, "int8"), "int8")
             # Model(path) with no precision: the weights as loaded (f32)
             record(phase_session(models["f32"], card, "f32"), "f32")
+        if "vocab" in phases:
+            counts = phase_vocab(models, vocab_path, card)
+            record(counts, "vocab f32")
+            record(counts, "vocab bf16")
     for k in kernels:
-        k["launches"] = launches.get(k["name"], 0)
+        k["launches"] = launches.get(COUNT_KEY.get(k["name"], k["name"]), 0)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
