@@ -1,4 +1,5 @@
-// Kernel 5: bf16x3 fbank frame DSP, hop-row buffer -> log-mel rows.
+// Kernel 5: bf16x3 fbank frame DSP, hop-row buffer -> log-mel rows (and
+// kernel 6 on pre-formed frames, below).
 //
 // Replaces april_asr_tpu/ops/fbank_pallas.py `logmel_rows_from_buf`
 // (`_buf_kernel`), the frontend of every engine that is not int8. One block
@@ -24,12 +25,62 @@
 // DFT plus 3 x 256 x 80 for the mel. The DFT planes (2 x 0.66 MB bf16) stay
 // in L2 and every block re-reads them; the samples are read once per block
 // and each output written once. No fast-math: logf as written.
+//
+// Kernel 6, the second entry (`fbank_frames`): the same DSP on pre-formed
+// frames [S, F, padded], replacing `logmel_rows_fused` (`_kernel`) of the same
+// file. Its DFT is one product at full f32 precision (the TPU kernel's
+// HIGHEST) with the folded DFT [padded, 2 * nfft]: one block per (tile of
+// FT6 frames, session) holds its frames in shared memory, each thread owns a
+// frequency bin's re and im columns and sums f32 FMAs over the padded
+// window. The power, bf16x3 mel and log tail is kernel 5's (`store_power`,
+// `mel_log_rows`). Bound: the 512 x 512 f32 multiply-adds per frame; the
+// 1 MB DFT stays in L2, re-read by every block.
 
 #include "common.cuh"
 
 #define FT 8
+#define FT6 16
 #define NT 256
 #define K_EPS 0x1p-23f
+
+// The power spectrum of NF frames' sums for bin j, split into the bf16 hi and
+// lo planes of the mel projection.
+template <int NF>
+__device__ __forceinline__ void store_power(float* ph, float* pl, int nfft, int j, const float* re,
+                                            const float* im) {
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    const float p = __fadd_rn(__fmul_rn(re[f], re[f]), __fmul_rn(im[f], im[f]));
+    const float hi = round_bf16(p);
+    ph[f * nfft + j] = hi;
+    pl[f * nfft + j] = round_bf16(__fsub_rn(p, hi));
+  }
+}
+
+// The bf16x3 mel projection (hi*hi + hi*lo + lo*hi) and logf(fmaxf(K_EPS, .))
+// of the first `nrows` of NF power rows into out [nrows][bins].
+template <int NF>
+__device__ __forceinline__ void mel_log_rows(const float* ph, const float* pl,
+                                             const uint16_t* __restrict__ mel_hi,
+                                             const uint16_t* __restrict__ mel_lo,
+                                             float* __restrict__ out, int nrows, int nfft, int bins,
+                                             int tid) {
+  for (int o = tid; o < NF * bins; o += NT) {
+    const int f = o / bins, m = o - f * bins;
+    if (f >= nrows) continue;
+    float s1 = 0.f, s2 = 0.f, s3 = 0.f;
+    for (int j = 0; j < nfft; ++j) {
+      const float mh = bf16_to_f32(mel_hi[j * bins + m]);
+      const float ml = bf16_to_f32(mel_lo[j * bins + m]);
+      const float h = ph[f * nfft + j], l = pl[f * nfft + j];
+      s1 = fmaf(h, mh, s1);
+      s2 = fmaf(h, ml, s2);
+      s3 = fmaf(l, mh, s3);
+    }
+    const float mel = __fadd_rn(__fadd_rn(s1, s2), s3);
+    out[f * bins + m] = logf(fmaxf(K_EPS, mel));
+  }
+}
 
 __global__ void __launch_bounds__(NT) fbank_bf16x3_kernel(
     const float* __restrict__ buf, const uint16_t* __restrict__ dhi,
@@ -85,31 +136,11 @@ __global__ void __launch_bounds__(NT) fbank_bf16x3_kernel(
         acc_im[f] = __fadd_rn(acc_im[f], pim[f]);
       }
     }
-#pragma unroll
-    for (int f = 0; f < FT; ++f) {
-      const float p = __fadd_rn(__fmul_rn(acc_re[f], acc_re[f]), __fmul_rn(acc_im[f], acc_im[f]));
-      const float hi = round_bf16(p);
-      ph[f * nfft + j] = hi;
-      pl[f * nfft + j] = round_bf16(__fsub_rn(p, hi));
-    }
+    store_power<FT>(ph, pl, nfft, j, acc_re, acc_im);
   }
   __syncthreads();
-
-  for (int o = tid; o < FT * bins; o += NT) {
-    const int f = o / bins, m = o - f * bins;
-    if (f0 + f >= F) continue;
-    float s1 = 0.f, s2 = 0.f, s3 = 0.f;
-    for (int j = 0; j < nfft; ++j) {
-      const float mh = bf16_to_f32(mel_hi[j * bins + m]);
-      const float ml = bf16_to_f32(mel_lo[j * bins + m]);
-      const float h = ph[f * nfft + j], l = pl[f * nfft + j];
-      s1 = fmaf(h, mh, s1);
-      s2 = fmaf(h, ml, s2);
-      s3 = fmaf(l, mh, s3);
-    }
-    const float mel = __fadd_rn(__fadd_rn(s1, s2), s3);
-    out[((size_t)s * F + f0 + f) * bins + m] = logf(fmaxf(K_EPS, mel));
-  }
+  mel_log_rows<FT>(ph, pl, mel_hi, mel_lo, out + ((size_t)s * F + f0) * bins, F - f0, nfft, bins,
+                   tid);
 }
 
 extern "C" int fbank_bf16x3(const float* buf, const uint16_t* dhi, const uint16_t* dlo,
@@ -123,5 +154,56 @@ extern "C" int fbank_bf16x3(const float* buf, const uint16_t* dhi, const uint16_
   dim3 grid((F + FT - 1) / FT, S);
   fbank_bf16x3_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
       buf, dhi, dlo, mel_hi, mel_lo, out, nbuf, F, shift, n_views, nfft, bins);
+  return (int)cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(NT) fbank_frames_kernel(
+    const float* __restrict__ frames, const float* __restrict__ dft,
+    const uint16_t* __restrict__ mel_hi, const uint16_t* __restrict__ mel_lo,
+    float* __restrict__ out, int F, int padded, int nfft, int bins) {
+  extern __shared__ float4 smem_f4[];
+  float* xf = reinterpret_cast<float*>(smem_f4);  // [FT6][padded] frames
+  float* ph = xf + FT6 * padded;                  // [FT6][nfft] power, bf16 hi
+  float* pl = ph + FT6 * nfft;                    // [FT6][nfft] power, bf16 lo
+
+  const int s = blockIdx.y;
+  const int f0 = blockIdx.x * FT6;
+  const int tid = threadIdx.x;
+  const int N2 = 2 * nfft;
+  const float* src = frames + ((size_t)s * F + f0) * padded;
+  const int avail = (F - f0) * padded;
+  for (int i = tid; i < FT6 * padded; i += NT) xf[i] = i < avail ? src[i] : 0.f;
+  __syncthreads();
+
+  for (int j = tid; j < nfft; j += NT) {
+    float re[FT6], im[FT6];
+#pragma unroll
+    for (int f = 0; f < FT6; ++f) re[f] = im[f] = 0.f;
+    for (int k = 0; k < padded; ++k) {
+      const float dr = __ldg(dft + (size_t)k * N2 + j);
+      const float di = __ldg(dft + (size_t)k * N2 + nfft + j);
+#pragma unroll
+      for (int f = 0; f < FT6; ++f) {
+        const float x = xf[f * padded + k];
+        re[f] = fmaf(x, dr, re[f]);
+        im[f] = fmaf(x, di, im[f]);
+      }
+    }
+    store_power<FT6>(ph, pl, nfft, j, re, im);
+  }
+  __syncthreads();
+  mel_log_rows<FT6>(ph, pl, mel_hi, mel_lo, out + ((size_t)s * F + f0) * bins, F - f0, nfft, bins,
+                    tid);
+}
+
+extern "C" int fbank_frames(const float* frames, const float* dft, const uint16_t* mel_hi,
+                            const uint16_t* mel_lo, float* out, int S, int F, int padded, int nfft,
+                            int bins, void* stream) {
+  const size_t smem = sizeof(float) * (size_t)(FT6 * padded + 2 * FT6 * nfft);
+  cudaError_t err = allow_smem(fbank_frames_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((F + FT6 - 1) / FT6, S);
+  fbank_frames_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(frames, dft, mel_hi, mel_lo, out, F,
+                                                                padded, nfft, bins);
   return (int)cudaGetLastError();
 }

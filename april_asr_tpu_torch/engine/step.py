@@ -3,11 +3,14 @@
 
 One step advances every session by one audio chunk: the fbank accept
 (kernel 1 for int8 engines, else kernel 5), one ring read of every pull
-window, one batched conv embed, the 12-layer chunk encoder over all P pulls
+window, one batched conv embed (kernel 16 from the front buffer at bf16 conv
+weights, i.e. int8 and bf16 engines; the stacked windows through
+`encoder_embed` at f32), the 12-layer chunk encoder over all P pulls
 (kernels 2 and 3 per layer at int8, kernel 10 per layer at f32 or bf16),
 then the greedy decode: the whole chunk's in one launch of kernel 4 where
-the JAX package's gate `chunk_decode_supported` passes, else pull by pull
-through `inner_decode`, as the JAX step's scan does. Handler-visible actions
+the JAX package's gate `chunk_decode_supported` passes and kernel 4's block
+fits (`chunk_decode_block_fits`), else pull by pull through `inner_decode`,
+as the JAX step's scan does. Handler-visible actions
 leave the device as the compact APR4 event blob, bit-identical in layout to
 the JAX package's (see the layout note below).
 
@@ -51,7 +54,12 @@ from ..frontend.fbank import (
 )
 from ..models.lstm_transducer import is_quantized
 from ..models.loader import ModelRuntime
-from ..ops.decode_kernels import EVENT_KEYS, chunk_decode, chunk_decode_supported
+from ..ops.decode_kernels import (
+    EVENT_KEYS,
+    chunk_decode,
+    chunk_decode_block_fits,
+    chunk_decode_supported,
+)
 
 INNER_STEPS_EMIT = (1.0, 0.0, 0.0)  # early-emit ramp (april_session.c:449-453)
 BLOB_MAGIC = 0x41505234  # "APR4"
@@ -238,10 +246,12 @@ def build_engine(
     dev = rt.device
 
     def chunk_decode_fits(weights, eouts) -> bool:
-        """The JAX step's choice between kernel 4 and the per-pull scan."""
+        """The JAX step's choice between kernel 4 and the per-pull scan, less
+        the shapes whose kernel 4 block exceeds the H100's shared memory."""
         _, S, J = eouts.shape
-        return chunk_decode_supported(S, J, weights["dec_table"].shape[2], rt.dims.context,
-                                      weights["join_t"].shape[1])
+        d, V = weights["dec_table"].shape[2], weights["join_t"].shape[1]
+        return (chunk_decode_supported(S, J, d, rt.dims.context, V)
+                and chunk_decode_block_fits(J, d, V, dcfg.max_active_tokens))
 
     def inner_decode(weights, eout, can, dstate):
         """The <= 3-symbol masked inner loop of one pull (JAX step.py
@@ -292,8 +302,12 @@ def build_engine(
         can = fb["fifo_len"][None, :] >= (
             seg + step_rows * torch.arange(P, dtype=torch.int32, device=dev)[:, None]
         )  # [P, S]
-        windows = torch.stack([front[:, i * step_rows : i * step_rows + seg] for i in range(P)])
-        y0 = rt.encoder_embed(weights, windows.reshape(P * S, seg, -1)).reshape(P, S, -1)
+        # kernel 16 straight from the front buffer where the runtime takes it
+        # (bf16 conv weights), else the stacked windows (JAX step.py:624-636)
+        y0 = rt.encoder_embed_front(weights, front, P, step_rows)
+        if y0 is None:
+            windows = torch.stack([front[:, i * step_rows : i * step_rows + seg] for i in range(P)])
+            y0 = rt.encoder_embed(weights, windows.reshape(P * S, seg, -1)).reshape(P, S, -1)
         eouts, h, c = rt.encoder_chunk(weights, y0, h, c, can)
         dstate, events = decode(weights, eouts, can, dstate)
         n_pulled = torch.clamp(

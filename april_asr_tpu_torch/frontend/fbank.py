@@ -3,7 +3,8 @@ april_asr_tpu/frontend/fbank.py).
 
 Each engine step accepts one audio chunk per session, forms the hop-aligned
 sample buffer (leftover + phase-rolled chunk), runs the frame DSP for every
-session at once (kernel 5, or kernel 1 for int8 engines; ops/fbank_kernels.py)
+session at once (kernel 5, or kernel 1 for int8 engines, or kernel 6 on a
+buffer too short to frame in the kernel; ops/fbank_kernels.py)
 and appends the new log-mel rows to a fixed-capacity ring per session. State
 is a dict of tensors with a leading session axis S:
 
@@ -140,8 +141,16 @@ def fbank_accept_batch(
     """Accept up to `layout.chunk` samples per session (`wave[s, :n[s]]`
     valid). The frame DSP is the bf16x3 DFT (kernel 5), or with `dft_i8`
     the int8 DFT (kernel 1), which the engine selects for int8 engines as
-    engine/step.py of the JAX package does."""
-    from ..ops.fbank_kernels import logmel_rows_from_buf, logmel_rows_from_buf_i8
+    engine/step.py of the JAX package does. A buffer too short for in-kernel
+    framing takes JAX's other branch, frames formed first and kernel 6 at
+    either setting; no `FbankLayout.build` layout is that short, and where
+    one were, `frames_from_buf` raises in both packages."""
+    from ..ops.fbank_kernels import (
+        frames_from_buf,
+        logmel_rows_from_buf,
+        logmel_rows_from_buf_i8,
+        logmel_rows_fused,
+    )
 
     shift = layout.opts.window_shift
     n = n.to(torch.int32)
@@ -152,11 +161,10 @@ def fbank_accept_batch(
     phi = torch.remainder(state["leftover_len"], shift)
     wave_p = _roll_right(_pad_to_rows(layout, wave), phi)
     buf, total = _accept_assemble(layout, state, wave_p, n)
-    if buf.shape[1] // shift < layout.max_frames + layout.n_views - 1:
-        raise NotImplementedError(
-            "buffer too short for in-kernel framing (logmel_rows_fused is not ported yet)"
-        )
-    rows = (logmel_rows_from_buf_i8 if dft_i8 else logmel_rows_from_buf)(layout, buf)
+    if buf.shape[1] // shift >= layout.max_frames + layout.n_views - 1:
+        rows = (logmel_rows_from_buf_i8 if dft_i8 else logmel_rows_from_buf)(layout, buf)
+    else:
+        rows = logmel_rows_fused(layout, frames_from_buf(layout, buf))
     return _accept_commit(layout, state, buf, rows, total)
 
 

@@ -31,6 +31,7 @@ from .lstm_transducer import (
     decoder_step,
     encoder_chunk,
     encoder_embed,
+    encoder_embed_front,
     encoder_recurrent,
     encoder_step,
     joiner_argmax,
@@ -51,6 +52,8 @@ class ModelRuntime:
     the blank id and dims bound as in the JAX package's loader.
 
     encoder_embed(w, x[N, seg, mel]) -> [N, d]
+    encoder_embed_front(w, front[S, W, mel], P, step) -> [P, S, d] | None
+        (every pull window from the front buffer; None: stack the windows)
     encoder_chunk(w, y[P, S, d], h[L, S, d], c[L, S, H], can[P, S]) -> (eout[P, S, J], h', c')
     encoder_recurrent(w, y[S, d], h, c, gate[S] | None) -> (eout[S, J], h', c')
     encoder_step(w, x[S, seg, mel], h, c) -> (eout[S, J], h', c')   (ungated)
@@ -72,6 +75,7 @@ class ModelRuntime:
     weights: Dict[str, torch.Tensor]
     device: torch.device
     encoder_embed: Callable
+    encoder_embed_front: Callable
     encoder_chunk: Callable
     encoder_recurrent: Callable
     encoder_step: Callable
@@ -127,6 +131,7 @@ def native_runtime(
         weights=weights,
         device=torch.device(device),
         encoder_embed=encoder_embed,
+        encoder_embed_front=encoder_embed_front,
         encoder_chunk=encoder_chunk,
         encoder_recurrent=encoder_recurrent,
         encoder_step=encoder_step,

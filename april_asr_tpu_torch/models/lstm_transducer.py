@@ -2,6 +2,10 @@
 april_asr_tpu/models/lstm_transducer.py): the conv embed, the chunk and
 one-step encoders, the stateless decoder and the joiner.
 
+The step's conv embed runs kernel 16 from the front buffer at bf16 conv
+weights (`encoder_embed_front`); the stacked-window `encoder_embed` serves
+f32 weights and the one-step encoder.
+
 Parameters are a flat dict of tensors with the JAX package's key names and
 layouts (pre-transposed matrices, stacked [L, ...] layer leaves). The chunk
 encoder (the engine's step) is layer-major. With int8 copies of the layer
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 
 from ..ops.activations import dot_wd, double_swish
+from ..ops.conv_embed_kernels import EMBED_KEYS, conv_embed_windows, front_embed_supported
 from ..ops.decode_kernels import dj_supported
 from ..ops.joiner_kernels import (
     decoder_joiner_argmax_fused,
@@ -166,6 +171,30 @@ def conv_subsample(params: Params, x: torch.Tensor) -> torch.Tensor:
 def encoder_embed(params: Params, x: torch.Tensor) -> torch.Tensor:
     """Stateless front half of the encoder: [N, segment, mel] -> [N, d_model]."""
     return conv_subsample(params, x)[:, 0, :]
+
+
+def encoder_embed_front(params: Params, front: torch.Tensor, P: int, step: int):
+    """Every pull window's embedding straight from the front buffer,
+    [S, W, mel] -> [P, S, d_model], by kernel 16 (`conv_embed_windows`), or
+    None where the engine stacks the windows for `encoder_embed` instead.
+
+    Two rules, on shapes and dtypes only. The geometry must pass the JAX
+    package's `front_embed_supported` (any S: the kernel takes ragged
+    session tiles). The conv and projection weights must be bf16 (int8 and
+    bf16 serving), where the kernel's bf16 rounding points are those of the
+    stacked embed; at f32 weights it returns None, since the kernel rounds
+    every activation to bf16 where the f32 embed does not (2e-2 apart, the
+    bound of the JAX package's own kernel test) and the f32 engine keeps its
+    exact parity with the JAX package. The JAX package holds the kernel
+    behind APRIL_CONV_EMBED_KERNEL only because its TPU compiler hangs on it
+    (lstm_transducer.py:721-727); the port reads no such variable."""
+    S, W, mel = front.shape
+    seg = W - (P - 1) * step
+    if any(params[k].dtype != torch.bfloat16 for k in EMBED_KEYS):
+        return None
+    if not front_embed_supported(seg, mel, P, step, W, S, block_s=1):
+        return None
+    return conv_embed_windows(params, front, P=P, step=step, seg=seg)
 
 
 def _n_pulls(gate):

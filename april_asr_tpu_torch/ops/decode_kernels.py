@@ -27,6 +27,12 @@ same route as the JAX package for every model. They drop JAX's
 `S % block_s` term, since the CUDA kernels take ragged session tiles, and
 size the budget's activation tiles at JAX's block for S, or 128 sessions
 where JAX has none. They read only shapes, never the device.
+
+`chunk_decode_block_fits` is the port's own shape rule beside them: kernel
+4's block keeps a [V] logits row per session in shared memory, so the step
+also sends to the per-pull decode the shapes the JAX gate passes but the
+H100's 232,448 bytes per block cannot hold (narrow models, d or J of 128 or
+256, above ~13.9k to 14.2k tokens).
 """
 
 from __future__ import annotations
@@ -42,6 +48,8 @@ from .joiner_kernels import decoder_joiner_argmax_plain
 EVENT_KEYS = ("ops", "tok", "logprob", "flags", "time_ms", "final_k")
 
 _VMEM_BUDGET = 56 * 1024 * 1024  # the JAX gates' bound on resident bytes
+SMEM_PER_BLOCK = 232_448  # the H100's opt-in shared memory per block
+CHUNK_DECODE_TSD = 4  # sessions per block of kernel 4 (TSD, csrc/chunk_decode.cu)
 
 
 def _gate_block_s(S: int) -> int:
@@ -55,12 +63,26 @@ def chunk_decode_supported(S: int, J: int, d: int, context: int, vocab: int) -> 
     128-multiple widths, and the vocabulary-sized operands within its
     budget. At d = J = 512 kernel 4's shared memory holds every vocabulary
     this passes; narrower models (d or J of 128 or 256) pass vocabularies
-    above ~13.4k tokens that it cannot hold, and its wrapper raises."""
+    it cannot hold, which `chunk_decode_block_fits` refuses."""
     if not (context == 2 and J % 128 == 0 and d % 128 == 0):
         return False
     Vp = -(-vocab // 128) * 128 if vocab else 0
     resident = 2 * Vp * d * 4 + J * Vp * 4 + d * J * 4 + _gate_block_s(S) * (6 * J + 64) * 4
     return resident <= _VMEM_BUDGET
+
+
+def chunk_decode_smem(J: int, d: int, vocab: int, tokens: int) -> int:
+    """Shared-memory bytes of one kernel 4 block (its C entry's formula):
+    TSD sessions' dout [J], work row [max(J, d)], logits [V] and token
+    window [T], 4 bytes each."""
+    return 4 * CHUNK_DECODE_TSD * (J + max(J, d) + vocab + tokens)
+
+
+def chunk_decode_block_fits(J: int, d: int, vocab: int, tokens: int) -> bool:
+    """True where one kernel 4 block fits the H100's shared memory; the
+    step takes the whole-chunk decode only where this and
+    `chunk_decode_supported` both hold. Reads shapes only."""
+    return chunk_decode_smem(J, d, vocab, tokens) <= SMEM_PER_BLOCK
 
 
 def dj_supported(S: int, J: int, d: int, context: int, vocab: int = 0, w_itemsize: int = 4) -> bool:
@@ -163,8 +185,8 @@ def chunk_decode_cuda(eouts, can, dstate, dec_table, dec_proj_t, dec_proj_b, w_t
     if rc < 0:
         raise ValueError(
             f"chunk_decode: V={V}, J={J}, d={d}, T={T} need {-rc} bytes of shared memory per "
-            "block, more than this device allows one block; chunk_decode_supported refuses "
-            "such shapes"
+            "block, more than this device allows one block; the engine's step sends such "
+            "shapes to the per-pull decode (chunk_decode_block_fits)"
         )
     cuda_build.check(rc, "chunk_decode")
     cuda_build.COUNTS["chunk_decode_f32" if w_f32 else "chunk_decode"] += 1

@@ -17,9 +17,15 @@ and contract with the bf16 hi/lo planes of the zero-padded folded DFT, the
 lo*lo term dropped (`_dot3`); the view sums add up in view order. Then the
 same power, bf16x3 mel projection and log.
 
+Kernel 6, port of `logmel_rows_fused` (`_kernel`), the same DSP on frames
+formed beforehand ([S, F, padded], `frames_from_buf`): one full-f32 product
+with the folded DFT (HIGHEST on the TPU), then the same power, mel and log.
+The frontend takes it only for a buffer too short for in-kernel framing,
+which no `FbankLayout.build` layout gives (frontend/fbank.py).
+
 Each dispatcher takes the plain PyTorch version for a CPU tensor and
-launches its CUDA kernel (csrc/fbank_i8.cu, csrc/fbank_bf16x3.cu) for a CUDA
-tensor; it never falls back.
+launches its CUDA kernel (csrc/fbank_i8.cu, csrc/fbank_bf16x3.cu; kernel 6 is
+the second entry of the latter) for a CUDA tensor; it never falls back.
 """
 
 from __future__ import annotations
@@ -98,7 +104,9 @@ def fbank_constants(layout, device) -> dict:
     dpad = np.zeros((K, 2 * nfft), np.float32)
     dpad[:padded] = _folded_dft(padded, nfft, o.remove_dc_offset, o.preemph_coeff)
     d_hi, d_lo = _split_bf16(dpad)
+    dft = _folded_dft(padded, nfft, o.remove_dc_offset, o.preemph_coeff)
     c = {
+        "dft": torch.from_numpy(dft).to(device),
         "d_hi": d_hi.contiguous().to(device),
         "d_lo": d_lo.contiguous().to(device),
         "dhi": torch.from_numpy(dhi_p).to(device),
@@ -107,6 +115,7 @@ def fbank_constants(layout, device) -> dict:
         "corr": torch.from_numpy(corr).to(device),
         "mel_hi": mel_hi.contiguous().to(device),
         "mel_lo": mel_lo.contiguous().to(device),
+        "padded": padded,
         "n_views": n_views,
         "shift": shift,
         "nfft": nfft,
@@ -232,3 +241,58 @@ def logmel_rows_from_buf(layout, buf: torch.Tensor) -> torch.Tensor:
     if buf.device.type != "cuda":
         raise ValueError(f"fbank_bf16x3: unsupported device {buf.device}")
     return logmel_rows_from_buf_cuda(c, buf, F)
+
+
+def frames_from_buf(layout, buf: torch.Tensor) -> torch.Tensor:
+    """[S, L] hop-aligned buffers -> [S, max_frames, padded] frames (the JAX
+    package's `_frames_from_buf`): frame i is buf[shift*i : shift*i + padded],
+    formed from n_views hop-strided views. Like the JAX function, it raises
+    where the last view runs past the buffer."""
+    o = layout.opts
+    shift, F = o.window_shift, layout.max_frames
+    S = buf.shape[0]
+    views = [buf[:, v * shift : v * shift + F * shift].reshape(S, F, shift)
+             for v in range(layout.n_views)]
+    return torch.cat(views, dim=2)[:, :, : o.padded_window_size].contiguous()
+
+
+def logmel_rows_fused_plain(c: dict, frames: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel 6: frames [S, F, padded] -> rows
+    [S, F, bins], the DFT as one f32 product."""
+    S, F, padded = frames.shape
+    nfft = c["nfft"]
+    spec = frames.reshape(S * F, padded) @ c["dft"]
+    re, im = spec[:, :nfft], spec[:, nfft:]
+    power = re * re + im * im
+    mel = _dot3(power, c["mel_hi"], c["mel_lo"])
+    return torch.log(torch.clamp_min(mel, float(K_EPS))).reshape(S, F, -1)
+
+
+def logmel_rows_fused_cuda(c: dict, frames: torch.Tensor) -> torch.Tensor:
+    S, F, padded = frames.shape
+    if frames.dtype != torch.float32 or not frames.is_contiguous():
+        raise ValueError("fbank_frames: frames must be contiguous float32")
+    if padded != c["padded"]:
+        raise ValueError(f"fbank_frames: frames of {padded} samples, the DFT takes {c['padded']}")
+    out = torch.empty((S, F, c["bins"]), dtype=torch.float32, device=frames.device)
+    if S == 0 or F == 0:
+        return out
+    fn = cuda_build.bind("fbank_bf16x3", "fbank_frames", 5, 5)
+    rc = fn(
+        frames.data_ptr(), c["dft"].data_ptr(), c["mel_hi"].data_ptr(), c["mel_lo"].data_ptr(),
+        out.data_ptr(), S, F, padded, c["nfft"], c["bins"],
+        torch.cuda.current_stream(frames.device).cuda_stream,
+    )
+    cuda_build.check(rc, "fbank_frames")
+    cuda_build.COUNTS["fbank_frames"] += 1
+    return out
+
+
+def logmel_rows_fused(layout, frames: torch.Tensor) -> torch.Tensor:
+    """[S, F, padded] frames -> [S, F, num_bins] log-mel rows (kernel 6)."""
+    c = fbank_constants(layout, frames.device)
+    if frames.device.type == "cpu":
+        return logmel_rows_fused_plain(c, frames)
+    if frames.device.type != "cuda":
+        raise ValueError(f"fbank_frames: unsupported device {frames.device}")
+    return logmel_rows_fused_cuda(c, frames)

@@ -6,7 +6,8 @@ PyTorch version at the flagship serving shapes, checks the streaming engine
 against the CPU (plain) engine on a small model at int8 and at f32, drives a
 flagship BatchEngine at int8, bf16 and f32 and a synchronous Session at int8
 and at f32 (the weights as loaded), serves a flagship-width model with a
-16,383-token vocabulary, and prints the results.
+16,383-token vocabulary and a narrow one whose kernel 4 block does not fit,
+and prints the results.
 
     python3 chip_smoke.py                      # every phase (as the check runs it)
     python3 chip_smoke.py --phases build,kernels
@@ -17,19 +18,27 @@ Phases (each fails the run on error):
              F=101, checked again at S=3, P=5 (ragged tiles); the int8
              kernels on int8 weights, kernels 10 and 12 on f32 and on bf16
              weights, the chunk decode and kernels 8 and 9 on bf16 and on
-             f32 decode weights, kernel 9 again at V=16,383
+             f32 decode weights, kernel 9 again at V=16,383, both conv-embed
+             entries (16, 17) on bf16 weights beside the stacked embed they
+             displace, kernel 6 on frames formed from the fbank buffers
   reference  a tiny random model: CUDA engine vs CPU engine, same streams,
-             at int8 and at f32 (the flush runs kernels 7, 12 and 8)
+             at int8 (the step embeds through kernel 16) and at f32 (the
+             stacked embed); the flush runs kernels 7, 12 and 8
   engine     flagship random model, BatchEngine S=256, 1 s chunks, 10 ticks
              of tone bursts then flush, at int8, bf16 and f32; the step's
              and the flush's launch counts checked apart, timing and the
-             profiler's busy share of a step and of a flush
+             profiler's busy share of a step and of a flush; at int8 and
+             bf16 the step again on the stacked embed (kernel 16 off), in
+             turns, with the device kernels that left the step
   session    one synchronous Session, 200 ms feeds over 3 s, then flush: at
              int8, and from Model(path) with no precision (f32 as loaded)
   vocab      a flagship-width model with 16,383 tokens, which kernel 4
              cannot hold: the CUDA engine vs the CPU engine at S=8 (f32),
              then BatchEngine S=256 at f32 and bf16, 3 ticks and a flush,
-             decoding through kernel 9 alone
+             decoding through kernel 9 alone; and a 1-layer d = J = 128
+             model with 16,383 tokens, which the JAX gate passes but kernel
+             4's block cannot hold: CUDA vs CPU at S=8 (f32) through kernel
+             8, kernel 4 never launched
 
 Output: one line per kernel and per phase, then a JSON line
 {"kernels": [...]}, the `nvidia-smi` name and power limit, and as the last
@@ -104,6 +113,25 @@ def _ulp_close(got, want, what):
     return mx
 
 
+def _embed_close(got, want, what) -> tuple:
+    """[P, S, d] embeddings with the same bf16 rounding points and f32 sums
+    in another order. An ulp of a sum can flip the bf16 rounding of one of a
+    window's ~9,000 rounded activations, which moves all d outputs of that
+    window by 1e-4 to 1e-2, so the bound is per window: none beyond 2e-2
+    (the JAX package's kernel test), a mean below 2e-4, and at least a
+    quarter of the windows within 1e-5 everywhere (a wrong index or a missed
+    edge correction moves every window; 58% are at S = 256, P = 27, and the
+    ragged check has only 15). Returns (max abs err, a summary)."""
+    d = (got.float() - want.float()).abs()
+    mx, mean = float(d.max()), float(d.mean())
+    clean = float((d.reshape(-1, d.shape[-1]).amax(dim=1) <= 1e-5).float().mean())
+    stats = (f"{float((d > 1e-4).float().mean()):.4f} of elements beyond 1e-4, mean {mean:.3g}, "
+             f"{clean:.3f} of windows within 1e-5")
+    if mx > 2e-2 or mean > 2e-4 or clean < 0.25 or not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: max {mx:.3g}, {stats}")
+    return mx, stats
+
+
 def _stat_close(got, want, what, mean_tol=5e-3, p99_tol=0.05):
     d = (got.float() - want.float()).abs().flatten().cpu().numpy()
     if d.mean() >= mean_tol or np.percentile(d, 99) >= p99_tol:
@@ -127,19 +155,21 @@ def flagship_april(tmp: str, seed: int = 0, dims=None) -> str:
 
 
 # The kernels each path launches (cuda_build.COUNTS keys), in the step and
-# in the flush: the step runs the chunk encoder and, where the JAX gate
-# passes, kernel 4; the flush runs the one-step encoder and the per-pull
-# decode (kernel 8, or kernel 9 where its gate refuses).
+# in the flush: the step embeds through kernel 16 at bf16 conv weights (int8
+# and bf16), runs the chunk encoder and, where the JAX gate passes and kernel
+# 4's block fits, kernel 4; the flush runs the one-step encoder (its stacked
+# embed is plain) and the per-pull decode (kernel 8, or kernel 9 where its
+# gate refuses).
 PATH_KERNELS = {
-    "int8": {"step": ("fbank_i8", "lstm_rec_i8", "ffn_norm_i8", "chunk_decode"),
+    "int8": {"step": ("fbank_i8", "conv_embed", "lstm_rec_i8", "ffn_norm_i8", "chunk_decode"),
              "flush": ("fbank_i8", "lstm_step_i8", "dec_joiner")},
-    "bf16": {"step": ("fbank_bf16x3", "lstm_chunk_bf16", "chunk_decode"),
+    "bf16": {"step": ("fbank_bf16x3", "conv_embed", "lstm_chunk_bf16", "chunk_decode"),
              "flush": ("fbank_bf16x3", "lstm_step_bf16", "dec_joiner")},
     "f32": {"step": ("fbank_bf16x3", "lstm_chunk_f32", "chunk_decode_f32"),
             "flush": ("fbank_bf16x3", "lstm_step_f32", "dec_joiner_f32")},
     "vocab f32": {"step": ("fbank_bf16x3", "lstm_chunk_f32", "joiner_argmax_f32"),
                   "flush": ("fbank_bf16x3", "lstm_step_f32", "joiner_argmax_f32")},
-    "vocab bf16": {"step": ("fbank_bf16x3", "lstm_chunk_bf16", "joiner_argmax"),
+    "vocab bf16": {"step": ("fbank_bf16x3", "conv_embed", "lstm_chunk_bf16", "joiner_argmax"),
                    "flush": ("fbank_bf16x3", "lstm_step_bf16", "joiner_argmax")},
 }
 
@@ -462,6 +492,68 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
         out["joiner_argmax" + sfx] = _check_joiner(models[prec].runtime, S, rng, dev, t, refresh=False)
         out[f"joiner_argmax{sfx}_v16383"] = _check_joiner(models["vocab " + prec].runtime, S, rng,
                                                           dev, t, refresh=False)
+
+    # 16. conv_embed and 17. conv_embed_front: every window of the step from
+    # the front buffer [S, W, mel] on bf16 weights (int8 and bf16 serving)
+    # -> [P, S, d], against the stacked windows through conv_subsample
+    out.update(check_conv_embed(models["bf16"].runtime, S, P, rng, t))
+
+    # 6. fbank_frames: the DSP on frames formed from the hop-row buffers,
+    # the DFT one f32 product; the fbank kernel bound, as kernels 1 and 5
+    frames = FK.frames_from_buf(layout, buf)
+    kf = lambda: FK.logmel_rows_fused(layout, frames)  # noqa: E731
+    pf = lambda: FK.logmel_rows_fused_plain(c, frames)  # noqa: E731
+    got, want = kf(), pf()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+    b = bound_ms(S * F * K * 4 + S * F * nb * 4 + K * N2 * 4 + nfft * nb * 4,
+                 {"f32": 2 * S * F * K * N2, "bf16": mel_ops})
+    out["fbank_frames"] = (kf, pf, float((got - want).abs().max()), b, f"frames[{S},{F},{K}]")
+    return out
+
+
+def front_buffer(rt, S: int, P: int, rng, t):
+    """A front buffer [S, W, mel] of log-mel-like rows for `rt`'s geometry."""
+    dims = rt.dims
+    W = (P - 1) * dims.segment_step + dims.segment_size
+    return t((rng.normal(size=(S, W, dims.mel)) * 2.0 - 6.0).astype(np.float32))
+
+
+def stacked_embed(rt, front, P: int):
+    """The step's embed without kernel 16: the windows stacked, then
+    `encoder_embed` (three cuDNN convolutions and the projection)."""
+    seg, step = rt.dims.segment_size, rt.dims.segment_step
+    S = front.shape[0]
+    windows = torch.stack([front[:, i * step : i * step + seg] for i in range(P)])
+    return rt.encoder_embed(rt.weights, windows.reshape(P * S, seg, -1)).reshape(P, S, -1)
+
+
+def check_conv_embed(rt, S: int, P: int, rng, t) -> dict:
+    """Kernels 16 and 17 on `rt`'s bf16 weights, each held to `_embed_close`
+    against the plain version. The bound counts each window's work as the
+    function defines it (conv1 rows 0..6, conv2 rows 0..2, conv3, the
+    projection) at the bf16 rate, and the front, output and weights once."""
+    from april_asr_tpu_torch.ops import conv_embed_kernels as CE
+
+    w, dims = rt.weights, rt.dims
+    seg, step, mel, d = dims.segment_size, dims.segment_step, dims.mel, dims.d_model
+    c1, c2, c3 = dims.conv_channels
+    f2 = (mel - 3) // 2 + 1
+    f3 = (f2 - 3) // 2 + 1
+    front = front_buffer(rt, S, P, rng, t)
+    pf = lambda: CE.conv_embed_plain(w, front, P, step, seg)  # noqa: E731
+    macs = 7 * mel * c1 * 9 + 3 * f2 * c2 * 9 * c1 + f3 * c3 * 9 * c2 + f3 * c3 * d
+    n_bytes = front.numel() * 4 + P * S * d * 4 + c1 * 9 * 4 + (9 * c1 * c2 + 9 * c2 * c3
+                                                                + f3 * c3 * d) * 2
+    b = bound_ms(n_bytes, {"bf16": 2 * P * S * macs})
+    out = {}
+    for name, entry in (("conv_embed", CE.conv_embed_windows),
+                        ("conv_embed_front", CE.conv_embed_from_front)):
+        kf = lambda entry=entry: entry(w, front, P=P, step=step, seg=seg)  # noqa: E731
+        got, want = kf(), pf()
+        torch.cuda.synchronize()
+        err, stats = _embed_close(got, want, name)
+        out[name] = (kf, pf, err, b, f"front[{S},{front.shape[1]},{mel}] P={P}: {stats}")
     return out
 
 
@@ -494,6 +586,12 @@ SOURCES = {
                              "april_asr_tpu/ops/joiner_pallas.py:74"),
     "joiner_argmax_f32_v16383": ("april_asr_tpu_torch/csrc/joiner.cu",
                                  "april_asr_tpu/ops/joiner_pallas.py:74"),
+    "conv_embed": ("april_asr_tpu_torch/csrc/conv_embed.cu",
+                   "april_asr_tpu/ops/conv_embed_pallas.py:333"),
+    "conv_embed_front": ("april_asr_tpu_torch/csrc/conv_embed.cu",
+                         "april_asr_tpu/ops/conv_embed_pallas.py:438"),
+    "fbank_frames": ("april_asr_tpu_torch/csrc/fbank_bf16x3.cu",
+                     "april_asr_tpu/ops/fbank_pallas.py:163"),
 }
 # the launch counter of a row that times a kernel at a second shape
 COUNT_KEY = {"joiner_argmax_v16383": "joiner_argmax", "joiner_argmax_f32_v16383": "joiner_argmax_f32"}
@@ -519,6 +617,14 @@ def phase_kernels(models, card, reps: int = 20):
         })
         print(f"kernel {name}: max_abs_err={err:.3g} ms={k_ms:.4f} plain_ms={p_ms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}) library_ms=none shape={shape} ({card})")
+    # the embed kernel 16 displaces in the step: stacked windows + cuDNN
+    rt = models["bf16"].runtime
+    front = front_buffer(rt, S_FLAG, P, np.random.default_rng(3),
+                        lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV))
+    s_ms = cuda_ms(lambda: stacked_embed(rt, front, P), 5, warmup=1)
+    print(f"stacked embed (windows stack + encoder_embed, the step's embed before kernel 16; "
+          f"bf16 weights): ms={s_ms:.4f} shape=front[{S_FLAG},{front.shape[1]},{rt.dims.mel}] "
+          f"P={P} ({card})")
     ragged = check_kernels(models, 3, 5, seed=2)
     print("kernels at ragged shapes S=3 P=5: " + ", ".join(
         f"{n} max_abs_err={v[2]:.3g}" for n, v in ragged.items()))
@@ -597,13 +703,15 @@ def _lockstep(rt_dev, rt_cpu, S: int, chunk: int, ticks: int, seed: int, what: s
 
 def phase_reference(card, precision: str, ticks: int = 6):
     """A tiny model (3 layers, d 128), S=8, 200 ms chunks: `_lockstep` at
-    `precision`. The steps run the chunk kernels, the flush kernels 7 or 12
-    and kernel 8. At f32 nothing is re-quantized or rounded to bf16, so
-    every session is expected identical end to end."""
+    `precision`. The steps run the chunk kernels and, at int8, kernel 16
+    (checked), the flush kernels 7 or 12 and kernel 8. At f32 nothing is
+    re-quantized or rounded to bf16, so every session is expected identical
+    end to end."""
     from april_asr_tpu_torch.api.model import apply_precision
     from april_asr_tpu_torch.models.export import make_model_parameters
     from april_asr_tpu_torch.models.loader import native_runtime
     from april_asr_tpu_torch.models.lstm_transducer import TransducerDims, init_transducer_params
+    from april_asr_tpu_torch.ops import cuda_build
     from april_asr_tpu_torch.testing import default_tokens
 
     dims = TransducerDims(d_model=128, hidden=128, ffn=256, joiner_dim=128, vocab=64,
@@ -614,15 +722,59 @@ def phase_reference(card, precision: str, ticks: int = 6):
     rts = [native_runtime("ref", "", "en-us", mp, dims,
                           apply_precision({k: v.to(dev) for k, v in p.items()}, precision), dev)
            for dev in (DEV, "cpu")]
+    cuda_build.reset_counts()
     _lockstep(*rts, S=8, chunk=3200, ticks=ticks, seed=4, what=f"reference {precision}", card=card)
+    if (cuda_build.COUNTS["conv_embed"] > 0) != (precision == "int8"):
+        raise AssertionError(f"reference {precision}: kernel 16 launched "
+                             f"{cuda_build.COUNTS['conv_embed']} times")
 
 
-def phase_engine(model, card, path: str, ticks: int = 10, flushes: int = 5):
+def wall_ms(fn, reps):
+    """Host-clock ms of `reps` calls of `fn`, each synchronized."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def embed_ab(rt, run_step, prof_kernel: dict, card, path: str):
+    """The step with kernel 16 and with the stacked embed (the runtime's
+    `encoder_embed_front` returning None, as at f32 weights), in turns
+    (kernel 16, stacked, stacked, kernel 16; 5 steps a turn); the step ms of
+    each, and the device kernels whose launches per step differ between the
+    two profiles."""
+    orig = rt.encoder_embed_front
+    off = lambda *a: None  # noqa: E731
+    times = {"kernel16": [], "stacked": []}
+    try:
+        for mode in ("kernel16", "stacked", "stacked", "kernel16"):
+            rt.encoder_embed_front = orig if mode == "kernel16" else off
+            times[mode] += wall_ms(run_step, 5)
+        rt.encoder_embed_front = off
+        prof_stacked = profile(run_step, card, f"engine {path} step, stacked embed")
+    finally:
+        rt.encoder_embed_front = orig
+    moved = []
+    for k in sorted(set(prof_kernel) | set(prof_stacked)):
+        a, b = prof_kernel.get(k, (0.0, 0)), prof_stacked.get(k, (0.0, 0))
+        if a[1] != b[1]:
+            moved.append(f"{k[:60]} x{b[1]} -> x{a[1]} ({b[0] / 1e3:.3f} -> {a[0] / 1e3:.3f} ms)")
+    print(f"engine {path} embed A/B: step_ms kernel16 median={np.median(times['kernel16']):.2f} "
+          f"{[round(x, 2) for x in times['kernel16']]} stacked median={np.median(times['stacked']):.2f} "
+          f"{[round(x, 2) for x in times['stacked']]}; device kernels per step, stacked -> kernel 16: "
+          f"{'; '.join(moved) if moved else 'no profile'} ({card})")
+
+
+def phase_engine(model, card, path: str, ticks: int = 10, flushes: int = 5, ab: bool = False):
     """BatchEngine S=256, 1 s chunks: `ticks` steps, then a flush of every
     slot; the step's and the flush's launches checked apart (PATH_KERNELS),
     then `flushes` - 1 more flushes, each after one more tick of audio; their
     times (median and range), and the profiler's view of one step and one
-    flush."""
+    flush. With `ab`, `embed_ab` on the live state."""
     from april_asr_tpu_torch.config import EngineConfig
     from april_asr_tpu_torch.engine.batch import BatchEngine
     from april_asr_tpu_torch.ops import cuda_build
@@ -677,16 +829,6 @@ def phase_engine(model, card, path: str, ticks: int = 10, flushes: int = 5):
     run_step = lambda: eng.prog.step(eng.weights, eng.state, audio, n)  # noqa: E731
     run_flush = lambda: eng.prog.flush(eng.weights, eng.state, do)  # noqa: E731
 
-    def wall_ms(fn, reps):
-        out = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return out
-
     def spread(ms):
         return f"median={np.median(ms):.1f} (min {min(ms):.1f}, max {max(ms):.1f}, n {len(ms)})"
 
@@ -700,15 +842,18 @@ def phase_engine(model, card, path: str, ticks: int = 10, flushes: int = 5):
           f"flush_program_ms {spread(prog_flush)} "
           f"audio_s_per_s={aps:.1f} callbacks={n_cb[0]} step_launches={json.dumps(step_counts)} "
           f"flush_launches={json.dumps(flush_counts)} ({card})")
-    profile(run_step, card, f"engine {path} step")
+    prof_step = profile(run_step, card, f"engine {path} step")
     profile(run_flush, card, f"engine {path} flush", n=1)
+    if ab:
+        embed_ab(rt, run_step, prof_step, card, path)
     return _merge(step_counts, flush_counts)
 
 
-def profile(run, card, what: str, n: int = 2):
+def profile(run, card, what: str, n: int = 2) -> dict:
     """Device time by kernel over `n` calls of `run` (torch.profiler) and the
-    device's busy share of the wall time. Measurement only: if the
-    profiler records no device time here, says so and goes on."""
+    device's busy share of the wall time; returns {kernel: (device us, launches)}
+    per call. Measurement only: if the profiler records no device time here,
+    says so, returns {} and goes on."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -727,12 +872,13 @@ def profile(run, card, what: str, n: int = 2):
     busy_us = sum(r[1] for r in rows)
     if not rows:
         print(f"profile {what}: no device time recorded; busy share not measured ({card})")
-        return
+        return {}
     rows.sort(key=lambda r: -r[1])
     top = "; ".join(f"{k[:48]} {t / n / 1e3:.2f} ms x{c // n}" for k, t, c in rows[:8])
     print(f"profile {what}: {n} calls, device busy {busy_us / n / 1e3:.2f} ms of "
-          f"{wall_us / n / 1e3:.2f} ms wall per call (busy share {busy_us / wall_us:.3f}); "
-          f"per call: {top} ({card})")
+          f"{wall_us / n / 1e3:.2f} ms wall per call (busy share {busy_us / wall_us:.3f}), "
+          f"{sum(r[2] for r in rows) // n} device kernels per call; per call: {top} ({card})")
+    return {k: (t / n, c // n) for k, t, c in rows}
 
 
 def phase_session(model, card, precision: str):
@@ -768,12 +914,43 @@ def phase_session(model, card, precision: str):
     return _merge(step_counts, flush_counts)
 
 
-def phase_vocab(models, path: str, card) -> dict:
+def vocab_narrow(path: str, card):
+    """A 1-layer d = J = 128 model with 16,383 tokens: the JAX chunk-decode
+    gate passes it, but kernel 4's block (16·(J + max(J, d) + V + T) bytes)
+    exceeds the H100's 232,448, so the step decodes pull by pull through
+    kernel 8, as the flush does. The CUDA engine against the CPU engine at
+    S=8 (`_lockstep`, f32 as loaded); kernel 4 must never launch."""
+    from april_asr_tpu_torch.api import Model
+    from april_asr_tpu_torch.config import DecodeConfig
+    from april_asr_tpu_torch.ops import cuda_build
+    from april_asr_tpu_torch.ops import decode_kernels as DK
+
+    rt = Model(path, device=DEV).runtime
+    d, J, V = rt.dims.d_model, rt.dims.joiner_dim, rt.dims.vocab
+    T = DecodeConfig().max_active_tokens
+    if not DK.chunk_decode_supported(8, J, d, rt.dims.context, V) or DK.chunk_decode_block_fits(J, d, V, T):
+        raise AssertionError(f"vocab narrow: expected the JAX gate to pass and kernel 4's block "
+                             f"({DK.chunk_decode_smem(J, d, V, T)} bytes) not to fit")
+    cuda_build.reset_counts()
+    t0 = time.perf_counter()
+    _lockstep(rt, Model(path, device="cpu").runtime, S=8, chunk=CHUNK_1S, ticks=3, seed=7,
+              what="vocab narrow f32 lockstep", card=card)
+    c = cuda_build.COUNTS
+    if c["chunk_decode"] or c["chunk_decode_f32"] or not c["dec_joiner_f32"]:
+        raise AssertionError(f"vocab narrow: kernel 4 launched {c['chunk_decode_f32']} times, "
+                             f"kernel 8 {c['dec_joiner_f32']} times")
+    print(f"vocab narrow: d=J={d} V={V}, kernel 4 block {DK.chunk_decode_smem(J, d, V, T)} bytes; "
+          f"lockstep in {time.perf_counter() - t0:.1f} s, kernel 4 launched 0 times, kernel 8 "
+          f"{c['dec_joiner_f32']} times, kernel 9 {c['joiner_argmax_f32']} times ({card})")
+
+
+def phase_vocab(models, path: str, narrow_path: str, card) -> dict:
     """A flagship-width model with 16,383 tokens (the most a .april holds).
     Kernel 4 cannot hold its [V] logits rows in shared memory, so its
     wrapper refuses it, and the JAX gates route it to the per-pull decode
     through kernel 9. Then the CUDA engine against the CPU engine at S=8
-    (`_lockstep`, f32 as loaded) and BatchEngine S=256 at f32 and bf16."""
+    (`_lockstep`, f32 as loaded), BatchEngine S=256 at f32 and bf16, and
+    `vocab_narrow`."""
     from april_asr_tpu_torch.api import Model
     from april_asr_tpu_torch.config import DecodeConfig
     from april_asr_tpu_torch.decode.greedy import init_decode_state, vocab_tables_device
@@ -799,8 +976,10 @@ def phase_vocab(models, path: str, card) -> dict:
     _lockstep(rt, Model(path, device="cpu").runtime, S=8, chunk=CHUNK_1S, ticks=3, seed=5,
               what="vocab f32 lockstep", card=card)
     print(f"vocab: lockstep in {time.perf_counter() - t0:.1f} s")
-    return _merge(phase_engine(models["vocab f32"], card, "vocab f32", ticks=3),
-                  phase_engine(models["vocab bf16"], card, "vocab bf16", ticks=3))
+    counts = _merge(phase_engine(models["vocab f32"], card, "vocab f32", ticks=3),
+                    phase_engine(models["vocab bf16"], card, "vocab bf16", ticks=3))
+    vocab_narrow(narrow_path, card)
+    return counts
 
 
 def main(argv=None) -> int:
@@ -860,13 +1039,18 @@ def main(argv=None) -> int:
             phase_reference(card, "f32")
         if "engine" in phases:
             for prec in ("int8", "bf16", "f32"):
-                record(phase_engine(models[prec], card, prec), prec)
+                record(phase_engine(models[prec], card, prec, ab=prec != "f32"), prec)
         if "session" in phases:
             record(phase_session(models["int8"], card, "int8"), "int8")
             # Model(path) with no precision: the weights as loaded (f32)
             record(phase_session(models["f32"], card, "f32"), "f32")
         if "vocab" in phases:
-            counts = phase_vocab(models, vocab_path, card)
+            narrow_dir = os.path.join(tmp, "narrow")
+            os.makedirs(narrow_dir)
+            narrow_path = flagship_april(narrow_dir, seed=6, dims=TransducerDims(
+                d_model=128, hidden=128, ffn=128, joiner_dim=128, vocab=16383, layers=1,
+                decoder_groups=32, conv_channels=(4, 8, 8)))
+            counts = phase_vocab(models, vocab_path, narrow_path, card)
             record(counts, "vocab f32")
             record(counts, "vocab bf16")
     for k in kernels:
