@@ -393,14 +393,10 @@ extern "C" int chunk_decode(
   c.long_sil_ms = long_sil_ms; c.decay_ms = decay_ms;
   const int Dm = J > d ? J : d;
   const size_t smem = sizeof(float) * (size_t)TSD * (J + Dm + V) + sizeof(int) * (size_t)TSD * T;
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (smem > (size_t)limit) return -(int)smem;
+  const int fit = smem_fits(smem);
+  if (fit) return fit;
   const auto kern = w_f32 ? chunk_decode_kernel<float> : chunk_decode_kernel<uint16_t>;
-  err = allow_smem(kern, smem);
+  cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + TSD - 1) / TSD);
   kern<<<grid, NT, smem, (cudaStream_t)stream>>>(

@@ -79,6 +79,17 @@ struct Wt<uint16_t> {
   static __device__ __forceinline__ float act(float x) { return round_bf16(x); }
 };
 
+// 0 if `bytes` of dynamic shared memory fit one block on this device, minus
+// the bytes if they do not (the wrappers raise with them), or a CUDA error.
+static inline int smem_fits(size_t bytes) {
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  return bytes > (size_t)limit ? -(int)bytes : 0;
+}
+
 // Allows `bytes` of dynamic shared memory for `kern` (needed above 48 KB).
 template <typename K>
 static cudaError_t allow_smem(K kern, size_t bytes) {

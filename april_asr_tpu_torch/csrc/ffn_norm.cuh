@@ -9,7 +9,8 @@
 // ffn_norm_kernel<RT, RG>: int8 weights with f32 column scales; _rowq8 of y
 // and of mid, exact int32 dots dequantized as acc * (s_row * s_col).
 // Used by kernel 3 (csrc/lstm_i8.cu, RT = 16) and kernel 7
-// (csrc/lstm_step.cu, RT = 4).
+// (csrc/lstm_step.cu, RT = 4); its body `ffn_norm_tile` also runs inside
+// kernels 11 and 15 (csrc/lstm_i8.cuh, RT = 2: one session tile).
 //
 // float_ffn_kernel<WT, RT, RG>: f32 or bf16 weights; every dot rounds its
 // activation to the weight type and accumulates in f32. Used by kernel 10
@@ -61,28 +62,20 @@ static size_t ffn_i8_smem(int d, int F) {
   return sizeof(float) * (size_t)(RT * d + RT * F + 2 * RT) + (size_t)RT * (d + F);
 }
 
+// The int8 FFN + BasicNorm of RT rows whose y = x + hseq is already in
+// shared memory (y [RT][d], with mid [RT][F], sc [2][RT], yq [RT][d] and
+// mq [RT][F] as scratch); writes rows r0.. of out, those below R. Called by
+// every thread of a block of FFN_NT; it synchronizes before it reads y.
+// ffn_norm_kernel runs it on row tiles; kernels 11 and 15
+// (csrc/lstm_i8.cuh `layer_step_i8`) run it on one timestep's session tile.
 template <int RT, int RG>
-__global__ void __launch_bounds__(FFN_NT) ffn_norm_kernel(
-    const float* __restrict__ x, const float* __restrict__ hs, const int8_t* __restrict__ ff1,
+__device__ __forceinline__ void ffn_norm_tile(
+    float* y, float* mid, float* sc, int8_t* yq, int8_t* mq, const int8_t* __restrict__ ff1,
     const float* __restrict__ ff1s, const void* __restrict__ f1b, const int8_t* __restrict__ ff2,
     const float* __restrict__ ff2s, const void* __restrict__ f2b, const float* __restrict__ eps,
-    float* __restrict__ out, int R, int d, int F, int f1b_bf16, int f2b_bf16) {
-  extern __shared__ float4 smem_f4[];
-  float* y = reinterpret_cast<float*>(smem_f4);  // [RT][d]
-  float* mid = y + RT * d;                       // [RT][F]
-  float* sc = mid + RT * F;                      // [2][RT]
-  int8_t* yq = reinterpret_cast<int8_t*>(sc + 2 * RT);  // [RT][d]
-  int8_t* mq = yq + RT * d;                      // [RT][F]
-
-  const int r0 = blockIdx.x * RT;
+    float* __restrict__ out, int r0, int R, int d, int F, int f1b_bf16, int f2b_bf16) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nwarps = FFN_NT / 32;
-
-  for (int i = tid; i < RT * d; i += FFN_NT) {
-    int r = i / d, row = r0 + r;
-    size_t gi = (size_t)row * d + (i - r * d);
-    y[i] = row < R ? __fadd_rn(x[gi], hs[gi]) : 0.f;
-  }
   __syncthreads();
   for (int r = warp; r < RT; r += nwarps) {
     float s = warp_rowq8(y + r * d, d, yq + r * d, lane);
@@ -150,6 +143,29 @@ __global__ void __launch_bounds__(FFN_NT) ffn_norm_kernel(
   }
   __syncthreads();
   basic_norm_rows<RT>(y, out, eps, r0, R, d);
+}
+
+template <int RT, int RG>
+__global__ void __launch_bounds__(FFN_NT) ffn_norm_kernel(
+    const float* __restrict__ x, const float* __restrict__ hs, const int8_t* __restrict__ ff1,
+    const float* __restrict__ ff1s, const void* __restrict__ f1b, const int8_t* __restrict__ ff2,
+    const float* __restrict__ ff2s, const void* __restrict__ f2b, const float* __restrict__ eps,
+    float* __restrict__ out, int R, int d, int F, int f1b_bf16, int f2b_bf16) {
+  extern __shared__ float4 smem_f4[];
+  float* y = reinterpret_cast<float*>(smem_f4);  // [RT][d]
+  float* mid = y + RT * d;                       // [RT][F]
+  float* sc = mid + RT * F;                      // [2][RT]
+  int8_t* yq = reinterpret_cast<int8_t*>(sc + 2 * RT);  // [RT][d]
+  int8_t* mq = yq + RT * d;                      // [RT][F]
+
+  const int r0 = blockIdx.x * RT;
+  for (int i = threadIdx.x; i < RT * d; i += FFN_NT) {
+    int r = i / d, row = r0 + r;
+    size_t gi = (size_t)row * d + (i - r * d);
+    y[i] = row < R ? __fadd_rn(x[gi], hs[gi]) : 0.f;
+  }
+  ffn_norm_tile<RT, RG>(y, mid, sc, yq, mq, ff1, ff1s, f1b, ff2, ff2s, f2b, eps, out, r0, R, d, F,
+                        f1b_bf16, f2b_bf16);
 }
 
 template <int RT>

@@ -1,21 +1,41 @@
-// Kernels 2 and 3: the int8 split-form LSTM layer of the chunk encoder.
+// Kernels 2, 13 and 14: the recurrent core of the int8 chunk layer, and
+// kernel 3: its batched residual + FFN + BasicNorm.
 //
-// lstm_rec_i8 replaces april_asr_tpu/ops/lstm_pallas.py
-// `lstm_layer_chunk_rec_stream2_i8` (`_rec_stream2_kernel_i8`): the
-// recurrent core of one layer over P steps. On the TPU the time axis is a
-// sequential grid dimension with h/c resident in VMEM; here one block owns a
-// tile of TS sessions for all P steps (the time loop runs inside the block)
-// with h, c, hc and the int8 activations in shared memory. Each step computes
-// _rowq8(x_t) and _rowq8(h) (one warp per row), the int8 gate dots against
-// w_ih/w_hh (the x-side gates are computed here too, not by a library GEMM),
-// the f32 cell, _rowq8(hc) and the int8 projection; it writes hseq[t] and
-// keeps h/c where t >= n_pulls.
+// The recurrent cores replace april_asr_tpu/ops/lstm_pallas.py
+// `lstm_layer_chunk_rec_stream2_i8` (`_rec_stream2_kernel_i8`, kernel 2: the
+// engine's), `lstm_layer_chunk_rec_i8` (`_rec_kernel_i8`, 13) and
+// `lstm_layer_chunk_rec_stream_i8` (`_rec_stream_kernel_i8`, 14). All three
+// compute one function of one layer over P steps: _rowq8(x_t) and _rowq8(h),
+// the int8 gate dots against w_ih/w_hh, the f32 cell, _rowq8(hc) and the
+// int8 projection; hseq[t] is written ungated and h/c are kept where
+// t >= n_pulls. On the TPU they differ in how time and x reach the core: a
+// sequential grid axis with x streamed a step at a time and the next step's
+// x-side gates pipelined (2), the whole P-deep x tile in VMEM with the time
+// loop inside the block (13), the time axis as the fastest grid axis with a
+// 1024-row session tile (14). Here one block owns a tile of TS sessions for
+// all P steps (the time loop runs inside the block; the step's pieces are
+// in csrc/lstm_i8.cuh), with h, c, hc and the int8 rows in shared memory.
+// The x-side gates are computed in the block too, never by a library GEMM.
+// The three differ in how x_t reaches the block:
+//
+//   X_LOAD (2, TS = 2): each step reads x_t from device memory, then
+//     quantizes it beside h.
+//   X_STAGED (13, TS = 2): the block quantizes every step's x rows at its
+//     start and keeps P * TS * d int8 values and P * TS scales in shared
+//     memory, the int8 form of the TPU kernel's VMEM-resident x tile (the
+//     f32 tile would need 229 KB at TS = 2, d = 512, P = 56); the time loop
+//     then quantizes only h. The C entry returns minus the bytes where a P
+//     does not fit.
+//   X_ASYNC (14, TS = 4): x_{t+1} is copied into a second buffer by
+//     cp.async while step t computes. The larger session tile makes each L2
+//     read of the layer's weights serve 4 sessions, not 2, at the price of
+//     filling only 64 of the 132 SMs at S = 256: the trade the TPU kernel's
+//     1024-row tile makes, and the one to measure.
 //
 // Bound on the H100: per step every block re-reads the layer's int8 weights
 // (2 x d x 4H + H x d = 4.7 MB at flagship dims), which stay resident in the
 // 50 MB L2; the integer multiply-adds (plain IMAD loops over char4 weight
-// strips, exact int32) are the issue-rate limit. Design: TS = 2 sessions
-// per block so S = 256 fills 128 of the 132 SMs, each thread owns 4
+// strips, exact int32) set the pace (instruction throughput). Each thread owns 4
 // consecutive hidden units (one coalesced char4 per gate row) so the cell
 // needs no exchange between threads.
 //
@@ -33,14 +53,46 @@
 // rsqrtf are CUDA's (no fast-math): they can differ from XLA's by an ulp,
 // which may flip an isolated int8 rounding downstream.
 
-#include "ffn_norm.cuh"
+#include "lstm_i8.cuh"
 
-#define TS 2        // sessions per block (lstm_rec_i8)
-#define RT 16       // rows per block (ffn_norm_i8)
-#define RG 8        // rows per thread item (ffn_norm_i8)
-#define NTHREADS 256
+#define X_LOAD 0
+#define X_STAGED 1
+#define X_ASYNC 2
+#define RT 16  // rows per block (ffn_norm_i8)
+#define RG 8   // rows per thread item (ffn_norm_i8)
 
-__global__ void __launch_bounds__(NTHREADS) lstm_rec_kernel(
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Starts the copies of the tile's rows of x_t [S, d] into dst [TS][d], 16
+// bytes a copy (rows past S are not copied: they stay zero)
+template <int TS>
+__device__ __forceinline__ void async_rows(float* dst, const float* __restrict__ src, int s0,
+                                           int S, int d) {
+  const int q4 = d / 4;
+  for (int i = threadIdx.x; i < TS * q4; i += REC_NT) {
+    const int r = i / q4, s = s0 + r, k = (i - r * q4) * 4;
+    if (s < S) cp_async16(dst + r * d + k, src + (size_t)s * d + k);
+  }
+}
+
+template <int XM>
+__host__ __device__ constexpr int x_bufs() {
+  return XM == X_LOAD ? 1 : (XM == X_ASYNC ? 2 : 0);
+}
+
+template <int TS, int XM>
+__global__ void __launch_bounds__(REC_NT) lstm_rec_kernel(
     const float* __restrict__ x, const float* __restrict__ h0, const float* __restrict__ c0,
     const int* __restrict__ npulls, const int8_t* __restrict__ wih,
     const float* __restrict__ wihs, const int8_t* __restrict__ whh,
@@ -48,158 +100,123 @@ __global__ void __launch_bounds__(NTHREADS) lstm_rec_kernel(
     const int8_t* __restrict__ whr, const float* __restrict__ whrs,
     float* __restrict__ hseq, float* __restrict__ h2, float* __restrict__ c2,
     int P, int S, int d, int H, int bias_bf16) {
+  static_assert(2 * TS <= REC_NT / 32, "one warp per x row and per h row");
   extern __shared__ float4 smem_f4[];
   float* hsh = reinterpret_cast<float*>(smem_f4);  // [TS][d] carried h
   float* csh = hsh + TS * d;                      // [TS][H] carried c
   float* hcs = csh + TS * H;                      // [TS][H] hc of this step
-  float* xt = hcs + TS * H;                       // [TS][d] x_t
-  float* sc = xt + TS * d;                        // [3][TS] row scales
-  int8_t* xq = reinterpret_cast<int8_t*>(sc + 4 * TS);  // [TS][d]
-  int8_t* hq = xq + TS * d;                       // [TS][d]
+  float* xt = hcs + TS * H;                       // [x_bufs][TS][d] f32 x_t
+  float* sc = xt + x_bufs<XM>() * TS * d;         // [4][TS] row scales: x, h, hc
+  float* xsc = sc + 4 * TS;                       // X_STAGED: [P][TS] x row scales
+  int8_t* hq = reinterpret_cast<int8_t*>(xsc + (XM == X_STAGED ? P * TS : 0));  // [TS][d]
   int8_t* hcq = hq + TS * d;                      // [TS][H]
+  int8_t* xq = hcq + TS * H;                      // [TS][d]; X_STAGED: [P][TS][d]
 
   const int s0 = blockIdx.x * TS;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int G = 4 * H;
   int np[TS];
 #pragma unroll
   for (int r = 0; r < TS; ++r) np[r] = (s0 + r < S) ? npulls[s0 + r] : 0;
+  load_rows<TS>(hsh, h0, s0, S, d);
+  load_rows<TS>(csh, c0, s0, S, H);
 
-  for (int i = tid; i < TS * d; i += NTHREADS) {
-    int r = i / d, s = s0 + r;
-    hsh[i] = s < S ? h0[(size_t)s * d + (i - r * d)] : 0.f;
-  }
-  for (int i = tid; i < TS * H; i += NTHREADS) {
-    int r = i / H, s = s0 + r;
-    csh[i] = s < S ? c0[(size_t)s * H + (i - r * H)] : 0.f;
+  if (XM == X_STAGED) {
+    // _rowq8 of every step's x rows, one warp per (step, row)
+    for (int i = warp; i < P * TS; i += REC_NT / 32) {
+      const int t = i / TS, s = s0 + (i - t * TS);
+      int8_t* q = xq + (size_t)i * d;
+      if (s < S) {
+        const float v = warp_rowq8(x + ((size_t)t * S + s) * d, d, q, lane);
+        if (lane == 0) xsc[i] = v;
+      } else {
+        for (int k = lane; k < d; k += 32) q[k] = 0;
+        if (lane == 0) xsc[i] = 0.f;
+      }
+    }
+  } else if (XM == X_ASYNC) {
+    for (int i = tid; i < 2 * TS * d; i += REC_NT)
+      if (s0 + (i / d) % TS >= S) xt[i] = 0.f;
+    async_rows<TS>(xt, x, s0, S, d);
+    cp_async_commit();
   }
 
   for (int t = 0; t < P; ++t) {
-    for (int i = tid; i < TS * d; i += NTHREADS) {
-      int r = i / d, s = s0 + r;
-      xt[i] = s < S ? x[((size_t)t * S + s) * d + (i - r * d)] : 0.f;
+    const float* xr = xt;
+    if (XM == X_LOAD) {
+      load_rows<TS>(xt, x + (size_t)t * S * d, s0, S, d);
+    } else if (XM == X_ASYNC) {
+      xr = xt + (t & 1) * TS * d;
+      cp_async_wait_all();
     }
     __syncthreads();
-    if (warp < TS) {
-      float s = warp_rowq8(xt + warp * d, d, xq + warp * d, lane);
+    if (XM == X_ASYNC && t + 1 < P) {
+      // x_{t+1} into the buffer step t - 1 read (its readers passed the barrier)
+      async_rows<TS>(xt + ((t + 1) & 1) * TS * d, x + (size_t)(t + 1) * S * d, s0, S, d);
+      cp_async_commit();
+    }
+    if (XM != X_STAGED && warp < TS) {
+      const float s = warp_rowq8(xr + warp * d, d, xq + warp * d, lane);
       if (lane == 0) sc[warp] = s;
-    } else if (warp < 2 * TS) {
-      int r = warp - TS;
-      float s = warp_rowq8(hsh + r * d, d, hq + r * d, lane);
+    } else if (warp >= TS && warp < 2 * TS) {
+      const int r = warp - TS;
+      const float s = warp_rowq8(hsh + r * d, d, hq + r * d, lane);
       if (lane == 0) sc[TS + r] = s;
     }
     __syncthreads();
-
-    // gates and cell: each thread owns 4 consecutive hidden units
-    for (int ug = tid; ug < H / 4; ug += NTHREADS) {
-      const int u0 = ug * 4;
-      float gate[4][TS][4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        int ax[TS][4], ah[TS][4];
-#pragma unroll
-        for (int r = 0; r < TS; ++r)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) ax[r][j] = ah[r][j] = 0;
-        const int8_t* wx = wih + g * H + u0;
-        const int8_t* wh = whh + g * H + u0;
-        for (int k = 0; k < d; ++k) {
-          const char4 a = *reinterpret_cast<const char4*>(wx + (size_t)k * G);
-          const char4 b = *reinterpret_cast<const char4*>(wh + (size_t)k * G);
-#pragma unroll
-          for (int r = 0; r < TS; ++r) {
-            const int xv = xq[r * d + k], hv = hq[r * d + k];
-            ax[r][0] += xv * a.x; ax[r][1] += xv * a.y; ax[r][2] += xv * a.z; ax[r][3] += xv * a.w;
-            ah[r][0] += hv * b.x; ah[r][1] += hv * b.y; ah[r][2] += hv * b.z; ah[r][3] += hv * b.w;
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < TS; ++r)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int col = g * H + u0 + j;
-            const float gx = __fmul_rn((float)ax[r][j], __fmul_rn(sc[r], wihs[col]));
-            const float gh = __fmul_rn((float)ah[r][j], __fmul_rn(sc[TS + r], whhs[col]));
-            gate[g][r][j] = __fadd_rn(__fadd_rn(gx, gh), load_vec(bias, col, bias_bf16));
-          }
-      }
-#pragma unroll
-      for (int r = 0; r < TS; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int u = r * H + u0 + j;
-          const float cold = csh[u];
-          const float cn = __fadd_rn(__fmul_rn(sig_tanh(gate[1][r][j]), cold),
-                                     __fmul_rn(sig_tanh(gate[0][r][j]), tanhf(gate[2][r][j])));
-          hcs[u] = __fmul_rn(sig_tanh(gate[3][r][j]), tanhf(cn));
-          if (t < np[r]) csh[u] = cn;
-        }
-    }
+    const bool staged = XM == X_STAGED;
+    rec_gates_cell<TS>(staged ? xq + (size_t)t * TS * d : xq, staged ? xsc + t * TS : sc, hq,
+                       sc + TS, wih, wihs, whh, whhs, bias, bias_bf16, csh, hcs, np, t, d, H);
     __syncthreads();
     if (warp < TS) {
-      float s = warp_rowq8(hcs + warp * H, H, hcq + warp * H, lane);
+      const float s = warp_rowq8(hcs + warp * H, H, hcq + warp * H, lane);
       if (lane == 0) sc[2 * TS + warp] = s;
     }
     __syncthreads();
-
-    // projection: each thread owns 4 consecutive output columns
-    for (int cg = tid; cg < d / 4; cg += NTHREADS) {
-      int acc[TS][4];
-#pragma unroll
-      for (int r = 0; r < TS; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[r][j] = 0;
-      const int8_t* w = whr + cg * 4;
-      for (int k = 0; k < H; ++k) {
-        const char4 a = *reinterpret_cast<const char4*>(w + (size_t)k * d);
-#pragma unroll
-        for (int r = 0; r < TS; ++r) {
-          const int v = hcq[r * H + k];
-          acc[r][0] += v * a.x; acc[r][1] += v * a.y; acc[r][2] += v * a.z; acc[r][3] += v * a.w;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < TS; ++r) {
-        const int s = s0 + r;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = cg * 4 + j;
-          const float hn = __fmul_rn((float)acc[r][j], __fmul_rn(sc[2 * TS + r], whrs[col]));
-          if (s < S) hseq[((size_t)t * S + s) * d + col] = hn;
-          if (t < np[r]) hsh[r * d + col] = hn;
-        }
-      }
-    }
+    rec_proj<TS>(hcq, sc + 2 * TS, whr, whrs, d, H, [&](int r, int col, float hn) {
+      const int s = s0 + r;
+      if (s < S) hseq[((size_t)t * S + s) * d + col] = hn;
+      if (t < np[r]) hsh[r * d + col] = hn;
+    });
     __syncthreads();
   }
-
-  for (int i = tid; i < TS * d; i += NTHREADS) {
-    int r = i / d, s = s0 + r;
-    if (s < S) h2[(size_t)s * d + (i - r * d)] = hsh[i];
-  }
-  for (int i = tid; i < TS * H; i += NTHREADS) {
-    int r = i / H, s = s0 + r;
-    if (s < S) c2[(size_t)s * H + (i - r * H)] = csh[i];
-  }
+  store_rows<TS>(h2, hsh, s0, S, d);
+  store_rows<TS>(c2, csh, s0, S, H);
 }
 
-static size_t rec_smem(int d, int H) {
-  return sizeof(float) * (size_t)(TS * d * 2 + TS * H * 2 + 4 * TS) + (size_t)TS * (2 * d + H);
-}
-
-extern "C" int lstm_rec_i8(const float* x, const float* h, const float* c, const int* npulls,
-                           const int8_t* wih, const float* wihs, const int8_t* whh,
-                           const float* whhs, const void* bias, const int8_t* whr,
-                           const float* whrs, float* hseq, float* h2, float* c2, int P, int S,
-                           int d, int H, int bias_bf16, void* stream) {
-  const size_t smem = rec_smem(d, H);
-  cudaError_t err = allow_smem(lstm_rec_kernel, smem);
+template <int TS, int XM>
+static int launch_rec(const float* x, const float* h, const float* c, const int* npulls,
+                      const int8_t* wih, const float* wihs, const int8_t* whh, const float* whhs,
+                      const void* bias, const int8_t* whr, const float* whrs, float* hseq,
+                      float* h2, float* c2, int P, int S, int d, int H, int bias_bf16,
+                      void* stream) {
+  const int px = XM == X_STAGED ? P : 1;
+  const size_t smem =
+      sizeof(float) * (size_t)(TS * (d + 2 * H) + x_bufs<XM>() * TS * d + 4 * TS
+                               + (XM == X_STAGED ? P * TS : 0))
+      + (size_t)TS * (d + H) + (size_t)px * TS * d;
+  const int fit = smem_fits(smem);
+  if (fit) return fit;
+  const auto kern = lstm_rec_kernel<TS, XM>;
+  cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + TS - 1) / TS);
-  lstm_rec_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+  kern<<<(S + TS - 1) / TS, REC_NT, smem, (cudaStream_t)stream>>>(
       x, h, c, npulls, wih, wihs, whh, whhs, bias, whr, whrs, hseq, h2, c2, P, S, d, H, bias_bf16);
   return (int)cudaGetLastError();
 }
+
+#define REC_ENTRY(name, TS, XM)                                                                  \
+  extern "C" int name(const float* x, const float* h, const float* c, const int* npulls,         \
+                      const int8_t* wih, const float* wihs, const int8_t* whh, const float* whhs, \
+                      const void* bias, const int8_t* whr, const float* whrs, float* hseq,       \
+                      float* h2, float* c2, int P, int S, int d, int H, int bias_bf16,           \
+                      void* stream) {                                                            \
+    return launch_rec<TS, XM>(x, h, c, npulls, wih, wihs, whh, whhs, bias, whr, whrs, hseq, h2,  \
+                              c2, P, S, d, H, bias_bf16, stream);                                \
+  }
+
+REC_ENTRY(lstm_rec_stream2_i8, 2, X_LOAD)  // kernel 2
+REC_ENTRY(lstm_rec_i8, 2, X_STAGED)        // kernel 13
+REC_ENTRY(lstm_rec_stream_i8, 4, X_ASYNC)  // kernel 14 (x 16-byte aligned)
 
 extern "C" int ffn_norm_i8(const float* x, const float* hs, const int8_t* ff1, const float* ff1s,
                            const void* f1b, const int8_t* ff2, const float* ff2s, const void* f2b,

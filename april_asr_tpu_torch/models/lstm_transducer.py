@@ -47,7 +47,12 @@ from ..ops.joiner_kernels import (
     joiner_logits_plain,
 )
 from ..ops.lstm_float_kernels import lstm_layer_chunk_fused, lstm_layer_fused
-from ..ops.lstm_kernels import ffn_norm_i8, lstm_layer_chunk_rec_i8, lstm_layer_fused_i8
+from ..ops.lstm_kernels import (
+    LAYER_I8_KEYS,
+    ffn_norm_i8,
+    lstm_layer_chunk_rec_stream2_i8,
+    lstm_layer_fused_i8,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,7 +235,7 @@ def _lstm_stack_chunk_q8(params: Params, y, h, c, gate=None):
     n_pulls = _n_pulls(gate)
     hs, cs = [], []
     for l in range(L):
-        hseq, h_new, c_new = lstm_layer_chunk_rec_i8(
+        hseq, h_new, c_new = lstm_layer_chunk_rec_stream2_i8(
             y, h[l], c[l],
             params["w_ih_t_q8"][l], params["w_ih_t_q8s"][l],
             params["w_hh_t_q8"][l], params["w_hh_t_q8s"][l],
@@ -258,9 +263,7 @@ def encoder_chunk(params: Params, y, h, c, can=None):
     return eout, h_new, c_new
 
 
-STEP_I8_KEYS = ("w_ih_t_q8", "w_ih_t_q8s", "w_hh_t_q8", "w_hh_t_q8s", "bias",
-                 "w_hr_t_q8", "w_hr_t_q8s", "ff1_t_q8", "ff1_t_q8s", "ff1_b",
-                 "ff2_t_q8", "ff2_t_q8s", "ff2_b", "norm_eps")
+STEP_I8_KEYS = LAYER_I8_KEYS
 STEP_KEYS = ("w_ih_t", "w_hh_t", "bias", "w_hr_t", "ff1_t", "ff1_b", "ff2_t", "ff2_b",
               "norm_eps")
 

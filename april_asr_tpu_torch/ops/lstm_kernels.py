@@ -1,17 +1,25 @@
-"""Kernels 2 and 3: the int8 split-form LSTM layer of the chunk encoder, and
-kernel 7: one int8 timestep of a whole layer.
+"""The int8 LSTM layer kernels: the recurrent cores 2, 13 and 14 of the
+split chunk layer, kernel 3 (its batched FFN and norm), kernel 11 (the
+unsplit chunk layer) and kernel 7 (one timestep of a whole layer).
 
-Ports of `lstm_layer_chunk_rec_stream2_i8` (`_rec_stream2_kernel_i8`),
-`ffn_norm_i8` (`_ffn_norm_kernel_i8`) and `lstm_layer_fused_i8`
-(`_layer_kernel_i8`) in april_asr_tpu/ops/lstm_pallas.py.
+Ports of april_asr_tpu/ops/lstm_pallas.py `lstm_layer_chunk_rec_stream2_i8`
+(`_rec_stream2_kernel_i8`), `lstm_layer_chunk_rec_i8` (`_rec_kernel_i8`),
+`lstm_layer_chunk_rec_stream_i8` (`_rec_stream_kernel_i8`), `ffn_norm_i8`
+(`_ffn_norm_kernel_i8`), `lstm_layer_chunk_fused_i8` (`_chunk_kernel_i8`)
+and `lstm_layer_fused_i8` (`_layer_kernel_i8`).
 
-* `lstm_layer_chunk_rec_i8`: the recurrent core of one layer over P steps.
-  Per step: `_rowq8` of x_t and of h, the int8 gate dots against w_ih/w_hh,
-  the f32 cell with the tanh-form sigmoid, `_rowq8` of hc and the int8
-  projection. A prefix mask `t < n_pulls` keeps the carried h/c. Returns
-  (hseq [P, S, d], h', c').
+* `lstm_layer_chunk_rec_stream2_i8` (kernel 2, the engine's),
+  `lstm_layer_chunk_rec_i8` (13) and `lstm_layer_chunk_rec_stream_i8` (14):
+  one function, the recurrent core of one layer over P steps, on three
+  schedules (csrc/lstm_i8.cu). Per step: `_rowq8` of x_t and of h, the int8
+  gate dots against w_ih/w_hh, the f32 cell with the tanh-form sigmoid,
+  `_rowq8` of hc and the int8 projection. A prefix mask `t < n_pulls` keeps
+  the carried h/c. Returns (hseq [P, S, d] ungated, h', c').
 * `ffn_norm_i8`: y = x + hseq, int8 ff1, DoubleSwish, int8 ff2, residual,
   then BasicNorm `y * rsqrt(mean(y^2) + eps)` over flattened rows.
+* `lstm_layer_chunk_fused_i8` (kernel 11): the recurrent core and
+  `ffn_norm_i8` of every step inside one time loop (csrc/lstm_chunk_i8.cu):
+  (y [P, S, d], h', c'), y from the ungated h_new.
 * `lstm_layer_fused_i8`: one timestep of the whole layer (the per-pull
   encoder and the flush): `_rowq8` of x, h, hc, y and mid, exact int32
   dots, the cell, the projection, then `ffn_norm_i8`'s residual, FFN and
@@ -24,18 +32,26 @@ by, exactly as the JAX package does. Integer dots are exact; they are
 dequantized as acc * (s_row * s_col).
 
 Each wrapper takes the plain PyTorch version for CPU tensors and launches
-csrc/lstm_i8.cu (kernels 2, 3) or csrc/lstm_step.cu (kernel 7) for CUDA
-tensors; it never falls back.
+its kernel (csrc/lstm_i8.cu: 2, 13, 14, 3; csrc/lstm_chunk_i8.cu: 11;
+csrc/lstm_step.cu: 7) for CUDA tensors; it never falls back. Kernels 2, 13
+and 14 share one plain version, `lstm_rec_plain`; kernel 11's composes it
+with `ffn_norm_plain`.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 
 from . import cuda_build
 from .activations import sigmoid
+
+# the params' int8 layer leaves, in the layer kernels' argument order
+LAYER_I8_KEYS = ("w_ih_t_q8", "w_ih_t_q8s", "w_hh_t_q8", "w_hh_t_q8s", "bias",
+                 "w_hr_t_q8", "w_hr_t_q8s", "ff1_t_q8", "ff1_t_q8s", "ff1_b",
+                 "ff2_t_q8", "ff2_t_q8s", "ff2_b", "norm_eps")
 
 
 def _rowq8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -97,51 +113,120 @@ def _check(t: torch.Tensor, dtype, shape, what: str) -> None:
         )
 
 
-def lstm_rec_cuda(x, h, c, n_pulls, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s):
+def _check_i8_weights(what: str, lead: tuple, d: int, H: int, rec, ffn=None) -> None:
+    """The recurrent weights `rec` (w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias,
+    w_hr_q, w_hr_s) and optionally `ffn` (ff1_q, ff1_s, ff1_b, ff2_q, ff2_s,
+    ff2_b, eps) of one layer (`lead` ()) or a stack of layers (`lead` (L,)):
+    int8 matrices 4-byte aligned (the kernels read char4 strips), f32 scales,
+    f32 or bf16 biases, an f32 eps per layer."""
+    if d % 4 or H % 4 or (ffn is not None and ffn[0].shape[-1] % 4):
+        raise ValueError(f"{what}: d_model, hidden and ffn must be multiples of 4")
+    n = math.prod(lead)
+    w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s = rec
+    mats = [(w_ih_q, (d, 4 * H), "w_ih"), (w_hh_q, (d, 4 * H), "w_hh"), (w_hr_q, (H, d), "w_hr")]
+    scales = [(w_ih_s, 4 * H), (w_hh_s, 4 * H), (w_hr_s, d)]
+    biases = [(bias, 4 * H)]
+    if ffn is not None:
+        ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps = ffn
+        F = ff1_q.shape[-1]
+        mats += [(ff1_q, (d, F), "ff1"), (ff2_q, (F, d), "ff2")]
+        scales += [(ff1_s, F), (ff2_s, d)]
+        biases += [(ff1_b, F), (ff2_b, d)]
+        _check(eps.reshape(-1), torch.float32, (n,), f"{what} eps")
+    for w, shape, name in mats:
+        _check(w, torch.int8, lead + shape, f"{what} {name}")
+        if w.data_ptr() % 4:
+            raise ValueError(f"{what} {name}: weights must be 4-byte aligned")
+    for s, n_out in scales:
+        _check(s.reshape(-1), torch.float32, (n * n_out,), f"{what} scale")
+    for b, n_out in biases:
+        _check(b.reshape(-1), b.dtype, (n * n_out,), f"{what} bias")
+        _bias_flag(b, what)
+
+
+def _n_pulls_arg(n_pulls, S: int, P: int, device, what: str) -> torch.Tensor:
+    if n_pulls is None:
+        return torch.full((S,), P, dtype=torch.int32, device=device)
+    _check(n_pulls, torch.int32, (S,), f"{what} n_pulls")
+    return n_pulls
+
+
+def _smem_check(rc: int, what: str, shape: str) -> None:
+    """A C entry returns minus the shared-memory bytes a block would need
+    where they exceed this device's limit."""
+    if rc < 0:
+        raise ValueError(f"{what}: {shape} needs {-rc} bytes of shared memory per block, more "
+                         "than this device allows one block")
+    cuda_build.check(rc, what)
+
+
+def _rec_cuda(entry: str, x, h, c, n_pulls, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s):
     P, S, d = x.shape
     H = c.shape[1]
-    if d % 4 or H % 4:
-        raise ValueError("lstm_rec_i8: d_model and hidden must be multiples of 4")
-    _check(x, torch.float32, (P, S, d), "lstm_rec_i8 x")
-    _check(h, torch.float32, (S, d), "lstm_rec_i8 h")
-    _check(c, torch.float32, (S, H), "lstm_rec_i8 c")
-    _check(w_ih_q, torch.int8, (d, 4 * H), "lstm_rec_i8 w_ih")
-    _check(w_hh_q, torch.int8, (d, 4 * H), "lstm_rec_i8 w_hh")
-    _check(w_hr_q, torch.int8, (H, d), "lstm_rec_i8 w_hr")
-    for s, n_out in ((w_ih_s, 4 * H), (w_hh_s, 4 * H), (w_hr_s, d)):
-        _check(s.reshape(-1), torch.float32, (n_out,), "lstm_rec_i8 scale")
-    _check(bias.reshape(-1), bias.dtype, (4 * H,), "lstm_rec_i8 bias")
-    if n_pulls is None:
-        n_pulls = torch.full((S,), P, dtype=torch.int32, device=x.device)
-    _check(n_pulls, torch.int32, (S,), "lstm_rec_i8 n_pulls")
+    rec = (w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s)
+    _check_i8_weights(entry, (), d, H, rec)
+    _check(x, torch.float32, (P, S, d), f"{entry} x")
+    _check(h, torch.float32, (S, d), f"{entry} h")
+    _check(c, torch.float32, (S, H), f"{entry} c")
+    if entry == "lstm_rec_stream_i8" and x.data_ptr() % 16:
+        raise ValueError(f"{entry} x: must be 16-byte aligned (cp.async copies)")
+    n_pulls = _n_pulls_arg(n_pulls, S, P, x.device, entry)
     hseq = torch.empty((P, S, d), dtype=torch.float32, device=x.device)
     h2 = torch.empty_like(h)
     c2 = torch.empty_like(c)
-    fn = cuda_build.bind("lstm_i8", "lstm_rec_i8", 14, 5)
-    cuda_build.COUNTS["lstm_rec_i8"] += 1
+    fn = cuda_build.bind("lstm_i8", entry, 14, 5)
+    cuda_build.COUNTS[entry] += 1
     rc = fn(
         x.data_ptr(), h.data_ptr(), c.data_ptr(), n_pulls.data_ptr(),
         w_ih_q.data_ptr(), w_ih_s.data_ptr(), w_hh_q.data_ptr(), w_hh_s.data_ptr(),
         bias.data_ptr(), w_hr_q.data_ptr(), w_hr_s.data_ptr(),
         hseq.data_ptr(), h2.data_ptr(), c2.data_ptr(),
-        P, S, d, H, _bias_flag(bias, "lstm_rec_i8"),
+        P, S, d, H, _bias_flag(bias, entry),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    cuda_build.check(rc, "lstm_rec_i8")
+    _smem_check(rc, entry, f"P={P}, d={d}, hidden={H}")
     return hseq, h2, c2
+
+
+def _rec(entry: str, x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s, n_pulls):
+    args = (x, h, c, n_pulls, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s)
+    if x.device.type == "cpu":
+        return lstm_rec_plain(*args)
+    if x.device.type != "cuda":
+        raise ValueError(f"{entry}: unsupported device {x.device}")
+    return _rec_cuda(entry, *args)
+
+
+def lstm_layer_chunk_rec_stream2_i8(
+    x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
+    n_pulls: Optional[torch.Tensor] = None,
+):
+    """Kernel 2, the engine's recurrent core: x [P, S, d], h [S, d], c [S, H],
+    n_pulls optional [S] i32 prefix lengths -> (hseq [P, S, d], h' [S, d],
+    c' [S, H]). Each step reads x_t from device memory."""
+    return _rec("lstm_rec_stream2_i8", x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q,
+                w_hr_s, n_pulls)
 
 
 def lstm_layer_chunk_rec_i8(
     x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
     n_pulls: Optional[torch.Tensor] = None,
 ):
-    """x [P, S, d], h [S, d], c [S, H], n_pulls optional [S] i32 prefix
-    lengths -> (hseq [P, S, d], h' [S, d], c' [S, H])."""
-    if x.device.type == "cpu":
-        return lstm_rec_plain(x, h, c, n_pulls, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s)
-    if x.device.type != "cuda":
-        raise ValueError(f"lstm_rec_i8: unsupported device {x.device}")
-    return lstm_rec_cuda(x, h, c, n_pulls, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s)
+    """Kernel 13: kernel 2's contract, with every step's `_rowq8(x)` staged
+    in the block's shared memory at its start (raises ValueError with the
+    bytes where a P does not fit)."""
+    return _rec("lstm_rec_i8", x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
+                n_pulls)
+
+
+def lstm_layer_chunk_rec_stream_i8(
+    x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
+    n_pulls: Optional[torch.Tensor] = None,
+):
+    """Kernel 14: kernel 2's contract on 4-session tiles, x_{t+1} copied by
+    cp.async while step t computes (x must be 16-byte aligned)."""
+    return _rec("lstm_rec_stream_i8", x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q,
+                w_hr_s, n_pulls)
 
 
 def ffn_norm_plain(x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps):
@@ -190,6 +275,59 @@ def ffn_norm_i8(x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps):
     return ffn_norm_cuda(x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps)
 
 
+def lstm_chunk_i8_plain(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
+                        ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, n_pulls=None):
+    P, S, d = x.shape
+    hseq, h2, c2 = lstm_rec_plain(x, h, c, n_pulls, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias,
+                                  w_hr_q, w_hr_s)
+    y = ffn_norm_plain(x.reshape(P * S, d), hseq.reshape(P * S, d),
+                       ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps)
+    return y.reshape(P, S, d), h2, c2
+
+
+def lstm_chunk_i8_cuda(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
+                       ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, n_pulls=None):
+    P, S, d = x.shape
+    H = c.shape[1]
+    F = ff1_q.shape[1]
+    rec = (w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s)
+    ffn = (ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps)
+    _check_i8_weights("lstm_chunk_i8", (), d, H, rec, ffn)
+    _check(x, torch.float32, (P, S, d), "lstm_chunk_i8 x")
+    _check(h, torch.float32, (S, d), "lstm_chunk_i8 h")
+    _check(c, torch.float32, (S, H), "lstm_chunk_i8 c")
+    n_pulls = _n_pulls_arg(n_pulls, S, P, x.device, "lstm_chunk_i8")
+    y = torch.empty_like(x)
+    h2 = torch.empty_like(h)
+    c2 = torch.empty_like(c)
+    fn = cuda_build.bind("lstm_chunk_i8", "lstm_chunk_i8", 21, 8)
+    cuda_build.COUNTS["lstm_chunk_i8"] += 1
+    rc = fn(
+        x.data_ptr(), h.data_ptr(), c.data_ptr(), n_pulls.data_ptr(),
+        *(t.data_ptr() for t in rec + ffn),
+        y.data_ptr(), h2.data_ptr(), c2.data_ptr(),
+        P, S, d, H, F, _bias_flag(bias, "lstm_chunk_i8"), _bias_flag(ff1_b, "lstm_chunk_i8"),
+        _bias_flag(ff2_b, "lstm_chunk_i8"),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _smem_check(rc, "lstm_chunk_i8", f"d={d}, hidden={H}, ffn={F}")
+    return y, h2, c2
+
+
+def lstm_layer_chunk_fused_i8(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
+                              ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, n_pulls=None):
+    """Kernel 11, the whole int8 chunk layer: x [P, S, d], h [S, d], c [S, H],
+    n_pulls optional [S] i32 -> (y [P, S, d], h' [S, d], c' [S, H]). y comes
+    from the ungated h_new; h/c are kept where t >= n_pulls."""
+    args = (x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
+            ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, n_pulls)
+    if x.device.type == "cpu":
+        return lstm_chunk_i8_plain(*args)
+    if x.device.type != "cuda":
+        raise ValueError(f"lstm_chunk_i8: unsupported device {x.device}")
+    return lstm_chunk_i8_cuda(*args)
+
+
 def _gate_blend(gate, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
     """`gt * new + (1 - gt) * old` for a [S] gate (None: new)."""
     if gate is None:
@@ -228,21 +366,12 @@ def lstm_layer_fused_i8_cuda(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr
     S, d = x.shape
     H = c.shape[1]
     F = ff1_q.shape[1]
-    if d % 4 or H % 4 or F % 4:
-        raise ValueError("lstm_step_i8: d_model, hidden and ffn must be multiples of 4")
+    rec = (w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s)
+    ffn = (ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps)
+    _check_i8_weights("lstm_step_i8", (), d, H, rec, ffn)
     _check(x, torch.float32, (S, d), "lstm_step_i8 x")
     _check(h, torch.float32, (S, d), "lstm_step_i8 h")
     _check(c, torch.float32, (S, H), "lstm_step_i8 c")
-    for w, shape, what in ((w_ih_q, (d, 4 * H), "w_ih"), (w_hh_q, (d, 4 * H), "w_hh"),
-                           (w_hr_q, (H, d), "w_hr"), (ff1_q, (d, F), "ff1"), (ff2_q, (F, d), "ff2")):
-        _check(w, torch.int8, shape, f"lstm_step_i8 {what}")
-        if w.data_ptr() % 4:
-            raise ValueError(f"lstm_step_i8 {what}: weights must be 4-byte aligned")
-    for s, n_out in ((w_ih_s, 4 * H), (w_hh_s, 4 * H), (w_hr_s, d), (ff1_s, F), (ff2_s, d)):
-        _check(s.reshape(-1), torch.float32, (n_out,), "lstm_step_i8 scale")
-    for b, n in ((bias, 4 * H), (ff1_b, F), (ff2_b, d)):
-        _check(b.reshape(-1), b.dtype, (n,), "lstm_step_i8 bias")
-    _check(eps.reshape(-1), torch.float32, (1,), "lstm_step_i8 eps")
     g = _gate_arg(gate, S, "lstm_step_i8")
     dev = x.device
     hc = torch.empty((S, H), dtype=torch.float32, device=dev)
@@ -254,10 +383,7 @@ def lstm_layer_fused_i8_cuda(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr
     cuda_build.COUNTS["lstm_step_i8"] += 1
     rc = fn(
         x.data_ptr(), h.data_ptr(), c.data_ptr(), None if g is None else g.data_ptr(),
-        w_ih_q.data_ptr(), w_ih_s.data_ptr(), w_hh_q.data_ptr(), w_hh_s.data_ptr(),
-        bias.data_ptr(), w_hr_q.data_ptr(), w_hr_s.data_ptr(),
-        ff1_q.data_ptr(), ff1_s.data_ptr(), ff1_b.data_ptr(),
-        ff2_q.data_ptr(), ff2_s.data_ptr(), ff2_b.data_ptr(), eps.data_ptr(),
+        *(t.data_ptr() for t in rec + ffn),
         hc.data_ptr(), hn.data_ptr(), y.data_ptr(), h2.data_ptr(), c2.data_ptr(),
         S, d, H, F, _bias_flag(bias, "lstm_step_i8"), _bias_flag(ff1_b, "lstm_step_i8"),
         _bias_flag(ff2_b, "lstm_step_i8"),

@@ -7,7 +7,8 @@ against the CPU (plain) engine on a small model at int8 and at f32, drives a
 flagship BatchEngine at int8, bf16 and f32 and a synchronous Session at int8
 and at f32 (the weights as loaded), serves a flagship-width model with a
 16,383-token vocabulary and a narrow one whose kernel 4 block does not fit,
-and prints the results.
+runs the int8 chunk-layer variants of the two profiling tools, and prints
+the results.
 
     python3 chip_smoke.py                      # every phase (as the check runs it)
     python3 chip_smoke.py --phases build,kernels
@@ -39,6 +40,13 @@ Phases (each fails the run on error):
              model with 16,383 tokens, which the JAX gate passes but kernel
              4's block cannot hold: CUDA vs CPU at S=8 (f32) through kernel
              8, kernel 4 never launched
+  chunk      the int8 chunk-layer variants at flagship widths, S=256, P=27:
+             kernels 13, 14, 11 (one layer) and 15 (a 6-layer wavefront
+             slab) against their plain versions, gated, timed, and checked
+             again at S=3, P=5; then every stack variant of the ported tools
+             (profile_chunk_split: fused, split, stream, stream2;
+             profile_wavefront: slabs of 6, 4 and 12) against the shipped
+             stack (kernels 2 + 3), each new kernel launched by them
 
 Output: one line per kernel and per phase, then a JSON line
 {"kernels": [...]}, the `nvidia-smi` name and power limit, and as the last
@@ -59,7 +67,7 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("build", "kernels", "reference", "engine", "session", "vocab")
+PHASES = ("build", "kernels", "reference", "engine", "session", "vocab", "chunk")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s and ops/s by type
 HBM_BPS = 3.35e12
@@ -161,7 +169,8 @@ def flagship_april(tmp: str, seed: int = 0, dims=None) -> str:
 # embed is plain) and the per-pull decode (kernel 8, or kernel 9 where its
 # gate refuses).
 PATH_KERNELS = {
-    "int8": {"step": ("fbank_i8", "conv_embed", "lstm_rec_i8", "ffn_norm_i8", "chunk_decode"),
+    "int8": {"step": ("fbank_i8", "conv_embed", "lstm_rec_stream2_i8", "ffn_norm_i8",
+                      "chunk_decode"),
              "flush": ("fbank_i8", "lstm_step_i8", "dec_joiner")},
     "bf16": {"step": ("fbank_bf16x3", "conv_embed", "lstm_chunk_bf16", "chunk_decode"),
              "flush": ("fbank_bf16x3", "lstm_step_bf16", "dec_joiner")},
@@ -385,21 +394,22 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
         b = bound_ms(S * L * 4 + S * F * nb * 4 + tab_bytes + nfft * nb * 4, ops)
         out[name] = (kf, pf, float((got - want).abs().max()), b, f"buf[{S},{L}] F={F}")
 
-    # 2. lstm_rec_i8: one layer's recurrent core over P steps (layer 0)
+    # 2. lstm_rec_stream2_i8: one layer's recurrent core over P steps (layer 0)
     x = t(rng.normal(size=(P, S, d)).astype(np.float32))
     h0 = t((rng.normal(size=(S, d)) * 0.3).astype(np.float32))
     c0 = t((rng.normal(size=(S, H)) * 0.3).astype(np.float32))
     n_pulls = t(rng.integers(0, P + 1, size=S).astype(np.int32))
     la = (w["w_ih_t_q8"][0], w["w_ih_t_q8s"][0], w["w_hh_t_q8"][0], w["w_hh_t_q8s"][0],
           w["bias"][0], w["w_hr_t_q8"][0], w["w_hr_t_q8s"][0])
-    kf = lambda: LK.lstm_layer_chunk_rec_i8(x, h0, c0, *la, n_pulls)  # noqa: E731
+    kf = lambda: LK.lstm_layer_chunk_rec_stream2_i8(x, h0, c0, *la, n_pulls)  # noqa: E731
     pf = lambda: LK.lstm_rec_plain(x, h0, c0, n_pulls, *la)  # noqa: E731
     got, want = kf(), pf()
     torch.cuda.synchronize()
-    err = max(_ulp_close(g, wv, f"lstm_rec_i8 {k}") for g, wv, k in zip(got, want, ("hseq", "h", "c")))
+    err = max(_ulp_close(g, wv, f"lstm_rec_stream2_i8 {k}")
+              for g, wv, k in zip(got, want, ("hseq", "h", "c")))
     b = bound_ms(2 * P * S * d * 4 + 2 * S * (d + H) * 4 + 2 * d * 4 * H + H * d + (8 * H + d) * 4,
                  {"int8": 2 * P * S * (2 * d * 4 * H + H * d)})
-    out["lstm_rec_i8"] = (kf, pf, err, b, f"x[{P},{S},{d}] H={H}")
+    out["lstm_rec_stream2_i8"] = (kf, pf, err, b, f"x[{P},{S},{d}] H={H}")
 
     # 3. ffn_norm_i8 over the flattened P*S rows (layer 0)
     R = P * S
@@ -559,7 +569,8 @@ def check_conv_embed(rt, S: int, P: int, rng, t) -> dict:
 
 SOURCES = {
     "fbank_i8": ("april_asr_tpu_torch/csrc/fbank_i8.cu", "april_asr_tpu/ops/fbank_pallas.py:457"),
-    "lstm_rec_i8": ("april_asr_tpu_torch/csrc/lstm_i8.cu", "april_asr_tpu/ops/lstm_pallas.py:1147"),
+    "lstm_rec_stream2_i8": ("april_asr_tpu_torch/csrc/lstm_i8.cu",
+                            "april_asr_tpu/ops/lstm_pallas.py:1147"),
     "ffn_norm_i8": ("april_asr_tpu_torch/csrc/lstm_i8.cu", "april_asr_tpu/ops/lstm_pallas.py:1264"),
     "chunk_decode": ("april_asr_tpu_torch/csrc/chunk_decode.cu",
                      "april_asr_tpu/ops/decode_pallas.py:440"),
@@ -592,21 +603,23 @@ SOURCES = {
                          "april_asr_tpu/ops/conv_embed_pallas.py:438"),
     "fbank_frames": ("april_asr_tpu_torch/csrc/fbank_bf16x3.cu",
                      "april_asr_tpu/ops/fbank_pallas.py:163"),
+    "lstm_rec_i8": ("april_asr_tpu_torch/csrc/lstm_i8.cu", "april_asr_tpu/ops/lstm_pallas.py:814"),
+    "lstm_rec_stream_i8": ("april_asr_tpu_torch/csrc/lstm_i8.cu",
+                           "april_asr_tpu/ops/lstm_pallas.py:973"),
+    "lstm_chunk_i8": ("april_asr_tpu_torch/csrc/lstm_chunk_i8.cu",
+                      "april_asr_tpu/ops/lstm_pallas.py:636"),
+    "lstm_wavefront_i8": ("april_asr_tpu_torch/csrc/lstm_wavefront.cu",
+                          "april_asr_tpu/ops/lstm_wavefront_pallas.py:223"),
 }
 # the launch counter of a row that times a kernel at a second shape
 COUNT_KEY = {"joiner_argmax_v16383": "joiner_argmax", "joiner_argmax_f32_v16383": "joiner_argmax_f32"}
 
 
-def phase_kernels(models, card, reps: int = 20):
-    """Every kernel at the engine cell's shapes (S=256, P=27, F=101; the
-    one-step kernels at the flush's S=256): checked and timed against its
-    plain version; then checked again at S=3, P=5, where every kernel's
-    last tile is ragged."""
-    from april_asr_tpu_torch.frontend.fbank import FbankLayout
-
-    P = FbankLayout.build(models["int8"].runtime.fbank_opts, CHUNK_1S).max_pulls_per_step
+def time_rows(checked: dict, card, reps: int) -> list:
+    """Times each checked kernel (median of `reps` launches) and its plain
+    version (of 5, or 3 for kernel 4's); returns the kernels' JSON rows."""
     rows = []
-    for name, (kf, pf, err, (b_ms, b_by), shape) in check_kernels(models, S_FLAG, P, seed=1).items():
+    for name, (kf, pf, err, (b_ms, b_by), shape) in checked.items():
         k_ms = cuda_ms(kf, reps)
         p_ms = cuda_ms(pf, 3 if name.startswith("chunk_decode") else 5, warmup=1)
         source, replaces = SOURCES[name]
@@ -617,6 +630,18 @@ def phase_kernels(models, card, reps: int = 20):
         })
         print(f"kernel {name}: max_abs_err={err:.3g} ms={k_ms:.4f} plain_ms={p_ms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}) library_ms=none shape={shape} ({card})")
+    return rows
+
+
+def phase_kernels(models, card, reps: int = 20):
+    """Every kernel at the engine cell's shapes (S=256, P=27, F=101; the
+    one-step kernels at the flush's S=256): checked and timed against its
+    plain version; then checked again at S=3, P=5, where every kernel's
+    last tile is ragged."""
+    from april_asr_tpu_torch.frontend.fbank import FbankLayout
+
+    P = FbankLayout.build(models["int8"].runtime.fbank_opts, CHUNK_1S).max_pulls_per_step
+    rows = time_rows(check_kernels(models, S_FLAG, P, seed=1), card, reps)
     # the embed kernel 16 displaces in the step: stacked windows + cuDNN
     rt = models["bf16"].runtime
     front = front_buffer(rt, S_FLAG, P, np.random.default_rng(3),
@@ -982,6 +1007,104 @@ def phase_vocab(models, path: str, narrow_path: str, card) -> dict:
     return counts
 
 
+def check_chunk_kernels(params, S: int, P: int, seed: int, Lk: int = 6) -> dict:
+    """Kernels 13 and 14 (layer 0's recurrent core), 11 (layer 0 whole) and
+    15 (a slab of layers 0..Lk-1) on the int8 serving weights `params`, at S
+    sessions and P pulls, gated by random n_pulls, against their plain
+    versions: one layer to `_ulp_close`, the slab to `_stat_close`. Returns
+    {name: (kernel call, plain call, max abs err, bound, shape)}."""
+    from april_asr_tpu_torch.ops import lstm_kernels as LK
+    from april_asr_tpu_torch.ops import lstm_wavefront_kernels as LW
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa: E731
+    H, d = params["w_hr_t_q8"].shape[1:]
+    Fn = params["ff1_t_q8"].shape[2]
+    x = t(rng.normal(size=(P, S, d)).astype(np.float32))
+    hs = t((rng.normal(size=(Lk, S, d)) * 0.3).astype(np.float32))
+    cs = t((rng.normal(size=(Lk, S, H)) * 0.3).astype(np.float32))
+    n_pulls = t(rng.integers(0, P + 1, size=S).astype(np.int32))
+    slab = tuple(params[k][:Lk] for k in LK.LAYER_I8_KEYS)
+    layer = tuple(w[0] for w in slab)
+    # bytes: x in, the output and h/c out, n_pulls, weights and scales,
+    # biases at their type; int8 ops of the gate, projection and FFN dots
+    io = 2 * P * S * d * 4 + 2 * S * (d + H) * 4 + S * 4
+    bias_b = params["bias"].element_size()
+    rec_w = 2 * d * 4 * H + H * d + (8 * H + d) * 4 + 4 * H * bias_b
+    ffn_w = 2 * d * Fn + (Fn + d) * (4 + bias_b) + 4
+    rec_ops = 2 * P * S * (2 * d * 4 * H + H * d)
+    ffn_ops = 2 * P * S * 2 * d * Fn
+    shape = f"x[{P},{S},{d}] H={H}"
+    out = {}
+    for name, fn in (("lstm_rec_i8", LK.lstm_layer_chunk_rec_i8),
+                     ("lstm_rec_stream_i8", LK.lstm_layer_chunk_rec_stream_i8)):
+        kf = lambda fn=fn: fn(x, hs[0], cs[0], *layer[:7], n_pulls)  # noqa: E731
+        pf = lambda: LK.lstm_rec_plain(x, hs[0], cs[0], n_pulls, *layer[:7])  # noqa: E731
+        got, want = kf(), pf()
+        torch.cuda.synchronize()
+        err = max(_ulp_close(g, wv, f"{name} {k}") for g, wv, k in zip(got, want, ("hseq", "h", "c")))
+        out[name] = (kf, pf, err, bound_ms(io + rec_w, {"int8": rec_ops}), shape)
+    kf = lambda: LK.lstm_layer_chunk_fused_i8(x, hs[0], cs[0], *layer, n_pulls)  # noqa: E731
+    pf = lambda: LK.lstm_chunk_i8_plain(x, hs[0], cs[0], *layer, n_pulls)  # noqa: E731
+    got, want = kf(), pf()
+    torch.cuda.synchronize()
+    err = max(_ulp_close(g, wv, f"lstm_chunk_i8 {k}") for g, wv, k in zip(got, want, "yhc"))
+    out["lstm_chunk_i8"] = (kf, pf, err, bound_ms(io + rec_w + ffn_w, {"int8": rec_ops + ffn_ops}),
+                            f"{shape} ffn={Fn}")
+    kf = lambda: LW.lstm_slab_wavefront_i8(x, hs, cs, *slab, n_pulls)  # noqa: E731
+    pf = lambda: LW.lstm_slab_wavefront_plain(x, hs, cs, *slab, n_pulls=n_pulls)  # noqa: E731
+    got, want = kf(), pf()
+    torch.cuda.synchronize()
+    for g, wv, k in zip(got, want, "yhc"):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"lstm_wavefront_i8 {k}: non-finite values")
+        _stat_close(g, wv, f"lstm_wavefront_i8 {k}")
+    err = max(float((g - wv).abs().max()) for g, wv in zip(got, want))
+    b = bound_ms(2 * P * S * d * 4 + Lk * (2 * S * (d + H) * 4 + rec_w + ffn_w) + S * 4,
+                 {"int8": Lk * (rec_ops + ffn_ops)})
+    out["lstm_wavefront_i8"] = (kf, pf, err, b, f"{shape} ffn={Fn} slab={Lk}")
+    return out
+
+
+def phase_chunk(card, reps: int = 20):
+    """The int8 chunk-layer variants at flagship widths, S=256, P=27: each
+    new kernel against its plain version (`check_chunk_kernels`), timed, and
+    checked again at S=3, P=5; then every stack variant of the ported tools
+    on the tools' own inputs, held to `_stat_close` against the shipped
+    stack (kernel 2 + 3), with its time and launches per stack. No engine
+    path runs these kernels: their JSON rows keep 0 launches."""
+    from april_asr_tpu_torch.models.lstm_transducer import TransducerDims
+    from april_asr_tpu_torch.tools import profile_chunk_split as PCS
+    from april_asr_tpu_torch.tools import profile_wavefront as PWF
+
+    t0 = time.perf_counter()
+    S, P = S_FLAG, 27
+    args = PCS.build(S, P, TransducerDims(), torch.device(DEV))
+    rows = time_rows(check_chunk_kernels(args[0], S, P, seed=11), card, reps)
+    ragged = check_chunk_kernels(args[0], 3, 5, seed=12)
+    print("chunk kernels at ragged shapes S=3 P=5: " + ", ".join(
+        f"{n} max_abs_err={v[2]:.3g}" for n, v in ragged.items()))
+    ref = PCS.stack_shipped(*args)
+    launched = {}
+    for tool, variants in (("profile_chunk_split", PCS.VARIANTS),
+                           ("profile_wavefront", PWF.VARIANTS)):
+        for name, fn in variants.items():
+            got, launches, ms = PCS.run_variant(fn, args, reps=5)
+            for g, wv, k in zip(got, ref, "yhc"):
+                _stat_close(g, wv, f"{tool} {name} {k}")
+            launched = _merge(launched, launches)
+            diff = PCS.diffs(got, ref)
+            print(f"chunk {tool} {name}: S={S} P={P} L={args[2].shape[0]} ms_per_stack={ms:.3f} "
+                  f"launches_per_stack={json.dumps(launches)} vs stream2 (max, mean, p99) "
+                  + " ".join(f"{k}=({v[0]:.3g}, {v[1]:.3g}, {v[2]:.3g})" for k, v in diff.items())
+                  + f" ({card})")
+    missing = [r["name"] for r in rows if not launched.get(r["name"])]
+    if missing:
+        raise AssertionError(f"chunk: the tools never launched {missing}")
+    print(f"chunk: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -1053,6 +1176,8 @@ def main(argv=None) -> int:
             counts = phase_vocab(models, vocab_path, narrow_path, card)
             record(counts, "vocab f32")
             record(counts, "vocab bf16")
+        if "chunk" in phases:
+            kernels += phase_chunk(card)
     for k in kernels:
         k["launches"] = launches.get(COUNT_KEY.get(k["name"], k["name"]), 0)
     print(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -99,7 +99,7 @@ def test_rec_kernel_one_layer(qparams, inputs, gated):
         jnp.asarray(y), jnp.asarray(h[0]), jnp.asarray(c[0]), *_layer_args(jp, 0),
         n_arg, block_s=128, interpret=True,
     )
-    th, th2, tc2 = TK.lstm_layer_chunk_rec_i8(
+    th, th2, tc2 = TK.lstm_layer_chunk_rec_stream2_i8(
         torch.from_numpy(y), torch.from_numpy(h[0]), torch.from_numpy(c[0]),
         *_layer_args(tp, 0), torch.from_numpy(n) if gated else None,
     )
