@@ -6,11 +6,24 @@ The streaming engine's kernels are hand-written CUDA for sm_90a
 (`csrc/`, built with nvcc on first use); on CPU tensors every kernel's plain
 PyTorch version runs instead. Entry points run on CUDA unless the caller
 passes device="cpu".
+
+The public surface mirrors the reference Python binding: `Model`, `Session`,
+`Token`, `Result`, plus `init()` in place of `aam_api_init` (reference:
+src/init.c:33-51).
 """
 
 from .config import DecodeConfig, EngineConfig, FbankOptions
+from .version import APRIL_VERSION, __version__
 
-__all__ = ["DecodeConfig", "EngineConfig", "FbankOptions", "Model", "Session", "Result", "Token"]
+__all__ = ["APRIL_VERSION", "DecodeConfig", "EngineConfig", "FbankOptions", "Model", "Session",
+           "Result", "Token", "__version__", "init"]
+
+
+def init(version: int = APRIL_VERSION) -> None:
+    """Optional explicit init, mirroring aam_api_init: validates the
+    requested API version (there is no global backend handle to set up)."""
+    if version != APRIL_VERSION:
+        raise ValueError(f"unsupported API version {version}, expected {APRIL_VERSION}")
 
 
 def __getattr__(name):

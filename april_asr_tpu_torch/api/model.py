@@ -36,15 +36,18 @@ class Model:
     def __init__(
         self,
         path: str | os.PathLike,
+        prefer_native: bool = True,
         precision: Optional[str] = None,
         device=None,
     ):
-        """`precision` selects the serving numerics: "f32", "bf16" or
-        "int8" (see `apply_precision`); it defaults to the APRIL_PRECISION
+        """The JAX Model's arguments, in its order, then `device`.
+        `prefer_native` is passed to `load_model` (a native-form model
+        ignores it). `precision` selects the serving numerics: "f32", "bf16"
+        or "int8" (see `apply_precision`); it defaults to the APRIL_PRECISION
         environment variable, else the weights as loaded (f32). `device`
         defaults to CUDA; pass "cpu" to run the kernels' plain PyTorch
         versions."""
-        self._rt: ModelRuntime = load_model(path, device=device)
+        self._rt: ModelRuntime = load_model(path, prefer_native, device=device)
         precision = precision or os.environ.get("APRIL_PRECISION")
         self._rt.weights = apply_precision(self._rt.weights, precision)
         self._engines: Dict[Tuple[int, int], object] = {}

@@ -10,6 +10,7 @@ snapshots and beam sessions belong to later slices of the port.
 
 from __future__ import annotations
 
+import os
 from typing import Callable, List
 
 import numpy as np
@@ -61,6 +62,13 @@ class Session:
             pcm = np.frombuffer(data, dtype="<i2")
         else:
             pcm = np.asarray(data, np.int16)
+        debug_path = os.environ.get("APRIL_DEBUG_SAVE_AUDIO")
+        if debug_path:
+            # golden-input capture hook: append the float waveform exactly as
+            # the frontend sees it (reference APRIL_DEBUG_SAVE_AUDIO,
+            # april_session.c:496-537; here env-gated at runtime)
+            with open(debug_path, "ab") as f:
+                (pcm.astype(np.float32) / 32768.0).tofile(f)
         self._engine.feed(self._slot, pcm)
         while self._engine.pending(self._slot) > 0:
             if not self._engine.tick():

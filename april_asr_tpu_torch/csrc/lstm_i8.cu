@@ -31,6 +31,9 @@
 //     read of the layer's weights serve 4 sessions, not 2, at the price of
 //     filling only 64 of the 132 SMs at S = 256: the trade the TPU kernel's
 //     1024-row tile makes, and the one to measure.
+//   X_STEP (22, TS = 2 or 4): X_LOAD for the one step t = P - 1 alone, with
+//     x and hseq indexed by that global t and the mask t < n_pulls taken at
+//     it; kernel 22 launches it once per step (launch_interleave).
 //
 // Bound on the H100: per step every block re-reads the layer's int8 weights
 // (2 x d x 4H + H x d = 4.7 MB at flagship dims), which stay resident in the
@@ -58,6 +61,7 @@
 #define X_LOAD 0
 #define X_STAGED 1
 #define X_ASYNC 2
+#define X_STEP 3
 #define RT 16  // rows per block (ffn_norm_i8)
 #define RG 8   // rows per thread item (ffn_norm_i8)
 
@@ -88,7 +92,7 @@ __device__ __forceinline__ void async_rows(float* dst, const float* __restrict__
 
 template <int XM>
 __host__ __device__ constexpr int x_bufs() {
-  return XM == X_LOAD ? 1 : (XM == X_ASYNC ? 2 : 0);
+  return XM == X_LOAD || XM == X_STEP ? 1 : (XM == X_ASYNC ? 2 : 0);
 }
 
 template <int TS, int XM>
@@ -140,9 +144,9 @@ __global__ void __launch_bounds__(REC_NT) lstm_rec_kernel(
     cp_async_commit();
   }
 
-  for (int t = 0; t < P; ++t) {
+  for (int t = XM == X_STEP ? P - 1 : 0; t < P; ++t) {
     const float* xr = xt;
-    if (XM == X_LOAD) {
+    if (XM == X_LOAD || XM == X_STEP) {
       load_rows<TS>(xt, x + (size_t)t * S * d, s0, S, d);
     } else if (XM == X_ASYNC) {
       xr = xt + (t & 1) * TS * d;
@@ -204,6 +208,34 @@ static int launch_rec(const float* x, const float* h, const float* c, const int*
   return (int)cudaGetLastError();
 }
 
+// Kernel 22: kernel 13's contract with time the slow axis -- one launch of
+// the X_STEP core per timestep t over every session tile (a CUDA grid does
+// not order its blocks, so the TPU's sequential (P, tiles) grid becomes P
+// launches), the launch boundary ordering step t after step t - 1. h and c
+// are carried between launches in hbuf [2][S][d] and cbuf [2][S][H] (step t
+// reads h, c at t = 0, else slot (t - 1) & 1, and writes slot t & 1): the
+// device-memory counterpart of the TPU kernel's [S, d]/[S, H] VMEM scratch,
+// L2-resident at the tool's shapes (12 MB at S = 2048). hseq[t] is written
+// ungated; h/c keep their values where t >= n_pulls. The caller's h', c'
+// are slot (P - 1) & 1.
+template <int TS>
+static int launch_interleave(const float* x, const float* h, const float* c, const int* npulls,
+                             const int8_t* wih, const float* wihs, const int8_t* whh,
+                             const float* whhs, const void* bias, const int8_t* whr,
+                             const float* whrs, float* hseq, float* hbuf, float* cbuf, int P,
+                             int S, int d, int H, int bias_bf16, void* stream) {
+  const size_t hs = (size_t)S * d, cs = (size_t)S * H;
+  for (int t = 0; t < P; ++t) {
+    const float* hi = t ? hbuf + ((t - 1) & 1) * hs : h;
+    const float* ci = t ? cbuf + ((t - 1) & 1) * cs : c;
+    const int rc = launch_rec<TS, X_STEP>(x, hi, ci, npulls, wih, wihs, whh, whhs, bias, whr,
+                                          whrs, hseq, hbuf + (t & 1) * hs, cbuf + (t & 1) * cs,
+                                          t + 1, S, d, H, bias_bf16, stream);
+    if (rc) return rc;
+  }
+  return 0;
+}
+
 #define REC_ENTRY(name, TS, XM)                                                                  \
   extern "C" int name(const float* x, const float* h, const float* c, const int* npulls,         \
                       const int8_t* wih, const float* wihs, const int8_t* whh, const float* whhs, \
@@ -217,6 +249,22 @@ static int launch_rec(const float* x, const float* h, const float* c, const int*
 REC_ENTRY(lstm_rec_stream2_i8, 2, X_LOAD)  // kernel 2
 REC_ENTRY(lstm_rec_i8, 2, X_STAGED)        // kernel 13
 REC_ENTRY(lstm_rec_stream_i8, 4, X_ASYNC)  // kernel 14 (x 16-byte aligned)
+
+// kernel 22 on tiles of ts = 2 (kernel 2's) or 4 (kernel 14's) sessions
+extern "C" int rec_interleave_i8(const float* x, const float* h, const float* c,
+                                 const int* npulls, const int8_t* wih, const float* wihs,
+                                 const int8_t* whh, const float* whhs, const void* bias,
+                                 const int8_t* whr, const float* whrs, float* hseq, float* hbuf,
+                                 float* cbuf, int P, int S, int d, int H, int bias_bf16, int ts,
+                                 void* stream) {
+  if (ts == 2)
+    return launch_interleave<2>(x, h, c, npulls, wih, wihs, whh, whhs, bias, whr, whrs, hseq,
+                                hbuf, cbuf, P, S, d, H, bias_bf16, stream);
+  if (ts == 4)
+    return launch_interleave<4>(x, h, c, npulls, wih, wihs, whh, whhs, bias, whr, whrs, hseq,
+                                hbuf, cbuf, P, S, d, H, bias_bf16, stream);
+  return (int)cudaErrorInvalidValue;
+}
 
 extern "C" int ffn_norm_i8(const float* x, const float* hs, const int8_t* ff1, const float* ff1s,
                            const void* f1b, const int8_t* ff2, const float* ff2s, const void* f2b,

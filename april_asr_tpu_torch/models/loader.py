@@ -145,9 +145,11 @@ def native_runtime(
     )
 
 
-def load_model(path: str | os.PathLike, device=None) -> ModelRuntime:
+def load_model(path: str | os.PathLike, prefer_native: bool = True, device=None) -> ModelRuntime:
     """Load a native-form .april model onto `device` (CUDA unless the
-    caller passes device="cpu")."""
+    caller passes device="cpu"). `prefer_native` is the JAX signature's:
+    the native form ignores it, as the JAX loader's native branch does, and
+    an ONNX-form container raises whatever its value."""
     dev = resolve_device(device)
     exact_float_math()
     container = read_container(path)

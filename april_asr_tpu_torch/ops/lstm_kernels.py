@@ -69,10 +69,11 @@ def _int_dot(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (q.double() @ w.double()).float()
 
 
-def _q8_mm(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
-    """x f32 [m, k] @ (wq int8 [k, n] * ws [1, n]) with dynamic row quant."""
+def _q8_mm(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, dot=_int_dot) -> torch.Tensor:
+    """x f32 [m, k] @ (wq int8 [k, n] * ws [1, n]) with dynamic row quant;
+    `dot` computes the exact integer product as f32."""
     q, s = _rowq8(x.float())
-    return _int_dot(q, wq) * (s * ws)
+    return dot(q, wq) * (s * ws)
 
 
 def lstm_rec_plain(x, h, c, n_pulls, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s):
@@ -229,11 +230,11 @@ def lstm_layer_chunk_rec_stream_i8(
                 w_hr_s, n_pulls)
 
 
-def ffn_norm_plain(x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps):
+def ffn_norm_plain(x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, dot=_int_dot):
     y = x.float() + hseq
-    mid = _q8_mm(y, ff1_q, ff1_s.reshape(1, -1)) + ff1_b.float().reshape(1, -1)
+    mid = _q8_mm(y, ff1_q, ff1_s.reshape(1, -1), dot) + ff1_b.float().reshape(1, -1)
     mid = mid * sigmoid(mid - 1.0)
-    ff = _q8_mm(mid, ff2_q, ff2_s.reshape(1, -1)) + ff2_b.float().reshape(1, -1)
+    ff = _q8_mm(mid, ff2_q, ff2_s.reshape(1, -1), dot) + ff2_b.float().reshape(1, -1)
     yn = y + ff
     return yn * torch.rsqrt((yn * yn).mean(dim=-1, keepdim=True) + eps.float())
 

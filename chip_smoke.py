@@ -7,8 +7,8 @@ against the CPU (plain) engine on a small model at int8 and at f32, drives a
 flagship BatchEngine at int8, bf16 and f32 and a synchronous Session at int8
 and at f32 (the weights as loaded), serves a flagship-width model with a
 16,383-token vocabulary and a narrow one whose kernel 4 block does not fit,
-runs the int8 chunk-layer variants of the two profiling tools, and prints
-the results.
+runs the int8 chunk-layer variants of the two profiling tools and the
+matrix-unit tool's tensor-core products, and prints the results.
 
     python3 chip_smoke.py                      # every phase (as the check runs it)
     python3 chip_smoke.py --phases build,kernels
@@ -41,12 +41,21 @@ Phases (each fails the run on error):
              4's block cannot hold: CUDA vs CPU at S=8 (f32) through kernel
              8, kernel 4 never launched
   chunk      the int8 chunk-layer variants at flagship widths, S=256, P=27:
-             kernels 13, 14, 11 (one layer) and 15 (a 6-layer wavefront
-             slab) against their plain versions, gated, timed, and checked
-             again at S=3, P=5; then every stack variant of the ported tools
-             (profile_chunk_split: fused, split, stream, stream2;
-             profile_wavefront: slabs of 6, 4 and 12) against the shipped
-             stack (kernels 2 + 3), each new kernel launched by them
+             kernels 13, 14, 11 (one layer), 15 (a 6-layer wavefront slab)
+             and 22 (the tile-interleaved core, on 4- and 2-session tiles)
+             against their plain versions, gated, timed, and checked again
+             at S=3, P=5; then every stack variant of the ported tools
+             (profile_chunk_split: fused, split, stream, stream2, split-xla,
+             interleave-ts4, interleave-ts2; profile_wavefront: slabs of 6,
+             4 and 12) against the shipped stack (kernels 2 + 3), each new
+             kernel launched by them
+  matmul     kernel 23 (profile_int8's bf16, int8 and dynamic-int8 bodies on
+             the tensor cores): the ported tool at its five shapes (each
+             body checked against its plain version, timed beside cuBLAS),
+             every body launched by it; then the three bodies at 2048 x 512
+             x 4096 timed with their plain versions and bounds, the other
+             shapes' plain times and bounds, and each wrapper's refusal of a
+             ragged shape
 
 Output: one line per kernel and per phase, then a JSON line
 {"kernels": [...]}, the `nvidia-smi` name and power limit, and as the last
@@ -57,8 +66,10 @@ package beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -67,7 +78,7 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("build", "kernels", "reference", "engine", "session", "vocab", "chunk")
+PHASES = ("build", "kernels", "reference", "engine", "session", "vocab", "chunk", "matmul")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s and ops/s by type
 HBM_BPS = 3.35e12
@@ -216,9 +227,13 @@ def phase_build(card):
     logs = cuda_build.build_all()
     dt = time.perf_counter() - t0
     for name, log in logs.items():
+        entry = ""
         for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:  # the mangled name, cut after its template arguments
+                entry = " " + m.group(1)[:40]
             if "Used" in line or "error" in line.lower():
-                print(f"  nvcc {name}: {line.strip()}")
+                print(f"  nvcc {name}{entry}: {line.strip()}")
     print(f"build: {len(logs)} sources in {dt:.1f} s ({card})")
 
 
@@ -610,26 +625,37 @@ SOURCES = {
                       "april_asr_tpu/ops/lstm_pallas.py:636"),
     "lstm_wavefront_i8": ("april_asr_tpu_torch/csrc/lstm_wavefront.cu",
                           "april_asr_tpu/ops/lstm_wavefront_pallas.py:223"),
+    "rec_interleave_i8": ("april_asr_tpu_torch/csrc/lstm_i8.cu", "tools/profile_chunk_split.py:248"),
+    "rec_interleave_i8_ts2": ("april_asr_tpu_torch/csrc/lstm_i8.cu",
+                              "tools/profile_chunk_split.py:248"),
+    "mm_bf16": ("april_asr_tpu_torch/csrc/int8_mm.cu", "tools/profile_int8.py:66"),
+    "mm_i8": ("april_asr_tpu_torch/csrc/int8_mm.cu", "tools/profile_int8.py:66"),
+    "mm_i8_dynq": ("april_asr_tpu_torch/csrc/int8_mm.cu", "tools/profile_int8.py:66"),
 }
-# the launch counter of a row that times a kernel at a second shape
-COUNT_KEY = {"joiner_argmax_v16383": "joiner_argmax", "joiner_argmax_f32_v16383": "joiner_argmax_f32"}
+# the launch counter of a row that times a kernel at a second shape or tile
+COUNT_KEY = {"joiner_argmax_v16383": "joiner_argmax", "joiner_argmax_f32_v16383": "joiner_argmax_f32",
+             "rec_interleave_i8_ts2": "rec_interleave_i8"}
 
 
-def time_rows(checked: dict, card, reps: int) -> list:
-    """Times each checked kernel (median of `reps` launches) and its plain
-    version (of 5, or 3 for kernel 4's); returns the kernels' JSON rows."""
+def time_rows(checked: dict, card, reps: int, timer=cuda_ms) -> list:
+    """Times each checked kernel (median of `reps` launches), its plain
+    version (of 5, or 3 for kernel 4's) and, where the entry carries one as
+    a sixth item, the library call (of `reps`) with `timer` (`cuda_ms`'s
+    signature); returns the kernels' JSON rows."""
     rows = []
-    for name, (kf, pf, err, (b_ms, b_by), shape) in checked.items():
-        k_ms = cuda_ms(kf, reps)
-        p_ms = cuda_ms(pf, 3 if name.startswith("chunk_decode") else 5, warmup=1)
+    for name, (kf, pf, err, (b_ms, b_by), shape, *lib) in checked.items():
+        k_ms = timer(kf, reps)
+        p_ms = timer(pf, 3 if name.startswith("chunk_decode") else 5, warmup=1)
+        l_ms = timer(lib[0], reps) if lib else None
         source, replaces = SOURCES[name]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": 0, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
         })
+        lib_s = f"{l_ms:.4f}" if l_ms is not None else "none"
         print(f"kernel {name}: max_abs_err={err:.3g} ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by}) library_ms=none shape={shape} ({card})")
+              f"bound_ms={b_ms:.4f} ({b_by}) library_ms={lib_s} shape={shape} ({card})")
     return rows
 
 
@@ -1008,13 +1034,15 @@ def phase_vocab(models, path: str, narrow_path: str, card) -> dict:
 
 
 def check_chunk_kernels(params, S: int, P: int, seed: int, Lk: int = 6) -> dict:
-    """Kernels 13 and 14 (layer 0's recurrent core), 11 (layer 0 whole) and
-    15 (a slab of layers 0..Lk-1) on the int8 serving weights `params`, at S
-    sessions and P pulls, gated by random n_pulls, against their plain
-    versions: one layer to `_ulp_close`, the slab to `_stat_close`. Returns
-    {name: (kernel call, plain call, max abs err, bound, shape)}."""
+    """Kernels 13, 14 and 22 (on 4- and 2-session tiles; layer 0's
+    recurrent core), 11 (layer 0 whole) and 15 (a slab of layers 0..Lk-1) on
+    the int8 serving weights `params`, at S sessions and P pulls, gated by
+    random n_pulls, against their plain versions: one layer to `_ulp_close`,
+    the slab to `_stat_close`. Returns {name: (kernel call, plain call, max
+    abs err, bound, shape)}."""
     from april_asr_tpu_torch.ops import lstm_kernels as LK
     from april_asr_tpu_torch.ops import lstm_wavefront_kernels as LW
+    from april_asr_tpu_torch.tools.profile_chunk_split import INTERLEAVE_TS, rec_interleave_i8
 
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa: E731
@@ -1036,14 +1064,22 @@ def check_chunk_kernels(params, S: int, P: int, seed: int, Lk: int = 6) -> dict:
     ffn_ops = 2 * P * S * 2 * d * Fn
     shape = f"x[{P},{S},{d}] H={H}"
     out = {}
-    for name, fn in (("lstm_rec_i8", LK.lstm_layer_chunk_rec_i8),
-                     ("lstm_rec_stream_i8", LK.lstm_layer_chunk_rec_stream_i8)):
+    # kernel 22 (on 4- and 2-session tiles) computes kernel 13's function and
+    # shares its bound: the h/c carry between its launches is a cost of that
+    # design, not bytes the function must move
+    cores = (("lstm_rec_i8", LK.lstm_layer_chunk_rec_i8, ""),
+             ("lstm_rec_stream_i8", LK.lstm_layer_chunk_rec_stream_i8, ""),
+             ("rec_interleave_i8", functools.partial(rec_interleave_i8, block_s=512),
+              f" tile={INTERLEAVE_TS[512]}"),
+             ("rec_interleave_i8_ts2", functools.partial(rec_interleave_i8, block_s=256),
+              f" tile={INTERLEAVE_TS[256]}"))
+    for name, fn, tile in cores:
         kf = lambda fn=fn: fn(x, hs[0], cs[0], *layer[:7], n_pulls)  # noqa: E731
         pf = lambda: LK.lstm_rec_plain(x, hs[0], cs[0], n_pulls, *layer[:7])  # noqa: E731
         got, want = kf(), pf()
         torch.cuda.synchronize()
         err = max(_ulp_close(g, wv, f"{name} {k}") for g, wv, k in zip(got, want, ("hseq", "h", "c")))
-        out[name] = (kf, pf, err, bound_ms(io + rec_w, {"int8": rec_ops}), shape)
+        out[name] = (kf, pf, err, bound_ms(io + rec_w, {"int8": rec_ops}), shape + tile)
     kf = lambda: LK.lstm_layer_chunk_fused_i8(x, hs[0], cs[0], *layer, n_pulls)  # noqa: E731
     pf = lambda: LK.lstm_chunk_i8_plain(x, hs[0], cs[0], *layer, n_pulls)  # noqa: E731
     got, want = kf(), pf()
@@ -1071,7 +1107,8 @@ def phase_chunk(card, reps: int = 20):
     new kernel against its plain version (`check_chunk_kernels`), timed, and
     checked again at S=3, P=5; then every stack variant of the ported tools
     on the tools' own inputs, held to `_stat_close` against the shipped
-    stack (kernel 2 + 3), with its time and launches per stack. No engine
+    stack (kernel 2 + 3; split-xla, whose FFN is plain tensor code, against
+    the plain stack), with its time and launches per stack. No engine
     path runs these kernels: their JSON rows keep 0 launches."""
     from april_asr_tpu_torch.models.lstm_transducer import TransducerDims
     from april_asr_tpu_torch.tools import profile_chunk_split as PCS
@@ -1085,23 +1122,98 @@ def phase_chunk(card, reps: int = 20):
     print("chunk kernels at ragged shapes S=3 P=5: " + ", ".join(
         f"{n} max_abs_err={v[2]:.3g}" for n, v in ragged.items()))
     ref = PCS.stack_shipped(*args)
+    # split-xla computes its FFN + BasicNorm as plain tensor code, so it is
+    # held against the plain stack, which shares that arithmetic; against
+    # the shipped stack (kernel 3's sums and rsqrtf) an ulp in one layer's
+    # norm flips int8 roundings that compound over the 12 random layers
+    plain = PCS.stack_plain(*args)
     launched = {}
     for tool, variants in (("profile_chunk_split", PCS.VARIANTS),
                            ("profile_wavefront", PWF.VARIANTS)):
         for name, fn in variants.items():
             got, launches, ms = PCS.run_variant(fn, args, reps=5)
-            for g, wv, k in zip(got, ref, "yhc"):
-                _stat_close(g, wv, f"{tool} {name} {k}")
+            want, against = (plain, "plain stack") if name == "split-xla" else (ref, "stream2")
+            for g, wv, k in zip(got, want, "yhc"):
+                _stat_close(g, wv, f"{tool} {name} {k} vs {against}")
             launched = _merge(launched, launches)
+            held = "" if want is ref else " vs plain stack (max, mean, p99) " + " ".join(
+                f"{k}=({v[0]:.3g}, {v[1]:.3g}, {v[2]:.3g})" for k, v in PCS.diffs(got, plain).items())
             diff = PCS.diffs(got, ref)
             print(f"chunk {tool} {name}: S={S} P={P} L={args[2].shape[0]} ms_per_stack={ms:.3f} "
                   f"launches_per_stack={json.dumps(launches)} vs stream2 (max, mean, p99) "
                   + " ".join(f"{k}=({v[0]:.3g}, {v[1]:.3g}, {v[2]:.3g})" for k, v in diff.items())
-                  + f" ({card})")
-    missing = [r["name"] for r in rows if not launched.get(r["name"])]
+                  + f"{held} ({card})")
+    missing = [r["name"] for r in rows if not launched.get(COUNT_KEY.get(r["name"], r["name"]))]
     if missing:
         raise AssertionError(f"chunk: the tools never launched {missing}")
     print(f"chunk: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def mm_bound(name: str, M: int, K: int, N: int):
+    """Kernel 23's bound: x and w read once (bf16 x for bf16 and dynq, int8
+    otherwise; bf16 or int8 w), dynq's [N] column scales, the 4-byte [M, N]
+    output written once; 2MKN operations at the bf16 or int8 rate."""
+    xb = 1 if name == "mm_i8" else 2
+    wb = 2 if name == "mm_bf16" else 1
+    n_bytes = M * K * xb + K * N * wb + 4 * M * N + (4 * N if name == "mm_i8_dynq" else 0)
+    return bound_ms(n_bytes, {"bf16" if name == "mm_bf16" else "int8": 2 * M * K * N})
+
+
+def phase_matmul(card, reps: int = 20):
+    """Kernel 23 through the ported tool (`profile_int8.main`): every body at
+    the tool's five shapes against its plain version (`check_body`: int8
+    equal, dynq within 2 f32 ulps, bf16 within K * 2^-24 * (|x| @ |w|) of
+    the float64 sum), timed (median of `reps` CUDA-event launches, each
+    queued behind a device sleep: `device_ms`) beside its library call; each
+    body must have launched. Then the JSON rows at 2048 x 512 x 4096
+    (kernel, plain version, library call, bound), the plain times and
+    bounds of the other shapes, and each wrapper's ValueError on a shape its
+    tiles do not divide. No engine path runs kernel 23: its rows keep 0
+    launches."""
+    from april_asr_tpu_torch.ops import cuda_build
+    from april_asr_tpu_torch.tools import profile_int8 as PI8
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEV)
+    timer = lambda fn, n, warmup=3: PI8.device_ms(fn, n, dev, warmup)  # noqa: E731
+    cuda_build.reset_counts()
+    res = PI8.main(["--iters", str(reps)])
+    missing = [b for b in PI8.BODIES if not cuda_build.COUNTS[b]]
+    if missing:
+        raise AssertionError(f"matmul: the tool never launched {missing}")
+    rows = []
+    for M, K, N in PI8.SHAPES:
+        ins = PI8.make_inputs(M, K, N, dev)
+        shape = f"{M}x{K}x{N}"
+        checked = {}
+        for name in PI8.BODIES:
+            args = PI8.body_args(name, ins)
+            kf = lambda name=name, args=args: PI8.KERNEL[name](*args)  # noqa: E731
+            pf = lambda name=name, args=args: PI8.PLAIN[name](*args)  # noqa: E731
+            lib = PI8.LIBRARY.get(name)
+            lf = () if lib is None else (lambda lib=lib: lib(ins),)  # noqa: E731
+            checked[name] = (kf, pf, res[shape][name]["max_diff"], mm_bound(name, M, K, N), shape,
+                             *lf)
+        if (M, K, N) == (2048, 512, 4096):
+            rows += time_rows(checked, card, reps, timer)
+            continue
+        for name, (kf, pf, err, (b_ms, b_by), shape, *_) in checked.items():
+            r = res[shape][name]
+            p_ms = timer(pf, 5, warmup=1)
+            lib_s = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            print(f"matmul {name} {shape}: ms={r['ms']:.4f} ({r['rate']:.1f} "
+                  f"{'TF/s' if name == 'mm_bf16' else 'TOP/s'}) library_ms={lib_s} "
+                  f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) max_abs_err={err:.3g} ({card})")
+    ragged = PI8.make_inputs(200, 512, 4096, dev)
+    for name in PI8.BODIES:
+        try:
+            PI8.KERNEL[name](*PI8.body_args(name, ragged))
+        except ValueError as e:
+            print(f"matmul {name} refuses 200x512x4096: {e}")
+        else:
+            raise AssertionError(f"matmul {name}: took a ragged shape")
+    print(f"matmul: {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -1178,6 +1290,8 @@ def main(argv=None) -> int:
             record(counts, "vocab bf16")
         if "chunk" in phases:
             kernels += phase_chunk(card)
+        if "matmul" in phases:
+            kernels += phase_matmul(card)
     for k in kernels:
         k["launches"] = launches.get(COUNT_KEY.get(k["name"], k["name"]), 0)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
