@@ -130,3 +130,16 @@ class EngineConfig:
     # transparently falls back to reading the dense event tensor for that
     # step (correctness is never budget-dependent; only transfer size is).
     events_per_session: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh / parallelism configuration (no reference analog; the
+    reference is single-process batch-1, SURVEY.md §2.4)."""
+
+    # Data-parallel axis: concurrent sessions (serving) or utterances (training).
+    data_axis: str = "data"
+    # Tensor-parallel axis: LSTM gate dim / joiner vocab dim sharding.
+    model_axis: str = "model"
+    data_parallel: int = 1
+    model_parallel: int = 1

@@ -100,7 +100,8 @@ class _Slot:
 
 
 class BatchEngine:
-    """S-session batched engine over one model on one device."""
+    """S-session batched engine over one model on one device, or over one
+    model shard of a tensor-parallel mesh."""
 
     def __init__(
         self,
@@ -109,19 +110,36 @@ class BatchEngine:
         cfg: EngineConfig | None = None,
         dcfg: DecodeConfig | None = None,
         prog: EngineProgram | None = None,
+        mesh=None,
     ):
         """`prog` lets several engines share one program (every batch-1
-        Session of a Model reuses the same one)."""
+        Session of a Model reuses the same one).
+
+        `mesh` (parallel.make_mesh, model_parallel m > 1) makes this the
+        engine of one model shard: each of the m processes of the default
+        process group builds its own BatchEngine with the same model, slots
+        and audio, holds its gate-shuffled slice of the encoder weights
+        (parallel/tp.py) and its [L, S, H/m] slice of the cell state, and
+        all-reduces the layers' partial sums with the others every pull
+        (JAX batch.py:221-257). Everything else is replicated, so every
+        rank replays the same events to its handlers."""
         self.rt = rt
         if prog is not None and prog.batch != batch:
             raise ValueError(f"program batch {prog.batch} != engine batch {batch}")
-        self.prog = prog or build_engine(rt, batch, cfg or EngineConfig(), dcfg or DecodeConfig())
+        self.prog = prog or build_engine(rt, batch, cfg or EngineConfig(), dcfg or DecodeConfig(),
+                                         mesh=mesh)
         self.cfg = self.prog.cfg
         self.dcfg = self.prog.dcfg
         self.batch = batch
-        self.weights = rt.weights
+        self.mesh = mesh
+        if self.prog.tp_axes:
+            from ..parallel.tp import prepare_tp_weights
+
+            self.weights = prepare_tp_weights(rt.weights, self.prog.mesh)
+        else:
+            self.weights = rt.weights
         with torch.no_grad():
-            self.state = init_engine_state(self.prog)
+            self.state = init_engine_state(self.prog, self.weights)
         self._init_state = _map(self.state, lambda t: t.clone())
         self.slots: List[Optional[_Slot]] = [None] * batch
         self.max_staged = int(self.cfg.max_buffered_seconds * rt.sample_rate)

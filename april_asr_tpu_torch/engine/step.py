@@ -14,6 +14,15 @@ as the JAX step's scan does. Handler-visible actions
 leave the device as the compact APR4 event blob, bit-identical in layout to
 the JAX package's (see the layout note below).
 
+A runtime without `encoder_chunk` takes the per-pull recurrent scan
+instead of the chunk encoder and its decode: for each pull, `time_ms`,
+`encoder_recurrent` gated by the pull mask, then `inner_decode`. The
+tensor-parallel programs (`build_engine(..., mesh=)`, one process per model
+shard over torch.distributed) are such a runtime: the encoder runs kernels
+18 and 20 (float) or 19 and 21 (int8) per layer on this shard with the
+all-reduces between them (models/lstm_transducer.py `_lstm_stack_step_tp`);
+everything else runs replicated, so every rank gives the same events.
+
 The flush program reproduces _aas_flush (src/april_session.c:547-564) as
 masked pull rounds, each `pull_once` as in the JAX package: the one-step
 encoder (kernel 7 per layer at int8, kernel 12 at f32 or bf16), the h/c
@@ -52,7 +61,7 @@ from ..frontend.fbank import (
     fbank_init,
     fbank_peek,
 )
-from ..models.lstm_transducer import is_quantized
+from ..models.lstm_transducer import encoder_recurrent_tp, encoder_step_tp, is_quantized
 from ..models.loader import ModelRuntime
 from ..ops.decode_kernels import (
     EVENT_KEYS,
@@ -60,6 +69,8 @@ from ..ops.decode_kernels import (
     chunk_decode_block_fits,
     chunk_decode_supported,
 )
+from ..parallel.mesh import shard_state
+from ..parallel.tp import tp_shard_map_eligible
 
 INNER_STEPS_EMIT = (1.0, 0.0, 0.0)  # early-emit ramp (april_session.c:449-453)
 BLOB_MAGIC = 0x41505234  # "APR4"
@@ -204,6 +215,14 @@ class EngineProgram:
     step: Callable  # (weights, state, audio_i16 [S, chunk], n [S]) -> (state, PackedEvents)
     flush: Callable  # (weights, state, do_flush [S]) -> (state, PackedEvents)
     batch: int
+    # The TP mesh (parallel/mesh.py) of a tensor-parallel program, else None.
+    # When set, the program runs this process's model shard: weights must be
+    # prepared with parallel.tp.prepare_tp_weights, and the cell state c
+    # holds this shard's hidden slice (parallel.mesh.state_spec_tree).
+    mesh: object = None
+    # the model axes of the TP layout, and its family ("lstm"), or None
+    tp_axes: tuple | None = None
+    tp_family: str | None = None
 
 
 def init_engine_state(prog: EngineProgram, weights=None) -> Dict:
@@ -216,12 +235,14 @@ def init_engine_state(prog: EngineProgram, weights=None) -> Dict:
     dstate["dout"] = rt.decoder_step(w, dstate["context"])
     dstate["dout_init"] = torch.ones(S, dtype=torch.bool, device=dev)
     (L, dh), (_, dc) = rt.state_shapes
-    return {
+    state = {
         "fbank": fbank_init(prog.layout, S, dev),
         "h": torch.zeros((L, S, dh), dtype=torch.float32, device=dev),
         "c": torch.zeros((L, S, dc), dtype=torch.float32, device=dev),
         "decode": dstate,
     }
+    # a TP program's c is this shard's [L, S, H/m] slice
+    return shard_state(state, prog.mesh, prog.tp_axes) if prog.tp_axes else state
 
 
 def build_engine(
@@ -229,10 +250,39 @@ def build_engine(
     batch: int,
     cfg: EngineConfig | None = None,
     dcfg: DecodeConfig | None = None,
+    mesh=None,
 ) -> EngineProgram:
-    """Step and flush programs over `batch` session slots on rt.device."""
+    """Step and flush programs over `batch` session slots on rt.device.
+
+    `mesh` (parallel.make_mesh) with model_parallel m > 1 builds this
+    process's programs of the tensor-parallel engine (JAX step.py:434-464):
+    the encoder step and recurrent forms become the TP ones over the model
+    group, and `encoder_chunk` is None, so the step runs the per-pull
+    recurrent scan (the whole-chunk kernels cannot hold the per-timestep
+    all-reduces). Only the native LSTM family with H and F divisible by m
+    is served; the JAX package's GSPMD fallback for other widths is not
+    ported and raises."""
     cfg = cfg or EngineConfig()
     dcfg = dcfg or DecodeConfig()
+    tp_axes, tp_family = None, None
+    if mesh is not None and mesh.model_parallel > 1:
+        m = mesh.model_parallel
+        H = rt.state_shapes[1][1]
+        F = rt.weights["ff1_t"].shape[2] if "ff1_t" in rt.weights else 0
+        if not (rt.kind == "native" and tp_shard_map_eligible(rt.weights, rt.dims)
+                and H % m == 0 and F % m == 0):
+            raise NotImplementedError(
+                f"model_parallel={m} needs the native LSTM family with hidden ({H}) and ffn "
+                f"({F}) divisible by it; the JAX package's GSPMD path for other models is not "
+                f"ported yet (ROADMAP queue 1 item 9)")
+        rt = dataclasses.replace(
+            rt,
+            encoder_step=lambda w, x, h, c: encoder_step_tp(w, x, h, c, mesh),
+            encoder_recurrent=lambda w, y, h, c, gate=None: encoder_recurrent_tp(
+                w, y, h, c, mesh, gate),
+            encoder_chunk=None,
+        )
+        tp_axes, tp_family = (mesh.axis_names[1],), "lstm"
     layout = FbankLayout.build(rt.fbank_opts, cfg.chunk_samples)
     # int8-serving engines (weights with `_q8` copies) run the int8-DFT
     # frontend, every other engine the bf16x3 one (JAX engine/step.py:481-486)
@@ -308,8 +358,19 @@ def build_engine(
         if y0 is None:
             windows = torch.stack([front[:, i * step_rows : i * step_rows + seg] for i in range(P)])
             y0 = rt.encoder_embed(weights, windows.reshape(P * S, seg, -1)).reshape(P, S, -1)
-        eouts, h, c = rt.encoder_chunk(weights, y0, h, c, can)
-        dstate, events = decode(weights, eouts, can, dstate)
+        if rt.encoder_chunk is not None:
+            eouts, h, c = rt.encoder_chunk(weights, y0, h, c, can)
+            dstate, events = decode(weights, eouts, can, dstate)
+        else:
+            # the per-pull recurrent scan (JAX step.py:677-690): the pull
+            # mask gates the h/c update inside the encoder
+            per_pull = []
+            for p in range(P):
+                dstate = add_time(dstate, can[p])
+                eout, h, c = rt.encoder_recurrent(weights, y0[p], h, c, can[p])
+                dstate, e = inner_decode(weights, eout, can[p], dstate)
+                per_pull.append(e)
+            events = {k: torch.stack([e[k] for e in per_pull]) for k in EVENT_KEYS}
         n_pulled = torch.clamp(
             torch.div(fb["fifo_len"] - seg, step_rows, rounding_mode="floor") + 1, 0, P
         )
@@ -422,4 +483,5 @@ def build_engine(
     return EngineProgram(
         rt=rt, layout=layout, cfg=cfg, dcfg=dcfg,
         step=torch.no_grad()(step), flush=torch.no_grad()(flush), batch=batch,
+        mesh=mesh if tp_axes else None, tp_axes=tp_axes, tp_family=tp_family,
     )

@@ -20,7 +20,11 @@ per-pull path and so every flush) runs one kernel per layer, kernel 7
 (`lstm_layer_fused_i8`) with int8 copies, else kernel 12
 (`lstm_layer_fused`), as the JAX package does at 128-multiple widths. The
 per-pull decode runs `decoder_joiner_argmax`: kernel 8 where the JAX gate
-`dj_supported` passes, else the decoder step and kernel 9.
+`dj_supported` passes, else the decoder step and kernel 9. Its
+tensor-parallel form (`_lstm_stack_step_tp`, `encoder_recurrent_tp`,
+`encoder_step_tp`) runs one process's model shard: kernels 18 and 20
+(float) or 19 and 21 (int8) per layer, with the partial sums all-reduced
+over the model group (parallel/mesh.py).
 
 The int8 helpers `_q8_rows`/`_q8_mm` live beside the kernels' plain
 versions (ops/lstm_kernels.py `_rowq8`, `_q8_mm`). Products the JAX package
@@ -52,6 +56,13 @@ from ..ops.lstm_kernels import (
     ffn_norm_i8,
     lstm_layer_chunk_rec_stream2_i8,
     lstm_layer_fused_i8,
+)
+from ..ops.lstm_tp_kernels import (
+    ffn_mid_i8,
+    ffn_partial,
+    lstm_gate_cell_proj,
+    lstm_gates_cell_i8,
+    rowq8_global,
 )
 
 
@@ -297,6 +308,103 @@ def encoder_step(params: Params, x, h, c):
     """One streaming encoder step, ungated: a [S, segment, mel] window ->
     (eout [S, J], h', c')."""
     return encoder_recurrent(params, encoder_embed(params, x), h, c)
+
+
+def tp_q8_contract(v, wq8, ws, mesh):
+    """int8 contraction over a LOCAL (model-sharded) activation axis, exact
+    against the single-device path: v quantized with the model-global row
+    scale (`rowq8_global`: the int8 values of the full-row quantization),
+    the exact int32 product per shard (float64 holds every partial sum),
+    the INT32 partials all-reduced (integer addition is associative, so the
+    sum is the single-device accumulator), then one f32 dequantization.
+    Dequantizing before the all-reduce would leave f32 partial sums ulps
+    from the single-device ones, which the next step's re-quantization can
+    amplify to a full int8 step (JAX lstm_transducer.py:803-820)."""
+    vq, s = rowq8_global(v, mesh)
+    acc = (vq.double() @ wq8.double()).to(torch.int32)
+    return mesh.all_reduce(acc, "sum").float() * (s * ws)
+
+
+def _basic_norm(x, eps):
+    """x * rsqrt(mean(x^2) + eps) (icefall BasicNorm inference form), the
+    sum of squares taken in the order of the kernels' BasicNorm
+    (csrc/ffn_norm.cuh `basic_norm_rows`): lane j of 32 adds x_k^2 for
+    k = j, j + 32, ... in turn, a butterfly adds the 32 lanes, then the sum
+    is divided by d. So the TP layer's norm is kernel 7's bit for bit, and
+    the TP int8 layer decodes as the single-device one: int8 re-quantization
+    turns an ulp of the norm into whole int8 steps that 12 layers amplify
+    (chip_smoke's `tp` phase)."""
+    S, d = x.shape
+    sq = torch.nn.functional.pad(x * x, (0, -d % 32)).reshape(S, -1, 32)
+    ss = sq[:, 0]
+    for j in range(1, sq.shape[1]):
+        ss = ss + sq[:, j]
+    lane = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        ss = ss + ss[:, lane ^ o]
+    mean = ss[:, :1] / torch.tensor(float(d), device=x.device)
+    return x * torch.rsqrt(mean + eps.float())
+
+
+def _lstm_stack_step_tp(params: Params, x, h, c, mesh, gate=None):
+    """Tensor-parallel `_lstm_stack_step`: one timestep through all L layers
+    on this process's model shard (parallel/mesh.py `TPMesh`).
+
+    Layout (parallel/tp.py gate-shuffled slices): x and h are replicated
+    [S, d] / [L, S, d]; c is the local [L, S, H/m] hidden slice; w_ih_t,
+    w_hh_t and bias are the local gate-shuffled [., d, 4H/m] slices (a
+    standard smaller LSTMP layer per shard); w_hr_t [., H/m, d] and ff1/ff2
+    carry the local hidden/ffn slices. Two all-reduces per layer cross the
+    model group: the recurrent projection partial (before the residual and
+    the FFN) and the FFN partial (before the second bias and the BasicNorm).
+    Float weights: kernel 18, all_reduce(hp), y = x + h_new, kernel 20,
+    all_reduce. int8 copies: kernel 19, then `tp_q8_contract` of hc through
+    w_hr, y = x + h_new, kernel 21, `tp_q8_contract` of mid through ff2.
+    h_new is gated by select after y is formed from the ungated h_new; the
+    kernels blend c. Numerics match the single-device path up to f32
+    reduction order (float); at int8 every product is exact and the norm
+    sums in the kernels' order, so on the card each layer equals kernel 7's
+    bit for bit."""
+    q = is_quantized(params)
+    hs, cs = [], []
+    for l in range(h.shape[0]):
+        h_l, c_l = h[l], c[l]
+        if q:
+            hc, c_new = lstm_gates_cell_i8(
+                x, h_l, c_l, params["w_ih_t_q8"][l], params["w_ih_t_q8s"][l],
+                params["w_hh_t_q8"][l], params["w_hh_t_q8s"][l], params["bias"][l], gate)
+            h_new = tp_q8_contract(hc, params["w_hr_t_q8"][l], params["w_hr_t_q8s"][l], mesh)
+            y = x + h_new
+            mid = ffn_mid_i8(y, params["ff1_t_q8"][l], params["ff1_t_q8s"][l], params["ff1_b"][l])
+            ff_sum = tp_q8_contract(mid, params["ff2_t_q8"][l], params["ff2_t_q8s"][l], mesh)
+        else:
+            hp, c_new = lstm_gate_cell_proj(
+                x, h_l, c_l, params["w_ih_t"][l], params["w_hh_t"][l], params["bias"][l],
+                params["w_hr_t"][l], gate)
+            h_new = mesh.all_reduce(hp, "sum")
+            y = x + h_new
+            ff_sum = mesh.all_reduce(
+                ffn_partial(y, params["ff1_t"][l], params["ff1_b"][l], params["ff2_t"][l]), "sum")
+        x = _basic_norm(y + (ff_sum + params["ff2_b"][l].float()), params["norm_eps"][l])
+        if gate is not None:
+            h_new = torch.where(gate[:, None], h_new, h_l)
+        hs.append(h_new)
+        cs.append(c_new)
+    return x, torch.stack(hs), torch.stack(cs)
+
+
+def encoder_recurrent_tp(params: Params, y, h, c, mesh, gate=None):
+    """Tensor-parallel `encoder_recurrent`: the LSTM stack on this shard with
+    the all-reduces; the small enc->joiner projection is replicated."""
+    y, h_new, c_new = _lstm_stack_step_tp(params, y.contiguous(), h, c, mesh, gate)
+    eout = dot_wd(y, params["enc_proj_t"]) + params["enc_proj_b"].float()
+    return eout, h_new, c_new
+
+
+def encoder_step_tp(params: Params, x, h, c, mesh):
+    """Tensor-parallel `encoder_step`, ungated: a [S, segment, mel] window
+    -> (eout [S, J], h', c' (this shard's))."""
+    return encoder_recurrent_tp(params, encoder_embed(params, x), h, c, mesh)
 
 
 def precompute_decoder_tables(params: Params, dims: TransducerDims) -> Params:

@@ -8,7 +8,8 @@ flagship BatchEngine at int8, bf16 and f32 and a synchronous Session at int8
 and at f32 (the weights as loaded), serves a flagship-width model with a
 16,383-token vocabulary and a narrow one whose kernel 4 block does not fit,
 runs the int8 chunk-layer variants of the two profiling tools and the
-matrix-unit tool's tensor-core products, and prints the results.
+matrix-unit tool's tensor-core products, then the tensor-parallel kernels
+and a two-rank tensor-parallel engine, and prints the results.
 
     python3 chip_smoke.py                      # every phase (as the check runs it)
     python3 chip_smoke.py --phases build,kernels
@@ -56,6 +57,17 @@ Phases (each fails the run on error):
              x 4096 timed with their plain versions and bounds, the other
              shapes' plain times and bounds, and each wrapper's refusal of a
              ragged shape
+  tp         tensor parallelism at m = 2: kernels 18-21 on one shard's
+             gate-shuffled slices at flagship widths (d 512, Hs 512, Fs
+             1024), 18 and 20 at f32 and bf16 weights, 19 and 21 on the int8
+             weights, against their plain versions, timed at S=256 and
+             checked again at S=3; both shards' partials summed against
+             kernel 7 (int8) and 12 (f32); then two rank processes on this
+             card (gloo, a file store) each serve BatchEngine(S=256,
+             mesh=make_mesh(model_parallel=2)) at int8 and at f32, 3 ticks
+             and a flush: identical blobs on both ranks, exactly the
+             PATH_KERNELS["tp ..."] launches, and the events of the
+             single-card per-pull engine up to near-ties
 
 Output: one line per kernel and per phase, then a JSON line
 {"kernels": [...]}, the `nvidia-smi` name and power limit, and as the last
@@ -66,6 +78,7 @@ package beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import os
@@ -78,7 +91,7 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("build", "kernels", "reference", "engine", "session", "vocab", "chunk", "matmul")
+PHASES = ("build", "kernels", "reference", "engine", "session", "vocab", "chunk", "matmul", "tp")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s and ops/s by type
 HBM_BPS = 3.35e12
@@ -191,16 +204,25 @@ PATH_KERNELS = {
                   "flush": ("fbank_bf16x3", "lstm_step_f32", "joiner_argmax_f32")},
     "vocab bf16": {"step": ("fbank_bf16x3", "conv_embed", "lstm_chunk_bf16", "joiner_argmax"),
                    "flush": ("fbank_bf16x3", "lstm_step_bf16", "joiner_argmax")},
+    # the tensor-parallel engine (one rank's counts): the per-pull recurrent
+    # step on kernels 19 and 21 (int8) or 18 and 20 (f32) and kernel 8, no
+    # chunk kernel; the f32 step keeps the stacked embed
+    "tp int8": {"step": ("fbank_i8", "conv_embed", "tp_gc_i8", "tp_ffn_mid_i8", "dec_joiner"),
+                "flush": ("fbank_i8", "tp_gc_i8", "tp_ffn_mid_i8", "dec_joiner")},
+    "tp f32": {"step": ("fbank_bf16x3", "tp_gcp_f32", "tp_ffn_f32", "dec_joiner_f32"),
+               "flush": ("fbank_bf16x3", "tp_gcp_f32", "tp_ffn_f32", "dec_joiner_f32")},
 }
 
 
-def require_launches(what: str, path: str, half: str) -> dict:
-    """The launch counts since the last reset; fails if a kernel of the
-    path's step or flush (`half`) never launched, or any other kernel did."""
+def require_launches(what: str, path: str, half: str, counts: dict | None = None) -> dict:
+    """The launch counts since the last reset (or `counts`, a rank's);
+    fails if a kernel of the path's step or flush (`half`) never launched,
+    or any other kernel did."""
     from april_asr_tpu_torch.ops import cuda_build
 
     keys = PATH_KERNELS[path][half]
-    launches = {k: v for k, v in cuda_build.COUNTS.items() if v or k in keys}
+    counts = cuda_build.COUNTS if counts is None else counts
+    launches = {k: counts.get(k, 0) for k in set(counts) | set(keys) if counts.get(k) or k in keys}
     missing = [k for k in keys if launches[k] == 0]
     stray = [k for k in launches if k not in keys]
     if missing or stray:
@@ -631,6 +653,13 @@ SOURCES = {
     "mm_bf16": ("april_asr_tpu_torch/csrc/int8_mm.cu", "tools/profile_int8.py:66"),
     "mm_i8": ("april_asr_tpu_torch/csrc/int8_mm.cu", "tools/profile_int8.py:66"),
     "mm_i8_dynq": ("april_asr_tpu_torch/csrc/int8_mm.cu", "tools/profile_int8.py:66"),
+    "tp_gcp_f32": ("april_asr_tpu_torch/csrc/lstm_tp.cu", "april_asr_tpu/ops/lstm_tp_pallas.py:122"),
+    "tp_gcp_bf16": ("april_asr_tpu_torch/csrc/lstm_tp.cu", "april_asr_tpu/ops/lstm_tp_pallas.py:122"),
+    "tp_gc_i8": ("april_asr_tpu_torch/csrc/lstm_tp.cu", "april_asr_tpu/ops/lstm_tp_pallas.py:234"),
+    "tp_ffn_f32": ("april_asr_tpu_torch/csrc/lstm_tp.cu", "april_asr_tpu/ops/lstm_tp_pallas.py:305"),
+    "tp_ffn_bf16": ("april_asr_tpu_torch/csrc/lstm_tp.cu", "april_asr_tpu/ops/lstm_tp_pallas.py:305"),
+    "tp_ffn_mid_i8": ("april_asr_tpu_torch/csrc/lstm_tp.cu",
+                      "april_asr_tpu/ops/lstm_tp_pallas.py:363"),
 }
 # the launch counter of a row that times a kernel at a second shape or tile
 COUNT_KEY = {"joiner_argmax_v16383": "joiner_argmax", "joiner_argmax_f32_v16383": "joiner_argmax_f32",
@@ -1217,6 +1246,246 @@ def phase_matmul(card, reps: int = 20):
     return rows
 
 
+# layer weights of the TP kernels' checks: float (18, 20) and int8 (19, 21)
+TP_FLOAT_KEYS = ("w_ih_t", "w_hh_t", "bias", "w_hr_t", "ff1_t", "ff1_b", "ff2_t")
+TP_I8_KEYS = ("w_ih_t_q8", "w_ih_t_q8s", "w_hh_t_q8", "w_hh_t_q8s", "bias", "w_hr_t_q8",
+              "ff1_t_q8", "ff1_t_q8s", "ff1_b", "ff2_t_q8")
+GC_I8 = TP_I8_KEYS[:5]
+MID_I8 = ("ff1_t_q8", "ff1_t_q8s", "ff1_b")
+
+
+def _tp_shards(w: dict, keys, m: int) -> list:
+    """Layer 0 of each of the m ranks' gate-shuffled weight slices, as
+    `prepare_tp_weights` hands them to its rank."""
+    from april_asr_tpu_torch.parallel import TPMesh, prepare_tp_weights
+
+    sub = {k: w[k][:1] for k in keys}
+    return [{k: v[0] for k, v in prepare_tp_weights(sub, TPMesh(None, r, m)).items()}
+            for r in range(m)]
+
+
+def _q8_sum(parts, wqs, ws):
+    """Every shard's exact int32 product of its slice of the model-global
+    row quantization, summed, then dequantized: `tp_q8_contract` over the
+    m ranks, in one process."""
+    from april_asr_tpu_torch.ops import lstm_tp_kernels as TK
+
+    vq, s = TK.rowq8_global(torch.cat(parts, dim=1), None)
+    acc, off = 0, 0
+    for p, wq in zip(parts, wqs):
+        acc = acc + (vq[:, off : off + p.shape[1]].double() @ wq.double()).to(torch.int32)
+        off += p.shape[1]
+    return acc.float() * (s * ws)
+
+
+def tp_layer_summed(w, shards, x, h, c_shards, gate, q: bool):
+    """Layer 0 through every shard's kernels (19 and 21 at int8, 18 and 20
+    at float weights) with the partials summed in this process as the
+    ranks' all-reduces sum them; `w` gives the replicated ff2_b, norm_eps
+    and int8 column scales of w_hr and ff2. Returns (y, h', c')."""
+    from april_asr_tpu_torch.models import lstm_transducer as TM
+    from april_asr_tpu_torch.ops import lstm_tp_kernels as TK
+
+    if q:
+        hcs, c2s = zip(*(TK.lstm_gates_cell_i8(x, h, ck, *(wk[k] for k in GC_I8), gate)
+                         for wk, ck in zip(shards, c_shards)))
+        h_new = _q8_sum(hcs, [wk["w_hr_t_q8"] for wk in shards], w["w_hr_t_q8s"][0])
+        y = x + h_new
+        mids = [TK.ffn_mid_i8(y, *(wk[k] for k in MID_I8)) for wk in shards]
+        ff = _q8_sum(mids, [wk["ff2_t_q8"] for wk in shards], w["ff2_t_q8s"][0])
+    else:
+        hps, c2s = zip(*(TK.lstm_gate_cell_proj(x, h, ck, *(wk[k] for k in TP_FLOAT_KEYS[:4]), gate)
+                         for wk, ck in zip(shards, c_shards)))
+        h_new = hps[0] + hps[1]
+        y = x + h_new
+        ffs = [TK.ffn_partial(y, *(wk[k] for k in TP_FLOAT_KEYS[4:])) for wk in shards]
+        ff = ffs[0] + ffs[1]
+    yo = TM._basic_norm(y + (ff + w["ff2_b"][0].float()), w["norm_eps"][0])
+    return yo, (h_new if gate is None else torch.where(gate[:, None], h_new, h)), torch.cat(c2s, 1)
+
+
+def check_tp_kernels(models, S: int, seed: int, m: int = 2) -> dict:
+    """Kernels 18-21 on rank 0's slices (m = 2) of layer 0's gate-shuffled
+    weights (flagship: d 512, Hs 512, Fs 1024), gated and ungated where the
+    kernel takes a gate, against their plain versions (int8 to f32 ulps
+    except isolated int8 rounding flips; f32 and bf16 at kernel 12's
+    bounds); then both shards' pieces with their partials summed
+    (`tp_layer_summed`) against the unsharded layer, kernel 7 at int8 and
+    kernel 12 at f32: y, h and c within the JAX TP test's bounds (1e-5 int8,
+    2e-5 f32). Returns {name: (kernel call, plain call, max abs err, bound,
+    shape)}; bounds from the JAX kernels' CostEstimates (bytes plus the
+    bias, gate and scales they leave out; operations at the weight type's
+    rate)."""
+    from april_asr_tpu_torch.models import lstm_transducer as TM
+    from april_asr_tpu_torch.ops import lstm_float_kernels as LF
+    from april_asr_tpu_torch.ops import lstm_kernels as LK
+    from april_asr_tpu_torch.ops import lstm_tp_kernels as TK
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa: E731
+    dims = models["int8"].runtime.dims
+    d, H, Fn = dims.d_model, dims.hidden, dims.ffn
+    Hs, Fs = H // m, Fn // m
+    x = t(rng.normal(size=(S, d)).astype(np.float32))
+    h0 = t((rng.normal(size=(S, d)) * 0.3).astype(np.float32))
+    c0 = t((rng.normal(size=(S, H)) * 0.3).astype(np.float32))
+    cs = [c0[:, k * Hs : (k + 1) * Hs].contiguous() for k in range(m)]
+    gate = t(rng.random(S) < 0.5)
+    y_in = t(rng.normal(size=(S, d)).astype(np.float32))
+
+    def held(name, prec, kf, pf, gated):
+        err = 0.0
+        for g in ((None, gate) if gated else (None,)):
+            got, want = kf(g), pf(g)
+            torch.cuda.synchronize()
+            if not isinstance(got, tuple):
+                got, want = (got,), (want,)
+            for gv, wv in zip(got, want):
+                what = f"{name}{' gated' if g is not None else ''}"
+                if prec == "int8":
+                    err = max(err, _ulp_close(gv, wv, what))
+                    continue
+                if not torch.isfinite(gv).all():
+                    raise AssertionError(f"{what}: non-finite values")
+                atol, rtol = (1e-4, 1e-4) if prec == "f32" else (5e-2, 1e-3)
+                torch.testing.assert_close(gv, wv, atol=atol, rtol=rtol, msg=what)
+                err = max(err, float((gv - wv).abs().max()))
+        return err
+
+    # (name, precision, kernel, plain, args, takes a gate, bytes, operations)
+    table = []
+    for prec in ("f32", "bf16"):
+        w0 = _tp_shards(models[prec].runtime.weights, TP_FLOAT_KEYS, m)[0]
+        wb, bb = w0["w_ih_t"].element_size(), w0["bias"].element_size()
+        table += [
+            (f"tp_gcp_{prec}", prec, TK.lstm_gate_cell_proj, TK.lstm_gate_cell_proj_plain,
+             (x, h0, cs[0]) + tuple(w0[k] for k in TP_FLOAT_KEYS[:4]), True,
+             (2 * d * 4 * Hs + Hs * d) * wb + 4 * Hs * bb + S * (3 * d + 2 * Hs) * 4 + S * 4,
+             2 * S * (2 * d * 4 * Hs + Hs * d)),
+            (f"tp_ffn_{prec}", prec, TK.ffn_partial, TK.ffn_partial_plain,
+             (y_in,) + tuple(w0[k] for k in TP_FLOAT_KEYS[4:]), False,
+             2 * d * Fs * wb + Fs * w0["ff1_b"].element_size() + 2 * S * d * 4, 2 * S * d * Fs * 2),
+        ]
+    q0 = _tp_shards(models["int8"].runtime.weights, TP_I8_KEYS, m)[0]
+    bb = q0["bias"].element_size()
+    table += [
+        ("tp_gc_i8", "int8", TK.lstm_gates_cell_i8, TK.lstm_gates_cell_i8_plain,
+         (x, h0, cs[0]) + tuple(q0[k] for k in GC_I8), True,
+         2 * d * 4 * Hs + 2 * 4 * Hs * 4 + 4 * Hs * bb + S * (2 * d + 3 * Hs) * 4 + S * 4,
+         2 * S * d * 4 * Hs * 2),
+        ("tp_ffn_mid_i8", "int8", TK.ffn_mid_i8, TK.ffn_mid_i8_plain,
+         (y_in,) + tuple(q0[k] for k in MID_I8), False,
+         d * Fs + Fs * 4 + Fs * q0["ff1_b"].element_size() + S * (d + Fs) * 4, 2 * S * d * Fs),
+    ]
+    out = {}
+    shape = f"x[{S},{d}] Hs={Hs} Fs={Fs} (m={m})"
+    for name, prec, kfn, pfn, a, gated, n_bytes, ops in table:
+        # timed ungated, as the flush calls them (kernel 7 and 12's rows too)
+        kf = lambda g=None, kfn=kfn, a=a, gated=gated: kfn(*a, g) if gated else kfn(*a)  # noqa: E731
+        pf = lambda g=None, pfn=pfn, a=a, gated=gated: pfn(*a, g) if gated else pfn(*a)  # noqa: E731
+        out[name] = (kf, pf, held(name, prec, kf, pf, gated), bound_ms(n_bytes, {prec: ops}), shape)
+
+    # the shards' partials summed, against the unsharded layer
+    for prec, keys, whole, tol in (("int8", TP_I8_KEYS, LK.lstm_layer_fused_i8, 1e-5),
+                                   ("f32", TP_FLOAT_KEYS, LF.lstm_layer_fused, 2e-5)):
+        w = models[prec].runtime.weights
+        shards = _tp_shards(w, keys, m)
+        lw = tuple(w[k][0] for k in (TM.STEP_I8_KEYS if prec == "int8" else TM.STEP_KEYS))
+        diff = dict.fromkeys("yhc", 0.0)
+        for g in (None, gate):
+            got = tp_layer_summed(w, shards, x, h0, cs, g, prec == "int8")
+            want = whole(x, h0, c0, *lw, g)
+            torch.cuda.synchronize()
+            for gv, wv, k in zip(got, want, "yhc"):
+                torch.testing.assert_close(gv, wv, atol=tol, rtol=tol,
+                                           msg=f"tp {prec} shard sum {k} vs the whole layer")
+                diff[k] = max(diff[k], float((gv - wv).abs().max()))
+        print(f"tp {prec}: {m} shards' partials summed hold kernel "
+              f"{7 if prec == 'int8' else 12}'s layer at S={S} within {tol:g}, gated and "
+              f"ungated (max abs diff y {diff['y']:.3g}, h {diff['h']:.3g}, c {diff['c']:.3g})")
+    return out
+
+
+def tp_engine(model, path: str, prec: str, card, ticks: int = 3) -> dict:
+    """Two rank processes on this card (gloo, a file store), each a
+    `BatchEngine(rt, 256, mesh=make_mesh(model_parallel=2))` on the model
+    at `path` and `prec`, over `ticks` 1 s ticks of tone bursts and a flush
+    (`testing.engine_run`). Fails unless both ranks exit, their event blobs
+    are identical, each rank's step and flush launched exactly the
+    PATH_KERNELS["tp " + prec] kernels, kernel 19 (int8) or 18 (f32)
+    P x L times a step and pulls x L a flush, and rank 0's events part from
+    the single-card engine's, on the same model and audio, only at near-ties
+    (testing.NEAR_TIE). That reference takes the same per-pull route
+    (`encoder_chunk` None: kernel 7 or 12 per layer) with its decode on the
+    plain versions, so that DecisionMargins records every decision's
+    margin. Returns rank 0's launch counts over the run."""
+    from april_asr_tpu_torch.ops import joiner_kernels as JK
+    from april_asr_tpu_torch.testing import RankGroup, check_parting, engine_run
+
+    rt = model.runtime
+    L = rt.dims.layers
+    audio = np.stack(_tone_bufs(S_FLAG, CHUNK_1S, rt.sample_rate, n=ticks, seed=21))
+    args = dict(path=path, precision="int8" if prec == "int8" else None, m=2, device=DEV,
+                audio=audio, ticks=ticks)
+    t0 = time.perf_counter()
+    ranks = RankGroup("april_asr_tpu_torch.testing:engine_run", args, world=2, timeout=600).join()
+    t_ranks = time.perf_counter() - t0
+    for k, (a, b) in enumerate(zip(ranks[0]["blobs"], ranks[1]["blobs"])):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"tp {prec}: the ranks' event blobs differ at call {k}")
+    blank = rt.blank_id
+    ref_rt = dataclasses.replace(
+        rt, encoder_chunk=None,
+        decoder_joiner_argmax=lambda w, ctx, nd, dout, e: JK.decoder_joiner_argmax_plain(
+            ctx, nd, dout, e, w["dec_table"], w["dec_proj_t"], w["dec_proj_b"], w["join_t"],
+            w["join_b"], blank))
+    ref = engine_run(dict(args, rt=ref_rt, m=1, margins=True))
+    parted = {}
+    for k in range(ticks + 1):
+        check_parting(k, ref["events"][k], ranks[0]["events"][k], ref["cells"][k],
+                      ref["recs"][k], ranks[0]["recs"][k], ref["dec"][k], ranks[0]["dec"][k], parted)
+    n_cb = sum(len(r) for r in ref["recs"][-1])
+    if n_cb == 0:
+        raise AssertionError(f"tp {prec}: no callbacks")
+    gc = "tp_gc_i8" if prec == "int8" else "tp_gcp_f32"
+    for r, res in enumerate(ranks):
+        if res["c_shape"] != (L, S_FLAG, rt.dims.hidden // 2):
+            raise AssertionError(f"tp {prec} rank {r}: c is {res['c_shape']}")
+        for k, cnt in enumerate(res["counts"]):
+            half = "step" if k < ticks else "flush"
+            require_launches(f"tp {prec} rank {r} {half} {k}", f"tp {prec}", half, cnt)
+            pulls = res["events"][k]["ops"].shape[1] - (half == "flush")
+            if cnt.get(gc) != pulls * L:
+                raise AssertionError(f"tp {prec} rank {r} {half} {k}: {gc} launched "
+                                     f"{cnt.get(gc)} times, not {pulls} pulls x {L} layers")
+    c0 = ranks[0]["counts"]
+    print(f"tp engine {prec}: 2 ranks on one card (gloo through the host), S={S_FLAG} "
+          f"chunk=1 s P={ranks[0]['events'][0]['ops'].shape[1]} L={L}, {ticks} ticks + flush, "
+          f"ranks' run {t_ranks:.1f} s; rank tick_ms {[[round(x, 1) for x in r['ms'][:ticks]] for r in ranks]} "
+          f"flush_ms {[round(r['ms'][-1], 1) for r in ranks]}; single-card per-pull reference "
+          f"(plain decode) tick_ms {[round(x, 1) for x in ref['ms'][:ticks]]} flush_ms "
+          f"{ref['ms'][-1]:.1f}; blobs identical on both ranks; {n_cb} callbacks; "
+          f"{S_FLAG - len(parted)} of {S_FLAG} sessions identical to the reference, parted at "
+          f"near-ties (step, cell, margin): {parted}; rank 0 step launches {json.dumps(c0[0])} "
+          f"flush launches {json.dumps(c0[-1])} ({card})")
+    return _merge(*c0)
+
+
+def phase_tp(models, path: str, card, reps: int = 20):
+    """Kernels 18-21 per shard at flagship widths, m = 2 (`check_tp_kernels`
+    at S=256, timed, and again at S=3), then the two-rank TP engine at int8
+    and at f32 (`tp_engine`). Returns (JSON rows, {precision: rank 0's
+    launch counts})."""
+    t0 = time.perf_counter()
+    rows = time_rows(check_tp_kernels(models, S_FLAG, seed=13), card, reps)
+    ragged = check_tp_kernels(models, 3, seed=14)
+    print("tp kernels at ragged shapes S=3: " + ", ".join(
+        f"{n} max_abs_err={v[2]:.3g}" for n, v in ragged.items()))
+    counts = {prec: tp_engine(models[prec], path, prec, card) for prec in ("int8", "f32")}
+    print(f"tp: {time.perf_counter() - t0:.1f} s")
+    return rows, counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -1252,7 +1521,7 @@ def main(argv=None) -> int:
         if "build" in phases:
             phase_build(card)
         models, vocab_path = {}, None
-        if {"kernels", "engine", "session"} & set(phases):
+        if {"kernels", "engine", "session", "tp"} & set(phases):
             t0 = time.perf_counter()
             path = flagship_april(tmp)
             models["int8"] = Model(path, precision="int8", device=DEV)
@@ -1292,6 +1561,11 @@ def main(argv=None) -> int:
             kernels += phase_chunk(card)
         if "matmul" in phases:
             kernels += phase_matmul(card)
+        if "tp" in phases:
+            rows, counts = phase_tp(models, path, card)
+            kernels += rows
+            for prec, c in counts.items():
+                record(c, f"tp {prec}")
     for k in kernels:
         k["launches"] = launches.get(COUNT_KEY.get(k["name"], k["name"]), 0)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
