@@ -8,7 +8,7 @@
 //
 // ffn_norm_kernel<RT, RG>: int8 weights with f32 column scales; _rowq8 of y
 // and of mid, exact int32 dots dequantized as acc * (s_row * s_col).
-// Used by kernel 3 (csrc/lstm_i8.cu, RT = 16) and kernel 7
+// Used by kernel 3 (csrc/lstm_i8.cu, RT = 16) and the three-pass int8 step
 // (csrc/lstm_step.cu, RT = 4); its body `ffn_norm_tile` also runs inside
 // kernels 11 and 15 (csrc/lstm_i8.cuh, RT = 2: one session tile).
 //

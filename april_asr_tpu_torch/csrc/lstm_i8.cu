@@ -1,25 +1,23 @@
-// Kernels 2, 13 and 14: the recurrent core of the int8 chunk layer, and
-// kernel 3: its batched residual + FFN + BasicNorm.
+// Kernels 13, 14 and 22: recurrent cores of the int8 chunk layer, and
+// kernel 3: its batched residual + FFN + BasicNorm. (Kernel 2, the engine's
+// core, computes the same function on the tensor cores: csrc/lstm_mma.cu.)
 //
 // The recurrent cores replace april_asr_tpu/ops/lstm_pallas.py
-// `lstm_layer_chunk_rec_stream2_i8` (`_rec_stream2_kernel_i8`, kernel 2: the
-// engine's), `lstm_layer_chunk_rec_i8` (`_rec_kernel_i8`, 13) and
-// `lstm_layer_chunk_rec_stream_i8` (`_rec_stream_kernel_i8`, 14). All three
-// compute one function of one layer over P steps: _rowq8(x_t) and _rowq8(h),
+// `lstm_layer_chunk_rec_i8` (`_rec_kernel_i8`, 13) and
+// `lstm_layer_chunk_rec_stream_i8` (`_rec_stream_kernel_i8`, 14), and
+// tools/profile_chunk_split.py `rec_interleave_i8` (22). All compute one
+// function of one layer over P steps: _rowq8(x_t) and _rowq8(h),
 // the int8 gate dots against w_ih/w_hh, the f32 cell, _rowq8(hc) and the
 // int8 projection; hseq[t] is written ungated and h/c are kept where
-// t >= n_pulls. On the TPU they differ in how time and x reach the core: a
-// sequential grid axis with x streamed a step at a time and the next step's
-// x-side gates pipelined (2), the whole P-deep x tile in VMEM with the time
-// loop inside the block (13), the time axis as the fastest grid axis with a
-// 1024-row session tile (14). Here one block owns a tile of TS sessions for
+// t >= n_pulls. On the TPU they differ in how time and x reach the core: the
+// whole P-deep x tile in VMEM with the time loop inside the block (13), the
+// time axis as the fastest grid axis with a 1024-row session tile (14).
+// Here one block owns a tile of TS sessions for
 // all P steps (the time loop runs inside the block; the step's pieces are
 // in csrc/lstm_i8.cuh), with h, c, hc and the int8 rows in shared memory.
 // The x-side gates are computed in the block too, never by a library GEMM.
-// The three differ in how x_t reaches the block:
+// They differ in how x_t reaches the block:
 //
-//   X_LOAD (2, TS = 2): each step reads x_t from device memory, then
-//     quantizes it beside h.
 //   X_STAGED (13, TS = 2): the block quantizes every step's x rows at its
 //     start and keeps P * TS * d int8 values and P * TS scales in shared
 //     memory, the int8 form of the TPU kernel's VMEM-resident x tile (the
@@ -31,8 +29,8 @@
 //     read of the layer's weights serve 4 sessions, not 2, at the price of
 //     filling only 64 of the 132 SMs at S = 256: the trade the TPU kernel's
 //     1024-row tile makes, and the one to measure.
-//   X_STEP (22, TS = 2 or 4): X_LOAD for the one step t = P - 1 alone, with
-//     x and hseq indexed by that global t and the mask t < n_pulls taken at
+//   X_STEP (22, TS = 2 or 4): the one step t = P - 1 alone, x_t read from
+//     device memory and quantized beside h, with x and hseq indexed by that global t and the mask t < n_pulls taken at
 //     it; kernel 22 launches it once per step (launch_interleave).
 //
 // Bound on the H100: per step every block re-reads the layer's int8 weights
@@ -43,9 +41,9 @@
 // needs no exchange between threads.
 //
 // ffn_norm_i8 replaces `ffn_norm_i8` (`_ffn_norm_kernel_i8`) with
-// ffn_norm_kernel<16, 8> (csrc/ffn_norm.cuh, shared with kernel 7): over
-// tiles of RT = 16 of the flattened P*S rows, y = x + hseq, _rowq8(y), int8 ff1,
-// DoubleSwish, _rowq8(mid), int8 ff2, residual, BasicNorm
+// ffn_norm_kernel<16, 8> (csrc/ffn_norm.cuh, shared with lstm_step_i8_simt):
+// over tiles of RT = 16 of the flattened P*S rows, y = x + hseq, _rowq8(y),
+// int8 ff1, DoubleSwish, _rowq8(mid), int8 ff2, residual, BasicNorm
 // y * rsqrtf(mean(y^2) + eps). The [16, ffn] mid tile (128 KB f32 at
 // ffn = 2048) lives in dynamic shared memory and never reaches device
 // memory. Bound: the integer multiply-adds; the weights (2 MB) stay in L2.
@@ -58,7 +56,6 @@
 
 #include "lstm_i8.cuh"
 
-#define X_LOAD 0
 #define X_STAGED 1
 #define X_ASYNC 2
 #define X_STEP 3
@@ -92,7 +89,7 @@ __device__ __forceinline__ void async_rows(float* dst, const float* __restrict__
 
 template <int XM>
 __host__ __device__ constexpr int x_bufs() {
-  return XM == X_LOAD || XM == X_STEP ? 1 : (XM == X_ASYNC ? 2 : 0);
+  return XM == X_STEP ? 1 : (XM == X_ASYNC ? 2 : 0);
 }
 
 template <int TS, int XM>
@@ -146,7 +143,7 @@ __global__ void __launch_bounds__(REC_NT) lstm_rec_kernel(
 
   for (int t = XM == X_STEP ? P - 1 : 0; t < P; ++t) {
     const float* xr = xt;
-    if (XM == X_LOAD || XM == X_STEP) {
+    if (XM == X_STEP) {
       load_rows<TS>(xt, x + (size_t)t * S * d, s0, S, d);
     } else if (XM == X_ASYNC) {
       xr = xt + (t & 1) * TS * d;
@@ -246,11 +243,10 @@ static int launch_interleave(const float* x, const float* h, const float* c, con
                               c2, P, S, d, H, bias_bf16, stream);                                \
   }
 
-REC_ENTRY(lstm_rec_stream2_i8, 2, X_LOAD)  // kernel 2
 REC_ENTRY(lstm_rec_i8, 2, X_STAGED)        // kernel 13
 REC_ENTRY(lstm_rec_stream_i8, 4, X_ASYNC)  // kernel 14 (x 16-byte aligned)
 
-// kernel 22 on tiles of ts = 2 (kernel 2's) or 4 (kernel 14's) sessions
+// kernel 22 on tiles of ts = 2 (kernel 13's) or 4 (kernel 14's) sessions
 extern "C" int rec_interleave_i8(const float* x, const float* h, const float* c,
                                  const int* npulls, const int8_t* wih, const float* wihs,
                                  const int8_t* whh, const float* whhs, const void* bias,

@@ -1,9 +1,13 @@
-// Kernels 7 and 12: one timestep of a whole residual LSTMP encoder layer.
+// Kernel 12, and the three-pass int8 step that kernel 7 replaced: one
+// timestep of a whole residual LSTMP encoder layer.
 //
-// lstm_step_i8 replaces april_asr_tpu/ops/lstm_pallas.py
-// `lstm_layer_fused_i8` (`_layer_kernel_i8`, int8 weights with f32 column
-// scales); lstm_step_float replaces `lstm_layer_fused` (`_layer_kernel`,
-// f32 or bf16 weights). Both compute, for S sessions,
+// lstm_step_float replaces april_asr_tpu/ops/lstm_pallas.py
+// `lstm_layer_fused` (`_layer_kernel`, f32 or bf16 weights).
+// lstm_step_i8_simt computes `lstm_layer_fused_i8` (`_layer_kernel_i8`, int8
+// weights with f32 column scales) on the CUDA cores; kernel 7 is now
+// csrc/lstm_mma.cu's tensor-core kernel, and this entry stays as the oracle
+// chip_smoke.py holds it to bit for bit (no serving path launches it). Both
+// compute, for S sessions,
 //
 //   gates = dot(x, w_ih) + dot(h, w_hh) + b      (two sums, then the bias)
 //   c'    = sig(f) * c + sig(i) * tanh(g)
@@ -132,14 +136,14 @@ static cudaError_t gates_proj(const float* x, const float* h, const float* c, co
 }
 
 // gate: [S] f32 or null (ungated). Outputs y, h2 [S, d] and c2 [S, H].
-extern "C" int lstm_step_i8(const float* x, const float* h, const float* c, const float* gate,
-                            const int8_t* wih, const float* wihs, const int8_t* whh,
-                            const float* whhs, const void* bias, const int8_t* whr,
-                            const float* whrs, const int8_t* ff1, const float* ff1s,
-                            const void* f1b, const int8_t* ff2, const float* ff2s, const void* f2b,
-                            const float* eps, float* hc, float* hn, float* y, float* h2, float* c2,
-                            int S, int d, int H, int F, int bias_bf16, int f1b_bf16, int f2b_bf16,
-                            void* stream) {
+extern "C" int lstm_step_i8_simt(const float* x, const float* h, const float* c,
+                                 const float* gate, const int8_t* wih, const float* wihs,
+                                 const int8_t* whh, const float* whhs, const void* bias,
+                                 const int8_t* whr, const float* whrs, const int8_t* ff1,
+                                 const float* ff1s, const void* f1b, const int8_t* ff2,
+                                 const float* ff2s, const void* f2b, const float* eps, float* hc,
+                                 float* hn, float* y, float* h2, float* c2, int S, int d, int H,
+                                 int F, int bias_bf16, int f1b_bf16, int f2b_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = gates_proj<I8Ops>(x, h, c, gate, wih, wihs, whh, whhs, bias, whr, whrs, hc, hn,
                                       h2, c2, S, d, H, bias_bf16, st);

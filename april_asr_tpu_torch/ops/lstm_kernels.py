@@ -11,9 +11,9 @@ and `lstm_layer_fused_i8` (`_layer_kernel_i8`).
 * `lstm_layer_chunk_rec_stream2_i8` (kernel 2, the engine's),
   `lstm_layer_chunk_rec_i8` (13) and `lstm_layer_chunk_rec_stream_i8` (14):
   one function, the recurrent core of one layer over P steps, on three
-  schedules (csrc/lstm_i8.cu). Per step: `_rowq8` of x_t and of h, the int8
-  gate dots against w_ih/w_hh, the f32 cell with the tanh-form sigmoid,
-  `_rowq8` of hc and the int8 projection. A prefix mask `t < n_pulls` keeps
+  schedules (csrc/lstm_mma.cu; csrc/lstm_i8.cu). Per step: `_rowq8` of x_t
+  and of h, the int8 gate dots against w_ih/w_hh, the f32 cell with the
+  tanh-form sigmoid, `_rowq8` of hc and the int8 projection. A prefix mask `t < n_pulls` keeps
   the carried h/c. Returns (hseq [P, S, d] ungated, h', c').
 * `ffn_norm_i8`: y = x + hseq, int8 ff1, DoubleSwish, int8 ff2, residual,
   then BasicNorm `y * rsqrt(mean(y^2) + eps)` over flattened rows.
@@ -32,10 +32,14 @@ by, exactly as the JAX package does. Integer dots are exact; they are
 dequantized as acc * (s_row * s_col).
 
 Each wrapper takes the plain PyTorch version for CPU tensors and launches
-its kernel (csrc/lstm_i8.cu: 2, 13, 14, 3; csrc/lstm_chunk_i8.cu: 11;
-csrc/lstm_step.cu: 7) for CUDA tensors; it never falls back. Kernels 2, 13
-and 14 share one plain version, `lstm_rec_plain`; kernel 11's composes it
-with `ffn_norm_plain`.
+its kernel (csrc/lstm_mma.cu: 2, 7; csrc/lstm_i8.cu: 13, 14, 3;
+csrc/lstm_chunk_i8.cu: 11) for CUDA tensors; it never falls back. Kernels 2
+and 7 are persistent int8 tensor-core kernels, one cooperative launch each,
+planned by ops/lstm_mma.py `device_plan`; they equal kernel 13 and the
+three-pass step that preceded kernel 7 (`lstm_layer_fused_i8_simt`, kept
+for chip_smoke.py's bit-exact check) bit for bit. Kernels 2, 13 and 14
+share one plain version, `lstm_rec_plain`; kernel 11's composes it with
+`ffn_norm_plain`.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, lstm_mma
 from .activations import sigmoid
 
 # the params' int8 layer leaves, in the layer kernels' argument order
@@ -189,12 +193,49 @@ def _rec_cuda(entry: str, x, h, c, n_pulls, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias
     return hseq, h2, c2
 
 
+def _rec_mma_cuda(x, h, c, n_pulls, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
+                  stamps=None):
+    """Kernel 2: one cooperative launch of csrc/lstm_mma.cu's recurrent
+    core, its scratch in one workspace (`lstm_mma.scratch_layout`).
+    `stamps` (int64 [nb, 3 + 8 P], or None) receives each block's phase
+    times (tools/profile_lstm_mma.py)."""
+    entry = "lstm_rec_stream2_i8"
+    P, S, d = x.shape
+    H = c.shape[1]
+    rec = (w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s)
+    _check_i8_weights(entry, (), d, H, rec)
+    _check(x, torch.float32, (P, S, d), f"{entry} x")
+    _check(h, torch.float32, (S, d), f"{entry} h")
+    _check(c, torch.float32, (S, H), f"{entry} c")
+    n_pulls = _n_pulls_arg(n_pulls, S, P, x.device, entry)
+    plan = lstm_mma.device_plan(S, d, H, 0, x.device)
+    hseq = torch.empty((P, S, d), dtype=torch.float32, device=x.device)
+    h2 = torch.empty_like(h)
+    c2 = torch.empty_like(c)
+    nbytes, offsets = lstm_mma.scratch_layout(plan, P)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    fn = cuda_build.bind("lstm_mma", entry, 21, 17)
+    cuda_build.COUNTS[entry] += 1
+    rc = fn(
+        x.data_ptr(), h.data_ptr(), c.data_ptr(), n_pulls.data_ptr(),
+        *(t.data_ptr() for t in rec), hseq.data_ptr(), h2.data_ptr(), c2.data_ptr(),
+        *(ws.data_ptr() + o for o in offsets), None if stamps is None else stamps.data_ptr(),
+        P, S, d, H, _bias_flag(bias, entry), plan.sp, plan.dp, plan.hp, plan.ub, plan.nb,
+        *plan.gate.ints(), *plan.proj.ints(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _smem_check(rc, entry, f"d={d}, hidden={H}")
+    return hseq, h2, c2
+
+
 def _rec(entry: str, x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s, n_pulls):
     args = (x, h, c, n_pulls, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s)
     if x.device.type == "cpu":
         return lstm_rec_plain(*args)
     if x.device.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {x.device}")
+    if entry == "lstm_rec_stream2_i8":
+        return _rec_mma_cuda(*args)
     return _rec_cuda(entry, *args)
 
 
@@ -204,7 +245,8 @@ def lstm_layer_chunk_rec_stream2_i8(
 ):
     """Kernel 2, the engine's recurrent core: x [P, S, d], h [S, d], c [S, H],
     n_pulls optional [S] i32 prefix lengths -> (hseq [P, S, d], h' [S, d],
-    c' [S, H]). Each step reads x_t from device memory."""
+    c' [S, H]). One persistent launch: every step's x rows quantized first,
+    the layer's weights stationary in shared memory, int8 tensor-core dots."""
     return _rec("lstm_rec_stream2_i8", x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q,
                 w_hr_s, n_pulls)
 
@@ -362,36 +404,88 @@ def _gate_arg(gate, S: int, what: str):
     return g
 
 
-def lstm_layer_fused_i8_cuda(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
-                             ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, gate=None):
+def _step_args(what: str, x, h, c, rec, ffn, gate):
+    """Checks kernel 7's operands; returns (S, d, H, F, gate as f32 or None)."""
     S, d = x.shape
     H = c.shape[1]
-    F = ff1_q.shape[1]
+    F = ffn[0].shape[1]
+    _check_i8_weights(what, (), d, H, rec, ffn)
+    _check(x, torch.float32, (S, d), f"{what} x")
+    _check(h, torch.float32, (S, d), f"{what} h")
+    _check(c, torch.float32, (S, H), f"{what} c")
+    return S, d, H, F, _gate_arg(gate, S, what)
+
+
+def lstm_layer_fused_i8_cuda(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
+                             ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, gate=None,
+                             stamps=None):
+    """Kernel 7: one cooperative launch of csrc/lstm_mma.cu's layer step,
+    its scratch in one workspace (`lstm_mma.scratch_layout`). `stamps`
+    (int64 [nb, 18], or None) receives each block's phase times
+    (tools/profile_lstm_mma.py)."""
+    entry = "lstm_step_i8"
     rec = (w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s)
     ffn = (ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps)
-    _check_i8_weights("lstm_step_i8", (), d, H, rec, ffn)
-    _check(x, torch.float32, (S, d), "lstm_step_i8 x")
-    _check(h, torch.float32, (S, d), "lstm_step_i8 h")
-    _check(c, torch.float32, (S, H), "lstm_step_i8 c")
-    g = _gate_arg(gate, S, "lstm_step_i8")
+    S, d, H, F, g = _step_args(entry, x, h, c, rec, ffn, gate)
+    plan = lstm_mma.device_plan(S, d, H, F, x.device)
+    y = torch.empty_like(x)
+    h2 = torch.empty_like(h)
+    c2 = torch.empty_like(c)
+    nbytes, offsets = lstm_mma.scratch_layout(plan)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    fn = cuda_build.bind("lstm_mma", entry, 32, 24)
+    cuda_build.COUNTS[entry] += 1
+    rc = fn(
+        x.data_ptr(), h.data_ptr(), c.data_ptr(), None if g is None else g.data_ptr(),
+        *(t.data_ptr() for t in rec + ffn), y.data_ptr(), h2.data_ptr(), c2.data_ptr(),
+        *(ws.data_ptr() + o for o in offsets), None if stamps is None else stamps.data_ptr(),
+        S, d, H, F, _bias_flag(bias, entry), _bias_flag(ff1_b, entry), _bias_flag(ff2_b, entry),
+        plan.sp, plan.dp, plan.hp, plan.fp, plan.ub, plan.nb, *plan.gate.ints(), *plan.proj.ints(),
+        *plan.ff1.ints(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _smem_check(rc, entry, f"d={d}, hidden={H}, ffn={F}")
+    return y, h2, c2
+
+
+def lstm_layer_fused_i8_simt_cuda(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
+                                  ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, gate=None):
+    """The three-pass CUDA-core step that kernel 7 replaced
+    (csrc/lstm_step.cu `lstm_step_i8_simt`: gate pass, projection pass,
+    4-row FFN pass); the oracle chip_smoke.py holds kernel 7 to, bit for
+    bit. No serving path launches it."""
+    entry = "lstm_step_i8_simt"
+    rec = (w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s)
+    ffn = (ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps)
+    S, d, H, F, g = _step_args(entry, x, h, c, rec, ffn, gate)
     dev = x.device
     hc = torch.empty((S, H), dtype=torch.float32, device=dev)
     hn = torch.empty((S, d), dtype=torch.float32, device=dev)
     y = torch.empty_like(x)
     h2 = torch.empty_like(h)
     c2 = torch.empty_like(c)
-    fn = cuda_build.bind("lstm_step", "lstm_step_i8", 23, 7)
-    cuda_build.COUNTS["lstm_step_i8"] += 1
+    fn = cuda_build.bind("lstm_step", entry, 23, 7)
+    cuda_build.COUNTS[entry] += 1
     rc = fn(
         x.data_ptr(), h.data_ptr(), c.data_ptr(), None if g is None else g.data_ptr(),
         *(t.data_ptr() for t in rec + ffn),
         hc.data_ptr(), hn.data_ptr(), y.data_ptr(), h2.data_ptr(), c2.data_ptr(),
-        S, d, H, F, _bias_flag(bias, "lstm_step_i8"), _bias_flag(ff1_b, "lstm_step_i8"),
-        _bias_flag(ff2_b, "lstm_step_i8"),
+        S, d, H, F, _bias_flag(bias, entry), _bias_flag(ff1_b, entry), _bias_flag(ff2_b, entry),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    cuda_build.check(rc, "lstm_step_i8")
+    cuda_build.check(rc, entry)
     return y, h2, c2
+
+
+def lstm_layer_fused_i8_simt(*args):
+    """`lstm_layer_fused_i8`'s contract on the three-pass step (CUDA
+    tensors; the plain version for CPU tensors)."""
+    x = args[0]
+    if x.device.type == "cpu":
+        return lstm_layer_fused_i8_plain(*args)
+    if x.device.type != "cuda":
+        raise ValueError(f"lstm_step_i8_simt: unsupported device {x.device}")
+    return lstm_layer_fused_i8_simt_cuda(*args)
 
 
 def lstm_layer_fused_i8(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,

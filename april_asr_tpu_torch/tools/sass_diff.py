@@ -59,7 +59,24 @@ def sass_functions(dump: str) -> Dict[str, List[str]]:
     return funcs
 
 
-def build(src: Path, out_dir: Path) -> tuple:
+def ptxas_properties(log: str) -> Dict[str, str]:
+    """{mangled kernel: its registers, shared memory and spills} from
+    `-Xptxas -v` output, as ptxas words them."""
+    props, entry = {}, None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            entry = m.group(1)
+            props[entry] = ""
+        elif entry and ("spill" in line or "Used" in line):
+            text = line.split(":", 1)[-1].strip() if "Used" in line else line.strip()
+            props[entry] = f"{props[entry]}; {text}" if props[entry] else text
+    return props
+
+
+def compile_sass(src: Path, out_dir: Path) -> tuple:
+    """(ptxas -v output, {mangled kernel: instructions}) of `src` built as
+    `cuda_build` builds it, to a cubin."""
     flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     cubin = out_dir / "k.cubin"
     log = subprocess.run([cuda_build._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o", str(cubin),
@@ -67,7 +84,12 @@ def build(src: Path, out_dir: Path) -> tuple:
     cuobjdump = str(Path(cuda_build._nvcc()).parent / "cuobjdump")  # nvcc's toolkit
     dump = subprocess.run([cuobjdump, "-sass", str(cubin)], capture_output=True, text=True,
                           check=True).stdout
-    return ptxas_registers(log.stdout + log.stderr), sass_functions(dump)
+    return log.stdout + log.stderr, sass_functions(dump)
+
+
+def build(src: Path, out_dir: Path) -> tuple:
+    log, funcs = compile_sass(src, out_dir)
+    return ptxas_registers(log), funcs
 
 
 def compare(old: tuple, new: tuple, kernel: str = "") -> List[dict]:

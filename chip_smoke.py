@@ -15,10 +15,14 @@ and a two-rank tensor-parallel engine, and prints the results.
     python3 chip_smoke.py --phases build,kernels
 
 Phases (each fails the run on error):
-  build      nvcc for every csrc/*.cu, all started at once
+  build      nvcc for every csrc/*.cu, all started at once; then
+             csrc/lstm_mma.cu again to a cubin: kernels 2 and 7's registers
+             and spills, and IMMA (tensor-core) instructions in their SASS
   kernels    each kernel against its plain version: timed at S=256, P=27,
-             F=101, checked again at S=3, P=5 (ragged tiles); the int8
-             kernels on int8 weights, kernels 10 and 12 on f32 and on bf16
+             F=101, checked again at S=3, P=5 (ragged tiles); kernels 2 and
+             7 also bit for bit against kernel 13 and the three-pass step
+             they replaced (ungated and gated), with their launch plans; the
+             int8 kernels on int8 weights, kernels 10 and 12 on f32 and on bf16
              weights, the chunk decode and kernels 8 and 9 on bf16 and on
              f32 decode weights, kernel 9 again at V=16,383, both conv-embed
              entries (16, 17) on bf16 weights beside the stacked embed they
@@ -164,6 +168,18 @@ def _embed_close(got, want, what) -> tuple:
     return mx, stats
 
 
+def _bit_equal(got, want, names, what):
+    """torch.equal for each output (an int8 kernel against another with the
+    same exact integer dots and f32 op order); prints the check."""
+    torch.cuda.synchronize()
+    for g, w, k in zip(got, want, names):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{what}: {k} differs, max abs diff "
+                                 f"{float((g - w).abs().max()):.3g} in "
+                                 f"{int((g != w).sum())} of {g.numel()} elements")
+    print(f"{what}: {', '.join(names)} equal bit for bit")
+
+
 def _stat_close(got, want, what, mean_tol=5e-3, p99_tol=0.05):
     d = (got.float() - want.float()).abs().flatten().cpu().numpy()
     if d.mean() >= mean_tol or np.percentile(d, 99) >= p99_tol:
@@ -257,6 +273,35 @@ def phase_build(card):
             if "Used" in line or "error" in line.lower():
                 print(f"  nvcc {name}{entry}: {line.strip()}")
     print(f"build: {len(logs)} sources in {dt:.1f} s ({card})")
+    check_mma_sass()
+
+
+# the persistent tensor-core kernels (2 and 7) of csrc/lstm_mma.cu, by the
+# start of their mangled names
+MMA_KERNELS = ("_Z19lstm_rec_mma_kernel", "_Z20lstm_step_mma_kernel")
+
+
+def check_mma_sass():
+    """csrc/lstm_mma.cu compiled again to a cubin: each kernel's registers,
+    shared memory and spills (`-Xptxas -v`), and its SASS, which must hold
+    IMMA (tensor-core int8) instructions."""
+    from pathlib import Path
+
+    from april_asr_tpu_torch.ops import cuda_build
+    from april_asr_tpu_torch.tools import sass_diff
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log, funcs = sass_diff.compile_sass(cuda_build.CSRC / "lstm_mma.cu", Path(tmp))
+    props = sass_diff.ptxas_properties(log)
+    found = [k for k in funcs if k.startswith(MMA_KERNELS)]
+    if len(found) < 6:
+        raise AssertionError(f"lstm_mma: expected 6 kernel instantiations, found {found}")
+    for k in sorted(found):
+        n_imma = sum("IMMA" in i for i in funcs[k])
+        print(f"  sass lstm_mma {k[:40]}: {props.get(k, 'no ptxas report')}; "
+              f"{n_imma} IMMA of {len(funcs[k])} instructions")
+        if not n_imma:
+            raise AssertionError(f"lstm_mma {k}: no IMMA instruction in its SASS")
 
 
 def _check_decode(rt, S: int, P: int, rng, dev, t) -> tuple:
@@ -444,6 +489,11 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
     torch.cuda.synchronize()
     err = max(_ulp_close(g, wv, f"lstm_rec_stream2_i8 {k}")
               for g, wv, k in zip(got, want, ("hseq", "h", "c")))
+    # the tensor-core kernel 2 equals kernel 13 (the CUDA-core template it
+    # replaced on the step) bit for bit: the same exact int32 dots and f32
+    # op order
+    _bit_equal(got, LK.lstm_layer_chunk_rec_i8(x, h0, c0, *la, n_pulls), ("hseq", "h", "c"),
+               f"lstm_rec_stream2_i8 vs kernel 13 at S={S}, P={P}")
     b = bound_ms(2 * P * S * d * 4 + 2 * S * (d + H) * 4 + 2 * d * 4 * H + H * d + (8 * H + d) * 4,
                  {"int8": 2 * P * S * (2 * d * 4 * H + H * d)})
     out["lstm_rec_stream2_i8"] = (kf, pf, err, b, f"x[{P},{S},{d}] H={H}")
@@ -512,6 +562,10 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
         for g in (None, gate):
             got, want = kfn(xs, h0, c0, *sa, g), pfn(xs, h0, c0, *sa, g)
             torch.cuda.synchronize()
+            if prec == "int8":  # kernel 7 equals the three-pass step it replaced, bit for bit
+                _bit_equal(got, LK.lstm_layer_fused_i8_simt(xs, h0, c0, *sa, g), ("y", "h", "c"),
+                           f"lstm_step_i8{' gated' if g is not None else ''} vs the three-pass "
+                           f"step at S={S}")
             for gv, wv, k in zip(got, want, ("y", "h", "c")):
                 what = f"{name} {k}{' gated' if g is not None else ''}"
                 if prec == "int8":
@@ -606,7 +660,7 @@ def check_conv_embed(rt, S: int, P: int, rng, t) -> dict:
 
 SOURCES = {
     "fbank_i8": ("april_asr_tpu_torch/csrc/fbank_i8.cu", "april_asr_tpu/ops/fbank_pallas.py:457"),
-    "lstm_rec_stream2_i8": ("april_asr_tpu_torch/csrc/lstm_i8.cu",
+    "lstm_rec_stream2_i8": ("april_asr_tpu_torch/csrc/lstm_mma.cu",
                             "april_asr_tpu/ops/lstm_pallas.py:1147"),
     "ffn_norm_i8": ("april_asr_tpu_torch/csrc/lstm_i8.cu", "april_asr_tpu/ops/lstm_pallas.py:1264"),
     "chunk_decode": ("april_asr_tpu_torch/csrc/chunk_decode.cu",
@@ -619,7 +673,7 @@ SOURCES = {
                         "april_asr_tpu/ops/lstm_pallas.py:237"),
     "chunk_decode_f32": ("april_asr_tpu_torch/csrc/chunk_decode.cu",
                          "april_asr_tpu/ops/decode_pallas.py:440"),
-    "lstm_step_i8": ("april_asr_tpu_torch/csrc/lstm_step.cu", "april_asr_tpu/ops/lstm_pallas.py:426"),
+    "lstm_step_i8": ("april_asr_tpu_torch/csrc/lstm_mma.cu", "april_asr_tpu/ops/lstm_pallas.py:426"),
     "lstm_step_f32": ("april_asr_tpu_torch/csrc/lstm_step.cu",
                       "april_asr_tpu/ops/lstm_pallas.py:1370"),
     "lstm_step_bf16": ("april_asr_tpu_torch/csrc/lstm_step.cu",
@@ -708,7 +762,22 @@ def phase_kernels(models, card, reps: int = 20):
     ragged = check_kernels(models, 3, 5, seed=2)
     print("kernels at ragged shapes S=3 P=5: " + ", ".join(
         f"{n} max_abs_err={v[2]:.3g}" for n, v in ragged.items()))
+    print_mma_plans(models["int8"].runtime, S_FLAG)
     return rows
+
+
+def print_mma_plans(rt, S: int):
+    """Kernels 2 and 7's launch plans (ops/lstm_mma.py) at the engine's
+    shapes on this card."""
+    from april_asr_tpu_torch.ops import lstm_mma as LM
+
+    d, H, F = rt.dims.d_model, rt.dims.hidden, rt.dims.ffn
+    for what, plan in (("kernel 2", LM.device_plan(S, d, H, 0, torch.device(DEV))),
+                       ("kernel 7", LM.device_plan(S, d, H, F, torch.device(DEV)))):
+        print(f"{what} plan at S={S}: {plan.nb} blocks; gate items of {plan.ub} units x "
+              f"{plan.gate.rows} rows ({plan.gate.items}); projection items (tiles, rows, column "
+              f"groups, items) {plan.proj.ints()}; ff1 {plan.ff1.ints() if plan.ff1 else None}; "
+              f"{plan.smem} bytes of shared memory a block")
 
 
 def _tone_bufs(S, chunk, rate, n=8, seed=0):
