@@ -14,7 +14,8 @@
 //
 // float_ffn_kernel<WT, RT, RG>: f32 or bf16 weights; every dot rounds its
 // activation to the weight type and accumulates in f32. Used by kernel 10
-// (csrc/lstm_chunk.cu, RT = 16) and kernel 12 (csrc/lstm_step.cu, RT = 4).
+// (csrc/lstm_chunk.cu, RT = 16) and the three-pass float step that kernel
+// 12 replaced (csrc/lstm_step.cu, RT = 4).
 //
 // Numerics: f32 adds and multiplies outside the dots are rounded separately
 // (__fadd_rn/__fmul_rn, no FMA contraction) in the JAX op order; tanhf and

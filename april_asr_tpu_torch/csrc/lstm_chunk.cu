@@ -15,7 +15,7 @@
 // It writes hseq[t] = h_new and keeps h/c where t >= n_pulls[s] (prefix
 // gate); masked steps still write a finite hseq row.
 //
-// float_ffn_kernel<WT, 16, 8> (csrc/ffn_norm.cuh, shared with kernel 12):
+// float_ffn_kernel<WT, 16, 8> (csrc/ffn_norm.cuh, shared with lstm_step.cu):
 // over tiles of RT = 16 of the flattened P*S rows, y = x + hseq,
 // mid = DoubleSwish(dot(y, ff1) + b1), ff = dot(mid, ff2) + b2, BasicNorm
 // (y + ff) * rsqrtf(mean((y + ff)^2) + eps). The [16, ffn] mid tile lives

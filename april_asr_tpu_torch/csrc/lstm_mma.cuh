@@ -479,3 +479,200 @@ static int coop_launch(K kern, const A& args, int nb, size_t smem, void* stream)
   return (int)cudaLaunchCooperativeKernel((const void*)kern, dim3(nb), dim3(MMA_NT), params, smem,
                                           (cudaStream_t)stream);
 }
+
+// ---- Kernel 12's pieces (csrc/lstm_mma_float.cu): float tile items ------
+//
+// A phase of the float layer is a set of tile items (ops/lstm_mma.py
+// `TileSplit`): item b owns rows [rg * nr, +nr) and local columns [cg * nc,
+// +nc), cg = b % ncg, rg = b / ncg. `tile_pass` streams the item's A rows
+// (f32, from device memory through L2) and B columns (f32 or bf16 weights)
+// through a three-stage shared ring in depth chunks of FKC values, zero
+// past the depth, the rows and the valid columns. The block's 256 threads
+// form ks groups, each taking FKC / ks of every chunk's depth over the
+// whole nr x nc tile: at f32 a thread owns 8 rows x 8 columns (true FFMA,
+// no tensor cores; rows ty + i nr / 8, columns tx * 4 + {0, nc / 2} + j, so
+// that 8 threads' float4 loads of a B row are 128 contiguous bytes), at bf16 a warp owns 16 rows x 8 ntw columns of
+// m16n8k16 `mma.sync` tiles, its A fragments the f32 rows rounded to bf16
+// (RNE, as jnp's astype) as they are read. The groups' partial tiles are
+// summed in group order in shared memory.
+
+#define FKC 64                  // depth values of a chunk
+#define FLDA (FKC + 8)          // f32 stride of a staged A row
+#define F_STAGES 3
+
+struct TileSplit {
+  int nr, nc, ncg, items, ks, ntw;
+};
+
+// Bytes of one ring stage (A [nr][FLDA] f32, B [FKC][nc + 8] weights) and
+// of the partial tiles [ks][nr][nc] f32 (ops/lstm_mma.py `TileSplit`)
+__host__ __device__ inline size_t tile_stage(const TileSplit& s, int wb) {
+  return (size_t)s.nr * FLDA * 4 + (size_t)FKC * (s.nc + 8) * wb;
+}
+
+__host__ __device__ inline size_t tile_part(const TileSplit& s) {
+  return (size_t)s.ks * s.nr * s.nc * 4;
+}
+
+__device__ __forceinline__ void zero16(void* p) {
+  *reinterpret_cast<float4*>(p) = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// mma_bf16_16816 on the first four values of an accumulator row
+__device__ __forceinline__ void mma_bf16_acc(float (&d)[8], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+  float t[4] = {d[0], d[1], d[2], d[3]};
+  mma_bf16_16816(t, a, b0, b1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] = t[i];
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float2 v) {
+  __nv_bfloat162 b = __floats2bfloat162_rn(v.x, v.y);  // .x in the low half
+  return *reinterpret_cast<uint32_t*>(&b);
+}
+
+// The item's product into part[0 : nr * nc] (f32, [nr][nc]), through the
+// ring's stages of stage_bytes: the depth
+// runs over A0 . B0 (K0 values) then, where A1 is not null, A1 . B1 (K1).
+// A0 and A1 are f32 rows of stride K0 and K1 (rows at or past rend read as
+// zero); B0 and B1 weight rows of stride N, local column n taking global
+// column col_of(n) (-1: zero; each run of 16 bytes of local columns maps to
+// one of global columns). Every thread of the block calls it; on return the
+// ring is free and part[0..] holds the tile for every thread.
+template <class W, class ColOf>
+__device__ __forceinline__ void tile_pass(const TileSplit& sp, float* part, uint8_t* ring,
+                                          size_t stage_bytes, int r0, int rend, const float* A0,
+                                          const W* B0, int K0, const float* A1, const W* B1,
+                                          int K1, int N, ColOf col_of) {
+  constexpr int EP = 16 / (int)sizeof(W);  // weights in 16 bytes
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, q = lane & 3;
+  const int nr = sp.nr, nc = sp.nc, ldb = nc + 8, kg = FKC / sp.ks;
+  const int n0 = (K0 + FKC - 1) / FKC, nch = n0 + (A1 != nullptr ? (K1 + FKC - 1) / FKC : 0);
+  const int lpw = __ffs(nc / EP) - 1;  // log2 of the 16-byte pieces of a B row (nc: 2^n)
+  auto load = [&](int c) {
+    if (c < nch) {
+      const bool p1 = c >= n0;
+      const int K = p1 ? K1 : K0, kb = (p1 ? c - n0 : c) * FKC;
+      const float* A = p1 ? A1 : A0;
+      const W* B = p1 ? B1 : B0;
+      float* sa = reinterpret_cast<float*>(ring + (c % F_STAGES) * stage_bytes);
+      W* sb = reinterpret_cast<W*>(sa + nr * FLDA);
+      for (int i = tid; i < nr * (FKC / 4); i += MMA_NT) {
+        const int r = i / (FKC / 4), k = (i - r * (FKC / 4)) * 4, row = r0 + r;
+        float* dst = sa + r * FLDA + k;
+        if (row < rend && kb + k < K) mma_cp16(dst, A + (size_t)row * K + kb + k);
+        else zero16(dst);
+      }
+      for (int i = tid; i < FKC << lpw; i += MMA_NT) {
+        const int k = i >> lpw, n = (i & ((1 << lpw) - 1)) * EP, gc = col_of(n);
+        W* dst = sb + k * ldb + n;
+        if (gc >= 0 && kb + k < K) mma_cp16(dst, B + (size_t)(kb + k) * N + gc);
+        else zero16(dst);
+      }
+    }
+    mma_cp_commit();
+  };
+  // this thread's (f32) or warp's (bf16) place: depth group grp, and its
+  // rows and columns of the tile
+  int grp, ty = 0, tx = 0, mt = 0, nb0 = 0;
+  if constexpr (sizeof(W) == 4) {
+    const int tpg = (nr / 8) * (nc / 8), t = tid % tpg;
+    grp = tid / tpg;
+    tx = t % (nc / 8);
+    ty = t / (nc / 8);
+  } else {
+    const int wpg = 8 / sp.ks, w = warp % wpg;
+    grp = warp / wpg;
+    mt = w % (nr / 16);
+    nb0 = (w / (nr / 16)) * 8 * sp.ntw;
+  }
+  float acc[8][8];  // f32: [row i][column]; bf16: [n-tile j][fragment 0..3]
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int c = 0; c < F_STAGES - 1; ++c) load(c);
+  for (int c = 0; c < nch; ++c) {
+    mma_cp_wait<F_STAGES - 2>();  // chunk c has landed
+    __syncthreads();              // ... for every thread; stage (c - 1) % F_STAGES is free
+    load(c + F_STAGES - 1);
+    const float* sa = reinterpret_cast<const float*>(ring + (c % F_STAGES) * stage_bytes);
+    const W* sb = reinterpret_cast<const W*>(sa + nr * FLDA);
+    const int k0 = grp * kg;
+    if constexpr (sizeof(W) == 4) {
+      const int rs = nr / 8, half = nc / 2;
+#pragma unroll 2
+      for (int kk = k0; kk < k0 + kg; kk += 4) {
+        float4 av[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          av[i] = *reinterpret_cast<const float4*>(sa + (ty + i * rs) * FLDA + kk);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float* bj = sb + (kk + j) * ldb + tx * 4;
+          const float4 b0 = *reinterpret_cast<const float4*>(bj);
+          const float4 b1 = *reinterpret_cast<const float4*>(bj + half);
+          const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float ak = j == 0 ? av[i].x : j == 1 ? av[i].y : j == 2 ? av[i].z : av[i].w;
+#pragma unroll
+            for (int n = 0; n < 8; ++n) acc[i][n] = fmaf(ak, bv[n], acc[i][n]);
+          }
+        }
+      }
+    } else {
+      for (int ks = k0; ks < k0 + kg; ks += 16) {
+        const float* ar = sa + (mt * 16 + gq) * FLDA + ks + 2 * q;
+        const uint32_t af[4] = {
+            pack_bf16x2(*reinterpret_cast<const float2*>(ar)),
+            pack_bf16x2(*reinterpret_cast<const float2*>(ar + 8 * FLDA)),
+            pack_bf16x2(*reinterpret_cast<const float2*>(ar + 8)),
+            pack_bf16x2(*reinterpret_cast<const float2*>(ar + 8 * FLDA + 8))};
+        // ldmatrix.trans matrices: k 0-7 | 8-15 of columns +0, then of +8
+        const W* br = sb + (ks + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb + nb0 + (lane >> 4) * 8;
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) {
+          if (j < sp.ntw) {
+            uint32_t bf[4];
+            ldmatrix_x4_trans(bf, br + j * 8);
+            mma_bf16_acc(acc[j], af, bf[0], bf[1]);
+            mma_bf16_acc(acc[j + 1], af, bf[2], bf[3]);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();  // the ring is free for the caller's next pass
+  float* pg = part + (size_t)grp * nr * nc;
+  if constexpr (sizeof(W) == 4) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float* o = pg + (ty + i * (nr / 8)) * nc + tx * 4;
+      *reinterpret_cast<float4*>(o) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      *reinterpret_cast<float4*>(o + nc / 2) =
+          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j < sp.ntw) {
+        float* o = pg + (mt * 16 + gq) * nc + nb0 + j * 8 + 2 * q;
+        *reinterpret_cast<float2*>(o) = make_float2(acc[j][0], acc[j][1]);
+        *reinterpret_cast<float2*>(o + 8 * nc) = make_float2(acc[j][2], acc[j][3]);
+      }
+    }
+  }
+  __syncthreads();
+  if (sp.ks > 1) {
+    const int n = nr * nc;
+    for (int i = tid; i < n; i += MMA_NT) {
+      float s = part[i];
+      for (int g = 1; g < sp.ks; ++g) s = __fadd_rn(s, part[(size_t)g * n + i]);
+      part[i] = s;
+    }
+    __syncthreads();
+  }
+}

@@ -1,13 +1,15 @@
-// Kernel 12, and the three-pass int8 step that kernel 7 replaced: one
-// timestep of a whole residual LSTMP encoder layer.
+// The three-pass layer steps that kernels 7 and 12 replaced: one timestep
+// of a whole residual LSTMP encoder layer.
 //
-// lstm_step_float replaces april_asr_tpu/ops/lstm_pallas.py
-// `lstm_layer_fused` (`_layer_kernel`, f32 or bf16 weights).
-// lstm_step_i8_simt computes `lstm_layer_fused_i8` (`_layer_kernel_i8`, int8
-// weights with f32 column scales) on the CUDA cores; kernel 7 is now
-// csrc/lstm_mma.cu's tensor-core kernel, and this entry stays as the oracle
-// chip_smoke.py holds it to bit for bit (no serving path launches it). Both
-// compute, for S sessions,
+// lstm_step_float computes april_asr_tpu/ops/lstm_pallas.py
+// `lstm_layer_fused` (`_layer_kernel`, f32 or bf16 weights) and
+// lstm_step_i8_simt `lstm_layer_fused_i8` (`_layer_kernel_i8`, int8
+// weights with f32 column scales), both on the CUDA cores. Kernel 12 is now
+// csrc/lstm_mma_float.cu's persistent kernel and kernel 7 csrc/lstm_mma.cu's
+// tensor-core kernel; these entries stay as chip_smoke.py's yardsticks
+// (lstm_step_i8_simt the oracle kernel 7 equals bit for bit; lstm_step_float
+// the time and the outputs kernel 12 is shown beside), and no serving path
+// launches them. Both compute, for S sessions,
 //
 //   gates = dot(x, w_ih) + dot(h, w_hh) + b      (two sums, then the bias)
 //   c'    = sig(f) * c + sig(i) * tanh(g)
@@ -20,10 +22,8 @@
 // its activation to the weight type and accumulates in f32 (true f32 FMAs
 // for f32 weights: no TF32, no tensor cores).
 //
-// The TPU kernel runs the whole layer for a tile of sessions with every
-// weight resident in VMEM. A single timestep has no sequential dependence,
-// so here the layer's columns are spread over blocks, in three launches of
-// one C call (one count):
+// The layer's columns are spread over blocks, in three launches of one C
+// call (one count):
 //
 //   step_gates (csrc/lstm_step.cuh, shared with kernels 18 and 19 of
 //     csrc/lstm_tp.cu): a block owns 64 hidden units (the i, f, g and o columns of
@@ -39,18 +39,11 @@
 //   the FFN + BasicNorm row-tile pass of csrc/ffn_norm.cuh (shared with
 //     kernels 3 and 10) over tiles of 4 rows: y = x + h', the FFN, the norm.
 //
-// Bound on the H100: at S = 256 and flagship widths the layer's weights
-// (6.8 M values: 6.8 MB int8, 13.6 MB bf16, 27.3 MB f32) are read once from
-// device memory and then from L2 by each session tile (8 tiles in the gate
-// pass, 16 in the projection, 64 in the FFN), and the multiply-adds are
-// 2 x 6.8 M per session. Design for the first version: the gate pass fills
-// 128 blocks (16 unit blocks x 8 session tiles); each block loads its
-// weight slice once, in coalesced 4-weight pieces, into shared memory,
-// where its 8 warps share it (read by every warp straight from device
-// memory, the slice left the pass latency-bound), and each 4-weight read
-// then feeds 8 multiply-adds. The FFN's weight loops unroll by 8, and its
-// tiles of 4 rows give 64 blocks where the chunk path's 16-row tiles would
-// give 16.
+// Each session tile re-reads its weight slice from L2 (8 tiles in the gate
+// pass, 16 in the projection, 64 in the FFN at S = 256), each weight feeds
+// few multiply-adds, and bf16 weights never reach the tensor cores: on the
+// H100 this step ran 18x (f32) and 97x (bf16) above its bound, the fault the
+// persistent kernels remove.
 //
 // Numerics: f32 adds and multiplies outside the dots are rounded separately
 // (__fadd_rn/__fmul_rn, no FMA contraction) in the JAX op order; tanhf and

@@ -1,5 +1,5 @@
-// The gate pass of the one-step LSTM layer, shared by kernel 12 and the
-// three-pass int8 step (csrc/lstm_step.cu) and the tensor-parallel kernels 18 and 19
+// The gate pass of the one-step LSTM layer, shared by the three-pass float
+// and int8 steps (csrc/lstm_step.cu) and the tensor-parallel kernels 18 and 19
 // (csrc/lstm_tp.cu, where a gate-shuffled shard is a standard layer of
 // hidden width H/m): the activation forms (`FloatOps`: rounded to the weight
 // type; `I8Ops`: _rowq8, int8 in shared memory) and `step_gates`, which

@@ -22,10 +22,10 @@
 // Every dot rounds its activation to the weight type (float weights) or
 // quantizes it per row (int8), exact int32 dequantized as
 // acc * (s_row * s_col), and accumulates float products in f32 FMAs on the
-// CUDA cores (no TF32, no tensor cores), as kernel 12 does.
+// CUDA cores (no TF32, no tensor cores), as kernel 12's f32 path does.
 //
 // Design. A gate-shuffled shard is a standard layer of hidden width Hs, so
-// the gate pass of kernels 18 and 19 is kernel 12's `step_gates`
+// the gate pass of kernels 18 and 19 is the three-pass step's `step_gates`
 // (csrc/lstm_step.cuh) run at Hs: a block owns 64 hidden units' i, f, g, o
 // columns for 32 sessions. Everything else is one column pass, `tp_cols`: a
 // block owns 64 output columns for 16 sessions, their activation rows

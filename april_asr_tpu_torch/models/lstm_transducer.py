@@ -281,8 +281,9 @@ STEP_KEYS = ("w_ih_t", "w_hh_t", "bias", "w_hr_t", "ff1_t", "ff1_b", "ff2_t", "f
 
 def _lstm_stack_step(params: Params, x, h, c, gate=None):
     """One timestep through all L layers: x [S, d], h [L, S, d], c [L, S, H]
-    -> (y [S, d], h', c'), one launch of kernel 7 (int8 copies) or kernel 12
-    per layer. `gate` (optional [S]) keeps the carried h/c of masked
+    -> (y [S, d], h', c'), one cooperative launch of kernel 7 (int8 copies,
+    csrc/lstm_mma.cu) or kernel 12 (f32 or bf16 weights,
+    csrc/lstm_mma_float.cu) per layer. `gate` (optional [S]) keeps the carried h/c of masked
     sessions, blended as the kernels do."""
     q = is_quantized(params)
     layer = lstm_layer_fused_i8 if q else lstm_layer_fused

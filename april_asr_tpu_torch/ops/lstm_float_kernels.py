@@ -29,8 +29,13 @@ Kernel 12, `lstm_layer_fused`, ports `lstm_layer_fused` (`_layer_kernel`):
 the same layer for one timestep of S sessions (the per-pull encoder and the
 flush), with an optional gate column that keeps the carried h/c as the
 arithmetic blend `g * new + (1 - g) * old`, as the TPU kernel computes it.
-CUDA tensors launch csrc/lstm_step.cu (counted as `lstm_step_f32` or
-`lstm_step_bf16`).
+CUDA tensors launch csrc/lstm_mma_float.cu, one persistent cooperative
+kernel a call (bf16 products on `mma.sync`, f32 on FFMA register tiles),
+planned by ops/lstm_mma.py `device_float_plan` (counted as `lstm_step_f32`
+or `lstm_step_bf16`). The three-pass kernel it replaced (csrc/lstm_step.cu
+`lstm_step_float`) stays as `lstm_layer_fused_simt`, counted as
+`lstm_step_float_simt`: chip_smoke.py's yardstick, launched by no serving
+path.
 """
 
 from __future__ import annotations
@@ -39,9 +44,9 @@ from typing import Optional
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, lstm_mma
 from .activations import dot_wd, double_swish, sigmoid
-from .lstm_kernels import _bias_flag, _check, _gate_arg, _gate_blend
+from .lstm_kernels import _bias_flag, _check, _gate_arg, _gate_blend, _smem_check
 
 
 def lstm_layer_chunk_plain(x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2_b, eps,
@@ -144,28 +149,75 @@ def lstm_layer_fused_plain(x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2
     return y, _gate_blend(gate, h_new, h), _gate_blend(gate, c_new, c)
 
 
-def lstm_layer_fused_cuda(x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2_b, eps,
-                          gate=None):
+def _step_float_args(what: str, x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2_b, eps,
+                     gate):
+    """Checks kernel 12's operands; returns (S, d, H, F, gate as f32 or None)."""
     S, d = x.shape
     H = c.shape[1]
     F = ff1.shape[1]
     wd = w_ih.dtype
     if wd not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"lstm_step: weights must be float32 or bfloat16, got {wd}")
+        raise ValueError(f"{what}: weights must be float32 or bfloat16, got {wd}")
     if d % 4 or H % 4 or F % 4:
-        raise ValueError("lstm_step: d_model, hidden and ffn must be multiples of 4")
-    _check(x, torch.float32, (S, d), "lstm_step x")
-    _check(h, torch.float32, (S, d), "lstm_step h")
-    _check(c, torch.float32, (S, H), "lstm_step c")
-    for w, shape, what in ((w_ih, (d, 4 * H), "w_ih"), (w_hh, (d, 4 * H), "w_hh"),
+        raise ValueError(f"{what}: d_model, hidden and ffn must be multiples of 4")
+    _check(x, torch.float32, (S, d), f"{what} x")
+    _check(h, torch.float32, (S, d), f"{what} h")
+    _check(c, torch.float32, (S, H), f"{what} c")
+    for w, shape, name in ((w_ih, (d, 4 * H), "w_ih"), (w_hh, (d, 4 * H), "w_hh"),
                            (w_hr, (H, d), "w_hr"), (ff1, (d, F), "ff1"), (ff2, (F, d), "ff2")):
-        _check(w, wd, shape, f"lstm_step {what}")
+        _check(w, wd, shape, f"{what} {name}")
         if w.data_ptr() % 16:
-            raise ValueError(f"lstm_step {what}: weights must be 16-byte aligned")
-    for b, n, what in ((bias, 4 * H, "bias"), (ff1_b, F, "ff1_b"), (ff2_b, d, "ff2_b")):
-        _check(b.reshape(-1), b.dtype, (n,), f"lstm_step {what}")
-    _check(eps.reshape(-1), torch.float32, (1,), "lstm_step eps")
-    g = _gate_arg(gate, S, "lstm_step")
+            raise ValueError(f"{what} {name}: weights must be 16-byte aligned")
+    for b, n, name in ((bias, 4 * H, "bias"), (ff1_b, F, "ff1_b"), (ff2_b, d, "ff2_b")):
+        _check(b.reshape(-1), b.dtype, (n,), f"{what} {name}")
+    _check(eps.reshape(-1), torch.float32, (1,), f"{what} eps")
+    return S, d, H, F, _gate_arg(gate, S, what)
+
+
+def lstm_layer_fused_cuda(x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2_b, eps,
+                          gate=None, stamps=None):
+    """Kernel 12: one cooperative launch of csrc/lstm_mma_float.cu, its
+    scratch (hc [S, H], y [S, d], mid [S, F] f32) in one workspace.
+    `stamps` (int64 [nb, 10], or None) receives each block's phase times
+    (tools/profile_lstm_mma.py)."""
+    S, d, H, F, g = _step_float_args("lstm_step", x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b,
+                                     ff2, ff2_b, eps, gate)
+    for t, what in ((x, "x"), (h, "h")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"lstm_step {what}: rows must be 16-byte aligned")
+    w_bf16 = int(w_ih.dtype == torch.bfloat16)
+    plan = lstm_mma.device_float_plan(S, d, H, F, 2 if w_bf16 else 4, x.device)
+    dev = x.device
+    ws = torch.empty(S * (H + d + F), dtype=torch.float32, device=dev)
+    hc, yf, mid = ws[: S * H], ws[S * H : S * (H + d)], ws[S * (H + d) :]
+    y = torch.empty_like(x)
+    h2 = torch.empty_like(h)
+    c2 = torch.empty_like(c)
+    fn = cuda_build.bind("lstm_mma_float", "lstm_step_float_mma", 20, 34)
+    cuda_build.COUNTS["lstm_step_bf16" if w_bf16 else "lstm_step_f32"] += 1
+    rc = fn(
+        x.data_ptr(), h.data_ptr(), c.data_ptr(), None if g is None else g.data_ptr(),
+        w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(), w_hr.data_ptr(),
+        ff1.data_ptr(), ff1_b.data_ptr(), ff2.data_ptr(), ff2_b.data_ptr(), eps.data_ptr(),
+        y.data_ptr(), h2.data_ptr(), c2.data_ptr(), hc.data_ptr(), yf.data_ptr(), mid.data_ptr(),
+        None if stamps is None else stamps.data_ptr(),
+        S, d, H, F, w_bf16, _bias_flag(bias, "lstm_step"), _bias_flag(ff1_b, "lstm_step"),
+        _bias_flag(ff2_b, "lstm_step"), *plan.ints(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _smem_check(rc, "lstm_step", f"d={d}, hidden={H}, ffn={F}")
+    return y, h2, c2
+
+
+def lstm_layer_fused_simt_cuda(x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2_b, eps,
+                               gate=None):
+    """The three-pass CUDA-core step that kernel 12 replaced
+    (csrc/lstm_step.cu `lstm_step_float`: gate pass, projection pass, 4-row
+    FFN pass); chip_smoke.py's yardstick. No serving path launches it."""
+    entry = "lstm_step_float_simt"
+    S, d, H, F, g = _step_float_args(entry, x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2,
+                                     ff2_b, eps, gate)
+    wd = w_ih.dtype
     dev = x.device
     hc = torch.empty((S, H), dtype=torch.float32, device=dev)
     hn = torch.empty((S, d), dtype=torch.float32, device=dev)
@@ -174,18 +226,29 @@ def lstm_layer_fused_cuda(x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2_
     c2 = torch.empty_like(c)
     w_bf16 = int(wd == torch.bfloat16)
     fn = cuda_build.bind("lstm_step", "lstm_step_float", 18, 8)
-    cuda_build.COUNTS["lstm_step_bf16" if w_bf16 else "lstm_step_f32"] += 1
+    cuda_build.COUNTS[entry] += 1
     rc = fn(
         x.data_ptr(), h.data_ptr(), c.data_ptr(), None if g is None else g.data_ptr(),
         w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(), w_hr.data_ptr(),
         ff1.data_ptr(), ff1_b.data_ptr(), ff2.data_ptr(), ff2_b.data_ptr(), eps.data_ptr(),
         hc.data_ptr(), hn.data_ptr(), y.data_ptr(), h2.data_ptr(), c2.data_ptr(),
-        S, d, H, F, w_bf16, _bias_flag(bias, "lstm_step"),
-        _bias_flag(ff1_b, "lstm_step"), _bias_flag(ff2_b, "lstm_step"),
+        S, d, H, F, w_bf16, _bias_flag(bias, entry),
+        _bias_flag(ff1_b, entry), _bias_flag(ff2_b, entry),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    cuda_build.check(rc, "lstm_step")
+    cuda_build.check(rc, entry)
     return y, h2, c2
+
+
+def lstm_layer_fused_simt(*args):
+    """`lstm_layer_fused`'s contract on the three-pass step (CUDA tensors;
+    the plain version for CPU tensors)."""
+    x = args[0]
+    if x.device.type == "cpu":
+        return lstm_layer_fused_plain(*args)
+    if x.device.type != "cuda":
+        raise ValueError(f"lstm_step_float_simt: unsupported device {x.device}")
+    return lstm_layer_fused_simt_cuda(*args)
 
 
 def lstm_layer_fused(x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2_b, eps, gate=None):

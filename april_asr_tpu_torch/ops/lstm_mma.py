@@ -229,3 +229,199 @@ def device_plan(S: int, d: int, H: int, F: int, device: torch.device) -> MmaPlan
     """`mma_plan` for the SM count of `device` (a CUDA device)."""
     return _plan_cached(S, d, H, F, _n_sm(device.index if device.index is not None
                                            else torch.cuda.current_device()))
+
+
+# -- kernel 12: the float per-pull layer (csrc/lstm_mma_float.cu) -----------
+#
+# Every phase is a set of tile items: item b of a `TileSplit` owns rows
+# [rg * nr, +nr) and local columns [cg * nc, +nc) (cg = b % ncg, rg = b //
+# ncg; for the gate phase the nc = 4 ub columns are the four gates of ub
+# hidden units [cg * ub, +ub)). A block walks its items (b = blockIdx,
+# blockIdx + nb, ...), streaming A (f32 activation rows) and B (the item's
+# weight columns, f32 or bf16) through one three-stage shared ring in depth
+# chunks of FKC values, so the weights cross from device memory once per
+# launch. The block's 256 threads form `ks` groups that split each chunk's
+# depth; each group covers the whole nr x nc tile: at f32 a thread owns an
+# 8-row x 8-column register tile (FFMA), at bf16 a warp owns 16 rows x 8 ntw
+# columns of m16n8k16 `mma.sync` tiles. The groups' partial tiles are summed
+# in group order in shared memory, then the phase's epilogue reads the tile.
+
+FKC = 64  # depth values of one chunk
+FLDA = FKC + 8  # f32 stride of a staged A row (conflict-free fragment loads)
+F_STAGES = 3
+F_THREADS = 256
+# bytes of the partial tiles at most: f32 8 x 8 a thread, bf16 16 x 64 a warp
+F_PART_MAX = {4: F_THREADS * 64 * 4, 2: 8 * 16 * 64 * 4}
+F_TILE_ROWS = (16, 32, 64, 128)
+F_TILE_COLS = (16, 32, 64, 128)
+F_UNITS = (8, 16, 32)
+# the plan's cost model (tools/profile_lstm_mma.py's phase stamps, H100):
+# FMAs per ns of one SM at each weight type, and the bytes per ns that all
+# the blocks together, and one block alone, stream from L2 (each item reads
+# its A rows and its B columns once); a phase takes the longest of its
+# items' products and their streams, in rounds of n_sm blocks, and the
+# whole phase's stream
+F_RATE = {4: 110.0, 2: 2000.0}
+F_L2_BPS = 1800.0
+F_SM_BPS = 15.0
+F_ITEM_NS = 500.0  # an item's fixed cost: its epilogue and ring start
+
+
+@dataclass(frozen=True)
+class TileSplit:
+    nr: int  # rows per item (a multiple of 16)
+    nc: int  # local columns per item
+    ncg: int  # column groups (unit groups for the gates)
+    items: int
+    ks: int  # depth groups of the block's threads
+    ntw: int  # bf16: 8-column mma tiles of a warp (0 at f32)
+
+    def item(self, b: int, n: int, S: int) -> Optional[Tuple[range, range]]:
+        """(local columns, rows) of item b, cut at n columns and S rows, or
+        None past the last item."""
+        if b >= self.items:
+            return None
+        g, r = b % self.ncg, b // self.ncg
+        return (range(g * self.nc, min((g + 1) * self.nc, n)),
+                range(r * self.nr, min((r + 1) * self.nr, S)))
+
+    def ints(self) -> Tuple[int, int, int, int, int, int]:
+        return self.nr, self.nc, self.ncg, self.items, self.ks, self.ntw
+
+    def stage(self, wbytes: int) -> int:
+        """Bytes of one ring stage: A [nr][FLDA] f32, B [FKC][nc + 8]."""
+        return self.nr * FLDA * 4 + FKC * (self.nc + 8) * wbytes
+
+    def part(self) -> int:
+        """Bytes of the groups' partial tiles [ks][nr][nc] f32."""
+        return self.ks * self.nr * self.nc * 4
+
+
+def tile_groups(nr: int, nc: int, wbytes: int) -> Optional[Tuple[int, int]]:
+    """(ks, ntw) of an nr x nc tile on 256 threads, or None where the tile
+    does not map: at f32 (nr / 8) x (nc / 8) threads a group, at most 16
+    groups (4 depth values a group and chunk); at bf16 (nr / 16) x (nc / 8
+    ntw) warps a group (ntw = min(8, nc / 8), even), at most 4 groups (one
+    16-deep mma step a group and chunk)."""
+    if nr % 16 or nc % 16:
+        return None
+    if wbytes == 4:
+        tpg = (nr // 8) * (nc // 8)
+        if tpg > F_THREADS or F_THREADS % tpg or F_THREADS // tpg > FKC // 4:
+            return None
+        return F_THREADS // tpg, 0
+    ntw = min(8, nc // 8)
+    wpg = (nr // 16) * (nc // (8 * ntw))
+    if wpg > 8 or 8 % wpg or 8 // wpg > FKC // 16:
+        return None
+    return 8 // wpg, ntw
+
+
+def _phase_ns(sp: "TileSplit", K: int, wbytes: int, n_sm: int) -> float:
+    item_bytes = sp.nr * K * 4 + K * sp.nc * wbytes
+    item = max(sp.nr * sp.nc * K / F_RATE[wbytes], item_bytes / F_SM_BPS) + F_ITEM_NS
+    return max(-(-sp.items // n_sm) * item, sp.items * item_bytes / F_L2_BPS)
+
+
+def _tile_split(n: int, K: int, S: int, wbytes: int, n_sm: int, cols,
+                stage_max: int) -> Optional[TileSplit]:
+    """The split of an n-column product of depth K over S rows whose items
+    finish soonest on n_sm blocks by the cost model (the fewest items on a
+    tie), among the tiles whose stage fits stage_max."""
+    best, key = None, None
+    for nc in cols:
+        for nr in F_TILE_ROWS:
+            g = tile_groups(nr, nc, wbytes)
+            if g is None:
+                continue
+            ncg = -(-n // nc)
+            sp = TileSplit(nr, nc, ncg, ncg * -(-S // nr), *g)
+            if sp.stage(wbytes) > stage_max:
+                continue
+            k = (_phase_ns(sp, K, wbytes, n_sm), sp.items, -nr)
+            if key is None or k < key:
+                best, key = sp, k
+    return best
+
+
+@dataclass(frozen=True)
+class FloatPlan:
+    S: int
+    d: int
+    H: int
+    F: int
+    wbytes: int  # 4 (f32 weights) or 2 (bf16)
+    ub: int  # hidden units of a gate item
+    gate: TileSplit  # nc = 4 ub: gate gi of unit u is local column gi * ub + u
+    proj: TileSplit  # d columns, depth H
+    ff1: TileSplit  # F columns, depth d
+    ff2: TileSplit  # d columns, depth F
+    nb: int
+    smem: int
+
+    def splits(self) -> Tuple[TileSplit, TileSplit, TileSplit, TileSplit]:
+        return self.gate, self.proj, self.ff1, self.ff2
+
+    def gate_item(self, b: int) -> Optional[Tuple[range, range, List[int]]]:
+        """(hidden units, rows, weight columns in the block's local order) of
+        gate item b, or None past the last."""
+        if b >= self.gate.items:
+            return None
+        g, r = b % self.gate.ncg, b // self.gate.ncg
+        units = range(g * self.ub, min((g + 1) * self.ub, self.H))
+        rows = range(r * self.gate.nr, min((r + 1) * self.gate.nr, self.S))
+        return units, rows, [gi * self.H + u for gi in range(4) for u in units]
+
+    def ints(self) -> Tuple[int, ...]:
+        return (self.ub, self.nb) + sum((s.ints() for s in self.splits()), ())
+
+
+def float_smem(splits, wbytes: int) -> int:
+    """Bytes of kernel 12's shared memory: the three-stage ring, each stage
+    sized for the largest phase, and the largest partial tiles
+    (csrc/lstm_mma_float.cu `float_smem`)."""
+    return F_STAGES * max(s.stage(wbytes) for s in splits) + max(s.part() for s in splits)
+
+
+def float_step_plan(S: int, d: int, H: int, F: int, wbytes: int, n_sm: int = 132,
+                    smem_limit: int = SMEM_LIMIT) -> FloatPlan:
+    """Kernel 12's plan for S rows at widths d, H, F with f32 (wbytes 4) or
+    bf16 (2) weights on n_sm SMs: each phase's tile split by the cost model,
+    three stages of every tile within the shared memory left after the
+    partial tiles;
+    ValueError where the widths are not multiples of 8 or no tile fits."""
+    if wbytes not in (2, 4):
+        raise ValueError(f"lstm_step: weights of {wbytes} bytes: f32 or bf16 only")
+    if min(S, d, H, F) < 1 or d % 8 or H % 8 or F % 8:
+        raise ValueError(f"lstm_step: no plan for S={S}, d={d}, hidden={H}, ffn={F}: rows must "
+                         "be positive and widths positive multiples of 8")
+    stage_max = (smem_limit - F_PART_MAX[wbytes]) // F_STAGES
+    gate = None
+    for ub in F_UNITS:
+        # ceil(4 H / 4 ub) unit groups
+        sp = _tile_split(4 * H, 2 * d, S, wbytes, n_sm, (4 * ub,), stage_max)
+        if sp is not None:
+            k = (_phase_ns(sp, 2 * d, wbytes, n_sm), sp.items)
+            if gate is None or k < gate[0]:
+                gate = (k, ub, sp)
+    proj = _tile_split(d, H, S, wbytes, n_sm, F_TILE_COLS, stage_max)
+    ff1 = _tile_split(F, d, S, wbytes, n_sm, F_TILE_COLS, stage_max)
+    ff2 = _tile_split(d, F, S, wbytes, n_sm, F_TILE_COLS, stage_max)
+    if gate is None or None in (proj, ff1, ff2):
+        raise ValueError(f"lstm_step: no plan for S={S}, d={d}, hidden={H}, ffn={F} within "
+                         f"{smem_limit} bytes of shared memory")
+    splits = (gate[2], proj, ff1, ff2)
+    nb = min(n_sm, max(s.items for s in splits))
+    return FloatPlan(S, d, H, F, wbytes, gate[1], *splits, nb, float_smem(splits, wbytes))
+
+
+@functools.lru_cache(maxsize=64)
+def _float_plan_cached(S: int, d: int, H: int, F: int, wbytes: int, n_sm: int) -> FloatPlan:
+    return float_step_plan(S, d, H, F, wbytes, n_sm)
+
+
+def device_float_plan(S: int, d: int, H: int, F: int, wbytes: int,
+                      device: torch.device) -> FloatPlan:
+    """`float_step_plan` for the SM count of `device` (a CUDA device)."""
+    return _float_plan_cached(S, d, H, F, wbytes, _n_sm(device.index if device.index is not None
+                                                         else torch.cuda.current_device()))

@@ -16,19 +16,35 @@ directory) and, on the flagship random int8 model (seed 0):
 * runs chip_smoke's `engine` cell at int8 (10 ticks, 5 flushes, the step
   and flush programs, the profiler's step and flush), its lines relayed;
 * records the int8 engine's event blobs over the same 10 ticks and a flush
-  (`testing.engine_run`) into <out>/<turn>-<tree>.npz.
+  (`testing.engine_run`) into <out>/<turn>-<tree>.npz;
+* then, on the same model served at f32 (as loaded) and at bf16: times
+  kernel 12 (`lstm_layer_fused`, layer 0) at S = 256 with the SHA-1 of its
+  outputs (ungated and gated), runs the `engine` cell at that precision, and
+  records the engine's events over the same 10 ticks and a flush with the
+  decode on its plain versions (kernel 4's and 8's functions), so that
+  `DecisionMargins` records every decision's margin, into
+  <out>/<turn>-<tree>-<precision>.pkl.
 
-The main process then requires every turn's blobs and kernel outputs to be
-equal, bit for bit, and prints the times per turn. With `--sass`, it also
-runs `sass_diff` on csrc/lstm_i8.cu, lstm_step.cu and lstm_tp.cu of the two
-trees (kernels 3, 12, 13, 14, 18, 19 and 22). Needs a CUDA device (and nvcc).
+The main process then requires every turn's int8 blobs and kernel outputs
+to be equal, bit for bit; every session of a float engine whose events
+part from the first turn's to part at a near-tie decision
+(`testing.check_parting`, `testing.NEAR_TIE`), counted per turn beside
+whether the blobs are equal (their f32 log-probabilities move by ulps where
+the encoder's sums change order); and kernel 12's outputs to be equal
+between the turns of one tree. It
+prints the times per turn. With `--sass`, it also runs `sass_diff` on
+csrc/lstm_mma.cu, lstm_i8.cu, lstm_step.cu and lstm_tp.cu of the two trees
+(kernels 2, 3, 7, 13, 14, 18, 19, 22 and the three-pass float step). Needs
+a CUDA device (and nvcc).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -38,7 +54,9 @@ from pathlib import Path
 TAG = "PARENT_AB "
 HERE = Path(__file__).resolve()
 TREE = HERE.parents[2]
-SASS_SOURCES = ("lstm_i8.cu", "lstm_step.cu", "lstm_tp.cu")
+SASS_SOURCES = ("lstm_mma.cu", "lstm_i8.cu", "lstm_step.cu", "lstm_tp.cu")
+FLOATS = ("f32", "bf16")
+ENGINE_KEYS = ("events", "recs", "dec", "cells", "blobs")
 
 
 def _sha(t) -> str:
@@ -96,11 +114,71 @@ def worker(root: str, out: str) -> None:
         audio = np.stack([bufs[k % len(bufs)] for k in range(10)])
         run = engine_run(dict(path=path, precision="int8", m=1, device="cuda", audio=audio,
                               ticks=10))
-    blobs = [np.asarray(b) for b in run["blobs"]]
-    np.savez(out, *blobs)
-    res["blob_sha"] = [hashlib.sha1(b.tobytes()).hexdigest()[:16] for b in blobs]
+        blobs = [np.asarray(b) for b in run["blobs"]]
+        np.savez(out, *blobs)
+        res["blob_sha"] = _blob_sha(blobs)
+        del model
+        for prec in FLOATS:
+            float_turn(CS, path, prec, audio, card, res, out)
     res["card"] = card
     print(TAG + json.dumps(res), flush=True)
+
+
+def _blob_sha(blobs) -> list:
+    import numpy as np
+
+    return [hashlib.sha1(np.asarray(b).tobytes()).hexdigest()[:16] for b in blobs]
+
+
+def float_turn(CS, path: str, prec: str, audio, card: str, res: dict, out: str) -> None:
+    """Kernel 12 and the engine at `prec` ("f32": the weights as loaded;
+    "bf16"), measured from this turn's tree, into res; the engine's run
+    with the plain decode and its margins into <out>-<prec>.pkl."""
+    import numpy as np
+    import torch
+
+    from april_asr_tpu_torch.api import Model
+    from april_asr_tpu_torch.engine import step as ES
+    from april_asr_tpu_torch.models import lstm_transducer as TM
+    from april_asr_tpu_torch.ops import decode_kernels as DK
+    from april_asr_tpu_torch.ops import joiner_kernels as JK
+    from april_asr_tpu_torch.ops import lstm_float_kernels as LF
+    from april_asr_tpu_torch.testing import engine_run
+
+    model = Model(path, precision=None if prec == "f32" else "bf16", device="cuda")
+    rt = model.runtime
+    w, d, H = rt.weights, rt.dims.d_model, rt.dims.hidden
+    sa = tuple(w[k][0] for k in TM.STEP_KEYS)
+    dev = torch.device("cuda")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    rng = np.random.default_rng(7)
+    x = t(rng.normal(size=(256, d)).astype(np.float32))
+    h = t((rng.normal(size=(256, d)) * 0.3).astype(np.float32))
+    c = t((rng.normal(size=(256, H)) * 0.3).astype(np.float32))
+    gate = t(rng.random(256) < 0.5)
+    res[f"k12_{prec}_sha"] = [_sha(o) for o in LF.lstm_layer_fused(x, h, c, *sa)]
+    res[f"k12_{prec}_gated_sha"] = [_sha(o) for o in LF.lstm_layer_fused(x, h, c, *sa, gate)]
+    res[f"k12_{prec}_ms"] = CS.cuda_ms(lambda: LF.lstm_layer_fused(x, h, c, *sa), 20)
+    print(f"kernels: k12 {prec} S=256 {res[f'k12_{prec}_ms']:.4f} ms ({card})", flush=True)
+    CS.phase_engine(model, card, prec)
+    # the engine with its decode on the plain versions, so that every
+    # decision's margin is recorded
+    blank = rt.blank_id
+    plain_rt = dataclasses.replace(
+        rt, decoder_joiner_argmax=lambda w, ctx, nd, dout, e: JK.decoder_joiner_argmax_plain(
+            ctx, nd, dout, e, w["dec_table"], w["dec_proj_t"], w["dec_proj_b"], w["join_t"],
+            w["join_b"], blank))
+    orig = ES.chunk_decode
+    ES.chunk_decode = DK.chunk_decode_plain
+    try:
+        run = engine_run(dict(rt=plain_rt, m=1, device="cuda", audio=audio, ticks=len(audio),
+                              margins=True))
+    finally:
+        ES.chunk_decode = orig
+    res[f"blob_{prec}_sha"] = _blob_sha(run["blobs"])
+    with open(f"{out[:-4]}-{prec}.pkl", "wb") as f:
+        pickle.dump({k: run[k] for k in ENGINE_KEYS}, f)
+    del model
 
 
 def run_turn(i: int, label: str, root: Path, out_dir: Path) -> dict:
@@ -136,6 +214,27 @@ def sass(other: Path) -> list:
     return rows
 
 
+def float_partings(out_dir: Path, turns: list, prec: str) -> dict:
+    """Sessions of each turn's plain-decode `prec` engine that part from the
+    first turn's, by `testing.check_parting` (raises unless each parting
+    was a near-tie): {turn: {session: (call, cell, margin)}}."""
+    from april_asr_tpu_torch.testing import check_parting
+
+    runs = []
+    for i, tr in enumerate(turns):
+        with open(out_dir / f"{i}-{tr['label']}-{prec}.pkl", "rb") as f:
+            runs.append(pickle.load(f))
+    ref = runs[0]
+    found = {}
+    for i, run in enumerate(runs[1:], 1):
+        parted = {}
+        for k in range(len(ref["events"])):
+            check_parting(k, ref["events"][k], run["events"][k], ref["cells"][k], ref["recs"][k],
+                          run["recs"][k], ref["dec"][k], run["dec"][k], parted)
+        found[i] = parted
+    return found
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, help="the other tree (e.g. the parent commit)")
@@ -150,6 +249,7 @@ def main(argv=None) -> int:
     if args.other is None:
         ap.error("--other is required")
     other = args.other.resolve()
+    args.out = args.out.resolve()  # the turns run from their own trees
     args.out.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     turns = []
@@ -160,10 +260,30 @@ def main(argv=None) -> int:
     ref = turns[0]
     bad = [k for tr in turns for k in ("k2_S256_sha", "k2_S2048_sha", "k7_sha", "k7_gated_sha",
                                        "blob_sha") if tr[k] != ref[k]]
+    # kernel 12 changes between the trees, not between two turns of one tree
+    for label in ("other", "this"):
+        mine = [tr for tr in turns if tr["label"] == label]
+        bad += [f"{k} ({label})" for p in FLOATS for k in (f"k12_{p}_sha", f"k12_{p}_gated_sha")
+                if any(tr[k] != mine[0][k] for tr in mine)]
+    floats = {}
+    for p in FLOATS:
+        try:
+            parted = float_partings(args.out, turns, p)
+        except AssertionError as e:
+            bad.append(f"{p} engine: {e}")
+            parted = {}
+        floats[p] = [{"blobs_equal": tr[f"blob_{p}_sha"] == ref[f"blob_{p}_sha"],
+                      "sessions_parted": len(parted.get(i, {})),
+                      "largest_margin": max((m for _, _, m in parted.get(i, {}).values()),
+                                            default=None)}
+                     for i, tr in enumerate(turns[1:], 1)]
+        print(f"{p} engine against turn 0, by turn: {floats[p]}; partings (session: call, cell, "
+              f"margin): {parted}", flush=True)
     summary = {
-        "turns": [{k: tr[k] for k in ("label", "build_s", "k2_S256_ms", "k2_S2048_ms", "k7_ms")}
-                  for tr in turns],
+        "turns": [{k: tr[k] for k in ("label", "build_s", "k2_S256_ms", "k2_S2048_ms", "k7_ms",
+                                      "k12_f32_ms", "k12_bf16_ms")} for tr in turns],
         "equal": not bad, "differ": sorted(set(bad)), "blob_calls": len(ref["blob_sha"]),
+        "floats": floats,
         "sass_differs": [f"{r['source']} {r['kernel']}" for r in rows if not r["same"]],
         "card": ref["card"], "seconds": time.perf_counter() - t0,
     }

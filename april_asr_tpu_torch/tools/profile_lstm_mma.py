@@ -1,4 +1,4 @@
-"""Where the time of the persistent tensor-core kernels 2 and 7 goes: the
+"""Where the time of the persistent layer kernels 2, 7 and 12 goes: the
 phases and grid barriers of one launch, from each block's phase stamps
 (csrc/lstm_mma.cuh `Stamps`, the global nanosecond timer).
 
@@ -6,14 +6,15 @@ phases and grid barriers of one launch, from each block's phase stamps
 
 On the flagship int8 serving weights (`profile_chunk_split.build`, layer 0)
 and numpy seed inputs, it launches kernel 2 (P steps) and kernel 7 once
-each with stamps and prints, per phase kind summed over the launch, the
-critical path (from the last block's arrival at the phase's start to the
-last block's arrival at its end), the blocks' median time in the phase, and
-the grid barriers (from the last block's arrival to the last block's
-exit). The stamps add a block barrier at each phase boundary; beside them,
-without stamps: the CUDA-event time of one call, the kernel's device time
-(torch.profiler) and the host's time per call queued without a
-synchronize. Needs a CUDA device.
+each with stamps, then kernel 12 (csrc/lstm_mma_float.cu) once on f32 and
+once on bf16 flagship-width weights drawn from a numpy seed, and prints,
+per phase kind summed over the launch, the critical path (from the last
+block's arrival at the phase's start to the last block's arrival at its
+end), the blocks' median time in the phase, and the grid barriers (from
+the last block's arrival to the last block's exit). The stamps add a
+block barrier at each phase boundary; beside them, without stamps: the
+CUDA-event time of one call, the kernel's device time (torch.profiler) and
+the host's time per call queued without a synchronize. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from ..models import lstm_transducer as TM
+from ..ops import lstm_float_kernels as LF
 from ..ops import lstm_kernels as LK
 from ..ops import lstm_mma as LM
 from . import profile_chunk_split as PCS
@@ -38,6 +40,9 @@ STEP = (("stage + rowq8 x, h", 0, 1), ("barrier", 1, 2), ("gates", 2, 3), ("barr
         ("hcq", 4, 5), ("barrier", 5, 6), ("projection", 6, 7), ("barrier", 7, 8), ("yq", 8, 9),
         ("barrier", 9, 10), ("ff1", 10, 11), ("barrier", 11, 12), ("mq", 12, 13),
         ("barrier", 13, 14), ("ff2", 14, 15), ("barrier", 15, 16), ("norm", 16, 17))
+# kernel 12's one launch: four phases of tile items and the norm
+STEP12 = (("gates", 0, 1), ("barrier", 1, 2), ("projection", 2, 3), ("barrier", 3, 4),
+          ("ff1", 4, 5), ("barrier", 5, 6), ("ff2", 6, 7), ("barrier", 7, 8), ("norm", 8, 9))
 
 
 def breakdown(stamps: np.ndarray, phases: List[Tuple[str, int, int]]) -> Dict[str, dict]:
@@ -77,9 +82,20 @@ def event_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
+def float_layer(d: int, H: int, F: int, wd, device, seed: int = 4) -> tuple:
+    """Kernel 12's weights (`TM.STEP_KEYS` order) of type wd, drawn from a
+    numpy seed with unit-scale rows."""
+    rng = np.random.default_rng(seed)
+    t = lambda a, dt=wd: torch.from_numpy(a.astype(np.float32)).to(device, dt)  # noqa: E731
+    w = lambda k, n: t(rng.normal(size=(k, n)) / np.sqrt(k))  # noqa: E731
+    b = lambda n: t(rng.normal(size=n) * 0.3)  # noqa: E731
+    return (w(d, 4 * H), w(d, 4 * H), b(4 * H), w(H, d), w(d, F), b(F), w(F, d), b(d),
+            t(np.float32([0.25]), torch.float32))
+
+
 def profile(S: int, P: int, device) -> Dict[str, dict]:
-    """Kernel 2 at (S, P) and kernel 7 at S: {kernel: {"total_us",
-    "event_ms", "phases", "blocks", "smem"}}."""
+    """Kernel 2 at (S, P), kernel 7 and kernel 12 (f32 and bf16) at S:
+    {kernel: {"total_us", "event_ms", "phases", "blocks", "smem"}}."""
     params = PCS.build(S, P, TM.TransducerDims(), device)[0]
     layer = tuple(params[k][0] for k in LK.LAYER_I8_KEYS)
     d, H, F = layer[0].shape[0], layer[0].shape[1] // 4, layer[7].shape[1]
@@ -89,12 +105,17 @@ def profile(S: int, P: int, device) -> Dict[str, dict]:
     h = t((rng.normal(size=(S, d)) * 0.3).astype(np.float32))
     c = t((rng.normal(size=(S, H)) * 0.3).astype(np.float32))
     n = t(rng.integers(0, P + 1, size=S).astype(np.int32))
+    f32, bf16 = (float_layer(d, H, F, wd, device) for wd in (torch.float32, torch.bfloat16))
     out = {}
     for name, plan, nstamp, last, run, phases in (
         ("kernel 2", LM.device_plan(S, d, H, 0, device), 3 + 8 * P, 8 * P - 1,
          lambda st: LK._rec_mma_cuda(x, h, c, n, *layer[:7], stamps=st), rec_phases(P)),
         ("kernel 7", LM.device_plan(S, d, H, F, device), 18, 17,
          lambda st: LK.lstm_layer_fused_i8_cuda(x[0], h, c, *layer, stamps=st), STEP),
+        ("kernel 12 f32", LM.device_float_plan(S, d, H, F, 4, device), 10, 9,
+         lambda st: LF.lstm_layer_fused_cuda(x[0], h, c, *f32, stamps=st), STEP12),
+        ("kernel 12 bf16", LM.device_float_plan(S, d, H, F, 2, device), 10, 9,
+         lambda st: LF.lstm_layer_fused_cuda(x[0], h, c, *bf16, stamps=st), STEP12),
     ):
         ms = event_ms(lambda: run(None))
         host_us, device_us = host_and_device_us(lambda: run(None))

@@ -16,12 +16,16 @@ and a two-rank tensor-parallel engine, and prints the results.
 
 Phases (each fails the run on error):
   build      nvcc for every csrc/*.cu, all started at once; then
-             csrc/lstm_mma.cu again to a cubin: kernels 2 and 7's registers
-             and spills, and IMMA (tensor-core) instructions in their SASS
+             csrc/lstm_mma.cu and lstm_mma_float.cu again to cubins:
+             kernels 2, 7 and 12's registers and spills (none allowed), IMMA
+             in 2 and 7's SASS, HMMA in kernel 12's at bf16, FFMA and no
+             tensor-core instruction at f32
   kernels    each kernel against its plain version: timed at S=256, P=27,
              F=101, checked again at S=3, P=5 (ragged tiles); kernels 2 and
              7 also bit for bit against kernel 13 and the three-pass step
-             they replaced (ungated and gated), with their launch plans; the
+             they replaced (ungated and gated), with their launch plans;
+             kernel 12 beside the three-pass step it replaced (its largest
+             difference and both times); the
              int8 kernels on int8 weights, kernels 10 and 12 on f32 and on bf16
              weights, the chunk decode and kernels 8 and 9 on bf16 and on
              f32 decode weights, kernel 9 again at V=16,383, both conv-embed
@@ -276,32 +280,52 @@ def phase_build(card):
     check_mma_sass()
 
 
-# the persistent tensor-core kernels (2 and 7) of csrc/lstm_mma.cu, by the
-# start of their mangled names
-MMA_KERNELS = ("_Z19lstm_rec_mma_kernel", "_Z20lstm_step_mma_kernel")
+# the persistent kernels, by source and the start of their mangled names:
+# kernels 2 and 7 (csrc/lstm_mma.cu, int8 on IMMA) and kernel 12
+# (csrc/lstm_mma_float.cu: `<float>` on FFMA, `<unsigned short>` bf16 on HMMA)
+MMA_SOURCES = (
+    ("lstm_mma.cu", ("_Z19lstm_rec_mma_kernel", "_Z20lstm_step_mma_kernel"), 6),
+    ("lstm_mma_float.cu", ("_Z26lstm_step_float_mma_kernel",), 2),
+)
+
+
+def sass_rule(kernel: str, insns: list) -> str:
+    """Why a persistent kernel's SASS is wrong ("" where it is right): the
+    int8 kernels need IMMA; kernel 12 at bf16 HMMA, at f32 FFMA and no
+    tensor-core instruction (no TF32)."""
+    n = lambda op: sum(op in i for i in insns)  # noqa: E731
+    if "float_mma" not in kernel:
+        return "" if n("IMMA") else "no IMMA instruction"
+    if "IfE" in kernel:
+        return "" if n("FFMA") and not n("HMMA") and not n("IMMA") else "not FFMA alone"
+    return "" if n("HMMA") else "no HMMA instruction"
 
 
 def check_mma_sass():
-    """csrc/lstm_mma.cu compiled again to a cubin: each kernel's registers,
-    shared memory and spills (`-Xptxas -v`), and its SASS, which must hold
-    IMMA (tensor-core int8) instructions."""
+    """csrc/lstm_mma.cu and lstm_mma_float.cu compiled again to cubins: each
+    persistent kernel's registers, shared memory and spills (`-Xptxas -v`;
+    a spill fails) and its SASS (`sass_rule`)."""
     from pathlib import Path
 
     from april_asr_tpu_torch.ops import cuda_build
     from april_asr_tpu_torch.tools import sass_diff
 
-    with tempfile.TemporaryDirectory() as tmp:
-        log, funcs = sass_diff.compile_sass(cuda_build.CSRC / "lstm_mma.cu", Path(tmp))
-    props = sass_diff.ptxas_properties(log)
-    found = [k for k in funcs if k.startswith(MMA_KERNELS)]
-    if len(found) < 6:
-        raise AssertionError(f"lstm_mma: expected 6 kernel instantiations, found {found}")
-    for k in sorted(found):
-        n_imma = sum("IMMA" in i for i in funcs[k])
-        print(f"  sass lstm_mma {k[:40]}: {props.get(k, 'no ptxas report')}; "
-              f"{n_imma} IMMA of {len(funcs[k])} instructions")
-        if not n_imma:
-            raise AssertionError(f"lstm_mma {k}: no IMMA instruction in its SASS")
+    for src, prefixes, count in MMA_SOURCES:
+        with tempfile.TemporaryDirectory() as tmp:
+            log, funcs = sass_diff.compile_sass(cuda_build.CSRC / src, Path(tmp))
+        props = sass_diff.ptxas_properties(log)
+        found = [k for k in funcs if k.startswith(prefixes)]
+        if len(found) < count:
+            raise AssertionError(f"{src}: expected {count} kernel instantiations, found {found}")
+        for k in sorted(found):
+            ops = {op: sum(op in i for i in funcs[k]) for op in ("IMMA", "HMMA", "FFMA")}
+            prop = props.get(k, "no ptxas report")
+            print(f"  sass {src} {k[:44]}: {prop}; {ops} of {len(funcs[k])} instructions")
+            why = sass_rule(k, funcs[k])
+            if re.search(r"[1-9]\d* bytes spill", prop):
+                why = why or "spills"
+            if why:
+                raise AssertionError(f"{src} {k}: {why}")
 
 
 def _check_decode(rt, S: int, P: int, rng, dev, t) -> tuple:
@@ -566,6 +590,12 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
                 _bit_equal(got, LK.lstm_layer_fused_i8_simt(xs, h0, c0, *sa, g), ("y", "h", "c"),
                            f"lstm_step_i8{' gated' if g is not None else ''} vs the three-pass "
                            f"step at S={S}")
+            else:  # kernel 12 beside the three-pass step it replaced (a yardstick)
+                simt = LF.lstm_layer_fused_simt(xs, h0, c0, *sa, g)
+                torch.cuda.synchronize()
+                diff = max(float((a - b).abs().max()) for a, b in zip(got, simt))
+                print(f"{name}{' gated' if g is not None else ''} vs the three-pass step at "
+                      f"S={S}: max abs diff {diff:.3g}")
             for gv, wv, k in zip(got, want, ("y", "h", "c")):
                 what = f"{name} {k}{' gated' if g is not None else ''}"
                 if prec == "int8":
@@ -585,6 +615,11 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
         )
         out[name] = (lambda kfn=kfn, sa=sa: kfn(xs, h0, c0, *sa),
                      lambda pfn=pfn, sa=sa: pfn(xs, h0, c0, *sa), err, b, f"x[{S},{d}] H={H} ffn={Fn}")
+        if prec != "int8" and S == S_FLAG:
+            k_ms = cuda_ms(lambda sa=sa: LF.lstm_layer_fused(xs, h0, c0, *sa), 20)
+            s_ms = cuda_ms(lambda sa=sa: LF.lstm_layer_fused_simt(xs, h0, c0, *sa), 20)
+            print(f"{name}: ms={k_ms:.4f}, the three-pass step (lstm_step_float_simt) "
+                  f"ms={s_ms:.4f} at S={S}")
 
     # 8. dec_joiner and 9. joiner_argmax on bf16 and f32 decode weights, and
     # kernel 9 on the 16,383-token model's bf16 and f32 weights
@@ -674,9 +709,9 @@ SOURCES = {
     "chunk_decode_f32": ("april_asr_tpu_torch/csrc/chunk_decode.cu",
                          "april_asr_tpu/ops/decode_pallas.py:440"),
     "lstm_step_i8": ("april_asr_tpu_torch/csrc/lstm_mma.cu", "april_asr_tpu/ops/lstm_pallas.py:426"),
-    "lstm_step_f32": ("april_asr_tpu_torch/csrc/lstm_step.cu",
+    "lstm_step_f32": ("april_asr_tpu_torch/csrc/lstm_mma_float.cu",
                       "april_asr_tpu/ops/lstm_pallas.py:1370"),
-    "lstm_step_bf16": ("april_asr_tpu_torch/csrc/lstm_step.cu",
+    "lstm_step_bf16": ("april_asr_tpu_torch/csrc/lstm_mma_float.cu",
                        "april_asr_tpu/ops/lstm_pallas.py:1370"),
     "dec_joiner": ("april_asr_tpu_torch/csrc/joiner.cu", "april_asr_tpu/ops/joiner_pallas.py:218"),
     "joiner_argmax": ("april_asr_tpu_torch/csrc/joiner.cu", "april_asr_tpu/ops/joiner_pallas.py:74"),
@@ -767,7 +802,7 @@ def phase_kernels(models, card, reps: int = 20):
 
 
 def print_mma_plans(rt, S: int):
-    """Kernels 2 and 7's launch plans (ops/lstm_mma.py) at the engine's
+    """Kernels 2, 7 and 12's launch plans (ops/lstm_mma.py) at the engine's
     shapes on this card."""
     from april_asr_tpu_torch.ops import lstm_mma as LM
 
@@ -778,6 +813,13 @@ def print_mma_plans(rt, S: int):
               f"{plan.gate.rows} rows ({plan.gate.items}); projection items (tiles, rows, column "
               f"groups, items) {plan.proj.ints()}; ff1 {plan.ff1.ints() if plan.ff1 else None}; "
               f"{plan.smem} bytes of shared memory a block")
+    for wb, prec in ((4, "f32"), (2, "bf16")):
+        plan = LM.device_float_plan(S, d, H, F, wb, torch.device(DEV))
+        print(f"kernel 12 {prec} plan at S={S}: {plan.nb} blocks; gate items of {plan.ub} units; "
+              f"tile splits (rows, columns, column groups, items, depth groups, mma tiles a "
+              f"warp) gates {plan.gate.ints()} projection {plan.proj.ints()} ff1 "
+              f"{plan.ff1.ints()} ff2 {plan.ff2.ints()}; {plan.smem} bytes of shared memory a "
+              "block")
 
 
 def _tone_bufs(S, chunk, rate, n=8, seed=0):
