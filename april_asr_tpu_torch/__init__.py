@@ -12,11 +12,11 @@ The public surface mirrors the reference Python binding: `Model`, `Session`,
 src/init.c:33-51).
 """
 
-from .config import DecodeConfig, EngineConfig, FbankOptions
+from .config import DecodeConfig, EngineConfig, FbankOptions, MeshConfig
 from .version import APRIL_VERSION, __version__
 
-__all__ = ["APRIL_VERSION", "DecodeConfig", "EngineConfig", "FbankOptions", "Model", "Session",
-           "Result", "Token", "__version__", "init"]
+__all__ = ["APRIL_VERSION", "DecodeConfig", "EngineConfig", "FbankOptions", "MeshConfig", "Model",
+           "Session", "Result", "Token", "__version__", "init"]
 
 
 def init(version: int = APRIL_VERSION) -> None:

@@ -8,14 +8,16 @@
 //
 // ffn_norm_kernel<RT, RG>: int8 weights with f32 column scales; _rowq8 of y
 // and of mid, exact int32 dots dequantized as acc * (s_row * s_col).
-// Used by kernel 3 (csrc/lstm_i8.cu, RT = 16) and the three-pass int8 step
-// (csrc/lstm_step.cu, RT = 4); its body `ffn_norm_tile` also runs inside
+// Used by kernel 3 (csrc/lstm_i8.cu, RT = 16, or 8 and 4 where 16 rows do
+// not fit) and the three-pass int8 step (csrc/lstm_step.cu, RT = 4); its
+// body `ffn_norm_tile` also runs inside
 // kernels 11 and 15 (csrc/lstm_i8.cuh, RT = 2: one session tile).
 //
 // float_ffn_kernel<WT, RT, RG>: f32 or bf16 weights; every dot rounds its
-// activation to the weight type and accumulates in f32. Used by kernel 10
-// (csrc/lstm_chunk.cu, RT = 16) and the three-pass float step that kernel
-// 12 replaced (csrc/lstm_step.cu, RT = 4).
+// activation to the weight type and accumulates in f32. Used by the
+// two-kernel chunk layer and the three-pass float step that kernels 10 and
+// 12 replaced (csrc/lstm_chunk.cu, RT = 16; csrc/lstm_step.cu, RT = 4),
+// both kept as chip_smoke.py's yardsticks.
 //
 // Numerics: f32 adds and multiplies outside the dots are rounded separately
 // (__fadd_rn/__fmul_rn, no FMA contraction) in the JAX op order; tanhf and

@@ -1,6 +1,8 @@
-// Kernel 10: the float whole-layer chunk of the encoder (f32 or bf16 weights).
+// The two-kernel float chunk layer that kernel 10 (csrc/lstm_chunk_mma.cu)
+// replaced, kept as chip_smoke.py's yardstick; no serving path launches it
+// (ops/lstm_float_kernels.py `lstm_layer_chunk_simt`).
 //
-// Replaces april_asr_tpu/ops/lstm_pallas.py `lstm_layer_chunk_fused`
+// It computes april_asr_tpu/ops/lstm_pallas.py `lstm_layer_chunk_fused`
 // (`_chunk_kernel`): one residual LSTMP layer with its DoubleSwish FFN and
 // BasicNorm over P steps. The TPU kernel runs the whole layer per step with
 // the weights resident in VMEM. Here the layer is split as csrc/lstm_i8.cu

@@ -1,6 +1,8 @@
 // Kernels 13, 14 and 22: recurrent cores of the int8 chunk layer, and
 // kernel 3: its batched residual + FFN + BasicNorm. (Kernel 2, the engine's
-// core, computes the same function on the tensor cores: csrc/lstm_mma.cu.)
+// core, computes the same function on the tensor cores: csrc/lstm_mma.cu;
+// where its stationary weights do not fit, the engine's calls take kernel
+// 14, ops/lstm_mma.py `rec_route`.)
 //
 // The recurrent cores replace april_asr_tpu/ops/lstm_pallas.py
 // `lstm_layer_chunk_rec_i8` (`_rec_kernel_i8`, 13) and
@@ -262,16 +264,39 @@ extern "C" int rec_interleave_i8(const float* x, const float* h, const float* c,
   return (int)cudaErrorInvalidValue;
 }
 
+template <int RTI, int RGI>
+static int launch_ffn_i8(const float* x, const float* hs, const int8_t* ff1, const float* ff1s,
+                         const void* f1b, const int8_t* ff2, const float* ff2s, const void* f2b,
+                         const float* eps, float* out, int R, int d, int F, int f1b_bf16,
+                         int f2b_bf16, cudaStream_t stream) {
+  const auto kern = ffn_norm_kernel<RTI, RGI>;
+  const size_t smem = ffn_i8_smem<RTI>(d, F);
+  const int fit = smem_fits(smem);
+  if (fit) return fit;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<(R + RTI - 1) / RTI, FFN_NT, smem, stream>>>(x, hs, ff1, ff1s, f1b, ff2, ff2s, f2b, eps,
+                                                      out, R, d, F, f1b_bf16, f2b_bf16);
+  return (int)cudaGetLastError();
+}
+
+// Kernel 3 on row tiles of `rows` = 16 (the engine's, RT), 8 or 4: a
+// smaller tile where the [16][F] one exceeds the shared memory
+// (ops/lstm_mma.py `ffn_rows`). A row's quantization, integer dots and
+// f32 steps do not depend on the tile, so every tile gives the same bits.
 extern "C" int ffn_norm_i8(const float* x, const float* hs, const int8_t* ff1, const float* ff1s,
                            const void* f1b, const int8_t* ff2, const float* ff2s, const void* f2b,
                            const float* eps, float* out, int R, int d, int F, int f1b_bf16,
-                           int f2b_bf16, void* stream) {
-  const auto kern = ffn_norm_kernel<RT, RG>;
-  const size_t smem = ffn_i8_smem<RT>(d, F);
-  cudaError_t err = allow_smem(kern, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((R + RT - 1) / RT);
-  kern<<<grid, FFN_NT, smem, (cudaStream_t)stream>>>(
-      x, hs, ff1, ff1s, f1b, ff2, ff2s, f2b, eps, out, R, d, F, f1b_bf16, f2b_bf16);
-  return (int)cudaGetLastError();
+                           int f2b_bf16, int rows, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (rows == RT)
+    return launch_ffn_i8<RT, RG>(x, hs, ff1, ff1s, f1b, ff2, ff2s, f2b, eps, out, R, d, F,
+                                 f1b_bf16, f2b_bf16, st);
+  if (rows == 8)
+    return launch_ffn_i8<8, 8>(x, hs, ff1, ff1s, f1b, ff2, ff2s, f2b, eps, out, R, d, F, f1b_bf16,
+                               f2b_bf16, st);
+  if (rows == 4)
+    return launch_ffn_i8<4, 4>(x, hs, ff1, ff1s, f1b, ff2, ff2s, f2b, eps, out, R, d, F, f1b_bf16,
+                               f2b_bf16, st);
+  return (int)cudaErrorInvalidValue;
 }

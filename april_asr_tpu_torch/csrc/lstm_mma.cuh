@@ -495,6 +495,18 @@ static int coop_launch(K kern, const A& args, int nb, size_t smem, void* stream)
 // m16n8k16 `mma.sync` tiles, its A fragments the f32 rows rounded to bf16
 // (RNE, as jnp's astype) as they are read. The groups' partial tiles are
 // summed in group order in shared memory.
+//
+// Widths are multiples of 4. A row of f32 (activations, f32 weights) is
+// then 16-byte aligned and its 16-byte pieces never straddle a width; a
+// row of bf16 weights at a width that is not a multiple of 8 is only
+// 8-byte aligned, so there (`half8`) each 16-byte piece of B is copied as
+// two 8-byte halves, each zero past the valid columns.
+//
+// The float layer kernels 10 (csrc/lstm_chunk_mma.cu) and 12
+// (csrc/lstm_mma_float.cu) are built from the phases below: `float_gates`
+// (gates and cell over ub-unit items), `float_cols` (a product over column
+// items with a per-element epilogue) and `float_norm` (BasicNorm of whole
+// rows).
 
 #define FKC 64                  // depth values of a chunk
 #define FLDA (FKC + 8)          // f32 stride of a staged A row
@@ -518,6 +530,11 @@ __device__ __forceinline__ void zero16(void* p) {
   *reinterpret_cast<float4*>(p) = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
+__device__ __forceinline__ void mma_cp8(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(smem)), "l"(gmem)
+               : "memory");
+}
+
 // mma_bf16_16816 on the first four values of an accumulator row
 __device__ __forceinline__ void mma_bf16_acc(float (&d)[8], const uint32_t (&a)[4], uint32_t b0,
                                              uint32_t b1) {
@@ -538,13 +555,14 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float2 v) {
 // A0 and A1 are f32 rows of stride K0 and K1 (rows at or past rend read as
 // zero); B0 and B1 weight rows of stride N, local column n taking global
 // column col_of(n) (-1: zero; each run of 16 bytes of local columns maps to
-// one of global columns). Every thread of the block calls it; on return the
-// ring is free and part[0..] holds the tile for every thread.
+// one of global columns; with half8, each run of 8 bytes). Every thread of
+// the block calls it; on return the ring is free and part[0..] holds the
+// tile for every thread.
 template <class W, class ColOf>
 __device__ __forceinline__ void tile_pass(const TileSplit& sp, float* part, uint8_t* ring,
                                           size_t stage_bytes, int r0, int rend, const float* A0,
                                           const W* B0, int K0, const float* A1, const W* B1,
-                                          int K1, int N, ColOf col_of) {
+                                          int K1, int N, ColOf col_of, bool half8) {
   constexpr int EP = 16 / (int)sizeof(W);  // weights in 16 bytes
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, q = lane & 3;
   const int nr = sp.nr, nc = sp.nc, ldb = nc + 8, kg = FKC / sp.ks;
@@ -565,8 +583,20 @@ __device__ __forceinline__ void tile_pass(const TileSplit& sp, float* part, uint
         else zero16(dst);
       }
       for (int i = tid; i < FKC << lpw; i += MMA_NT) {
-        const int k = i >> lpw, n = (i & ((1 << lpw) - 1)) * EP, gc = col_of(n);
+        const int k = i >> lpw, n = (i & ((1 << lpw) - 1)) * EP;
         W* dst = sb + k * ldb + n;
+        if constexpr (sizeof(W) == 2) {
+          if (half8) {  // rows 8-byte aligned: two copies of 4 columns
+#pragma unroll
+            for (int e = 0; e < EP; e += 4) {
+              const int gc = kb + k < K ? col_of(n + e) : -1;
+              if (gc >= 0) mma_cp8(dst + e, B + (size_t)(kb + k) * N + gc);
+              else *reinterpret_cast<float2*>(dst + e) = make_float2(0.f, 0.f);
+            }
+            continue;
+          }
+        }
+        const int gc = col_of(n);
         if (gc >= 0 && kb + k < K) mma_cp16(dst, B + (size_t)(kb + k) * N + gc);
         else zero16(dst);
       }
@@ -674,5 +704,117 @@ __device__ __forceinline__ void tile_pass(const TileSplit& sp, float* part, uint
       part[i] = s;
     }
     __syncthreads();
+  }
+}
+
+// Bytes of a ring stage (the largest phase's) and of the whole shared
+// memory: the three-stage ring, then the largest partial tiles
+// (ops/lstm_mma.py `float_smem`)
+__host__ __device__ inline size_t float_stage(const TileSplit (&s)[4], int wb) {
+  size_t m = 0;
+  for (const TileSplit& t : s) m = tile_stage(t, wb) > m ? tile_stage(t, wb) : m;
+  return m;
+}
+
+static inline size_t float_smem(const TileSplit (&s)[4], int wb) {
+  size_t p = 0;
+  for (const TileSplit& t : s) p = tile_part(t) > p ? tile_part(t) : p;
+  return F_STAGES * float_stage(s, wb) + p;
+}
+
+// A block's share of the float phases: the ring (stages of `stage` bytes),
+// the partial tiles after it, and whether B rows take 8-byte copies
+struct FloatRing {
+  uint8_t* ring;
+  size_t stage;
+  float* part;
+  bool half8;
+};
+
+template <class W>
+__device__ __forceinline__ FloatRing float_ring(void* smem, const TileSplit (&s)[4], bool half8) {
+  uint8_t* ring = reinterpret_cast<uint8_t*>(smem);
+  const size_t stage = float_stage(s, (int)sizeof(W));
+  return FloatRing{ring, stage, reinterpret_cast<float*>(ring + F_STAGES * stage), half8};
+}
+
+// Gates and cell over the gate items of g (item b owns hidden units [u0,
+// u0 + ub) with their four gate columns, local column gi * ub + u, for rows
+// [r0, min(r0 + nr, R))): gates = dot(x, w_ih) + dot(h, w_hh) (one depth
+// run), + b; c' = sig(f) c + sig(i) tanh(g), hc = sig(o) tanh(c') into hc
+// [R][H]; cstore(row, k, c, c') stores the carried cell (k = row * H + U).
+template <class W, class CStore>
+__device__ __forceinline__ void float_gates(const TileSplit& g, int ub, const FloatRing& fr,
+                                            const float* x, const W* wih, const float* h,
+                                            const W* whh, const void* bias, int bias_bf16,
+                                            const float* c, float* hc, int R, int d, int H,
+                                            CStore cstore) {
+  const int lub = __ffs(ub) - 1;  // ub: 2^n
+  for (int b = blockIdx.x; b < g.items; b += gridDim.x) {
+    const int u0 = (b % g.ncg) * ub, r0 = (b / g.ncg) * g.nr, rend = min(r0 + g.nr, R);
+    tile_pass<W>(g, fr.part, fr.ring, fr.stage, r0, rend, x, wih, d, h, whh, d, 4 * H,
+                 [&](int n) {
+                   const int gi = n >> lub, U = u0 + (n & (ub - 1));
+                   return U < H ? gi * H + U : -1;
+                 }, fr.half8);
+    for (int i = threadIdx.x; i < (rend - r0) * ub; i += MMA_NT) {
+      const int rl = i / ub, u = i - rl * ub, row = r0 + rl, U = u0 + u;
+      if (U >= H) continue;
+      const float* gr = fr.part + rl * g.nc + u;
+      float gt[4];
+#pragma unroll
+      for (int gi = 0; gi < 4; ++gi)
+        gt[gi] = __fadd_rn(gr[gi * ub], load_vec(bias, gi * H + U, bias_bf16));
+      const size_t k = (size_t)row * H + U;
+      const float cold = __ldcg(c + k);
+      const float cn = __fadd_rn(__fmul_rn(sig_tanh(gt[1]), cold),
+                                 __fmul_rn(sig_tanh(gt[0]), tanhf(gt[2])));
+      hc[k] = __fmul_rn(sig_tanh(gt[3]), tanhf(cn));
+      cstore(row, k, cold, cn);
+    }
+  }
+}
+
+// An N-column product of depth K over R rows of A, over the column items of
+// sp (item b owns columns [c0, c0 + nc) and rows [r0, min(r0 + nr, R))):
+// epi(row, col, v) for every row and column < N of the item, v the sum.
+template <class W, class Epi>
+__device__ __forceinline__ void float_cols(const TileSplit& sp, const FloatRing& fr,
+                                           const float* A, const W* B, int K, int N, int R,
+                                           Epi epi) {
+  for (int b = blockIdx.x; b < sp.items; b += gridDim.x) {
+    const int c0 = (b % sp.ncg) * sp.nc, r0 = (b / sp.ncg) * sp.nr;
+    const int rend = min(r0 + sp.nr, R), nc = sp.nc;
+    tile_pass<W>(sp, fr.part, fr.ring, fr.stage, r0, rend, A, B, K, nullptr, (const W*)nullptr, 0,
+                 N, [&](int n) { return c0 + n < N ? c0 + n : -1; }, fr.half8);
+    for (int i = threadIdx.x; i < (rend - r0) * nc; i += MMA_NT) {
+      const int rl = i / nc, col = c0 + i - rl * nc;
+      if (col >= N) continue;
+      epi(r0 + rl, col, fr.part[i]);
+    }
+  }
+}
+
+// DoubleSwish of an ff1 sum plus its bias: m * sig(m - 1)
+__device__ __forceinline__ float ff1_dswish(float v, const void* f1b, int col, int f1b_bf16) {
+  const float m = __fadd_rn(v, load_vec(f1b, col, f1b_bf16));
+  return __fmul_rn(m, sig_tanh(__fsub_rn(m, 1.f)));
+}
+
+// BasicNorm of rows [0, R) of yf into y (which may be yf: each lane reads
+// its values before it writes them), one warp a row across the grid, in
+// basic_norm_rows' order (csrc/ffn_norm.cuh)
+__device__ __forceinline__ void float_norm(const float* yf, float* y, float e, int R, int d) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int row = blockIdx.x * (MMA_NT / 32) + warp; row < R; row += gridDim.x * (MMA_NT / 32)) {
+    const float* yr = yf + (size_t)row * d;
+    float ss = 0.f;
+    for (int k = lane; k < d; k += 32) {
+      const float v = __ldcg(yr + k);
+      ss = __fadd_rn(ss, __fmul_rn(v, v));
+    }
+    ss = warp_sum(ss);
+    const float rs = rsqrtf(__fadd_rn(__fdiv_rn(ss, (float)d), e));
+    for (int k = lane; k < d; k += 32) y[(size_t)row * d + k] = __fmul_rn(__ldcg(yr + k), rs);
   }
 }

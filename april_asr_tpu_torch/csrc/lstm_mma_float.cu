@@ -1,5 +1,6 @@
 // Kernel 12, the float per-pull layer, as one persistent cooperative launch
-// (pieces in csrc/lstm_mma.cuh: `tile_pass`, the grid helpers, `Stamps`).
+// (pieces in csrc/lstm_mma.cuh: the float phases on `tile_pass`, the grid
+// helpers, `Stamps`; kernel 10, csrc/lstm_chunk_mma.cu, runs the same phases).
 //
 // lstm_step_float_mma replaces april_asr_tpu/ops/lstm_pallas.py
 // `lstm_layer_fused` (`_layer_kernel`, f32 or bf16 weights): one timestep
@@ -50,144 +51,69 @@ struct FStepArgs {
   const float* eps;
   float *y, *h2, *c2;
   float *hc, *yf, *mid;  // scratch [S][H], [S][d], [S][F]
-  int S, d, H, F, bias_bf16, f1b_bf16, f2b_bf16, ub;
+  int S, d, H, F, bias_bf16, f1b_bf16, f2b_bf16, ub, half8;
   TileSplit g, pj, f1, f2;  // gates (nc = 4 ub), projection, ff1, ff2
   Stamps stamp;             // 10 a block: start, each phase's end and each barrier's
 };
-
-// Bytes of a ring stage: the largest phase's
-__host__ __device__ inline size_t float_stage(const TileSplit (&s)[4], int wb) {
-  size_t m = 0;
-  for (const TileSplit& t : s) m = tile_stage(t, wb) > m ? tile_stage(t, wb) : m;
-  return m;
-}
-
-// Bytes of shared memory: the three-stage ring, then the largest partial
-// tiles (ops/lstm_mma.py `float_smem`)
-static size_t float_smem(const TileSplit (&s)[4], int wb) {
-  size_t p = 0;
-  for (const TileSplit& t : s) p = tile_part(t) > p ? tile_part(t) : p;
-  return F_STAGES * float_stage(s, wb) + p;
-}
 
 template <class W>
 __global__ void __launch_bounds__(MMA_NT, 1) lstm_step_float_mma_kernel(const FStepArgs a) {
   extern __shared__ float4 smem_f4[];
   cg::grid_group grid = cg::this_grid();
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int S = a.S, d = a.d, H = a.H, F = a.F, ub = a.ub, lub = __ffs(ub) - 1;  // ub: 2^n
+  const int S = a.S, d = a.d, H = a.H, F = a.F;
   const TileSplit sps[4] = {a.g, a.pj, a.f1, a.f2};
-  const size_t stage = float_stage(sps, (int)sizeof(W));
-  uint8_t* ring = reinterpret_cast<uint8_t*>(smem_f4);
-  float* part = reinterpret_cast<float*>(ring + F_STAGES * stage);
-  const W* wih = static_cast<const W*>(a.wih);
-  const W* whh = static_cast<const W*>(a.whh);
-  const W* whr = static_cast<const W*>(a.whr);
-  const W* ff1 = static_cast<const W*>(a.ff1);
-  const W* ff2 = static_cast<const W*>(a.ff2);
+  const FloatRing fr = float_ring<W>(smem_f4, sps, a.half8 != 0);
   a.stamp(0);
 
-  // gates and cell: item b owns units [u0, u0 + ub) and rows [r0, rend)
-  for (int b = blockIdx.x; b < a.g.items; b += gridDim.x) {
-    const int u0 = (b % a.g.ncg) * ub, r0 = (b / a.g.ncg) * a.g.nr, rend = min(r0 + a.g.nr, S);
-    tile_pass<W>(a.g, part, ring, stage, r0, rend, a.x, wih, d, a.h, whh, d, 4 * H,
-                 [&](int n) {
-                   const int gi = n >> lub, U = u0 + (n & (ub - 1));
-                   return U < H ? gi * H + U : -1;
+  // gates and cell; c2 blended by the gate column
+  float_gates<W>(a.g, a.ub, fr, a.x, static_cast<const W*>(a.wih), a.h,
+                 static_cast<const W*>(a.whh), a.bias, a.bias_bf16, a.c, a.hc, S, d, H,
+                 [&](int row, size_t k, float cold, float cn) {
+                   a.c2[k] = a.gate ? blend(a.gate[row], cn, cold) : cn;
                  });
-    for (int i = tid; i < (rend - r0) * ub; i += MMA_NT) {
-      const int rl = i / ub, u = i - rl * ub, row = r0 + rl, U = u0 + u;
-      if (U >= H) continue;
-      const float* gr = part + rl * a.g.nc + u;
-      float gt[4];
-#pragma unroll
-      for (int gi = 0; gi < 4; ++gi)
-        gt[gi] = __fadd_rn(gr[gi * ub], load_vec(a.bias, gi * H + U, a.bias_bf16));
-      const size_t k = (size_t)row * H + U;
-      const float cold = a.c[k];
-      const float cn = __fadd_rn(__fmul_rn(sig_tanh(gt[1]), cold),
-                                 __fmul_rn(sig_tanh(gt[0]), tanhf(gt[2])));
-      a.hc[k] = __fmul_rn(sig_tanh(gt[3]), tanhf(cn));
-      a.c2[k] = a.gate ? blend(a.gate[row], cn, cold) : cn;
-    }
-  }
   a.stamp(1);
   grid.sync();
   a.stamp(2);
 
   // projection: h' = dot(hc, w_hr), h2, y = x + h'
-  for (int b = blockIdx.x; b < a.pj.items; b += gridDim.x) {
-    const int c0 = (b % a.pj.ncg) * a.pj.nc, r0 = (b / a.pj.ncg) * a.pj.nr;
-    const int rend = min(r0 + a.pj.nr, S), nc = a.pj.nc;
-    tile_pass<W>(a.pj, part, ring, stage, r0, rend, a.hc, whr, H, nullptr, (const W*)nullptr, 0,
-                 d, [&](int n) { return c0 + n < d ? c0 + n : -1; });
-    for (int i = tid; i < (rend - r0) * nc; i += MMA_NT) {
-      const int rl = i / nc, col = c0 + i - rl * nc, row = r0 + rl;
-      if (col >= d) continue;
-      const float hn = part[i];
-      const size_t k = (size_t)row * d + col;
-      a.h2[k] = a.gate ? blend(a.gate[row], hn, a.h[k]) : hn;
-      a.yf[k] = __fadd_rn(a.x[k], hn);
-    }
-  }
+  float_cols<W>(a.pj, fr, a.hc, static_cast<const W*>(a.whr), H, d, S,
+                [&](int row, int col, float hn) {
+                  const size_t k = (size_t)row * d + col;
+                  a.h2[k] = a.gate ? blend(a.gate[row], hn, a.h[k]) : hn;
+                  a.yf[k] = __fadd_rn(a.x[k], hn);
+                });
   a.stamp(3);
   grid.sync();
   a.stamp(4);
 
   // ff1 + DoubleSwish
-  for (int b = blockIdx.x; b < a.f1.items; b += gridDim.x) {
-    const int c0 = (b % a.f1.ncg) * a.f1.nc, r0 = (b / a.f1.ncg) * a.f1.nr;
-    const int rend = min(r0 + a.f1.nr, S), nc = a.f1.nc;
-    tile_pass<W>(a.f1, part, ring, stage, r0, rend, a.yf, ff1, d, nullptr, (const W*)nullptr, 0,
-                 F, [&](int n) { return c0 + n < F ? c0 + n : -1; });
-    for (int i = tid; i < (rend - r0) * nc; i += MMA_NT) {
-      const int rl = i / nc, col = c0 + i - rl * nc, row = r0 + rl;
-      if (col >= F) continue;
-      const float m = __fadd_rn(part[i], load_vec(a.f1b, col, a.f1b_bf16));
-      a.mid[(size_t)row * F + col] = __fmul_rn(m, sig_tanh(__fsub_rn(m, 1.f)));
-    }
-  }
+  float_cols<W>(a.f1, fr, a.yf, static_cast<const W*>(a.ff1), d, F, S,
+                [&](int row, int col, float v) {
+                  a.mid[(size_t)row * F + col] = ff1_dswish(v, a.f1b, col, a.f1b_bf16);
+                });
   a.stamp(5);
   grid.sync();
   a.stamp(6);
 
   // ff2 + bias + residual, in place (each (row, column) has one owner)
-  for (int b = blockIdx.x; b < a.f2.items; b += gridDim.x) {
-    const int c0 = (b % a.f2.ncg) * a.f2.nc, r0 = (b / a.f2.ncg) * a.f2.nr;
-    const int rend = min(r0 + a.f2.nr, S), nc = a.f2.nc;
-    tile_pass<W>(a.f2, part, ring, stage, r0, rend, a.mid, ff2, F, nullptr, (const W*)nullptr, 0,
-                 d, [&](int n) { return c0 + n < d ? c0 + n : -1; });
-    for (int i = tid; i < (rend - r0) * nc; i += MMA_NT) {
-      const int rl = i / nc, col = c0 + i - rl * nc, row = r0 + rl;
-      if (col >= d) continue;
-      const size_t k = (size_t)row * d + col;
-      const float ff = __fadd_rn(part[i], load_vec(a.f2b, col, a.f2b_bf16));
-      a.yf[k] = __fadd_rn(__ldcg(a.yf + k), ff);
-    }
-  }
+  float_cols<W>(a.f2, fr, a.mid, static_cast<const W*>(a.ff2), F, d, S,
+                [&](int row, int col, float v) {
+                  const size_t k = (size_t)row * d + col;
+                  const float ff = __fadd_rn(v, load_vec(a.f2b, col, a.f2b_bf16));
+                  a.yf[k] = __fadd_rn(__ldcg(a.yf + k), ff);
+                });
   a.stamp(7);
   grid.sync();
   a.stamp(8);
 
   // BasicNorm, one warp a row, in basic_norm_rows' order (csrc/ffn_norm.cuh)
-  const float e = a.eps[0];
-  for (int row = blockIdx.x * (MMA_NT / 32) + warp; row < S; row += gridDim.x * (MMA_NT / 32)) {
-    const float* yr = a.yf + (size_t)row * d;
-    float ss = 0.f;
-    for (int k = lane; k < d; k += 32) {
-      const float v = __ldcg(yr + k);
-      ss = __fadd_rn(ss, __fmul_rn(v, v));
-    }
-    ss = warp_sum(ss);
-    const float rs = rsqrtf(__fadd_rn(__fdiv_rn(ss, (float)d), e));
-    for (int k = lane; k < d; k += 32) a.y[(size_t)row * d + k] = __fmul_rn(__ldcg(yr + k), rs);
-  }
+  float_norm(a.yf, a.y, a.eps[0], S, d);
   a.stamp(9);
 }
 
 // Kernel 12. gate: [S] f32 or null (ungated). Scratch: hc [S][H], yf [S][d],
 // mid [S][F] f32; stamps null or [nb][10]. Every row pointer (x, h, the
-// weights, the scratch) 16-byte aligned, d, H and F multiples of 8. The
+// weights, the scratch) 16-byte aligned, d, H and F multiples of 4. The
 // plan (ops/lstm_mma.py `float_step_plan`): ub, nb, then each phase's
 // TileSplit (nr, nc, ncg, items, ks, ntw) for the gates, the projection,
 // ff1 and ff2. Returns minus the shared-memory bytes where they do not fit,
@@ -205,8 +131,9 @@ extern "C" int lstm_step_float_mma(
                             {p_nr, p_nc, p_ncg, p_items, p_ks, p_ntw},
                             {f1_nr, f1_nc, f1_ncg, f1_items, f1_ks, f1_ntw},
                             {f2_nr, f2_nc, f2_ncg, f2_items, f2_ks, f2_ntw}};
+  const int half8 = w_bf16 && ((d | H | F) & 7);
   const FStepArgs a{x, h, c, gate, wih, whh, bias, whr, ff1, f1b, ff2, f2b, eps, y, h2, c2, hc,
-                    yf, mid, S, d, H, F, bias_bf16, f1b_bf16, f2b_bf16, ub,
+                    yf, mid, S, d, H, F, bias_bf16, f1b_bf16, f2b_bf16, ub, half8,
                     sps[0], sps[1], sps[2], sps[3], Stamps{stamps, 10}};
   const size_t smem = float_smem(sps, w_bf16 ? 2 : 4);
   if (w_bf16) return coop_launch(lstm_step_float_mma_kernel<uint16_t>, a, nb, smem, stream);

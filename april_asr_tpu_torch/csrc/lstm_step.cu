@@ -8,8 +8,10 @@
 // csrc/lstm_mma_float.cu's persistent kernel and kernel 7 csrc/lstm_mma.cu's
 // tensor-core kernel; these entries stay as chip_smoke.py's yardsticks
 // (lstm_step_i8_simt the oracle kernel 7 equals bit for bit; lstm_step_float
-// the time and the outputs kernel 12 is shown beside), and no serving path
-// launches them. Both compute, for S sessions,
+// the time and the outputs kernel 12 is shown beside). lstm_step_i8_simt
+// also serves kernel 7's calls at widths where kernel 7 has no plan
+// (ops/lstm_mma.py `step_route`); no serving path launches lstm_step_float.
+// Both compute, for S sessions,
 //
 //   gates = dot(x, w_ih) + dot(h, w_hh) + b      (two sums, then the bias)
 //   c'    = sig(f) * c + sig(i) * tanh(g)

@@ -63,12 +63,14 @@ from ..frontend.fbank import (
 )
 from ..models.lstm_transducer import encoder_recurrent_tp, encoder_step_tp, is_quantized
 from ..models.loader import ModelRuntime
+from ..ops import lstm_mma
 from ..ops.decode_kernels import (
     EVENT_KEYS,
     chunk_decode,
     chunk_decode_block_fits,
     chunk_decode_supported,
 )
+from ..ops.lstm_tp_kernels import tp_smem
 from ..parallel.mesh import shard_state
 from ..parallel.tp import tp_shard_map_eligible
 
@@ -245,6 +247,48 @@ def init_engine_state(prog: EngineProgram, weights=None) -> Dict:
     return shard_state(state, prog.mesh, prog.tp_axes) if prog.tp_axes else state
 
 
+def check_kernel_plans(rt: ModelRuntime, S: int, P: int, n_sm: int, m: int = 1) -> None:
+    """Plans every encoder layer kernel that a CUDA engine over S rows and P
+    pulls a step launches, on a card of n_sm SMs: its step (kernels 2 and 3
+    or their int8 routes, or kernel 10; with `encoder_chunk` None the
+    per-pull step's), its flush (kernel 7 or its route, or kernel 12) and,
+    at m > 1 model shards, the tensor-parallel kernels 18-21 at the shard's
+    widths. Raises one ValueError naming the widths and the kernel where one
+    has no plan, so that a model the card cannot serve is refused when its
+    engine is built, not at its first flush."""
+    w = rt.weights
+    (_, d), (_, H) = rt.state_shapes
+    q = is_quantized(w)
+    F = w["ff1_t_q8" if q else "ff1_t"].shape[2]
+    wb = 1 if q else w["w_ih_t"].element_size()
+    prec = {1: "int8", 2: "bf16", 4: "f32"}[wb]
+    widths = f"d_model={d}, hidden={H}, ffn={F}"
+    if m > 1:
+        over = {k: v for k, v in tp_smem(d, H // m, F // m, wb).items() if v > lstm_mma.SMEM_LIMIT}
+        if over or d % 4 or (H // m) % 4 or (F // m) % 4:
+            raise ValueError(
+                f"build_engine: the {prec} tensor-parallel kernels ({'19, 21' if q else '18, 20'}) "
+                f"have no launch for {widths} at model_parallel={m}: shard widths must be "
+                f"multiples of 4 and each pass within {lstm_mma.SMEM_LIMIT} bytes of shared "
+                f"memory (over: {over})")
+        return
+    chunk = rt.encoder_chunk is not None
+    if q:
+        plans = [("kernel 2's, 7's and 3's routes (int8)",
+                  lambda: lstm_mma.int8_routes(S, P, d, H, F, n_sm))]
+    else:
+        plans = [(f"kernel 12 ({prec})", lambda: lstm_mma.float_step_plan(S, d, H, F, wb, n_sm))]
+        if chunk:
+            plans.append((f"kernel 10 ({prec})",
+                          lambda: lstm_mma.float_chunk_plan(S, P, d, H, F, wb, n_sm)))
+    for what, plan in plans:
+        try:
+            plan()
+        except ValueError as e:
+            raise ValueError(f"build_engine: {what} has no plan for {widths} at S={S}, P={P} "
+                             f"on {n_sm} SMs: {e}") from None
+
+
 def build_engine(
     rt: ModelRuntime,
     batch: int,
@@ -284,6 +328,11 @@ def build_engine(
         )
         tp_axes, tp_family = (mesh.axis_names[1],), "lstm"
     layout = FbankLayout.build(rt.fbank_opts, cfg.chunk_samples)
+    P = layout.max_pulls_per_step
+    dev = rt.device
+    if torch.device(dev).type == "cuda":
+        check_kernel_plans(rt, batch, P, lstm_mma.device_sm(torch.device(dev)),
+                           mesh.model_parallel if tp_axes else 1)
     # int8-serving engines (weights with `_q8` copies) run the int8-DFT
     # frontend, every other engine the bf16x3 one (JAX engine/step.py:481-486)
     dft_i8 = is_quantized(rt.weights)
@@ -292,8 +341,6 @@ def build_engine(
     stride = layout.opts.segment_stride_ms
     seg = layout.opts.pull_segment_count
     step_rows = layout.opts.pull_segment_step
-    P = layout.max_pulls_per_step
-    dev = rt.device
 
     def chunk_decode_fits(weights, eouts) -> bool:
         """The JAX step's choice between kernel 4 and the per-pull scan, less

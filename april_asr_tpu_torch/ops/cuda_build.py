@@ -29,7 +29,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fbank_i8", "lstm_i8", "chunk_decode", "fbank_bf16x3", "lstm_chunk", "lstm_step",
            "joiner", "conv_embed", "lstm_chunk_i8", "lstm_wavefront", "int8_mm", "lstm_tp",
-           "lstm_mma", "lstm_mma_float")
+           "lstm_mma", "lstm_mma_float", "lstm_chunk_mma")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -43,13 +43,14 @@ _lock = threading.Lock()
 # A kernel built for two weight types counts each under its own key.
 COUNTS: Dict[str, int] = {
     "fbank_i8": 0, "lstm_rec_stream2_i8": 0, "ffn_norm_i8": 0, "chunk_decode": 0,
-    "chunk_decode_f32": 0, "fbank_bf16x3": 0, "lstm_chunk_f32": 0, "lstm_chunk_bf16": 0,
+    "chunk_decode_f32": 0, "fbank_bf16x3": 0, "lstm_chunk_mma_f32": 0, "lstm_chunk_mma_bf16": 0,
     "lstm_step_i8": 0, "lstm_step_f32": 0, "lstm_step_bf16": 0, "dec_joiner": 0,
     "dec_joiner_f32": 0, "joiner_argmax": 0, "joiner_argmax_f32": 0, "conv_embed": 0,
     "conv_embed_front": 0, "fbank_frames": 0, "lstm_rec_i8": 0, "lstm_rec_stream_i8": 0,
     "lstm_chunk_i8": 0, "lstm_wavefront_i8": 0, "mm_bf16": 0, "mm_i8": 0, "mm_i8_dynq": 0,
     "rec_interleave_i8": 0, "tp_gcp_f32": 0, "tp_gcp_bf16": 0, "tp_gc_i8": 0, "tp_ffn_f32": 0,
     "tp_ffn_bf16": 0, "tp_ffn_mid_i8": 0, "lstm_step_i8_simt": 0, "lstm_step_float_simt": 0,
+    "lstm_chunk_simt": 0, "ffn_norm_i8_r8": 0, "ffn_norm_i8_r4": 0,
 }
 
 

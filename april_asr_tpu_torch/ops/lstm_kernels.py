@@ -37,7 +37,10 @@ csrc/lstm_chunk_i8.cu: 11) for CUDA tensors; it never falls back. Kernels 2
 and 7 are persistent int8 tensor-core kernels, one cooperative launch each,
 planned by ops/lstm_mma.py `device_plan`; they equal kernel 13 and the
 three-pass step that preceded kernel 7 (`lstm_layer_fused_i8_simt`, kept
-for chip_smoke.py's bit-exact check) bit for bit. Kernels 2, 13 and 14
+for chip_smoke.py's bit-exact check) bit for bit. Where the widths leave
+kernels 2 and 7 no plan, their calls take kernel 14 and that three-pass
+step, and kernel 3 a smaller row tile (ops/lstm_mma.py `int8_routes`,
+chosen from the widths before any launch). Kernels 2, 13 and 14
 share one plain version, `lstm_rec_plain`; kernel 11's composes it with
 `ffn_norm_plain`.
 """
@@ -235,7 +238,12 @@ def _rec(entry: str, x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr
     if x.device.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {x.device}")
     if entry == "lstm_rec_stream2_i8":
-        return _rec_mma_cuda(*args)
+        # kernel 2 where its stationary weights fit, else kernel 14 (the
+        # same function bit for bit; ops/lstm_mma.py `rec_route`)
+        (P, S, d), H = x.shape, c.shape[1]
+        if lstm_mma.device_route("rec", S, d, H, 0, x.device) == "mma":
+            return _rec_mma_cuda(*args)
+        entry = "lstm_rec_stream_i8"
     return _rec_cuda(entry, *args)
 
 
@@ -246,7 +254,9 @@ def lstm_layer_chunk_rec_stream2_i8(
     """Kernel 2, the engine's recurrent core: x [P, S, d], h [S, d], c [S, H],
     n_pulls optional [S] i32 prefix lengths -> (hseq [P, S, d], h' [S, d],
     c' [S, H]). One persistent launch: every step's x rows quantized first,
-    the layer's weights stationary in shared memory, int8 tensor-core dots."""
+    the layer's weights stationary in shared memory, int8 tensor-core dots.
+    Where those weights do not fit a block, kernel 14 (counted as
+    `lstm_rec_stream_i8`)."""
     return _rec("lstm_rec_stream2_i8", x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q,
                 w_hr_s, n_pulls)
 
@@ -281,11 +291,15 @@ def ffn_norm_plain(x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, dot=_
     return yn * torch.rsqrt((yn * yn).mean(dim=-1, keepdim=True) + eps.float())
 
 
-def ffn_norm_cuda(x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps):
+def ffn_norm_cuda(x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, rows=None):
+    """Kernel 3 on row tiles of `rows` (default: `lstm_mma.ffn_rows`, the
+    largest that fits), counted as `ffn_norm_i8` at 16 rows, else
+    `ffn_norm_i8_r8` or `ffn_norm_i8_r4`."""
     R, d = x.shape
     F = ff1_q.shape[1]
     if d % 4 or F % 4:
         raise ValueError("ffn_norm_i8: d_model and ffn must be multiples of 4")
+    rows = lstm_mma.ffn_rows(d, F) if rows is None else rows
     _check(x, torch.float32, (R, d), "ffn_norm_i8 x")
     _check(hseq, torch.float32, (R, d), "ffn_norm_i8 hseq")
     _check(ff1_q, torch.int8, (d, F), "ffn_norm_i8 ff1")
@@ -296,16 +310,16 @@ def ffn_norm_cuda(x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps):
     _check(ff2_b.reshape(-1), ff2_b.dtype, (d,), "ffn_norm_i8 ff2 bias")
     _check(eps.reshape(-1), torch.float32, (1,), "ffn_norm_i8 eps")
     y = torch.empty_like(x)
-    fn = cuda_build.bind("lstm_i8", "ffn_norm_i8", 10, 5)
-    cuda_build.COUNTS["ffn_norm_i8"] += 1
+    fn = cuda_build.bind("lstm_i8", "ffn_norm_i8", 10, 6)
+    cuda_build.COUNTS["ffn_norm_i8" if rows == 16 else f"ffn_norm_i8_r{rows}"] += 1
     rc = fn(
         x.data_ptr(), hseq.data_ptr(), ff1_q.data_ptr(), ff1_s.data_ptr(),
         ff1_b.data_ptr(), ff2_q.data_ptr(), ff2_s.data_ptr(), ff2_b.data_ptr(),
         eps.data_ptr(), y.data_ptr(),
-        R, d, F, _bias_flag(ff1_b, "ffn_norm_i8"), _bias_flag(ff2_b, "ffn_norm_i8"),
+        R, d, F, _bias_flag(ff1_b, "ffn_norm_i8"), _bias_flag(ff2_b, "ffn_norm_i8"), rows,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    cuda_build.check(rc, "ffn_norm_i8")
+    _smem_check(rc, "ffn_norm_i8", f"d={d}, ffn={F}, {rows} rows")
     return y
 
 
@@ -453,7 +467,7 @@ def lstm_layer_fused_i8_simt_cuda(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias,
     """The three-pass CUDA-core step that kernel 7 replaced
     (csrc/lstm_step.cu `lstm_step_i8_simt`: gate pass, projection pass,
     4-row FFN pass); the oracle chip_smoke.py holds kernel 7 to, bit for
-    bit. No serving path launches it."""
+    bit, and kernel 7's route where kernel 7 has no plan."""
     entry = "lstm_step_i8_simt"
     rec = (w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s)
     ffn = (ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps)
@@ -491,11 +505,18 @@ def lstm_layer_fused_i8_simt(*args):
 def lstm_layer_fused_i8(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
                         ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, gate=None):
     """One int8 layer timestep: x, h [S, d], c [S, H] f32, gate optional [S]
-    -> (y [S, d], h' [S, d], c' [S, H]), all f32."""
+    -> (y [S, d], h' [S, d], c' [S, H]), all f32. On CUDA kernel 7, or
+    where its weights do not fit a block the three-pass step (counted as
+    `lstm_step_i8_simt`)."""
     args = (x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
             ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, gate)
     if x.device.type == "cpu":
         return lstm_layer_fused_i8_plain(*args)
     if x.device.type != "cuda":
         raise ValueError(f"lstm_step_i8: unsupported device {x.device}")
-    return lstm_layer_fused_i8_cuda(*args)
+    # kernel 7 where its stationary weights fit, else the three-pass step
+    # (the same function bit for bit; ops/lstm_mma.py `step_route`)
+    (S, d), H, F = x.shape, c.shape[1], ff1_q.shape[-1]
+    if lstm_mma.device_route("step", S, d, H, F, x.device) == "mma":
+        return lstm_layer_fused_i8_cuda(*args)
+    return lstm_layer_fused_i8_simt_cuda(*args)

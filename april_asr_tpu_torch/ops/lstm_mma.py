@@ -1,7 +1,10 @@
-"""The launch plan of the persistent int8 tensor-core kernels 2 and 7
-(csrc/lstm_mma.cu): how the layer's columns, and where they are fewer than
-the blocks its rows, are split over one block per SM, and the shared memory
-that takes.
+"""The launch plans of the persistent layer kernels: the int8 tensor-core
+kernels 2 and 7 (csrc/lstm_mma.cu, `mma_plan`; where they have none, the
+int8 routes, `int8_routes`) and the float kernels 12 and 10
+(csrc/lstm_mma_float.cu, csrc/lstm_chunk_mma.cu; `float_step_plan`,
+`float_chunk_plan`, below): how the layer's columns, and where they are
+fewer than the blocks its rows, are split over one block per SM, and the
+shared memory that takes.
 
 * Gate items (`GateSplit`): item b owns hidden units [ug * ub, +ub) with
   all four gate columns of each (local column gi * ub + u is gate gi of
@@ -215,6 +218,100 @@ def mma_plan(S: int, d: int, H: int, F: int = 0, n_sm: int = 132,
                      f"within {smem_limit} bytes of shared memory ({'; '.join(tried)})")
 
 
+# -- the int8 routes: which kernel serves each int8 layer call -------------
+#
+# Kernels 2 and 7 keep the layer's weights stationary in shared memory, so
+# past the flagship widths they have no plan. Their calls then take kernels
+# that compute the same function bit for bit and stream their weights:
+# kernel 2's the recurrent core of kernel 14 (csrc/lstm_i8.cu `launch_rec<4,
+# X_ASYNC>`), kernel 7's the three-pass step (csrc/lstm_step.cu
+# `lstm_step_i8_simt`). Kernel 3 (csrc/lstm_i8.cu `ffn_norm_i8`) stages a
+# [rt][F] tile a block, so it takes the largest row tile that fits. The
+# choice reads widths only (and S, through `mma_plan`), before any launch;
+# the byte counts mirror the C launches.
+
+FFN_ROWS = (16, 8, 4)  # kernel 3's row tiles
+STEP_FFN_ROWS = 4  # the three-pass step's FFN pass (csrc/lstm_step.cu FRT)
+
+
+def ffn_i8_smem(rows: int, d: int, F: int) -> int:
+    """Bytes of an int8 FFN row tile (csrc/ffn_norm.cuh `ffn_i8_smem`): y
+    [rows][d], mid [rows][F] and the scales [2][rows] f32, yq and mq int8."""
+    return 4 * (rows * d + rows * F + 2 * rows) + rows * (d + F)
+
+
+def rec_stream_smem(d: int, H: int) -> int:
+    """Bytes of kernel 14's block of 4 sessions (csrc/lstm_i8.cu
+    `launch_rec<4, X_ASYNC>`): h, c, hc, two x buffers and the scales f32,
+    the int8 h, hc and x rows."""
+    ts = 4
+    return 4 * (ts * (d + 2 * H) + 2 * ts * d + 4 * ts) + ts * (d + H) + ts * d
+
+
+def step_simt_smem(d: int, H: int, F: int) -> int:
+    """Bytes of the largest block of the int8 three-pass step
+    (csrc/lstm_step.cuh `launch_gates`, csrc/lstm_step.cu `gates_proj` and
+    its FFN pass): 32 sessions' x and h rows and two staged 32-row weight
+    chunks of 64 units' four gates; 16 sessions' hc rows and a 32 x 64
+    w_hr chunk; the 4-row FFN tile."""
+    gates = 4 * 2 * 32 + 2 * 32 * (d + 16) + 2 * 32 * 4 * 64
+    proj = 4 * 16 + 16 * (H + 16) + 32 * 64
+    return max(gates, proj, ffn_i8_smem(STEP_FFN_ROWS, d, F))
+
+
+@dataclass(frozen=True)
+class Int8Routes:
+    rec: str  # kernel 2's call: "mma" (kernel 2) or "stream" (kernel 14)
+    step: str  # kernel 7's call: "mma" (kernel 7) or "simt" (the three-pass step)
+    ffn_rows: int  # kernel 3's row tile
+
+
+def rec_route(S: int, d: int, H: int, n_sm: int = 132, smem_limit: int = SMEM_LIMIT) -> str:
+    """Kernel 2's route for S rows at widths d, H."""
+    try:
+        mma_plan(S, d, H, 0, n_sm, smem_limit)
+        return "mma"
+    except ValueError as e:
+        if rec_stream_smem(d, H) <= smem_limit:
+            return "stream"
+        raise ValueError(f"{e}; kernel 14 needs {rec_stream_smem(d, H)} bytes") from None
+
+
+def step_route(S: int, d: int, H: int, F: int, n_sm: int = 132,
+               smem_limit: int = SMEM_LIMIT) -> str:
+    """Kernel 7's route for S rows at widths d, H, F."""
+    try:
+        mma_plan(S, d, H, F, n_sm, smem_limit)
+        return "mma"
+    except ValueError as e:
+        if step_simt_smem(d, H, F) <= smem_limit:
+            return "simt"
+        raise ValueError(f"{e}; the three-pass step needs {step_simt_smem(d, H, F)} "
+                         "bytes") from None
+
+
+def ffn_rows(d: int, F: int, smem_limit: int = SMEM_LIMIT) -> int:
+    """Kernel 3's row tile at widths d, F: the largest that fits."""
+    for rows in FFN_ROWS:
+        if ffn_i8_smem(rows, d, F) <= smem_limit:
+            return rows
+    raise ValueError(f"ffn_norm_i8: no row tile for d={d}, ffn={F} within {smem_limit} bytes "
+                     f"of shared memory ({ffn_i8_smem(FFN_ROWS[-1], d, F)} at "
+                     f"{FFN_ROWS[-1]} rows)")
+
+
+def int8_routes(S: int, P: int, d: int, H: int, F: int, n_sm: int = 132,
+                smem_limit: int = SMEM_LIMIT) -> Int8Routes:
+    """The route of each int8 layer call of an engine over S rows and P
+    steps (P does not change them: kernels 2 and 14 stream x by step):
+    ValueError where a call has none."""
+    if min(S, P, d, H, F) < 1 or d % 4 or H % 4 or F % 4:
+        raise ValueError(f"int8 routes: no route for S={S}, P={P}, d={d}, hidden={H}, ffn={F}: "
+                         "rows and steps must be positive and widths positive multiples of 4")
+    return Int8Routes(rec_route(S, d, H, n_sm, smem_limit),
+                      step_route(S, d, H, F, n_sm, smem_limit), ffn_rows(d, F, smem_limit))
+
+
 @functools.lru_cache(maxsize=None)
 def _n_sm(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -227,11 +324,28 @@ def _plan_cached(S: int, d: int, H: int, F: int, n_sm: int) -> MmaPlan:
 
 def device_plan(S: int, d: int, H: int, F: int, device: torch.device) -> MmaPlan:
     """`mma_plan` for the SM count of `device` (a CUDA device)."""
-    return _plan_cached(S, d, H, F, _n_sm(device.index if device.index is not None
-                                           else torch.cuda.current_device()))
+    return _plan_cached(S, d, H, F, device_sm(device))
 
 
-# -- kernel 12: the float per-pull layer (csrc/lstm_mma_float.cu) -----------
+@functools.lru_cache(maxsize=256)
+def _route_cached(kind: str, S: int, d: int, H: int, F: int, n_sm: int) -> str:
+    return rec_route(S, d, H, n_sm) if kind == "rec" else step_route(S, d, H, F, n_sm)
+
+
+def device_route(kind: str, S: int, d: int, H: int, F: int, device: torch.device) -> str:
+    """`rec_route` ("rec") or `step_route` ("step") for the SM count of
+    `device` (a CUDA device)."""
+    return _route_cached(kind, S, d, H, F, device_sm(device))
+
+
+def device_sm(device: torch.device) -> int:
+    """The SM count of `device` (a CUDA device)."""
+    return _n_sm(device.index if device.index is not None else torch.cuda.current_device())
+
+
+# -- kernels 12 and 10: the float layer (csrc/lstm_mma_float.cu, one step;
+# csrc/lstm_chunk_mma.cu, P steps of its gate and projection phases, then
+# its FFN over the P * S rows) ----------------------------------------------
 #
 # Every phase is a set of tile items: item b of a `TileSplit` owns rows
 # [rg * nr, +nr) and local columns [cg * nc, +nc) (cg = b % ncg, rg = b //
@@ -358,6 +472,7 @@ class FloatPlan:
     ff2: TileSplit  # d columns, depth F
     nb: int
     smem: int
+    P: int = 1  # steps: the gate and projection splits cover S rows, ff1 and ff2 P * S
 
     def splits(self) -> Tuple[TileSplit, TileSplit, TileSplit, TileSplit]:
         return self.gate, self.proj, self.ff1, self.ff2
@@ -377,24 +492,22 @@ class FloatPlan:
 
 
 def float_smem(splits, wbytes: int) -> int:
-    """Bytes of kernel 12's shared memory: the three-stage ring, each stage
-    sized for the largest phase, and the largest partial tiles
-    (csrc/lstm_mma_float.cu `float_smem`)."""
+    """Bytes of kernel 10's or 12's shared memory: the three-stage ring,
+    each stage sized for the largest phase, and the largest partial tiles
+    (csrc/lstm_mma.cuh `float_smem`)."""
     return F_STAGES * max(s.stage(wbytes) for s in splits) + max(s.part() for s in splits)
 
 
-def float_step_plan(S: int, d: int, H: int, F: int, wbytes: int, n_sm: int = 132,
-                    smem_limit: int = SMEM_LIMIT) -> FloatPlan:
-    """Kernel 12's plan for S rows at widths d, H, F with f32 (wbytes 4) or
-    bf16 (2) weights on n_sm SMs: each phase's tile split by the cost model,
-    three stages of every tile within the shared memory left after the
-    partial tiles;
-    ValueError where the widths are not multiples of 8 or no tile fits."""
+def _float_plan(what: str, S: int, P: int, d: int, H: int, F: int, wbytes: int, n_sm: int,
+                smem_limit: int) -> FloatPlan:
+    """The gate and projection splits over S rows and the ff1 and ff2 splits
+    over P * S rows, each phase's tile by the cost model, three stages of
+    every tile within the shared memory left after the partial tiles."""
     if wbytes not in (2, 4):
-        raise ValueError(f"lstm_step: weights of {wbytes} bytes: f32 or bf16 only")
-    if min(S, d, H, F) < 1 or d % 8 or H % 8 or F % 8:
-        raise ValueError(f"lstm_step: no plan for S={S}, d={d}, hidden={H}, ffn={F}: rows must "
-                         "be positive and widths positive multiples of 8")
+        raise ValueError(f"{what}: weights of {wbytes} bytes: f32 or bf16 only")
+    if min(S, P, d, H, F) < 1 or d % 4 or H % 4 or F % 4:
+        raise ValueError(f"{what}: no plan for S={S}, P={P}, d={d}, hidden={H}, ffn={F}: rows "
+                         "and steps must be positive and widths positive multiples of 4")
     stage_max = (smem_limit - F_PART_MAX[wbytes]) // F_STAGES
     gate = None
     for ub in F_UNITS:
@@ -405,23 +518,52 @@ def float_step_plan(S: int, d: int, H: int, F: int, wbytes: int, n_sm: int = 132
             if gate is None or k < gate[0]:
                 gate = (k, ub, sp)
     proj = _tile_split(d, H, S, wbytes, n_sm, F_TILE_COLS, stage_max)
-    ff1 = _tile_split(F, d, S, wbytes, n_sm, F_TILE_COLS, stage_max)
-    ff2 = _tile_split(d, F, S, wbytes, n_sm, F_TILE_COLS, stage_max)
+    ff1 = _tile_split(F, d, P * S, wbytes, n_sm, F_TILE_COLS, stage_max)
+    ff2 = _tile_split(d, F, P * S, wbytes, n_sm, F_TILE_COLS, stage_max)
     if gate is None or None in (proj, ff1, ff2):
-        raise ValueError(f"lstm_step: no plan for S={S}, d={d}, hidden={H}, ffn={F} within "
+        raise ValueError(f"{what}: no plan for S={S}, P={P}, d={d}, hidden={H}, ffn={F} within "
                          f"{smem_limit} bytes of shared memory")
     splits = (gate[2], proj, ff1, ff2)
     nb = min(n_sm, max(s.items for s in splits))
-    return FloatPlan(S, d, H, F, wbytes, gate[1], *splits, nb, float_smem(splits, wbytes))
+    return FloatPlan(S, d, H, F, wbytes, gate[1], *splits, nb, float_smem(splits, wbytes), P)
+
+
+def float_step_plan(S: int, d: int, H: int, F: int, wbytes: int, n_sm: int = 132,
+                    smem_limit: int = SMEM_LIMIT) -> FloatPlan:
+    """Kernel 12's plan for S rows at widths d, H, F with f32 (wbytes 4) or
+    bf16 (2) weights on n_sm SMs: each phase's tile split by the cost model,
+    three stages of every tile within the shared memory left after the
+    partial tiles; ValueError where the widths are not multiples of 4 or no
+    tile fits."""
+    return _float_plan("lstm_step", S, 1, d, H, F, wbytes, n_sm, smem_limit)
+
+
+def float_chunk_plan(S: int, P: int, d: int, H: int, F: int, wbytes: int, n_sm: int = 132,
+                     smem_limit: int = SMEM_LIMIT) -> FloatPlan:
+    """Kernel 10's plan (csrc/lstm_chunk_mma.cu) for P steps of S rows:
+    kernel 12's gate and projection splits at S rows, its ff1 and ff2 splits
+    at the P * S rows of the chunk's FFN; ValueError as `float_step_plan`."""
+    return _float_plan("lstm_chunk", S, P, d, H, F, wbytes, n_sm, smem_limit)
+
+
+def chunk_scratch(plan: FloatPlan) -> int:
+    """f32 values of kernel 10's scratch: hc [S][H], then mid [P * S][F]."""
+    return plan.S * plan.H + plan.P * plan.S * plan.F
 
 
 @functools.lru_cache(maxsize=64)
-def _float_plan_cached(S: int, d: int, H: int, F: int, wbytes: int, n_sm: int) -> FloatPlan:
-    return float_step_plan(S, d, H, F, wbytes, n_sm)
+def _float_plan_cached(what: str, S: int, P: int, d: int, H: int, F: int, wbytes: int,
+                       n_sm: int) -> FloatPlan:
+    return _float_plan(what, S, P, d, H, F, wbytes, n_sm, SMEM_LIMIT)
 
 
 def device_float_plan(S: int, d: int, H: int, F: int, wbytes: int,
                       device: torch.device) -> FloatPlan:
     """`float_step_plan` for the SM count of `device` (a CUDA device)."""
-    return _float_plan_cached(S, d, H, F, wbytes, _n_sm(device.index if device.index is not None
-                                                         else torch.cuda.current_device()))
+    return _float_plan_cached("lstm_step", S, 1, d, H, F, wbytes, device_sm(device))
+
+
+def device_chunk_plan(S: int, P: int, d: int, H: int, F: int, wbytes: int,
+                      device: torch.device) -> FloatPlan:
+    """`float_chunk_plan` for the SM count of `device` (a CUDA device)."""
+    return _float_plan_cached("lstm_chunk", S, P, d, H, F, wbytes, device_sm(device))

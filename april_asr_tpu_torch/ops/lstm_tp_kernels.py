@@ -40,6 +40,21 @@ from .activations import dot_wd, double_swish, sigmoid
 from .lstm_kernels import _bias_flag, _check, _gate_arg, _gate_blend, _q8_mm
 
 
+def tp_smem(d: int, Hs: int, Fs: int, wbytes: int) -> dict:
+    """Bytes of shared memory of each pass of kernels 18 and 20 (wbytes 4 or
+    2: f32 activations) or 19 and 21 (wbytes 1: int8 activations) at one
+    shard's widths, as csrc/lstm_step.cuh `launch_gates` and csrc/lstm_tp.cu
+    `launch_cols` compute them: the gate pass (32 sessions' x and h rows,
+    two staged 32-row chunks of 64 units' four gates) and each column pass
+    (16 sessions' rows of depth K, a 32 x 64 weight chunk)."""
+    a = 1 if wbytes == 1 else 4
+    gates = 4 * 2 * 32 + a * 2 * 32 * (d + 16) + wbytes * 2 * 32 * 4 * 64
+    cols = lambda K: 4 * 16 + a * 16 * (K + 16) + wbytes * 32 * 64  # noqa: E731
+    if wbytes == 1:
+        return {"gates": gates, "ff1": cols(d)}
+    return {"gates": gates, "projection": cols(Hs), "ff1": cols(d), "ff2": cols(Fs)}
+
+
 def _gates_cell(gates: torch.Tensor, c: torch.Tensor, gate):
     H = c.shape[1]
     i, f, g, o = gates.split(H, dim=-1)

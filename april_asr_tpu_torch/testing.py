@@ -160,14 +160,17 @@ def capture_events(prog, unpack, sink: list) -> None:
         setattr(prog, name, wrapped)
 
 
-def check_parting(step, ev_ref, ev, cells, recs_ref, recs, dec_ref, dec, parted: dict) -> None:
+def check_parting(step, ev_ref, ev, cells, recs_ref, recs, dec_ref, dec, parted: dict,
+                  over: list | None = None) -> None:
     """One engine step of a lockstep comparison of two engines on the same
     audio. A session whose event cells (pull-major, round-minor) first
     differ in this step is entered in `parted` as (step, cell, margin) and
     must have been decided by less than NEAR_TIE there (`cells` [n, S] from
     DecisionMargins on the plain side); a session still in step must have
     equal callbacks `recs` and integer decode state (`dec`: INT_DECODE keys
-    to host arrays). Raises AssertionError otherwise."""
+    to host arrays). Raises AssertionError otherwise; with `over`, a parting
+    at or above NEAR_TIE is appended there (as its session) and the check
+    goes on."""
     for s in range(ev_ref["ops"].shape[0]):
         if s in parted:
             continue
@@ -177,7 +180,9 @@ def check_parting(step, ev_ref, ev, cells, recs_ref, recs, dec_ref, dec, parted:
         if differ.any():
             first = int(np.argmax(differ))
             parted[s] = (step, first, float(cells[first, s]))
-            if cells[first, s] >= NEAR_TIE:
+            if cells[first, s] >= NEAR_TIE and over is not None:
+                over.append(s)
+            elif cells[first, s] >= NEAR_TIE:
                 raise AssertionError(
                     f"session {s} parted at step {step}, event cell {first}, where the "
                     f"plain decode's margin was {cells[first, s]:.4f} >= {NEAR_TIE}")

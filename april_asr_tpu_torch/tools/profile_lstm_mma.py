@@ -1,4 +1,4 @@
-"""Where the time of the persistent layer kernels 2, 7 and 12 goes: the
+"""Where the time of the persistent layer kernels 2, 7, 12 and 10 goes: the
 phases and grid barriers of one launch, from each block's phase stamps
 (csrc/lstm_mma.cuh `Stamps`, the global nanosecond timer).
 
@@ -6,8 +6,9 @@ phases and grid barriers of one launch, from each block's phase stamps
 
 On the flagship int8 serving weights (`profile_chunk_split.build`, layer 0)
 and numpy seed inputs, it launches kernel 2 (P steps) and kernel 7 once
-each with stamps, then kernel 12 (csrc/lstm_mma_float.cu) once on f32 and
-once on bf16 flagship-width weights drawn from a numpy seed, and prints,
+each with stamps, then kernel 12 (csrc/lstm_mma_float.cu) and kernel 10
+(csrc/lstm_chunk_mma.cu, P steps) once each on f32 and once on bf16
+flagship-width weights drawn from a numpy seed, and prints,
 per phase kind summed over the launch, the critical path (from the last
 block's arrival at the phase's start to the last block's arrival at its
 end), the blocks' median time in the phase, and the grid barriers (from
@@ -43,6 +44,19 @@ STEP = (("stage + rowq8 x, h", 0, 1), ("barrier", 1, 2), ("gates", 2, 3), ("barr
 # kernel 12's one launch: four phases of tile items and the norm
 STEP12 = (("gates", 0, 1), ("barrier", 1, 2), ("projection", 2, 3), ("barrier", 3, 4),
           ("ff1", 4, 5), ("barrier", 5, 6), ("ff2", 6, 7), ("barrier", 7, 8), ("norm", 8, 9))
+
+
+def chunk_phases(P: int) -> List[Tuple[str, int, int]]:
+    """Kernel 10's one launch: per step the gates and the projection (stamps
+    4 t ..), then ff1, ff2 and the norm over the P * S rows."""
+    out = []
+    for t in range(P):
+        k = 4 * t
+        out += [("gates", k, k + 1), ("barrier", k + 1, k + 2), ("projection", k + 2, k + 3),
+                ("barrier", k + 3, k + 4)]
+    k = 4 * P
+    return out + [("ff1", k, k + 1), ("barrier", k + 1, k + 2), ("ff2", k + 2, k + 3),
+                  ("barrier", k + 3, k + 4), ("norm", k + 4, k + 5)]
 
 
 def breakdown(stamps: np.ndarray, phases: List[Tuple[str, int, int]]) -> Dict[str, dict]:
@@ -94,7 +108,8 @@ def float_layer(d: int, H: int, F: int, wd, device, seed: int = 4) -> tuple:
 
 
 def profile(S: int, P: int, device) -> Dict[str, dict]:
-    """Kernel 2 at (S, P), kernel 7 and kernel 12 (f32 and bf16) at S:
+    """Kernel 2 at (S, P), kernel 7 and kernel 12 (f32 and bf16) at S,
+    kernel 10 (f32 and bf16) at (S, P):
     {kernel: {"total_us", "event_ms", "phases", "blocks", "smem"}}."""
     params = PCS.build(S, P, TM.TransducerDims(), device)[0]
     layer = tuple(params[k][0] for k in LK.LAYER_I8_KEYS)
@@ -116,6 +131,10 @@ def profile(S: int, P: int, device) -> Dict[str, dict]:
          lambda st: LF.lstm_layer_fused_cuda(x[0], h, c, *f32, stamps=st), STEP12),
         ("kernel 12 bf16", LM.device_float_plan(S, d, H, F, 2, device), 10, 9,
          lambda st: LF.lstm_layer_fused_cuda(x[0], h, c, *bf16, stamps=st), STEP12),
+        ("kernel 10 f32", LM.device_chunk_plan(S, P, d, H, F, 4, device), 4 * P + 6, 4 * P + 5,
+         lambda st: LF.lstm_layer_chunk_cuda(x, h, c, *f32, n, stamps=st), chunk_phases(P)),
+        ("kernel 10 bf16", LM.device_chunk_plan(S, P, d, H, F, 2, device), 4 * P + 6, 4 * P + 5,
+         lambda st: LF.lstm_layer_chunk_cuda(x, h, c, *bf16, n, stamps=st), chunk_phases(P)),
     ):
         ms = event_ms(lambda: run(None))
         host_us, device_us = host_and_device_us(lambda: run(None))
@@ -154,7 +173,7 @@ def report(res: Dict[str, dict], S: int, P: int, card: str = "") -> None:
     for name, r in res.items():
         parts = "; ".join(f"{k} {v['critical_us']:.1f} us (x{v['n']}, blocks' median "
                           f"{v['median_us']:.1f})" for k, v in r["phases"].items())
-        shape = f"S={S} P={P}" if name == "kernel 2" else f"S={S}"
+        shape = f"S={S} P={P}" if name.startswith(("kernel 2", "kernel 10")) else f"S={S}"
         print(f"profile_lstm_mma {name} {shape}: {r['blocks']} blocks, {r['smem']} bytes of shared "
               f"memory; stamped launch {r['total_us']:.1f} us; without stamps: CUDA events "
               f"{r['event_ms'] * 1e3:.1f} us a call, the kernel's device time (profiler) "

@@ -3,11 +3,13 @@
 
 Builds the port's CUDA kernels from csrc/, holds each against its plain
 PyTorch version at the flagship serving shapes, checks the streaming engine
-against the CPU (plain) engine on a small model at int8 and at f32, drives a
+against the CPU (plain) engine on a small model at int8, bf16 and f32, drives a
 flagship BatchEngine at int8, bf16 and f32 and a synchronous Session at int8
 and at f32 (the weights as loaded), serves a flagship-width model with a
 16,383-token vocabulary and a narrow one whose kernel 4 block does not fit,
-runs the int8 chunk-layer variants of the two profiling tools and the
+serves models at the widths the port once refused (an int8 model wider than
+kernels 2 and 7 hold, a float model at d = 68), runs the int8 chunk-layer
+variants of the two profiling tools and the
 matrix-unit tool's tensor-core products, then the tensor-parallel kernels
 and a two-rank tensor-parallel engine, and prints the results.
 
@@ -16,24 +18,28 @@ and a two-rank tensor-parallel engine, and prints the results.
 
 Phases (each fails the run on error):
   build      nvcc for every csrc/*.cu, all started at once; then
-             csrc/lstm_mma.cu and lstm_mma_float.cu again to cubins:
-             kernels 2, 7 and 12's registers and spills (none allowed), IMMA
-             in 2 and 7's SASS, HMMA in kernel 12's at bf16, FFMA and no
-             tensor-core instruction at f32
+             csrc/lstm_mma.cu, lstm_mma_float.cu and lstm_chunk_mma.cu again
+             to cubins: kernels 2, 7, 12 and 10's registers and spills (none
+             allowed), IMMA in 2 and 7's SASS, HMMA in kernels 12 and 10 at
+             bf16, FFMA and no tensor-core instruction at f32
   kernels    each kernel against its plain version: timed at S=256, P=27,
              F=101, checked again at S=3, P=5 (ragged tiles); kernels 2 and
              7 also bit for bit against kernel 13 and the three-pass step
-             they replaced (ungated and gated), with their launch plans;
-             kernel 12 beside the three-pass step it replaced (its largest
-             difference and both times); the
+             they replaced (ungated and gated), with their launch plans,
+             and kernel 14 and kernel 3 on 8- and 4-row tiles bit for bit
+             against kernels 2 and 3 (the int8 routes of wide models);
+             kernels 12 and 10 beside the three-pass step and the two-kernel
+             chunk layer they replaced (the largest difference and both
+             times); kernels 10 and 12 again at d 512 / H 2048 / F 4096 and
+             at d 68 / H 260 / F 196 (bf16 weight rows 8-byte aligned); the
              int8 kernels on int8 weights, kernels 10 and 12 on f32 and on bf16
              weights, the chunk decode and kernels 8 and 9 on bf16 and on
              f32 decode weights, kernel 9 again at V=16,383, both conv-embed
              entries (16, 17) on bf16 weights beside the stacked embed they
              displace, kernel 6 on frames formed from the fbank buffers
   reference  a tiny random model: CUDA engine vs CPU engine, same streams,
-             at int8 (the step embeds through kernel 16) and at f32 (the
-             stacked embed); the flush runs kernels 7, 12 and 8
+             at int8 and bf16 (the step embeds through kernel 16) and at f32
+             (the stacked embed); the flush runs kernels 7, 12 and 8
   engine     flagship random model, BatchEngine S=256, 1 s chunks, 10 ticks
              of tone bursts then flush, at int8, bf16 and f32; the step's
              and the flush's launch counts checked apart, timing and the
@@ -49,6 +55,13 @@ Phases (each fails the run on error):
              model with 16,383 tokens, which the JAX gate passes but kernel
              4's block cannot hold: CUDA vs CPU at S=8 (f32) through kernel
              8, kernel 4 never launched
+  widths     models the port once refused: a 2-layer int8 model at d 1024 /
+             H 4096 / F 8192 (kernels 2 and 7 have no plan) serves S=256,
+             the flagship engine's batch, 3 ticks and a flush, on kernel 14,
+             the three-pass int8 step and kernel 3 on 4-row tiles (each held
+             to its plain version at those widths, S=256, and timed); a float model at d 68 / H 260 / F 196 serves
+             at f32 (CUDA vs CPU engine) and bf16; one at d 66 is refused
+             when its engine is built
   chunk      the int8 chunk-layer variants at flagship widths, S=256, P=27:
              kernels 13, 14, 11 (one layer), 15 (a 6-layer wavefront slab)
              and 22 (the tile-interleaved core, on 4- and 2-session tiles)
@@ -99,7 +112,8 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("build", "kernels", "reference", "engine", "session", "vocab", "chunk", "matmul", "tp")
+PHASES = ("build", "kernels", "reference", "engine", "session", "vocab", "widths", "chunk", "matmul",
+          "tp")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s and ops/s by type
 HBM_BPS = 3.35e12
@@ -107,6 +121,12 @@ PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 
 S_FLAG, CHUNK_1S = 256, 16000
 DEV = "cuda"
+# the widths phase's models (`TransducerDims` fields): an int8 model wider
+# than kernels 2 and 7 hold, and float models at widths that are multiples
+# of 4 but not of 8 (served) and at d 66 (refused)
+WIDE = dict(d_model=1024, hidden=4096, ffn=8192, layers=2)
+NARROW = dict(d_model=68, hidden=260, ffn=196, joiner_dim=128, vocab=64, layers=2,
+              decoder_groups=4)
 
 
 def card_line() -> str:
@@ -216,14 +236,25 @@ PATH_KERNELS = {
     "int8": {"step": ("fbank_i8", "conv_embed", "lstm_rec_stream2_i8", "ffn_norm_i8",
                       "chunk_decode"),
              "flush": ("fbank_i8", "lstm_step_i8", "dec_joiner")},
-    "bf16": {"step": ("fbank_bf16x3", "conv_embed", "lstm_chunk_bf16", "chunk_decode"),
+    "bf16": {"step": ("fbank_bf16x3", "conv_embed", "lstm_chunk_mma_bf16", "chunk_decode"),
              "flush": ("fbank_bf16x3", "lstm_step_bf16", "dec_joiner")},
-    "f32": {"step": ("fbank_bf16x3", "lstm_chunk_f32", "chunk_decode_f32"),
+    "f32": {"step": ("fbank_bf16x3", "lstm_chunk_mma_f32", "chunk_decode_f32"),
             "flush": ("fbank_bf16x3", "lstm_step_f32", "dec_joiner_f32")},
-    "vocab f32": {"step": ("fbank_bf16x3", "lstm_chunk_f32", "joiner_argmax_f32"),
+    "vocab f32": {"step": ("fbank_bf16x3", "lstm_chunk_mma_f32", "joiner_argmax_f32"),
                   "flush": ("fbank_bf16x3", "lstm_step_f32", "joiner_argmax_f32")},
-    "vocab bf16": {"step": ("fbank_bf16x3", "conv_embed", "lstm_chunk_bf16", "joiner_argmax"),
+    "vocab bf16": {"step": ("fbank_bf16x3", "conv_embed", "lstm_chunk_mma_bf16", "joiner_argmax"),
                    "flush": ("fbank_bf16x3", "lstm_step_bf16", "joiner_argmax")},
+    # the int8 routes of a model wider than kernels 2 and 7 hold: kernel 14,
+    # kernel 3 on 4-row tiles, the three-pass int8 step
+    "wide int8": {"step": ("fbank_i8", "conv_embed", "lstm_rec_stream_i8", "ffn_norm_i8_r4",
+                           "chunk_decode"),
+                  "flush": ("fbank_i8", "lstm_step_i8_simt", "dec_joiner")},
+    # a float model at d 68 (not a 128-multiple: the decode goes pull by
+    # pull through kernel 9, as the JAX gates route it)
+    "narrow f32": {"step": ("fbank_bf16x3", "lstm_chunk_mma_f32", "joiner_argmax_f32"),
+                   "flush": ("fbank_bf16x3", "lstm_step_f32", "joiner_argmax_f32")},
+    "narrow bf16": {"step": ("fbank_bf16x3", "conv_embed", "lstm_chunk_mma_bf16", "joiner_argmax"),
+                    "flush": ("fbank_bf16x3", "lstm_step_bf16", "joiner_argmax")},
     # the tensor-parallel engine (one rank's counts): the per-pull recurrent
     # step on kernels 19 and 21 (int8) or 18 and 20 (f32) and kernel 8, no
     # chunk kernel; the f32 step keeps the stacked embed
@@ -281,18 +312,20 @@ def phase_build(card):
 
 
 # the persistent kernels, by source and the start of their mangled names:
-# kernels 2 and 7 (csrc/lstm_mma.cu, int8 on IMMA) and kernel 12
-# (csrc/lstm_mma_float.cu: `<float>` on FFMA, `<unsigned short>` bf16 on HMMA)
+# kernels 2 and 7 (csrc/lstm_mma.cu, int8 on IMMA), kernels 12
+# (csrc/lstm_mma_float.cu) and 10 (csrc/lstm_chunk_mma.cu): `<float>` on
+# FFMA, `<unsigned short>` bf16 on HMMA
 MMA_SOURCES = (
     ("lstm_mma.cu", ("_Z19lstm_rec_mma_kernel", "_Z20lstm_step_mma_kernel"), 6),
     ("lstm_mma_float.cu", ("_Z26lstm_step_float_mma_kernel",), 2),
+    ("lstm_chunk_mma.cu", ("_Z27lstm_chunk_float_mma_kernel",), 2),
 )
 
 
 def sass_rule(kernel: str, insns: list) -> str:
     """Why a persistent kernel's SASS is wrong ("" where it is right): the
-    int8 kernels need IMMA; kernel 12 at bf16 HMMA, at f32 FFMA and no
-    tensor-core instruction (no TF32)."""
+    int8 kernels need IMMA; kernels 12 and 10 at bf16 HMMA, at f32 FFMA and
+    no tensor-core instruction (no TF32)."""
     n = lambda op: sum(op in i for i in insns)  # noqa: E731
     if "float_mma" not in kernel:
         return "" if n("IMMA") else "no IMMA instruction"
@@ -302,7 +335,8 @@ def sass_rule(kernel: str, insns: list) -> str:
 
 
 def check_mma_sass():
-    """csrc/lstm_mma.cu and lstm_mma_float.cu compiled again to cubins: each
+    """csrc/lstm_mma.cu, lstm_mma_float.cu and lstm_chunk_mma.cu compiled
+    again to cubins: each
     persistent kernel's registers, shared memory and spills (`-Xptxas -v`;
     a spill fails) and its SASS (`sass_rule`)."""
     from pathlib import Path
@@ -450,6 +484,76 @@ def _check_joiner(rt, S: int, rng, dev, t, refresh: bool) -> tuple:
     return kf, pf, err, b, f"eout[{S},{J}] d={d} V={V}"
 
 
+# Kernels 10 and 12 against their plain versions. f32 weights: true f32
+# products summed in another order, atol 1e-4, rtol 1e-4 (kernel 10 measured
+# 5.25e-6 on the H100 at S=256, P=27), so a kernel with TF32 or bf16-rounded
+# products (errors ~1e-3 on these unit-scale rows) fails. bf16 weights: an
+# f32 ulp can flip the bf16 rounding of an activation, moving a product by
+# 2^-8 of itself: the repo's bf16 bound, atol 5e-2, rtol 1e-3
+# (tests/test_lstm_pallas.py:56)
+FLOAT_TOL = {"f32": (1e-4, 1e-4), "bf16": (5e-2, 1e-3)}
+
+
+def _float_close(got, want, what: str, prec: str) -> float:
+    atol, rtol = FLOAT_TOL[prec]
+    err = 0.0
+    for g, wv, k in zip(got, want, ("y", "h", "c")):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{what} {k}: non-finite values")
+        torch.testing.assert_close(g, wv, atol=atol, rtol=rtol, msg=f"{what} {k}")
+        err = max(err, float((g - wv).abs().max()))
+    return err
+
+
+def check_chunk_float(x, h, c, lw, n_pulls, prec: str) -> tuple:
+    """Kernel 10 (`lstm_layer_chunk_fused`) on one layer's weights `lw`
+    (`TM.STEP_KEYS` order) against its plain version; its bound counts x,
+    h, c, n_pulls and the weights read once, y, h' and c' written once, and
+    the gate, projection and FFN products at the weights' rate."""
+    from april_asr_tpu_torch.ops import lstm_float_kernels as LF
+
+    (P, S, d), H, F = x.shape, c.shape[1], lw[4].shape[1]
+    kf = lambda: LF.lstm_layer_chunk_fused(x, h, c, *lw, n_pulls)  # noqa: E731
+    pf = lambda: LF.lstm_layer_chunk_plain(x, h, c, *lw, n_pulls)  # noqa: E731
+    got, want = kf(), pf()
+    torch.cuda.synchronize()
+    err = _float_close(got, want, f"lstm_chunk_mma_{prec} at S={S}, P={P}, d={d}, H={H}, F={F}",
+                       prec)
+    wb = lw[0].element_size()
+    b = bound_ms(
+        2 * P * S * d * 4 + 2 * S * (d + H) * 4 + S * 4 + (2 * d * 4 * H + H * d + 2 * d * F) * wb
+        + (4 * H + F + d) * lw[2].element_size() + 4,
+        {prec: 2 * P * S * (2 * d * 4 * H + H * d + 2 * d * F)},
+    )
+    return kf, pf, err, b, f"x[{P},{S},{d}] H={H} ffn={F}"
+
+
+def check_float_widths(S: int, P: int, seed: int) -> None:
+    """Kernels 10 and 12 at widths the flagship model does not reach, on
+    random weights: d 512 / H 2048 / F 4096, where the two-kernel chunk
+    layer's FFN tile did not fit, and d 68 / H 260 / F 196, where bf16
+    weight rows are only 8-byte aligned; f32 and bf16, gated."""
+    from april_asr_tpu_torch.ops import lstm_float_kernels as LF
+    from april_asr_tpu_torch.tools.profile_lstm_mma import float_layer
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa: E731
+    for d, H, F in ((512, 2048, 4096), (68, 260, 196)):
+        x = t(rng.normal(size=(P, S, d)).astype(np.float32))
+        h = t((rng.normal(size=(S, d)) * 0.3).astype(np.float32))
+        c = t((rng.normal(size=(S, H)) * 0.3).astype(np.float32))
+        n = t(rng.integers(0, P + 1, size=S).astype(np.int32))
+        gate = t(rng.random(S) < 0.5)
+        for prec, wd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            lw = float_layer(d, H, F, wd, torch.device(DEV), seed=seed)
+            err10 = check_chunk_float(x, h, c, lw, n, prec)[2]
+            got = LF.lstm_layer_fused(x[0], h, c, *lw, gate)
+            err12 = _float_close(got, LF.lstm_layer_fused_plain(x[0], h, c, *lw, gate),
+                                 f"lstm_step_{prec} at S={S}, d={d}, H={H}, F={F}", prec)
+            print(f"widths d={d} H={H} F={F} {prec}: kernel 10 (S={S}, P={P}, gated) max_abs_err "
+                  f"{err10:.3g}, kernel 12 (S={S}, gated) {err12:.3g}")
+
+
 def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
     """Each kernel's wrapper and its plain version on the same inputs at S
     sessions and P pulls (F = 101 frames), held to the stated tolerances;
@@ -518,6 +622,11 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
     # op order
     _bit_equal(got, LK.lstm_layer_chunk_rec_i8(x, h0, c0, *la, n_pulls), ("hseq", "h", "c"),
                f"lstm_rec_stream2_i8 vs kernel 13 at S={S}, P={P}")
+    # kernel 14, kernel 2's route where its stationary weights do not fit,
+    # equals it bit for bit where both run
+    _bit_equal(LK.lstm_layer_chunk_rec_stream_i8(x, h0, c0, *la, n_pulls), got,
+               ("hseq", "h", "c"), f"kernel 14 (the wide route) vs lstm_rec_stream2_i8 at S={S}, "
+               f"P={P}")
     b = bound_ms(2 * P * S * d * 4 + 2 * S * (d + H) * 4 + 2 * d * 4 * H + H * d + (8 * H + d) * 4,
                  {"int8": 2 * P * S * (2 * d * 4 * H + H * d)})
     out["lstm_rec_stream2_i8"] = (kf, pf, err, b, f"x[{P},{S},{d}] H={H}")
@@ -532,38 +641,31 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
     pf = lambda: LK.ffn_norm_plain(xr, hs, *fa)  # noqa: E731
     got, want = kf(), pf()
     torch.cuda.synchronize()
+    # the 8- and 4-row tiles (the wide models' route) give the same bits
+    for rows in (8, 4):
+        _bit_equal([LK.ffn_norm_cuda(xr, hs, *fa, rows=rows)], [got], ("y",),
+                   f"ffn_norm_i8 on {rows}-row tiles vs 16 at R={R}")
     b = bound_ms(3 * R * d * 4 + 2 * d * Fn + (2 * Fn + 2 * d) * 4, {"int8": 2 * R * d * Fn * 2})
     out["ffn_norm_i8"] = (kf, pf, _ulp_close(got, want, "ffn_norm_i8"), b, f"rows[{R},{d}] ffn={Fn}")
 
-    # 10. lstm_chunk: one whole float layer over P steps (layer 0), gated.
-    # f32 weights: true f32 products summed in another order, atol 1e-4,
-    # rtol 1e-4 (5.25e-6 measured on the H100 at S=256, P=27), so a kernel
-    # with TF32 or bf16-rounded products (errors ~1e-3 on these unit-scale
-    # rows) fails. bf16 weights: an f32 ulp can flip the bf16 rounding of an
-    # activation, moving a product by 2^-8 of itself: the repo's bf16 bound,
-    # atol 5e-2, rtol 1e-3 (tests/test_lstm_pallas.py:56)
-    for prec, atol, rtol in (("f32", 1e-4, 1e-4), ("bf16", 5e-2, 1e-3)):
+    # 10. lstm_chunk: one whole float layer over P steps (layer 0), gated:
+    # the persistent kernel against the plain version (`check_chunk_float`),
+    # beside the two-kernel chunk layer it replaced
+    for prec in ("f32", "bf16"):
         wl = models[prec].runtime.weights
-        lw = tuple(wl[k][0] for k in ("w_ih_t", "w_hh_t", "bias", "w_hr_t", "ff1_t", "ff1_b",
-                                       "ff2_t", "ff2_b", "norm_eps"))
-        kf = lambda lw=lw: LF.lstm_layer_chunk_fused(x, h0, c0, *lw, n_pulls)  # noqa: E731
-        pf = lambda lw=lw: LF.lstm_layer_chunk_plain(x, h0, c0, *lw, n_pulls)  # noqa: E731
-        got, want = kf(), pf()
+        lw = tuple(wl[k][0] for k in TM.STEP_KEYS)
+        out[f"lstm_chunk_mma_{prec}"] = check_chunk_float(x, h0, c0, lw, n_pulls, prec)
+        simt = LF.lstm_layer_chunk_simt(x, h0, c0, *lw, n_pulls)
+        got = out[f"lstm_chunk_mma_{prec}"][0]()
         torch.cuda.synchronize()
-        err = 0.0
-        for g, wv, k in zip(got, want, ("y", "h", "c")):
-            if not torch.isfinite(g).all():
-                raise AssertionError(f"lstm_chunk_{prec} {k}: non-finite values")
-            torch.testing.assert_close(g, wv, atol=atol, rtol=rtol, msg=f"lstm_chunk_{prec} {k}")
-            err = max(err, float((g - wv).abs().max()))
-        wb = wl["w_ih_t"].element_size()
-        b = bound_ms(
-            2 * P * S * d * 4 + 2 * S * (d + H) * 4 + S * 4
-            + (2 * d * 4 * H + H * d + 2 * d * Fn) * wb
-            + (4 * H + Fn + d) * wl["bias"].element_size() + 4,
-            {prec: 2 * P * S * (2 * d * 4 * H + H * d + 2 * d * Fn)},
-        )
-        out[f"lstm_chunk_{prec}"] = (kf, pf, err, b, f"x[{P},{S},{d}] H={H} ffn={Fn}")
+        diff = max(float((a - b).abs().max()) for a, b in zip(got, simt))
+        print(f"lstm_chunk_mma_{prec} vs the two-kernel chunk layer at S={S}, P={P}: max abs "
+              f"diff {diff:.3g}")
+        if S == S_FLAG:
+            k_ms = cuda_ms(lambda lw=lw: LF.lstm_layer_chunk_fused(x, h0, c0, *lw, n_pulls), 10)
+            s_ms = cuda_ms(lambda lw=lw: LF.lstm_layer_chunk_simt(x, h0, c0, *lw, n_pulls), 10)
+            print(f"lstm_chunk_mma_{prec}: ms={k_ms:.4f}, the two-kernel chunk layer "
+                  f"(lstm_chunk_simt) ms={s_ms:.4f} at S={S}, P={P}")
 
     # 4. chunk_decode on bf16 (int8 and bf16 serving) and f32 decode weights
     out["chunk_decode"] = _check_decode(rt, S, P, rng, dev, t)
@@ -702,13 +804,17 @@ SOURCES = {
                      "april_asr_tpu/ops/decode_pallas.py:440"),
     "fbank_bf16x3": ("april_asr_tpu_torch/csrc/fbank_bf16x3.cu",
                      "april_asr_tpu/ops/fbank_pallas.py:280"),
-    "lstm_chunk_f32": ("april_asr_tpu_torch/csrc/lstm_chunk.cu",
-                       "april_asr_tpu/ops/lstm_pallas.py:237"),
-    "lstm_chunk_bf16": ("april_asr_tpu_torch/csrc/lstm_chunk.cu",
-                        "april_asr_tpu/ops/lstm_pallas.py:237"),
+    "lstm_chunk_mma_f32": ("april_asr_tpu_torch/csrc/lstm_chunk_mma.cu",
+                           "april_asr_tpu/ops/lstm_pallas.py:237"),
+    "lstm_chunk_mma_bf16": ("april_asr_tpu_torch/csrc/lstm_chunk_mma.cu",
+                            "april_asr_tpu/ops/lstm_pallas.py:237"),
     "chunk_decode_f32": ("april_asr_tpu_torch/csrc/chunk_decode.cu",
                          "april_asr_tpu/ops/decode_pallas.py:440"),
     "lstm_step_i8": ("april_asr_tpu_torch/csrc/lstm_mma.cu", "april_asr_tpu/ops/lstm_pallas.py:426"),
+    "lstm_step_i8_simt": ("april_asr_tpu_torch/csrc/lstm_step.cu",
+                          "april_asr_tpu/ops/lstm_pallas.py:426"),
+    "ffn_norm_i8_r4": ("april_asr_tpu_torch/csrc/lstm_i8.cu",
+                       "april_asr_tpu/ops/lstm_pallas.py:1264"),
     "lstm_step_f32": ("april_asr_tpu_torch/csrc/lstm_mma_float.cu",
                       "april_asr_tpu/ops/lstm_pallas.py:1370"),
     "lstm_step_bf16": ("april_asr_tpu_torch/csrc/lstm_mma_float.cu",
@@ -732,6 +838,8 @@ SOURCES = {
     "lstm_rec_i8": ("april_asr_tpu_torch/csrc/lstm_i8.cu", "april_asr_tpu/ops/lstm_pallas.py:814"),
     "lstm_rec_stream_i8": ("april_asr_tpu_torch/csrc/lstm_i8.cu",
                            "april_asr_tpu/ops/lstm_pallas.py:973"),
+    "lstm_rec_stream_i8_wide": ("april_asr_tpu_torch/csrc/lstm_i8.cu",
+                                "april_asr_tpu/ops/lstm_pallas.py:973"),
     "lstm_chunk_i8": ("april_asr_tpu_torch/csrc/lstm_chunk_i8.cu",
                       "april_asr_tpu/ops/lstm_pallas.py:636"),
     "lstm_wavefront_i8": ("april_asr_tpu_torch/csrc/lstm_wavefront.cu",
@@ -753,6 +861,9 @@ SOURCES = {
 # the launch counter of a row that times a kernel at a second shape or tile
 COUNT_KEY = {"joiner_argmax_v16383": "joiner_argmax", "joiner_argmax_f32_v16383": "joiner_argmax_f32",
              "rec_interleave_i8_ts2": "rec_interleave_i8"}
+# the row that takes a path's launches of a kernel whose own row (another
+# shape, no serving path) keeps that kernel's count name
+PATH_ROW = {"wide int8": {"lstm_rec_stream_i8": "lstm_rec_stream_i8_wide"}}
 
 
 def time_rows(checked: dict, card, reps: int, timer=cuda_ms) -> list:
@@ -797,13 +908,14 @@ def phase_kernels(models, card, reps: int = 20):
     ragged = check_kernels(models, 3, 5, seed=2)
     print("kernels at ragged shapes S=3 P=5: " + ", ".join(
         f"{n} max_abs_err={v[2]:.3g}" for n, v in ragged.items()))
-    print_mma_plans(models["int8"].runtime, S_FLAG)
+    check_float_widths(S_FLAG, P, seed=5)
+    print_mma_plans(models["int8"].runtime, S_FLAG, P)
     return rows
 
 
-def print_mma_plans(rt, S: int):
-    """Kernels 2, 7 and 12's launch plans (ops/lstm_mma.py) at the engine's
-    shapes on this card."""
+def print_mma_plans(rt, S: int, P: int):
+    """Kernels 2, 7, 12 and 10's launch plans (ops/lstm_mma.py) at the
+    engine's shapes on this card."""
     from april_asr_tpu_torch.ops import lstm_mma as LM
 
     d, H, F = rt.dims.d_model, rt.dims.hidden, rt.dims.ffn
@@ -814,12 +926,15 @@ def print_mma_plans(rt, S: int):
               f"groups, items) {plan.proj.ints()}; ff1 {plan.ff1.ints() if plan.ff1 else None}; "
               f"{plan.smem} bytes of shared memory a block")
     for wb, prec in ((4, "f32"), (2, "bf16")):
-        plan = LM.device_float_plan(S, d, H, F, wb, torch.device(DEV))
-        print(f"kernel 12 {prec} plan at S={S}: {plan.nb} blocks; gate items of {plan.ub} units; "
-              f"tile splits (rows, columns, column groups, items, depth groups, mma tiles a "
-              f"warp) gates {plan.gate.ints()} projection {plan.proj.ints()} ff1 "
-              f"{plan.ff1.ints()} ff2 {plan.ff2.ints()}; {plan.smem} bytes of shared memory a "
-              "block")
+        for what, plan in (
+                (f"kernel 12 {prec} plan at S={S}", LM.device_float_plan(S, d, H, F, wb,
+                                                                         torch.device(DEV))),
+                (f"kernel 10 {prec} plan at S={S}, P={P}",
+                 LM.device_chunk_plan(S, P, d, H, F, wb, torch.device(DEV)))):
+            print(f"{what}: {plan.nb} blocks; gate items of {plan.ub} units; tile splits (rows, "
+                  f"columns, column groups, items, depth groups, mma tiles a warp) gates "
+                  f"{plan.gate.ints()} projection {plan.proj.ints()} ff1 {plan.ff1.ints()} ff2 "
+                  f"{plan.ff2.ints()}; {plan.smem} bytes of shared memory a block")
 
 
 def _tone_bufs(S, chunk, rate, n=8, seed=0):
@@ -894,10 +1009,10 @@ def _lockstep(rt_dev, rt_cpu, S: int, chunk: int, ticks: int, seed: int, what: s
 
 def phase_reference(card, precision: str, ticks: int = 6):
     """A tiny model (3 layers, d 128), S=8, 200 ms chunks: `_lockstep` at
-    `precision`. The steps run the chunk kernels and, at int8, kernel 16
-    (checked), the flush kernels 7 or 12 and kernel 8. At f32 nothing is
-    re-quantized or rounded to bf16, so every session is expected identical
-    end to end."""
+    `precision`. The steps run the chunk kernels and, at int8 and bf16,
+    kernel 16 (checked), the flush kernels 7 or 12 and kernel 8. At f32
+    nothing is re-quantized or rounded to bf16, so every session is expected
+    identical end to end; at bf16 a session may part only at a near-tie."""
     from april_asr_tpu_torch.api.model import apply_precision
     from april_asr_tpu_torch.models.export import make_model_parameters
     from april_asr_tpu_torch.models.loader import native_runtime
@@ -915,7 +1030,7 @@ def phase_reference(card, precision: str, ticks: int = 6):
            for dev in (DEV, "cpu")]
     cuda_build.reset_counts()
     _lockstep(*rts, S=8, chunk=3200, ticks=ticks, seed=4, what=f"reference {precision}", card=card)
-    if (cuda_build.COUNTS["conv_embed"] > 0) != (precision == "int8"):
+    if (cuda_build.COUNTS["conv_embed"] > 0) != (precision in ("int8", "bf16")):
         raise AssertionError(f"reference {precision}: kernel 16 launched "
                              f"{cuda_build.COUNTS['conv_embed']} times")
 
@@ -1171,6 +1286,157 @@ def phase_vocab(models, path: str, narrow_path: str, card) -> dict:
                     phase_engine(models["vocab bf16"], card, "vocab bf16", ticks=3))
     vocab_narrow(narrow_path, card)
     return counts
+
+
+def serve_once(model, path: str, S: int, ticks: int, card) -> dict:
+    """BatchEngine(S) on `model`, 1 s chunks: `ticks` ticks of tone bursts
+    and a flush of every slot, the step's and the flush's launches checked
+    apart (PATH_KERNELS[path]), the state finite, callbacks seen; returns
+    the launch counts of the steps and the flush."""
+    from april_asr_tpu_torch.config import EngineConfig
+    from april_asr_tpu_torch.engine.batch import BatchEngine
+    from april_asr_tpu_torch.ops import cuda_build
+
+    rt = model.runtime
+    eng = BatchEngine(rt, batch=S, cfg=EngineConfig(chunk_samples=CHUNK_1S))
+    n_cb = [0]
+    slots = [eng.alloc(lambda r, toks: n_cb.__setitem__(0, n_cb[0] + 1)) for _ in range(S)]
+    bufs = _tone_bufs(S, CHUNK_1S, rt.sample_rate)
+    torch.cuda.synchronize()
+    cuda_build.reset_counts()
+    t0 = time.perf_counter()
+    for k in range(ticks):
+        for s in slots:
+            eng.feed(s, bufs[k % len(bufs)][s])
+        eng.tick()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    step_counts = require_launches(f"widths {path} step", path, "step")
+    cuda_build.reset_counts()
+    eng.flush(np.ones(S, bool))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    flush_counts = require_launches(f"widths {path} flush", path, "flush")
+    st = eng.state
+    for name, t in (("h", st["h"]), ("c", st["c"]), ("dout", st["decode"]["dout"])):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"widths {path}: non-finite {name}")
+    if n_cb[0] == 0:
+        raise AssertionError(f"widths {path}: no callbacks")
+    dims = rt.dims
+    print(f"widths {path}: d={dims.d_model} H={dims.hidden} F={dims.ffn} L={dims.layers} S={S}: "
+          f"{ticks} ticks in {t1 - t0:.2f} s, flush {t2 - t1:.2f} s, {n_cb[0]} callbacks, "
+          f"step_launches={json.dumps(step_counts)} flush_launches={json.dumps(flush_counts)} "
+          f"({card})")
+    return _merge(step_counts, flush_counts)
+
+
+def check_wide_int8(rt, S: int, P: int, seed: int) -> dict:
+    """The int8 routes at a model's widths (layer 0): kernel 2's call (kernel
+    14 where kernel 2 has no plan), kernel 7's call (the three-pass step,
+    ungated and gated) and kernel 3 (its row tile by width) against their
+    plain versions, to `_ulp_close`. Returns the JSON checks of the three
+    routed calls."""
+    from april_asr_tpu_torch.ops import lstm_kernels as LK
+    from april_asr_tpu_torch.ops import lstm_mma as LM
+
+    w, dims = rt.weights, rt.dims
+    d, H, Fn = dims.d_model, dims.hidden, dims.ffn
+    routes = LM.int8_routes(S, P, d, H, Fn, LM.device_sm(torch.device(DEV)))
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa: E731
+    x = t(rng.normal(size=(P, S, d)).astype(np.float32))
+    h0 = t((rng.normal(size=(S, d)) * 0.3).astype(np.float32))
+    c0 = t((rng.normal(size=(S, H)) * 0.3).astype(np.float32))
+    n_pulls = t(rng.integers(0, P + 1, size=S).astype(np.int32))
+    sa = tuple(w[k][0] for k in LK.LAYER_I8_KEYS)
+    got = LK.lstm_layer_chunk_rec_stream2_i8(x, h0, c0, *sa[:7], n_pulls)
+    want = LK.lstm_rec_plain(x, h0, c0, n_pulls, *sa[:7])
+    torch.cuda.synchronize()
+    err14 = max(_ulp_close(g, wv, f"wide kernel 2's route {k}")
+                for g, wv, k in zip(got, want, ("hseq", "h", "c")))
+    b = bound_ms(2 * P * S * d * 4 + 2 * S * (d + H) * 4 + 2 * d * 4 * H + H * d + (8 * H + d) * 4,
+                 {"int8": 2 * P * S * (2 * d * 4 * H + H * d)})
+    out = {"lstm_rec_stream_i8_wide": (
+        lambda: LK.lstm_layer_chunk_rec_stream2_i8(x, h0, c0, *sa[:7], n_pulls),
+        lambda: LK.lstm_rec_plain(x, h0, c0, n_pulls, *sa[:7]), err14, b,
+        f"x[{P},{S},{d}] H={H} (kernel 2's route)")}
+    xs, gate = x[0], t(rng.random(S) < 0.5)
+    err = 0.0
+    for g in (None, gate):
+        got = LK.lstm_layer_fused_i8(xs, h0, c0, *sa, g)
+        want = LK.lstm_layer_fused_i8_plain(xs, h0, c0, *sa, g)
+        torch.cuda.synchronize()
+        err = max([err] + [_ulp_close(gv, wv, f"wide kernel 7's route {k}")
+                           for gv, wv, k in zip(got, want, ("y", "h", "c"))])
+    b = bound_ms(4 * S * (4 * d + 2 * H) + 2 * d * 4 * H + H * d + 2 * d * Fn
+                 + (2 * 4 * H + 2 * d + Fn) * 4 + (4 * H + Fn + d) * w["bias"].element_size() + 4,
+                 {"int8": 2 * S * (2 * d * 4 * H + H * d + 2 * d * Fn)})
+    out["lstm_step_i8_simt"] = (lambda: LK.lstm_layer_fused_i8(xs, h0, c0, *sa),
+                                lambda: LK.lstm_layer_fused_i8_plain(xs, h0, c0, *sa), err, b,
+                                f"x[{S},{d}] H={H} ffn={Fn} (kernel 7's route)")
+    R = P * S
+    xr, hs = x.reshape(R, d), t(rng.normal(size=(R, d)).astype(np.float32))
+    fa = sa[7:]
+    got = LK.ffn_norm_i8(xr, hs, *fa)
+    torch.cuda.synchronize()
+    err3 = _ulp_close(got, LK.ffn_norm_plain(xr, hs, *fa), "wide kernel 3")
+    b = bound_ms(3 * R * d * 4 + 2 * d * Fn + (2 * Fn + 2 * d) * 4, {"int8": 2 * R * d * Fn * 2})
+    out["ffn_norm_i8" if routes.ffn_rows == 16 else f"ffn_norm_i8_r{routes.ffn_rows}"] = (
+        lambda: LK.ffn_norm_i8(xr, hs, *fa), lambda: LK.ffn_norm_plain(xr, hs, *fa), err3, b,
+        f"rows[{R},{d}] ffn={Fn} ({routes.ffn_rows}-row tiles)")
+    print(f"widths wide int8 routes at S={S}, P={P}: {routes}; kernel 14 max_abs_err {err14:.3g}, "
+          f"the three-pass step {err:.3g}, kernel 3 {err3:.3g}")
+    return out
+
+
+def phase_widths(tmp: str, card, reps: int = 10):
+    """Models the port once refused. A 2-layer int8 model at d 1024 / H
+    4096 / F 8192, wider than kernels 2 and 7 hold: its routed kernels
+    against their plain versions at S=256, the flagship engine's batch
+    (`check_wide_int8`, timed), then BatchEngine S=256 for 3 ticks and a
+    flush on those routes (`serve_once`).
+    A 2-layer float model at d 68 / H 260 / F 196: the CUDA engine against
+    the CPU engine at f32 (`_lockstep`), then `serve_once` at f32 and bf16.
+    A model at d 66 is refused when its engine is built. Returns (JSON rows,
+    {path: launch counts})."""
+    from april_asr_tpu_torch.api import Model
+    from april_asr_tpu_torch.engine.batch import BatchEngine
+    from april_asr_tpu_torch.models.lstm_transducer import TransducerDims
+
+    t0 = time.perf_counter()
+    counts = {}
+    wide_dir = os.path.join(tmp, "wide")
+    os.makedirs(wide_dir)
+    wide = Model(flagship_april(wide_dir, seed=9, dims=TransducerDims(**WIDE)), precision="int8",
+                 device=DEV)
+    print(f"widths: wide int8 model written and loaded in {time.perf_counter() - t0:.1f} s")
+    rows = time_rows(check_wide_int8(wide.runtime, S_FLAG, 27, seed=15), card, reps)
+    counts["wide int8"] = serve_once(wide, "wide int8", S_FLAG, 3, card)
+    del wide
+    narrow = TransducerDims(**NARROW)
+    narrow_dir = os.path.join(tmp, "narrow68")
+    os.makedirs(narrow_dir)
+    path = flagship_april(narrow_dir, seed=10, dims=narrow)
+    _lockstep(Model(path, device=DEV).runtime, Model(path, device="cpu").runtime, S=8,
+              chunk=CHUNK_1S, ticks=2, seed=16, what="widths narrow f32 lockstep", card=card)
+    for prec in ("f32", "bf16"):
+        model = Model(path, precision=None if prec == "f32" else prec, device=DEV)
+        counts[f"narrow {prec}"] = serve_once(model, f"narrow {prec}", 8, 2, card)
+    odd_dir = os.path.join(tmp, "narrow66")
+    os.makedirs(odd_dir)
+    odd = Model(flagship_april(odd_dir, seed=11, dims=dataclasses.replace(
+        narrow, d_model=66, decoder_groups=2)), device=DEV)
+    try:
+        BatchEngine(odd.runtime, batch=8)
+    except ValueError as e:
+        if "d_model=66" not in str(e):
+            raise
+        print(f"widths: d=66 refused when its engine is built: {e}")
+    else:
+        raise AssertionError("widths: an engine at d=66 was built")
+    print(f"widths: {time.perf_counter() - t0:.1f} s")
+    return rows, counts
 
 
 def check_chunk_kernels(params, S: int, P: int, seed: int, Lk: int = 6) -> dict:
@@ -1625,7 +1891,7 @@ def main(argv=None) -> int:
         # its step and flush together
         for half in ("step", "flush"):
             for k in PATH_KERNELS[path][half]:
-                launches.setdefault(k, counts[k])
+                launches.setdefault(PATH_ROW.get(path, {}).get(k, k), counts[k])
 
     t_start = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1650,8 +1916,8 @@ def main(argv=None) -> int:
         if "kernels" in phases:
             kernels = phase_kernels(models, card)
         if "reference" in phases:
-            phase_reference(card, "int8")
-            phase_reference(card, "f32")
+            for prec in ("int8", "bf16", "f32"):
+                phase_reference(card, prec)
         if "engine" in phases:
             for prec in ("int8", "bf16", "f32"):
                 record(phase_engine(models[prec], card, prec, ab=prec != "f32"), prec)
@@ -1668,6 +1934,11 @@ def main(argv=None) -> int:
             counts = phase_vocab(models, vocab_path, narrow_path, card)
             record(counts, "vocab f32")
             record(counts, "vocab bf16")
+        if "widths" in phases:
+            rows, counts = phase_widths(tmp, card)
+            kernels += rows
+            for p, c in counts.items():
+                record(c, p)
         if "chunk" in phases:
             kernels += phase_chunk(card)
         if "matmul" in phases:

@@ -35,6 +35,8 @@ from april_asr_tpu_torch.models.convert import from_jax_params
 from april_asr_tpu_torch.ops import lstm_kernels as LK
 from april_asr_tpu_torch.ops import lstm_mma as LM
 from april_asr_tpu_torch.ops.activations import sigmoid
+from test_torch_port_lstm_mma_float import _one_thread  # noqa: F401 (the module's fixture)
+
 
 # (S, d, H, F): the flagship step and chunk (S = 256, the chunk tools' 2048,
 # chip_smoke's ragged 3), the reference model, tiny and odd widths

@@ -8,8 +8,10 @@ version (f32 atol/rtol 1e-4, bf16 5e-2 / 1e-3). Here, on the CPU:
 * the plan covers every gate column, projection and FFN output (row,
   column) exactly once at f32 and bf16 weights, with a unit's four gates
   in one item, maps every tile onto the block's 256 threads, and keeps its
-  shared memory within the H100's, as the C side computes it; it refuses
-  widths that are not multiples of 8 and shared memory where nothing fits;
+  shared memory within the H100's, as the C side computes it; it plans
+  widths that are multiples of 4 (not of 8: bf16 weight rows then take
+  8-byte copies) and refuses other widths and shared memory where nothing
+  fits;
 * a torch emulation of the kernel's phases, item by item (each item's
   depth split into the plan's chunk and group order, the groups' partial
   tiles summed in group order), matches `lstm_layer_fused_plain` gated and
@@ -40,6 +42,17 @@ from april_asr_tpu_torch.ops.lstm_kernels import _gate_blend
 SHAPES = [(256, 512, 1024, 2048), (3, 512, 1024, 2048), (2048, 512, 1024, 2048),
           (8, 128, 128, 256), (8, 128, 128, 128), (37, 64, 40, 24), (130, 96, 200, 160)]
 WBYTES = [4, 2]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The emulations run thousands of small products: one torch thread
+    each, so that test processes sharing the cores do not stall them (under
+    load, many threads made these tests ~60x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cover(split, n: int, S: int, nb: int):
@@ -110,8 +123,8 @@ def test_float_plan_flagship_bytes():
 
 @pytest.mark.parametrize("args, why", [
     ((256, 512, 1024, 2048, 4, 132, 60_000), "shared memory"),  # no stage fits
-    ((256, 68, 1024, 2048, 4, 132, LM.SMEM_LIMIT), "multiples of 8"),
-    ((256, 512, 1020, 2048, 2, 132, LM.SMEM_LIMIT), "multiples of 8"),
+    ((256, 66, 1024, 2048, 4, 132, LM.SMEM_LIMIT), "multiples of 4"),
+    ((256, 512, 1022, 2048, 2, 132, LM.SMEM_LIMIT), "multiples of 4"),
     ((0, 512, 1024, 2048, 2, 132, LM.SMEM_LIMIT), "positive"),
     ((256, 512, 1024, 2048, 1, 132, LM.SMEM_LIMIT), "f32 or bf16"),
 ])
@@ -119,6 +132,17 @@ def test_float_plan_raises_where_nothing_fits(args, why):
     S, d, H, F, wb, n_sm, limit = args
     with pytest.raises(ValueError, match=why):
         LM.float_step_plan(S, d, H, F, wb, n_sm=n_sm, smem_limit=limit)
+
+
+@pytest.mark.parametrize("wbytes", WBYTES)
+@pytest.mark.parametrize("S, d, H, F", [(256, 68, 1024, 2048), (256, 512, 1020, 2048),
+                                        (37, 68, 260, 196)])
+def test_float_plan_takes_multiples_of_4(S, d, H, F, wbytes):
+    """Widths that are multiples of 4 but not of 8 plan, each output once."""
+    plan = LM.float_step_plan(S, d, H, F, wbytes)
+    assert plan.smem <= LM.SMEM_LIMIT and plan.gate.ncg == -(-H // plan.ub)
+    for split, n in ((plan.proj, d), (plan.ff1, F), (plan.ff2, d)):
+        _cover(split, n, S, plan.nb)
 
 
 # -- the phases, item by item ----------------------------------------------
@@ -203,7 +227,7 @@ def _state(seed, S, d, H):
 
 TOL = {4: dict(atol=1e-5, rtol=1e-5), 2: dict(atol=5e-2, rtol=1e-3)}
 STEP_CASES = [(3, 64, 64, 128, 132), (37, 64, 40, 24, 132), (20, 128, 128, 256, 8),
-              (130, 96, 200, 160, 16)]
+              (130, 96, 200, 160, 16), (19, 68, 36, 44, 16)]
 
 
 @pytest.mark.parametrize("gated", [False, True])

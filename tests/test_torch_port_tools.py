@@ -2,7 +2,8 @@
 matrix-unit bodies) and 22 (profile_chunk_split's tile-interleaved int8
 recurrent core), the ported tools end to end, and the repairs of the
 port's API (Model/load_model argument order, init/version, the debug-audio
-hook).
+hook), and the engine-parting count that `tools/parent_ab.py` and
+`tools/parting_witness.py` share (`testing.check_parting`).
 
 The JAX side runs the tools' own Pallas kernels in interpret mode
 (`pltpu.force_tpu_interpret_mode()`), each body wrapped in
@@ -248,3 +249,38 @@ def test_debug_save_audio_matches_jax(tiny_model, tmp_path, monkeypatch):
     data = files["port"].read_bytes()
     assert data == files["jax"].read_bytes()
     np.testing.assert_array_equal(np.frombuffer(data, np.float32), pcm.astype(np.float32) / 32768.0)
+
+
+def _run(tok, cells, S=3, n=4):
+    """A one-call engine run for `testing.check_parting`: token events
+    `tok` [S, n], decision margins `cells` [n, S]."""
+    from april_asr_tpu_torch.testing import INT_DECODE
+
+    ev = {"ops": np.zeros((S, 1, n), np.int32), "tok": np.asarray(tok, np.int32).reshape(S, 1, n),
+          "flags": np.zeros((S, 1, n), np.int32), "final_k": np.zeros((S, 1, n), np.int32)}
+    return {"events": [ev], "cells": [np.asarray(cells, np.float64)], "recs": [[[] for _ in range(S)]],
+            "dec": [{k: np.zeros(S, np.int64) for k in INT_DECODE}]}
+
+
+def test_parting_counts_every_session():
+    """`check_parting` raises at a parting decided by NEAR_TIE or more;
+    with `over` it lists that session and goes on counting, and the
+    parting witness reports both and the largest margin gap of the
+    sessions that stayed in step."""
+    from april_asr_tpu_torch.testing import NEAR_TIE, check_parting
+    from april_asr_tpu_torch.tools.parting_witness import partings, same_events
+
+    cells = [[0.5, 0.2, 0.3], [0.01, 2 * NEAR_TIE, 0.4], [1.0, 1.0, np.inf], [1.0, 1.0, 1.0]]
+    a = _run([[1, 2, 3, 4], [1, 2, 3, 4], [1, 2, 3, 4]], cells)
+    b = _run([[1, 9, 3, 4], [1, 9, 3, 4], [1, 2, 3, 4]],
+             [[0.5, 0.25, 0.2], [0.01, 0.1, 0.45], [1.0, 1.0, np.inf], [1.0, 1.0, 1.0]])
+    args = (0, a["events"][0], b["events"][0], a["cells"][0], a["recs"][0], b["recs"][0],
+            a["dec"][0], b["dec"][0])
+    with pytest.raises(AssertionError, match="session 1 parted at step 0, event cell 1"):
+        check_parting(*args, {})
+    parted, over = {}, []
+    check_parting(*args, parted, over)
+    assert parted == {0: (0, 1, 0.01), 1: (0, 1, 2 * NEAR_TIE)} and over == [1]
+    parted, over, gap = partings(a, b)
+    assert sorted(parted) == [0, 1] and over == [1] and gap == pytest.approx(0.1)
+    assert same_events(a, b, 2) and not same_events(a, b, 0)
