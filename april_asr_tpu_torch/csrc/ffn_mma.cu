@@ -1,0 +1,345 @@
+// Kernel 3: the int8 residual FFN + BasicNorm of the chunk layer over its
+// R = P * S rows, as tiled int8 tensor-core passes.
+//
+// Replaces april_asr_tpu/ops/lstm_pallas.py `ffn_norm_i8`
+// (`_ffn_norm_kernel_i8`): y = x + hseq, _rowq8(y), the int8 ff1 product
+// dequantized as acc * (ys * s1) + b1, DoubleSwish mid * sigmoid(mid - 1),
+// _rowq8(mid), the int8 ff2 product + b2, the residual, then BasicNorm
+// yn * rsqrt(mean(yn^2) + eps).
+//
+// Bound on the H100: at the flagship (R = 6,912, d 512, F 2048) the two
+// products are 2 * 2 * R * d * F = 29 G int8 operations (14.7 us at the
+// int8 peak), and the function must move x, hseq and y (42 MB, 12.7 us at
+// 3.35 TB/s). The design adds the scratch it streams: mid in f32, written
+// and read back once (113 MB), the int8 rows (~35 MB), x and hseq read again
+// and y read and written again by the norm: ~250 MB, 75 us of bytes
+// (chip_smoke.py `ffn_bounds`). The products, at kernel 23's rate, take
+// longer still: they bind.
+//
+// Design. _rowq8(mid) needs a whole row of F columns before ff2 can start,
+// so the layer is five ordinary launches in stream order; no block keeps
+// state from one to the next:
+//   0 yq    one warp a row: y = x + hseq and _rowq8 into yq [rp][dp] int8
+//           (zero past d) and ys [rp]; zeroes the row's mid amax slot
+//   1 ff1   128 x 128 output tiles of yq x ff1 on `mma.sync` m16n8k32 s8 ->
+//           s32, kernel 23's tile loop (csrc/int8_mm.cu: 8 warps of 64 x 32,
+//           64-byte depth tiles in two shared stages, the next tile loaded
+//           into registers while the warps multiply the current one, B
+//           transposed in 4 x 4 byte blocks as it is staged), with ragged
+//           edges: B rows past the depth and columns past the width load as
+//           zero, so the padded depth adds nothing to an integer dot.
+//           Epilogue: dequantize, bias, DoubleSwish into mid [R][F] f32;
+//           each row's |mid| folded into its amax slot by atomicMax on the
+//           float's bits (exact and order-free), first across the block's
+//           warps in shared memory, then once a block and row in memory
+//   2 mq    one warp a row: mq = rint(mid * rcp(s)), s from the row's slot
+//   3 ff2   the same tiles over mq x ff2; epilogue: y + (acc * (ms * s2) +
+//           b2), y recomputed from x and hseq, into out
+//   4 norm  one warp a row: BasicNorm of out in place, the mean over dn
+//           columns (d, or the model's d_model where d is zero-padded)
+// The tiles are planned in Python by ops/lstm_mma.py `ffn_plan` (the grid
+// of each product and the scratch layout); the C entry computes the same
+// grids. Rows past R in the padded scratch are never initialised; their
+// products are never stored.
+//
+// Numerics: bit for bit csrc/ffn_norm.cuh `ffn_norm_tile` (the CUDA-core
+// kernel 3 this replaces, kept as `ffn_norm_i8_simt` in csrc/lstm_i8.cu):
+// exact int32 dots, _rowq8 as warp_rowq8 computes it, every f32 step
+// outside the dots rounded separately (__fmul_rn/__fadd_rn) in its op order,
+// sig_tanh's tanhf and rsqrtf (no fast-math), the norm's sum of squares in
+// basic_norm_rows' lane order.
+
+#include "common.cuh"
+#include "mma_tc.cuh"
+
+#define FM_BM 128                         // rows of an output tile
+#define FM_BN 128                         // columns of an output tile
+#define FM_NT 256                         // 8 warps: 2 (rows) x 4 (columns), 64 x 32 each
+#define FM_KT 64                          // bytes of depth a stage
+#define FM_LD (FM_KT + 16)                // padded shared row (bytes): A [m][k], B as [n][k]
+#define FM_A_BYTES (FM_BM * FM_LD)
+#define FM_STAGE (FM_A_BYTES + FM_BN * FM_LD)
+#define FM_ROWS_A_BLOCK (FM_NT / 32)      // rows of a one-warp-a-row pass per block
+#define FM_PHASES 5
+
+struct FfnArgs {
+  const float *x, *hs;
+  const int8_t *ff1, *ff2;
+  const float *ff1s, *ff2s, *eps;
+  const void *f1b, *f2b;
+  float* out;
+  int8_t *yq, *mq;  // [rp][dp], [rp][fp]
+  float *ys, *mid, *ms;
+  unsigned* amax;
+  int R, d, F, dp, fp, f1b_bf16, f2b_bf16, dn;
+};
+
+__device__ __forceinline__ float4 add4(const float4 a, const float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+
+__device__ __forceinline__ float amax4(float m, const float4 v) {
+  return fmaxf(fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y))), fmaxf(fabsf(v.z), fabsf(v.w)));
+}
+
+// warp_rowq8's codes of four values
+__device__ __forceinline__ char4 q8x4(const float4 v, float inv) {
+  return make_char4((signed char)__float2int_rn(__fmul_rn(v.x, inv)),
+                    (signed char)__float2int_rn(__fmul_rn(v.y, inv)),
+                    (signed char)__float2int_rn(__fmul_rn(v.z, inv)),
+                    (signed char)__float2int_rn(__fmul_rn(v.w, inv)));
+}
+
+// Phase 0: _rowq8 of y = x + hseq, one warp a row
+__global__ void __launch_bounds__(FM_NT) ffn_yq_kernel(FfnArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * FM_ROWS_A_BLOCK + (threadIdx.x >> 5);
+  if (row >= a.R) return;
+  const float4* x4 = reinterpret_cast<const float4*>(a.x + (size_t)row * a.d);
+  const float4* h4 = reinterpret_cast<const float4*>(a.hs + (size_t)row * a.d);
+  const int n4 = a.d >> 2;
+  float amax = 0.f;
+  for (int k = lane; k < n4; k += 32) amax = amax4(amax, add4(x4[k], h4[k]));
+  amax = warp_max(amax);
+  const float s = __fmul_rn(fmaxf(amax, ROWQ_FLOOR), INV127);
+  const float inv = __frcp_rn(s);
+  char4* q4 = reinterpret_cast<char4*>(a.yq + (size_t)row * a.dp);
+  for (int k = lane; k < (a.dp >> 2); k += 32)
+    q4[k] = k < n4 ? q8x4(add4(x4[k], h4[k]), inv) : make_char4(0, 0, 0, 0);
+  if (lane == 0) {
+    a.ys[row] = s;
+    a.amax[row] = 0u;
+  }
+}
+
+// Phase 2: _rowq8 of mid with the row's folded amax, one warp a row
+__global__ void __launch_bounds__(FM_NT) ffn_mq_kernel(FfnArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * FM_ROWS_A_BLOCK + (threadIdx.x >> 5);
+  if (row >= a.R) return;
+  const float s = __fmul_rn(fmaxf(__uint_as_float(a.amax[row]), ROWQ_FLOOR), INV127);
+  const float inv = __frcp_rn(s);
+  const float4* m4 = reinterpret_cast<const float4*>(a.mid + (size_t)row * a.F);
+  char4* q4 = reinterpret_cast<char4*>(a.mq + (size_t)row * a.fp);
+  const int n4 = a.F >> 2;
+  for (int k = lane; k < (a.fp >> 2); k += 32)
+    q4[k] = k < n4 ? q8x4(m4[k], inv) : make_char4(0, 0, 0, 0);
+  if (lane == 0) a.ms[row] = s;
+}
+
+// Phase 4: BasicNorm of out's rows in place (csrc/ffn_norm.cuh
+// basic_norm_rows' order: lane j adds k = j, j + 32, ..., then warp_sum)
+__global__ void __launch_bounds__(FM_NT) ffn_norm_rows_kernel(FfnArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * FM_ROWS_A_BLOCK + (threadIdx.x >> 5);
+  if (row >= a.R) return;
+  float* y = a.out + (size_t)row * a.d;
+  float ss = 0.f;
+  for (int k = lane; k < a.d; k += 32) ss = __fadd_rn(ss, __fmul_rn(y[k], y[k]));
+  ss = warp_sum(ss);
+  const float rs = rsqrtf(__fadd_rn(__fdiv_rn(ss, (float)a.dn), a.eps[0]));
+  for (int k = lane; k < a.d; k += 32) y[k] = __fmul_rn(y[k], rs);
+}
+
+// The next depth tile of A (int8 scratch rows, always in bounds) and B (the
+// weights [K][N], zero past K and N), held in registers between load and
+// store
+struct FmStaged {
+  uint4 a[2];
+  uint32_t b[2][4];
+};
+
+__device__ __forceinline__ void fm_load(FmStaged& st, const int8_t* __restrict__ A, int lda,
+                                        const int8_t* __restrict__ W, int K, int N, int m0, int n0,
+                                        int k0) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int c = tid + j * FM_NT, row = c >> 2, p = c & 3;
+    st.a[j] = *reinterpret_cast<const uint4*>(A + (size_t)(m0 + row) * lda + k0 + p * 16);
+  }
+  // B [64][128] in 4 x 4 blocks: a warp covers 4 k-groups x 8 n-groups
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int wb = j * 8 + warp, kg = (wb >> 2) * 4 + (lane >> 3), ng = (wb & 3) * 8 + (lane & 7);
+    const int k = k0 + kg * 4, n = n0 + ng * 4;
+    const bool ok = k < K && n < N;  // K and N are multiples of 4
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      st.b[j][r] = ok ? __ldg(reinterpret_cast<const unsigned*>(W + (size_t)(k + r) * N + n)) : 0u;
+  }
+}
+
+__device__ __forceinline__ void fm_store(FmStaged& st, uint8_t* stage) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  uint8_t* sa = stage;
+  uint8_t* sb = stage + FM_A_BYTES;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int c = tid + j * FM_NT, row = c >> 2, p = c & 3;
+    *reinterpret_cast<uint4*>(sa + row * FM_LD + p * 16) = st.a[j];
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int wb = j * 8 + warp, kg = (wb >> 2) * 4 + (lane >> 3), ng = (wb & 3) * 8 + (lane & 7);
+    transpose4x4_s8(st.b[j]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      *reinterpret_cast<uint32_t*>(sb + (ng * 4 + c) * FM_LD + kg * 4) = st.b[j][c];
+  }
+}
+
+// The warp's 64 x 32 share of one staged tile: two k-steps of 32 bytes
+__device__ __forceinline__ void fm_mma(int (&acc)[4][4][4], const uint8_t* stage, int wm, int wn) {
+  const int lane = threadIdx.x & 31;
+  const uint8_t* sa = stage;
+  const uint8_t* sb = stage + FM_A_BYTES;
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    uint32_t af[4][4], bf[4][2];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+      ldmatrix_x4(af[mi],
+                  sa + (wm * 64 + mi * 16 + (lane & 15)) * FM_LD + ks * 32 + (lane >> 4) * 16);
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj) {
+      uint32_t r[4];
+      const int n = wn * 32 + nj * 16 + (lane & 7) + (lane >> 4) * 8;
+      ldmatrix_x4(r, sb + n * FM_LD + ks * 32 + ((lane >> 3) & 1) * 16);
+      bf[2 * nj][0] = r[0];
+      bf[2 * nj][1] = r[1];
+      bf[2 * nj + 1][0] = r[2];
+      bf[2 * nj + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma_s8_16832(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
+  }
+}
+
+// Phases 1 (FF1) and 3: one 128 x 128 output tile a block, (column tile,
+// row tile) = (blockIdx.x, blockIdx.y)
+template <bool FF1>
+__global__ void __launch_bounds__(FM_NT) ffn_mm_kernel(FfnArgs a) {
+  __shared__ __align__(16) uint8_t smem[2][FM_STAGE];
+  __shared__ unsigned rmax[FM_BM];  // ff1: the tile's |mid| amax of each row
+  const int8_t* A = FF1 ? a.yq : a.mq;
+  const int lda = FF1 ? a.dp : a.fp;
+  const int8_t* W = FF1 ? a.ff1 : a.ff2;
+  const int K = FF1 ? a.d : a.F, N = FF1 ? a.F : a.d;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int m0 = blockIdx.y * FM_BM, n0 = blockIdx.x * FM_BN;
+  if (FF1 && tid < FM_BM) rmax[tid] = 0u;  // published by the loop's barriers
+
+  int acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0;
+
+  const int KT = lda / FM_KT;
+  FmStaged st;
+  fm_load(st, A, lda, W, K, N, m0, n0, 0);
+  fm_store(st, smem[0]);
+  __syncthreads();
+  for (int kt = 0; kt < KT; ++kt) {
+    if (kt + 1 < KT) fm_load(st, A, lda, W, K, N, m0, n0, (kt + 1) * FM_KT);
+    fm_mma(acc, smem[kt & 1], wm, wn);
+    if (kt + 1 < KT) fm_store(st, smem[(kt + 1) & 1]);
+    __syncthreads();
+  }
+
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rl = wm * 64 + mi * 16 + g + h * 8, row = m0 + rl;
+      const bool live = row < a.R;
+      if (FF1) {
+        float mx = 0.f;
+        if (live) {
+          const float ys = a.ys[row];
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            const int col = n0 + wn * 32 + ni * 8 + q * 2;
+            if (col >= N) continue;
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float m = __fadd_rn(
+                  __fmul_rn((float)acc[mi][ni][2 * h + e], __fmul_rn(ys, a.ff1s[col + e])),
+                  load_vec(a.f1b, col + e, a.f1b_bf16));
+              v[e] = __fmul_rn(m, sig_tanh(__fsub_rn(m, 1.f)));
+              mx = fmaxf(mx, fabsf(v[e]));
+            }
+            *reinterpret_cast<float2*>(a.mid + (size_t)row * N + col) = make_float2(v[0], v[1]);
+          }
+        }
+        // the quad of lanes that share the row, then the block's warps
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        if (q == 0 && live) atomicMax(rmax + rl, __float_as_uint(mx));
+      } else if (live) {
+        const float ms = a.ms[row];
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int col = n0 + wn * 32 + ni * 8 + q * 2;
+          if (col >= N) continue;
+          const size_t o = (size_t)row * N + col;
+          const float2 xv = *reinterpret_cast<const float2*>(a.x + o);
+          const float2 hv = *reinterpret_cast<const float2*>(a.hs + o);
+          const float y[2] = {__fadd_rn(xv.x, hv.x), __fadd_rn(xv.y, hv.y)};
+          float r[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float ff = __fadd_rn(
+                __fmul_rn((float)acc[mi][ni][2 * h + e], __fmul_rn(ms, a.ff2s[col + e])),
+                load_vec(a.f2b, col + e, a.f2b_bf16));
+            r[e] = __fadd_rn(y[e], ff);
+          }
+          *reinterpret_cast<float2*>(a.out + o) = make_float2(r[0], r[1]);
+        }
+      }
+    }
+  if (FF1) {
+    __syncthreads();
+    if (tid < FM_BM && m0 + tid < a.R) atomicMax(a.amax + m0 + tid, rmax[tid]);
+  }
+}
+
+// Kernel 3: the five launches above in stream order (yq, ff1, mq, ff2,
+// norm), on the caller's stream. Scratch (ops/lstm_mma.py `FfnPlan.scratch`):
+// yq [rp][dp] and mq [rp][fp] int8, ys, amax and ms [rp], mid [R][F] f32,
+// rp = R rounded up to 128 rows, dp and fp = d and F rounded up to 64.
+extern "C" int ffn_norm_mma(const float* x, const float* hs, const int8_t* ff1, const float* ff1s,
+                            const void* f1b, const int8_t* ff2, const float* ff2s, const void* f2b,
+                            const float* eps, float* out, int8_t* yq, float* ys, float* mid,
+                            unsigned* amax, int8_t* mq, float* ms, int R, int d, int F, int dp,
+                            int fp, int f1b_bf16, int f2b_bf16, int dn, void* stream) {
+  if (R < 1 || d < 4 || F < 4 || d % 4 || F % 4 || dp % FM_KT || fp % FM_KT || dp < d || fp < F ||
+      dn < 1 || dn > d)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const FfnArgs a{x, hs, ff1, ff2, ff1s, ff2s, eps, f1b, f2b, out, yq, mq, ys, mid, ms, amax,
+                  R, d, F, dp, fp, f1b_bf16, f2b_bf16, dn};
+  const int rows = (R + FM_ROWS_A_BLOCK - 1) / FM_ROWS_A_BLOCK;
+  const int mt = (R + FM_BM - 1) / FM_BM;
+  for (int p = 0; p < FM_PHASES; ++p) {
+    switch (p) {
+      case 0: ffn_yq_kernel<<<rows, FM_NT, 0, st>>>(a); break;
+      case 1: ffn_mm_kernel<true><<<dim3((F + FM_BN - 1) / FM_BN, mt), FM_NT, 0, st>>>(a); break;
+      case 2: ffn_mq_kernel<<<rows, FM_NT, 0, st>>>(a); break;
+      case 3: ffn_mm_kernel<false><<<dim3((d + FM_BN - 1) / FM_BN, mt), FM_NT, 0, st>>>(a); break;
+      default: ffn_norm_rows_kernel<<<rows, FM_NT, 0, st>>>(a); break;
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}

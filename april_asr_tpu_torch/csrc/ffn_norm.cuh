@@ -8,8 +8,10 @@
 //
 // ffn_norm_kernel<RT, RG>: int8 weights with f32 column scales; _rowq8 of y
 // and of mid, exact int32 dots dequantized as acc * (s_row * s_col).
-// Used by kernel 3 (csrc/lstm_i8.cu, RT = 16, or 8 and 4 where 16 rows do
-// not fit) and the three-pass int8 step (csrc/lstm_step.cu, RT = 4); its
+// Used by the CUDA-core form of kernel 3 (csrc/lstm_i8.cu
+// `ffn_norm_i8_simt`, RT = 16, 8 or 4: the yardstick chip_smoke.py holds
+// the tensor-core kernel 3, csrc/ffn_mma.cu, to) and the three-pass int8
+// step (csrc/lstm_step.cu, RT = 4); its
 // body `ffn_norm_tile` also runs inside
 // kernels 11 and 15 (csrc/lstm_i8.cuh, RT = 2: one session tile).
 //
@@ -42,11 +44,14 @@ __device__ __forceinline__ void imad4(int (&a)[4], int v, const char4& w) {
   a[3] += v * w.w;
 }
 
-// BasicNorm of the RT rows of y (row stride d) into out, one warp per row.
+// BasicNorm of the RT rows of y (row stride d) into out, one warp per row;
+// the mean of the squares is over dn (the model's d_model: d less the zero
+// columns of a width padded to a multiple of 4,
+// models/lstm_transducer.py `padded_layers`).
 template <int RT>
 __device__ __forceinline__ void basic_norm_rows(const float* y, float* __restrict__ out,
                                                 const float* __restrict__ eps, int r0, int R,
-                                                int d) {
+                                                int d, int dn) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float e = eps[0];
   for (int r = warp; r < RT; r += FFN_NT / 32) {
@@ -55,7 +60,7 @@ __device__ __forceinline__ void basic_norm_rows(const float* y, float* __restric
     float ss = 0.f;
     for (int k = lane; k < d; k += 32) ss = __fadd_rn(ss, __fmul_rn(y[r * d + k], y[r * d + k]));
     ss = warp_sum(ss);
-    const float rs = rsqrtf(__fadd_rn(__fdiv_rn(ss, (float)d), e));
+    const float rs = rsqrtf(__fadd_rn(__fdiv_rn(ss, (float)dn), e));
     for (int k = lane; k < d; k += 32) out[(size_t)row * d + k] = __fmul_rn(y[r * d + k], rs);
   }
 }
@@ -76,7 +81,7 @@ __device__ __forceinline__ void ffn_norm_tile(
     float* y, float* mid, float* sc, int8_t* yq, int8_t* mq, const int8_t* __restrict__ ff1,
     const float* __restrict__ ff1s, const void* __restrict__ f1b, const int8_t* __restrict__ ff2,
     const float* __restrict__ ff2s, const void* __restrict__ f2b, const float* __restrict__ eps,
-    float* __restrict__ out, int r0, int R, int d, int F, int f1b_bf16, int f2b_bf16) {
+    float* __restrict__ out, int r0, int R, int d, int F, int f1b_bf16, int f2b_bf16, int dn) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nwarps = FFN_NT / 32;
   __syncthreads();
@@ -145,7 +150,7 @@ __device__ __forceinline__ void ffn_norm_tile(
       }
   }
   __syncthreads();
-  basic_norm_rows<RT>(y, out, eps, r0, R, d);
+  basic_norm_rows<RT>(y, out, eps, r0, R, d, dn);
 }
 
 template <int RT, int RG>
@@ -153,7 +158,7 @@ __global__ void __launch_bounds__(FFN_NT) ffn_norm_kernel(
     const float* __restrict__ x, const float* __restrict__ hs, const int8_t* __restrict__ ff1,
     const float* __restrict__ ff1s, const void* __restrict__ f1b, const int8_t* __restrict__ ff2,
     const float* __restrict__ ff2s, const void* __restrict__ f2b, const float* __restrict__ eps,
-    float* __restrict__ out, int R, int d, int F, int f1b_bf16, int f2b_bf16) {
+    float* __restrict__ out, int R, int d, int F, int f1b_bf16, int f2b_bf16, int dn) {
   extern __shared__ float4 smem_f4[];
   float* y = reinterpret_cast<float*>(smem_f4);  // [RT][d]
   float* mid = y + RT * d;                       // [RT][F]
@@ -168,7 +173,7 @@ __global__ void __launch_bounds__(FFN_NT) ffn_norm_kernel(
     y[i] = row < R ? __fadd_rn(x[gi], hs[gi]) : 0.f;
   }
   ffn_norm_tile<RT, RG>(y, mid, sc, yq, mq, ff1, ff1s, f1b, ff2, ff2s, f2b, eps, out, r0, R, d, F,
-                        f1b_bf16, f2b_bf16);
+                        f1b_bf16, f2b_bf16, dn);
 }
 
 template <int RT>
@@ -252,5 +257,5 @@ __global__ void __launch_bounds__(FFN_NT) float_ffn_kernel(
       }
   }
   __syncthreads();
-  basic_norm_rows<RT>(y, out, eps, r0, R, d);
+  basic_norm_rows<RT>(y, out, eps, r0, R, d, d);
 }

@@ -1,5 +1,6 @@
-// Kernels 13, 14 and 22: recurrent cores of the int8 chunk layer, and
-// kernel 3: its batched residual + FFN + BasicNorm. (Kernel 2, the engine's
+// Kernels 13, 14 and 22: recurrent cores of the int8 chunk layer, and the
+// CUDA-core form of kernel 3, its batched residual + FFN + BasicNorm (the
+// engine's kernel 3 is csrc/ffn_mma.cu). (Kernel 2, the engine's
 // core, computes the same function on the tensor cores: csrc/lstm_mma.cu;
 // where its stationary weights do not fit, the engine's calls take kernel
 // 14, ops/lstm_mma.py `rec_route`.)
@@ -42,7 +43,7 @@
 // consecutive hidden units (one coalesced char4 per gate row) so the cell
 // needs no exchange between threads.
 //
-// ffn_norm_i8 replaces `ffn_norm_i8` (`_ffn_norm_kernel_i8`) with
+// ffn_norm_i8_simt computes `ffn_norm_i8` (`_ffn_norm_kernel_i8`) with
 // ffn_norm_kernel<16, 8> (csrc/ffn_norm.cuh, shared with lstm_step_i8_simt):
 // over tiles of RT = 16 of the flattened P*S rows, y = x + hseq, _rowq8(y),
 // int8 ff1, DoubleSwish, _rowq8(mid), int8 ff2, residual, BasicNorm
@@ -61,8 +62,8 @@
 #define X_STAGED 1
 #define X_ASYNC 2
 #define X_STEP 3
-#define RT 16  // rows per block (ffn_norm_i8)
-#define RG 8   // rows per thread item (ffn_norm_i8)
+#define RT 16  // rows per block (ffn_norm_i8_simt)
+#define RG 8   // rows per thread item (ffn_norm_i8_simt)
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -276,18 +277,20 @@ static int launch_ffn_i8(const float* x, const float* hs, const int8_t* ff1, con
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<(R + RTI - 1) / RTI, FFN_NT, smem, stream>>>(x, hs, ff1, ff1s, f1b, ff2, ff2s, f2b, eps,
-                                                      out, R, d, F, f1b_bf16, f2b_bf16);
+                                                      out, R, d, F, f1b_bf16, f2b_bf16, d);
   return (int)cudaGetLastError();
 }
 
-// Kernel 3 on row tiles of `rows` = 16 (the engine's, RT), 8 or 4: a
-// smaller tile where the [16][F] one exceeds the shared memory
-// (ops/lstm_mma.py `ffn_rows`). A row's quantization, integer dots and
-// f32 steps do not depend on the tile, so every tile gives the same bits.
-extern "C" int ffn_norm_i8(const float* x, const float* hs, const int8_t* ff1, const float* ff1s,
-                           const void* f1b, const int8_t* ff2, const float* ff2s, const void* f2b,
-                           const float* eps, float* out, int R, int d, int F, int f1b_bf16,
-                           int f2b_bf16, int rows, void* stream) {
+// The CUDA-core kernel 3 that csrc/ffn_mma.cu replaced, on row tiles of
+// `rows` = 16 (RT), 8 or 4 (its routes for wide models), kept as
+// chip_smoke.py's yardstick: the new kernel equals it bit for bit. A row's
+// quantization, integer dots and f32 steps do not depend on the tile, so
+// every tile gives the same bits.
+extern "C" int ffn_norm_i8_simt(const float* x, const float* hs, const int8_t* ff1,
+                                const float* ff1s, const void* f1b, const int8_t* ff2,
+                                const float* ff2s, const void* f2b, const float* eps, float* out,
+                                int R, int d, int F, int f1b_bf16, int f2b_bf16, int rows,
+                                void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (rows == RT)
     return launch_ffn_i8<RT, RG>(x, hs, ff1, ff1s, f1b, ff2, ff2s, f2b, eps, out, R, d, F,

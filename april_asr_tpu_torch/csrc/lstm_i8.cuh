@@ -220,6 +220,6 @@ __device__ __forceinline__ void layer_step_i8(const LayerSmem& m, const LayerI8&
     if (t < np[r]) m.hsh[r * d + col] = hn;
   });
   ffn_norm_tile<TS, TS>(m.y, m.mid, m.fsc, m.yq, m.mq, w.ff1, w.ff1s, w.f1b, w.ff2, w.ff2s, w.f2b,
-                        w.eps, out, s0, S, d, F, w.f1b_bf16, w.f2b_bf16);
+                        w.eps, out, s0, S, d, F, w.f1b_bf16, w.f2b_bf16, d);
   __syncthreads();
 }

@@ -200,7 +200,7 @@ struct StepArgs {
   int8_t *xq, *hq, *hcq, *yq, *mq;  // [Sp][dp] x3 (x, h, y), [Sp][hp], [Sp][fp]
   float *hcf, *yf, *mf, *scl;       // [S][H], [S][d], [S][F]; [5][Sp]: x, h, hc, y, mid
   unsigned* amax;                   // [3][Sp]: hc, y, mid
-  int S, d, H, F, bias_bf16, f1b_bf16, f2b_bf16, Sp, dp, hp, fp;
+  int S, d, H, F, bias_bf16, f1b_bf16, f2b_bf16, Sp, dp, hp, fp, dn;  // dn: the norm's width
   GateSplit gs;
   ColSplit pj, f1;  // the projection and ff2 (d columns); ff1 (F columns)
   Stamps stamp;     // 18 a block: start, then each phase and each barrier's end
@@ -351,7 +351,8 @@ __global__ void __launch_bounds__(MMA_NT, 1) lstm_step_mma_kernel(const StepArgs
   a.stamp(15);
   grid.sync();
   a.stamp(16);
-  // BasicNorm, one warp a row, in basic_norm_rows' order (csrc/ffn_norm.cuh)
+  // BasicNorm, one warp a row, in basic_norm_rows' order (csrc/ffn_norm.cuh),
+  // the mean over dn columns (d, or d_model where d is zero-padded)
   const float e = a.eps[0];
   for (int row = b * (MMA_NT / 32) + warp; row < S; row += gridDim.x * (MMA_NT / 32)) {
     const float* yr = a.yf + (size_t)row * d;
@@ -361,7 +362,7 @@ __global__ void __launch_bounds__(MMA_NT, 1) lstm_step_mma_kernel(const StepArgs
       ss = __fadd_rn(ss, __fmul_rn(v, v));
     }
     ss = warp_sum(ss);
-    const float rs = rsqrtf(__fadd_rn(__fdiv_rn(ss, (float)d), e));
+    const float rs = rsqrtf(__fadd_rn(__fdiv_rn(ss, (float)a.dn), e));
     for (int k = lane; k < d; k += 32) a.y[(size_t)row * d + k] = __fmul_rn(__ldcg(yr + k), rs);
   }
   a.stamp(17);
@@ -417,10 +418,11 @@ extern "C" int lstm_step_i8(const float* x, const float* h, const float* c, cons
                             int S, int d, int H, int F, int bias_bf16, int f1b_bf16, int f2b_bf16,
                             int Sp, int dp, int hp, int fp, int ub, int nb, int g_rows, int g_ngu,
                             int g_items, int pj_ct, int pj_rows, int pj_ncg, int pj_items,
-                            int f1_ct, int f1_rows, int f1_ncg, int f1_items, void* stream) {
+                            int f1_ct, int f1_rows, int f1_ncg, int f1_items, int dn,
+                            void* stream) {
   const StepArgs a{x, h, c, gate, wih, whh, whr, ff1, ff2, wihs, whhs, whrs, ff1s, ff2s, eps,
                    bias, f1b, f2b, y, h2, c2, xq, hq, hcq, yq, mq, hcf, yf, mf, scl, amax,
-                   S, d, H, F, bias_bf16, f1b_bf16, f2b_bf16, Sp, dp, hp, fp,
+                   S, d, H, F, bias_bf16, f1b_bf16, f2b_bf16, Sp, dp, hp, fp, dn,
                    GateSplit{g_rows, g_ngu, g_items},
                    ColSplit{pj_ct, pj_rows, pj_ncg, pj_items},
                    ColSplit{f1_ct, f1_rows, f1_ncg, f1_items}, Stamps{stamps, 18}};

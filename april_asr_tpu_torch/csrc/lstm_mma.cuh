@@ -803,8 +803,9 @@ __device__ __forceinline__ float ff1_dswish(float v, const void* f1b, int col, i
 
 // BasicNorm of rows [0, R) of yf into y (which may be yf: each lane reads
 // its values before it writes them), one warp a row across the grid, in
-// basic_norm_rows' order (csrc/ffn_norm.cuh)
-__device__ __forceinline__ void float_norm(const float* yf, float* y, float e, int R, int d) {
+// basic_norm_rows' order (csrc/ffn_norm.cuh), the mean over dn columns
+__device__ __forceinline__ void float_norm(const float* yf, float* y, float e, int R, int d,
+                                           int dn) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int row = blockIdx.x * (MMA_NT / 32) + warp; row < R; row += gridDim.x * (MMA_NT / 32)) {
     const float* yr = yf + (size_t)row * d;
@@ -814,7 +815,7 @@ __device__ __forceinline__ void float_norm(const float* yf, float* y, float e, i
       ss = __fadd_rn(ss, __fmul_rn(v, v));
     }
     ss = warp_sum(ss);
-    const float rs = rsqrtf(__fadd_rn(__fdiv_rn(ss, (float)d), e));
+    const float rs = rsqrtf(__fadd_rn(__fdiv_rn(ss, (float)dn), e));
     for (int k = lane; k < d; k += 32) y[(size_t)row * d + k] = __fmul_rn(__ldcg(yr + k), rs);
   }
 }

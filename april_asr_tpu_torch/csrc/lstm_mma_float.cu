@@ -51,7 +51,7 @@ struct FStepArgs {
   const float* eps;
   float *y, *h2, *c2;
   float *hc, *yf, *mid;  // scratch [S][H], [S][d], [S][F]
-  int S, d, H, F, bias_bf16, f1b_bf16, f2b_bf16, ub, half8;
+  int S, d, H, F, bias_bf16, f1b_bf16, f2b_bf16, ub, half8, dn;  // dn: the norm's width
   TileSplit g, pj, f1, f2;  // gates (nc = 4 ub), projection, ff1, ff2
   Stamps stamp;             // 10 a block: start, each phase's end and each barrier's
 };
@@ -106,8 +106,9 @@ __global__ void __launch_bounds__(MMA_NT, 1) lstm_step_float_mma_kernel(const FS
   grid.sync();
   a.stamp(8);
 
-  // BasicNorm, one warp a row, in basic_norm_rows' order (csrc/ffn_norm.cuh)
-  float_norm(a.yf, a.y, a.eps[0], S, d);
+  // BasicNorm, one warp a row, in basic_norm_rows' order (csrc/ffn_norm.cuh),
+  // the mean over dn columns (d, or d_model where d is zero-padded)
+  float_norm(a.yf, a.y, a.eps[0], S, d, a.dn);
   a.stamp(9);
 }
 
@@ -126,14 +127,14 @@ extern "C" int lstm_step_float_mma(
     int bias_bf16, int f1b_bf16, int f2b_bf16, int ub, int nb, int g_nr, int g_nc, int g_ncg,
     int g_items, int g_ks, int g_ntw, int p_nr, int p_nc, int p_ncg, int p_items, int p_ks,
     int p_ntw, int f1_nr, int f1_nc, int f1_ncg, int f1_items, int f1_ks, int f1_ntw, int f2_nr,
-    int f2_nc, int f2_ncg, int f2_items, int f2_ks, int f2_ntw, void* stream) {
+    int f2_nc, int f2_ncg, int f2_items, int f2_ks, int f2_ntw, int dn, void* stream) {
   const TileSplit sps[4] = {{g_nr, g_nc, g_ncg, g_items, g_ks, g_ntw},
                             {p_nr, p_nc, p_ncg, p_items, p_ks, p_ntw},
                             {f1_nr, f1_nc, f1_ncg, f1_items, f1_ks, f1_ntw},
                             {f2_nr, f2_nc, f2_ncg, f2_items, f2_ks, f2_ntw}};
   const int half8 = w_bf16 && ((d | H | F) & 7);
   const FStepArgs a{x, h, c, gate, wih, whh, bias, whr, ff1, f1b, ff2, f2b, eps, y, h2, c2, hc,
-                    yf, mid, S, d, H, F, bias_bf16, f1b_bf16, f2b_bf16, ub, half8,
+                    yf, mid, S, d, H, F, bias_bf16, f1b_bf16, f2b_bf16, ub, half8, dn,
                     sps[0], sps[1], sps[2], sps[3], Stamps{stamps, 10}};
   const size_t smem = float_smem(sps, w_bf16 ? 2 : 4);
   if (w_bf16) return coop_launch(lstm_step_float_mma_kernel<uint16_t>, a, nb, smem, stream);

@@ -130,7 +130,8 @@ static cudaError_t gates_proj(const float* x, const float* h, const float* c, co
   return cudaGetLastError();
 }
 
-// gate: [S] f32 or null (ungated). Outputs y, h2 [S, d] and c2 [S, H].
+// gate: [S] f32 or null (ungated). Outputs y, h2 [S, d] and c2 [S, H]. dn:
+// the width of the BasicNorm's mean (d, or d_model where d is padded).
 extern "C" int lstm_step_i8_simt(const float* x, const float* h, const float* c,
                                  const float* gate, const int8_t* wih, const float* wihs,
                                  const int8_t* whh, const float* whhs, const void* bias,
@@ -138,7 +139,8 @@ extern "C" int lstm_step_i8_simt(const float* x, const float* h, const float* c,
                                  const float* ff1s, const void* f1b, const int8_t* ff2,
                                  const float* ff2s, const void* f2b, const float* eps, float* hc,
                                  float* hn, float* y, float* h2, float* c2, int S, int d, int H,
-                                 int F, int bias_bf16, int f1b_bf16, int f2b_bf16, void* stream) {
+                                 int F, int bias_bf16, int f1b_bf16, int f2b_bf16, int dn,
+                                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = gates_proj<I8Ops>(x, h, c, gate, wih, wihs, whh, whhs, bias, whr, whrs, hc, hn,
                                       h2, c2, S, d, H, bias_bf16, st);
@@ -148,7 +150,7 @@ extern "C" int lstm_step_i8_simt(const float* x, const float* h, const float* c,
   err = allow_smem(ffn, smem);
   if (err != cudaSuccess) return (int)err;
   ffn<<<(S + FRT - 1) / FRT, FFN_NT, smem, st>>>(x, hn, ff1, ff1s, f1b, ff2, ff2s, f2b, eps, y, S,
-                                                 d, F, f1b_bf16, f2b_bf16);
+                                                 d, F, f1b_bf16, f2b_bf16, dn);
   return (int)cudaGetLastError();
 }
 

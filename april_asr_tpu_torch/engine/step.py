@@ -6,7 +6,9 @@ One step advances every session by one audio chunk: the fbank accept
 window, one batched conv embed (kernel 16 from the front buffer at bf16 conv
 weights, i.e. int8 and bf16 engines; the stacked windows through
 `encoder_embed` at f32), the 12-layer chunk encoder over all P pulls
-(kernels 2 and 3 per layer at int8, kernel 10 per layer at f32 or bf16),
+(kernels 2 and 3 per layer at int8, kernel 10 per layer at f32 or bf16;
+at widths zero-padded to multiples of 4 where a model's are not,
+models/lstm_transducer.py `padded_layers`),
 then the greedy decode: the whole chunk's in one launch of kernel 4 where
 the JAX package's gate `chunk_decode_supported` passes and kernel 4's block
 fits (`chunk_decode_block_fits`), else pull by pull through `inner_decode`,
@@ -61,7 +63,12 @@ from ..frontend.fbank import (
     fbank_init,
     fbank_peek,
 )
-from ..models.lstm_transducer import encoder_recurrent_tp, encoder_step_tp, is_quantized
+from ..models.lstm_transducer import (
+    encoder_recurrent_tp,
+    encoder_step_tp,
+    is_quantized,
+    layer_widths,
+)
 from ..models.loader import ModelRuntime
 from ..ops import lstm_mma
 from ..ops.decode_kernels import (
@@ -71,6 +78,7 @@ from ..ops.decode_kernels import (
     chunk_decode_supported,
 )
 from ..ops.lstm_tp_kernels import tp_smem
+from ..ops.widths import round_up
 from ..parallel.mesh import shard_state
 from ..parallel.tp import tp_shard_map_eligible
 
@@ -249,19 +257,21 @@ def init_engine_state(prog: EngineProgram, weights=None) -> Dict:
 
 def check_kernel_plans(rt: ModelRuntime, S: int, P: int, n_sm: int, m: int = 1) -> None:
     """Plans every encoder layer kernel that a CUDA engine over S rows and P
-    pulls a step launches, on a card of n_sm SMs: its step (kernels 2 and 3
-    or their int8 routes, or kernel 10; with `encoder_chunk` None the
-    per-pull step's), its flush (kernel 7 or its route, or kernel 12) and,
-    at m > 1 model shards, the tensor-parallel kernels 18-21 at the shard's
-    widths. Raises one ValueError naming the widths and the kernel where one
-    has no plan, so that a model the card cannot serve is refused when its
-    engine is built, not at its first flush."""
+    pulls a step launches, on a card of n_sm SMs, at the widths the kernels
+    take (multiples of 4, zero-padded where the model's are not,
+    models/lstm_transducer.py `padded_layers`): its step (kernel 2 or its
+    int8 route, or kernel 10; kernel 3 plans at every width; with
+    `encoder_chunk` None the per-pull step's), its flush (kernel 7 or its
+    route, or kernel 12) and, at m > 1 model shards, the tensor-parallel
+    kernels 18-21 at the shard's widths, which are not padded: their shards
+    must be multiples of 4. Raises one ValueError naming the widths and the
+    kernel where one has no plan, so that a model the card cannot serve is
+    refused when its engine is built, not at its first flush."""
     w = rt.weights
-    (_, d), (_, H) = rt.state_shapes
     q = is_quantized(w)
-    F = w["ff1_t_q8" if q else "ff1_t"].shape[2]
     wb = 1 if q else w["w_ih_t"].element_size()
     prec = {1: "int8", 2: "bf16", 4: "f32"}[wb]
+    d, H, F = layer_widths(w)
     widths = f"d_model={d}, hidden={H}, ffn={F}"
     if m > 1:
         over = {k: v for k, v in tp_smem(d, H // m, F // m, wb).items() if v > lstm_mma.SMEM_LIMIT}
@@ -272,9 +282,10 @@ def check_kernel_plans(rt: ModelRuntime, S: int, P: int, n_sm: int, m: int = 1) 
                 f"multiples of 4 and each pass within {lstm_mma.SMEM_LIMIT} bytes of shared "
                 f"memory (over: {over})")
         return
+    d, H, F = round_up(d), round_up(H), round_up(F)
     chunk = rt.encoder_chunk is not None
     if q:
-        plans = [("kernel 2's, 7's and 3's routes (int8)",
+        plans = [("kernel 2's and 7's routes (int8)",
                   lambda: lstm_mma.int8_routes(S, P, d, H, F, n_sm))]
     else:
         plans = [(f"kernel 12 ({prec})", lambda: lstm_mma.float_step_plan(S, d, H, F, wb, n_sm))]

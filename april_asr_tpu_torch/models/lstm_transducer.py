@@ -15,6 +15,15 @@ is one call of kernel 10 (`lstm_layer_chunk_fused`), at every P, where the
 JAX package takes its XLA path below P = 12 (`CHUNK_MIN_PULLS`): the same
 function with f32 sums in another order.
 
+Every layer kernel takes widths that are multiples of 4. A model whose
+d_model, hidden or ffn is not (the JAX package serves it through XLA) runs
+the same kernels: the stacks hand them the layer weights zero-padded to the
+next multiples (`padded_layers`, derived once per weights dict) and the rows
+and state padded likewise (`padded_operands`), with the model's d_model as
+the width of the BasicNorm's mean, and cut the outputs back
+(`unpadded_outputs`); ops/widths.py says why the padded layer is the
+model's.
+
 The one-step encoder (`encoder_step`/`encoder_recurrent`, the engine's
 per-pull path and so every flush) runs one kernel per layer, kernel 7
 (`lstm_layer_fused_i8`) with int8 copies, else kernel 12
@@ -64,6 +73,7 @@ from ..ops.lstm_tp_kernels import (
     lstm_gates_cell_i8,
     rowq8_global,
 )
+from ..ops.widths import round_up, zero_pad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,8 +206,9 @@ def encoder_embed_front(params: Params, front: torch.Tensor, P: int, step: int):
 
     Two rules, on shapes and dtypes only. The geometry must pass the JAX
     package's `front_embed_supported` (any S: the kernel takes ragged
-    session tiles). The conv and projection weights must be bf16 (int8 and
-    bf16 serving), where the kernel's bf16 rounding points are those of the
+    session tiles; conv channels and d_model at any width, zero-padded to
+    the kernel's, ops/widths.py). The conv and projection weights must be
+    bf16 (int8 and bf16 serving), where the kernel's bf16 rounding points are those of the
     stacked embed; at f32 weights it returns None, since the kernel rounds
     every activation to bf16 where the f32 embed does not (2e-2 apart, the
     bound of the JAX package's own kernel test) and the f32 engine keeps its
@@ -218,51 +229,128 @@ def _n_pulls(gate):
     return None if gate is None else gate.to(torch.int32).sum(dim=0, dtype=torch.int32)
 
 
+# the encoder layer leaves and the widths of their trailing axes ("4H": the
+# four gate blocks of H columns each); the leading axis is the layer's
+LAYER_AXES = {
+    "w_ih_t": ("d", "4H"), "w_hh_t": ("d", "4H"), "bias": ("4H",), "w_hr_t": ("H", "d"),
+    "ff1_t": ("d", "F"), "ff1_b": ("F",), "ff2_t": ("F", "d"), "ff2_b": ("d",), "norm_eps": (),
+    "w_ih_t_q8": ("d", "4H"), "w_ih_t_q8s": (1, "4H"), "w_hh_t_q8": ("d", "4H"),
+    "w_hh_t_q8s": (1, "4H"), "w_hr_t_q8": ("H", "d"), "w_hr_t_q8s": (1, "d"),
+    "ff1_t_q8": ("d", "F"), "ff1_t_q8s": (1, "F"), "ff2_t_q8": ("F", "d"), "ff2_t_q8s": (1, "d"),
+}
+
+_PADDED: Dict[tuple, tuple] = {}
+
+
+def layer_widths(params: Params) -> Tuple[int, int, int]:
+    """(d_model, hidden, ffn) of the encoder layers of `params`."""
+    q = is_quantized(params)
+    H, d = params["w_hr_t_q8" if q else "w_hr_t"].shape[-2:]
+    return d, H, params["ff1_t_q8" if q else "ff1_t"].shape[-1]
+
+
+def _pad_leaf(t: torch.Tensor, axes: tuple, H: int, widths: dict) -> torch.Tensor:
+    lead = tuple(t.shape[: t.ndim - len(axes)])
+    gated = bool(axes) and axes[-1] == "4H"
+    if gated:  # pad each gate block of H columns on its own
+        t, axes = t.reshape(*t.shape[:-1], 4, H), axes[:-1] + (4, "H")
+    out = zero_pad(t, lead + tuple(widths.get(a, a) for a in axes))
+    return out.reshape(*out.shape[:-2], -1) if gated else out
+
+
+def padded_layers(params: Params) -> Params:
+    """The encoder layer leaves the stacks pass the layer kernels
+    (`STEP_I8_KEYS` with int8 copies, else `STEP_KEYS`): those of `params`
+    where d_model, hidden and ffn are multiples of 4, else copies
+    zero-padded to the next multiples (ops/widths.py: the padded layer
+    computes the model's, its padded columns zero). Derived once per
+    weights dict (cached by the identity of its layer leaves, as
+    ops/conv_embed_kernels.py `embed_weight_forms` caches its forms)."""
+    d, H, F = layer_widths(params)
+    widths = {"d": round_up(d), "H": round_up(H), "F": round_up(F)}
+    keys = STEP_I8_KEYS if is_quantized(params) else STEP_KEYS
+    if (widths["d"], widths["H"], widths["F"]) == (d, H, F):
+        return {k: params[k] for k in keys}
+    src = tuple(params[k] for k in keys)
+    key = tuple(id(t) for t in src)
+    hit = _PADDED.get(key)
+    if hit is not None:
+        return hit[1]
+    out = {k: _pad_leaf(params[k], LAYER_AXES[k], H, widths).contiguous() for k in keys}
+    if len(_PADDED) >= 16:
+        _PADDED.clear()
+    _PADDED[key] = (src, out)  # holding `src` keeps its ids from being reused
+    return out
+
+
+def padded_operands(params: Params, y, h, c):
+    """The layer kernels' operands for an encoder stack: the layer weights
+    (`padded_layers`), y [..., d], h [L, S, d] and c [L, S, H] zero-padded
+    to the same widths, and each layer's norm_d (the model's d_model)."""
+    w = padded_layers(params)
+    Hp, dp = w["w_hr_t_q8" if is_quantized(params) else "w_hr_t"].shape[-2:]
+    return (w, zero_pad(y, (*y.shape[:-1], dp)), zero_pad(h, (*h.shape[:-1], dp)),
+            zero_pad(c, (*c.shape[:-1], Hp)), h.shape[-1])
+
+
+def unpadded_outputs(y, hs, cs, d: int, H: int):
+    """A stack's outputs (y [..., dp], stacked h [L, S, dp] and c [L, S,
+    Hp]) at the model's widths."""
+    if y.shape[-1] == d and cs.shape[-1] == H:
+        return y, hs, cs
+    return y[..., :d].contiguous(), hs[..., :d].contiguous(), cs[..., :H].contiguous()
+
+
 def _lstm_stack_chunk(params: Params, y, h, c, gate=None):
     """Layer-major whole-chunk float stack (f32 or bf16 weights): one call
-    of kernel 10 per layer. `gate` [P, S] must be a per-session prefix mask;
-    masked steps keep the carried h/c and give garbage y rows that the
-    decode masks off."""
+    of kernel 10 per layer, at widths padded to multiples of 4 where the
+    model's are not (`padded_operands`). `gate` [P, S] must be a per-session
+    prefix mask; masked steps keep the carried h/c and give garbage y rows
+    that the decode masks off."""
+    d, H = h.shape[-1], c.shape[-1]
+    w, y, h, c, norm_d = padded_operands(params, y, h, c)
     n_pulls = _n_pulls(gate)
     hs, cs = [], []
-    for l in range(params["w_ih_t"].shape[0]):
+    for l in range(w["w_ih_t"].shape[0]):
         y, h_new, c_new = lstm_layer_chunk_fused(
             y, h[l], c[l],
-            params["w_ih_t"][l], params["w_hh_t"][l], params["bias"][l], params["w_hr_t"][l],
-            params["ff1_t"][l], params["ff1_b"][l], params["ff2_t"][l], params["ff2_b"][l],
-            params["norm_eps"][l],
-            n_pulls,
+            w["w_ih_t"][l], w["w_hh_t"][l], w["bias"][l], w["w_hr_t"][l],
+            w["ff1_t"][l], w["ff1_b"][l], w["ff2_t"][l], w["ff2_b"][l], w["norm_eps"][l],
+            n_pulls, norm_d=norm_d,
         )
         hs.append(h_new)
         cs.append(c_new)
-    return y, torch.stack(hs), torch.stack(cs)
+    return unpadded_outputs(y, torch.stack(hs), torch.stack(cs), d, H)
 
 
 def _lstm_stack_chunk_q8(params: Params, y, h, c, gate=None):
     """Layer-major whole-chunk int8 stack: for every layer, kernel 2 over all
-    P steps, then kernel 3 over the P*S rows. `gate` as `_lstm_stack_chunk`."""
-    P, S, d = y.shape
-    L = params["w_ih_t_q8"].shape[0]
+    P steps, then kernel 3 over the P*S rows, at widths padded to multiples
+    of 4 where the model's are not (`padded_operands`). `gate` as
+    `_lstm_stack_chunk`."""
+    d, H = h.shape[-1], c.shape[-1]
+    w, y, h, c, norm_d = padded_operands(params, y, h, c)
+    P, S, dp = y.shape
     n_pulls = _n_pulls(gate)
     hs, cs = [], []
-    for l in range(L):
+    for l in range(w["w_ih_t_q8"].shape[0]):
         hseq, h_new, c_new = lstm_layer_chunk_rec_stream2_i8(
             y, h[l], c[l],
-            params["w_ih_t_q8"][l], params["w_ih_t_q8s"][l],
-            params["w_hh_t_q8"][l], params["w_hh_t_q8s"][l],
-            params["bias"][l],
-            params["w_hr_t_q8"][l], params["w_hr_t_q8s"][l],
+            w["w_ih_t_q8"][l], w["w_ih_t_q8s"][l],
+            w["w_hh_t_q8"][l], w["w_hh_t_q8s"][l],
+            w["bias"][l],
+            w["w_hr_t_q8"][l], w["w_hr_t_q8s"][l],
             n_pulls,
         )
         y = ffn_norm_i8(
-            y.reshape(P * S, d), hseq.reshape(P * S, d),
-            params["ff1_t_q8"][l], params["ff1_t_q8s"][l], params["ff1_b"][l],
-            params["ff2_t_q8"][l], params["ff2_t_q8s"][l], params["ff2_b"][l],
-            params["norm_eps"][l],
-        ).reshape(P, S, d)
+            y.reshape(P * S, dp), hseq.reshape(P * S, dp),
+            w["ff1_t_q8"][l], w["ff1_t_q8s"][l], w["ff1_b"][l],
+            w["ff2_t_q8"][l], w["ff2_t_q8s"][l], w["ff2_b"][l],
+            w["norm_eps"][l], norm_d=norm_d,
+        ).reshape(P, S, dp)
         hs.append(h_new)
         cs.append(c_new)
-    return y, torch.stack(hs), torch.stack(cs)
+    return unpadded_outputs(y, torch.stack(hs), torch.stack(cs), d, H)
 
 
 def encoder_chunk(params: Params, y, h, c, can=None):
@@ -283,17 +371,20 @@ def _lstm_stack_step(params: Params, x, h, c, gate=None):
     """One timestep through all L layers: x [S, d], h [L, S, d], c [L, S, H]
     -> (y [S, d], h', c'), one cooperative launch of kernel 7 (int8 copies,
     csrc/lstm_mma.cu) or kernel 12 (f32 or bf16 weights,
-    csrc/lstm_mma_float.cu) per layer. `gate` (optional [S]) keeps the carried h/c of masked
-    sessions, blended as the kernels do."""
+    csrc/lstm_mma_float.cu) per layer, at widths padded to multiples of 4
+    where the model's are not (`padded_operands`). `gate` (optional [S]) keeps
+    the carried h/c of masked sessions, blended as the kernels do."""
     q = is_quantized(params)
     layer = lstm_layer_fused_i8 if q else lstm_layer_fused
     keys = STEP_I8_KEYS if q else STEP_KEYS
+    d, H = h.shape[-1], c.shape[-1]
+    w, x, h, c, norm_d = padded_operands(params, x, h, c)
     hs, cs = [], []
     for l in range(h.shape[0]):
-        x, h_new, c_new = layer(x, h[l], c[l], *(params[k][l] for k in keys), gate)
+        x, h_new, c_new = layer(x, h[l], c[l], *(w[k][l] for k in keys), gate, norm_d=norm_d)
         hs.append(h_new)
         cs.append(c_new)
-    return x, torch.stack(hs), torch.stack(cs)
+    return unpadded_outputs(x, torch.stack(hs), torch.stack(cs), d, H)
 
 
 def encoder_recurrent(params: Params, y, h, c, gate=None):

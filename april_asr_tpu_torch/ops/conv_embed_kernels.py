@@ -21,7 +21,10 @@ tensor launches the kernel or raises, with the bytes where a shape exceeds
 the kernel's shared-memory plan; it never falls back.
 
 The im2col weight forms (w2k, w3k) and the (freq, ch)-ordered projection
-weight are derived once per weights dict (`embed_weight_forms`).
+weight are derived once per weights dict (`embed_weight_forms`), zero-padded
+to the widths the kernel takes (conv channels 2 and 3 to multiples of 8,
+d_model to an even width; ops/widths.py): a padded channel's activations
+are DoubleSwish(0) = 0, and the padded output columns are cut off.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import Dict
 import torch
 
 from . import cuda_build
+from .widths import round_up, zero_pad
 
 EMBED_KEYS = ("conv1_w", "conv2_w", "conv3_w", "embed_out_w")
 _BIAS_KEYS = ("conv1_b", "conv2_b", "conv3_b", "embed_out_b")
@@ -60,7 +64,8 @@ def embed_weight_forms(params) -> Dict[str, torch.Tensor]:
     bf16-rounded conv1
     taps [c1, 9] f32, w2k [9*c1, c2] and w3k [9*c2, c3] bf16 with rows
     ordered (dt, df, cin), the projection weight [f3*c3, d] bf16 with rows
-    ordered (freq, ch) (the stored rows are (ch, freq)), and f32 biases."""
+    ordered (freq, ch) (the stored rows are (ch, freq)), and f32 biases;
+    c2 and c3 zero-padded to multiples of 8 and d to an even width."""
     src = tuple(params[k] for k in EMBED_KEYS + _BIAS_KEYS)
     key = tuple(id(t) for t in src)
     hit = _FORMS.get(key)
@@ -68,17 +73,21 @@ def embed_weight_forms(params) -> Dict[str, torch.Tensor]:
         return hit[1]
     c1, c2, c3 = (params[k].shape[0] for k in EMBED_KEYS[:3])
     w_out = params["embed_out_w"]
-    f3 = w_out.shape[0] // c3
+    f3, d = w_out.shape[0] // c3, w_out.shape[1]
+    c2p, c3p, dp = round_up(c2, 8), round_up(c3, 8), round_up(d, 2)
     bf = torch.bfloat16
+    w2 = zero_pad(params["conv2_w"].permute(2, 3, 1, 0), (3, 3, c1, c2p))
+    w3 = zero_pad(params["conv3_w"].permute(2, 3, 1, 0), (3, 3, c2p, c3p))
+    wo = zero_pad(w_out.reshape(c3, f3, d), (c3p, f3, dp))
     forms = {
         "w1": params["conv1_w"].reshape(c1, 9).to(bf).float().contiguous(),
         "b1": params["conv1_b"].float().contiguous(),
-        "w2k": params["conv2_w"].permute(2, 3, 1, 0).reshape(9 * c1, c2).to(bf).contiguous(),
-        "b2": params["conv2_b"].float().contiguous(),
-        "w3k": params["conv3_w"].permute(2, 3, 1, 0).reshape(9 * c2, c3).to(bf).contiguous(),
-        "b3": params["conv3_b"].float().contiguous(),
-        "wo": w_out.reshape(c3, f3, -1).permute(1, 0, 2).reshape(f3 * c3, -1).to(bf).contiguous(),
-        "bo": params["embed_out_b"].float().contiguous(),
+        "w2k": w2.reshape(9 * c1, c2p).to(bf).contiguous(),
+        "b2": zero_pad(params["conv2_b"].float(), (c2p,)).contiguous(),
+        "w3k": w3.reshape(9 * c2p, c3p).to(bf).contiguous(),
+        "b3": zero_pad(params["conv3_b"].float(), (c3p,)).contiguous(),
+        "wo": wo.permute(1, 0, 2).reshape(f3 * c3p, dp).to(bf).contiguous(),
+        "bo": zero_pad(params["embed_out_b"].float(), (dp,)).contiguous(),
     }
     if len(_FORMS) >= 16:
         _FORMS.clear()
@@ -109,15 +118,14 @@ def _conv_embed_cuda(params, front: torch.Tensor, P: int, step: int, seg: int,
         raise ValueError(f"{name}: unsupported geometry seg={seg} mel={mel} P={P} step={step} W={W}")
     w = embed_weight_forms(params)
     c1, c2, c3 = w["w1"].shape[0], w["w2k"].shape[1], w["w3k"].shape[1]
-    d = w["wo"].shape[1]
-    if c2 % 8 or c3 % 8 or d % 2:
-        raise ValueError(f"{name}: needs c2 and c3 multiples of 8 and d even, got {c2}, {c3}, {d}")
+    d = w["wo"].shape[1]  # the padded widths (`embed_weight_forms`)
     for k, t in w.items():
         if t.device != front.device:
             raise ValueError(f"{name}: weight {k} on {t.device}, front on {front.device}")
+    d_model = params["embed_out_w"].shape[1]
     out = torch.empty((P, S, d), dtype=torch.float32, device=front.device)
     if S == 0:
-        return out
+        return out[..., :d_model]
     fn = cuda_build.bind("conv_embed", "conv_embed", 10, 11)
     rc = fn(
         front.data_ptr(), w["w1"].data_ptr(), w["b1"].data_ptr(), w["w2k"].data_ptr(),
@@ -133,7 +141,7 @@ def _conv_embed_cuda(params, front: torch.Tensor, P: int, step: int, seg: int,
         )
     cuda_build.check(rc, name)
     cuda_build.COUNTS[name] += 1
-    return out
+    return out if d == d_model else out[..., :d_model].contiguous()
 
 
 def _dispatch(params, front, P, step, seg, from_front):

@@ -9,7 +9,9 @@ Port of `lstm_layer_chunk_fused` (april_asr_tpu/ops/lstm_pallas.py,
     h' = dot(sig(o) * tanh(c'), w_hr)
     y_t = BasicNorm(x_t + h' + ff2(DoubleSwish(ff1(x_t + h'))))
 
-with the tanh-form sigmoid (ops/activations.py). Every dot rounds its
+with the tanh-form sigmoid (ops/activations.py), the BasicNorm's mean over
+`norm_d` columns where a model's d_model is zero-padded to a multiple of 4
+(ops/widths.py; None: the whole row). Every dot rounds its
 activation to the weight dtype and accumulates in f32
 (`jnp.dot(x.astype(wd), w, preferred_element_type=f32)`): f32 weights give
 true f32 products, bf16 weights bf16-rounded activations times bf16 weights.
@@ -51,11 +53,19 @@ import torch
 
 from . import cuda_build, lstm_mma
 from .activations import dot_wd, double_swish, sigmoid
-from .lstm_kernels import _bias_flag, _check, _gate_arg, _gate_blend, _smem_check
+from .lstm_kernels import (
+    _bias_flag,
+    _check,
+    _gate_arg,
+    _gate_blend,
+    _norm_width,
+    _smem_check,
+    basic_norm_plain,
+)
 
 
 def lstm_layer_chunk_plain(x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2_b, eps,
-                           n_pulls=None):
+                           n_pulls=None, *, norm_d=None):
     P, S, d = x.shape
     H = c.shape[1]
     b = bias.float()
@@ -73,16 +83,16 @@ def lstm_layer_chunk_plain(x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2
             h = torch.where(live, h_new, h)
             c = torch.where(live, c_new, c)
     y = ffn_norm_float_plain(x.reshape(P * S, d), torch.stack(hseq).reshape(P * S, d),
-                             ff1, ff1_b, ff2, ff2_b, eps)
+                             ff1, ff1_b, ff2, ff2_b, eps, norm_d)
     return y.reshape(P, S, d), h, c
 
 
-def ffn_norm_float_plain(x, hseq, ff1, ff1_b, ff2, ff2_b, eps):
-    """[R, d] rows -> BasicNorm(y + ff2(DoubleSwish(ff1(y)))), y = x + hseq."""
+def ffn_norm_float_plain(x, hseq, ff1, ff1_b, ff2, ff2_b, eps, norm_d=None):
+    """[R, d] rows -> BasicNorm(y + ff2(DoubleSwish(ff1(y)))), y = x + hseq,
+    the norm's mean over norm_d columns (all where None)."""
     y = x.float() + hseq
     mid = double_swish(dot_wd(y, ff1) + ff1_b.float())
-    yn = y + (dot_wd(mid, ff2) + ff2_b.float())
-    return yn * torch.rsqrt((yn * yn).mean(dim=-1, keepdim=True) + eps.float())
+    return basic_norm_plain(y + (dot_wd(mid, ff2) + ff2_b.float()), eps, norm_d)
 
 
 def _check_vec(t: torch.Tensor, n: int, dtypes, what: str) -> None:
@@ -123,7 +133,7 @@ def _chunk_args(what: str, x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2
 
 
 def lstm_layer_chunk_cuda(x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2_b, eps,
-                          n_pulls=None, stamps=None):
+                          n_pulls=None, stamps=None, norm_d=None):
     """Kernel 10: one cooperative launch of csrc/lstm_chunk_mma.cu, planned
     by ops/lstm_mma.py `device_chunk_plan`, its scratch (hc [S, H], mid
     [P * S, F] f32) in one workspace. `stamps` (int64 [nb, 4 P + 6], or
@@ -139,7 +149,7 @@ def lstm_layer_chunk_cuda(x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2_
     y = torch.empty_like(x)
     h2 = torch.empty_like(h)
     c2 = torch.empty_like(c)
-    fn = cuda_build.bind("lstm_chunk_mma", "lstm_chunk_float_mma", 19, 35)
+    fn = cuda_build.bind("lstm_chunk_mma", "lstm_chunk_float_mma", 19, 36)
     cuda_build.COUNTS["lstm_chunk_mma_bf16" if w_bf16 else "lstm_chunk_mma_f32"] += 1
     rc = fn(
         x.data_ptr(), h.data_ptr(), c.data_ptr(), n_pulls.data_ptr(),
@@ -148,7 +158,7 @@ def lstm_layer_chunk_cuda(x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2_
         y.data_ptr(), h2.data_ptr(), c2.data_ptr(), ws.data_ptr(), ws.data_ptr() + 4 * S * H,
         None if stamps is None else stamps.data_ptr(),
         P, S, d, H, F, w_bf16, _bias_flag(bias, "lstm_chunk"), _bias_flag(ff1_b, "lstm_chunk"),
-        _bias_flag(ff2_b, "lstm_chunk"), *plan.ints(),
+        _bias_flag(ff2_b, "lstm_chunk"), *plan.ints(), _norm_width(norm_d, d, "lstm_chunk"),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _smem_check(rc, "lstm_chunk", f"d={d}, hidden={H}, ffn={F}")
@@ -195,26 +205,26 @@ def lstm_layer_chunk_simt(*args):
 
 def lstm_layer_chunk_fused(
     x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2_b, eps,
-    n_pulls: Optional[torch.Tensor] = None,
+    n_pulls: Optional[torch.Tensor] = None, *, norm_d: Optional[int] = None,
 ):
     """x [P, S, d], h [S, d], c [S, H] f32, n_pulls optional [S] i32 prefix
     lengths -> (y [P, S, d], h' [S, d], c' [S, H]), all f32."""
     args = (x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2_b, eps, n_pulls)
     if x.device.type == "cpu":
-        return lstm_layer_chunk_plain(*args)
+        return lstm_layer_chunk_plain(*args, norm_d=norm_d)
     if x.device.type != "cuda":
         raise ValueError(f"lstm_chunk: unsupported device {x.device}")
-    return lstm_layer_chunk_cuda(*args)
+    return lstm_layer_chunk_cuda(*args, norm_d=norm_d)
 
 
 def lstm_layer_fused_plain(x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2_b, eps,
-                           gate=None):
+                           gate=None, *, norm_d=None):
     H = c.shape[1]
     gates = dot_wd(x, w_ih) + dot_wd(h, w_hh) + bias.float()
     i, f, g, o = gates.split(H, dim=-1)
     c_new = sigmoid(f) * c + sigmoid(i) * torch.tanh(g)
     h_new = dot_wd(sigmoid(o) * torch.tanh(c_new), w_hr)
-    y = ffn_norm_float_plain(x, h_new, ff1, ff1_b, ff2, ff2_b, eps)
+    y = ffn_norm_float_plain(x, h_new, ff1, ff1_b, ff2, ff2_b, eps, norm_d)
     return y, _gate_blend(gate, h_new, h), _gate_blend(gate, c_new, c)
 
 
@@ -244,7 +254,7 @@ def _step_float_args(what: str, x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2
 
 
 def lstm_layer_fused_cuda(x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2_b, eps,
-                          gate=None, stamps=None):
+                          gate=None, stamps=None, norm_d=None):
     """Kernel 12: one cooperative launch of csrc/lstm_mma_float.cu, its
     scratch (hc [S, H], y [S, d], mid [S, F] f32) in one workspace.
     `stamps` (int64 [nb, 10], or None) receives each block's phase times
@@ -262,7 +272,7 @@ def lstm_layer_fused_cuda(x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2_
     y = torch.empty_like(x)
     h2 = torch.empty_like(h)
     c2 = torch.empty_like(c)
-    fn = cuda_build.bind("lstm_mma_float", "lstm_step_float_mma", 20, 34)
+    fn = cuda_build.bind("lstm_mma_float", "lstm_step_float_mma", 20, 35)
     cuda_build.COUNTS["lstm_step_bf16" if w_bf16 else "lstm_step_f32"] += 1
     rc = fn(
         x.data_ptr(), h.data_ptr(), c.data_ptr(), None if g is None else g.data_ptr(),
@@ -271,7 +281,7 @@ def lstm_layer_fused_cuda(x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2_
         y.data_ptr(), h2.data_ptr(), c2.data_ptr(), hc.data_ptr(), yf.data_ptr(), mid.data_ptr(),
         None if stamps is None else stamps.data_ptr(),
         S, d, H, F, w_bf16, _bias_flag(bias, "lstm_step"), _bias_flag(ff1_b, "lstm_step"),
-        _bias_flag(ff2_b, "lstm_step"), *plan.ints(),
+        _bias_flag(ff2_b, "lstm_step"), *plan.ints(), _norm_width(norm_d, d, "lstm_step"),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _smem_check(rc, "lstm_step", f"d={d}, hidden={H}, ffn={F}")
@@ -320,12 +330,13 @@ def lstm_layer_fused_simt(*args):
     return lstm_layer_fused_simt_cuda(*args)
 
 
-def lstm_layer_fused(x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2_b, eps, gate=None):
+def lstm_layer_fused(x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2_b, eps, gate=None, *,
+                     norm_d=None):
     """One float layer timestep: x, h [S, d], c [S, H] f32, gate optional
     [S] -> (y [S, d], h' [S, d], c' [S, H]), all f32."""
     args = (x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2, ff2_b, eps, gate)
     if x.device.type == "cpu":
-        return lstm_layer_fused_plain(*args)
+        return lstm_layer_fused_plain(*args, norm_d=norm_d)
     if x.device.type != "cuda":
         raise ValueError(f"lstm_step: unsupported device {x.device}")
-    return lstm_layer_fused_cuda(*args)
+    return lstm_layer_fused_cuda(*args, norm_d=norm_d)

@@ -17,6 +17,7 @@ and `lstm_layer_fused_i8` (`_layer_kernel_i8`).
   the carried h/c. Returns (hseq [P, S, d] ungated, h', c').
 * `ffn_norm_i8`: y = x + hseq, int8 ff1, DoubleSwish, int8 ff2, residual,
   then BasicNorm `y * rsqrt(mean(y^2) + eps)` over flattened rows.
+
 * `lstm_layer_chunk_fused_i8` (kernel 11): the recurrent core and
   `ffn_norm_i8` of every step inside one time loop (csrc/lstm_chunk_i8.cu):
   (y [P, S, d], h', c'), y from the ungated h_new.
@@ -31,16 +32,23 @@ q = round_half_even(x * (1/s)) -- the reciprocal is multiplied, never divided
 by, exactly as the JAX package does. Integer dots are exact; they are
 dequantized as acc * (s_row * s_col).
 
+Kernels 3 and 7 take `norm_d`, the width of the BasicNorm's mean where a
+model's d_model is zero-padded to a multiple of 4 (ops/widths.py); None
+means the whole row.
+
 Each wrapper takes the plain PyTorch version for CPU tensors and launches
-its kernel (csrc/lstm_mma.cu: 2, 7; csrc/lstm_i8.cu: 13, 14, 3;
-csrc/lstm_chunk_i8.cu: 11) for CUDA tensors; it never falls back. Kernels 2
+its kernel (csrc/lstm_mma.cu: 2, 7; csrc/ffn_mma.cu: 3; csrc/lstm_i8.cu:
+13, 14; csrc/lstm_chunk_i8.cu: 11) for CUDA tensors; it never falls back. Kernels 2
 and 7 are persistent int8 tensor-core kernels, one cooperative launch each,
 planned by ops/lstm_mma.py `device_plan`; they equal kernel 13 and the
 three-pass step that preceded kernel 7 (`lstm_layer_fused_i8_simt`, kept
 for chip_smoke.py's bit-exact check) bit for bit. Where the widths leave
 kernels 2 and 7 no plan, their calls take kernel 14 and that three-pass
-step, and kernel 3 a smaller row tile (ops/lstm_mma.py `int8_routes`,
-chosen from the widths before any launch). Kernels 2, 13 and 14
+step (ops/lstm_mma.py `int8_routes`, chosen from the widths before any
+launch). Kernel 3 is five tiled int8 tensor-core passes (`ffn_norm_cuda`,
+planned by ops/lstm_mma.py `ffn_plan`) with no width limit; it equals the
+CUDA-core kernel it replaced (`ffn_norm_i8_simt`, kept for chip_smoke.py)
+bit for bit. Kernels 2, 13 and 14
 share one plain version, `lstm_rec_plain`; kernel 11's composes it with
 `ffn_norm_plain`.
 """
@@ -68,6 +76,21 @@ def _rowq8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     s = torch.clamp_min(amax, 1e-30) * (1.0 / 127.0)
     q = torch.round(x * torch.reciprocal(s))
     return q, s
+
+
+def basic_norm_plain(yn: torch.Tensor, eps: torch.Tensor, norm_d: Optional[int] = None):
+    """BasicNorm `yn * rsqrt(mean(yn^2) + eps)`, the mean over the first
+    norm_d columns (the whole row where None)."""
+    v = yn if norm_d is None or norm_d == yn.shape[-1] else yn[..., :norm_d]
+    return yn * torch.rsqrt((v * v).mean(dim=-1, keepdim=True) + eps.float())
+
+
+def _norm_width(norm_d: Optional[int], d: int, what: str) -> int:
+    """The kernels' `dn`: norm_d, or d where None."""
+    dn = d if norm_d is None else int(norm_d)
+    if not 0 < dn <= d:
+        raise ValueError(f"{what}: norm_d must be in [1, {d}], got {norm_d}")
+    return dn
 
 
 def _int_dot(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -282,54 +305,96 @@ def lstm_layer_chunk_rec_stream_i8(
                 w_hr_s, n_pulls)
 
 
-def ffn_norm_plain(x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, dot=_int_dot):
+def ffn_norm_plain(x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, dot=_int_dot,
+                   norm_d=None):
     y = x.float() + hseq
     mid = _q8_mm(y, ff1_q, ff1_s.reshape(1, -1), dot) + ff1_b.float().reshape(1, -1)
     mid = mid * sigmoid(mid - 1.0)
     ff = _q8_mm(mid, ff2_q, ff2_s.reshape(1, -1), dot) + ff2_b.float().reshape(1, -1)
-    yn = y + ff
-    return yn * torch.rsqrt((yn * yn).mean(dim=-1, keepdim=True) + eps.float())
+    return basic_norm_plain(y + ff, eps, norm_d)
 
 
-def ffn_norm_cuda(x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, rows=None):
-    """Kernel 3 on row tiles of `rows` (default: `lstm_mma.ffn_rows`, the
-    largest that fits), counted as `ffn_norm_i8` at 16 rows, else
-    `ffn_norm_i8_r8` or `ffn_norm_i8_r4`."""
+def _ffn_args(what: str, x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps):
+    """Checks kernel 3's operands; returns (R, d, F)."""
     R, d = x.shape
     F = ff1_q.shape[1]
+    _check(x, torch.float32, (R, d), f"{what} x")
+    _check(hseq, torch.float32, (R, d), f"{what} hseq")
+    _check(ff1_q, torch.int8, (d, F), f"{what} ff1")
+    _check(ff2_q, torch.int8, (F, d), f"{what} ff2")
+    _check(ff1_s.reshape(-1), torch.float32, (F,), f"{what} ff1 scale")
+    _check(ff2_s.reshape(-1), torch.float32, (d,), f"{what} ff2 scale")
+    _check(ff1_b.reshape(-1), ff1_b.dtype, (F,), f"{what} ff1 bias")
+    _check(ff2_b.reshape(-1), ff2_b.dtype, (d,), f"{what} ff2 bias")
+    _check(eps.reshape(-1), torch.float32, (1,), f"{what} eps")
+    return R, d, F
+
+
+def ffn_norm_cuda(x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, norm_d=None):
+    """Kernel 3 (csrc/ffn_mma.cu): the five tensor-core passes of
+    `lstm_mma.ffn_plan` (cached, `ffn_launch`) in stream order, its scratch
+    in one workspace from the caching allocator."""
+    what = "ffn_norm_i8"
+    R, d, F = _ffn_args(what, x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps)
+    plan, nbytes, offsets = lstm_mma.ffn_launch(R, d, F)
+    if x.data_ptr() % 16 or hseq.data_ptr() % 16:
+        raise ValueError(f"{what}: x and hseq must be 16-byte aligned (float4 rows)")
+    for w, name in ((ff1_q, "ff1"), (ff2_q, "ff2")):
+        if w.data_ptr() % 4:
+            raise ValueError(f"{what} {name}: weights must be 4-byte aligned")
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    out = torch.empty_like(x)
+    fn = cuda_build.bind("ffn_mma", "ffn_norm_mma", 16, 8)
+    cuda_build.COUNTS[what] += 1
+    rc = fn(
+        x.data_ptr(), hseq.data_ptr(), ff1_q.data_ptr(), ff1_s.data_ptr(), ff1_b.data_ptr(),
+        ff2_q.data_ptr(), ff2_s.data_ptr(), ff2_b.data_ptr(), eps.data_ptr(), out.data_ptr(),
+        *(ws.data_ptr() + o for o in offsets),
+        R, d, F, plan.dp, plan.fp, _bias_flag(ff1_b, what), _bias_flag(ff2_b, what),
+        _norm_width(norm_d, d, what), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    cuda_build.check(rc, what)
+    return out
+
+
+def ffn_norm_i8_simt(x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, rows=16):
+    """The CUDA-core kernel 3 that csrc/ffn_mma.cu replaced (csrc/lstm_i8.cu
+    `ffn_norm_i8_simt`: row tiles of `rows` = 16, 8 or 4, the [rows][F] mid
+    tile in shared memory), counted as `ffn_norm_i8_simt`: the yardstick
+    chip_smoke.py holds kernel 3 to, bit for bit (CUDA tensors; the plain
+    version for CPU tensors)."""
+    what = "ffn_norm_i8_simt"
+    if x.device.type == "cpu":
+        return ffn_norm_plain(x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    R, d, F = _ffn_args(what, x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps)
     if d % 4 or F % 4:
-        raise ValueError("ffn_norm_i8: d_model and ffn must be multiples of 4")
-    rows = lstm_mma.ffn_rows(d, F) if rows is None else rows
-    _check(x, torch.float32, (R, d), "ffn_norm_i8 x")
-    _check(hseq, torch.float32, (R, d), "ffn_norm_i8 hseq")
-    _check(ff1_q, torch.int8, (d, F), "ffn_norm_i8 ff1")
-    _check(ff2_q, torch.int8, (F, d), "ffn_norm_i8 ff2")
-    _check(ff1_s.reshape(-1), torch.float32, (F,), "ffn_norm_i8 ff1 scale")
-    _check(ff2_s.reshape(-1), torch.float32, (d,), "ffn_norm_i8 ff2 scale")
-    _check(ff1_b.reshape(-1), ff1_b.dtype, (F,), "ffn_norm_i8 ff1 bias")
-    _check(ff2_b.reshape(-1), ff2_b.dtype, (d,), "ffn_norm_i8 ff2 bias")
-    _check(eps.reshape(-1), torch.float32, (1,), "ffn_norm_i8 eps")
+        raise ValueError(f"{what}: d_model and ffn must be multiples of 4")
     y = torch.empty_like(x)
-    fn = cuda_build.bind("lstm_i8", "ffn_norm_i8", 10, 6)
-    cuda_build.COUNTS["ffn_norm_i8" if rows == 16 else f"ffn_norm_i8_r{rows}"] += 1
+    fn = cuda_build.bind("lstm_i8", what, 10, 6)
+    cuda_build.COUNTS[what] += 1
     rc = fn(
         x.data_ptr(), hseq.data_ptr(), ff1_q.data_ptr(), ff1_s.data_ptr(),
         ff1_b.data_ptr(), ff2_q.data_ptr(), ff2_s.data_ptr(), ff2_b.data_ptr(),
         eps.data_ptr(), y.data_ptr(),
-        R, d, F, _bias_flag(ff1_b, "ffn_norm_i8"), _bias_flag(ff2_b, "ffn_norm_i8"), rows,
+        R, d, F, _bias_flag(ff1_b, what), _bias_flag(ff2_b, what), rows,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _smem_check(rc, "ffn_norm_i8", f"d={d}, ffn={F}, {rows} rows")
+    _smem_check(rc, what, f"d={d}, ffn={F}, {rows} rows")
     return y
 
 
-def ffn_norm_i8(x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps):
-    """x/hseq [R, d] -> BasicNorm((x + hseq) + FFN(x + hseq)) [R, d]."""
+def ffn_norm_i8(x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, *, norm_d=None):
+    """Kernel 3: x/hseq [R, d] -> BasicNorm((x + hseq) + FFN(x + hseq))
+    [R, d], its mean over norm_d columns (all where None); the plain
+    version for CPU tensors."""
     if x.device.type == "cpu":
-        return ffn_norm_plain(x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps)
+        return ffn_norm_plain(x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps,
+                              norm_d=norm_d)
     if x.device.type != "cuda":
         raise ValueError(f"ffn_norm_i8: unsupported device {x.device}")
-    return ffn_norm_cuda(x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps)
+    return ffn_norm_cuda(x, hseq, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, norm_d)
 
 
 def lstm_chunk_i8_plain(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
@@ -394,7 +459,8 @@ def _gate_blend(gate, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
 
 
 def lstm_layer_fused_i8_plain(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
-                              ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, gate=None):
+                              ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, gate=None, *,
+                              norm_d=None):
     H = c.shape[1]
     x = x.float()
     gates = (
@@ -405,7 +471,7 @@ def lstm_layer_fused_i8_plain(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_h
     c_new = sigmoid(f) * c + sigmoid(i) * torch.tanh(g)
     hc = sigmoid(o) * torch.tanh(c_new)
     h_new = _q8_mm(hc, w_hr_q, w_hr_s.reshape(1, -1))
-    y = ffn_norm_plain(x, h_new, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps)
+    y = ffn_norm_plain(x, h_new, ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, norm_d=norm_d)
     return y, _gate_blend(gate, h_new, h), _gate_blend(gate, c_new, c)
 
 
@@ -432,7 +498,7 @@ def _step_args(what: str, x, h, c, rec, ffn, gate):
 
 def lstm_layer_fused_i8_cuda(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
                              ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, gate=None,
-                             stamps=None):
+                             stamps=None, norm_d=None):
     """Kernel 7: one cooperative launch of csrc/lstm_mma.cu's layer step,
     its scratch in one workspace (`lstm_mma.scratch_layout`). `stamps`
     (int64 [nb, 18], or None) receives each block's phase times
@@ -447,7 +513,7 @@ def lstm_layer_fused_i8_cuda(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr
     c2 = torch.empty_like(c)
     nbytes, offsets = lstm_mma.scratch_layout(plan)
     ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
-    fn = cuda_build.bind("lstm_mma", entry, 32, 24)
+    fn = cuda_build.bind("lstm_mma", entry, 32, 25)
     cuda_build.COUNTS[entry] += 1
     rc = fn(
         x.data_ptr(), h.data_ptr(), c.data_ptr(), None if g is None else g.data_ptr(),
@@ -455,7 +521,7 @@ def lstm_layer_fused_i8_cuda(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr
         *(ws.data_ptr() + o for o in offsets), None if stamps is None else stamps.data_ptr(),
         S, d, H, F, _bias_flag(bias, entry), _bias_flag(ff1_b, entry), _bias_flag(ff2_b, entry),
         plan.sp, plan.dp, plan.hp, plan.fp, plan.ub, plan.nb, *plan.gate.ints(), *plan.proj.ints(),
-        *plan.ff1.ints(),
+        *plan.ff1.ints(), _norm_width(norm_d, d, entry),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _smem_check(rc, entry, f"d={d}, hidden={H}, ffn={F}")
@@ -463,7 +529,8 @@ def lstm_layer_fused_i8_cuda(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr
 
 
 def lstm_layer_fused_i8_simt_cuda(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
-                                  ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, gate=None):
+                                  ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, gate=None,
+                                  norm_d=None):
     """The three-pass CUDA-core step that kernel 7 replaced
     (csrc/lstm_step.cu `lstm_step_i8_simt`: gate pass, projection pass,
     4-row FFN pass); the oracle chip_smoke.py holds kernel 7 to, bit for
@@ -478,14 +545,14 @@ def lstm_layer_fused_i8_simt_cuda(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias,
     y = torch.empty_like(x)
     h2 = torch.empty_like(h)
     c2 = torch.empty_like(c)
-    fn = cuda_build.bind("lstm_step", entry, 23, 7)
+    fn = cuda_build.bind("lstm_step", entry, 23, 8)
     cuda_build.COUNTS[entry] += 1
     rc = fn(
         x.data_ptr(), h.data_ptr(), c.data_ptr(), None if g is None else g.data_ptr(),
         *(t.data_ptr() for t in rec + ffn),
         hc.data_ptr(), hn.data_ptr(), y.data_ptr(), h2.data_ptr(), c2.data_ptr(),
         S, d, H, F, _bias_flag(bias, entry), _bias_flag(ff1_b, entry), _bias_flag(ff2_b, entry),
-        torch.cuda.current_stream(dev).cuda_stream,
+        _norm_width(norm_d, d, entry), torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(rc, entry)
     return y, h2, c2
@@ -503,20 +570,21 @@ def lstm_layer_fused_i8_simt(*args):
 
 
 def lstm_layer_fused_i8(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
-                        ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, gate=None):
+                        ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, gate=None, *, norm_d=None):
     """One int8 layer timestep: x, h [S, d], c [S, H] f32, gate optional [S]
-    -> (y [S, d], h' [S, d], c' [S, H]), all f32. On CUDA kernel 7, or
-    where its weights do not fit a block the three-pass step (counted as
+    -> (y [S, d], h' [S, d], c' [S, H]), all f32, the norm's mean over
+    norm_d columns (all where None). On CUDA kernel 7, or where its weights
+    do not fit a block the three-pass step (counted as
     `lstm_step_i8_simt`)."""
     args = (x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
             ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, gate)
     if x.device.type == "cpu":
-        return lstm_layer_fused_i8_plain(*args)
+        return lstm_layer_fused_i8_plain(*args, norm_d=norm_d)
     if x.device.type != "cuda":
         raise ValueError(f"lstm_step_i8: unsupported device {x.device}")
     # kernel 7 where its stationary weights fit, else the three-pass step
     # (the same function bit for bit; ops/lstm_mma.py `step_route`)
     (S, d), H, F = x.shape, c.shape[1], ff1_q.shape[-1]
     if lstm_mma.device_route("step", S, d, H, F, x.device) == "mma":
-        return lstm_layer_fused_i8_cuda(*args)
-    return lstm_layer_fused_i8_simt_cuda(*args)
+        return lstm_layer_fused_i8_cuda(*args, norm_d=norm_d)
+    return lstm_layer_fused_i8_simt_cuda(*args, norm_d=norm_d)

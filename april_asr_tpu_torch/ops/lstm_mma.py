@@ -1,6 +1,7 @@
-"""The launch plans of the persistent layer kernels: the int8 tensor-core
+"""The launch plans of the layer kernels: the persistent int8 tensor-core
 kernels 2 and 7 (csrc/lstm_mma.cu, `mma_plan`; where they have none, the
-int8 routes, `int8_routes`) and the float kernels 12 and 10
+int8 routes, `int8_routes`); kernel 3's tiles
+(csrc/ffn_mma.cu, `ffn_plan`); and the float kernels 12 and 10
 (csrc/lstm_mma_float.cu, csrc/lstm_chunk_mma.cu; `float_step_plan`,
 `float_chunk_plan`, below): how the layer's columns, and where they are
 fewer than the blocks its rows, are split over one block per SM, and the
@@ -225,12 +226,10 @@ def mma_plan(S: int, d: int, H: int, F: int = 0, n_sm: int = 132,
 # that compute the same function bit for bit and stream their weights:
 # kernel 2's the recurrent core of kernel 14 (csrc/lstm_i8.cu `launch_rec<4,
 # X_ASYNC>`), kernel 7's the three-pass step (csrc/lstm_step.cu
-# `lstm_step_i8_simt`). Kernel 3 (csrc/lstm_i8.cu `ffn_norm_i8`) stages a
-# [rt][F] tile a block, so it takes the largest row tile that fits. The
-# choice reads widths only (and S, through `mma_plan`), before any launch;
-# the byte counts mirror the C launches.
+# `lstm_step_i8_simt`). Kernel 3 (`ffn_plan`, below) has no width limit.
+# The choice reads widths only (and S, through `mma_plan`), before any
+# launch; the byte counts mirror the C launches.
 
-FFN_ROWS = (16, 8, 4)  # kernel 3's row tiles
 STEP_FFN_ROWS = 4  # the three-pass step's FFN pass (csrc/lstm_step.cu FRT)
 
 
@@ -263,7 +262,6 @@ def step_simt_smem(d: int, H: int, F: int) -> int:
 class Int8Routes:
     rec: str  # kernel 2's call: "mma" (kernel 2) or "stream" (kernel 14)
     step: str  # kernel 7's call: "mma" (kernel 7) or "simt" (the three-pass step)
-    ffn_rows: int  # kernel 3's row tile
 
 
 def rec_route(S: int, d: int, H: int, n_sm: int = 132, smem_limit: int = SMEM_LIMIT) -> str:
@@ -290,26 +288,86 @@ def step_route(S: int, d: int, H: int, F: int, n_sm: int = 132,
                          "bytes") from None
 
 
-def ffn_rows(d: int, F: int, smem_limit: int = SMEM_LIMIT) -> int:
-    """Kernel 3's row tile at widths d, F: the largest that fits."""
-    for rows in FFN_ROWS:
-        if ffn_i8_smem(rows, d, F) <= smem_limit:
-            return rows
-    raise ValueError(f"ffn_norm_i8: no row tile for d={d}, ffn={F} within {smem_limit} bytes "
-                     f"of shared memory ({ffn_i8_smem(FFN_ROWS[-1], d, F)} at "
-                     f"{FFN_ROWS[-1]} rows)")
-
-
 def int8_routes(S: int, P: int, d: int, H: int, F: int, n_sm: int = 132,
                 smem_limit: int = SMEM_LIMIT) -> Int8Routes:
-    """The route of each int8 layer call of an engine over S rows and P
-    steps (P does not change them: kernels 2 and 14 stream x by step):
+    """The route of kernel 2's and kernel 7's calls in an engine over S rows
+    and P steps (P does not change them: kernels 2 and 14 stream x by step):
     ValueError where a call has none."""
     if min(S, P, d, H, F) < 1 or d % 4 or H % 4 or F % 4:
         raise ValueError(f"int8 routes: no route for S={S}, P={P}, d={d}, hidden={H}, ffn={F}: "
                          "rows and steps must be positive and widths positive multiples of 4")
     return Int8Routes(rec_route(S, d, H, n_sm, smem_limit),
-                      step_route(S, d, H, F, n_sm, smem_limit), ffn_rows(d, F, smem_limit))
+                      step_route(S, d, H, F, n_sm, smem_limit))
+
+
+# -- kernel 3: the int8 FFN + BasicNorm as tiled tensor-core passes ----------
+#
+# csrc/ffn_mma.cu runs five launches in stream order over the R = P * S rows:
+# the yq pass (one warp a row), ff1 in FFN_TILE x FFN_TILE output tiles of
+# yq x ff1, the mq pass, ff2 in such tiles of mq x ff2, the norm pass. Tile
+# (column tile cx, row tile ry) is block (cx, ry) of its launch: rows [128 ry,
+# +128) of the rows padded to 128, columns [128 cx, +128) of the product's
+# width. The depth streams in FFN_KT-byte stages, so the int8 scratch rows
+# are padded to 64 bytes (zero past the width) and the weights' rows past
+# the depth load as zero. A block's shared memory is two stages of the A and
+# B tiles and the tile's row amax slots; nothing depends on the width, so
+# only the scratch (mid f32 [R][F] above all) limits it.
+
+FFN_TILE = 128  # rows and columns of an output tile
+FFN_KT = 64  # bytes of depth a stage
+FFN_SMEM = 2 * 2 * FFN_TILE * (FFN_KT + 16) + 4 * FFN_TILE
+
+
+@dataclass(frozen=True)
+class FfnPlan:
+    R: int
+    d: int
+    F: int
+    rp: int  # rows padded to FFN_TILE
+    dp: int  # ff1's depth (d) padded to FFN_KT
+    fp: int  # ff2's depth (F) padded to FFN_KT
+    smem: int = FFN_SMEM
+
+    def grid(self, n: int) -> Tuple[int, int]:
+        """(column tiles, row tiles) of an n-column product."""
+        return -(-n // FFN_TILE), self.rp // FFN_TILE
+
+    def tiles(self, n: int):
+        """(rows, columns) of each block of an n-column product (ff1: n = F,
+        ff2: n = d), in launch order, cut at R and n."""
+        nx, ny = self.grid(n)
+        for ry in range(ny):
+            for cx in range(nx):
+                r0, c0 = ry * FFN_TILE, cx * FFN_TILE
+                yield range(r0, min(r0 + FFN_TILE, self.R)), range(c0, min(c0 + FFN_TILE, n))
+
+    def scratch(self) -> Tuple[int, Tuple[int, ...]]:
+        """(bytes, offsets) of the C entry's scratch in one workspace, in its
+        argument order, each 256-byte aligned: yq [rp][dp] int8, ys [rp] f32,
+        mid [R][F] f32, the amax slots [rp], mq [rp][fp] int8, ms [rp] f32."""
+        offsets, n = [], 0
+        for size in (self.rp * self.dp, 4 * self.rp, 4 * self.R * self.F, 4 * self.rp,
+                     self.rp * self.fp, 4 * self.rp):
+            offsets.append(n)
+            n += _up(size, 256)
+        return n, tuple(offsets)
+
+
+def ffn_plan(R: int, d: int, F: int) -> FfnPlan:
+    """Kernel 3's plan over R rows at widths d, F; ValueError where R is not
+    positive or the widths are not positive multiples of 4."""
+    if R < 1 or min(d, F) < 4 or d % 4 or F % 4:
+        raise ValueError(f"ffn_norm_i8: no plan for R={R}, d={d}, ffn={F}: rows must be positive "
+                         "and widths positive multiples of 4")
+    return FfnPlan(R, d, F, _up(R, FFN_TILE), _up(d, FFN_KT), _up(F, FFN_KT))
+
+
+@functools.lru_cache(maxsize=64)
+def ffn_launch(R: int, d: int, F: int) -> Tuple[FfnPlan, int, Tuple[int, ...]]:
+    """(`ffn_plan`, then its scratch bytes and offsets), cached by (R, d, F):
+    kernel 3's wrapper reads it on every call."""
+    plan = ffn_plan(R, d, F)
+    return (plan, *plan.scratch())
 
 
 @functools.lru_cache(maxsize=None)

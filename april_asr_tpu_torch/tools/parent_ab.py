@@ -10,9 +10,10 @@ Each turn is a worker process that imports `april_asr_tpu_torch` and
 directory) and, on the flagship random int8 model (seed 0):
 
 * times kernel 2 (`lstm_layer_chunk_rec_stream2_i8`, layer 0) at S = 256
-  and at S = 2048, P = 27, and kernel 7 (`lstm_layer_fused_i8`) at S = 256,
-  on numpy seed inputs, with the SHA-1 of their outputs (kernel 7 ungated
-  and gated);
+  and at S = 2048, P = 27, kernel 3 (`ffn_norm_i8`, layer 0) over the P * S
+  rows of both, and kernel 7 (`lstm_layer_fused_i8`) at S = 256, on numpy
+  seed inputs, with the SHA-1 of their outputs (kernel 7 ungated and
+  gated);
 * runs chip_smoke's `engine` cell at int8 (10 ticks, 5 flushes, the step
   and flush programs, the profiler's step and flush), its lines relayed;
 * records the int8 engine's event blobs over the same 10 ticks and a flush
@@ -29,7 +30,7 @@ directory) and, on the flagship random int8 model (seed 0):
   (<turn>-<tree>-bf16-s<seed>.pkl).
 
 The main process then requires every turn's int8 blobs and the outputs of
-kernels 2, 7 and 12 to be equal, bit for bit; every session of a float
+kernels 2, 3, 7 and 12 to be equal, bit for bit; every session of a float
 engine whose events part from the first turn's to part at a near-tie
 decision (`testing.check_parting`, `testing.NEAR_TIE`; every session is
 counted, and each parting at or above it listed), counted per turn
@@ -59,14 +60,19 @@ from pathlib import Path
 TAG = "PARENT_AB "
 HERE = Path(__file__).resolve()
 TREE = HERE.parents[2]
-SASS_SOURCES = ("lstm_mma.cu", "lstm_i8.cu", "lstm_step.cu", "lstm_tp.cu", "lstm_mma_float.cu")
+SASS_SOURCES = ("lstm_mma.cu", "lstm_i8.cu", "lstm_step.cu", "lstm_tp.cu", "lstm_mma_float.cu",
+                "lstm_chunk_mma.cu")
 FLOATS = ("f32", "bf16")
 BF16_SEEDS = (1, 2)  # more random models for the bf16 engine's partings
 # the float engines' runs compared between turns: (precision, model seed)
 FLOAT_RUNS = tuple((p, 0) for p in FLOATS) + tuple(("bf16", s) for s in BF16_SEEDS)
 # outputs equal between the trees as well as the turns: kernel 12's
 EQUAL_KEYS = tuple(k for p in FLOATS for k in (f"k12_{p}_sha", f"k12_{p}_gated_sha"))
-STEP_MS = re.compile(r"^engine (\w+): .* step_ms median=([\d.]+)")
+# chip_smoke's engine line: each precision's step, flush and flush program
+# medians (wall ms)
+ENGINE_MS = re.compile(r"^engine (\w+): .* step_ms median=([\d.]+) flush_ms median=([\d.]+) .*"
+                       r"flush_program_ms median=([\d.]+)")
+ENGINE_MS_KEYS = ("step_ms", "flush_ms", "flush_program_ms")
 ENGINE_KEYS = ("events", "recs", "dec", "cells", "blobs")
 
 
@@ -110,6 +116,12 @@ def worker(root: str, out: str) -> None:
             fn = lambda: LK.lstm_layer_chunk_rec_stream2_i8(x, h, c, *la, n)  # noqa: E731
             res[f"k2_S{S}_sha"] = [_sha(o) for o in fn()]
             res[f"k2_S{S}_ms"] = CS.cuda_ms(fn, reps)
+            xr = x.reshape(P * S, d)
+            hs = t(rng.normal(size=(P * S, d)).astype(np.float32))
+            fn = lambda: LK.ffn_norm_i8(xr, hs, *sa[7:])  # noqa: E731
+            res[f"k3_S{S}_sha"] = _sha(fn())
+            res[f"k3_S{S}_ms"] = CS.cuda_ms(fn, reps)
+            del x, xr, hs
         rng = np.random.default_rng(7)
         x = t(rng.normal(size=(256, d)).astype(np.float32))
         h = t((rng.normal(size=(256, d)) * 0.3).astype(np.float32))
@@ -119,6 +131,7 @@ def worker(root: str, out: str) -> None:
         res["k7_gated_sha"] = [_sha(o) for o in LK.lstm_layer_fused_i8(x, h, c, *sa, gate)]
         res["k7_ms"] = CS.cuda_ms(lambda: LK.lstm_layer_fused_i8(x, h, c, *sa), 20)
         print(f"kernels: k2 S=256 {res['k2_S256_ms']:.4f} ms, S=2048 {res['k2_S2048_ms']:.4f} ms, "
+              f"k3 S=256 {res['k3_S256_ms']:.4f} ms, S=2048 {res['k3_S2048_ms']:.4f} ms, "
               f"k7 S=256 {res['k7_ms']:.4f} ms ({card})", flush=True)
         CS.phase_engine(model, card, "int8")
         bufs = CS._tone_bufs(CS.S_FLAG, CS.CHUNK_1S, rt.sample_rate)
@@ -228,18 +241,19 @@ def run_turn(i: int, label: str, root: Path, out_dir: Path) -> dict:
     cmd = [sys.executable, str(HERE), "--worker", str(root), "--npz", str(out)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                             cwd=str(root))
-    res, step_ms = None, {}
+    res, ms = None, {k: {} for k in ENGINE_MS_KEYS}
     for line in proc.stdout:
         if line.startswith(TAG):
             res = json.loads(line[len(TAG):])
         else:
-            m = STEP_MS.match(line)
+            m = ENGINE_MS.match(line)
             if m:
-                step_ms[m.group(1)] = float(m.group(2))
+                for k, v in zip(ENGINE_MS_KEYS, m.groups()[1:]):
+                    ms[k][m.group(1)] = float(v)
             print(f"[{i} {label}] {line.rstrip()}", flush=True)
     if proc.wait() != 0 or res is None:
         raise RuntimeError(f"turn {i} ({label}, {root}) failed with exit code {proc.returncode}")
-    return dict(res, step_ms=step_ms)
+    return dict(res, **ms)
 
 
 def sass(other: Path) -> list:
@@ -304,8 +318,9 @@ def main(argv=None) -> int:
         turns.append(dict(run_turn(i, label, root, args.out), label=label))
     rows = sass(other) if args.sass else []
     ref = turns[0]
-    bad = [k for tr in turns for k in ("k2_S256_sha", "k2_S2048_sha", "k7_sha", "k7_gated_sha",
-                                       "blob_sha") + EQUAL_KEYS if tr[k] != ref[k]]
+    equal_keys = ("k2_S256_sha", "k2_S2048_sha", "k3_S256_sha", "k3_S2048_sha", "k7_sha",
+                  "k7_gated_sha", "blob_sha") + EQUAL_KEYS
+    bad = [k for tr in turns for k in equal_keys if tr[k] != ref[k]]
     # kernel 10 changes between the trees, not between two turns of one tree
     float_keys = [f"k10_{p}_S{S}_sha" for p in FLOATS for S in (256, 2048)]
     for label in ("other", "this"):
@@ -329,10 +344,11 @@ def main(argv=None) -> int:
         print(f"{name} engine against turn 0, by turn: {floats[name]}; partings (session: call, "
               f"cell, margin): {parted}", flush=True)
     summary = {
-        "turns": [{k: tr[k] for k in ("label", "build_s", "k2_S256_ms", "k2_S2048_ms", "k7_ms",
-                                      "k12_f32_ms", "k12_bf16_ms", "k10_f32_S256_ms",
-                                      "k10_f32_S2048_ms", "k10_bf16_S256_ms", "k10_bf16_S2048_ms",
-                                      "step_ms")} for tr in turns],
+        "turns": [{k: tr[k] for k in ("label", "build_s", "k2_S256_ms", "k2_S2048_ms", "k3_S256_ms",
+                                      "k3_S2048_ms", "k7_ms", "k12_f32_ms", "k12_bf16_ms",
+                                      "k10_f32_S256_ms", "k10_f32_S2048_ms", "k10_bf16_S256_ms",
+                                      "k10_bf16_S2048_ms") + ENGINE_MS_KEYS}
+                  for tr in turns],
         "equal": not bad, "differ": sorted(set(bad)), "blob_calls": len(ref["blob_sha"]),
         "floats": floats,
         "sass_differs": [f"{r['source']} {r['kernel']}" for r in rows if not r["same"]],

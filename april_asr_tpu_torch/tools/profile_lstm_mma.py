@@ -1,6 +1,8 @@
-"""Where the time of the persistent layer kernels 2, 7, 12 and 10 goes: the
-phases and grid barriers of one launch, from each block's phase stamps
-(csrc/lstm_mma.cuh `Stamps`, the global nanosecond timer).
+"""Where the time of the layer kernels 2, 7, 12, 10 and 3 goes: for the
+persistent kernels 2, 7, 12 and 10 the phases and grid barriers of one
+launch, from each block's phase stamps (csrc/lstm_mma.cuh `Stamps`, the
+global nanosecond timer); for kernel 3 (csrc/ffn_mma.cu, five launches in
+stream order) each launch's device time.
 
     python -m april_asr_tpu_torch.tools.profile_lstm_mma [--S 256] [--P 27]
 
@@ -15,7 +17,10 @@ end), the blocks' median time in the phase, and the grid barriers (from
 the last block's arrival to the last block's exit). The stamps add a
 block barrier at each phase boundary; beside them, without stamps: the
 CUDA-event time of one call, the kernel's device time (torch.profiler) and
-the host's time per call queued without a synchronize. Needs a CUDA device.
+the host's time per call queued without a synchronize. Kernel 3 runs over
+the P * S rows of the same layer: the whole call by CUDA events and each of
+its launches (yq, ff1, mq, ff2, norm) by its device time in the profiler.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -149,10 +154,46 @@ def profile(S: int, P: int, device) -> Dict[str, dict]:
     return out
 
 
-def host_and_device_us(fn, n: int = 50) -> Tuple[float, float]:
+# kernel 3's launches by the names the profiler gives their device kernels
+FFN_PASSES = (("yq", "ffn_yq_kernel"), ("ff1", "ffn_mm_kernel<true>"), ("mq", "ffn_mq_kernel"),
+              ("ff2", "ffn_mm_kernel<false>"), ("norm", "ffn_norm_rows_kernel"))
+FFN_PASSES_KERNELS = ("ffn_yq_kernel", "ffn_mm_kernel", "ffn_mq_kernel", "ffn_norm_rows_kernel")
+
+
+def profile_ffn(S: int, P: int, device, n: int = 5) -> dict:
+    """Kernel 3 over the P * S rows at the flagship int8 layer 0: {"event_us"
+    (a whole call), "host_us", "device_us", "phases": {launch: device us},
+    "rows", "scratch"}; each launch's device time from torch.profiler over
+    n calls (a launch alone is shorter than the host's enqueue of a call,
+    so CUDA events around it would time the host)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    params = PCS.build(S, P, TM.TransducerDims(), device)[0]
+    fa = tuple(params[k][0] for k in LK.LAYER_I8_KEYS[7:])
+    d, F = fa[0].shape
+    R = P * S
+    rng = np.random.default_rng(5)
+    x, hs = (torch.from_numpy(rng.normal(size=(R, d)).astype(np.float32)).to(device)
+             for _ in "xh")
+    call = lambda: LK.ffn_norm_cuda(x, hs, *fa)  # noqa: E731
+    res = {"event_us": event_ms(call) * 1e3, "rows": R,
+           "scratch": LM.ffn_plan(R, d, F).scratch()[0]}
+    res["host_us"], res["device_us"] = host_and_device_us(call, keys=FFN_PASSES_KERNELS)
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    res["phases"] = {name: sum(e.self_device_time_total for e in rows if key in e.key) / n
+                     for name, key in FFN_PASSES}
+    return res
+
+
+def host_and_device_us(fn, n: int = 50, keys=("mma_kernel",)) -> Tuple[float, float]:
     """The host's time per call of `fn` over n calls queued without a
     synchronize (its enqueue cost where that exceeds the device's), and the
-    device time per call of its mma kernel from torch.profiler."""
+    device time per call of its kernels (whose names hold one of `keys`)
+    from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     torch.cuda.synchronize()
@@ -165,7 +206,8 @@ def host_and_device_us(fn, n: int = 50) -> Tuple[float, float]:
         for _ in range(5):
             fn()
         torch.cuda.synchronize()
-    dev = sum(e.self_device_time_total for e in prof.key_averages() if "mma_kernel" in e.key)
+    dev = sum(e.self_device_time_total for e in prof.key_averages()
+              if any(k in e.key for k in keys))
     return host, dev / 5
 
 
@@ -182,6 +224,15 @@ def report(res: Dict[str, dict], S: int, P: int, card: str = "") -> None:
               + (f" ({card})" if card else ""))
 
 
+def report_ffn(r: dict, S: int, P: int, card: str = "") -> None:
+    parts = "; ".join(f"{k} {v:.1f} us" for k, v in r["phases"].items())
+    print(f"profile_lstm_mma kernel 3 S={S} P={P} ({r['rows']} rows, {r['scratch']} bytes of "
+          f"scratch): CUDA events {r['event_us']:.1f} us a call, its kernels' device time "
+          f"(profiler) {r['device_us']:.1f} us, the host's per call queued {r['host_us']:.1f} us; "
+          f"device time by launch: {parts}"
+          + (f" ({card})" if card else ""))
+
+
 def main(argv=None) -> Dict[str, dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--S", type=int, default=256)
@@ -189,6 +240,8 @@ def main(argv=None) -> Dict[str, dict]:
     args = ap.parse_args(argv)
     res = profile(args.S, args.P, torch.device("cuda"))
     report(res, args.S, args.P)
+    res["kernel 3"] = profile_ffn(args.S, args.P, torch.device("cuda"))
+    report_ffn(res["kernel 3"], args.S, args.P)
     return res
 
 

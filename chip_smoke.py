@@ -8,7 +8,8 @@ flagship BatchEngine at int8, bf16 and f32 and a synchronous Session at int8
 and at f32 (the weights as loaded), serves a flagship-width model with a
 16,383-token vocabulary and a narrow one whose kernel 4 block does not fit,
 serves models at the widths the port once refused (an int8 model wider than
-kernels 2 and 7 hold, a float model at d = 68), runs the int8 chunk-layer
+kernels 2 and 7 hold, a float model at d = 68, one at d = 66 whose widths
+the kernels take zero-padded), runs the int8 chunk-layer
 variants of the two profiling tools and the
 matrix-unit tool's tensor-core products, then the tensor-parallel kernels
 and a two-rank tensor-parallel engine, and prints the results.
@@ -18,16 +19,19 @@ and a two-rank tensor-parallel engine, and prints the results.
 
 Phases (each fails the run on error):
   build      nvcc for every csrc/*.cu, all started at once; then
-             csrc/lstm_mma.cu, lstm_mma_float.cu and lstm_chunk_mma.cu again
-             to cubins: kernels 2, 7, 12 and 10's registers and spills (none
-             allowed), IMMA in 2 and 7's SASS, HMMA in kernels 12 and 10 at
-             bf16, FFMA and no tensor-core instruction at f32
+             csrc/lstm_mma.cu, lstm_mma_float.cu, lstm_chunk_mma.cu and
+             ffn_mma.cu again to cubins: kernels 2, 7, 12, 10 and 3's
+             registers and spills (none allowed), IMMA in 2, 7 and 3's SASS,
+             HMMA in kernels 12 and 10 at bf16, FFMA and no tensor-core
+             instruction at f32
   kernels    each kernel against its plain version: timed at S=256, P=27,
              F=101, checked again at S=3, P=5 (ragged tiles); kernels 2 and
              7 also bit for bit against kernel 13 and the three-pass step
              they replaced (ungated and gated), with their launch plans,
-             and kernel 14 and kernel 3 on 8- and 4-row tiles bit for bit
-             against kernels 2 and 3 (the int8 routes of wide models);
+             and kernel 14 bit for bit against kernel 2 (the int8 route of
+             wide models); kernel 3 (tiled int8 tensor-core passes) bit for
+             bit against the CUDA-core kernel it replaced, on 16-, 8- and
+             4-row tiles, timed beside it with its design's byte bound;
              kernels 12 and 10 beside the three-pass step and the two-kernel
              chunk layer they replaced (the largest difference and both
              times); kernels 10 and 12 again at d 512 / H 2048 / F 4096 and
@@ -58,10 +62,18 @@ Phases (each fails the run on error):
   widths     models the port once refused: a 2-layer int8 model at d 1024 /
              H 4096 / F 8192 (kernels 2 and 7 have no plan) serves S=256,
              the flagship engine's batch, 3 ticks and a flush, on kernel 14,
-             the three-pass int8 step and kernel 3 on 4-row tiles (each held
-             to its plain version at those widths, S=256, and timed); a float model at d 68 / H 260 / F 196 serves
-             at f32 (CUDA vs CPU engine) and bf16; one at d 66 is refused
-             when its engine is built
+             the three-pass int8 step and kernel 3 (each held to its plain
+             version at those widths, S=256, and timed; kernel 3 also bit
+             for bit against the CUDA-core kernel's 4-row tiles); a float
+             model at d 68 / H 260 / F 196 serves at f32 (CUDA vs CPU
+             engine) and bf16; one at d 66 / H 258 / F 198 with conv
+             channels (4, 12, 20), no width a multiple of 4 (the JAX package
+             serves it through XLA), runs every layer kernel on weights
+             zero-padded to their widths (ops/widths.py): kernels 2, 3, 7,
+             10, 12 and 16 each held to its plain version at the model's own
+             widths (the padded columns zero), then CUDA vs CPU engine at
+             f32 and int8, then served at both, the layer kernels launched
+             (PATH_KERNELS "d66 ..."); kernel 16 again at an odd d_model
   chunk      the int8 chunk-layer variants at flagship widths, S=256, P=27:
              kernels 13, 14, 11 (one layer), 15 (a 6-layer wavefront slab)
              and 22 (the tile-interleaved core, on 4- and 2-session tiles)
@@ -122,11 +134,12 @@ PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 S_FLAG, CHUNK_1S = 256, 16000
 DEV = "cuda"
 # the widths phase's models (`TransducerDims` fields): an int8 model wider
-# than kernels 2 and 7 hold, and float models at widths that are multiples
-# of 4 but not of 8 (served) and at d 66 (refused)
+# than kernels 2 and 7 hold, one at widths that are multiples of 4 but not
+# of 8, and one at no multiple of 4 (the kernels at padded widths)
 WIDE = dict(d_model=1024, hidden=4096, ffn=8192, layers=2)
 NARROW = dict(d_model=68, hidden=260, ffn=196, joiner_dim=128, vocab=64, layers=2,
               decoder_groups=4)
+ODD = dict(NARROW, d_model=66, hidden=258, ffn=198, decoder_groups=2, conv_channels=(4, 12, 20))
 
 
 def card_line() -> str:
@@ -233,6 +246,7 @@ def flagship_april(tmp: str, seed: int = 0, dims=None) -> str:
 # embed is plain) and the per-pull decode (kernel 8, or kernel 9 where its
 # gate refuses).
 PATH_KERNELS = {
+    # kernel 3 (`ffn_norm_i8`) is csrc/ffn_mma.cu's five tensor-core passes
     "int8": {"step": ("fbank_i8", "conv_embed", "lstm_rec_stream2_i8", "ffn_norm_i8",
                       "chunk_decode"),
              "flush": ("fbank_i8", "lstm_step_i8", "dec_joiner")},
@@ -245,8 +259,8 @@ PATH_KERNELS = {
     "vocab bf16": {"step": ("fbank_bf16x3", "conv_embed", "lstm_chunk_mma_bf16", "joiner_argmax"),
                    "flush": ("fbank_bf16x3", "lstm_step_bf16", "joiner_argmax")},
     # the int8 routes of a model wider than kernels 2 and 7 hold: kernel 14,
-    # kernel 3 on 4-row tiles, the three-pass int8 step
-    "wide int8": {"step": ("fbank_i8", "conv_embed", "lstm_rec_stream_i8", "ffn_norm_i8_r4",
+    # kernel 3 (no width limit), the three-pass int8 step
+    "wide int8": {"step": ("fbank_i8", "conv_embed", "lstm_rec_stream_i8", "ffn_norm_i8",
                            "chunk_decode"),
                   "flush": ("fbank_i8", "lstm_step_i8_simt", "dec_joiner")},
     # a float model at d 68 (not a 128-multiple: the decode goes pull by
@@ -255,6 +269,13 @@ PATH_KERNELS = {
                    "flush": ("fbank_bf16x3", "lstm_step_f32", "joiner_argmax_f32")},
     "narrow bf16": {"step": ("fbank_bf16x3", "conv_embed", "lstm_chunk_mma_bf16", "joiner_argmax"),
                     "flush": ("fbank_bf16x3", "lstm_step_bf16", "joiner_argmax")},
+    # a model at d 66 / H 258 / F 198: the layer kernels at padded widths,
+    # the decode pull by pull through kernel 9
+    "d66 f32": {"step": ("fbank_bf16x3", "lstm_chunk_mma_f32", "joiner_argmax_f32"),
+                "flush": ("fbank_bf16x3", "lstm_step_f32", "joiner_argmax_f32")},
+    "d66 int8": {"step": ("fbank_i8", "conv_embed", "lstm_rec_stream2_i8", "ffn_norm_i8",
+                          "joiner_argmax"),
+                 "flush": ("fbank_i8", "lstm_step_i8", "joiner_argmax")},
     # the tensor-parallel engine (one rank's counts): the per-pull recurrent
     # step on kernels 19 and 21 (int8) or 18 and 20 (f32) and kernel 8, no
     # chunk kernel; the f32 step keeps the stacked embed
@@ -311,14 +332,16 @@ def phase_build(card):
     check_mma_sass()
 
 
-# the persistent kernels, by source and the start of their mangled names:
-# kernels 2 and 7 (csrc/lstm_mma.cu, int8 on IMMA), kernels 12
+# the tensor-core kernels, by source and the start of their mangled names:
+# kernels 2 and 7 (csrc/lstm_mma.cu) and kernel 3's two product passes
+# (csrc/ffn_mma.cu, ff1 and ff2), int8 on IMMA; kernels 12
 # (csrc/lstm_mma_float.cu) and 10 (csrc/lstm_chunk_mma.cu): `<float>` on
 # FFMA, `<unsigned short>` bf16 on HMMA
 MMA_SOURCES = (
     ("lstm_mma.cu", ("_Z19lstm_rec_mma_kernel", "_Z20lstm_step_mma_kernel"), 6),
     ("lstm_mma_float.cu", ("_Z26lstm_step_float_mma_kernel",), 2),
     ("lstm_chunk_mma.cu", ("_Z27lstm_chunk_float_mma_kernel",), 2),
+    ("ffn_mma.cu", ("_Z13ffn_mm_kernel",), 2),
 )
 
 
@@ -335,10 +358,10 @@ def sass_rule(kernel: str, insns: list) -> str:
 
 
 def check_mma_sass():
-    """csrc/lstm_mma.cu, lstm_mma_float.cu and lstm_chunk_mma.cu compiled
-    again to cubins: each
-    persistent kernel's registers, shared memory and spills (`-Xptxas -v`;
-    a spill fails) and its SASS (`sass_rule`)."""
+    """csrc/lstm_mma.cu, lstm_mma_float.cu, lstm_chunk_mma.cu and ffn_mma.cu
+    compiled again to cubins: each tensor-core kernel's registers, shared
+    memory and spills (`-Xptxas -v`; a spill fails) and its SASS
+    (`sass_rule`)."""
     from pathlib import Path
 
     from april_asr_tpu_torch.ops import cuda_build
@@ -554,6 +577,68 @@ def check_float_widths(S: int, P: int, seed: int) -> None:
                   f"{err10:.3g}, kernel 12 (S={S}, gated) {err12:.3g}")
 
 
+def ffn_bounds(R: int, d: int, F: int, bias_bytes: int):
+    """Kernel 3's bound (the function's bytes: x and hseq read, y written,
+    the weights, scales and biases once; its int8 operations) and its
+    design's byte bound: the bytes its five passes move through device
+    memory (x and hseq twice, yq, mid f32 and mq written and read once, y
+    written, read and written by the norm), over 3.35 TB/s."""
+    w_bytes = 2 * d * F + 4 * (F + d) + bias_bytes * (F + d) + 4
+    fn = bound_ms(3 * R * d * 4 + w_bytes, {"int8": 2 * 2 * R * d * F})
+    design = (4 * R * d * 4 + 3 * R * d * 4 + 2 * R * _up64(d) + 2 * R * F * 4
+              + 2 * R * _up64(F) + w_bytes)
+    return fn, design / HBM_BPS * 1e3
+
+
+def _up64(n: int) -> int:
+    return -(-n // 64) * 64
+
+
+def check_ffn(xr, hs, fa, tiles, name: str) -> tuple:
+    """Kernel 3 (`LK.ffn_norm_i8`, csrc/ffn_mma.cu) on rows xr, hs [R, d]
+    and the layer's FFN weights `fa`: within `_ulp_close` of the plain
+    version, and bit for bit the CUDA-core kernel it replaced
+    (`LK.ffn_norm_i8_simt`) on each row tile of `tiles`. Returns its check
+    entry (kernel call, plain call, max abs err, bound, shape)."""
+    from april_asr_tpu_torch.ops import lstm_kernels as LK
+
+    (R, d), F = xr.shape, fa[0].shape[1]
+    kf = lambda: LK.ffn_norm_i8(xr, hs, *fa)  # noqa: E731
+    pf = lambda: LK.ffn_norm_plain(xr, hs, *fa)  # noqa: E731
+    got, want = kf(), pf()
+    torch.cuda.synchronize()
+    for rows in tiles:
+        _bit_equal([got], [LK.ffn_norm_i8_simt(xr, hs, *fa, rows=rows)], ("y",),
+                   f"{name} (tensor cores) vs the CUDA-core kernel 3 on {rows}-row tiles at "
+                   f"R={R}, d={d}, ffn={F}")
+    b, _ = ffn_bounds(R, d, F, fa[2].element_size())
+    return kf, pf, _ulp_close(got, want, name), b, f"rows[{R},{d}] ffn={F}"
+
+
+def ffn_inputs(rt, R: int, seed: int) -> tuple:
+    """Rows x, hseq [R, d] drawn from a numpy seed on the card and the
+    layer-0 FFN weights of the int8 runtime `rt` (kernel 3's arguments)."""
+    rng = np.random.default_rng(seed)
+    d, w = rt.dims.d_model, rt.weights
+    xr, hs = (torch.from_numpy(rng.normal(size=(R, d)).astype(np.float32)).to(DEV) for _ in "xh")
+    return xr, hs, tuple(w[k][0] for k in ("ff1_t_q8", "ff1_t_q8s", "ff1_b", "ff2_t_q8",
+                                           "ff2_t_q8s", "ff2_b", "norm_eps"))
+
+
+def ffn_yardstick(xr, hs, fa, rows: int, card, reps: int) -> None:
+    """Kernel 3's time beside the CUDA-core kernel it replaced (on `rows`-row
+    tiles) on the same inputs, and its design's byte bound."""
+    from april_asr_tpu_torch.ops import lstm_kernels as LK
+
+    (R, d), F = xr.shape, fa[0].shape[1]
+    k_ms = cuda_ms(lambda: LK.ffn_norm_i8(xr, hs, *fa), reps)
+    s_ms = cuda_ms(lambda: LK.ffn_norm_i8_simt(xr, hs, *fa, rows=rows), max(3, reps // 4), warmup=1)
+    (b_ms, b_by), design_ms = ffn_bounds(R, d, F, fa[2].element_size())
+    print(f"ffn_norm_i8 beside the CUDA-core kernel 3 ({rows}-row tiles) at R={R}, d={d}, "
+          f"ffn={F}: ms={k_ms:.4f} simt_ms={s_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+          f"design_bytes_ms={design_ms:.4f} ({card})")
+
+
 def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
     """Each kernel's wrapper and its plain version on the same inputs at S
     sessions and P pulls (F = 101 frames), held to the stated tolerances;
@@ -631,22 +716,15 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
                  {"int8": 2 * P * S * (2 * d * 4 * H + H * d)})
     out["lstm_rec_stream2_i8"] = (kf, pf, err, b, f"x[{P},{S},{d}] H={H}")
 
-    # 3. ffn_norm_i8 over the flattened P*S rows (layer 0)
+    # 3. ffn_norm_i8 over the flattened P*S rows (layer 0): the tensor-core
+    # passes equal the CUDA-core kernel they replaced, on each of its row
+    # tiles, bit for bit (the same exact int32 dots and f32 op order)
     R = P * S
     xr = x.reshape(R, d)
     hs = t(rng.normal(size=(R, d)).astype(np.float32))
     fa = (w["ff1_t_q8"][0], w["ff1_t_q8s"][0], w["ff1_b"][0],
           w["ff2_t_q8"][0], w["ff2_t_q8s"][0], w["ff2_b"][0], w["norm_eps"][0])
-    kf = lambda: LK.ffn_norm_i8(xr, hs, *fa)  # noqa: E731
-    pf = lambda: LK.ffn_norm_plain(xr, hs, *fa)  # noqa: E731
-    got, want = kf(), pf()
-    torch.cuda.synchronize()
-    # the 8- and 4-row tiles (the wide models' route) give the same bits
-    for rows in (8, 4):
-        _bit_equal([LK.ffn_norm_cuda(xr, hs, *fa, rows=rows)], [got], ("y",),
-                   f"ffn_norm_i8 on {rows}-row tiles vs 16 at R={R}")
-    b = bound_ms(3 * R * d * 4 + 2 * d * Fn + (2 * Fn + 2 * d) * 4, {"int8": 2 * R * d * Fn * 2})
-    out["ffn_norm_i8"] = (kf, pf, _ulp_close(got, want, "ffn_norm_i8"), b, f"rows[{R},{d}] ffn={Fn}")
+    out["ffn_norm_i8"] = check_ffn(xr, hs, fa, (16, 8, 4), "ffn_norm_i8")
 
     # 10. lstm_chunk: one whole float layer over P steps (layer 0), gated:
     # the persistent kernel against the plain version (`check_chunk_float`),
@@ -799,7 +877,7 @@ SOURCES = {
     "fbank_i8": ("april_asr_tpu_torch/csrc/fbank_i8.cu", "april_asr_tpu/ops/fbank_pallas.py:457"),
     "lstm_rec_stream2_i8": ("april_asr_tpu_torch/csrc/lstm_mma.cu",
                             "april_asr_tpu/ops/lstm_pallas.py:1147"),
-    "ffn_norm_i8": ("april_asr_tpu_torch/csrc/lstm_i8.cu", "april_asr_tpu/ops/lstm_pallas.py:1264"),
+    "ffn_norm_i8": ("april_asr_tpu_torch/csrc/ffn_mma.cu", "april_asr_tpu/ops/lstm_pallas.py:1264"),
     "chunk_decode": ("april_asr_tpu_torch/csrc/chunk_decode.cu",
                      "april_asr_tpu/ops/decode_pallas.py:440"),
     "fbank_bf16x3": ("april_asr_tpu_torch/csrc/fbank_bf16x3.cu",
@@ -813,8 +891,8 @@ SOURCES = {
     "lstm_step_i8": ("april_asr_tpu_torch/csrc/lstm_mma.cu", "april_asr_tpu/ops/lstm_pallas.py:426"),
     "lstm_step_i8_simt": ("april_asr_tpu_torch/csrc/lstm_step.cu",
                           "april_asr_tpu/ops/lstm_pallas.py:426"),
-    "ffn_norm_i8_r4": ("april_asr_tpu_torch/csrc/lstm_i8.cu",
-                       "april_asr_tpu/ops/lstm_pallas.py:1264"),
+    "ffn_norm_i8_wide": ("april_asr_tpu_torch/csrc/ffn_mma.cu",
+                         "april_asr_tpu/ops/lstm_pallas.py:1264"),
     "lstm_step_f32": ("april_asr_tpu_torch/csrc/lstm_mma_float.cu",
                       "april_asr_tpu/ops/lstm_pallas.py:1370"),
     "lstm_step_bf16": ("april_asr_tpu_torch/csrc/lstm_mma_float.cu",
@@ -863,7 +941,8 @@ COUNT_KEY = {"joiner_argmax_v16383": "joiner_argmax", "joiner_argmax_f32_v16383"
              "rec_interleave_i8_ts2": "rec_interleave_i8"}
 # the row that takes a path's launches of a kernel whose own row (another
 # shape, no serving path) keeps that kernel's count name
-PATH_ROW = {"wide int8": {"lstm_rec_stream_i8": "lstm_rec_stream_i8_wide"}}
+PATH_ROW = {"wide int8": {"lstm_rec_stream_i8": "lstm_rec_stream_i8_wide",
+                          "ffn_norm_i8": "ffn_norm_i8_wide"}}
 
 
 def time_rows(checked: dict, card, reps: int, timer=cuda_ms) -> list:
@@ -897,6 +976,7 @@ def phase_kernels(models, card, reps: int = 20):
 
     P = FbankLayout.build(models["int8"].runtime.fbank_opts, CHUNK_1S).max_pulls_per_step
     rows = time_rows(check_kernels(models, S_FLAG, P, seed=1), card, reps)
+    ffn_yardstick(*ffn_inputs(models["int8"].runtime, S_FLAG * P, seed=4), 16, card, reps)
     # the embed kernel 16 displaces in the step: stacked windows + cuDNN
     rt = models["bf16"].runtime
     front = front_buffer(rt, S_FLAG, P, np.random.default_rng(3),
@@ -914,7 +994,7 @@ def phase_kernels(models, card, reps: int = 20):
 
 
 def print_mma_plans(rt, S: int, P: int):
-    """Kernels 2, 7, 12 and 10's launch plans (ops/lstm_mma.py) at the
+    """Kernels 2, 7, 3, 12 and 10's launch plans (ops/lstm_mma.py) at the
     engine's shapes on this card."""
     from april_asr_tpu_torch.ops import lstm_mma as LM
 
@@ -925,6 +1005,10 @@ def print_mma_plans(rt, S: int, P: int):
               f"{plan.gate.rows} rows ({plan.gate.items}); projection items (tiles, rows, column "
               f"groups, items) {plan.proj.ints()}; ff1 {plan.ff1.ints() if plan.ff1 else None}; "
               f"{plan.smem} bytes of shared memory a block")
+    fp = LM.ffn_plan(S * P, d, F)
+    print(f"kernel 3 plan at R={S * P}: ff1 grid (column tiles, row tiles) {fp.grid(F)}, ff2 "
+          f"{fp.grid(d)}; {fp.smem} bytes of shared memory a block; {fp.scratch()[0]} bytes of "
+          f"scratch")
     for wb, prec in ((4, "f32"), (2, "bf16")):
         for what, plan in (
                 (f"kernel 12 {prec} plan at S={S}", LM.device_float_plan(S, d, H, F, wb,
@@ -1084,6 +1168,7 @@ def phase_engine(model, card, path: str, ticks: int = 10, flushes: int = 5, ab: 
     from april_asr_tpu_torch.config import EngineConfig
     from april_asr_tpu_torch.engine.batch import BatchEngine
     from april_asr_tpu_torch.ops import cuda_build
+    from april_asr_tpu_torch.tools.profile_lstm_mma import FFN_PASSES_KERNELS
 
     rt = model.runtime
     S, chunk = S_FLAG, CHUNK_1S
@@ -1149,6 +1234,10 @@ def phase_engine(model, card, path: str, ticks: int = 10, flushes: int = 5, ab: 
           f"audio_s_per_s={aps:.1f} callbacks={n_cb[0]} step_launches={json.dumps(step_counts)} "
           f"flush_launches={json.dumps(flush_counts)} ({card})")
     prof_step = profile(run_step, card, f"engine {path} step")
+    k3 = [v for k, v in prof_step.items() if any(n in k for n in FFN_PASSES_KERNELS)]
+    if k3:
+        print(f"engine {path} step: kernel 3's passes {sum(t for t, _ in k3) / 1e3:.2f} ms of "
+              f"device time a step over {sum(c for _, c in k3)} launches ({card})")
     profile(run_flush, card, f"engine {path} flush", n=1)
     if ab:
         embed_ab(rt, run_step, prof_step, card, path)
@@ -1331,12 +1420,13 @@ def serve_once(model, path: str, S: int, ticks: int, card) -> dict:
     return _merge(step_counts, flush_counts)
 
 
-def check_wide_int8(rt, S: int, P: int, seed: int) -> dict:
+def check_wide_int8(rt, S: int, P: int, seed: int, card) -> dict:
     """The int8 routes at a model's widths (layer 0): kernel 2's call (kernel
     14 where kernel 2 has no plan), kernel 7's call (the three-pass step,
-    ungated and gated) and kernel 3 (its row tile by width) against their
-    plain versions, to `_ulp_close`. Returns the JSON checks of the three
-    routed calls."""
+    ungated and gated) and kernel 3 against their plain versions, to
+    `_ulp_close`, kernel 3 also bit for bit against the CUDA-core kernel's
+    4-row tiles and timed beside them. Returns the JSON checks of the three
+    calls."""
     from april_asr_tpu_torch.ops import lstm_kernels as LK
     from april_asr_tpu_torch.ops import lstm_mma as LM
 
@@ -1375,19 +1465,104 @@ def check_wide_int8(rt, S: int, P: int, seed: int) -> dict:
     out["lstm_step_i8_simt"] = (lambda: LK.lstm_layer_fused_i8(xs, h0, c0, *sa),
                                 lambda: LK.lstm_layer_fused_i8_plain(xs, h0, c0, *sa), err, b,
                                 f"x[{S},{d}] H={H} ffn={Fn} (kernel 7's route)")
-    R = P * S
-    xr, hs = x.reshape(R, d), t(rng.normal(size=(R, d)).astype(np.float32))
-    fa = sa[7:]
-    got = LK.ffn_norm_i8(xr, hs, *fa)
-    torch.cuda.synchronize()
-    err3 = _ulp_close(got, LK.ffn_norm_plain(xr, hs, *fa), "wide kernel 3")
-    b = bound_ms(3 * R * d * 4 + 2 * d * Fn + (2 * Fn + 2 * d) * 4, {"int8": 2 * R * d * Fn * 2})
-    out["ffn_norm_i8" if routes.ffn_rows == 16 else f"ffn_norm_i8_r{routes.ffn_rows}"] = (
-        lambda: LK.ffn_norm_i8(xr, hs, *fa), lambda: LK.ffn_norm_plain(xr, hs, *fa), err3, b,
-        f"rows[{R},{d}] ffn={Fn} ({routes.ffn_rows}-row tiles)")
+    # kernel 3 against the CUDA-core kernel's 4-row tiles, its route here
+    # before the tensor-core passes (no larger tile fits at these widths)
+    xr, hs = x.reshape(P * S, d), t(rng.normal(size=(P * S, d)).astype(np.float32))
+    out["ffn_norm_i8_wide"] = check_ffn(xr, hs, sa[7:], (4,), "wide kernel 3")
     print(f"widths wide int8 routes at S={S}, P={P}: {routes}; kernel 14 max_abs_err {err14:.3g}, "
-          f"the three-pass step {err:.3g}, kernel 3 {err3:.3g}")
+          f"the three-pass step {err:.3g}, kernel 3 {out['ffn_norm_i8_wide'][2]:.3g}")
+    ffn_yardstick(xr, hs, sa[7:], 4, card, 10)
     return out
+
+
+def check_padded_layers(rt, S: int, P: int, seed: int) -> str:
+    """Each layer kernel of a model whose widths are not multiples of 4 on
+    the operands the encoder stacks give it (`padded_operands`: layer 0's
+    weights and the rows zero-padded to the next multiples of 4, the
+    norm's width the model's d_model), against its plain version on the
+    model's own weights and widths: kernels 2, 3 and 7 on int8 weights
+    (`_ulp_close`, gated and ungated), kernels 10 and 12 on f32 or bf16
+    weights (`FLOAT_TOL`), and every padded output column exactly zero.
+    Returns a summary of the largest differences."""
+    from april_asr_tpu_torch.models import lstm_transducer as TM
+    from april_asr_tpu_torch.ops import lstm_float_kernels as LF
+    from april_asr_tpu_torch.ops import lstm_kernels as LK
+
+    w = rt.weights
+    q = TM.is_quantized(w)
+    d, H, F = TM.layer_widths(w)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa: E731
+    x = t(rng.normal(size=(P, S, d)).astype(np.float32))
+    h0 = t((rng.normal(size=(1, S, d)) * 0.3).astype(np.float32))
+    c0 = t((rng.normal(size=(1, S, H)) * 0.3).astype(np.float32))
+    n_pulls = t(rng.integers(0, P + 1, size=S).astype(np.int32))
+    gate = t(rng.random(S) < 0.5)
+    pw, xp, hp, cp, norm_d = TM.padded_operands(w, x, h0, c0)
+    dp, Hp = xp.shape[-1], cp.shape[-1]
+    if (dp, Hp) == (d, H) or norm_d != d:
+        raise AssertionError(f"padded layers: widths d={d}, H={H} not padded ({dp}, {Hp})")
+    keys = TM.STEP_I8_KEYS if q else TM.STEP_KEYS
+    lw, lp = tuple(w[k][0] for k in keys), tuple(pw[k][0] for k in keys)
+    errs = {}
+
+    def held(name, got, want, widths, close):
+        for g, wv, n, k in zip(got, want, widths, ("y", "h", "c")):
+            torch.cuda.synchronize()
+            if torch.count_nonzero(g[..., n:]):
+                raise AssertionError(f"padded {name} {k}: a padded column is not zero")
+            errs[name] = max(errs.get(name, 0.0), close(g[..., :n].contiguous(), wv, f"padded {name} {k}"))
+
+    if q:
+        ulp = _ulp_close
+        held("kernel 2", LK.lstm_layer_chunk_rec_stream2_i8(xp, hp[0], cp[0], *lp[:7], n_pulls),
+             LK.lstm_rec_plain(x, h0[0], c0[0], n_pulls, *lw[:7]), (d, d, H), ulp)
+        R = P * S
+        hs = t(rng.normal(size=(R, d)).astype(np.float32))
+        held("kernel 3", [LK.ffn_norm_i8(xp.reshape(R, dp), torch.nn.functional.pad(hs, (0, dp - d)),
+                                         *lp[7:], norm_d=d)],
+             [LK.ffn_norm_plain(x.reshape(R, d), hs, *lw[7:])], (d,), ulp)
+        for g in (None, gate):
+            held("kernel 7", LK.lstm_layer_fused_i8(xp[0], hp[0], cp[0], *lp, g, norm_d=d),
+                 LK.lstm_layer_fused_i8_plain(x[0], h0[0], c0[0], *lw, g), (d, d, H), ulp)
+    else:
+        prec = "bf16" if w["w_ih_t"].dtype == torch.bfloat16 else "f32"
+        atol, rtol = FLOAT_TOL[prec]
+
+        def fclose(g, wv, what):
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"{what}: non-finite values")
+            torch.testing.assert_close(g, wv, atol=atol, rtol=rtol, msg=what)
+            return float((g - wv).abs().max())
+
+        held("kernel 10", LF.lstm_layer_chunk_fused(xp, hp[0], cp[0], *lp, n_pulls, norm_d=d),
+             LF.lstm_layer_chunk_plain(x, h0[0], c0[0], *lw, n_pulls), (d, d, H), fclose)
+        for g in (None, gate):
+            held("kernel 12", LF.lstm_layer_fused(xp[0], hp[0], cp[0], *lp, g, norm_d=d),
+                 LF.lstm_layer_fused_plain(x[0], h0[0], c0[0], *lw, g), (d, d, H), fclose)
+    return (f"d={d} H={H} F={F} padded to d={dp} H={Hp} F={pw['ff1_t_q8' if q else 'ff1_t'].shape[-1]}"
+            f" at S={S}, P={P}: " + ", ".join(f"{k} max_abs_err {v:.3g}" for k, v in errs.items()))
+
+
+def check_embed_widths(rt, S: int, P: int, seed: int) -> str:
+    """Kernel 16 (and 17) on `rt`'s bf16 embed weights, and again on random
+    bf16 embed weights at an odd d_model (67), each held to `_embed_close`:
+    the conv channels and d_model zero-padded to the kernel's widths."""
+    import types
+
+    from april_asr_tpu_torch.models import lstm_transducer as TM
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa: E731
+    dims67 = dataclasses.replace(rt.dims, d_model=67, decoder_groups=1)
+    p67 = {k: v.to(DEV) for k, v in TM.init_transducer_params(seed, dims67).items()}
+    rt67 = types.SimpleNamespace(weights=TM.cast_weights(p67, torch.bfloat16), dims=dims67)
+    out = []
+    for r in (rt, rt67):
+        for name, v in check_conv_embed(r, S, P, rng, t).items():
+            out.append(f"{name} at d={r.dims.d_model} c={r.dims.conv_channels} "
+                       f"max_abs_err {v[2]:.3g}")
+    return "; ".join(out)
 
 
 def phase_widths(tmp: str, card, reps: int = 10):
@@ -1398,10 +1573,13 @@ def phase_widths(tmp: str, card, reps: int = 10):
     flush on those routes (`serve_once`).
     A 2-layer float model at d 68 / H 260 / F 196: the CUDA engine against
     the CPU engine at f32 (`_lockstep`), then `serve_once` at f32 and bf16.
-    A model at d 66 is refused when its engine is built. Returns (JSON rows,
-    {path: launch counts})."""
+    A model at d 66 / H 258 / F 198, conv channels (4, 12, 20) (`ODD`): its
+    layer kernels on padded operands against their plain versions
+    (`check_padded_layers`, S=256, P=27) and kernel 16 (`check_embed_widths`)
+    at int8 and f32, then `_lockstep` and `serve_once` at f32 and int8 on
+    those kernels (PATH_KERNELS "d66 ..."). Returns (JSON rows, {path:
+    launch counts})."""
     from april_asr_tpu_torch.api import Model
-    from april_asr_tpu_torch.engine.batch import BatchEngine
     from april_asr_tpu_torch.models.lstm_transducer import TransducerDims
 
     t0 = time.perf_counter()
@@ -1411,7 +1589,7 @@ def phase_widths(tmp: str, card, reps: int = 10):
     wide = Model(flagship_april(wide_dir, seed=9, dims=TransducerDims(**WIDE)), precision="int8",
                  device=DEV)
     print(f"widths: wide int8 model written and loaded in {time.perf_counter() - t0:.1f} s")
-    rows = time_rows(check_wide_int8(wide.runtime, S_FLAG, 27, seed=15), card, reps)
+    rows = time_rows(check_wide_int8(wide.runtime, S_FLAG, 27, seed=15, card=card), card, reps)
     counts["wide int8"] = serve_once(wide, "wide int8", S_FLAG, 3, card)
     del wide
     narrow = TransducerDims(**NARROW)
@@ -1423,18 +1601,21 @@ def phase_widths(tmp: str, card, reps: int = 10):
     for prec in ("f32", "bf16"):
         model = Model(path, precision=None if prec == "f32" else prec, device=DEV)
         counts[f"narrow {prec}"] = serve_once(model, f"narrow {prec}", 8, 2, card)
+    # d 66 / H 258 / F 198: the layer kernels on zero-padded widths
     odd_dir = os.path.join(tmp, "narrow66")
     os.makedirs(odd_dir)
-    odd = Model(flagship_april(odd_dir, seed=11, dims=dataclasses.replace(
-        narrow, d_model=66, decoder_groups=2)), device=DEV)
-    try:
-        BatchEngine(odd.runtime, batch=8)
-    except ValueError as e:
-        if "d_model=66" not in str(e):
-            raise
-        print(f"widths: d=66 refused when its engine is built: {e}")
-    else:
-        raise AssertionError("widths: an engine at d=66 was built")
+    odd = flagship_april(odd_dir, seed=11, dims=TransducerDims(**ODD))
+    for prec in ("f32", "int8"):
+        p = None if prec == "f32" else prec
+        rt = Model(odd, precision=p, device=DEV).runtime
+        print(f"widths d66 {prec}: {check_padded_layers(rt, S_FLAG, 27, seed=18)}")
+        if prec == "int8":
+            print(f"widths d66 embed: {check_embed_widths(rt, S_FLAG, 27, seed=19)}")
+        _lockstep(Model(odd, precision=p, device=DEV).runtime,
+                  Model(odd, precision=p, device="cpu").runtime, S=8, chunk=CHUNK_1S, ticks=2,
+                  seed=17, what=f"widths d66 {prec} lockstep", card=card)
+        counts[f"d66 {prec}"] = serve_once(Model(odd, precision=p, device=DEV), f"d66 {prec}", 8,
+                                           2, card)
     print(f"widths: {time.perf_counter() - t0:.1f} s")
     return rows, counts
 

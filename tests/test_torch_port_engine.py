@@ -103,7 +103,8 @@ def _stream_parity(random_april, monkeypatch, chunk, ticks, precision):
     same of the JAX package's own int8 paths); a session that parts from
     JAX at a decision taken by a larger margin fails the test, and so does
     any callback or integer decode state that differs while the events
-    agree."""
+    agree. Returns the sessions that parted, {session: (step, cell,
+    margin)}."""
     from april_asr_tpu.engine.step import unpack_events_np as j_unpack
     from april_asr_tpu_torch.engine.step import unpack_events_np as t_unpack
     from april_asr_tpu_torch.testing import (
@@ -157,6 +158,7 @@ def _stream_parity(random_april, monkeypatch, chunk, ticks, precision):
     assert n_cb > S * ticks  # the decode emitted, not just silence
     assert any(r[0] == int(Result.FINAL_RECOGNITION) for rec in jrec for r in rec)
     print(f"{precision} chunk {chunk}: sessions parted at near-ties (step, cell, margin): {parted}")
+    return parted
 
 
 def test_encoder_chunk_matches_jax(random_april, monkeypatch):

@@ -4,13 +4,16 @@ port used to refuse.
 * The top package exports every name of the JAX package's `__all__` that
   the port defines (`MeshConfig` was missing).
 * int8: where kernels 2 and 7 keep no stationary plan, their calls take
-  kernel 14 and the three-pass step, and kernel 3 a smaller row tile
-  (ops/lstm_mma.py `int8_routes`): every 128-multiple model up to d 1024,
-  H 4096 and F 8192 has a route at S = 1, 3, 256 and 2048, and the flagship
-  widths keep kernels 2, 7 and 3 at 16 rows.
+  kernel 14 and the three-pass step (ops/lstm_mma.py `int8_routes`); kernel
+  3 (`ffn_plan`, tiled tensor-core passes) has no width limit: every
+  128-multiple model up to d 1024, H 4096 and F 8192 has a route at S = 1,
+  3, 256 and 2048, and the flagship widths keep kernels 2 and 7.
 * `build_engine` on a CUDA runtime plans every layer kernel of its step and
-  flush before it serves (`check_kernel_plans`), and refuses widths that
-  are not multiples of 4 with the widths and the kernel named.
+  flush before it serves (`check_kernel_plans`); a model whose widths are
+  not multiples of 4 (which the JAX package serves through XLA) is planned
+  and served on the same kernels at its widths zero-padded to multiples of
+  4 (ops/widths.py), and the tensor-parallel engine at such shard widths is
+  refused with the widths and the kernels named.
 """
 
 import dataclasses
@@ -53,34 +56,39 @@ def test_int8_routes_serve_every_f1_width(S, P):
     for d, H, F in _f1_widths():
         r = LM.int8_routes(S, P, d, H, F)
         assert r.rec in ("mma", "stream") and r.step in ("mma", "simt")
-        assert LM.ffn_i8_smem(r.ffn_rows, d, F) <= LM.SMEM_LIMIT
+        plan = LM.ffn_plan(P * S, d, F)
+        assert plan.smem <= LM.SMEM_LIMIT and plan.grid(F)[1] * LM.FFN_TILE == plan.rp
         if r.rec == "stream":
             assert LM.rec_stream_smem(d, H) <= LM.SMEM_LIMIT
         if r.step == "simt":
             assert LM.step_simt_smem(d, H, F) <= LM.SMEM_LIMIT
-        seen.add((r.rec, r.step, r.ffn_rows))
+        seen.add((r.rec, r.step))
     # the grid reaches every route
-    assert {r for r, _, _ in seen} == {"mma", "stream"}
-    assert {s for _, s, _ in seen} == {"mma", "simt"}
-    assert {k for _, _, k in seen} == set(LM.FFN_ROWS)
+    assert {r for r, _ in seen} == {"mma", "stream"}
+    assert {s for _, s in seen} == {"mma", "simt"}
 
 
 @pytest.mark.parametrize("S", [1, 3, 256, 2048])
 def test_int8_routes_keep_the_flagship_kernels(S):
-    assert LM.int8_routes(S, 27, 512, 1024, 2048) == LM.Int8Routes("mma", "mma", 16)
-    assert LM.int8_routes(S, 27, 1024, 4096, 8192) == LM.Int8Routes("stream", "simt", 4)
+    assert LM.int8_routes(S, 27, 512, 1024, 2048) == LM.Int8Routes("mma", "mma")
+    assert LM.int8_routes(S, 27, 1024, 4096, 8192) == LM.Int8Routes("stream", "simt")
 
 
 def test_int8_route_bytes():
     """The C launches' byte counts at the widest F1 model: kernel 14's block
-    of 4 sessions, the int8 three-pass step's 4-row FFN tile, kernel 3's
-    16-, 8- and 4-row tiles."""
+    of 4 sessions, the int8 three-pass step's 4-row FFN tile; kernel 3's
+    block (two stages of 128 x 80-byte A and B tiles and 128 amax slots) at
+    every width, where the CUDA-core kernel 3 it replaced staged a [16][F]
+    mid tile (204,928 bytes at the flagship, none fitting past d 512 / F
+    2432 at 16 rows, d 4096 / F 16384 at any)."""
     assert LM.rec_stream_smem(1024, 4096) == 204_864
     assert LM.step_simt_smem(1024, 4096, 8192) == LM.ffn_i8_smem(4, 1024, 8192) == 184_352
-    assert [LM.ffn_i8_smem(r, 512, 2048) for r in LM.FFN_ROWS] == [204_928, 102_464, 51_232]
-    assert LM.ffn_rows(512, 2432) == 8 and LM.ffn_rows(512, 2048) == 16
-    with pytest.raises(ValueError, match="no row tile"):
-        LM.ffn_rows(4096, 16384)
+    assert LM.FFN_SMEM == 2 * 2 * 128 * 80 + 512 == 41_472
+    assert LM.ffn_i8_smem(16, 512, 2048) == 204_928
+    assert LM.ffn_i8_smem(16, 512, 2432) > LM.SMEM_LIMIT
+    assert LM.ffn_plan(6912, 512, 2432).smem == LM.ffn_plan(6912, 4096, 16384).smem == LM.FFN_SMEM
+    with pytest.raises(ValueError, match="multiples of 4"):
+        LM.ffn_plan(6912, 510, 2048)
 
 
 def _runtime(d, H, F, precision=None, layers=1):
@@ -100,18 +108,30 @@ def test_plans_take_multiples_of_4(precision):
         ES.check_kernel_plans(rt, S, 27, n_sm=132)
 
 
-@pytest.mark.parametrize("precision, kernel", [(None, "kernel 12 \\(f32\\)"),
-                                               ("bf16", "kernel 12 \\(bf16\\)"),
-                                               ("int8", "int8")])
+@pytest.mark.parametrize("precision, kernel", [
+    (None, "f32 tensor-parallel kernels \\(18, 20\\)"),
+    ("bf16", "bf16 tensor-parallel kernels \\(18, 20\\)"),
+    ("int8", "int8 tensor-parallel kernels \\(19, 21\\)"),
+])
 def test_build_engine_refuses_at_load(precision, kernel, monkeypatch):
-    """A CUDA runtime at d = 66 is refused when its engine is built, with
-    the widths and the kernel in the message (the check reads shapes only,
-    so a CPU runtime stands in, its device set to CUDA and the SM count to
-    the H100's)."""
-    rt = dataclasses.replace(_runtime(66, 132, 264, precision), device=torch.device("cuda"))
+    """A CUDA runtime at d = 66 / H 130 / F 198 is served: its engine builds
+    with every layer kernel planned at the widths padded to multiples of 4
+    (68, 132, 200), and only the tensor-parallel engine, whose shards are
+    not padded, is refused when it is built, with the widths and the
+    kernels in the message (the check reads shapes only, so a CPU runtime
+    stands in, its device set to CUDA and the SM count to the H100's)."""
+    rt = dataclasses.replace(_runtime(66, 130, 198, precision, layers=2),
+                             device=torch.device("cuda"))
     monkeypatch.setattr(LM, "device_sm", lambda dev: 132)
-    with pytest.raises(ValueError, match=f"{kernel}.*d_model=66, hidden=132, ffn=264"):
-        ES.build_engine(rt, 4)
+    planned = []
+    for name in ("int8_routes", "float_step_plan", "float_chunk_plan"):
+        fn = getattr(LM, name)
+        monkeypatch.setattr(LM, name, lambda *a, fn=fn: planned.append(a) or fn(*a))
+    ES.build_engine(rt, 4)
+    assert len(planned) == (1 if precision == "int8" else 2)
+    assert all(any(a[i:i + 3] == (68, 132, 200) for i in range(len(a))) for a in planned)
+    with pytest.raises(ValueError, match=f"{kernel}.*d_model=66, hidden=130, ffn=198"):
+        ES.check_kernel_plans(rt, 4, 27, n_sm=132, m=2)
 
 
 def test_tp_plans_follow_the_shard_widths():
