@@ -10,9 +10,10 @@ weights, i.e. int8 and bf16 engines; the stacked windows through
 at widths zero-padded to multiples of 4 where a model's are not,
 models/lstm_transducer.py `padded_layers`),
 then the greedy decode: the whole chunk's in one launch of kernel 4 where
-the JAX package's gate `chunk_decode_supported` passes and kernel 4's block
-fits (`chunk_decode_block_fits`), else pull by pull through `inner_decode`,
-as the JAX step's scan does. Handler-visible actions
+the JAX package's gate `chunk_decode_supported` passes and a kernel 4 holds
+the shapes (ops/decode_kernels.py `decode_route`: the cluster kernel's
+plan, else the CUDA-core kernel's block), else pull by pull through
+`inner_decode`, as the JAX step's scan does. Handler-visible actions
 leave the device as the compact APR4 event blob, bit-identical in layout to
 the JAX package's (see the layout note below).
 
@@ -74,8 +75,10 @@ from ..ops import lstm_mma
 from ..ops.decode_kernels import (
     EVENT_KEYS,
     chunk_decode,
-    chunk_decode_block_fits,
-    chunk_decode_supported,
+    decode_plan,
+    decode_route,
+    device_max_clusters,
+    nominal_clusters,
 )
 from ..ops.lstm_tp_kernels import tp_smem
 from ..ops.widths import round_up
@@ -255,7 +258,9 @@ def init_engine_state(prog: EngineProgram, weights=None) -> Dict:
     return shard_state(state, prog.mesh, prog.tp_axes) if prog.tp_axes else state
 
 
-def check_kernel_plans(rt: ModelRuntime, S: int, P: int, n_sm: int, m: int = 1) -> None:
+def check_kernel_plans(rt: ModelRuntime, S: int, P: int, n_sm: int, m: int = 1,
+                       tokens: int = DecodeConfig().max_active_tokens,
+                       max_clusters=nominal_clusters) -> None:
     """Plans every encoder layer kernel that a CUDA engine over S rows and P
     pulls a step launches, on a card of n_sm SMs, at the widths the kernels
     take (multiples of 4, zero-padded where the model's are not,
@@ -264,9 +269,13 @@ def check_kernel_plans(rt: ModelRuntime, S: int, P: int, n_sm: int, m: int = 1) 
     `encoder_chunk` None the per-pull step's), its flush (kernel 7 or its
     route, or kernel 12) and, at m > 1 model shards, the tensor-parallel
     kernels 18-21 at the shard's widths, which are not padded: their shards
-    must be multiples of 4. Raises one ValueError naming the widths and the
-    kernel where one has no plan, so that a model the card cannot serve is
-    refused when its engine is built, not at its first flush."""
+    must be multiples of 4. With `encoder_chunk` it also plans the step's
+    kernel 4 (ops/decode_kernels.py `decode_plan`, a token window of
+    `tokens`) with `max_clusters` (the card's cluster occupancy). Raises one
+    ValueError naming the widths and the kernel where one has no plan (or
+    the card places none of kernel 4's clusters), so that a model the card
+    cannot serve is refused when its engine is built, not at its first
+    step or flush."""
     w = rt.weights
     q = is_quantized(w)
     wb = 1 if q else w["w_ih_t"].element_size()
@@ -292,6 +301,11 @@ def check_kernel_plans(rt: ModelRuntime, S: int, P: int, n_sm: int, m: int = 1) 
         if chunk:
             plans.append((f"kernel 10 ({prec})",
                           lambda: lstm_mma.float_chunk_plan(S, P, d, H, F, wb, n_sm)))
+    J, V = w["join_t"].shape
+    dec = (S, J, w["dec_table"].shape[2], V, tokens, w["join_t"].element_size())
+    if chunk and decode_route(*dec, rt.dims.context) == "cluster":
+        plans.append((f"kernel 4 (J={J}, d={dec[2]}, V={V}, T={tokens}, "
+                      f"{w['join_t'].dtype})", lambda: decode_plan(*dec, max_clusters)))
     for what, plan in plans:
         try:
             plan()
@@ -343,7 +357,8 @@ def build_engine(
     dev = rt.device
     if torch.device(dev).type == "cuda":
         check_kernel_plans(rt, batch, P, lstm_mma.device_sm(torch.device(dev)),
-                           mesh.model_parallel if tp_axes else 1)
+                           mesh.model_parallel if tp_axes else 1, dcfg.max_active_tokens,
+                           device_max_clusters(dev, rt.weights["join_t"].element_size()))
     # int8-serving engines (weights with `_q8` copies) run the int8-DFT
     # frontend, every other engine the bf16x3 one (JAX engine/step.py:481-486)
     dft_i8 = is_quantized(rt.weights)
@@ -355,11 +370,11 @@ def build_engine(
 
     def chunk_decode_fits(weights, eouts) -> bool:
         """The JAX step's choice between kernel 4 and the per-pull scan, less
-        the shapes whose kernel 4 block exceeds the H100's shared memory."""
+        the shapes no kernel 4 holds (`decode_route`, from shapes only)."""
         _, S, J = eouts.shape
         d, V = weights["dec_table"].shape[2], weights["join_t"].shape[1]
-        return (chunk_decode_supported(S, J, d, rt.dims.context, V)
-                and chunk_decode_block_fits(J, d, V, dcfg.max_active_tokens))
+        return decode_route(S, J, d, V, dcfg.max_active_tokens,
+                            weights["join_t"].element_size(), rt.dims.context) is not None
 
     def inner_decode(weights, eout, can, dstate):
         """The <= 3-symbol masked inner loop of one pull (JAX step.py

@@ -14,6 +14,11 @@ directory) and, on the flagship random int8 model (seed 0):
   rows of both, and kernel 7 (`lstm_layer_fused_i8`) at S = 256, on numpy
   seed inputs, with the SHA-1 of their outputs (kernel 7 ungated and
   gated);
+* times kernel 4 (`chunk_decode`, the whole-chunk decode) on the model's
+  bf16 decode weights at S = 256 and 2048, P = 27, on the inputs chip_smoke
+  checks it on (`profile_decode.decode_case`, loaded from this tree), by
+  CUDA events and the profiler's device time, with the SHA-1 of its events
+  and state;
 * runs chip_smoke's `engine` cell at int8 (10 ticks, 5 flushes, the step
   and flush programs, the profiler's step and flush), its lines relayed;
 * records the int8 engine's event blobs over the same 10 ticks and a flush
@@ -21,16 +26,19 @@ directory) and, on the flagship random int8 model (seed 0):
 * then, on the same model served at f32 (as loaded) and at bf16: times
   kernel 12 (`lstm_layer_fused`, layer 0) at S = 256 and kernel 10
   (`lstm_layer_chunk_fused`, layer 0, gated) at S = 256 and 2048, P = 27,
-  with the SHA-1 of their outputs (kernel 12 ungated and gated), runs the
-  `engine` cell at that precision (its step ms kept), and records the
+  with the SHA-1 of their outputs (kernel 12 ungated and gated), kernel 4
+  on its decode weights at f32 as above (bf16: the int8 model's), runs the
+  `engine` cell at that precision (its step ms kept), records the engine's
+  event blobs over the same 10 ticks and a flush with its kernels, and the
   engine's events over the same 10 ticks and a flush with the decode on its
   plain versions (kernel 4's and 8's functions), so that `DecisionMargins`
   records every decision's margin, into <out>/<turn>-<tree>-<precision>.pkl;
   at bf16 also on the random models of seeds 1 and 2
   (<turn>-<tree>-bf16-s<seed>.pkl).
 
-The main process then requires every turn's int8 blobs and the outputs of
-kernels 2, 3, 7 and 12 to be equal, bit for bit; every session of a float
+The main process then requires every turn's int8 blobs, the f32 and bf16
+engines' blobs (run on their kernels), and the outputs of kernels 2, 3, 4,
+7 and 12 to be equal, bit for bit; every session of a float
 engine whose events part from the first turn's to part at a near-tie
 decision (`testing.check_parting`, `testing.NEAR_TIE`; every session is
 counted, and each parting at or above it listed), counted per turn
@@ -38,9 +46,9 @@ beside whether the blobs are equal (their f32 log-probabilities move by
 ulps where the encoder's sums change order); and kernel 10's outputs to be
 equal between the turns of one tree (it changes between the trees). It
 prints the times per turn. With `--sass`, it also runs `sass_diff` on
-csrc/lstm_mma.cu, lstm_i8.cu, lstm_step.cu, lstm_tp.cu and lstm_mma_float.cu
-of the two trees (kernels 2, 3, 7, 12, 13, 14, 18, 19, 22 and the
-three-pass float step). Needs a CUDA device (and nvcc).
+csrc/lstm_mma.cu, lstm_i8.cu, lstm_step.cu, lstm_tp.cu, lstm_mma_float.cu,
+lstm_chunk_mma.cu and chunk_decode.cu of the two trees (kernels 2, 3, 7, 12, 13, 14, 18, 19, 22, the
+three-pass float step and the CUDA-core kernel 4). Needs a CUDA device (and nvcc).
 """
 
 from __future__ import annotations
@@ -61,13 +69,19 @@ TAG = "PARENT_AB "
 HERE = Path(__file__).resolve()
 TREE = HERE.parents[2]
 SASS_SOURCES = ("lstm_mma.cu", "lstm_i8.cu", "lstm_step.cu", "lstm_tp.cu", "lstm_mma_float.cu",
-                "lstm_chunk_mma.cu")
+                "lstm_chunk_mma.cu", "chunk_decode.cu")
 FLOATS = ("f32", "bf16")
 BF16_SEEDS = (1, 2)  # more random models for the bf16 engine's partings
 # the float engines' runs compared between turns: (precision, model seed)
 FLOAT_RUNS = tuple((p, 0) for p in FLOATS) + tuple(("bf16", s) for s in BF16_SEEDS)
-# outputs equal between the trees as well as the turns: kernel 12's
-EQUAL_KEYS = tuple(k for p in FLOATS for k in (f"k12_{p}_sha", f"k12_{p}_gated_sha"))
+# outputs equal between the trees as well as the turns: kernel 12's, kernel
+# 4's at both sizes and the float engines' blobs on their kernels
+K4_SIZES = (256, 2048)
+EQUAL_KEYS = tuple(k for p in FLOATS for k in (f"k12_{p}_sha", f"k12_{p}_gated_sha",
+                                                 f"blob_{p}_kernels_sha")) + tuple(
+    f"k4_{p}_S{S}_sha" for p in FLOATS for S in K4_SIZES)
+K4_STATE = ("context", "token_words", "head", "last_call", "time_ms", "last_emit_ms", "need_dec",
+            "emitted_silence", "dout")
 # chip_smoke's engine line: each precision's step, flush and flush program
 # medians (wall ms)
 ENGINE_MS = re.compile(r"^engine (\w+): .* step_ms median=([\d.]+) flush_ms median=([\d.]+) .*"
@@ -78,6 +92,46 @@ ENGINE_KEYS = ("events", "recs", "dec", "cells", "blobs")
 
 def _sha(t) -> str:
     return hashlib.sha1(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
+
+
+def _this_tree(name: str):
+    """This tree's tools/<name>.py, loaded by path (a turn imports the
+    package from its own tree, which may not have the module)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"parent_ab_{name}", HERE.parent / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kernel4_turn(CS, rt, prec: str, res: dict, card: str) -> None:
+    """Kernel 4 on `rt`'s decode weights at S = 256 and 2048, P = 27: its
+    CUDA-event ms, the profiler's device us a launch and the SHA-1 of its
+    events and state, into res["k4_<prec>_S<S>_*"]."""
+    import numpy as np
+    import torch
+
+    from april_asr_tpu_torch.decode.greedy import vocab_tables_device
+    from april_asr_tpu_torch.ops import decode_kernels as DK
+    from april_asr_tpu_torch.tools.profile_lstm_mma import host_and_device_us
+
+    case = _this_tree("profile_decode").decode_case
+    dev = torch.device("cuda")
+    for S in K4_SIZES:
+        args, kw = case(rt.weights, vocab_tables_device(rt.vocab), rt.blank_id,
+                        rt.fbank_opts.segment_stride_ms, S, 27, np.random.default_rng(S + 11), dev)
+        fn = lambda: DK.chunk_decode(*args, **kw)  # noqa: E731
+        st, ev = fn()
+        res[f"k4_{prec}_S{S}_sha"] = ([_sha(ev[k]) for k in DK.EVENT_KEYS]
+                                      + [_sha(st[k]) for k in K4_STATE])
+        res[f"k4_{prec}_S{S}_ms"] = CS.cuda_ms(fn, 10 if S == 256 else 5)
+        res[f"k4_{prec}_S{S}_device_us"] = host_and_device_us(fn, n=3, keys=("chunk_decode",))[1]
+        del args
+    print(f"kernels: k4 {prec} S=256 {res[f'k4_{prec}_S256_ms']:.4f} ms "
+          f"({res[f'k4_{prec}_S256_device_us']:.1f} us device), S=2048 "
+          f"{res[f'k4_{prec}_S2048_ms']:.4f} ms ({res[f'k4_{prec}_S2048_device_us']:.1f} us "
+          f"device) ({card})", flush=True)
 
 
 def worker(root: str, out: str) -> None:
@@ -133,6 +187,7 @@ def worker(root: str, out: str) -> None:
         print(f"kernels: k2 S=256 {res['k2_S256_ms']:.4f} ms, S=2048 {res['k2_S2048_ms']:.4f} ms, "
               f"k3 S=256 {res['k3_S256_ms']:.4f} ms, S=2048 {res['k3_S2048_ms']:.4f} ms, "
               f"k7 S=256 {res['k7_ms']:.4f} ms ({card})", flush=True)
+        kernel4_turn(CS, rt, "bf16", res, card)
         CS.phase_engine(model, card, "int8")
         bufs = CS._tone_bufs(CS.S_FLAG, CS.CHUNK_1S, rt.sample_rate)
         audio = np.stack([bufs[k % len(bufs)] for k in range(10)])
@@ -174,6 +229,7 @@ def float_turn(CS, path: str, prec: str, audio, card: str, res: dict, out: str,
     from april_asr_tpu_torch.api import Model
     from april_asr_tpu_torch.models import lstm_transducer as TM
     from april_asr_tpu_torch.ops import lstm_float_kernels as LF
+    from april_asr_tpu_torch.testing import engine_run
 
     model = Model(path, precision=None if prec == "f32" else "bf16", device="cuda")
     rt = model.runtime
@@ -203,7 +259,11 @@ def float_turn(CS, path: str, prec: str, audio, card: str, res: dict, out: str,
         print(f"kernels: k12 {prec} S=256 {res[f'k12_{prec}_ms']:.4f} ms, k10 {prec} P=27 S=256 "
               f"{res[f'k10_{prec}_S256_ms']:.4f} ms, S=2048 {res[f'k10_{prec}_S2048_ms']:.4f} ms "
               f"({card})", flush=True)
+        if prec == "f32":
+            kernel4_turn(CS, rt, prec, res, card)
         CS.phase_engine(model, card, prec)
+        kern = engine_run(dict(rt=rt, m=1, device="cuda", audio=audio, ticks=len(audio)))
+        res[f"blob_{prec}_kernels_sha"] = _blob_sha(kern["blobs"])
     run = plain_decode_run(rt, audio)
     name = _run_name(prec, seed)
     res[f"blob_{name}_sha"] = _blob_sha(run["blobs"])
@@ -347,7 +407,9 @@ def main(argv=None) -> int:
         "turns": [{k: tr[k] for k in ("label", "build_s", "k2_S256_ms", "k2_S2048_ms", "k3_S256_ms",
                                       "k3_S2048_ms", "k7_ms", "k12_f32_ms", "k12_bf16_ms",
                                       "k10_f32_S256_ms", "k10_f32_S2048_ms", "k10_bf16_S256_ms",
-                                      "k10_bf16_S2048_ms") + ENGINE_MS_KEYS}
+                                      "k10_bf16_S2048_ms")
+                   + tuple(f"k4_{p}_S{S}_{u}" for p in FLOATS for S in K4_SIZES
+                           for u in ("ms", "device_us")) + ENGINE_MS_KEYS}
                   for tr in turns],
         "equal": not bad, "differ": sorted(set(bad)), "blob_calls": len(ref["blob_sha"]),
         "floats": floats,

@@ -6,7 +6,7 @@ PyTorch version at the flagship serving shapes, checks the streaming engine
 against the CPU (plain) engine on a small model at int8, bf16 and f32, drives a
 flagship BatchEngine at int8, bf16 and f32 and a synchronous Session at int8
 and at f32 (the weights as loaded), serves a flagship-width model with a
-16,383-token vocabulary and a narrow one whose kernel 4 block does not fit,
+16,383-token vocabulary and a narrow one that no kernel 4 holds,
 serves models at the widths the port once refused (an int8 model wider than
 kernels 2 and 7 hold, a float model at d = 68, one at d = 66 whose widths
 the kernels take zero-padded), runs the int8 chunk-layer
@@ -38,7 +38,11 @@ Phases (each fails the run on error):
              at d 68 / H 260 / F 196 (bf16 weight rows 8-byte aligned); the
              int8 kernels on int8 weights, kernels 10 and 12 on f32 and on bf16
              weights, the chunk decode and kernels 8 and 9 on bf16 and on
-             f32 decode weights, kernel 9 again at V=16,383, both conv-embed
+             f32 decode weights, kernel 9 again at V=16,383; kernel 4 (the
+             thread-block-cluster kernel) bit for bit against the CUDA-core
+             kernel it replaced (chunk_decode_simt; every event and state
+             key) at S=3, 256 and 2048, both timed by CUDA events and the
+             profiler's device time a launch; both conv-embed
              entries (16, 17) on bf16 weights beside the stacked embed they
              displace, kernel 6 on frames formed from the fbank buffers
   reference  a tiny random model: CUDA engine vs CPU engine, same streams,
@@ -56,9 +60,9 @@ Phases (each fails the run on error):
              cannot hold: the CUDA engine vs the CPU engine at S=8 (f32),
              then BatchEngine S=256 at f32 and bf16, 3 ticks and a flush,
              decoding through kernel 9 alone; and a 1-layer d = J = 128
-             model with 16,383 tokens, which the JAX gate passes but kernel
-             4's block cannot hold: CUDA vs CPU at S=8 (f32) through kernel
-             8, kernel 4 never launched
+             model with 16,383 tokens, which the JAX gate passes but no
+             kernel 4 holds (no cluster plan, no CUDA-core block): CUDA vs
+             CPU at S=8 (f32) through kernel 8, kernel 4 never launched
   widths     models the port once refused: a 2-layer int8 model at d 1024 /
              H 4096 / F 8192 (kernels 2 and 7 have no plan) serves S=256,
              the flagship engine's batch, 3 ticks and a flush, on kernel 14,
@@ -241,8 +245,9 @@ def flagship_april(tmp: str, seed: int = 0, dims=None) -> str:
 
 # The kernels each path launches (cuda_build.COUNTS keys), in the step and
 # in the flush: the step embeds through kernel 16 at bf16 conv weights (int8
-# and bf16), runs the chunk encoder and, where the JAX gate passes and kernel
-# 4's block fits, kernel 4; the flush runs the one-step encoder (its stacked
+# and bf16), runs the chunk encoder and, where the JAX gate passes and the
+# cluster kernel 4 has a plan, kernel 4 (counted as `chunk_decode`); the
+# flush runs the one-step encoder (its stacked
 # embed is plain) and the per-pull decode (kernel 8, or kernel 9 where its
 # gate refuses).
 PATH_KERNELS = {
@@ -385,55 +390,72 @@ def check_mma_sass():
                 raise AssertionError(f"{src} {k}: {why}")
 
 
-def _check_decode(rt, S: int, P: int, rng, dev, t) -> tuple:
-    """chunk_decode on `rt`'s decode weights (bf16 or f32): P pulls x 3
-    rounds from an aged state, so every heuristic runs."""
-    from april_asr_tpu_torch.config import DecodeConfig
-    from april_asr_tpu_torch.decode.greedy import init_decode_state, vocab_tables_device
-    from april_asr_tpu_torch.engine.step import INNER_STEPS_EMIT
+def _check_decode(rt, S: int, P: int, rng, dev, t) -> dict:
+    """Kernel 4 on `rt`'s decode weights (bf16 or f32): P pulls x 3 rounds
+    from an aged state (`profile_decode.decode_case`), so every heuristic
+    runs. The cluster kernel (`chunk_decode`, on the card's plan) equals the
+    CUDA-core kernel (`chunk_decode_simt`) bit for bit, every event and
+    state key, dout and logprob included, and both are held to the plain
+    version. Returns {row: (kernel call, plain call, max abs err, bound,
+    shape)} for both kernels."""
+    from april_asr_tpu_torch.decode.greedy import vocab_tables_device
+    from april_asr_tpu_torch.ops import cuda_build
     from april_asr_tpu_torch.ops import decode_kernels as DK
+    from april_asr_tpu_torch.tools.profile_decode import decode_case
 
     w, dims = rt.weights, rt.dims
     d, J, V = dims.d_model, dims.joiner_dim, dims.vocab
-    dcfg = DecodeConfig()
-    T = dcfg.max_active_tokens
-    st = init_decode_state(S, dims.context, J, rt.blank_id, dcfg, dev)
-    st.update(
-        head=t(rng.integers(0, T, size=S).astype(np.int32)),
-        token_words=t((rng.integers(0, V, size=(S, T))
-                       | (rng.integers(0, 4, size=(S, T)) << 16)).astype(np.int32)),
-        time_ms=torch.full((S,), 4000, dtype=torch.int32, device=dev),
-        last_emit_ms=t(rng.integers(0, 4000, size=S).astype(np.int32)),
-        last_call=t(rng.integers(0, T, size=S).astype(np.int32)),
-        context=t(rng.integers(0, V, size=(S, 2)).astype(np.int32)),
-        need_dec=t(rng.random(S) < 0.5),
-        emitted_silence=t(rng.random(S) < 0.5),
-        dout=t(rng.normal(size=(S, J)).astype(np.float32)),
-    )
-    eouts = t((rng.normal(size=(P, S, J)) * 2.0).astype(np.float32))
-    can = t(np.arange(P)[:, None] < rng.integers(0, P + 1, size=S)[None, :])
-    dargs = (eouts, can, st, w["dec_table"], w["dec_proj_t"], w["dec_proj_b"], w["join_t"],
-             w["join_b"], vocab_tables_device(rt.vocab))
-    dkw = dict(blank_id=rt.blank_id, stride_ms=rt.fbank_opts.segment_stride_ms,
-               emit_ramp=INNER_STEPS_EMIT, dcfg=dcfg)
+    dargs, dkw = decode_case(w, vocab_tables_device(rt.vocab), rt.blank_id,
+                             rt.fbank_opts.segment_stride_ms, S, P, rng, dev)
+    st, T = dargs[2], dkw["dcfg"].max_active_tokens
+    f32 = w["join_t"].dtype == torch.float32
+    plan = DK.device_decode_plan(S, J, d, V, T, w["join_t"].element_size(), dev)
+    if plan is None:
+        raise AssertionError(f"chunk_decode: no cluster plan at S={S}, J={J}, d={d}, V={V}")
     kf = lambda: DK.chunk_decode(*dargs, **dkw)  # noqa: E731
+    sf = lambda: DK.chunk_decode_simt(*dargs, **dkw)  # noqa: E731
     pf = lambda: DK.chunk_decode_plain(*dargs, **dkw)  # noqa: E731
-    (gs, ge), (ws, we) = kf(), pf()
-    torch.cuda.synchronize()
-    for k in ("ops", "tok", "flags", "time_ms", "final_k"):
-        if not torch.equal(ge[k], we[k]):
-            raise AssertionError(f"chunk_decode events[{k}] differ from the plain version")
-    for k in ("context", "token_words", "head", "last_call", "time_ms", "last_emit_ms",
-              "need_dec", "emitted_silence"):
-        if not torch.equal(gs[k], ws[k]):
-            raise AssertionError(f"chunk_decode state[{k}] differs from the plain version")
+    key = "chunk_decode_f32" if f32 else "chunk_decode"
+    before = cuda_build.COUNTS[key]
+    (gs, ge), (ss, se), (ws, we) = kf(), sf(), pf()
+    if cuda_build.COUNTS[key] != before + 1:
+        raise AssertionError(f"chunk_decode: the cluster kernel did not launch at S={S}")
+    shape = (f"eouts[{P},{S},{J}] V={V}; plan C={plan.C} TS={plan.TS} clusters={plan.clusters} "
+             f"waves={plan.waves} dec_proj {'resident' if plan.dp_smem else 'streamed'} "
+             f"smem={plan.smem}")
+    ints = lambda x: x.int() if x.dtype == torch.bool else x  # noqa: E731
+    _bit_equal([ints(ge[k]) for k in DK.EVENT_KEYS] + [ints(gs[k]) for k in STATE_KEYS],
+               [ints(se[k]) for k in DK.EVENT_KEYS] + [ints(ss[k]) for k in STATE_KEYS],
+               [f"events[{k}]" for k in DK.EVENT_KEYS] + [f"state[{k}]" for k in STATE_KEYS],
+               f"kernel 4 {'f32' if f32 else 'bf16'} S={S}: the cluster kernel against "
+               f"chunk_decode_simt ({shape})")
+    out = {}
+    for name, (gs, ge) in ((key, (gs, ge)), (key.replace("decode", "decode_simt"), (ss, se))):
+        for k in ("ops", "tok", "flags", "time_ms", "final_k"):
+            if not torch.equal(ge[k], we[k]):
+                raise AssertionError(f"{name} events[{k}] differ from the plain version")
+        for k in STATE_KEYS[:-1]:
+            if not torch.equal(gs[k], ws[k]):
+                raise AssertionError(f"{name} state[{k}] differs from the plain version")
+        out[name] = _decode_close(gs, ge, ws, we, st, J, d, V, T, P, S, f32, name)
+    return {name: (kf if name == key else sf, pf, err, b, f"{shape} {stats}")
+            for name, (err, b, stats) in out.items()}
+
+
+# kernel 4's state keys, integers first (dout last)
+STATE_KEYS = ("context", "token_words", "head", "last_call", "time_ms", "last_emit_ms",
+              "need_dec", "emitted_silence", "dout")
+
+
+def _decode_close(gs, ge, ws, we, st, J, d, V, T, P, S, f32, name) -> tuple:
+    """logprob and dout of a kernel 4 held to the plain version; (max abs
+    err, bound, stats)."""
     # dout: an f32 sum of the same products taken in another order (1e-5).
     # logprob with bf16 weights: the joiner rounds tanh(eout + dout) to bf16,
     # so an ulp of dout can flip that rounding and move one product term by
     # up to 2^-8 of |tanh| * |w| (~3e-4 here): 1e-3, the bound the CPU parity
     # test holds bf16 weights to. With f32 weights nothing is rounded to
     # bf16, so logprob is held to the f32 sum-order bound, 1e-5, as dout.
-    f32 = w["join_t"].dtype == torch.float32
     lp_tol = 1e-5 if f32 else 1e-3
     torch.testing.assert_close(gs["dout"], ws["dout"], atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(ge["logprob"], we["logprob"], atol=lp_tol, rtol=lp_tol)
@@ -441,7 +463,7 @@ def _check_decode(rt, S: int, P: int, rng, dev, t) -> tuple:
               float((gs["dout"] - ws["dout"]).abs().max()))
     n_ev = int((ge["ops"] != 0).sum())
     if n_ev < P * S // 4:
-        raise AssertionError(f"chunk_decode: only {n_ev} events, heuristics not exercised")
+        raise AssertionError(f"{name}: only {n_ev} events, heuristics not exercised")
     # the work this run's data needs: joiner rows for active (session, pull,
     # round) cells; decoder refreshes after emissions and for sessions that
     # entered with need_dec
@@ -453,7 +475,7 @@ def _check_decode(rt, S: int, P: int, rng, dev, t) -> tuple:
         + 2 * V * d * 4 + (d * J + J * V) * wb + (J + 2 * V) * 4,
         {"f32" if f32 else "bf16": n_act * 2 * J * V + n_ref * 2 * d * J},
     )
-    return kf, pf, err, b, f"eouts[{P},{S},{J}] V={V} events={n_ev} active_cells={n_act}"
+    return err, b, f"events={n_ev} active_cells={n_act}"
 
 
 def _check_joiner(rt, S: int, rng, dev, t, refresh: bool) -> tuple:
@@ -745,9 +767,10 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
             print(f"lstm_chunk_mma_{prec}: ms={k_ms:.4f}, the two-kernel chunk layer "
                   f"(lstm_chunk_simt) ms={s_ms:.4f} at S={S}, P={P}")
 
-    # 4. chunk_decode on bf16 (int8 and bf16 serving) and f32 decode weights
-    out["chunk_decode"] = _check_decode(rt, S, P, rng, dev, t)
-    out["chunk_decode_f32"] = _check_decode(models["f32"].runtime, S, P, rng, dev, t)
+    # 4. chunk_decode on bf16 (int8 and bf16 serving) and f32 decode weights:
+    # the cluster kernel and the CUDA-core kernel it replaced
+    out.update(_check_decode(rt, S, P, rng, dev, t))
+    out.update(_check_decode(models["f32"].runtime, S, P, rng, dev, t))
 
     # 7. lstm_step_i8 and 12. lstm_step_f32/bf16: one layer's timestep
     # (layer 0) at the flush's shapes, ungated as the engine runs it, and
@@ -878,16 +901,20 @@ SOURCES = {
     "lstm_rec_stream2_i8": ("april_asr_tpu_torch/csrc/lstm_mma.cu",
                             "april_asr_tpu/ops/lstm_pallas.py:1147"),
     "ffn_norm_i8": ("april_asr_tpu_torch/csrc/ffn_mma.cu", "april_asr_tpu/ops/lstm_pallas.py:1264"),
-    "chunk_decode": ("april_asr_tpu_torch/csrc/chunk_decode.cu",
+    "chunk_decode": ("april_asr_tpu_torch/csrc/chunk_decode_cluster.cu",
                      "april_asr_tpu/ops/decode_pallas.py:440"),
+    "chunk_decode_simt": ("april_asr_tpu_torch/csrc/chunk_decode.cu",
+                          "april_asr_tpu/ops/decode_pallas.py:440"),
     "fbank_bf16x3": ("april_asr_tpu_torch/csrc/fbank_bf16x3.cu",
                      "april_asr_tpu/ops/fbank_pallas.py:280"),
     "lstm_chunk_mma_f32": ("april_asr_tpu_torch/csrc/lstm_chunk_mma.cu",
                            "april_asr_tpu/ops/lstm_pallas.py:237"),
     "lstm_chunk_mma_bf16": ("april_asr_tpu_torch/csrc/lstm_chunk_mma.cu",
                             "april_asr_tpu/ops/lstm_pallas.py:237"),
-    "chunk_decode_f32": ("april_asr_tpu_torch/csrc/chunk_decode.cu",
+    "chunk_decode_f32": ("april_asr_tpu_torch/csrc/chunk_decode_cluster.cu",
                          "april_asr_tpu/ops/decode_pallas.py:440"),
+    "chunk_decode_simt_f32": ("april_asr_tpu_torch/csrc/chunk_decode.cu",
+                              "april_asr_tpu/ops/decode_pallas.py:440"),
     "lstm_step_i8": ("april_asr_tpu_torch/csrc/lstm_mma.cu", "april_asr_tpu/ops/lstm_pallas.py:426"),
     "lstm_step_i8_simt": ("april_asr_tpu_torch/csrc/lstm_step.cu",
                           "april_asr_tpu/ops/lstm_pallas.py:426"),
@@ -990,7 +1017,30 @@ def phase_kernels(models, card, reps: int = 20):
         f"{n} max_abs_err={v[2]:.3g}" for n, v in ragged.items()))
     check_float_widths(S_FLAG, P, seed=5)
     print_mma_plans(models["int8"].runtime, S_FLAG, P)
+    decode_times(models, card, P)
     return rows
+
+
+def decode_times(models, card, P: int):
+    """Kernel 4 at S = 256 and 2048, bf16 (int8 and bf16 serving) and f32
+    decode weights: the cluster kernel bit for bit against
+    chunk_decode_simt and both against the plain version (`_check_decode`),
+    then both timed, by CUDA events and by the profiler's device time a
+    launch."""
+    from april_asr_tpu_torch.tools.profile_lstm_mma import host_and_device_us
+
+    dev = torch.device(DEV)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa: E731
+    for prec, model in (("bf16", models["int8"]), ("f32", models["f32"])):
+        for S in (S_FLAG, 2048):
+            (kf, _, _, (b_ms, b_by), shape), (sf, *_) = _check_decode(
+                model.runtime, S, P, np.random.default_rng(S + 11), dev, t).values()
+            k_ms, s_ms = cuda_ms(kf, 10), cuda_ms(sf, 3, warmup=1)
+            _, k_dev = host_and_device_us(kf, n=5, keys=("chunk_decode_cluster_kernel",))
+            _, s_dev = host_and_device_us(sf, n=2, keys=("chunk_decode_kernel",))
+            print(f"kernel 4 {prec} S={S}: cluster kernel ms={k_ms:.4f} (device {k_dev:.1f} us a "
+                  f"launch), chunk_decode_simt ms={s_ms:.4f} (device {s_dev:.1f} us), "
+                  f"bound_ms={b_ms:.4f} ({b_by}); {shape} ({card})")
 
 
 def print_mma_plans(rt, S: int, P: int):
@@ -1311,10 +1361,12 @@ def phase_session(model, card, precision: str):
 
 def vocab_narrow(path: str, card):
     """A 1-layer d = J = 128 model with 16,383 tokens: the JAX chunk-decode
-    gate passes it, but kernel 4's block (16·(J + max(J, d) + V + T) bytes)
-    exceeds the H100's 232,448, so the step decodes pull by pull through
-    kernel 8, as the flush does. The CUDA engine against the CPU engine at
-    S=8 (`_lockstep`, f32 as loaded); kernel 4 must never launch."""
+    gate passes it, but no block holds a cluster slice of its joiner
+    (`decode_plan` gives None) nor the CUDA-core kernel's rows
+    (16·(J + max(J, d) + V + T) bytes over the H100's 232,448), so the step
+    decodes pull by pull through kernel 8, as the flush does. The CUDA
+    engine against the CPU engine at S=8 (`_lockstep`, f32 as loaded);
+    kernel 4 must never launch."""
     from april_asr_tpu_torch.api import Model
     from april_asr_tpu_torch.config import DecodeConfig
     from april_asr_tpu_torch.ops import cuda_build
@@ -1323,19 +1375,26 @@ def vocab_narrow(path: str, card):
     rt = Model(path, device=DEV).runtime
     d, J, V = rt.dims.d_model, rt.dims.joiner_dim, rt.dims.vocab
     T = DecodeConfig().max_active_tokens
-    if not DK.chunk_decode_supported(8, J, d, rt.dims.context, V) or DK.chunk_decode_block_fits(J, d, V, T):
-        raise AssertionError(f"vocab narrow: expected the JAX gate to pass and kernel 4's block "
-                             f"({DK.chunk_decode_smem(J, d, V, T)} bytes) not to fit")
+    wb = rt.weights["join_t"].element_size()
+    plan = DK.device_decode_plan(8, J, d, V, T, wb, DEV)
+    route = DK.decode_route(8, J, d, V, T, wb, rt.dims.context)
+    if not DK.chunk_decode_supported(8, J, d, rt.dims.context, V) or plan is not None \
+            or route is not None:
+        raise AssertionError(f"vocab narrow: expected the JAX gate to pass and neither kernel 4 "
+                             f"to hold it; plan {plan}, route {route}")
     cuda_build.reset_counts()
     t0 = time.perf_counter()
     _lockstep(rt, Model(path, device="cpu").runtime, S=8, chunk=CHUNK_1S, ticks=3, seed=7,
               what="vocab narrow f32 lockstep", card=card)
     c = cuda_build.COUNTS
-    if c["chunk_decode"] or c["chunk_decode_f32"] or not c["dec_joiner_f32"]:
-        raise AssertionError(f"vocab narrow: kernel 4 launched {c['chunk_decode_f32']} times, "
-                             f"kernel 8 {c['dec_joiner_f32']} times")
-    print(f"vocab narrow: d=J={d} V={V}, kernel 4 block {DK.chunk_decode_smem(J, d, V, T)} bytes; "
-          f"lockstep in {time.perf_counter() - t0:.1f} s, kernel 4 launched 0 times, kernel 8 "
+    k4 = {k: c[k] for k in ("chunk_decode", "chunk_decode_f32", "chunk_decode_simt",
+                            "chunk_decode_simt_f32")}
+    if any(k4.values()) or not c["dec_joiner_f32"]:
+        raise AssertionError(f"vocab narrow: kernel 4 launched {k4}, kernel 8 "
+                             f"{c['dec_joiner_f32']} times")
+    print(f"vocab narrow: d=J={d} V={V}, decode_plan None, route: per pull; the CUDA-core "
+          f"kernel 4 block {DK.chunk_decode_smem(J, d, V, T)} bytes; lockstep in "
+          f"{time.perf_counter() - t0:.1f} s, kernel 4 launched 0 times, kernel 8 "
           f"{c['dec_joiner_f32']} times, kernel 9 {c['joiner_argmax_f32']} times ({card})")
 
 
