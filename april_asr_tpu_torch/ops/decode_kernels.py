@@ -58,7 +58,7 @@ from .joiner_kernels import decoder_joiner_argmax_plain
 EVENT_KEYS = ("ops", "tok", "logprob", "flags", "time_ms", "final_k")
 
 _VMEM_BUDGET = 56 * 1024 * 1024  # the JAX gates' bound on resident bytes
-SMEM_PER_BLOCK = 232_448  # the H100's opt-in shared memory per block
+SMEM_PER_BLOCK = cuda_build.SMEM_PER_BLOCK
 CHUNK_DECODE_TSD = 4  # sessions per block of the CUDA-core kernel (TSD, csrc/chunk_decode.cu)
 # the cluster kernel (csrc/chunk_decode_cluster.cu): the cluster sizes the
 # plan tries (portable ones), its threads a block and the most sessions an

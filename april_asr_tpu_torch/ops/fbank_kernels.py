@@ -9,7 +9,12 @@ fbank_pallas.py, `_buf_kernel_i8`), for int8 engines. PCM16 samples split exactl
 two int8 planes (a = floor(p/256), b = rint(p - 256a) - 128) that contract
 with the int8 hi plane of the folded DFT in exact int32; the hi plane's
 residual is one bf16 dot with f32 accumulation. Then the power spectrum, the
-bf16x3 mel projection (`_dot3`) and log(max(K_EPS, .)).
+bf16x3 mel projection (`_dot3`) and log(max(K_EPS, .)). On the card the int8
+planes run on the tensor cores and the residual and the mel on the CUDA
+cores in csrc/fbank_i8.cu's order (csrc/fbank_mma.cu, planned by
+`fbank_plan`, its tables laid out by `tc_tables`); shapes no plan holds take
+the CUDA-core kernel `fbank_i8_simt` (csrc/fbank_i8.cu). The two give the
+same rows, bit for bit.
 
 Kernel 5, port of `logmel_rows_from_buf` (`_buf_kernel`), for every other
 engine. Per hop-row view, the samples split exactly into bf16 hi/lo planes
@@ -24,13 +29,16 @@ The frontend takes it only for a buffer too short for in-kernel framing,
 which no `FbankLayout.build` layout gives (frontend/fbank.py).
 
 Each dispatcher takes the plain PyTorch version for a CPU tensor and
-launches its CUDA kernel (csrc/fbank_i8.cu, csrc/fbank_bf16x3.cu; kernel 6 is
-the second entry of the latter) for a CUDA tensor; it never falls back.
+launches its CUDA kernel (csrc/fbank_mma.cu or csrc/fbank_i8.cu,
+csrc/fbank_bf16x3.cu; kernel 6 is the second entry of the latter) for a CUDA
+tensor; it never falls back.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -79,6 +87,129 @@ def _split_bf16(w: np.ndarray):
     return hi, lo
 
 
+# Kernel 1 on the H100 (csrc/fbank_mma.cu): a block takes FB_M frame
+# rows, streams the DFT tables through FB_RING stages of FB_STAGE bytes, each
+# [FB_NC columns][128 bytes of k], and keeps two chunks' power bins in rows of
+# FB_PW bf16.
+FB_M, FB_NC, FB_STAGE, FB_RING, FB_PW = 128, 64, 8192, 4, 72
+
+
+def _interleave(nfft: int) -> np.ndarray:
+    """Column order of csrc/fbank_mma.cu's tables: bin j's re column (j) at 2j,
+    its im column (nfft + j) at 2j + 1."""
+    perm = np.empty(2 * nfft, np.int64)
+    perm[0::2] = np.arange(nfft)
+    perm[1::2] = nfft + np.arange(nfft)
+    return perm
+
+
+def _swizzle(rows: np.ndarray) -> np.ndarray:
+    """[..., 64, 128] bytes -> the same rows with 16-byte run x of row n
+    stored at run x ^ (n % 8) (an involution: it also undoes itself)."""
+    n = np.arange(rows.shape[-2])[:, None]
+    runs = rows.reshape(*rows.shape[:-1], 8, 16)
+    idx = (np.arange(8)[None, :] ^ (n % 8))[..., None]
+    return np.take_along_axis(runs, np.broadcast_to(idx, runs.shape), axis=-2).reshape(rows.shape)
+
+
+def mel_bands(mel_hi: torch.Tensor, mel_lo: torch.Tensor) -> tuple:
+    """The mel filters' bands for csrc/fbank_mma.cu, from their bf16 planes
+    [nfft, bins]: (int32 [bins] first bin, [bins] end bin, [bins] the mel
+    bins by the chunk of FB_NC // 2 bins their filter ends in, [chunks + 1]
+    offsets into that order; and the most chunks one filter spans). A filter
+    with no weight is empty and ends in chunk 0."""
+    nz = ((mel_hi.float() != 0) | (mel_lo.float() != 0)).numpy()
+    nfft, bins = nz.shape
+    some = nz.any(axis=0)
+    first = np.where(some, nz.argmax(axis=0), 0)
+    end = np.where(some, nfft - nz[::-1].argmax(axis=0), 0)
+    per = FB_NC // 2
+    chunk = np.where(some, (end - 1) // per, 0)
+    span = int(np.where(some, chunk - first // per + 1, 1).max())
+    order = np.argsort(chunk, kind="stable")
+    off = np.searchsorted(chunk[order], np.arange(2 * nfft // FB_NC + 1))
+    return np.concatenate([first, end, order, off]).astype(np.int32), span
+
+
+def tc_tables(dhi, rlo, s_hi, corr, mel_hi, mel_lo) -> dict:
+    """Kernel 1's tables for csrc/fbank_mma.cu, from `_folded_dft_i8`'s
+    (dhi [K, 2nfft] int8, rlo [K, 2nfft] f32 holding bf16, s_hi, corr) at
+    K = padded and the mel filters' bf16 planes [nfft, bins]:
+
+      tc      [nfft / 32 chunks][K / 128 + K / 32 stages][64][128] uint8:
+              per chunk of 64 interleaved columns (`_interleave`), the int8
+              stages (128 k of dhi a column row, k-contiguous, `_swizzle`d)
+              then the residual's (32 k of rlo as f32, as [8 runs of 4 k][64
+              columns][4 k]);
+      tc_shi, tc_corr  s_hi and corr in the interleaved column order;
+      tc_mel_plan  `mel_bands`' int32 table, and tc_mel_span its span."""
+    K, N2 = dhi.shape
+    perm = _interleave(N2 // 2)
+    d = np.ascontiguousarray(dhi[:, perm].T).view(np.uint8)                        # [N2, K]
+    r = np.ascontiguousarray(np.asarray(rlo, np.float32)[:, perm].T).view(np.uint8)  # [N2, 4K]
+    nch = N2 // FB_NC
+    d = d.reshape(nch, FB_NC, K // 128, 128).transpose(0, 2, 1, 3)
+    r = r.reshape(nch, FB_NC, K // 32, 8, 16).transpose(0, 2, 3, 1, 4).reshape(
+        nch, K // 32, FB_NC, 128)
+    tc = np.concatenate([_swizzle(d), r], axis=1)
+    plan, span = mel_bands(mel_hi, mel_lo)
+    return {
+        "tc": np.ascontiguousarray(tc),
+        "tc_shi": np.ascontiguousarray(np.asarray(s_hi, np.float32).reshape(-1)[perm]),
+        "tc_corr": np.ascontiguousarray(np.asarray(corr, np.float32).reshape(-1)[perm]),
+        "tc_mel_plan": plan,
+        "tc_mel_span": span,
+    }
+
+
+def fbank_pitches(shift: int) -> tuple:
+    """Kernel 1's hop-row pitches (int8 bytes, bf16 elements): the hop
+    length, or 16 bytes more, whichever is an odd number of 16-byte runs,
+    so that 8 consecutive frames' runs fill 8 distinct bank groups."""
+    return (shift if (shift // 16) % 2 else shift + 16, shift if (shift // 8) % 2 else shift + 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class FbankPlan:
+    hops: int    # most hop rows a block stages
+    smem: int    # dynamic shared memory a block
+    blocks: int
+
+
+def fbank_smem(hops: int, shift: int, padded: int) -> int:
+    """csrc/fbank_mma.cu `fbank_smem`: the ring, the power window (hi, lo),
+    the three sample planes and the two k-offset tables."""
+    p8, pb = fbank_pitches(shift)
+    return (FB_RING * FB_STAGE + 2 * FB_M * FB_PW * 2 + hops * (2 * pb + 2 * p8)
+            + 4 * (padded // 16 + padded // 8))
+
+
+@functools.lru_cache(maxsize=None)
+def fbank_plan(S: int, F: int, shift: int, padded: int, nfft: int, mel_span: int
+               ) -> Optional[FbankPlan]:
+    """Kernel 1's launch on csrc/fbank_mma.cu for S sessions of F frames, or
+    None where the kernel does not take the shapes (a shift that is not a
+    multiple of 16 samples, padded not a multiple of 128, nfft not of 32, a
+    mel filter over more than the two chunks of bins its power window holds:
+    `mel_bands`' span) or a block cannot hold the hop rows of its tile: FB_M
+    rows span at most (FB_M - 2) // F + 2 sessions, each staging n_views - 1
+    hop rows beyond its frames."""
+    if S < 1 or F < 1 or shift % 16 or padded % 128 or nfft % 32 or mel_span > 2:
+        return None
+    n_views = -(-padded // shift)
+    sessions = min(S, (FB_M - 2) // F + 2)
+    hops = FB_M + sessions * (n_views - 1)
+    smem = fbank_smem(hops, shift, padded)
+    if smem > cuda_build.SMEM_PER_BLOCK:
+        return None
+    return FbankPlan(hops, smem, -(-S * F // FB_M))
+
+
+def plan_for(c: dict, S: int, F: int) -> Optional[FbankPlan]:
+    """`fbank_plan` for the layout's constants `c`."""
+    return fbank_plan(S, F, c["shift"], c["padded"], c["nfft"], c["tc_mel_span"])
+
+
 _CONSTS: dict = {}
 
 
@@ -105,6 +236,7 @@ def fbank_constants(layout, device) -> dict:
     dpad[:padded] = _folded_dft(padded, nfft, o.remove_dc_offset, o.preemph_coeff)
     d_hi, d_lo = _split_bf16(dpad)
     dft = _folded_dft(padded, nfft, o.remove_dc_offset, o.preemph_coeff)
+    tc = tc_tables(dhi, rlo, s_hi, corr, mel_hi, mel_lo)
     c = {
         "dft": torch.from_numpy(dft).to(device),
         "d_hi": d_hi.contiguous().to(device),
@@ -115,6 +247,8 @@ def fbank_constants(layout, device) -> dict:
         "corr": torch.from_numpy(corr).to(device),
         "mel_hi": mel_hi.contiguous().to(device),
         "mel_lo": mel_lo.contiguous().to(device),
+        **{k: torch.from_numpy(v).to(device) for k, v in tc.items() if k != "tc_mel_span"},
+        "tc_mel_span": tc["tc_mel_span"],
         "padded": padded,
         "n_views": n_views,
         "shift": shift,
@@ -161,25 +295,69 @@ def logmel_rows_from_buf_i8_plain(c: dict, buf: torch.Tensor, F: int) -> torch.T
     return rows.reshape(S, F, -1)
 
 
-def logmel_rows_from_buf_i8_cuda(c: dict, buf: torch.Tensor, F: int) -> torch.Tensor:
+def _i8_checks(c: dict, buf: torch.Tensor, F: int, what: str) -> torch.Tensor:
     S, L = buf.shape
-    shift = c["shift"]
     if buf.dtype != torch.float32 or not buf.is_contiguous():
-        raise ValueError("fbank_i8: buf must be contiguous float32")
-    if L % shift or L // shift < F + c["n_views"] - 1:
-        raise ValueError(f"fbank_i8: buffer of {L} samples cannot frame {F} rows")
-    out = torch.empty((S, F, c["bins"]), dtype=torch.float32, device=buf.device)
+        raise ValueError(f"{what}: buf must be contiguous float32")
+    if L % c["shift"] or L // c["shift"] < F + c["n_views"] - 1:
+        raise ValueError(f"{what}: buffer of {L} samples cannot frame {F} rows")
+    return torch.empty((S, F, c["bins"]), dtype=torch.float32, device=buf.device)
+
+
+def fbank_i8_simt(c: dict, buf: torch.Tensor, F: int) -> torch.Tensor:
+    """Kernel 1 on the CUDA cores (csrc/fbank_i8.cu): 8 frames a block, one
+    bin a thread. The route for shapes `fbank_plan` does not hold."""
+    S, L = buf.shape
+    out = _i8_checks(c, buf, F, "fbank_i8_simt")
     fn = cuda_build.bind("fbank_i8", "fbank_i8", 8, 7)
-    cuda_build.COUNTS["fbank_i8"] += 1
+    cuda_build.COUNTS["fbank_i8_simt"] += 1
     rc = fn(
         buf.data_ptr(), c["dhi"].data_ptr(), c["rlo"].data_ptr(),
         c["s_hi"].data_ptr(), c["corr"].data_ptr(), c["mel_hi"].data_ptr(),
         c["mel_lo"].data_ptr(), out.data_ptr(),
-        S, L // shift, F, shift, c["n_views"], c["nfft"], c["bins"],
+        S, L // c["shift"], F, c["shift"], c["n_views"], c["nfft"], c["bins"],
         torch.cuda.current_stream(buf.device).cuda_stream,
     )
-    cuda_build.check(rc, "fbank_i8")
+    cuda_build.check(rc, f"fbank_i8_simt (S={S}, F={F}, shift={c['shift']})")
     return out
+
+
+def fbank_mma(c: dict, buf: torch.Tensor, F: int, plan: FbankPlan,
+              stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel 1 on csrc/fbank_mma.cu on `plan`; with `stamps` (int64
+    [plan.blocks, 7], zeroed), each block's phase clock
+    (tools/profile_fbank.py)."""
+    S, L = buf.shape
+    out = _i8_checks(c, buf, F, "fbank_i8")
+    if buf.data_ptr() % 16:  # the staging reads 16-byte vectors
+        buf = buf.clone()
+    fn = cuda_build.bind("fbank_mma", "fbank_mma", 9, 9)
+    cuda_build.COUNTS["fbank_i8"] += 1
+    rc = fn(
+        buf.data_ptr(), c["tc"].data_ptr(), c["tc_shi"].data_ptr(), c["tc_corr"].data_ptr(),
+        c["mel_hi"].data_ptr(), c["mel_lo"].data_ptr(), c["tc_mel_plan"].data_ptr(),
+        out.data_ptr(), 0 if stamps is None else stamps.data_ptr(),
+        S, L // c["shift"], F, c["shift"], c["padded"], c["nfft"], c["bins"], plan.hops, plan.smem,
+        torch.cuda.current_stream(buf.device).cuda_stream,
+    )
+    if rc < 0:
+        raise RuntimeError(f"fbank_i8: csrc/fbank_mma.cu refuses S={S}, F={F}, shift={c['shift']}, "
+                           f"padded={c['padded']}, nfft={c['nfft']}, bins={c['bins']} on {plan} "
+                           f"({'shape' if rc == -1 else 'shared-memory bytes'})")
+    cuda_build.check(rc, f"fbank_i8 (S={S}, F={F}, shift={c['shift']}, {plan})")
+    return out
+
+
+def logmel_rows_from_buf_i8_cuda(c: dict, buf: torch.Tensor, F: int) -> torch.Tensor:
+    """Kernel 1 on the card: csrc/fbank_mma.cu on its plan, else the
+    CUDA-core kernel; it never falls back."""
+    S = buf.shape[0]
+    if S * F == 0:
+        return _i8_checks(c, buf, F, "fbank_i8")
+    plan = plan_for(c, S, F)
+    if plan is None:
+        return fbank_i8_simt(c, buf, F)
+    return fbank_mma(c, buf, F, plan)
 
 
 def logmel_rows_from_buf_i8(layout, buf: torch.Tensor) -> torch.Tensor:

@@ -36,7 +36,9 @@ from typing import List, Optional, Tuple
 
 import torch
 
-SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may opt in to
+from . import cuda_build
+
+SMEM_LIMIT = cuda_build.SMEM_PER_BLOCK
 ROWS = 128  # rows of one pass
 KC = 128  # bytes of depth per stage
 STAGES = 3  # of the A ring

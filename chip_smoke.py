@@ -19,11 +19,11 @@ and a two-rank tensor-parallel engine, and prints the results.
 
 Phases (each fails the run on error):
   build      nvcc for every csrc/*.cu, all started at once; then
-             csrc/lstm_mma.cu, lstm_mma_float.cu, lstm_chunk_mma.cu and
-             ffn_mma.cu again to cubins: kernels 2, 7, 12, 10 and 3's
-             registers and spills (none allowed), IMMA in 2, 7 and 3's SASS,
-             HMMA in kernels 12 and 10 at bf16, FFMA and no tensor-core
-             instruction at f32
+             csrc/lstm_mma.cu, lstm_mma_float.cu, lstm_chunk_mma.cu,
+             ffn_mma.cu and fbank_mma.cu again to cubins: kernels 2, 7, 12,
+             10, 3 and 1's registers and spills (none allowed), IMMA in 2, 7
+             and 3's SASS, IMMA and FFMA in kernel 1's, HMMA in kernels 12
+             and 10 at bf16, FFMA and no tensor-core instruction at f32
   kernels    each kernel against its plain version: timed at S=256, P=27,
              F=101, checked again at S=3, P=5 (ragged tiles); kernels 2 and
              7 also bit for bit against kernel 13 and the three-pass step
@@ -44,7 +44,15 @@ Phases (each fails the run on error):
              key) at S=3, 256 and 2048, both timed by CUDA events and the
              profiler's device time a launch; both conv-embed
              entries (16, 17) on bf16 weights beside the stacked embed they
-             displace, kernel 6 on frames formed from the fbank buffers
+             displace, kernel 6 on frames formed from the fbank buffers;
+             kernel 1 (csrc/fbank_mma.cu, by its route) against its plain
+             version at the fbank bound and the CUDA-core kernel it
+             displaces (fbank_i8_simt) bit for bit, at S=3, 256 and 2048 of
+             1 s chunks and S=1 and 256 of 200 ms (the session's) chunks,
+             each launch counted on its route; silent sessions exactly
+             log(K_EPS) and two launches equal bit for bit; both kernels
+             timed at S=256 and 2048 by CUDA events and the profiler's
+             device time a launch
   reference  a tiny random model: CUDA engine vs CPU engine, same streams,
              at int8 and bf16 (the step embeds through kernel 16) and at f32
              (the stacked embed); the flush runs kernels 7, 12 and 8
@@ -339,7 +347,8 @@ def phase_build(card):
 
 # the tensor-core kernels, by source and the start of their mangled names:
 # kernels 2 and 7 (csrc/lstm_mma.cu) and kernel 3's two product passes
-# (csrc/ffn_mma.cu, ff1 and ff2), int8 on IMMA; kernels 12
+# (csrc/ffn_mma.cu, ff1 and ff2), int8 on IMMA; kernel 1 (csrc/fbank_mma.cu)
+# on IMMA and FFMA; kernels 12
 # (csrc/lstm_mma_float.cu) and 10 (csrc/lstm_chunk_mma.cu): `<float>` on
 # FFMA, `<unsigned short>` bf16 on HMMA
 MMA_SOURCES = (
@@ -347,14 +356,18 @@ MMA_SOURCES = (
     ("lstm_mma_float.cu", ("_Z26lstm_step_float_mma_kernel",), 2),
     ("lstm_chunk_mma.cu", ("_Z27lstm_chunk_float_mma_kernel",), 2),
     ("ffn_mma.cu", ("_Z13ffn_mm_kernel",), 2),
+    ("fbank_mma.cu", ("_Z16fbank_mma_kernel",), 1),
 )
 
 
 def sass_rule(kernel: str, insns: list) -> str:
     """Why a persistent kernel's SASS is wrong ("" where it is right): the
-    int8 kernels need IMMA; kernels 12 and 10 at bf16 HMMA, at f32 FFMA and
-    no tensor-core instruction (no TF32)."""
+    int8 kernels need IMMA; kernel 1 IMMA and FFMA (its residual and mel on
+    the CUDA cores) and no HMMA; kernels 12 and 10 at bf16 HMMA, at f32
+    FFMA and no tensor-core instruction (no TF32)."""
     n = lambda op: sum(op in i for i in insns)  # noqa: E731
+    if "fbank" in kernel:
+        return "" if n("IMMA") and n("FFMA") and not n("HMMA") else "not IMMA and FFMA alone"
     if "float_mma" not in kernel:
         return "" if n("IMMA") else "no IMMA instruction"
     if "IfE" in kernel:
@@ -363,10 +376,10 @@ def sass_rule(kernel: str, insns: list) -> str:
 
 
 def check_mma_sass():
-    """csrc/lstm_mma.cu, lstm_mma_float.cu, lstm_chunk_mma.cu and ffn_mma.cu
-    compiled again to cubins: each tensor-core kernel's registers, shared
-    memory and spills (`-Xptxas -v`; a spill fails) and its SASS
-    (`sass_rule`)."""
+    """csrc/lstm_mma.cu, lstm_mma_float.cu, lstm_chunk_mma.cu, ffn_mma.cu and
+    fbank_mma.cu compiled again to cubins: each tensor-core kernel's
+    registers, shared memory and spills (`-Xptxas -v`; a spill fails) and
+    its SASS (`sass_rule`)."""
     from pathlib import Path
 
     from april_asr_tpu_torch.ops import cuda_build
@@ -661,6 +674,93 @@ def ffn_yardstick(xr, hs, fa, rows: int, card, reps: int) -> None:
           f"design_bytes_ms={design_ms:.4f} ({card})")
 
 
+def fbank_buffer(S: int, L: int, rng, dev) -> torch.Tensor:
+    """[S, L] hop-row buffers of PCM16 values (x / 32768)."""
+    pcm = (rng.normal(0, 0.25, (S, L)) * 32768).clip(-32768, 32767).astype(np.int16)
+    return torch.from_numpy(pcm.astype(np.float32) / 32768.0).to(dev)
+
+
+def fbank_i8_ops(S: int, F: int, K: int, N2: int, mel_ops: int) -> dict:
+    """Kernel 1's operations: the two int8 planes against the DFT's hi
+    plane, the bf16 residual and the bf16x3 mel."""
+    return {"int8": 2 * 2 * S * F * K * N2, "bf16": 2 * S * F * K * N2 + mel_ops}
+
+
+def check_fbank_i8(layout, S: int, rng, dev) -> dict:
+    """Kernel 1 at S sessions of `layout`'s frames: the route launches
+    csrc/fbank_mma.cu (its count, and no CUDA-core launch), which is held at
+    the fbank bound to the plain version and bit for bit to the CUDA-core
+    kernel it displaces (`fbank_i8_simt`); every other session silent gives
+    rows of exactly log(K_EPS), and a second launch equals the first bit for
+    bit. Returns {"F", "err_plain", "err_simt"}."""
+    from april_asr_tpu_torch.frontend.oracle import K_EPS
+    from april_asr_tpu_torch.ops import cuda_build
+    from april_asr_tpu_torch.ops import fbank_kernels as FK
+
+    c = FK.fbank_constants(layout, dev)
+    F = layout.max_frames
+    buf = fbank_buffer(S, layout.buf_len, rng, dev)
+    buf[1::2] = 0.0
+    before = dict(cuda_build.COUNTS)
+    got = FK.logmel_rows_from_buf_i8(layout, buf)
+    again = FK.logmel_rows_from_buf_i8(layout, buf)
+    launched = {k: cuda_build.COUNTS[k] - before[k] for k in ("fbank_i8", "fbank_i8_simt")}
+    if launched != {"fbank_i8": 2, "fbank_i8_simt": 0}:
+        raise AssertionError(f"fbank_i8 at S={S}, F={F}: the route launched {launched}, not "
+                             f"csrc/fbank_mma.cu twice")
+    want = FK.logmel_rows_from_buf_i8_plain(c, buf, F)
+    simt = FK.fbank_i8_simt(c, buf, F)
+    torch.cuda.synchronize()
+    what = f"fbank_i8 S={S} F={F}"
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4, msg=f"{what} vs plain")
+    if not torch.equal(got, simt):
+        raise AssertionError(f"{what}: differs from fbank_i8_simt (max abs "
+                             f"{float((got - simt).abs().max()):.3g}), not bit for bit")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two launches differ")
+    silent = torch.log(torch.tensor(float(K_EPS), dtype=torch.float32, device=dev))
+    if not bool((got[1::2] == silent).all()):
+        raise AssertionError(f"{what}: silent sessions are not log(K_EPS) bit for bit")
+    return {"F": F, "err_plain": float((got - want).abs().max()),
+            "err_simt": float((got - simt).abs().max())}
+
+
+def fbank_times(models, card):
+    """Kernel 1 beyond `check_kernels`' S = 256 and 3: at S = 2048 of 1 s
+    chunks and at the session's 200 ms chunks (S = 1 and 256), checked by
+    `check_fbank_i8`; then at S = 256 and 2048 of 1 s chunks
+    csrc/fbank_mma.cu and fbank_i8_simt timed by CUDA events and by the
+    profiler's device time a launch, beside the bound."""
+    from april_asr_tpu_torch.frontend.fbank import FbankLayout
+    from april_asr_tpu_torch.ops import fbank_kernels as FK
+    from april_asr_tpu_torch.tools.profile_lstm_mma import host_and_device_us
+
+    dev = torch.device(DEV)
+    opts = models["int8"].runtime.fbank_opts
+    rng = np.random.default_rng(21)
+    for S, chunk in ((1, CHUNK_1S // 5), (S_FLAG, CHUNK_1S // 5), (2048, CHUNK_1S)):
+        r = check_fbank_i8(FbankLayout.build(opts, chunk), S, rng, dev)
+        print(f"kernel 1 S={S} F={r['F']}: max abs err {r['err_plain']:.3g} against the plain "
+              f"version, {r['err_simt']:.3g} against fbank_i8_simt (bit for bit); silent "
+              f"sessions log(K_EPS) bit for bit; two launches equal")
+    layout = FbankLayout.build(opts, CHUNK_1S)
+    c, F, K = FK.fbank_constants(layout, dev), layout.max_frames, opts.padded_window_size
+    N2, nb, nfft = 2 * c["nfft"], c["bins"], c["nfft"]
+    for S in (S_FLAG, 2048):
+        buf = fbank_buffer(S, layout.buf_len, rng, dev)
+        plan = FK.plan_for(c, S, F)
+        kf = lambda: FK.logmel_rows_from_buf_i8(layout, buf)  # noqa: E731
+        sf = lambda: FK.fbank_i8_simt(c, buf, F)  # noqa: E731
+        k_ms, s_ms = cuda_ms(kf, 10), cuda_ms(sf, 3, warmup=1)
+        _, k_dev = host_and_device_us(kf, n=5, keys=("fbank_mma_kernel",))
+        _, s_dev = host_and_device_us(sf, n=2, keys=("fbank_kernel",))
+        b_ms, b_by = bound_ms(S * layout.buf_len * 4 + S * F * nb * 4 + K * N2 * 3 + nfft * nb * 4,
+                              fbank_i8_ops(S, F, K, N2, 3 * 2 * S * F * nfft * nb))
+        print(f"kernel 1 S={S} F={F}: fbank_mma.cu ms={k_ms:.4f} (device {k_dev:.1f} us a "
+              f"launch; {plan}), fbank_i8_simt ms={s_ms:.4f} (device {s_dev:.1f} us), "
+              f"bound_ms={b_ms:.4f} ({b_by}) ({card})")
+
+
 def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
     """Each kernel's wrapper and its plain version on the same inputs at S
     sessions and P pulls (F = 101 frames), held to the stated tolerances;
@@ -684,14 +784,14 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     out = {}
 
-    # 1. fbank_i8 and 5. fbank_bf16x3: [S, L] hop-row buffers of PCM16
-    # values -> [S, F, 80]. Both sum exact products in f32 in another order
-    # than the plain version: the repo's fbank kernel bound, atol 2e-5,
-    # rtol 1e-4 (tests/test_fbank_pallas.py:64-69)
+    # 1. fbank_i8 (csrc/fbank_mma.cu, by its route), fbank_i8_simt (the
+    # CUDA-core kernel it displaces) and 5. fbank_bf16x3: [S, L] hop-row
+    # buffers of PCM16 values -> [S, F, 80]. Each sums exact products in f32
+    # in another order than the plain version: the repo's fbank kernel
+    # bound, atol 2e-5, rtol 1e-4 (tests/test_fbank_pallas.py:64-69)
     c = FK.fbank_constants(layout, dev)
     L = layout.buf_len
-    pcm = (rng.normal(0, 0.25, (S, L)) * 32768).clip(-32768, 32767).astype(np.int16)
-    buf = t(pcm.astype(np.float32) / 32768.0)
+    buf = fbank_buffer(S, L, rng, dev)
     # the function's DFT has one row per sample of the padded window; the
     # kernels' whole 160-row views add zero rows past it, not counted here
     K = layout.opts.padded_window_size
@@ -700,7 +800,10 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
     for name, kf, pf, tab_bytes, ops in (
         ("fbank_i8", lambda: FK.logmel_rows_from_buf_i8(layout, buf),
          lambda: FK.logmel_rows_from_buf_i8_plain(c, buf, F), K * N2 * 3,
-         {"int8": 2 * 2 * S * F * K * N2, "bf16": 2 * S * F * K * N2 + mel_ops}),
+         fbank_i8_ops(S, F, K, N2, mel_ops)),
+        ("fbank_i8_simt", lambda: FK.fbank_i8_simt(c, buf, F),
+         lambda: FK.logmel_rows_from_buf_i8_plain(c, buf, F), K * N2 * 3,
+         fbank_i8_ops(S, F, K, N2, mel_ops)),
         ("fbank_bf16x3", lambda: FK.logmel_rows_from_buf(layout, buf),
          lambda: FK.logmel_rows_from_buf_plain(c, buf, F), K * N2 * 4,
          {"bf16": 3 * 2 * S * F * K * N2 + mel_ops}),
@@ -710,6 +813,7 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
         torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
         b = bound_ms(S * L * 4 + S * F * nb * 4 + tab_bytes + nfft * nb * 4, ops)
         out[name] = (kf, pf, float((got - want).abs().max()), b, f"buf[{S},{L}] F={F}")
+    check_fbank_i8(layout, S, np.random.default_rng(seed + 31), dev)
 
     # 2. lstm_rec_stream2_i8: one layer's recurrent core over P steps (layer 0)
     x = t(rng.normal(size=(P, S, d)).astype(np.float32))
@@ -897,7 +1001,9 @@ def check_conv_embed(rt, S: int, P: int, rng, t) -> dict:
 
 
 SOURCES = {
-    "fbank_i8": ("april_asr_tpu_torch/csrc/fbank_i8.cu", "april_asr_tpu/ops/fbank_pallas.py:457"),
+    "fbank_i8": ("april_asr_tpu_torch/csrc/fbank_mma.cu", "april_asr_tpu/ops/fbank_pallas.py:457"),
+    "fbank_i8_simt": ("april_asr_tpu_torch/csrc/fbank_i8.cu",
+                      "april_asr_tpu/ops/fbank_pallas.py:457"),
     "lstm_rec_stream2_i8": ("april_asr_tpu_torch/csrc/lstm_mma.cu",
                             "april_asr_tpu/ops/lstm_pallas.py:1147"),
     "ffn_norm_i8": ("april_asr_tpu_torch/csrc/ffn_mma.cu", "april_asr_tpu/ops/lstm_pallas.py:1264"),
@@ -1018,6 +1124,7 @@ def phase_kernels(models, card, reps: int = 20):
     check_float_widths(S_FLAG, P, seed=5)
     print_mma_plans(models["int8"].runtime, S_FLAG, P)
     decode_times(models, card, P)
+    fbank_times(models, card)
     return rows
 
 
