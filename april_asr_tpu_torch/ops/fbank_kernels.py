@@ -20,7 +20,12 @@ Kernel 5, port of `logmel_rows_from_buf` (`_buf_kernel`), for every other
 engine. Per hop-row view, the samples split exactly into bf16 hi/lo planes
 and contract with the bf16 hi/lo planes of the zero-padded folded DFT, the
 lo*lo term dropped (`_dot3`); the view sums add up in view order. Then the
-same power, bf16x3 mel projection and log.
+same power, bf16x3 mel projection and log. On the card every sum is a fmaf
+chain on the CUDA cores in csrc/fbank_bf16x3.cu's order, over tiles of
+frame rows read from the staged hop rows (csrc/fbank_bf16x3_tile.cu, planned
+by `bf16x3_plan`, its tables laid out by `t5_stream`); shapes no plan holds
+take the CUDA-core kernel `fbank_bf16x3_simt` (csrc/fbank_bf16x3.cu). The
+two give the same rows, bit for bit.
 
 Kernel 6, port of `logmel_rows_fused` (`_kernel`), the same DSP on frames
 formed beforehand ([S, F, padded], `frames_from_buf`): one full-f32 product
@@ -30,8 +35,8 @@ which no `FbankLayout.build` layout gives (frontend/fbank.py).
 
 Each dispatcher takes the plain PyTorch version for a CPU tensor and
 launches its CUDA kernel (csrc/fbank_mma.cu or csrc/fbank_i8.cu,
-csrc/fbank_bf16x3.cu; kernel 6 is the second entry of the latter) for a CUDA
-tensor; it never falls back.
+csrc/fbank_bf16x3_tile.cu or csrc/fbank_bf16x3.cu; kernel 6 is the second
+entry of the latter) for a CUDA tensor; it never falls back.
 """
 
 from __future__ import annotations
@@ -210,6 +215,92 @@ def plan_for(c: dict, S: int, F: int) -> Optional[FbankPlan]:
     return fbank_plan(S, F, c["shift"], c["padded"], c["nfft"], c["tc_mel_span"])
 
 
+# Kernel 5 on the H100 (csrc/fbank_bf16x3_tile.cu): a block of 8 warps and
+# a producer warp takes 4 R frame rows (R one of T5_ROWS, chosen by
+# `bf16x3_plan`), streams the DFT tables through T5_RING stages of T5_STAGE
+# bytes, each [2 runs of 4 k][d_hi, d_lo][T5_NC columns][4 k] f32 (T5_SK k a
+# stage), behind T5_BARS bytes of mbarriers.
+T5_NC, T5_SK, T5_STAGE, T5_RING, T5_BARS, T5_ROWS = 256, 8, 16384, 4, 128, (6, 7)
+
+
+def t5_columns(nfft: int) -> np.ndarray:
+    """[chunks, T5_NC] DFT column of each slot of csrc/fbank_bf16x3_tile.cu's
+    stages: slot 32 w + 8 j + t of chunk c is warp w's column j of thread
+    t, the re (j even) or im (j odd) column of bin 128 c + 16 w + 8 (j // 2)
+    + t."""
+    s = np.arange(T5_NC)
+    w, j, t = s // 32, (s % 32) // 8, s % 8
+    bins = np.arange(2 * nfft // T5_NC)[:, None] * (T5_NC // 2) + 16 * w + 8 * (j // 2) + t
+    return np.where(j % 2 == 0, bins, nfft + bins)
+
+
+def t5_stream(d_hi: torch.Tensor, d_lo: torch.Tensor, padded: int) -> np.ndarray:
+    """Kernel 5's table stream for csrc/fbank_bf16x3_tile.cu from the bf16
+    planes [K, 2 nfft] of the zero-padded folded DFT: rows k < padded only
+    (the rest are zero), widened to f32, as [chunks][padded / T5_SK stages][2
+    runs][d_hi, d_lo][T5_NC slots (`t5_columns`)][4 k]."""
+    planes = np.stack([d_hi[:padded].float().numpy(), d_lo[:padded].float().numpy()])
+    cols = t5_columns(planes.shape[2] // 2)                                   # [nch, NC]
+    x = planes[:, :, cols]                                                    # [2, padded, nch, NC]
+    x = x.reshape(2, padded // T5_SK, 2, 4, cols.shape[0], T5_NC)             # [p, st, u, kk, ch, s]
+    return np.ascontiguousarray(x.transpose(4, 1, 2, 0, 5, 3))
+
+
+def t5_pitch(shift: int) -> int:
+    """Kernel 5's hop-row pitch in floats of a plane: the hop length, or 4
+    more, whichever is an odd number of 16-byte runs. A staged hop row holds
+    both planes (per run of 4 samples, x_hi then x_lo: 2 pitch floats), so
+    4 consecutive frames' float4 reads fall in 4 distinct bank groups."""
+    return shift if (shift // 4) % 2 else shift + 4
+
+
+@dataclasses.dataclass(frozen=True)
+class Bf16x3Plan:
+    rows: int    # R: rows a thread holds; a block takes 4 R frame rows
+    hops: int    # most hop rows a block stages
+    smem: int    # dynamic shared memory a block
+    blocks: int
+
+
+def bf16x3_smem(rows: int, hops: int, shift: int, nfft: int) -> int:
+    """csrc/fbank_bf16x3_tile.cu `t5_smem`: the ring's mbarriers, the ring,
+    the two sample planes and the power rows (hi, lo), all f32."""
+    return T5_BARS + T5_RING * T5_STAGE + 2 * 4 * (hops * t5_pitch(shift) + 4 * rows * nfft)
+
+
+@functools.lru_cache(maxsize=None)
+def bf16x3_plan(S: int, F: int, shift: int, padded: int, nfft: int) -> Optional[Bf16x3Plan]:
+    """Kernel 5's launch on csrc/fbank_bf16x3_tile.cu for S sessions of F
+    frames, or None where the kernel does not take the shapes (a shift or a
+    padded window that is not a multiple of T5_SK samples, nfft not a
+    multiple of T5_NC / 2) or no block holds the hop rows of its tile. Of the
+    row counts T5_ROWS whose tiles fit, the one whose tiles fill the H100's
+    SMs' waves best: the least waves x (R + 1/4), the quarter a tile's
+    staging and mel; on a tie the larger R (fewer table reads). 4 R rows
+    span at most (4 R - 2) // F + 2 sessions, each staging n_views - 1 hop
+    rows beyond its frames."""
+    if S < 1 or F < 1 or shift % T5_SK or padded % T5_SK or nfft % (T5_NC // 2):
+        return None
+    n_views = -(-padded // shift)
+    best, best_cost = None, None
+    for R in T5_ROWS:
+        M = 4 * R
+        hops = M + min(S, (M - 2) // F + 2) * (n_views - 1)
+        smem = bf16x3_smem(R, hops, shift, nfft)
+        if smem > cuda_build.SMEM_PER_BLOCK:
+            continue
+        blocks = -(-S * F // M)
+        cost = -(-blocks // cuda_build.SM_COUNT) * (R + 0.25)
+        if best_cost is None or cost <= best_cost:
+            best, best_cost = Bf16x3Plan(R, hops, smem, blocks), cost
+    return best
+
+
+def bf16x3_plan_for(c: dict, S: int, F: int) -> Optional[Bf16x3Plan]:
+    """`bf16x3_plan` for the layout's constants `c`."""
+    return bf16x3_plan(S, F, c["shift"], c["padded"], c["nfft"])
+
+
 _CONSTS: dict = {}
 
 
@@ -248,6 +339,7 @@ def fbank_constants(layout, device) -> dict:
         "mel_hi": mel_hi.contiguous().to(device),
         "mel_lo": mel_lo.contiguous().to(device),
         **{k: torch.from_numpy(v).to(device) for k, v in tc.items() if k != "tc_mel_span"},
+        "t5": torch.from_numpy(t5_stream(d_hi, d_lo, padded)).to(device),
         "tc_mel_span": tc["tc_mel_span"],
         "padded": padded,
         "n_views": n_views,
@@ -295,7 +387,7 @@ def logmel_rows_from_buf_i8_plain(c: dict, buf: torch.Tensor, F: int) -> torch.T
     return rows.reshape(S, F, -1)
 
 
-def _i8_checks(c: dict, buf: torch.Tensor, F: int, what: str) -> torch.Tensor:
+def _buf_checks(c: dict, buf: torch.Tensor, F: int, what: str) -> torch.Tensor:
     S, L = buf.shape
     if buf.dtype != torch.float32 or not buf.is_contiguous():
         raise ValueError(f"{what}: buf must be contiguous float32")
@@ -308,7 +400,7 @@ def fbank_i8_simt(c: dict, buf: torch.Tensor, F: int) -> torch.Tensor:
     """Kernel 1 on the CUDA cores (csrc/fbank_i8.cu): 8 frames a block, one
     bin a thread. The route for shapes `fbank_plan` does not hold."""
     S, L = buf.shape
-    out = _i8_checks(c, buf, F, "fbank_i8_simt")
+    out = _buf_checks(c, buf, F, "fbank_i8_simt")
     fn = cuda_build.bind("fbank_i8", "fbank_i8", 8, 7)
     cuda_build.COUNTS["fbank_i8_simt"] += 1
     rc = fn(
@@ -328,7 +420,7 @@ def fbank_mma(c: dict, buf: torch.Tensor, F: int, plan: FbankPlan,
     [plan.blocks, 7], zeroed), each block's phase clock
     (tools/profile_fbank.py)."""
     S, L = buf.shape
-    out = _i8_checks(c, buf, F, "fbank_i8")
+    out = _buf_checks(c, buf, F, "fbank_i8")
     if buf.data_ptr() % 16:  # the staging reads 16-byte vectors
         buf = buf.clone()
     fn = cuda_build.bind("fbank_mma", "fbank_mma", 9, 9)
@@ -353,7 +445,7 @@ def logmel_rows_from_buf_i8_cuda(c: dict, buf: torch.Tensor, F: int) -> torch.Te
     CUDA-core kernel; it never falls back."""
     S = buf.shape[0]
     if S * F == 0:
-        return _i8_checks(c, buf, F, "fbank_i8")
+        return _buf_checks(c, buf, F, "fbank_i8")
     plan = plan_for(c, S, F)
     if plan is None:
         return fbank_i8_simt(c, buf, F)
@@ -389,24 +481,61 @@ def logmel_rows_from_buf_plain(c: dict, buf: torch.Tensor, F: int) -> torch.Tens
     return rows.reshape(S, F, -1)
 
 
-def logmel_rows_from_buf_cuda(c: dict, buf: torch.Tensor, F: int) -> torch.Tensor:
+def fbank_bf16x3_simt(c: dict, buf: torch.Tensor, F: int) -> torch.Tensor:
+    """Kernel 5 on the CUDA cores (csrc/fbank_bf16x3.cu): 8 frames of one
+    session a block, one bin a thread. The route for shapes `bf16x3_plan`
+    does not hold."""
     S, L = buf.shape
     shift = c["shift"]
-    if buf.dtype != torch.float32 or not buf.is_contiguous():
-        raise ValueError("fbank_bf16x3: buf must be contiguous float32")
-    if L % shift or L // shift < F + c["n_views"] - 1:
-        raise ValueError(f"fbank_bf16x3: buffer of {L} samples cannot frame {F} rows")
-    out = torch.empty((S, F, c["bins"]), dtype=torch.float32, device=buf.device)
+    out = _buf_checks(c, buf, F, "fbank_bf16x3_simt")
     fn = cuda_build.bind("fbank_bf16x3", "fbank_bf16x3", 6, 7)
-    cuda_build.COUNTS["fbank_bf16x3"] += 1
+    cuda_build.COUNTS["fbank_bf16x3_simt"] += 1
     rc = fn(
         buf.data_ptr(), c["d_hi"].data_ptr(), c["d_lo"].data_ptr(),
         c["mel_hi"].data_ptr(), c["mel_lo"].data_ptr(), out.data_ptr(),
         S, L // shift, F, shift, c["n_views"], c["nfft"], c["bins"],
         torch.cuda.current_stream(buf.device).cuda_stream,
     )
-    cuda_build.check(rc, "fbank_bf16x3")
+    cuda_build.check(rc, f"fbank_bf16x3_simt (S={S}, F={F}, shift={shift})")
     return out
+
+
+def fbank_bf16x3_tile(c: dict, buf: torch.Tensor, F: int, plan: Bf16x3Plan,
+                      stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel 5 on csrc/fbank_bf16x3_tile.cu on `plan`; with `stamps`
+    (int64 [plan.blocks, 6], zeroed), each block's phase clock
+    (tools/profile_fbank.py)."""
+    S, L = buf.shape
+    out = _buf_checks(c, buf, F, "fbank_bf16x3")
+    if buf.data_ptr() % 16:  # the staging reads 16-byte vectors
+        buf = buf.clone()
+    fn = cuda_build.bind("fbank_bf16x3_tile", "fbank_bf16x3_tile", 7, 10)
+    cuda_build.COUNTS["fbank_bf16x3"] += 1
+    rc = fn(
+        buf.data_ptr(), c["t5"].data_ptr(), c["mel_hi"].data_ptr(), c["mel_lo"].data_ptr(),
+        c["tc_mel_plan"].data_ptr(), out.data_ptr(), 0 if stamps is None else stamps.data_ptr(),
+        S, L // c["shift"], F, c["shift"], c["padded"], c["nfft"], c["bins"], plan.rows,
+        plan.hops, plan.smem, torch.cuda.current_stream(buf.device).cuda_stream,
+    )
+    if rc < 0:
+        raise RuntimeError(f"fbank_bf16x3: csrc/fbank_bf16x3_tile.cu refuses S={S}, F={F}, "
+                           f"shift={c['shift']}, padded={c['padded']}, nfft={c['nfft']}, "
+                           f"bins={c['bins']} on {plan} "
+                           f"({'shape' if rc == -1 else 'shared-memory bytes'})")
+    cuda_build.check(rc, f"fbank_bf16x3 (S={S}, F={F}, shift={c['shift']}, {plan})")
+    return out
+
+
+def logmel_rows_from_buf_cuda(c: dict, buf: torch.Tensor, F: int) -> torch.Tensor:
+    """Kernel 5 on the card: csrc/fbank_bf16x3_tile.cu on its plan, else the
+    CUDA-core kernel; it never falls back."""
+    S = buf.shape[0]
+    if S * F == 0:
+        return _buf_checks(c, buf, F, "fbank_bf16x3")
+    plan = bf16x3_plan_for(c, S, F)
+    if plan is None:
+        return fbank_bf16x3_simt(c, buf, F)
+    return fbank_bf16x3_tile(c, buf, F, plan)
 
 
 def logmel_rows_from_buf(layout, buf: torch.Tensor) -> torch.Tensor:

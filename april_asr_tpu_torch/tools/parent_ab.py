@@ -14,10 +14,11 @@ directory) and, on the flagship random int8 model (seed 0):
   rows of both, and kernel 7 (`lstm_layer_fused_i8`) at S = 256, on numpy
   seed inputs, with the SHA-1 of their outputs (kernel 7 ungated and
   gated);
-* times kernel 1 (`logmel_rows_from_buf_i8`, by its route) at S = 256
-  and 2048 on hop-row buffers of PCM16 values of the 1 s layout (F = 101)
-  drawn from a numpy seed, by CUDA events and the profiler's device time,
-  with the SHA-1 of its rows;
+* times kernel 1 (`logmel_rows_from_buf_i8`, by its route) and kernel 5
+  (`logmel_rows_from_buf`, by its route) at S = 256 and 2048 on hop-row
+  buffers of PCM16 values of the 1 s layout (F = 101) drawn from a numpy
+  seed, by CUDA events and the profiler's device time, with the SHA-1 of
+  their rows;
 * times kernel 4 (`chunk_decode`, the whole-chunk decode) on the model's
   bf16 decode weights at S = 256 and 2048, P = 27, on the inputs chip_smoke
   checks it on (`profile_decode.decode_case`, loaded from this tree), by
@@ -42,7 +43,7 @@ directory) and, on the flagship random int8 model (seed 0):
 
 The main process then requires every turn's int8 blobs, the f32 and bf16
 engines' blobs (run on their kernels), and the outputs of kernels 1, 2, 3,
-4, 7 and 12 to be equal, bit for bit; every session of a float
+4, 5, 7 and 12 to be equal, bit for bit; every session of a float
 engine whose events part from the first turn's to part at a near-tie
 decision (`testing.check_parting`, `testing.NEAR_TIE`; every session is
 counted, and each parting at or above it listed), counted per turn
@@ -51,9 +52,9 @@ ulps where the encoder's sums change order); and kernel 10's outputs to be
 equal between the turns of one tree (it changes between the trees). It
 prints the times per turn. With `--sass`, it also runs `sass_diff` on
 csrc/lstm_mma.cu, lstm_i8.cu, lstm_step.cu, lstm_tp.cu, lstm_mma_float.cu,
-lstm_chunk_mma.cu, chunk_decode.cu and fbank_i8.cu of the two trees (kernels 2, 3, 7, 12, 13,
-14, 18, 19, 22, the three-pass float step and the CUDA-core kernels 4 and 1). Needs a CUDA device
-(and nvcc).
+lstm_chunk_mma.cu, chunk_decode.cu, fbank_i8.cu and fbank_bf16x3.cu of the two trees (kernels
+2, 3, 7, 12, 13, 14, 18, 19, 22, the three-pass float step and the CUDA-core kernels 4, 1 and 5).
+Needs a CUDA device (and nvcc).
 """
 
 from __future__ import annotations
@@ -74,14 +75,14 @@ TAG = "PARENT_AB "
 HERE = Path(__file__).resolve()
 TREE = HERE.parents[2]
 SASS_SOURCES = ("lstm_mma.cu", "lstm_i8.cu", "lstm_step.cu", "lstm_tp.cu", "lstm_mma_float.cu",
-                "lstm_chunk_mma.cu", "chunk_decode.cu", "fbank_i8.cu")
+                "lstm_chunk_mma.cu", "chunk_decode.cu", "fbank_i8.cu", "fbank_bf16x3.cu")
 FLOATS = ("f32", "bf16")
 BF16_SEEDS = (1, 2)  # more random models for the bf16 engine's partings
 # the float engines' runs compared between turns: (precision, model seed)
 FLOAT_RUNS = tuple((p, 0) for p in FLOATS) + tuple(("bf16", s) for s in BF16_SEEDS)
 # outputs equal between the trees as well as the turns: kernel 12's, kernel
 # 4's at both sizes and the float engines' blobs on their kernels
-K1_SIZES = (256, 2048)
+FBANK_SIZES = (256, 2048)
 K4_SIZES = (256, 2048)
 EQUAL_KEYS = tuple(k for p in FLOATS for k in (f"k12_{p}_sha", f"k12_{p}_gated_sha",
                                                  f"blob_{p}_kernels_sha")) + tuple(
@@ -111,10 +112,11 @@ def _this_tree(name: str):
     return mod
 
 
-def kernel1_turn(CS, rt, res: dict, card: str) -> None:
-    """Kernel 1 at S = 256 and 2048 of `rt`'s 1 s layout on numpy-seeded
-    PCM16 buffers: its CUDA-event ms, the profiler's device us a launch and
-    the SHA-1 of its rows, into res["k1_S<S>_*"]."""
+def fbank_turn(CS, rt, res: dict, card: str) -> None:
+    """Kernels 1 and 5 at S = 256 and 2048 of `rt`'s 1 s layout on
+    numpy-seeded PCM16 buffers: each one's CUDA-event ms, the profiler's
+    device us a launch and the SHA-1 of its rows, into res["k1_S<S>_*"] and
+    res["k5_S<S>_*"]."""
     import numpy as np
     import torch
 
@@ -123,17 +125,19 @@ def kernel1_turn(CS, rt, res: dict, card: str) -> None:
     from april_asr_tpu_torch.tools.profile_lstm_mma import host_and_device_us
 
     layout = FbankLayout.build(rt.fbank_opts, CS.CHUNK_1S)
-    for S in K1_SIZES:
+    for S in FBANK_SIZES:
         rng = np.random.default_rng(S + 3)
         pcm = (rng.normal(0, 0.25, (S, layout.buf_len)) * 32768).clip(-32768, 32767)
         buf = torch.from_numpy(pcm.astype(np.int16).astype(np.float32) / 32768.0).cuda()
-        fn = lambda: FK.logmel_rows_from_buf_i8(layout, buf)  # noqa: E731
-        res[f"k1_S{S}_sha"] = _sha(fn())
-        res[f"k1_S{S}_ms"] = CS.cuda_ms(fn, 20 if S == 256 else 5)
-        res[f"k1_S{S}_device_us"] = host_and_device_us(fn, n=3, keys=("fbank",))[1]
-    print(f"kernels: k1 S=256 {res['k1_S256_ms']:.4f} ms ({res['k1_S256_device_us']:.1f} us "
-          f"device), S=2048 {res['k1_S2048_ms']:.4f} ms ({res['k1_S2048_device_us']:.1f} us "
-          f"device) ({card})", flush=True)
+        for k, entry in (("k1", FK.logmel_rows_from_buf_i8), ("k5", FK.logmel_rows_from_buf)):
+            fn = lambda: entry(layout, buf)  # noqa: E731
+            res[f"{k}_S{S}_sha"] = _sha(fn())
+            res[f"{k}_S{S}_ms"] = CS.cuda_ms(fn, 20 if S == 256 else 5)
+            res[f"{k}_S{S}_device_us"] = host_and_device_us(fn, n=3, keys=("fbank",))[1]
+    for k in ("k1", "k5"):
+        print(f"kernels: {k} S=256 {res[f'{k}_S256_ms']:.4f} ms ({res[f'{k}_S256_device_us']:.1f} "
+              f"us device), S=2048 {res[f'{k}_S2048_ms']:.4f} ms "
+              f"({res[f'{k}_S2048_device_us']:.1f} us device) ({card})", flush=True)
 
 
 def kernel4_turn(CS, rt, prec: str, res: dict, card: str) -> None:
@@ -218,7 +222,7 @@ def worker(root: str, out: str) -> None:
         print(f"kernels: k2 S=256 {res['k2_S256_ms']:.4f} ms, S=2048 {res['k2_S2048_ms']:.4f} ms, "
               f"k3 S=256 {res['k3_S256_ms']:.4f} ms, S=2048 {res['k3_S2048_ms']:.4f} ms, "
               f"k7 S=256 {res['k7_ms']:.4f} ms ({card})", flush=True)
-        kernel1_turn(CS, rt, res, card)
+        fbank_turn(CS, rt, res, card)
         kernel4_turn(CS, rt, "bf16", res, card)
         CS.phase_engine(model, card, "int8")
         bufs = CS._tone_bufs(CS.S_FLAG, CS.CHUNK_1S, rt.sample_rate)
@@ -411,7 +415,8 @@ def main(argv=None) -> int:
     rows = sass(other) if args.sass else []
     ref = turns[0]
     equal_keys = ("k2_S256_sha", "k2_S2048_sha", "k3_S256_sha", "k3_S2048_sha", "k7_sha",
-                  "k7_gated_sha", "blob_sha") + tuple(f"k1_S{S}_sha" for S in K1_SIZES) + EQUAL_KEYS
+                  "k7_gated_sha", "blob_sha") + tuple(f"k{n}_S{S}_sha" for n in (1, 5)
+                                                      for S in FBANK_SIZES) + EQUAL_KEYS
     bad = [k for tr in turns for k in equal_keys if tr[k] != ref[k]]
     # kernel 10 changes between the trees, not between two turns of one tree
     float_keys = [f"k10_{p}_S{S}_sha" for p in FLOATS for S in (256, 2048)]
@@ -437,7 +442,8 @@ def main(argv=None) -> int:
               f"cell, margin): {parted}", flush=True)
     summary = {
         "turns": [{k: tr[k] for k in ("label", "build_s", "k1_S256_ms", "k1_S2048_ms",
-                                      "k1_S256_device_us", "k1_S2048_device_us",
+                                      "k1_S256_device_us", "k1_S2048_device_us", "k5_S256_ms",
+                                      "k5_S2048_ms", "k5_S256_device_us", "k5_S2048_device_us",
                                       "k2_S256_ms", "k2_S2048_ms", "k3_S256_ms",
                                       "k3_S2048_ms", "k7_ms", "k12_f32_ms", "k12_bf16_ms",
                                       "k10_f32_S256_ms", "k10_f32_S2048_ms", "k10_bf16_S256_ms",

@@ -20,10 +20,12 @@ and a two-rank tensor-parallel engine, and prints the results.
 Phases (each fails the run on error):
   build      nvcc for every csrc/*.cu, all started at once; then
              csrc/lstm_mma.cu, lstm_mma_float.cu, lstm_chunk_mma.cu,
-             ffn_mma.cu and fbank_mma.cu again to cubins: kernels 2, 7, 12,
-             10, 3 and 1's registers and spills (none allowed), IMMA in 2, 7
-             and 3's SASS, IMMA and FFMA in kernel 1's, HMMA in kernels 12
-             and 10 at bf16, FFMA and no tensor-core instruction at f32
+             ffn_mma.cu, fbank_mma.cu and fbank_bf16x3_tile.cu again to
+             cubins: kernels 2, 7, 12, 10, 3, 1 and 5's registers and spills
+             (none allowed), IMMA in 2, 7 and 3's SASS, IMMA and FFMA in
+             kernel 1's, FFMA and no tensor-core instruction in kernel 5's,
+             HMMA in kernels 12 and 10 at bf16, FFMA and no tensor-core
+             instruction at f32
   kernels    each kernel against its plain version: timed at S=256, P=27,
              F=101, checked again at S=3, P=5 (ragged tiles); kernels 2 and
              7 also bit for bit against kernel 13 and the three-pass step
@@ -45,14 +47,16 @@ Phases (each fails the run on error):
              profiler's device time a launch; both conv-embed
              entries (16, 17) on bf16 weights beside the stacked embed they
              displace, kernel 6 on frames formed from the fbank buffers;
-             kernel 1 (csrc/fbank_mma.cu, by its route) against its plain
-             version at the fbank bound and the CUDA-core kernel it
-             displaces (fbank_i8_simt) bit for bit, at S=3, 256 and 2048 of
-             1 s chunks and S=1 and 256 of 200 ms (the session's) chunks,
-             each launch counted on its route; silent sessions exactly
-             log(K_EPS) and two launches equal bit for bit; both kernels
-             timed at S=256 and 2048 by CUDA events and the profiler's
-             device time a launch
+             kernels 1 (csrc/fbank_mma.cu) and 5 (csrc/fbank_bf16x3_tile.cu),
+             each by its route, against its plain version at the fbank
+             bound and the CUDA-core kernel it displaces (fbank_i8_simt,
+             fbank_bf16x3_simt) bit for bit, at 16 and 8 kHz, S=1 and 256
+             of 200 ms (the session's) chunks and S=3, 256 and 2048 of 1 s
+             chunks, and on full-scale samples, each launch counted on its
+             route; silent sessions exactly log(K_EPS) and two launches
+             equal bit for bit; both kernels of each timed at S=256 and
+             2048 by CUDA events and the profiler's device time a launch,
+             beside the bound and kernel 5's FFMA floor
   reference  a tiny random model: CUDA engine vs CPU engine, same streams,
              at int8 and bf16 (the step embeds through kernel 16) and at f32
              (the stacked embed); the flush runs kernels 7, 12 and 8
@@ -348,7 +352,8 @@ def phase_build(card):
 # the tensor-core kernels, by source and the start of their mangled names:
 # kernels 2 and 7 (csrc/lstm_mma.cu) and kernel 3's two product passes
 # (csrc/ffn_mma.cu, ff1 and ff2), int8 on IMMA; kernel 1 (csrc/fbank_mma.cu)
-# on IMMA and FFMA; kernels 12
+# on IMMA and FFMA; kernel 5 (csrc/fbank_bf16x3_tile.cu, R = 6 and 7) on FFMA
+# alone; kernels 12
 # (csrc/lstm_mma_float.cu) and 10 (csrc/lstm_chunk_mma.cu): `<float>` on
 # FFMA, `<unsigned short>` bf16 on HMMA
 MMA_SOURCES = (
@@ -357,15 +362,19 @@ MMA_SOURCES = (
     ("lstm_chunk_mma.cu", ("_Z27lstm_chunk_float_mma_kernel",), 2),
     ("ffn_mma.cu", ("_Z13ffn_mm_kernel",), 2),
     ("fbank_mma.cu", ("_Z16fbank_mma_kernel",), 1),
+    ("fbank_bf16x3_tile.cu", ("_Z17fbank_tile_kernel",), 2),
 )
 
 
 def sass_rule(kernel: str, insns: list) -> str:
     """Why a persistent kernel's SASS is wrong ("" where it is right): the
     int8 kernels need IMMA; kernel 1 IMMA and FFMA (its residual and mel on
-    the CUDA cores) and no HMMA; kernels 12 and 10 at bf16 HMMA, at f32
-    FFMA and no tensor-core instruction (no TF32)."""
+    the CUDA cores) and no HMMA; kernel 5 FFMA and no tensor-core
+    instruction (its sums keep fbank_bf16x3.cu's order); kernels 12 and 10
+    at bf16 HMMA, at f32 FFMA and no tensor-core instruction (no TF32)."""
     n = lambda op: sum(op in i for i in insns)  # noqa: E731
+    if "fbank_tile" in kernel:
+        return "" if n("FFMA") and not n("HMMA") and not n("IMMA") else "not FFMA alone"
     if "fbank" in kernel:
         return "" if n("IMMA") and n("FFMA") and not n("HMMA") else "not IMMA and FFMA alone"
     if "float_mma" not in kernel:
@@ -376,10 +385,10 @@ def sass_rule(kernel: str, insns: list) -> str:
 
 
 def check_mma_sass():
-    """csrc/lstm_mma.cu, lstm_mma_float.cu, lstm_chunk_mma.cu, ffn_mma.cu and
-    fbank_mma.cu compiled again to cubins: each tensor-core kernel's
-    registers, shared memory and spills (`-Xptxas -v`; a spill fails) and
-    its SASS (`sass_rule`)."""
+    """csrc/lstm_mma.cu, lstm_mma_float.cu, lstm_chunk_mma.cu, ffn_mma.cu,
+    fbank_mma.cu and fbank_bf16x3_tile.cu compiled again to cubins: each
+    tiled kernel's registers, shared memory and spills (`-Xptxas -v`; a
+    spill fails) and its SASS (`sass_rule`)."""
     from pathlib import Path
 
     from april_asr_tpu_torch.ops import cuda_build
@@ -686,79 +695,127 @@ def fbank_i8_ops(S: int, F: int, K: int, N2: int, mel_ops: int) -> dict:
     return {"int8": 2 * 2 * S * F * K * N2, "bf16": 2 * S * F * K * N2 + mel_ops}
 
 
-def check_fbank_i8(layout, S: int, rng, dev) -> dict:
-    """Kernel 1 at S sessions of `layout`'s frames: the route launches
-    csrc/fbank_mma.cu (its count, and no CUDA-core launch), which is held at
+# Kernels 1 and 5 by number: the launch count of the route's kernel, its
+# entry, the CUDA-core kernel it displaces (whose count is its name), the
+# plain version, the plan, and the profiler's names of the two kernels
+FBANK = {
+    1: dict(count="fbank_i8", source="csrc/fbank_mma.cu", route="logmel_rows_from_buf_i8",
+            simt="fbank_i8_simt", plain="logmel_rows_from_buf_i8_plain", plan="plan_for",
+            keys=("fbank_mma_kernel", "fbank_kernel")),
+    5: dict(count="fbank_bf16x3", source="csrc/fbank_bf16x3_tile.cu",
+            route="logmel_rows_from_buf", simt="fbank_bf16x3_simt",
+            plain="logmel_rows_from_buf_plain", plan="bf16x3_plan_for",
+            keys=("fbank_tile_kernel", "fbank_bf16x3_kernel")),
+}
+
+
+def check_fbank(kernel: int, layout, S: int, rng, dev, buf=None) -> dict:
+    """Kernel 1 or 5 at S sessions of `layout`'s frames: the route launches
+    its tiled kernel (its count, and no CUDA-core launch), which is held at
     the fbank bound to the plain version and bit for bit to the CUDA-core
-    kernel it displaces (`fbank_i8_simt`); every other session silent gives
-    rows of exactly log(K_EPS), and a second launch equals the first bit for
-    bit. Returns {"F", "err_plain", "err_simt"}."""
+    kernel it displaces; every other session silent gives rows of exactly
+    log(K_EPS), and a second launch equals the first bit for bit. `buf`,
+    where given, replaces the random samples (its odd sessions silenced all
+    the same). Returns {"F", "plan", "err_plain", "err_simt"}."""
     from april_asr_tpu_torch.frontend.oracle import K_EPS
     from april_asr_tpu_torch.ops import cuda_build
     from april_asr_tpu_torch.ops import fbank_kernels as FK
 
+    k = FBANK[kernel]
+    route, simt_fn, plain, plan_for = (getattr(FK, k[n]) for n in ("route", "simt", "plain", "plan"))
     c = FK.fbank_constants(layout, dev)
     F = layout.max_frames
-    buf = fbank_buffer(S, layout.buf_len, rng, dev)
+    buf = fbank_buffer(S, layout.buf_len, rng, dev) if buf is None else buf
     buf[1::2] = 0.0
     before = dict(cuda_build.COUNTS)
-    got = FK.logmel_rows_from_buf_i8(layout, buf)
-    again = FK.logmel_rows_from_buf_i8(layout, buf)
-    launched = {k: cuda_build.COUNTS[k] - before[k] for k in ("fbank_i8", "fbank_i8_simt")}
-    if launched != {"fbank_i8": 2, "fbank_i8_simt": 0}:
-        raise AssertionError(f"fbank_i8 at S={S}, F={F}: the route launched {launched}, not "
-                             f"csrc/fbank_mma.cu twice")
-    want = FK.logmel_rows_from_buf_i8_plain(c, buf, F)
-    simt = FK.fbank_i8_simt(c, buf, F)
+    got = route(layout, buf)
+    again = route(layout, buf)
+    launched = {n: cuda_build.COUNTS[n] - before[n] for n in (k["count"], k["simt"])}
+    plan = plan_for(c, S, F)
+    what = f"{k['count']} {layout.opts.sample_freq:g} Hz S={S} F={F}"
+    if launched != {k["count"]: 2, k["simt"]: 0} or plan is None:
+        raise AssertionError(f"{what}: the route launched {launched} ({plan}), not "
+                             f"{k['source']} twice")
+    want = plain(c, buf, F)
+    simt = simt_fn(c, buf, F)
     torch.cuda.synchronize()
-    what = f"fbank_i8 S={S} F={F}"
     torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4, msg=f"{what} vs plain")
     if not torch.equal(got, simt):
-        raise AssertionError(f"{what}: differs from fbank_i8_simt (max abs "
-                             f"{float((got - simt).abs().max()):.3g}), not bit for bit")
+        raise AssertionError(f"{what}: differs from {k['simt']} (max abs "
+                             f"{float((got - simt).abs().max()):.3g} in "
+                             f"{int((got != simt).sum())} of {got.numel()}), not bit for bit")
     if not torch.equal(got, again):
         raise AssertionError(f"{what}: two launches differ")
     silent = torch.log(torch.tensor(float(K_EPS), dtype=torch.float32, device=dev))
     if not bool((got[1::2] == silent).all()):
         raise AssertionError(f"{what}: silent sessions are not log(K_EPS) bit for bit")
-    return {"F": F, "err_plain": float((got - want).abs().max()),
+    return {"F": F, "plan": plan, "err_plain": float((got - want).abs().max()),
             "err_simt": float((got - simt).abs().max())}
 
 
-def fbank_times(models, card):
-    """Kernel 1 beyond `check_kernels`' S = 256 and 3: at S = 2048 of 1 s
-    chunks and at the session's 200 ms chunks (S = 1 and 256), checked by
-    `check_fbank_i8`; then at S = 256 and 2048 of 1 s chunks
-    csrc/fbank_mma.cu and fbank_i8_simt timed by CUDA events and by the
-    profiler's device time a launch, beside the bound."""
+def fbank5_ffma_ms(S: int, F: int, padded: int, N2: int) -> float:
+    """Kernel 5's design floor: its DFT's 3 x padded x 2 nfft f32 multiply-
+    adds a frame at the card's f32 peak (two operations each)."""
+    return 3 * S * F * padded * N2 * 2 / PEAK_OPS["f32"] * 1e3
+
+
+def fbank_times(card):
+    """Kernels 1 and 5 beyond `check_kernels`' S = 256 and 3 of 16 kHz 1 s
+    chunks: at 16 and 8 kHz, 200 ms chunks at S = 1 and 256 and 1 s chunks at
+    S = 3 and 2048, each checked by `check_fbank`, and full-scale samples at
+    S = 3; then at S = 256 and 2048 of 16 kHz 1 s chunks each tiled kernel
+    and the CUDA-core kernel it displaces timed by CUDA events and by the
+    profiler's device time a launch, beside the bound (and kernel 5's
+    design's FFMA floor)."""
+    from april_asr_tpu_torch.config import FbankOptions
     from april_asr_tpu_torch.frontend.fbank import FbankLayout
     from april_asr_tpu_torch.ops import fbank_kernels as FK
     from april_asr_tpu_torch.tools.profile_lstm_mma import host_and_device_us
 
     dev = torch.device(DEV)
-    opts = models["int8"].runtime.fbank_opts
     rng = np.random.default_rng(21)
-    for S, chunk in ((1, CHUNK_1S // 5), (S_FLAG, CHUNK_1S // 5), (2048, CHUNK_1S)):
-        r = check_fbank_i8(FbankLayout.build(opts, chunk), S, rng, dev)
-        print(f"kernel 1 S={S} F={r['F']}: max abs err {r['err_plain']:.3g} against the plain "
-              f"version, {r['err_simt']:.3g} against fbank_i8_simt (bit for bit); silent "
-              f"sessions log(K_EPS) bit for bit; two launches equal")
+    edge = np.array([32767, -32768, -32767, 32512, -256, 255, 0], np.float32) / 32768.0
+    for kernel in (1, 5):
+        for rate in (16000, 8000):
+            opts = FbankOptions(sample_freq=rate)
+            for S, seconds in ((1, 0.2), (S_FLAG, 0.2), (3, 1.0), (2048, 1.0)):
+                r = check_fbank(kernel, FbankLayout.build(opts, int(rate * seconds)), S, rng, dev)
+                print(f"kernel {kernel} {rate} Hz S={S} F={r['F']} ({r['plan']}): max abs err "
+                      f"{r['err_plain']:.3g} against the plain version, {r['err_simt']:.3g} "
+                      f"against {FBANK[kernel]['simt']} (bit for bit); silent sessions log(K_EPS) "
+                      f"bit for bit; two launches equal")
+            layout = FbankLayout.build(opts, rate)
+            full = torch.from_numpy(rng.choice(edge, size=(3, layout.buf_len)).astype(np.float32))
+            r = check_fbank(kernel, layout, 3, rng, dev, buf=full.to(dev))
+            print(f"kernel {kernel} {rate} Hz full-scale samples S=3: max abs err "
+                  f"{r['err_plain']:.3g} against the plain version; bit for bit "
+                  f"{FBANK[kernel]['simt']}")
+    opts = FbankOptions()
     layout = FbankLayout.build(opts, CHUNK_1S)
     c, F, K = FK.fbank_constants(layout, dev), layout.max_frames, opts.padded_window_size
     N2, nb, nfft = 2 * c["nfft"], c["bins"], c["nfft"]
-    for S in (S_FLAG, 2048):
-        buf = fbank_buffer(S, layout.buf_len, rng, dev)
-        plan = FK.plan_for(c, S, F)
-        kf = lambda: FK.logmel_rows_from_buf_i8(layout, buf)  # noqa: E731
-        sf = lambda: FK.fbank_i8_simt(c, buf, F)  # noqa: E731
-        k_ms, s_ms = cuda_ms(kf, 10), cuda_ms(sf, 3, warmup=1)
-        _, k_dev = host_and_device_us(kf, n=5, keys=("fbank_mma_kernel",))
-        _, s_dev = host_and_device_us(sf, n=2, keys=("fbank_kernel",))
-        b_ms, b_by = bound_ms(S * layout.buf_len * 4 + S * F * nb * 4 + K * N2 * 3 + nfft * nb * 4,
-                              fbank_i8_ops(S, F, K, N2, 3 * 2 * S * F * nfft * nb))
-        print(f"kernel 1 S={S} F={F}: fbank_mma.cu ms={k_ms:.4f} (device {k_dev:.1f} us a "
-              f"launch; {plan}), fbank_i8_simt ms={s_ms:.4f} (device {s_dev:.1f} us), "
-              f"bound_ms={b_ms:.4f} ({b_by}) ({card})")
+    for kernel in (1, 5):
+        k = FBANK[kernel]
+        route, simt, plan_for = (getattr(FK, k[n]) for n in ("route", "simt", "plan"))
+        for S in (S_FLAG, 2048):
+            buf = fbank_buffer(S, layout.buf_len, rng, dev)
+            plan = plan_for(c, S, F)
+            kf = lambda: route(layout, buf)  # noqa: E731
+            sf = lambda: simt(c, buf, F)  # noqa: E731
+            k_ms, s_ms = cuda_ms(kf, 10), cuda_ms(sf, 3, warmup=1)
+            _, k_dev = host_and_device_us(kf, n=5, keys=k["keys"][:1])
+            _, s_dev = host_and_device_us(sf, n=2, keys=k["keys"][1:])
+            mel_ops = 3 * 2 * S * F * nfft * nb
+            if kernel == 1:
+                tab, ops, floor = K * N2 * 3, fbank_i8_ops(S, F, K, N2, mel_ops), ""
+            else:
+                tab, ops = K * N2 * 4, {"bf16": 3 * 2 * S * F * K * N2 + mel_ops}
+                floor = f", the design's FFMA floor {fbank5_ffma_ms(S, F, K, N2):.4f} ms"
+            b_ms, b_by = bound_ms(S * layout.buf_len * 4 + S * F * nb * 4 + tab + nfft * nb * 4,
+                                  ops)
+            print(f"kernel {kernel} S={S} F={F}: {k['source']} ms={k_ms:.4f} (device "
+                  f"{k_dev:.1f} us a launch; {plan}), {k['simt']} ms={s_ms:.4f} (device "
+                  f"{s_dev:.1f} us), bound_ms={b_ms:.4f} ({b_by}){floor} ({card})")
 
 
 def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
@@ -785,7 +842,8 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
     out = {}
 
     # 1. fbank_i8 (csrc/fbank_mma.cu, by its route), fbank_i8_simt (the
-    # CUDA-core kernel it displaces) and 5. fbank_bf16x3: [S, L] hop-row
+    # CUDA-core kernel it displaces), 5. fbank_bf16x3 (csrc/fbank_bf16x3_tile.cu,
+    # by its route) and fbank_bf16x3_simt (the CUDA-core kernel it displaces): [S, L] hop-row
     # buffers of PCM16 values -> [S, F, 80]. Each sums exact products in f32
     # in another order than the plain version: the repo's fbank kernel
     # bound, atol 2e-5, rtol 1e-4 (tests/test_fbank_pallas.py:64-69)
@@ -807,13 +865,17 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
         ("fbank_bf16x3", lambda: FK.logmel_rows_from_buf(layout, buf),
          lambda: FK.logmel_rows_from_buf_plain(c, buf, F), K * N2 * 4,
          {"bf16": 3 * 2 * S * F * K * N2 + mel_ops}),
+        ("fbank_bf16x3_simt", lambda: FK.fbank_bf16x3_simt(c, buf, F),
+         lambda: FK.logmel_rows_from_buf_plain(c, buf, F), K * N2 * 4,
+         {"bf16": 3 * 2 * S * F * K * N2 + mel_ops}),
     ):
         got, want = kf(), pf()
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
         b = bound_ms(S * L * 4 + S * F * nb * 4 + tab_bytes + nfft * nb * 4, ops)
         out[name] = (kf, pf, float((got - want).abs().max()), b, f"buf[{S},{L}] F={F}")
-    check_fbank_i8(layout, S, np.random.default_rng(seed + 31), dev)
+    check_fbank(1, layout, S, np.random.default_rng(seed + 31), dev)
+    check_fbank(5, layout, S, np.random.default_rng(seed + 37), dev)
 
     # 2. lstm_rec_stream2_i8: one layer's recurrent core over P steps (layer 0)
     x = t(rng.normal(size=(P, S, d)).astype(np.float32))
@@ -1011,8 +1073,10 @@ SOURCES = {
                      "april_asr_tpu/ops/decode_pallas.py:440"),
     "chunk_decode_simt": ("april_asr_tpu_torch/csrc/chunk_decode.cu",
                           "april_asr_tpu/ops/decode_pallas.py:440"),
-    "fbank_bf16x3": ("april_asr_tpu_torch/csrc/fbank_bf16x3.cu",
+    "fbank_bf16x3": ("april_asr_tpu_torch/csrc/fbank_bf16x3_tile.cu",
                      "april_asr_tpu/ops/fbank_pallas.py:280"),
+    "fbank_bf16x3_simt": ("april_asr_tpu_torch/csrc/fbank_bf16x3.cu",
+                          "april_asr_tpu/ops/fbank_pallas.py:280"),
     "lstm_chunk_mma_f32": ("april_asr_tpu_torch/csrc/lstm_chunk_mma.cu",
                            "april_asr_tpu/ops/lstm_pallas.py:237"),
     "lstm_chunk_mma_bf16": ("april_asr_tpu_torch/csrc/lstm_chunk_mma.cu",
@@ -1124,7 +1188,7 @@ def phase_kernels(models, card, reps: int = 20):
     check_float_widths(S_FLAG, P, seed=5)
     print_mma_plans(models["int8"].runtime, S_FLAG, P)
     decode_times(models, card, P)
-    fbank_times(models, card)
+    fbank_times(card)
     return rows
 
 
