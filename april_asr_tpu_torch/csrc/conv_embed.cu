@@ -1,5 +1,8 @@
 // Kernels 16 and 17: the conv embed of every pull window of a step, straight
-// from the front buffer.
+// from the front buffer, on the CUDA cores. Kernel 17's port; for kernel 16
+// the route takes csrc/conv_embed_tile.cu, and this kernel (its windows
+// entry, count `conv_embed_simt`) only for the shapes that file's plan does
+// not hold; the two give the same outputs, bit for bit.
 //
 // Replaces april_asr_tpu/ops/conv_embed_pallas.py `conv_embed_windows`
 // (`_win_kernel`, kernel 16) and `conv_embed_from_front` (`_kernel`, kernel
@@ -38,7 +41,8 @@
 // conv3 and the projection; the bytes (the front read once, the output
 // written once) take about two thirds of that time at the bf16 rate. This
 // first kernel runs the products as f32 FMAs on the CUDA cores, from shared
-// memory (the projection weight from L2); tensor-core mma is later work.
+// memory (the projection weight from L2); csrc/conv_embed_tile.cu keeps its
+// sums and moves the data better.
 
 #include "common.cuh"
 
@@ -267,10 +271,11 @@ __global__ void __launch_bounds__(NT) conv_embed_kernel(
 // from_front selects kernel 17's conv1 (1) or kernel 16's (0). Returns minus
 // the shared memory bytes a block needs when the device allows a block fewer,
 // nothing launched; else cudaGetLastError() of the launch.
-extern "C" int conv_embed(const float* front, const float* w1, const float* b1, const uint16_t* w2k,
-                          const float* b2, const uint16_t* w3k, const float* b3, const uint16_t* wo,
-                          const float* bo, float* out, int S, int W, int mel, int P, int step,
-                          int seg, int c1, int c2, int c3, int d, int from_front, void* stream) {
+extern "C" int conv_embed_simt(const float* front, const float* w1, const float* b1,
+                               const uint16_t* w2k, const float* b2, const uint16_t* w3k,
+                               const float* b3, const uint16_t* wo, const float* bo, float* out,
+                               int S, int W, int mel, int P, int step, int seg, int c1, int c2,
+                               int c3, int d, int from_front, void* stream) {
   EmbedGeom g;
   g.S = S; g.W = W; g.mel = mel; g.P = P; g.step = step; g.seg = seg;
   g.c1 = c1; g.c2 = c2; g.c3 = c3; g.d = d; g.from_front = from_front;

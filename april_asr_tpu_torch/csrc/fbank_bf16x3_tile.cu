@@ -77,6 +77,7 @@
 // (tools/profile_fbank.py).
 
 #include "common.cuh"
+#include "mbar_ring.cuh"
 
 #define T5_NT 256       // 8 consumer warps
 #define T5_NC 256       // DFT columns a chunk: 128 bins, re and im
@@ -98,48 +99,12 @@ struct T5Args {
   int S, nbuf, F, shift, padded, nfft, bins, H, pitch, nv;
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// The ring's mbarriers: `full` completes when a stage's bytes have landed
-// (one arrival, the producer's, plus the copy's byte count), `empty` when
-// the 8 consumer warps have released the stage.
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned ok = 0;
-  while (!ok)
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(ok)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
 // One stage of the table stream copied by the bulk-copy (TMA) engine onto
 // its `full` mbarrier.
 __device__ __forceinline__ void bulk_stage(float* dst, const float* src, uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(T5_STAGE)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(src), "r"(T5_STAGE), "r"(smem_u32(bar))
-      : "memory");
+  mbar_expect(bar, T5_STAGE);
+  bulk_copy(dst, src, T5_STAGE, bar);
 }
-
-// A barrier of the 8 consumer warps alone (the producer warp never waits).
-__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
 
 // Adds the nanoseconds since the last mark to the block's slot k (slot 0:
 // the start time; the last slot: the end time), after a consumer barrier.

@@ -13,23 +13,30 @@ the stacked embed. Kernel 16 recomputes conv1 per window; kernel 17 computes
 it once per buffer row and corrects each window's edge rows, so the two agree
 to f32 rounding, not bit for bit.
 
-One CUDA kernel serves both entries (csrc/conv_embed.cu), each entry with
-its own launch count (`conv_embed`, `conv_embed_front`). The plain version,
+Kernel 16 on the card is csrc/conv_embed_tile.cu (count `conv_embed`): a
+persistent conv-stack launch over groups of windows, planned by
+`conv_embed_plan`, then a tiled projection launch; its every sum is the
+CUDA-core kernel's fmaf chain in its order, so the outputs are equal bit
+for bit. That kernel, csrc/conv_embed.cu, stays as `conv_embed_simt` (count
+`conv_embed_simt`) for the shapes no plan holds, and serves kernel 17
+(count `conv_embed_front`). The route reads shapes only. The plain version,
 which a CPU tensor takes, is the stacked windows through `conv_subsample`
 with the conv and projection weights as bf16: the same function. A CUDA
-tensor launches the kernel or raises, with the bytes where a shape exceeds
-the kernel's shared-memory plan; it never falls back.
+tensor launches a kernel or raises; it never falls back.
 
-The im2col weight forms (w2k, w3k) and the (freq, ch)-ordered projection
-weight are derived once per weights dict (`embed_weight_forms`), zero-padded
-to the widths the kernel takes (conv channels 2 and 3 to multiples of 8,
-d_model to an even width; ops/widths.py): a padded channel's activations
-are DoubleSwish(0) = 0, and the padded output columns are cut off.
+The im2col weight forms (w2k, w3k), the (freq, ch)-ordered projection weight
+and its f32 copy for the tiled kernel are derived once per weights dict
+(`embed_weight_forms`), zero-padded to the widths the kernels take (conv
+channels 2 and 3 to multiples of 8, d_model to an even width; ops/widths.py):
+a padded channel's activations are DoubleSwish(0) = 0, and the padded output
+columns are cut off.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+import functools
+from typing import Dict, Optional
 
 import torch
 
@@ -64,8 +71,10 @@ def embed_weight_forms(params) -> Dict[str, torch.Tensor]:
     bf16-rounded conv1
     taps [c1, 9] f32, w2k [9*c1, c2] and w3k [9*c2, c3] bf16 with rows
     ordered (dt, df, cin), the projection weight [f3*c3, d] bf16 with rows
-    ordered (freq, ch) (the stored rows are (ch, freq)), and f32 biases;
-    c2 and c3 zero-padded to multiples of 8 and d to an even width."""
+    ordered (freq, ch) (the stored rows are (ch, freq)), the same widened to
+    f32 with its columns zero-padded to a multiple of PJ_BN ("wo32", the
+    tiled kernel's), and f32 biases; c2 and c3 zero-padded to multiples of 8
+    and d to an even width."""
     src = tuple(params[k] for k in EMBED_KEYS + _BIAS_KEYS)
     key = tuple(id(t) for t in src)
     hit = _FORMS.get(key)
@@ -89,10 +98,127 @@ def embed_weight_forms(params) -> Dict[str, torch.Tensor]:
         "wo": wo.permute(1, 0, 2).reshape(f3 * c3p, dp).to(bf).contiguous(),
         "bo": zero_pad(params["embed_out_b"].float(), (dp,)).contiguous(),
     }
+    forms["wo32"] = zero_pad(forms["wo"].float(), (f3 * c3p, round_up(dp, PJ_BN))).contiguous()
     if len(_FORMS) >= 16:
         _FORMS.clear()
     _FORMS[key] = (src, forms)  # holding `src` keeps its ids from being reused
     return forms
+
+
+# Kernel 16 on the H100 (csrc/conv_embed_tile.cu). The conv stack: CT_NT
+# threads a block, conv1's CT_R1 and conv2's CT_R2 rows that conv3 reads,
+# CT_CG output channels a lane, CT_PP2 (conv2) and CT_PP3 (conv3) positions
+# a lane, conv1 widths CT_C1. The projection: PJ_BM x PJ_BN output tiles,
+# PJ_BK k a ring stage, PJ_RING stages behind PJ_BARS bytes of mbarriers.
+# Stamps: CE_NSTAMP slots a block row.
+CT_NT, CT_R1, CT_R2, CT_CG, CT_PP2, CT_PP3, CT_C1 = 384, 7, 3, 8, 4, 2, (4, 8)
+PJ_BM, PJ_BN, PJ_BK, PJ_RING, PJ_BARS = 128, 128, 8, 6, 128
+CE_NSTAMP = 7
+# the plan's cost model, in one thread's issue slots: a DoubleSwish (its
+# tanhf) and a block barrier with the wait for the slowest warp
+DSWISH_COST, BARRIER_COST = 20, 400
+
+
+def _al16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def conv_tile_dims(mel: int, c2: int) -> tuple:
+    """csrc/conv_embed_tile.cu `ct_dims`: (f2, f3, h1, h2, p2, ws2): conv2's
+    and conv3's frequencies, the half widths of conv1's and conv2's even /
+    odd frequency planes, conv2's position pitch in bf16 (an odd number of
+    16-byte runs) and its window stride in bf16 (likewise)."""
+    f2 = (mel - 3) // 2 + 1
+    f3 = (f2 - 3) // 2 + 1
+    h2 = (f2 + 1) // 2
+    p2 = 8 * ((c2 // 8) | 1)
+    return f2, f3, (mel + 1) // 2, h2, p2, 6 * h2 * p2 + 8
+
+
+def conv_embed_smem(nw: int, mel: int, seg: int, c1: int, c2: int, c3: int) -> int:
+    """csrc/conv_embed_tile.cu `ct_layout`: the conv stack's shared-memory
+    bytes for groups of nw windows: conv1's taps, the biases, w2 and w3 as
+    f32; per window the staged rows (f32) or conv2's output (bf16), which
+    share a region, and conv1's output (bf16)."""
+    _, _, h1, _, _, ws2 = conv_tile_dims(mel, c2)
+    weights = (_al16(9 * c1 * 4) + _al16(c1 * 4) + _al16(c2 * 4) + _al16(c3 * 4)
+               + _al16(9 * c1 * c2 * 4) + _al16(9 * c2 * c3 * 4))
+    rows = _al16(nw * max(seg * (mel + 2) * 4, ws2 * 2))
+    return weights + rows + _al16(nw * CT_R1 * 2 * h1 * c1 * 2)
+
+
+def proj_smem() -> int:
+    """csrc/conv_embed_tile.cu `pj_smem`: the projection's mbarriers and
+    ring."""
+    return PJ_BARS + PJ_RING * PJ_BK * (PJ_BM + PJ_BN) * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvEmbedPlan:
+    nw: int         # windows a group
+    groups: int     # ceil(P S / nw)
+    blocks: int     # persistent conv-stack blocks
+    smem: int       # the conv stack's shared memory a block
+    mtiles: int     # projection row tiles: ceil(P S / PJ_BM)
+    ntiles: int     # projection column tiles
+    cols: int       # the f32 weight's columns: ntiles * PJ_BN
+
+
+def _group_cost(nw: int, mel: int, seg: int, c1: int, c2: int, c3: int) -> int:
+    """One group's issue slots on a thread of the conv stack, phase by
+    phase as the kernel deals its items: conv1 items over the threads,
+    conv2's and conv3's warp items over the CT_NT / 32 warps."""
+    f2, f3 = conv_tile_dims(mel, c2)[:2]
+    up = lambda n, k: -(-n // k)  # noqa: E731
+    warps = CT_NT // 32
+    stage = up(nw * seg * (mel + 2), CT_NT) * 4
+    conv1 = up(nw * CT_R1 * mel, CT_NT) * c1 * (9 + DSWISH_COST)
+    items2 = up(nw * CT_R2 * f2, 32 * CT_PP2) * (c2 // CT_CG)
+    conv2 = up(items2, warps) * CT_PP2 * CT_CG * (9 * c1 + DSWISH_COST)
+    items3 = up(nw * f3, 32 * CT_PP3) * (c3 // CT_CG)
+    conv3 = up(items3, warps) * CT_PP3 * CT_CG * (9 * c2 + DSWISH_COST)
+    return stage + conv1 + conv2 + conv3 + 4 * BARRIER_COST
+
+
+@functools.lru_cache(maxsize=None)
+def conv_embed_plan(S: int, P: int, mel: int, seg: int, c1: int, c2: int, c3: int, d: int
+                    ) -> Optional[ConvEmbedPlan]:
+    """Kernel 16's launches on csrc/conv_embed_tile.cu for S sessions of P
+    windows at the padded widths of `embed_weight_forms` (c2, c3 multiples of
+    8, d even), or None where the kernel does not take the shapes (conv1
+    widths other than CT_C1, a geometry off the JAX gate) or no block holds
+    one window's intermediates; the route then takes `conv_embed_simt`. Of
+    the group sizes whose shared memory fits, the one with the least
+    rounds x `_group_cost` over the persistent blocks (one an SM, at most
+    one a group); on a tie the larger group."""
+    # seg 7 or 9 and mel >= 5: the geometries `front_embed_supported` passes
+    if (c1 not in CT_C1 or c2 % CT_CG or c3 % CT_CG or c2 < CT_CG or c3 < CT_CG or d % 2
+            or S < 1 or P < 1 or seg not in (7, 9) or mel < 5):
+        return None
+    M = P * S
+    best, best_cost = None, None
+    for nw in range(1, M + 1):
+        smem = conv_embed_smem(nw, mel, seg, c1, c2, c3)
+        if smem > cuda_build.SMEM_PER_BLOCK:
+            break
+        groups = -(-M // nw)
+        blocks = min(groups, cuda_build.SM_COUNT)
+        cost = -(-groups // blocks) * _group_cost(nw, mel, seg, c1, c2, c3)
+        if best_cost is None or cost <= best_cost:
+            best, best_cost = (nw, groups, blocks, smem), cost
+    if best is None:
+        return None
+    ntiles = -(-d // PJ_BN)
+    return ConvEmbedPlan(*best, mtiles=-(-M // PJ_BM), ntiles=ntiles, cols=ntiles * PJ_BN)
+
+
+def embed_plan_for(params, S: int, P: int, mel: int, seg: int) -> Optional[ConvEmbedPlan]:
+    """`conv_embed_plan` at the padded widths of `params`' weight forms: the
+    route of kernel 16 for a CUDA front of S sessions and P windows (None:
+    `conv_embed_simt`)."""
+    w = embed_weight_forms(params)
+    return conv_embed_plan(S, P, mel, seg, w["w1"].shape[0], w["w2k"].shape[1],
+                           w["w3k"].shape[1], w["wo"].shape[1])
 
 
 def conv_embed_plain(params, front: torch.Tensor, P: int, step: int, seg: int) -> torch.Tensor:
@@ -108,25 +234,36 @@ def conv_embed_plain(params, front: torch.Tensor, P: int, step: int, seg: int) -
     return conv_subsample(p, windows.reshape(P * S, seg, mel))[:, 0, :].reshape(P, S, -1)
 
 
-def _conv_embed_cuda(params, front: torch.Tensor, P: int, step: int, seg: int,
-                     from_front: bool) -> torch.Tensor:
-    name = "conv_embed_front" if from_front else "conv_embed"
+def _cuda_forms(params, front: torch.Tensor, P: int, step: int, seg: int, name: str):
+    """The checks every CUDA entry makes, and the weight forms."""
     S, W, mel = front.shape
     if front.dtype != torch.float32 or not front.is_contiguous():
         raise ValueError(f"{name}: front must be contiguous float32")
     if not front_embed_supported(seg, mel, P, step, W, S, block_s=1):
         raise ValueError(f"{name}: unsupported geometry seg={seg} mel={mel} P={P} step={step} W={W}")
     w = embed_weight_forms(params)
-    c1, c2, c3 = w["w1"].shape[0], w["w2k"].shape[1], w["w3k"].shape[1]
-    d = w["wo"].shape[1]  # the padded widths (`embed_weight_forms`)
     for k, t in w.items():
         if t.device != front.device:
             raise ValueError(f"{name}: weight {k} on {t.device}, front on {front.device}")
+    return w
+
+
+def conv_embed_simt(params, front: torch.Tensor, *, P: int, step: int, seg: int,
+                    from_front: bool = False) -> torch.Tensor:
+    """csrc/conv_embed.cu on a CUDA front: kernel 16 on the CUDA cores, one
+    block per (session, 9 windows) (count `conv_embed_simt`), the route for
+    shapes `conv_embed_plan` does not hold; with `from_front`, kernel 17
+    (count `conv_embed_front`)."""
+    name = "conv_embed_front" if from_front else "conv_embed_simt"
+    w = _cuda_forms(params, front, P, step, seg, name)
+    S, W, mel = front.shape
+    c1, c2, c3 = w["w1"].shape[0], w["w2k"].shape[1], w["w3k"].shape[1]
+    d = w["wo"].shape[1]  # the padded widths (`embed_weight_forms`)
     d_model = params["embed_out_w"].shape[1]
     out = torch.empty((P, S, d), dtype=torch.float32, device=front.device)
     if S == 0:
         return out[..., :d_model]
-    fn = cuda_build.bind("conv_embed", "conv_embed", 10, 11)
+    fn = cuda_build.bind("conv_embed", "conv_embed_simt", 10, 11)
     rc = fn(
         front.data_ptr(), w["w1"].data_ptr(), w["b1"].data_ptr(), w["w2k"].data_ptr(),
         w["b2"].data_ptr(), w["w3k"].data_ptr(), w["b3"].data_ptr(), w["wo"].data_ptr(),
@@ -144,16 +281,56 @@ def _conv_embed_cuda(params, front: torch.Tensor, P: int, step: int, seg: int,
     return out if d == d_model else out[..., :d_model].contiguous()
 
 
+def conv_embed_tile(params, front: torch.Tensor, *, P: int, step: int, seg: int,
+                    plan: ConvEmbedPlan, stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel 16 on csrc/conv_embed_tile.cu on `plan` (count `conv_embed`);
+    with `stamps` (int64 [plan.blocks + plan.mtiles * plan.ntiles,
+    CE_NSTAMP], zeroed), each block's phase clock (tools/profile_embed.py)."""
+    w = _cuda_forms(params, front, P, step, seg, "conv_embed")
+    S, W, mel = front.shape
+    c1, c2, c3 = w["w1"].shape[0], w["w2k"].shape[1], w["w3k"].shape[1]
+    d = w["wo"].shape[1]
+    d_model = params["embed_out_w"].shape[1]
+    K = w["wo"].shape[0]
+    if front.data_ptr() % 16:  # the staging reads 16-byte vectors
+        front = front.clone()
+    y3t = torch.empty(plan.mtiles * K * PJ_BM, dtype=torch.float32, device=front.device)
+    out = torch.empty((P, S, d), dtype=torch.float32, device=front.device)
+    fn = cuda_build.bind("conv_embed_tile", "conv_embed_tile", 12, 14)
+    rc = fn(
+        front.data_ptr(), w["w1"].data_ptr(), w["b1"].data_ptr(), w["w2k"].data_ptr(),
+        w["b2"].data_ptr(), w["w3k"].data_ptr(), w["b3"].data_ptr(), w["wo32"].data_ptr(),
+        w["bo"].data_ptr(), y3t.data_ptr(), out.data_ptr(),
+        0 if stamps is None else stamps.data_ptr(),
+        S, W, mel, P, step, seg, c1, c2, c3, d, plan.cols, plan.nw, plan.blocks, plan.smem,
+        torch.cuda.current_stream(front.device).cuda_stream,
+    )
+    if rc < 0:
+        raise RuntimeError(f"conv_embed: csrc/conv_embed_tile.cu refuses S={S} P={P} mel={mel} "
+                           f"seg={seg} c=({c1}, {c2}, {c3}) d={d} on {plan} "
+                           f"({'shape' if rc == -1 else 'shared-memory bytes'})")
+    cuda_build.check(rc, f"conv_embed (S={S}, P={P}, {plan})")
+    cuda_build.COUNTS["conv_embed"] += 1
+    return out if d == d_model else out[..., :d_model].contiguous()
+
+
 def _dispatch(params, front, P, step, seg, from_front):
     if front.device.type == "cpu":
         return conv_embed_plain(params, front, P, step, seg)
     if front.device.type != "cuda":
         raise ValueError(f"conv_embed: unsupported device {front.device}")
-    return _conv_embed_cuda(params, front, P, step, seg, from_front)
+    if from_front:
+        return conv_embed_simt(params, front, P=P, step=step, seg=seg, from_front=True)
+    S, _, mel = front.shape
+    plan = embed_plan_for(params, S, P, mel, seg) if S else None
+    if plan is None:
+        return conv_embed_simt(params, front, P=P, step=step, seg=seg)
+    return conv_embed_tile(params, front, P=P, step=step, seg=seg, plan=plan)
 
 
 def conv_embed_windows(params, front: torch.Tensor, *, P: int, step: int, seg: int) -> torch.Tensor:
-    """Kernel 16: [S, W, mel] front -> [P, S, d], conv1 per window."""
+    """Kernel 16: [S, W, mel] front -> [P, S, d], conv1 per window; on the
+    card csrc/conv_embed_tile.cu on its plan, else `conv_embed_simt`."""
     return _dispatch(params, front, P, step, seg, from_front=False)
 
 

@@ -2,7 +2,7 @@
 
 Every encoder layer kernel reads rows in 16-byte (f32), 8-byte (bf16) or
 4-byte (int8) pieces, so it takes d_model, hidden and ffn that are multiples
-of `ALIGN`; kernel 16 (csrc/conv_embed.cu) takes conv channels 2 and 3 that
+of `ALIGN`; kernel 16 (csrc/conv_embed_tile.cu, conv_embed.cu) takes conv channels 2 and 3 that
 are multiples of 8 and an even d_model. A model at other widths runs the same
 kernels on copies of its weights zero-padded to those multiples
 (models/lstm_transducer.py `padded_layers`, ops/conv_embed_kernels.py

@@ -19,6 +19,10 @@ directory) and, on the flagship random int8 model (seed 0):
   buffers of PCM16 values of the 1 s layout (F = 101) drawn from a numpy
   seed, by CUDA events and the profiler's device time, with the SHA-1 of
   their rows;
+* times kernel 16 (`conv_embed_windows`, by its route) on the model's bf16
+  embed weights at S = 256 and 2048, P = 27, on front buffers drawn from a
+  numpy seed (chip_smoke's `front_buffer`), by CUDA events and the
+  profiler's device time, with the SHA-1 of its output;
 * times kernel 4 (`chunk_decode`, the whole-chunk decode) on the model's
   bf16 decode weights at S = 256 and 2048, P = 27, on the inputs chip_smoke
   checks it on (`profile_decode.decode_case`, loaded from this tree), by
@@ -43,7 +47,7 @@ directory) and, on the flagship random int8 model (seed 0):
 
 The main process then requires every turn's int8 blobs, the f32 and bf16
 engines' blobs (run on their kernels), and the outputs of kernels 1, 2, 3,
-4, 5, 7 and 12 to be equal, bit for bit; every session of a float
+4, 5, 7, 12 and 16 to be equal, bit for bit; every session of a float
 engine whose events part from the first turn's to part at a near-tie
 decision (`testing.check_parting`, `testing.NEAR_TIE`; every session is
 counted, and each parting at or above it listed), counted per turn
@@ -52,8 +56,9 @@ ulps where the encoder's sums change order); and kernel 10's outputs to be
 equal between the turns of one tree (it changes between the trees). It
 prints the times per turn. With `--sass`, it also runs `sass_diff` on
 csrc/lstm_mma.cu, lstm_i8.cu, lstm_step.cu, lstm_tp.cu, lstm_mma_float.cu,
-lstm_chunk_mma.cu, chunk_decode.cu, fbank_i8.cu and fbank_bf16x3.cu of the two trees (kernels
-2, 3, 7, 12, 13, 14, 18, 19, 22, the three-pass float step and the CUDA-core kernels 4, 1 and 5).
+lstm_chunk_mma.cu, chunk_decode.cu, fbank_i8.cu, fbank_bf16x3.cu and conv_embed.cu of the
+two trees (kernels 2, 3, 7, 12, 13, 14, 17, 18, 19, 22, the three-pass float step and the
+CUDA-core kernels 4, 1, 5 and 16).
 Needs a CUDA device (and nvcc).
 """
 
@@ -75,7 +80,8 @@ TAG = "PARENT_AB "
 HERE = Path(__file__).resolve()
 TREE = HERE.parents[2]
 SASS_SOURCES = ("lstm_mma.cu", "lstm_i8.cu", "lstm_step.cu", "lstm_tp.cu", "lstm_mma_float.cu",
-                "lstm_chunk_mma.cu", "chunk_decode.cu", "fbank_i8.cu", "fbank_bf16x3.cu")
+                "lstm_chunk_mma.cu", "chunk_decode.cu", "fbank_i8.cu", "fbank_bf16x3.cu",
+                "conv_embed.cu")
 FLOATS = ("f32", "bf16")
 BF16_SEEDS = (1, 2)  # more random models for the bf16 engine's partings
 # the float engines' runs compared between turns: (precision, model seed)
@@ -138,6 +144,30 @@ def fbank_turn(CS, rt, res: dict, card: str) -> None:
         print(f"kernels: {k} S=256 {res[f'{k}_S256_ms']:.4f} ms ({res[f'{k}_S256_device_us']:.1f} "
               f"us device), S=2048 {res[f'{k}_S2048_ms']:.4f} ms "
               f"({res[f'{k}_S2048_device_us']:.1f} us device) ({card})", flush=True)
+
+
+def embed_turn(CS, rt, res: dict, card: str) -> None:
+    """Kernel 16 by its route on `rt`'s bf16 embed weights at S = 256 and
+    2048, P = 27, on numpy-seeded front buffers: its CUDA-event ms, the
+    profiler's device us a call and the SHA-1 of its output, into
+    res["k16_S<S>_*"]."""
+    import numpy as np
+    import torch
+
+    from april_asr_tpu_torch.ops import conv_embed_kernels as CE
+    from april_asr_tpu_torch.tools.profile_lstm_mma import host_and_device_us
+
+    step, seg = rt.dims.segment_step, rt.dims.segment_size
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    for S in FBANK_SIZES:
+        front = CS.front_buffer(rt, S, 27, np.random.default_rng(S + 5), t)
+        fn = lambda: CE.conv_embed_windows(rt.weights, front, P=27, step=step, seg=seg)  # noqa: E731
+        res[f"k16_S{S}_sha"] = _sha(fn())
+        res[f"k16_S{S}_ms"] = CS.cuda_ms(fn, 20 if S == 256 else 5)
+        res[f"k16_S{S}_device_us"] = host_and_device_us(fn, n=3, keys=("conv_",))[1]
+    print(f"kernels: k16 S=256 {res['k16_S256_ms']:.4f} ms ({res['k16_S256_device_us']:.1f} us "
+          f"device), S=2048 {res['k16_S2048_ms']:.4f} ms ({res['k16_S2048_device_us']:.1f} us "
+          f"device) ({card})", flush=True)
 
 
 def kernel4_turn(CS, rt, prec: str, res: dict, card: str) -> None:
@@ -223,6 +253,7 @@ def worker(root: str, out: str) -> None:
               f"k3 S=256 {res['k3_S256_ms']:.4f} ms, S=2048 {res['k3_S2048_ms']:.4f} ms, "
               f"k7 S=256 {res['k7_ms']:.4f} ms ({card})", flush=True)
         fbank_turn(CS, rt, res, card)
+        embed_turn(CS, rt, res, card)
         kernel4_turn(CS, rt, "bf16", res, card)
         CS.phase_engine(model, card, "int8")
         bufs = CS._tone_bufs(CS.S_FLAG, CS.CHUNK_1S, rt.sample_rate)
@@ -415,7 +446,7 @@ def main(argv=None) -> int:
     rows = sass(other) if args.sass else []
     ref = turns[0]
     equal_keys = ("k2_S256_sha", "k2_S2048_sha", "k3_S256_sha", "k3_S2048_sha", "k7_sha",
-                  "k7_gated_sha", "blob_sha") + tuple(f"k{n}_S{S}_sha" for n in (1, 5)
+                  "k7_gated_sha", "blob_sha") + tuple(f"k{n}_S{S}_sha" for n in (1, 5, 16)
                                                       for S in FBANK_SIZES) + EQUAL_KEYS
     bad = [k for tr in turns for k in equal_keys if tr[k] != ref[k]]
     # kernel 10 changes between the trees, not between two turns of one tree
@@ -444,6 +475,8 @@ def main(argv=None) -> int:
         "turns": [{k: tr[k] for k in ("label", "build_s", "k1_S256_ms", "k1_S2048_ms",
                                       "k1_S256_device_us", "k1_S2048_device_us", "k5_S256_ms",
                                       "k5_S2048_ms", "k5_S256_device_us", "k5_S2048_device_us",
+                                      "k16_S256_ms", "k16_S2048_ms", "k16_S256_device_us",
+                                      "k16_S2048_device_us",
                                       "k2_S256_ms", "k2_S2048_ms", "k3_S256_ms",
                                       "k3_S2048_ms", "k7_ms", "k12_f32_ms", "k12_bf16_ms",
                                       "k10_f32_S256_ms", "k10_f32_S2048_ms", "k10_bf16_S256_ms",

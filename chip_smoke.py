@@ -20,10 +20,11 @@ and a two-rank tensor-parallel engine, and prints the results.
 Phases (each fails the run on error):
   build      nvcc for every csrc/*.cu, all started at once; then
              csrc/lstm_mma.cu, lstm_mma_float.cu, lstm_chunk_mma.cu,
-             ffn_mma.cu, fbank_mma.cu and fbank_bf16x3_tile.cu again to
-             cubins: kernels 2, 7, 12, 10, 3, 1 and 5's registers and spills
-             (none allowed), IMMA in 2, 7 and 3's SASS, IMMA and FFMA in
-             kernel 1's, FFMA and no tensor-core instruction in kernel 5's,
+             ffn_mma.cu, fbank_mma.cu, fbank_bf16x3_tile.cu and
+             conv_embed_tile.cu again to cubins: kernels 2, 7, 12, 10, 3, 1,
+             5 and 16's registers and spills (none allowed), IMMA in 2, 7
+             and 3's SASS, IMMA and FFMA in kernel 1's, FFMA and no
+             tensor-core instruction in kernel 5's and 16's,
              HMMA in kernels 12 and 10 at bf16, FFMA and no tensor-core
              instruction at f32
   kernels    each kernel against its plain version: timed at S=256, P=27,
@@ -45,8 +46,14 @@ Phases (each fails the run on error):
              kernel it replaced (chunk_decode_simt; every event and state
              key) at S=3, 256 and 2048, both timed by CUDA events and the
              profiler's device time a launch; both conv-embed
-             entries (16, 17) on bf16 weights beside the stacked embed they
-             displace, kernel 6 on frames formed from the fbank buffers;
+             entries (16, 17) on bf16 weights, kernel 16 (csrc/
+             conv_embed_tile.cu) by its route bit for bit against the
+             CUDA-core kernel it replaced (conv_embed_simt) at S=256 and 2048
+             of 1 s chunks, S=1 and 256 of 200 ms chunks and S=3, P=5, both
+             timed by CUDA events and the profiler's device time a launch
+             beside the stacked embed they displace, the bound and kernel
+             16's FFMA floor; kernel 6 on frames formed from the fbank
+             buffers;
              kernels 1 (csrc/fbank_mma.cu) and 5 (csrc/fbank_bf16x3_tile.cu),
              each by its route, against its plain version at the fbank
              bound and the CUDA-core kernel it displaces (fbank_i8_simt,
@@ -202,6 +209,17 @@ def _ulp_close(got, want, what):
     return mx
 
 
+def _embed_stats(got, want) -> tuple:
+    """(max abs err, mean abs err, the share of windows within 1e-5
+    everywhere, a summary) of [P, S, d] embeddings."""
+    d = (got.float() - want.float()).abs()
+    mx, mean = float(d.max()), float(d.mean())
+    clean = float((d.reshape(-1, d.shape[-1]).amax(dim=1) <= 1e-5).float().mean())
+    stats = (f"{float((d > 1e-4).float().mean()):.4f} of elements beyond 1e-4, mean {mean:.3g}, "
+             f"{clean:.3f} of windows within 1e-5")
+    return mx, mean, clean, stats
+
+
 def _embed_close(got, want, what) -> tuple:
     """[P, S, d] embeddings with the same bf16 rounding points and f32 sums
     in another order. An ulp of a sum can flip the bf16 rounding of one of a
@@ -211,11 +229,7 @@ def _embed_close(got, want, what) -> tuple:
     quarter of the windows within 1e-5 everywhere (a wrong index or a missed
     edge correction moves every window; 58% are at S = 256, P = 27, and the
     ragged check has only 15). Returns (max abs err, a summary)."""
-    d = (got.float() - want.float()).abs()
-    mx, mean = float(d.max()), float(d.mean())
-    clean = float((d.reshape(-1, d.shape[-1]).amax(dim=1) <= 1e-5).float().mean())
-    stats = (f"{float((d > 1e-4).float().mean()):.4f} of elements beyond 1e-4, mean {mean:.3g}, "
-             f"{clean:.3f} of windows within 1e-5")
+    mx, mean, clean, stats = _embed_stats(got, want)
     if mx > 2e-2 or mean > 2e-4 or clean < 0.25 or not torch.isfinite(got).all():
         raise AssertionError(f"{what}: max {mx:.3g}, {stats}")
     return mx, stats
@@ -352,8 +366,9 @@ def phase_build(card):
 # the tensor-core kernels, by source and the start of their mangled names:
 # kernels 2 and 7 (csrc/lstm_mma.cu) and kernel 3's two product passes
 # (csrc/ffn_mma.cu, ff1 and ff2), int8 on IMMA; kernel 1 (csrc/fbank_mma.cu)
-# on IMMA and FFMA; kernel 5 (csrc/fbank_bf16x3_tile.cu, R = 6 and 7) on FFMA
-# alone; kernels 12
+# on IMMA and FFMA; kernel 5 (csrc/fbank_bf16x3_tile.cu, R = 6 and 7) and
+# kernel 16 (csrc/conv_embed_tile.cu: the conv stack at c1 = 4 and 8, the
+# projection) on FFMA alone; kernels 12
 # (csrc/lstm_mma_float.cu) and 10 (csrc/lstm_chunk_mma.cu): `<float>` on
 # FFMA, `<unsigned short>` bf16 on HMMA
 MMA_SOURCES = (
@@ -363,6 +378,7 @@ MMA_SOURCES = (
     ("ffn_mma.cu", ("_Z13ffn_mm_kernel",), 2),
     ("fbank_mma.cu", ("_Z16fbank_mma_kernel",), 1),
     ("fbank_bf16x3_tile.cu", ("_Z17fbank_tile_kernel",), 2),
+    ("conv_embed_tile.cu", ("_Z17conv_stack_kernel", "_Z16conv_proj_kernel"), 3),
 )
 
 
@@ -370,10 +386,11 @@ def sass_rule(kernel: str, insns: list) -> str:
     """Why a persistent kernel's SASS is wrong ("" where it is right): the
     int8 kernels need IMMA; kernel 1 IMMA and FFMA (its residual and mel on
     the CUDA cores) and no HMMA; kernel 5 FFMA and no tensor-core
-    instruction (its sums keep fbank_bf16x3.cu's order); kernels 12 and 10
-    at bf16 HMMA, at f32 FFMA and no tensor-core instruction (no TF32)."""
+    instruction (its sums keep fbank_bf16x3.cu's order), kernel 16 likewise
+    (conv_embed.cu's order); kernels 12 and 10 at bf16 HMMA, at f32 FFMA and
+    no tensor-core instruction (no TF32)."""
     n = lambda op: sum(op in i for i in insns)  # noqa: E731
-    if "fbank_tile" in kernel:
+    if "fbank_tile" in kernel or "conv_stack" in kernel or "conv_proj" in kernel:
         return "" if n("FFMA") and not n("HMMA") and not n("IMMA") else "not FFMA alone"
     if "fbank" in kernel:
         return "" if n("IMMA") and n("FFMA") and not n("HMMA") else "not IMMA and FFMA alone"
@@ -386,7 +403,8 @@ def sass_rule(kernel: str, insns: list) -> str:
 
 def check_mma_sass():
     """csrc/lstm_mma.cu, lstm_mma_float.cu, lstm_chunk_mma.cu, ffn_mma.cu,
-    fbank_mma.cu and fbank_bf16x3_tile.cu compiled again to cubins: each
+    fbank_mma.cu, fbank_bf16x3_tile.cu and conv_embed_tile.cu compiled again
+    to cubins: each
     tiled kernel's registers, shared memory and spills (`-Xptxas -v`; a
     spill fails) and its SASS (`sass_rule`)."""
     from pathlib import Path
@@ -998,9 +1016,10 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
         out[f"joiner_argmax{sfx}_v16383"] = _check_joiner(models["vocab " + prec].runtime, S, rng,
                                                           dev, t, refresh=False)
 
-    # 16. conv_embed and 17. conv_embed_front: every window of the step from
-    # the front buffer [S, W, mel] on bf16 weights (int8 and bf16 serving)
-    # -> [P, S, d], against the stacked windows through conv_subsample
+    # 16. conv_embed (and conv_embed_simt, bit for bit) and 17.
+    # conv_embed_front: every window of the step from the front buffer [S,
+    # W, mel] on bf16 weights (int8 and bf16 serving) -> [P, S, d], against
+    # the stacked windows through conv_subsample
     out.update(check_conv_embed(models["bf16"].runtime, S, P, rng, t))
 
     # 6. fbank_frames: the DSP on frames formed from the hop-row buffers,
@@ -1033,33 +1052,115 @@ def stacked_embed(rt, front, P: int):
     return rt.encoder_embed(rt.weights, windows.reshape(P * S, seg, -1)).reshape(P, S, -1)
 
 
-def check_conv_embed(rt, S: int, P: int, rng, t) -> dict:
-    """Kernels 16 and 17 on `rt`'s bf16 weights, each held to `_embed_close`
-    against the plain version. The bound counts each window's work as the
-    function defines it (conv1 rows 0..6, conv2 rows 0..2, conv3, the
-    projection) at the bf16 rate, and the front, output and weights once."""
-    from april_asr_tpu_torch.ops import conv_embed_kernels as CE
-
-    w, dims = rt.weights, rt.dims
+def embed_bound(rt, S: int, P: int) -> tuple:
+    """(multiply-adds a window, bound_ms, bound_by) of kernel 16 on `rt`'s
+    geometry: each window's work as the function defines it (conv1 rows
+    0..6, conv2 rows 0..2, conv3, the projection) at the bf16 rate, and the
+    front, output and weights once."""
+    dims = rt.dims
     seg, step, mel, d = dims.segment_size, dims.segment_step, dims.mel, dims.d_model
     c1, c2, c3 = dims.conv_channels
     f2 = (mel - 3) // 2 + 1
     f3 = (f2 - 3) // 2 + 1
+    macs = 7 * mel * c1 * 9 + 3 * f2 * c2 * 9 * c1 + f3 * c3 * 9 * c2 + f3 * c3 * d
+    W = (P - 1) * step + seg
+    n_bytes = S * W * mel * 4 + P * S * d * 4 + c1 * 9 * 4 + (9 * c1 * c2 + 9 * c2 * c3
+                                                             + f3 * c3 * d) * 2
+    return (macs, *bound_ms(n_bytes, {"bf16": 2 * P * S * macs}))
+
+
+def embed_ffma_ms(macs: int, S: int, P: int) -> float:
+    """Kernel 16's design floor: its multiply-adds on the CUDA cores at the
+    card's f32 peak (two operations each)."""
+    return 2 * P * S * macs / PEAK_OPS["f32"] * 1e3
+
+
+def check_conv_embed(rt, S: int, P: int, rng, t, hold_plain: bool = True) -> dict:
+    """Kernels 16 and 17 on `rt`'s bf16 weights. Kernel 16 by its route
+    launches csrc/conv_embed_tile.cu on its plan (its count, and no
+    CUDA-core launch), bit for bit the CUDA-core kernel it replaced
+    (`conv_embed_simt`); each of the three held to `_embed_close` against
+    the plain version, or, without `hold_plain`, its `_embed_stats`
+    printed. The bound: `embed_bound`."""
+    from april_asr_tpu_torch.ops import conv_embed_kernels as CE
+    from april_asr_tpu_torch.ops import cuda_build
+
+    w, dims = rt.weights, rt.dims
+    seg, step, mel = dims.segment_size, dims.segment_step, dims.mel
     front = front_buffer(rt, S, P, rng, t)
     pf = lambda: CE.conv_embed_plain(w, front, P, step, seg)  # noqa: E731
-    macs = 7 * mel * c1 * 9 + 3 * f2 * c2 * 9 * c1 + f3 * c3 * 9 * c2 + f3 * c3 * d
-    n_bytes = front.numel() * 4 + P * S * d * 4 + c1 * 9 * 4 + (9 * c1 * c2 + 9 * c2 * c3
-                                                                + f3 * c3 * d) * 2
-    b = bound_ms(n_bytes, {"bf16": 2 * P * S * macs})
+    _, *b = embed_bound(rt, S, P)
+    plan = CE.embed_plan_for(w, S, P, mel, seg)
+    what = f"conv_embed S={S} P={P} d={dims.d_model} c={dims.conv_channels}"
+    entries = (("conv_embed", CE.conv_embed_windows), ("conv_embed_simt", CE.conv_embed_simt),
+               ("conv_embed_front", CE.conv_embed_from_front))
+    before = dict(cuda_build.COUNTS)
+    got = {"conv_embed": CE.conv_embed_windows(w, front, P=P, step=step, seg=seg)}
+    launched = {n: cuda_build.COUNTS[n] - before[n] for n in ("conv_embed", "conv_embed_simt")}
+    if plan is None or launched != {"conv_embed": 1, "conv_embed_simt": 0}:
+        raise AssertionError(f"{what}: the route launched {launched} ({plan}), not "
+                             "csrc/conv_embed_tile.cu once")
+    for name, entry in entries[1:]:
+        got[name] = entry(w, front, P=P, step=step, seg=seg)
+    _bit_equal([got["conv_embed"]], [got["conv_embed_simt"]], ("embed",),
+               f"{what} ({plan}) against conv_embed_simt")
+    want = pf()
     out = {}
-    for name, entry in (("conv_embed", CE.conv_embed_windows),
-                        ("conv_embed_front", CE.conv_embed_from_front)):
+    for name, entry in entries:
         kf = lambda entry=entry: entry(w, front, P=P, step=step, seg=seg)  # noqa: E731
-        got, want = kf(), pf()
-        torch.cuda.synchronize()
-        err, stats = _embed_close(got, want, name)
-        out[name] = (kf, pf, err, b, f"front[{S},{front.shape[1]},{mel}] P={P}: {stats}")
+        if hold_plain:
+            err, stats = _embed_close(got[name], want, name)
+        else:
+            err, _, _, stats = _embed_stats(got[name], want)
+            stats += ", not held"
+        out[name] = (kf, pf, err, tuple(b), f"front[{S},{front.shape[1]},{mel}] P={P}: {stats}")
     return out
+
+
+def embed_times(models, card):
+    """Kernel 16 beyond `check_kernels`' S = 256 and 3: at S = 2048 of 1 s
+    chunks and at S = 1 and 256 of the session's 200 ms chunks, each checked
+    by `check_conv_embed`. At S = 2048 (55,296 windows) the plain version is
+    not held: `_embed_close`'s per-element max of 2e-2 (the JAX kernel
+    test's, sized on a few windows) is crossed there by `conv_embed_simt`
+    as well (0.0201 on the flagship weights, the same bits as the tiled
+    kernel's), while the mean and the clean windows stay inside it; the
+    kernel is held bit for bit to `conv_embed_simt` and the statistics are
+    printed. Then at S = 256 and 2048 of 1 s chunks the tiled
+    kernel, `conv_embed_simt` and the stacked embed it displaced in the step
+    (windows stacked, then three cuDNN convolutions and the projection)
+    timed by CUDA events, the two kernels also by the profiler's device time
+    a call, beside the bound and the design's FFMA floor."""
+    from april_asr_tpu_torch.frontend.fbank import FbankLayout
+    from april_asr_tpu_torch.ops import conv_embed_kernels as CE
+    from april_asr_tpu_torch.tools.profile_embed import PROJ_KEYS, SIMT_KEYS, STACK_KEYS
+    from april_asr_tpu_torch.tools.profile_lstm_mma import host_and_device_us
+
+    rt = models["bf16"].runtime
+    w, dims = rt.weights, rt.dims
+    seg, step, mel = dims.segment_size, dims.segment_step, dims.mel
+    rng = np.random.default_rng(23)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa: E731
+    P1 = FbankLayout.build(rt.fbank_opts, CHUNK_1S).max_pulls_per_step
+    P200 = FbankLayout.build(rt.fbank_opts, CHUNK_1S // 5).max_pulls_per_step
+    for S, P in ((2048, P1), (1, P200), (S_FLAG, P200)):
+        r = check_conv_embed(rt, S, P, rng, t, hold_plain=S != 2048)
+        print(f"kernel 16 S={S} P={P}: max abs err {r['conv_embed'][2]:.3g} against the plain "
+              f"version ({r['conv_embed'][4]}); bit for bit conv_embed_simt")
+    for S in (S_FLAG, 2048):
+        front = front_buffer(rt, S, P1, rng, t)
+        plan = CE.embed_plan_for(w, S, P1, mel, seg)
+        kf = lambda: CE.conv_embed_windows(w, front, P=P1, step=step, seg=seg)  # noqa: E731
+        sf = lambda: CE.conv_embed_simt(w, front, P=P1, step=step, seg=seg)  # noqa: E731
+        k_ms, s_ms = cuda_ms(kf, 10), cuda_ms(sf, 5, warmup=1)
+        st_ms = cuda_ms(lambda: stacked_embed(rt, front, P1), 3, warmup=1)
+        _, k_dev = host_and_device_us(kf, n=5, keys=STACK_KEYS + PROJ_KEYS)
+        _, s_dev = host_and_device_us(sf, n=2, keys=SIMT_KEYS)
+        macs, b_ms, b_by = embed_bound(rt, S, P1)
+        print(f"kernel 16 S={S} P={P1}: csrc/conv_embed_tile.cu ms={k_ms:.4f} (device "
+              f"{k_dev:.1f} us a call; {plan}), conv_embed_simt ms={s_ms:.4f} (device "
+              f"{s_dev:.1f} us), stacked embed ms={st_ms:.4f}, bound_ms={b_ms:.4f} ({b_by}), the "
+              f"design's FFMA floor {embed_ffma_ms(macs, S, P1):.4f} ms ({card})")
 
 
 SOURCES = {
@@ -1104,8 +1205,10 @@ SOURCES = {
                              "april_asr_tpu/ops/joiner_pallas.py:74"),
     "joiner_argmax_f32_v16383": ("april_asr_tpu_torch/csrc/joiner.cu",
                                  "april_asr_tpu/ops/joiner_pallas.py:74"),
-    "conv_embed": ("april_asr_tpu_torch/csrc/conv_embed.cu",
+    "conv_embed": ("april_asr_tpu_torch/csrc/conv_embed_tile.cu",
                    "april_asr_tpu/ops/conv_embed_pallas.py:333"),
+    "conv_embed_simt": ("april_asr_tpu_torch/csrc/conv_embed.cu",
+                        "april_asr_tpu/ops/conv_embed_pallas.py:333"),
     "conv_embed_front": ("april_asr_tpu_torch/csrc/conv_embed.cu",
                          "april_asr_tpu/ops/conv_embed_pallas.py:438"),
     "fbank_frames": ("april_asr_tpu_torch/csrc/fbank_bf16x3.cu",
@@ -1174,14 +1277,7 @@ def phase_kernels(models, card, reps: int = 20):
     P = FbankLayout.build(models["int8"].runtime.fbank_opts, CHUNK_1S).max_pulls_per_step
     rows = time_rows(check_kernels(models, S_FLAG, P, seed=1), card, reps)
     ffn_yardstick(*ffn_inputs(models["int8"].runtime, S_FLAG * P, seed=4), 16, card, reps)
-    # the embed kernel 16 displaces in the step: stacked windows + cuDNN
-    rt = models["bf16"].runtime
-    front = front_buffer(rt, S_FLAG, P, np.random.default_rng(3),
-                        lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV))
-    s_ms = cuda_ms(lambda: stacked_embed(rt, front, P), 5, warmup=1)
-    print(f"stacked embed (windows stack + encoder_embed, the step's embed before kernel 16; "
-          f"bf16 weights): ms={s_ms:.4f} shape=front[{S_FLAG},{front.shape[1]},{rt.dims.mel}] "
-          f"P={P} ({card})")
+    embed_times(models, card)
     ragged = check_kernels(models, 3, 5, seed=2)
     print("kernels at ragged shapes S=3 P=5: " + ", ".join(
         f"{n} max_abs_err={v[2]:.3g}" for n, v in ragged.items()))
