@@ -1,5 +1,7 @@
-// Kernel 23: the matrix-unit microbenchmark of tools/profile_int8.py --
-// one [M, K] x [K, N] product in three forms, on the tensor cores.
+// Kernel 23's first port: the matrix-unit microbenchmark of
+// tools/profile_int8.py -- one [M, K] x [K, N] product in three forms, on
+// the tensor cores -- kept as `mm_*_sync`, the comparison chip_smoke holds
+// csrc/mm_wgmma.cu against (the tool's route launches that kernel).
 //
 // Replaces tools/profile_int8.py `call` (the ungridded `pl.pallas_call`) over
 // its bodies:
@@ -35,8 +37,8 @@
 // Bound on the H100 at the tool's shapes: bytes, not operations -- the
 // 4-byte [M, N] output dominates (2048 x 512 x 4096: 33.6 MB of 39.8 MB
 // moved at bf16); the operations (2MKN) take at most 8.7 us at the bf16
-// rate. A simple mma.sync tile is the port's first tensor-core code; wgmma,
-// TMA and warp specialisation are later work.
+// rate. csrc/mm_wgmma.cu takes the same products to wgmma, TMA and warp
+// specialisation.
 //
 // Shapes: M and N multiples of 128, K a multiple of 32 (bf16) or 64 (int8
 // forms); operands 16-byte aligned. The wrappers check; the C entries return

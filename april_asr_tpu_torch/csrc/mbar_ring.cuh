@@ -8,9 +8,13 @@
 
 #include <stdint.h>
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
+// (also defined, under the same guard, by mma_tc.cuh and wgmma.cuh)
+#ifndef APRIL_SMEM_U32
+#define APRIL_SMEM_U32
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
+#endif
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)

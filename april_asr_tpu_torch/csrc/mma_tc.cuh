@@ -28,10 +28,14 @@
 
 #include <stdint.h>
 
-// Shared-memory address of a generic pointer, for ldmatrix
+// Shared-memory address of a generic pointer, for ldmatrix (also defined,
+// under the same guard, by mbar_ring.cuh)
+#ifndef APRIL_SMEM_U32
+#define APRIL_SMEM_U32
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
+#endif
 
 // Four 8x8 b16 matrices: lanes 8i..8i+7 give the 8 row addresses (16 bytes
 // each) of matrix i; r[i] is this lane's pair (row lane/4, cols 2(lane%4)..)
