@@ -6,12 +6,13 @@
 // the blank column at -1e30 (first index on ties), where wd(.) rounds to the
 // weight type (bf16 or f32, one template).
 //
-// dec_joiner replaces `decoder_joiner_argmax_fused` (`_dj_kernel`): first
+// dec_joiner_simt replaces `decoder_joiner_argmax_fused` (`_dj_kernel`): first
 // the lazy decoder refresh of every session, pre = T0[c0] + T1[c1] (exact
 // f32 row gathers: the TPU kernel's one-hot f32 contraction selects the same
 // rows), new = wd(relu(pre)) @ dec_proj + b, and the blend
 // dout' = nd * new + (1 - nd) * dout; then kernel 9's joiner and argmax on
-// dout'.
+// dout'. Kernel 8's route is now csrc/dec_joiner_cluster.cu; this one serves
+// the shapes no cluster slice holds (ops/decode_kernels.py `dj_plan`).
 //
 // The TPU kernels pad the vocabulary to 128 lanes and keep the whole [V]
 // logits row of a session tile in VMEM. Here no [V] row is kept anywhere,
@@ -19,7 +20,7 @@
 // kernel 8's gate and the chunk decode's refuse), unpadded, which is what
 // the TPU kernels' -1e30 pad columns amount to. One C call launches:
 //
-//   dec_refresh (dec_joiner only): a block per JT = 16 sessions, their
+//   dec_refresh (dec_joiner_simt only): a block per JT = 16 sessions, their
 //     gathered rows in shared memory, a thread per dec_proj column; writes
 //     dout'.
 //   joiner_tile: a block per (256 vocabulary columns, JT sessions), a
@@ -240,11 +241,11 @@ static cudaError_t dec_joiner_run(const int* ctx, const float* nd, const float* 
   return joiner_argmax_run<WT>(eout, dout_out, W, jb, mi, mv, bv, keys, S, J, V, blank, stream);
 }
 
-extern "C" int dec_joiner(const int* ctx, const float* nd, const float* dout, const float* eout,
-                          const float* dec_table, const void* dp, const float* dpb, const void* W,
-                          const float* jb, int* mi, float* mv, float* bv, float* dout_out,
-                          void* keys, int S, int J, int d, int V, int blank, int w_f32,
-                          void* stream) {
+extern "C" int dec_joiner_simt(const int* ctx, const float* nd, const float* dout,
+                               const float* eout, const float* dec_table, const void* dp,
+                               const float* dpb, const void* W, const float* jb, int* mi,
+                               float* mv, float* bv, float* dout_out, void* keys, int S, int J,
+                               int d, int V, int blank, int w_f32, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   unsigned long long* k = static_cast<unsigned long long*>(keys);
   return (int)(w_f32 ? dec_joiner_run<float>(ctx, nd, dout, eout, dec_table, dp, dpb, W, jb, mi, mv,

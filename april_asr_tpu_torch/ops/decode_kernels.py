@@ -35,6 +35,13 @@ same route as the JAX package for every model. They drop JAX's
 size the budget's activation tiles at JAX's block for S, or 128 sessions
 where JAX has none. They read only shapes, never the device.
 
+`dj_plan` plans kernel 8's cluster kernel (csrc/dec_joiner_cluster.cu, one
+decoder-joiner round of the per-pull decode; its wrapper is
+ops/joiner_kernels.py) on kernel 4's slices and tiles, with `dj_smem` its
+shared-memory layout; `dj_route` names kernel 8's kernel for a shape:
+"cluster", or "simt" (csrc/joiner.cu's `dec_joiner_simt`) where no block
+holds a slice.
+
 `decode_route` is the step's choice: the JAX gate, then the cluster plan,
 then `chunk_decode_block_fits` (the CUDA-core kernel keeps a [V] logits row
 per session in shared memory, so narrow models, d or J of 128 or 256, above
@@ -53,7 +60,7 @@ import torch
 
 from ..decode import greedy
 from . import cuda_build
-from .joiner_kernels import decoder_joiner_argmax_plain
+from . import joiner_kernels
 
 EVENT_KEYS = ("ops", "tok", "logprob", "flags", "time_ms", "final_k")
 
@@ -272,6 +279,120 @@ def decode_route(S: int, J: int, d: int, V: int, T: int, w_bytes: int, context: 
     return "simt" if chunk_decode_block_fits(J, d, V, T) else None
 
 
+def dj_smem(TS: int, J: int, d: int, Vc: int, Jc: int, C: int, wb: int, dp_smem: bool) -> int:
+    """Shared-memory bytes of one block of the cluster kernel 8 (its C
+    `dj_layout`, each region rounded up to 16 bytes): the W and (where
+    resident) dec_proj slices, column by column (K + KPAD weights each), the
+    tile's refresh and joiner input rows [TS][max(J, d)], its logits
+    [TS][Vc] (sharing their room with the streamed dec_proj ring of two
+    stages, 128-byte aligned), its columns of a and of the refreshed dout,
+    the C blocks' argmax keys, the blank logits and two lists."""
+    up = lambda n: _up(n, 16)  # noqa: E731
+    ring = 0 if dp_smem else 2 * RING_ROWS * Jc * wb + 128
+    return (up(Vc * (J + KPAD) * wb) + (up(Jc * (d + KPAD) * wb) if dp_smem else 0)
+            + up(TS * max(J, d) * 4) + up(max(TS * Vc * 4, ring)) + 2 * up(TS * Jc * 4)
+            + up(C * TS * 8) + up(TS * 4) + up(2 * TS * 4))
+
+
+def dj_staged_bytes(plan: DecodePlan, J: int, d: int, w_bytes: int) -> float:
+    """The weight bytes one call of kernel 8 on `plan` stages into shared
+    memory (every block its slices; streamed dec_proj columns weighted
+    STREAM_COST, since they cross a ring in stages behind a block barrier
+    each)."""
+    dp = plan.Jc * ((d + KPAD) if plan.dp_smem else STREAM_COST * d)
+    return plan.blocks * (plan.Vc * (J + KPAD) + dp) * w_bytes
+
+
+def dj_plan(S: int, J: int, d: int, V: int, w_bytes: int,
+            max_clusters: MaxClusters) -> Optional[DecodePlan]:
+    """Kernel 8's cluster launch for these shapes (a `DecodePlan`: clusters
+    of C blocks, each cluster a tile of TS sessions, block r W's columns [r
+    Vc, (r + 1) Vc) and dec_proj's [r Jc, (r + 1) Jc)), or None where J or d
+    is not a multiple of 16 or no block holds its slices with one session's
+    rows. A tile's items, ceil(TS / CLUSTER_GS) x Vc and x Jc, stay within
+    CLUSTER_NT threads (one item a thread in each product). For each
+    cluster size and dec_proj resident or streamed (as `decode_plan`): the
+    largest tile that fits a block, the fewest waves of `max_clusters` at
+    it, then the smallest tile for those waves (where a smaller tile lets
+    more clusters run at once, smaller again). The plan is the one of the
+    fewest waves, then the fewest multiply-adds a block, TS (Vc J + Jc d,
+    streamed columns weighted STREAM_COST), then the fewest weight bytes
+    staged a call (`dj_staged_bytes`), then the smaller C. The smallest tile
+    goes before the fewest staged bytes because a block's fmaf chains, not
+    its slice loads, hold a call: at S = 256 on the H100, tiles of 18
+    sessions took 20.0 us of device time, tiles of 32 (the fewest bytes)
+    24.2. Raises ValueError where slices fit but the card places no cluster
+    of them."""
+    if S < 1 or V < 1 or J % 16 or d % 16:
+        return None
+    best, unplaced = None, []
+    for C in CLUSTER_SIZES:
+        Vc, Jc = _up(-(-V // C), 8), _up(-(-J // C), 4)
+        for dp_smem in (True, False):
+            if not dp_smem and (d % RING_ROWS or C * Jc != J or Jc * w_bytes % 16 or Jc > 256):
+                continue
+            smem = functools.partial(dj_smem, J=J, d=d, Vc=Vc, Jc=Jc, C=C, wb=w_bytes,
+                                     dp_smem=dp_smem)
+            fits = lambda ts: (smem(ts) <= SMEM_PER_BLOCK  # noqa: E731
+                               and -(-ts // CLUSTER_GS) * max(Vc, Jc) <= CLUSTER_NT)
+            if not fits(1):
+                continue
+            ts_max = 1
+            while ts_max < S and fits(ts_max + 1):
+                ts_max += 1
+            mc = max_clusters(C, smem(ts_max), dp_smem)
+            if mc < 1:
+                unplaced.append((C, dp_smem, smem(ts_max)))
+                continue
+            waves = -(-S // (mc * ts_max))
+            TS = -(-S // (waves * mc))
+            while True:  # a smaller tile may let more clusters run at once
+                mc = max(mc, max_clusters(C, smem(TS), dp_smem))
+                if -(-S // (waves * mc)) == TS:
+                    break
+                TS = -(-S // (waves * mc))
+            plan = DecodePlan(S, V, J, C, TS, Vc, Jc, dp_smem, smem(TS), -(-S // TS), mc)
+            macs = TS * (Vc * J + (1.0 if dp_smem else STREAM_COST) * Jc * d)
+            key = (plan.waves, macs, dj_staged_bytes(plan, J, d, w_bytes), C)
+            if best is None or key < best[0]:
+                best = (key, plan)
+    if best is None:
+        if unplaced:
+            raise ValueError(
+                f"kernel 8: S={S}, J={J}, d={d}, V={V} at {w_bytes}-byte weights: the card "
+                f"places no cluster of these slices ((C, dec_proj resident, bytes): {unplaced})")
+        return None
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _dj_cluster_fit(C: int, smem: int, w_f32: int, dp_smem: bool, index: int) -> int:
+    fn = cuda_build.bind("dec_joiner_cluster", "dec_joiner_cluster_fit", 0, 4)
+    with torch.cuda.device(index):
+        n = fn(C, smem, w_f32, int(dp_smem), None)
+    if n < 0:
+        raise RuntimeError(f"kernel 8: cudaOccupancyMaxActiveClusters(C={C}, smem={smem}) "
+                           f"failed with error {-n}")
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def device_dj_plan(S: int, J: int, d: int, V: int, w_bytes: int,
+                   index: int) -> Optional[DecodePlan]:
+    """`dj_plan` with card `index`'s cluster occupancy (cached per shape)."""
+    return dj_plan(S, J, d, V, w_bytes,
+                   lambda C, smem, dp: _dj_cluster_fit(C, smem, int(w_bytes == 4), dp, index))
+
+
+@functools.lru_cache(maxsize=None)
+def dj_route(S: int, J: int, d: int, V: int, w_bytes: int,
+             max_clusters: MaxClusters = nominal_clusters) -> str:
+    """Kernel 8's kernel for these shapes: "cluster" (csrc/dec_joiner_cluster.cu)
+    where `dj_plan` has a plan, else "simt" (csrc/joiner.cu's three
+    kernels). Reads shapes only."""
+    return "simt" if dj_plan(S, J, d, V, w_bytes, max_clusters) is None else "cluster"
+
+
 def dj_supported(S: int, J: int, d: int, context: int, vocab: int = 0, w_itemsize: int = 4) -> bool:
     """True where the JAX package runs kernel 8 (`decoder_joiner_argmax_fused`)
     for these shapes (less its `S % block_s` term); elsewhere its per-pull
@@ -298,7 +419,7 @@ def chunk_decode_plain(eouts, can, dstate, dec_table, dec_proj_t, dec_proj_b, w_
         done = ~can_p
         rounds = []
         for ee in emit_ramp:
-            mi, mv, bv, dstate["dout"] = decoder_joiner_argmax_plain(
+            mi, mv, bv, dstate["dout"] = joiner_kernels.decoder_joiner_argmax_plain(
                 dstate["context"], dstate["need_dec"], dstate["dout"], eouts[p],
                 dec_table, dec_proj_t, dec_proj_b, w_t, b, blank_id,
             )

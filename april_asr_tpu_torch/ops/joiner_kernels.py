@@ -17,17 +17,26 @@ Ports of april_asr_tpu/ops/joiner_pallas.py:
 
 The plain versions are the decode's only joiner and refresh: the whole-chunk
 decode's plain version (ops/decode_kernels.py) runs them too. Each wrapper
-takes the plain version for CPU tensors and launches csrc/joiner.cu for CUDA
-tensors (counted as `joiner_argmax`/`joiner_argmax_f32` and
-`dec_joiner`/`dec_joiner_f32` by weight type); it never falls back.
+takes the plain version for CPU tensors and launches a kernel for CUDA
+tensors; it never falls back. Kernel 9 is csrc/joiner.cu (counted as
+`joiner_argmax`/`joiner_argmax_f32` by weight type). Kernel 8 is
+csrc/dec_joiner_cluster.cu, one launch of thread-block clusters on the
+plan of ops/decode_kernels.py `dj_plan` (counted as
+`dec_joiner`/`dec_joiner_f32`), and where no block holds a cluster slice
+(narrow models with large vocabularies) the CUDA-core kernels it replaced,
+csrc/joiner.cu's `dec_joiner_simt` (counted as
+`dec_joiner_simt`/`dec_joiner_simt_f32`). The two are equal bit for bit up
+to the blend of a row that does not refresh (csrc/dec_joiner_cluster.cu).
 """
 
 from __future__ import annotations
 
+from typing import Dict, Optional, Tuple
+
 import torch
 
 from ..decode.greedy import NEG_INF
-from . import cuda_build
+from . import cuda_build, decode_kernels
 from .activations import dot_wd
 from .lstm_kernels import _check
 
@@ -108,25 +117,36 @@ def joiner_argmax_fused(eout, dout, w_t, b, *, blank_id: int):
     return joiner_argmax_cuda(eout, dout, w_t, b, blank_id)
 
 
-def decoder_joiner_argmax_cuda(ctx, need_dec, dout, eout, dec_table, dec_proj_t, dec_proj_b,
-                               w_t, b, blank_id: int):
+def _dj_checks(ctx, need_dec, dout, eout, dec_table, dec_proj_t, dec_proj_b, w_t, b,
+               what: str, nd_dtype):
+    """Kernel 8's argument checks; (S, J, d, V, w_f32)."""
     S, J = eout.shape
     V = w_t.shape[1]
     d = dec_table.shape[2]
-    w_f32 = _weight_type(w_t, "dec_joiner")
-    nd = need_dec.to(torch.float32).contiguous()
-    for t, dt, shape, what in (
-        (ctx, torch.int32, (S, 2), "context"), (nd, torch.float32, (S,), "need_dec"),
+    w_f32 = _weight_type(w_t, what)
+    for t, dt, shape, name in (
+        (ctx, torch.int32, (S, 2), "context"), (need_dec, nd_dtype, (S,), "need_dec"),
         (dout, torch.float32, (S, J), "dout"), (eout, torch.float32, (S, J), "eout"),
         (dec_table, torch.float32, (2, V, d), "dec_table"), (dec_proj_t, w_t.dtype, (d, J), "dec_proj_t"),
         (dec_proj_b, torch.float32, (J,), "dec_proj_b"), (w_t, w_t.dtype, (J, V), "join_t"),
         (b, torch.float32, (V,), "join_b"),
     ):
-        _check(t, dt, shape, f"dec_joiner {what}")
+        _check(t, dt, shape, f"{what} {name}")
+    return S, J, d, V, w_f32
+
+
+def decoder_joiner_argmax_simt(ctx, need_dec, dout, eout, dec_table, dec_proj_t, dec_proj_b,
+                               w_t, b, blank_id: int):
+    """csrc/joiner.cu's three kernels (`dec_joiner_simt`: the refresh of
+    every session and its blend, the joiner tiles with their atomic argmax
+    keys, the finalization): kernel 8's route where `dj_plan` has none."""
+    nd = need_dec.to(torch.float32).contiguous()
+    S, J, d, V, w_f32 = _dj_checks(ctx, nd, dout, eout, dec_table, dec_proj_t, dec_proj_b, w_t,
+                                   b, "dec_joiner_simt", torch.float32)
     mi, mv, bv, keys = _outputs(S, eout.device)
     dout2 = torch.empty_like(dout)
-    fn = cuda_build.bind("joiner", "dec_joiner", 14, 6)
-    cuda_build.COUNTS["dec_joiner_f32" if w_f32 else "dec_joiner"] += 1
+    fn = cuda_build.bind("joiner", "dec_joiner_simt", 14, 6)
+    cuda_build.COUNTS["dec_joiner_simt_f32" if w_f32 else "dec_joiner_simt"] += 1
     rc = fn(
         ctx.data_ptr(), nd.data_ptr(), dout.data_ptr(), eout.data_ptr(), dec_table.data_ptr(),
         dec_proj_t.data_ptr(), dec_proj_b.data_ptr(), w_t.data_ptr(), b.data_ptr(),
@@ -134,8 +154,90 @@ def decoder_joiner_argmax_cuda(ctx, need_dec, dout, eout, dec_table, dec_proj_t,
         S, J, d, V, blank_id, w_f32,
         torch.cuda.current_stream(eout.device).cuda_stream,
     )
-    cuda_build.check(rc, "dec_joiner")
+    cuda_build.check(rc, "dec_joiner_simt")
     return mi, mv, bv, dout2
+
+
+_FORMS: Dict[tuple, tuple] = {}
+_CLUSTER_FN: dict = {}  # the cluster kernel's ctypes handle, bound once
+
+
+def dj_weight_forms(dec_proj_t, w_t, plan) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The cluster kernel's slices of W and dec_proj as its blocks hold them
+    in shared memory, laid out once per weights and plan (cached by the
+    identity of the two tensors and the slicing): W's columns [C Vc][J +
+    KPAD] and, where the plan keeps dec_proj resident, its columns [C Jc][d +
+    KPAD] (else None: its columns stream from `dec_proj_t` itself), each
+    column's weights contiguous, zero past the matrix and in the KPAD
+    tail, so block r's slice is the contiguous rows [r Vc, (r + 1) Vc)."""
+    key = (id(dec_proj_t), id(w_t), plan.C, plan.Vc, plan.Jc, plan.dp_smem)
+    hit = _FORMS.get(key)
+    if hit is not None:
+        return hit[1]
+
+    def columns(m, n_cols):
+        K, N = m.shape
+        out = torch.zeros((n_cols, K + decode_kernels.KPAD), dtype=m.dtype, device=m.device)
+        out[:N, :K] = m.t()
+        return out
+
+    forms = (columns(w_t, plan.C * plan.Vc),
+             columns(dec_proj_t, plan.C * plan.Jc) if plan.dp_smem else None)
+    if len(_FORMS) >= 16:
+        _FORMS.clear()
+    _FORMS[key] = ((dec_proj_t, w_t), forms)  # holding the sources keeps their ids from reuse
+    return forms
+
+
+def decoder_joiner_argmax_cluster(ctx, need_dec, dout, eout, dec_table, dec_proj_t, dec_proj_b,
+                                  w_t, b, blank_id: int, *, plan, stamps=None):
+    """csrc/dec_joiner_cluster.cu on `plan` (ops/decode_kernels.py
+    `dj_plan`); `stamps` (int64 [plan.blocks, 12] on the card, or None) takes
+    each block's phase stamps (tools/profile_decode.py)."""
+    nd = need_dec if need_dec.dtype == torch.bool else need_dec.to(torch.bool)
+    S, J, d, V, w_f32 = _dj_checks(ctx, nd, dout, eout, dec_table, dec_proj_t, dec_proj_b, w_t,
+                                   b, "dec_joiner", torch.bool)
+    if (plan.S, plan.V, plan.J) != (S, V, J):
+        raise ValueError(f"dec_joiner: a plan for S={plan.S}, V={plan.V}, J={plan.J} given "
+                         f"S={S}, V={V}, J={J}")
+    if (dout.data_ptr() | eout.data_ptr() | dec_table.data_ptr() | dec_proj_t.data_ptr()) % 16:
+        raise ValueError("dec_joiner: dout, eout, dec_table and dec_proj_t must be 16-byte "
+                         "aligned")
+    wf, dpf = dj_weight_forms(dec_proj_t, w_t, plan)
+    out = torch.empty(3 * S, dtype=torch.int32, device=eout.device)
+    mi, mv, bv = out[:S], out[S:2 * S].view(torch.float32), out[2 * S:].view(torch.float32)
+    dout2 = torch.empty_like(dout)
+    fn = _CLUSTER_FN.get("fn")
+    if fn is None:
+        fn = _CLUSTER_FN["fn"] = cuda_build.bind("dec_joiner_cluster", "dec_joiner_cluster", 15,
+                                                 12)
+    rc = fn(
+        ctx.data_ptr(), nd.data_ptr(), dout.data_ptr(), eout.data_ptr(), dec_table.data_ptr(),
+        dec_proj_t.data_ptr(), None if dpf is None else dpf.data_ptr(), dec_proj_b.data_ptr(),
+        wf.data_ptr(), b.data_ptr(), mi.data_ptr(), mv.data_ptr(), bv.data_ptr(),
+        dout2.data_ptr(), None if stamps is None else stamps.data_ptr(),
+        S, J, d, V, blank_id, w_f32, plan.C, plan.TS, plan.Vc, plan.Jc, int(plan.dp_smem),
+        plan.smem, torch.cuda.current_stream(eout.device).cuda_stream,
+    )
+    if rc < 0:
+        raise ValueError(f"dec_joiner: the kernel's layout needs {-rc} bytes of shared memory, "
+                         f"the plan {plan.smem} ({plan})")
+    cuda_build.check(rc, "dec_joiner")
+    cuda_build.COUNTS["dec_joiner_f32" if w_f32 else "dec_joiner"] += 1
+    return mi, mv, bv, dout2
+
+
+def decoder_joiner_argmax_cuda(ctx, need_dec, dout, eout, dec_table, dec_proj_t, dec_proj_b,
+                               w_t, b, blank_id: int):
+    """The cluster kernel on the card's plan, else (no block holds a slice)
+    the CUDA-core kernels; the choice reads shapes only."""
+    S, J = eout.shape
+    plan = decode_kernels.device_dj_plan(S, J, dec_table.shape[2], w_t.shape[1],
+                                         w_t.element_size(), eout.device.index or 0)
+    args = (ctx, need_dec, dout, eout, dec_table, dec_proj_t, dec_proj_b, w_t, b, blank_id)
+    if plan is None:
+        return decoder_joiner_argmax_simt(*args)
+    return decoder_joiner_argmax_cluster(*args, plan=plan)
 
 
 def decoder_joiner_argmax_fused(ctx, need_dec, dout, eout, dec_table, dec_proj_t, dec_proj_b,

@@ -28,6 +28,12 @@ directory) and, on the flagship random int8 model (seed 0):
   checks it on (`profile_decode.decode_case`, loaded from this tree), by
   CUDA events and the profiler's device time, with the SHA-1 of its events
   and state;
+* times kernel 8 (`decoder_joiner_argmax_fused`, one decoder-joiner round,
+  by its route) on the model's bf16 decode weights at S = 256 and 2048 on
+  the inputs chip_smoke checks it on (`profile_decode.dj_case`, loaded from
+  this tree; need_dec at a flush round's ~5% and at 50%), by CUDA events
+  and the profiler's device time at ~5%, with the SHA-1 of its four outputs
+  at both shares;
 * runs chip_smoke's `engine` cell at int8 (10 ticks, 5 flushes, the step
   and flush programs, the profiler's step and flush), its lines relayed;
 * records the int8 engine's event blobs over the same 10 ticks and a flush
@@ -35,8 +41,8 @@ directory) and, on the flagship random int8 model (seed 0):
 * then, on the same model served at f32 (as loaded) and at bf16: times
   kernel 12 (`lstm_layer_fused`, layer 0) at S = 256 and kernel 10
   (`lstm_layer_chunk_fused`, layer 0, gated) at S = 256 and 2048, P = 27,
-  with the SHA-1 of their outputs (kernel 12 ungated and gated), kernel 4
-  on its decode weights at f32 as above (bf16: the int8 model's), runs the
+  with the SHA-1 of their outputs (kernel 12 ungated and gated), kernels 4
+  and 8 on its decode weights at f32 as above (bf16: the int8 model's), runs the
   `engine` cell at that precision (its step ms kept), records the engine's
   event blobs over the same 10 ticks and a flush with its kernels, and the
   engine's events over the same 10 ticks and a flush with the decode on its
@@ -47,7 +53,7 @@ directory) and, on the flagship random int8 model (seed 0):
 
 The main process then requires every turn's int8 blobs, the f32 and bf16
 engines' blobs (run on their kernels), and the outputs of kernels 1, 2, 3,
-4, 5, 7, 12 and 16 to be equal, bit for bit; every session of a float
+4, 5, 7, 8, 12 and 16 to be equal, bit for bit; every session of a float
 engine whose events part from the first turn's to part at a near-tie
 decision (`testing.check_parting`, `testing.NEAR_TIE`; every session is
 counted, and each parting at or above it listed), counted per turn
@@ -56,9 +62,10 @@ ulps where the encoder's sums change order); and kernel 10's outputs to be
 equal between the turns of one tree (it changes between the trees). It
 prints the times per turn. With `--sass`, it also runs `sass_diff` on
 csrc/lstm_mma.cu, lstm_i8.cu, lstm_step.cu, lstm_tp.cu, lstm_mma_float.cu,
-lstm_chunk_mma.cu, chunk_decode.cu, fbank_i8.cu, fbank_bf16x3.cu and conv_embed.cu of the
-two trees (kernels 2, 3, 7, 12, 13, 14, 17, 18, 19, 22, the three-pass float step and the
-CUDA-core kernels 4, 1, 5 and 16).
+lstm_chunk_mma.cu, chunk_decode.cu, chunk_decode_cluster.cu, joiner.cu,
+fbank_i8.cu, fbank_bf16x3.cu and conv_embed.cu of the two trees (kernels 2,
+3, 4, 7, 9, 12, 13, 14, 17, 18, 19, 22, the three-pass float step and the
+CUDA-core kernels 4, 8, 1, 5 and 16).
 Needs a CUDA device (and nvcc).
 """
 
@@ -80,8 +87,8 @@ TAG = "PARENT_AB "
 HERE = Path(__file__).resolve()
 TREE = HERE.parents[2]
 SASS_SOURCES = ("lstm_mma.cu", "lstm_i8.cu", "lstm_step.cu", "lstm_tp.cu", "lstm_mma_float.cu",
-                "lstm_chunk_mma.cu", "chunk_decode.cu", "fbank_i8.cu", "fbank_bf16x3.cu",
-                "conv_embed.cu")
+                "lstm_chunk_mma.cu", "chunk_decode.cu", "chunk_decode_cluster.cu", "joiner.cu",
+                "fbank_i8.cu", "fbank_bf16x3.cu", "conv_embed.cu")
 FLOATS = ("f32", "bf16")
 BF16_SEEDS = (1, 2)  # more random models for the bf16 engine's partings
 # the float engines' runs compared between turns: (precision, model seed)
@@ -90,9 +97,11 @@ FLOAT_RUNS = tuple((p, 0) for p in FLOATS) + tuple(("bf16", s) for s in BF16_SEE
 # 4's at both sizes and the float engines' blobs on their kernels
 FBANK_SIZES = (256, 2048)
 K4_SIZES = (256, 2048)
+K8_SIZES = (256, 2048)
 EQUAL_KEYS = tuple(k for p in FLOATS for k in (f"k12_{p}_sha", f"k12_{p}_gated_sha",
                                                  f"blob_{p}_kernels_sha")) + tuple(
-    f"k4_{p}_S{S}_sha" for p in FLOATS for S in K4_SIZES)
+    f"k4_{p}_S{S}_sha" for p in FLOATS for S in K4_SIZES) + tuple(
+    f"k8_{p}_S{S}_sha" for p in FLOATS for S in K8_SIZES)
 K4_STATE = ("context", "token_words", "head", "last_call", "time_ms", "last_emit_ms", "need_dec",
             "emitted_silence", "dout")
 # chip_smoke's engine line: each precision's step, flush and flush program
@@ -199,6 +208,35 @@ def kernel4_turn(CS, rt, prec: str, res: dict, card: str) -> None:
           f"device) ({card})", flush=True)
 
 
+def kernel8_turn(CS, rt, prec: str, res: dict, card: str) -> None:
+    """Kernel 8 by its route on `rt`'s decode weights at S = 256 and 2048,
+    need_dec at ~5% and 50%: the SHA-1 of its four outputs at both shares,
+    and at ~5% its CUDA-event ms and the profiler's device us a call, into
+    res["k8_<prec>_S<S>_*"]."""
+    import numpy as np
+    import torch
+
+    from april_asr_tpu_torch.ops import joiner_kernels as JK
+    from april_asr_tpu_torch.tools.profile_lstm_mma import host_and_device_us
+
+    pd = _this_tree("profile_decode")
+    dev = torch.device("cuda")
+    keys = ("dec_joiner_cluster", "dec_refresh", "joiner_tile", "argmax_final", "Memset")
+    for S in K8_SIZES:
+        res[f"k8_{prec}_S{S}_sha"], fns = [], []
+        for share in pd.DJ_SHARES:
+            args = pd.dj_case(rt.weights, rt.blank_id, S, share, np.random.default_rng(S + 23),
+                              dev)
+            fns.append(lambda a=args: JK.decoder_joiner_argmax_fused(*a[:-1], blank_id=a[-1]))
+            res[f"k8_{prec}_S{S}_sha"] += [_sha(o) for o in fns[-1]()]
+        res[f"k8_{prec}_S{S}_ms"] = CS.cuda_ms(fns[0], 20)
+        res[f"k8_{prec}_S{S}_device_us"] = host_and_device_us(fns[0], n=5, keys=keys)[1]
+    print(f"kernels: k8 {prec} S=256 {res[f'k8_{prec}_S256_ms']:.4f} ms "
+          f"({res[f'k8_{prec}_S256_device_us']:.1f} us device), S=2048 "
+          f"{res[f'k8_{prec}_S2048_ms']:.4f} ms ({res[f'k8_{prec}_S2048_device_us']:.1f} us "
+          f"device) ({card})", flush=True)
+
+
 def worker(root: str, out: str) -> None:
     """One turn: everything measured from the tree at `root`."""
     sys.path.insert(0, root)
@@ -255,6 +293,7 @@ def worker(root: str, out: str) -> None:
         fbank_turn(CS, rt, res, card)
         embed_turn(CS, rt, res, card)
         kernel4_turn(CS, rt, "bf16", res, card)
+        kernel8_turn(CS, rt, "bf16", res, card)
         CS.phase_engine(model, card, "int8")
         bufs = CS._tone_bufs(CS.S_FLAG, CS.CHUNK_1S, rt.sample_rate)
         audio = np.stack([bufs[k % len(bufs)] for k in range(10)])
@@ -328,6 +367,7 @@ def float_turn(CS, path: str, prec: str, audio, card: str, res: dict, out: str,
               f"({card})", flush=True)
         if prec == "f32":
             kernel4_turn(CS, rt, prec, res, card)
+            kernel8_turn(CS, rt, prec, res, card)
         CS.phase_engine(model, card, prec)
         kern = engine_run(dict(rt=rt, m=1, device="cuda", audio=audio, ticks=len(audio)))
         res[f"blob_{prec}_kernels_sha"] = _blob_sha(kern["blobs"])
@@ -482,6 +522,8 @@ def main(argv=None) -> int:
                                       "k10_f32_S256_ms", "k10_f32_S2048_ms", "k10_bf16_S256_ms",
                                       "k10_bf16_S2048_ms")
                    + tuple(f"k4_{p}_S{S}_{u}" for p in FLOATS for S in K4_SIZES
+                           for u in ("ms", "device_us"))
+                   + tuple(f"k8_{p}_S{S}_{u}" for p in FLOATS for S in K8_SIZES
                            for u in ("ms", "device_us")) + ENGINE_MS_KEYS}
                   for tr in turns],
         "equal": not bad, "differ": sorted(set(bad)), "blob_calls": len(ref["blob_sha"]),

@@ -1,9 +1,21 @@
-"""Where kernel 4's time goes: the phases of one launch of the cluster kernel
-(csrc/chunk_decode_cluster.cu) from each block's stamps (the global
-nanosecond timer), beside the CUDA-core kernel it replaced
-(`chunk_decode_simt`).
+"""Where kernels 4 and 8 spend their time: the phases of one launch of each
+cluster kernel (csrc/chunk_decode_cluster.cu, csrc/dec_joiner_cluster.cu)
+from each block's stamps (the global nanosecond timer), beside the
+CUDA-core kernel it replaced (`chunk_decode_simt`, `dec_joiner_simt`).
 
-    python -m april_asr_tpu_torch.tools.profile_decode [--S 256] [--P 27]
+    python -m april_asr_tpu_torch.tools.profile_decode [--S 256] [--P 27] [--kernel 4|8] [--ts N]
+
+Kernel 8 (`--kernel 8`; both by default): one decoder-joiner round at S
+sessions on flagship-width weights at bf16 and f32 (`dj_case`: need_dec at
+a flush round's ~5% and at 50%), its outputs required equal bit for bit to
+`dec_joiner_simt`'s, and per phase the critical path and the blocks'
+median: `load` (the refresh list; the dec_proj slice landed where rows
+refresh), `refresh rows`, `refresh`, `a` (this block's columns of dout' and
+of a), `barrier A`, `gather`, `joiner` (the W slice landed, the logits),
+`argmax`, `barrier B`, `merge`, `store`; beside them the CUDA-event time,
+the device time (profiler) and the host's time per call of both kernels.
+
+Kernel 4:
 
 On flagship-width decode weights drawn from a numpy seed at bf16 and at f32
 (blank logit +2.0, as bench.py's model) and an aged decode state
@@ -23,13 +35,15 @@ stamps: the CUDA-event time of one call, the kernel's device time
 (torch.profiler) and the host's time per call, for the cluster kernel and
 for the CUDA-core kernel. Needs a CUDA device.
 
-`decode_case` imports inside itself only what every tree of the port has,
-so tools/parent_ab.py loads this file by path into another tree's turn.
+`decode_case` and `dj_case` import inside themselves only what every tree
+of the port has, so tools/parent_ab.py loads this file by path into
+another tree's turn.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -69,6 +83,22 @@ def decode_case(w: dict, vt, blank: int, stride: int, S: int, P: int, rng, dev) 
     args = (eouts, can, st, w["dec_table"], w["dec_proj_t"], w["dec_proj_b"], w["join_t"],
             w["join_b"], vt)
     return args, dict(blank_id=blank, stride_ms=stride, emit_ramp=INNER_STEPS_EMIT, dcfg=dcfg)
+
+
+def dj_case(w: dict, blank: int, S: int, share: float, rng, dev) -> tuple:
+    """Kernel 8's arguments on the decode weights `w` (dec_table,
+    dec_proj_t, dec_proj_b, join_t, join_b): logit-scale eout, unit dout,
+    random 2-token contexts and need_dec set for `share` of the sessions,
+    drawn from `rng` in a fixed order. Returns the positional arguments of
+    `joiner_kernels.decoder_joiner_argmax_fused` (blank_id last)."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    J, V = w["join_t"].shape
+    eout = t((rng.normal(size=(S, J)) * 2.0).astype(np.float32))
+    dout = t(rng.normal(size=(S, J)).astype(np.float32))
+    ctx = t(rng.integers(0, V, size=(S, 2)).astype(np.int32))
+    nd = t(rng.random(S) < share)
+    return (ctx, nd, dout, eout, w["dec_table"], w["dec_proj_t"], w["dec_proj_b"], w["join_t"],
+            w["join_b"], blank)
 
 
 def decode_weights(wd, device, seed: int = 0) -> Tuple[dict, dict, int, int]:
@@ -143,6 +173,80 @@ def profile(S: int, P: int, device) -> Dict[str, dict]:
     return out
 
 
+# kernel 8's stamped phases, in order (csrc/dec_joiner_cluster.cu)
+DJ_PHASES = ("load", "refresh rows", "refresh", "a", "barrier A", "gather", "joiner", "argmax",
+             "barrier B", "merge", "store")
+DJ_SHARES = (0.05, 0.5)  # need_dec: a flush round's share, and chip_smoke's check
+
+
+def dj_tiles(plan, TS: int, J: int, d: int, w_bytes: int):
+    """`plan` (a kernel 8 `DecodePlan`) on tiles of TS sessions: the same
+    cluster size and slices, its clusters and shared memory redone."""
+    from april_asr_tpu_torch.ops import decode_kernels as DK
+
+    return dataclasses.replace(
+        plan, TS=TS, clusters=-(-plan.S // TS),
+        smem=DK.dj_smem(TS, J, d, plan.Vc, plan.Jc, plan.C, w_bytes, plan.dp_smem))
+
+
+def profile_dj(S: int, device, ts=None) -> Dict[str, dict]:
+    """{"bf16 nd=0.05" ...: {"plan", "equal", "total_us", "phases",
+    "event_ms", "device_us", "host_us", "simt_event_ms", "simt_device_us",
+    "simt_host_us"}} for kernel 8 at S sessions, on the card's plan or on
+    its slices in tiles of `ts` sessions."""
+    from april_asr_tpu_torch.ops import decode_kernels as DK
+    from april_asr_tpu_torch.ops import joiner_kernels as JK
+
+    from .profile_lstm_mma import breakdown, event_ms, host_and_device_us
+
+    out = {}
+    for name, wd in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        w, _, blank, _ = decode_weights(wd, device)
+        J, V = w["join_t"].shape
+        d, wb = w["dec_table"].shape[2], w["join_t"].element_size()
+        plan = DK.device_dj_plan(S, J, d, V, wb, torch.device(device).index or 0)
+        if ts:
+            plan = dj_tiles(plan, ts, J, d, wb)
+        for share in DJ_SHARES:
+            args = dj_case(w, blank, S, share, np.random.default_rng(S + 7), device)
+            run = lambda st: JK.decoder_joiner_argmax_cluster(*args, plan=plan, stamps=st)  # noqa: E731
+            simt = lambda: JK.decoder_joiner_argmax_simt(*args)  # noqa: E731
+            got, want = run(None), simt()
+            torch.cuda.synchronize()
+            res = {"plan": plan, "equal": all(torch.equal(g, x) for g, x in zip(got, want)),
+                   "event_ms": event_ms(lambda: run(None)), "simt_event_ms": event_ms(simt)}
+            res["host_us"], res["device_us"] = host_and_device_us(
+                lambda: run(None), keys=("dec_joiner_cluster",))
+            res["simt_host_us"], res["simt_device_us"] = host_and_device_us(
+                simt, keys=("dec_refresh", "joiner_tile", "argmax_final", "Memset"))
+            st = torch.zeros((plan.blocks, len(DJ_PHASES) + 1), dtype=torch.int64, device=device)
+            run(st)
+            run(st)
+            torch.cuda.synchronize()
+            s = st.cpu().numpy()
+            res["total_us"] = float(s[:, -1].max() - s[:, 0].min()) / 1e3
+            res["phases"] = breakdown(s, [(k, i, i + 1) for i, k in enumerate(DJ_PHASES)])
+            out[f"{name} nd={share}"] = res
+    return out
+
+
+def report_dj(res: Dict[str, dict], S: int, card: str = "") -> None:
+    for name, r in res.items():
+        p = r["plan"]
+        parts = "; ".join(f"{k} {v['critical_us']:.2f} us (blocks' median {v['median_us']:.2f})"
+                          for k, v in r["phases"].items())
+        print(f"profile_decode kernel 8 {name} S={S}: clusters of C={p.C}, tiles of TS={p.TS}, "
+              f"{p.clusters} clusters ({p.waves} waves of {p.max_clusters}), dec_proj "
+              f"{'resident' if p.dp_smem else 'streamed'}, {p.smem} bytes of shared memory a "
+              f"block; outputs {'equal' if r['equal'] else 'DIFFER from'} dec_joiner_simt's; "
+              f"stamped launch {r['total_us']:.2f} us; without stamps: CUDA events "
+              f"{r['event_ms'] * 1e3:.2f} us a call, device time (profiler) {r['device_us']:.2f} "
+              f"us, host per call queued {r['host_us']:.2f} us; dec_joiner_simt: CUDA events "
+              f"{r['simt_event_ms'] * 1e3:.2f} us, device time {r['simt_device_us']:.2f} us, "
+              f"host per call {r['simt_host_us']:.2f} us; critical path by phase: {parts}"
+              + (f" ({card})" if card else ""))
+
+
 def report(res: Dict[str, dict], S: int, P: int, card: str = "") -> None:
     for name, r in res.items():
         p = r["plan"]
@@ -163,9 +267,20 @@ def main(argv=None) -> Dict[str, dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--S", type=int, default=256)
     ap.add_argument("--P", type=int, default=27)
+    ap.add_argument("--kernel", type=int, choices=(4, 8), help="one kernel (default: both)")
+    ap.add_argument("--ts", type=int, help="kernel 8 on tiles of this many sessions (default: "
+                    "the plan's)")
     args = ap.parse_args(argv)
-    res = profile(args.S, args.P, torch.device("cuda"))
-    report(res, args.S, args.P)
+    res = {}
+    if args.kernel in (None, 4):
+        res["kernel 4"] = profile(args.S, args.P, torch.device("cuda"))
+        report(res["kernel 4"], args.S, args.P)
+    if args.kernel in (None, 8):
+        res["kernel 8"] = profile_dj(args.S, torch.device("cuda"), args.ts)
+        report_dj(res["kernel 8"], args.S)
+        bad = [k for k, r in res["kernel 8"].items() if not r["equal"]]
+        if bad:
+            raise SystemExit(f"profile_decode: kernel 8 differs from dec_joiner_simt: {bad}")
     return res
 
 

@@ -27,7 +27,8 @@ Phases (each fails the run on error):
              1's, FFMA and no tensor-core instruction in kernel 5's and
              16's, HMMA in kernels 12 and 10 at bf16, FFMA and no
              tensor-core instruction at f32, HGMMA in kernel 23's bf16 form
-             and IGMMA in its int8 forms
+             and IGMMA in its int8 forms, FFMA and no tensor-core
+             instruction in kernel 8's (csrc/dec_joiner_cluster.cu)
   kernels    each kernel against its plain version: timed at S=256, P=27,
              F=101, checked again at S=3, P=5 (ragged tiles); kernels 2 and
              7 also bit for bit against kernel 13 and the three-pass step
@@ -46,7 +47,13 @@ Phases (each fails the run on error):
              thread-block-cluster kernel) bit for bit against the CUDA-core
              kernel it replaced (chunk_decode_simt; every event and state
              key) at S=3, 256 and 2048, both timed by CUDA events and the
-             profiler's device time a launch; both conv-embed
+             profiler's device time a launch; kernel 8 (the thread-block-
+             cluster kernel, csrc/dec_joiner_cluster.cu) bit for bit
+             against the CUDA-core kernels it replaced (dec_joiner_simt;
+             max_idx, max_val, blank_val, dout') at S=3, 256 and 2048 with
+             need_dec at 50% and ~5%, its plans at S=1, 3, 256 and 2048,
+             both timed at 256 and 2048 by CUDA events, the profiler's
+             device time and the host's time a call; both conv-embed
              entries (16, 17) on bf16 weights, kernel 16 (csrc/
              conv_embed_tile.cu) by its route bit for bit against the
              CUDA-core kernel it replaced (conv_embed_simt) at S=256 and 2048
@@ -68,7 +75,9 @@ Phases (each fails the run on error):
              beside the bound and kernel 5's FFMA floor
   reference  a tiny random model: CUDA engine vs CPU engine, same streams,
              at int8 and bf16 (the step embeds through kernel 16) and at f32
-             (the stacked embed); the flush runs kernels 7, 12 and 8
+             (the stacked embed); the flush runs kernels 7, 12 and 8 (on
+             its cluster route: dec_joiner_simt never launched, here and in
+             the engine, session and tp phases)
   engine     flagship random model, BatchEngine S=256, 1 s chunks, 10 ticks
              of tone bursts then flush, at int8, bf16 and f32; the step's
              and the flush's launch counts checked apart, timing and the
@@ -403,6 +412,14 @@ def require_launches(what: str, path: str, half: str, counts: dict | None = None
     return launches
 
 
+def no_simt_joiner(what: str, counts: dict) -> None:
+    """Kernel 8 ran on its cluster route: the CUDA-core kernels it replaced
+    (`dec_joiner_simt`) launched no time in `counts`."""
+    n = {k: counts.get(k, 0) for k in ("dec_joiner_simt", "dec_joiner_simt_f32")}
+    if any(n.values()):
+        raise AssertionError(f"{what}: dec_joiner_simt launched {n}")
+
+
 def _merge(*counts) -> dict:
     out = {}
     for c in counts:
@@ -440,7 +457,9 @@ def phase_build(card):
 # projection) on FFMA alone; kernels 12
 # (csrc/lstm_mma_float.cu) and 10 (csrc/lstm_chunk_mma.cu): `<float>` on
 # FFMA, `<unsigned short>` bf16 on HMMA; kernel 23 (csrc/mm_wgmma.cu, three
-# forms x two tiles) on `wgmma`: bf16 HGMMA, the int8 forms IGMMA
+# forms x two tiles) on `wgmma`: bf16 HGMMA, the int8 forms IGMMA; kernel 8
+# (csrc/dec_joiner_cluster.cu, two weight types x dec_proj resident or
+# streamed) on FFMA alone, in dec_joiner_simt's order
 MMA_SOURCES = (
     ("lstm_mma.cu", ("_Z19lstm_rec_mma_kernel", "_Z20lstm_step_mma_kernel"), 6),
     ("lstm_mma_float.cu", ("_Z26lstm_step_float_mma_kernel",), 2),
@@ -450,6 +469,7 @@ MMA_SOURCES = (
     ("fbank_bf16x3_tile.cu", ("_Z17fbank_tile_kernel",), 2),
     ("conv_embed_tile.cu", ("_Z17conv_stack_kernel", "_Z16conv_proj_kernel"), 3),
     ("mm_wgmma.cu", ("_Z15mm_wgmma_kernel",), 6),
+    ("dec_joiner_cluster.cu", ("_Z25dec_joiner_cluster_kernel",), 4),
 )
 
 
@@ -457,8 +477,8 @@ def sass_rule(kernel: str, insns: list) -> str:
     """Why a persistent kernel's SASS is wrong ("" where it is right): the
     int8 kernels need IMMA; kernel 1 IMMA and FFMA (its residual and mel on
     the CUDA cores) and no HMMA; kernel 5 FFMA and no tensor-core
-    instruction (its sums keep fbank_bf16x3.cu's order), kernel 16 likewise
-    (conv_embed.cu's order); kernels 12 and 10 at bf16 HMMA, at f32 FFMA and
+    instruction (its sums keep fbank_bf16x3.cu's order), kernels 16 and 8
+    likewise (conv_embed.cu's and joiner.cu's orders); kernels 12 and 10 at bf16 HMMA, at f32 FFMA and
     no tensor-core instruction (no TF32); kernel 23 (mm_wgmma.cu) HGMMA at
     bf16 (`<0, ...>`), IGMMA in its int8 forms, and no other tensor-core
     instruction."""
@@ -467,7 +487,8 @@ def sass_rule(kernel: str, insns: list) -> str:
         mine, other = ("HGMMA", "IGMMA") if "ILi0E" in kernel else ("IGMMA", "HGMMA")
         ok = n(mine) and not (n(other) or n("HMMA") or n("IMMA"))
         return "" if ok else f"not {mine} alone"
-    if "fbank_tile" in kernel or "conv_stack" in kernel or "conv_proj" in kernel:
+    if ("fbank_tile" in kernel or "conv_stack" in kernel or "conv_proj" in kernel
+            or "dec_joiner_cluster" in kernel):
         return "" if n("FFMA") and not n("HMMA") and not n("IMMA") else "not FFMA alone"
     if "fbank" in kernel:
         return "" if n("IMMA") and n("FFMA") and not n("HMMA") else "not IMMA and FFMA alone"
@@ -480,8 +501,8 @@ def sass_rule(kernel: str, insns: list) -> str:
 
 def check_mma_sass():
     """csrc/lstm_mma.cu, lstm_mma_float.cu, lstm_chunk_mma.cu, ffn_mma.cu,
-    fbank_mma.cu, fbank_bf16x3_tile.cu, conv_embed_tile.cu and mm_wgmma.cu
-    compiled again to cubins: each
+    fbank_mma.cu, fbank_bf16x3_tile.cu, conv_embed_tile.cu, mm_wgmma.cu and
+    dec_joiner_cluster.cu compiled again to cubins: each
     tiled kernel's registers, shared memory and spills (`-Xptxas -v`; a
     spill fails) and its SASS (`sass_rule`)."""
     from pathlib import Path
@@ -596,13 +617,20 @@ def _decode_close(gs, ge, ws, we, st, J, d, V, T, P, S, f32, name) -> tuple:
     return err, b, f"events={n_ev} active_cells={n_act}"
 
 
-def _check_joiner(rt, S: int, rng, dev, t, refresh: bool) -> tuple:
+def _check_joiner(rt, S: int, rng, dev, t, refresh: bool) -> dict:
     """Kernel 8 (`refresh`: decoder refresh, then joiner and argmax) or
-    kernel 9 (joiner and argmax) on `rt`'s decode weights at S sessions.
-    max_idx must be equal wherever the plain version's top two non-blank
-    logits differ by more than 1e-4; max_val, blank_val and dout' are held to
-    atol 1e-4: f32 sums of the same products in another order differ by f32
-    ulps of these unit-scale logits."""
+    kernel 9 (joiner and argmax) on `rt`'s decode weights at S sessions,
+    need_dec at 50%. max_idx must be equal wherever the plain version's top
+    two non-blank logits differ by more than 1e-4; max_val, blank_val and
+    dout' are held to atol 1e-4: f32 sums of the same products in another
+    order differ by f32 ulps of these unit-scale logits. Kernel 8's route
+    (the cluster kernel where `dj_plan` has a plan) must equal the CUDA-core
+    kernels it replaced (`dec_joiner_simt`) on all four outputs, bit for
+    bit, in the same call; both are held to the plain version. Returns
+    {row: (kernel call, plain call, max abs err, bound, shape)}: kernel 8's
+    route and `dec_joiner_simt`, or kernel 9."""
+    from april_asr_tpu_torch.ops import cuda_build
+    from april_asr_tpu_torch.ops import decode_kernels as DK
     from april_asr_tpu_torch.ops import joiner_kernels as JK
     from april_asr_tpu_torch.ops.activations import dot_wd
 
@@ -613,29 +641,44 @@ def _check_joiner(rt, S: int, rng, dev, t, refresh: bool) -> tuple:
     ctx = t(rng.integers(0, V, size=(S, 2)).astype(np.int32))
     nd = t(rng.random(S) < 0.5)
     dec = (w["dec_table"], w["dec_proj_t"], w["dec_proj_b"], w["join_t"], w["join_b"])
+    f32 = w["join_t"].dtype == torch.float32
+    sfx = "_f32" if f32 else ""
+    calls = {}
     if refresh:
-        kf = lambda: JK.decoder_joiner_argmax_fused(ctx, nd, dout, eout, *dec, blank_id=blank)  # noqa: E731
+        calls["dec_joiner" + sfx] = lambda: JK.decoder_joiner_argmax_fused(  # noqa: E731
+            ctx, nd, dout, eout, *dec, blank_id=blank)
+        calls["dec_joiner_simt" + sfx] = lambda: JK.decoder_joiner_argmax_simt(  # noqa: E731
+            ctx, nd, dout, eout, *dec, blank)
         pf = lambda: JK.decoder_joiner_argmax_plain(ctx, nd, dout, eout, *dec, blank)  # noqa: E731
     else:
-        kf = lambda: JK.joiner_argmax_fused(eout, dout, w["join_t"], w["join_b"], blank_id=blank)  # noqa: E731
+        calls["joiner_argmax" + sfx] = lambda: JK.joiner_argmax_fused(  # noqa: E731
+            eout, dout, w["join_t"], w["join_b"], blank_id=blank)
         pf = lambda: JK.joiner_argmax_plain(eout, dout, w["join_t"], w["join_b"], blank)  # noqa: E731
-    got, want = kf(), pf()
+    want = pf()
+    got = {}
+    for name, kf in calls.items():
+        before = cuda_build.COUNTS[name]
+        got[name] = kf()
+        if cuda_build.COUNTS[name] != before + 1:
+            raise AssertionError(f"{name}: not launched on its route at S={S}")
     torch.cuda.synchronize()
-    f32 = w["join_t"].dtype == torch.float32
-    name = ("dec_joiner" if refresh else "joiner_argmax") + ("_f32" if f32 else "")
+    wb = 4 if f32 else 2
+    shape = f"eout[{S},{J}] d={d} V={V}"
+    if refresh:
+        plan = DK.device_dj_plan(S, J, d, V, wb, torch.device(dev).index or 0)
+        shape += (f"; plan C={plan.C} TS={plan.TS} clusters={plan.clusters} waves={plan.waves} "
+                  f"dec_proj {'resident' if plan.dp_smem else 'streamed'} smem={plan.smem}")
+        _bit_equal(got["dec_joiner" + sfx], got["dec_joiner_simt" + sfx],
+                   ("max_idx", "max_val", "blank_val", "dout'"),
+                   f"kernel 8 {'f32' if f32 else 'bf16'} S={S} need_dec 50%: the cluster kernel "
+                   f"against dec_joiner_simt")
     logits = dot_wd(torch.tanh(eout + (want[3] if refresh else dout)), w["join_t"]) + w["join_b"]
     logits[:, blank] = -float("inf")
     top2 = logits.topk(2, dim=1).values
     clear = (top2[:, 0] - top2[:, 1]) > 1e-4
     if float(clear.float().mean()) < 0.9:
-        raise AssertionError(f"{name}: only {int(clear.sum())} of {S} rows clear of a near-tie")
-    if not torch.equal(got[0][clear], want[0][clear]):
-        raise AssertionError(f"{name}: max_idx differs from the plain version")
-    err = 0.0
-    for i, what in ((1, "max_val"), (2, "blank_val"), (3, "dout'"))[: 3 if refresh else 2]:
-        torch.testing.assert_close(got[i], want[i], atol=1e-4, rtol=0, msg=f"{name} {what}")
-        err = max(err, float((got[i] - want[i]).abs().max()))
-    wb = 4 if f32 else 2
+        raise AssertionError(f"kernel {8 if refresh else 9}: only {int(clear.sum())} of {S} rows "
+                             f"clear of a near-tie")
     n_bytes = S * (2 * J * 4 + 12) + J * V * wb + V * 4
     ops = 2 * S * J * V
     if refresh:
@@ -644,7 +687,16 @@ def _check_joiner(rt, S: int, rng, dev, t, refresh: bool) -> tuple:
         n_bytes += S * (8 + 1 + J * 4) + rows * d * 4 + d * J * wb + J * 4
         ops += 2 * S * d * J
     b = bound_ms(n_bytes, {"f32" if f32 else "bf16": ops})
-    return kf, pf, err, b, f"eout[{S},{J}] d={d} V={V}"
+    out = {}
+    for name, g in got.items():
+        if not torch.equal(g[0][clear], want[0][clear]):
+            raise AssertionError(f"{name}: max_idx differs from the plain version")
+        err = 0.0
+        for i, what in ((1, "max_val"), (2, "blank_val"), (3, "dout'"))[: 3 if refresh else 2]:
+            torch.testing.assert_close(g[i], want[i], atol=1e-4, rtol=0, msg=f"{name} {what}")
+            err = max(err, float((g[i] - want[i]).abs().max()))
+        out[name] = (calls[name], pf, err, b, shape)
+    return out
 
 
 # Kernels 10 and 12 against their plain versions. f32 weights: true f32
@@ -1086,13 +1138,14 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
             print(f"{name}: ms={k_ms:.4f}, the three-pass step (lstm_step_float_simt) "
                   f"ms={s_ms:.4f} at S={S}")
 
-    # 8. dec_joiner and 9. joiner_argmax on bf16 and f32 decode weights, and
-    # kernel 9 on the 16,383-token model's bf16 and f32 weights
+    # 8. dec_joiner (the cluster kernel, and dec_joiner_simt, bit for bit) and
+    # 9. joiner_argmax on bf16 and f32 decode weights, and kernel 9 on the
+    # 16,383-token model's bf16 and f32 weights
     for prec, sfx in (("bf16", ""), ("f32", "_f32")):
-        out["dec_joiner" + sfx] = _check_joiner(models[prec].runtime, S, rng, dev, t, refresh=True)
-        out["joiner_argmax" + sfx] = _check_joiner(models[prec].runtime, S, rng, dev, t, refresh=False)
-        out[f"joiner_argmax{sfx}_v16383"] = _check_joiner(models["vocab " + prec].runtime, S, rng,
-                                                          dev, t, refresh=False)
+        out.update(_check_joiner(models[prec].runtime, S, rng, dev, t, refresh=True))
+        out.update(_check_joiner(models[prec].runtime, S, rng, dev, t, refresh=False))
+        out[f"joiner_argmax{sfx}_v16383"] = _check_joiner(
+            models["vocab " + prec].runtime, S, rng, dev, t, refresh=False)["joiner_argmax" + sfx]
 
     # 16. conv_embed (and conv_embed_simt, bit for bit) and 17.
     # conv_embed_front: every window of the step from the front buffer [S,
@@ -1266,9 +1319,14 @@ SOURCES = {
                       "april_asr_tpu/ops/lstm_pallas.py:1370"),
     "lstm_step_bf16": ("april_asr_tpu_torch/csrc/lstm_mma_float.cu",
                        "april_asr_tpu/ops/lstm_pallas.py:1370"),
-    "dec_joiner": ("april_asr_tpu_torch/csrc/joiner.cu", "april_asr_tpu/ops/joiner_pallas.py:218"),
+    "dec_joiner": ("april_asr_tpu_torch/csrc/dec_joiner_cluster.cu",
+                   "april_asr_tpu/ops/joiner_pallas.py:218"),
+    "dec_joiner_simt": ("april_asr_tpu_torch/csrc/joiner.cu",
+                        "april_asr_tpu/ops/joiner_pallas.py:218"),
+    "dec_joiner_simt_f32": ("april_asr_tpu_torch/csrc/joiner.cu",
+                            "april_asr_tpu/ops/joiner_pallas.py:218"),
     "joiner_argmax": ("april_asr_tpu_torch/csrc/joiner.cu", "april_asr_tpu/ops/joiner_pallas.py:74"),
-    "dec_joiner_f32": ("april_asr_tpu_torch/csrc/joiner.cu",
+    "dec_joiner_f32": ("april_asr_tpu_torch/csrc/dec_joiner_cluster.cu",
                        "april_asr_tpu/ops/joiner_pallas.py:218"),
     "joiner_argmax_f32": ("april_asr_tpu_torch/csrc/joiner.cu",
                           "april_asr_tpu/ops/joiner_pallas.py:74"),
@@ -1358,6 +1416,7 @@ def phase_kernels(models, card, reps: int = 20):
     check_float_widths(S_FLAG, P, seed=5)
     print_mma_plans(models["int8"].runtime, S_FLAG, P)
     decode_times(models, card, P)
+    dj_times(models, card)
     fbank_times(card)
     return rows
 
@@ -1382,6 +1441,75 @@ def decode_times(models, card, P: int):
             print(f"kernel 4 {prec} S={S}: cluster kernel ms={k_ms:.4f} (device {k_dev:.1f} us a "
                   f"launch), chunk_decode_simt ms={s_ms:.4f} (device {s_dev:.1f} us), "
                   f"bound_ms={b_ms:.4f} ({b_by}); {shape} ({card})")
+
+
+def host_us_turns(fns: dict, n: int = 100, rounds: int = 3) -> dict:
+    """The host's time a call (us) of each of `fns`, n calls queued without a
+    synchronize, in turns (a, b, b, a, ...) `rounds` times over; the median
+    of each one's turns (one call's sample swings with the host's load)."""
+    names = list(fns)
+    times = {k: [] for k in names}
+    for _ in range(rounds):
+        for k in names + names[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fns[k]()
+            times[k].append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def dj_times(models, card):
+    """Kernel 8 on the flagship's bf16 (int8 and bf16 serving) and f32
+    decode weights: its plan at S = 1, 3, 256 and 2048; at S = 3, 256 and
+    2048, with need_dec at 50% and at a flush round's ~5%
+    (`profile_decode.dj_case`), the route (the cluster kernel) equal bit for
+    bit to `dec_joiner_simt` on all four outputs; at S = 256 and 2048 both
+    timed by CUDA events, the profiler's device time a call and the host's
+    time a call (`host_us_turns`)."""
+    from april_asr_tpu_torch.ops import cuda_build
+    from april_asr_tpu_torch.ops import decode_kernels as DK
+    from april_asr_tpu_torch.ops import joiner_kernels as JK
+    from april_asr_tpu_torch.tools.profile_decode import DJ_SHARES, dj_case
+
+    dev = torch.device(DEV)
+    for prec, model in (("bf16", models["int8"]), ("f32", models["f32"])):
+        rt = model.runtime
+        w, dims = rt.weights, rt.dims
+        J, d, V = dims.joiner_dim, dims.d_model, dims.vocab
+        wb, sfx = w["join_t"].element_size(), "_f32" if prec == "f32" else ""
+        for S in (1, 3, 256, 2048):
+            p = DK.device_dj_plan(S, J, d, V, wb, dev.index or 0)
+            print(f"kernel 8 {prec} plan at S={S}: clusters of C={p.C}, tiles of TS={p.TS}, "
+                  f"{p.clusters} clusters in {p.waves} waves of {p.max_clusters}, Vc={p.Vc} "
+                  f"Jc={p.Jc}, dec_proj {'resident' if p.dp_smem else 'streamed'}, {p.smem} bytes "
+                  f"of shared memory a block, {DK.dj_staged_bytes(p, J, d, wb):.0f} weight bytes "
+                  f"staged a call")
+        for S in (3, 256, 2048):
+            for share in DJ_SHARES:
+                args = dj_case(w, rt.blank_id, S, share, np.random.default_rng(S + 17), dev)
+                kf = lambda: JK.decoder_joiner_argmax_fused(*args[:-1], blank_id=args[-1])  # noqa: E731
+                sf = lambda: JK.decoder_joiner_argmax_simt(*args)  # noqa: E731
+                before = cuda_build.COUNTS["dec_joiner" + sfx]
+                got = kf()
+                if cuda_build.COUNTS["dec_joiner" + sfx] != before + 1:
+                    raise AssertionError(f"kernel 8 {prec} S={S}: the cluster kernel did not launch")
+                _bit_equal(got, sf(), ("max_idx", "max_val", "blank_val", "dout'"),
+                           f"kernel 8 {prec} S={S} need_dec {share:.0%} "
+                           f"({int(args[1].sum())} rows refresh): the cluster kernel against "
+                           f"dec_joiner_simt")
+                if S == 3:
+                    continue
+                k_ms, s_ms = cuda_ms(kf, 20), cuda_ms(sf, 20)
+                k_dev = profiled(kf, 5, "dec_joiner_cluster")[1]
+                s_dev = profiled(sf, 5, ("dec_refresh", "joiner_tile", "argmax_final", "Memset"))[1]
+                host = host_us_turns({"cluster": kf, "simt": sf})
+                k_host, s_host = host["cluster"], host["simt"]
+                print(f"kernel 8 {prec} S={S} need_dec {share:.0%}: cluster kernel ms={k_ms:.4f} "
+                      f"(device {k_dev:.2f} us a call, host {k_host:.2f} us a call), "
+                      f"dec_joiner_simt ms={s_ms:.4f} (device {s_dev:.2f} us, host {s_host:.2f} "
+                      f"us) ({card})")
 
 
 def print_mma_plans(rt, S: int, P: int):
@@ -1508,6 +1636,10 @@ def phase_reference(card, precision: str, ticks: int = 6):
     if (cuda_build.COUNTS["conv_embed"] > 0) != (precision in ("int8", "bf16")):
         raise AssertionError(f"reference {precision}: kernel 16 launched "
                              f"{cuda_build.COUNTS['conv_embed']} times")
+    no_simt_joiner(f"reference {precision}", cuda_build.COUNTS)
+    k8 = cuda_build.COUNTS["dec_joiner_f32" if precision == "f32" else "dec_joiner"]
+    if k8 == 0:
+        raise AssertionError(f"reference {precision}: kernel 8 never launched")
 
 
 def wall_ms(fn, reps):
@@ -1596,6 +1728,7 @@ def phase_engine(model, card, path: str, ticks: int = 10, flushes: int = 5, ab: 
         flush_ms.append((time.perf_counter() - t0) * 1e3)
         if not k:
             flush_counts = require_launches(f"engine {path} flush", path, "flush")
+    no_simt_joiner(f"engine {path}", _merge(step_counts, flush_counts))
     st = eng.state
     for name, t in (("h", st["h"]), ("c", st["c"]), ("dout", st["decode"]["dout"]),
                     ("fifo", st["fbank"]["fifo"])):
@@ -1691,6 +1824,7 @@ def phase_session(model, card, precision: str):
     P = sess._engine.prog.layout.max_pulls_per_step
     sess.close()
     flush_counts = require_launches(f"session {precision} flush", precision, "flush")
+    no_simt_joiner(f"session {precision}", _merge(step_counts, flush_counts))
     if not got:
         raise AssertionError("session: no callbacks")
     kinds = {Result(r).name: sum(1 for x in got if x[0] == r) for r in {x[0] for x in got}}
@@ -1705,7 +1839,9 @@ def vocab_narrow(path: str, card):
     gate passes it, but no block holds a cluster slice of its joiner
     (`decode_plan` gives None) nor the CUDA-core kernel's rows
     (16·(J + max(J, d) + V + T) bytes over the H100's 232,448), so the step
-    decodes pull by pull through kernel 8, as the flush does. The CUDA
+    decodes pull by pull through kernel 8, as the flush does; kernel 8's
+    `dj_plan` has no cluster slice for it either, so it runs on the
+    CUDA-core kernels (`dec_joiner_simt_f32`). The CUDA
     engine against the CPU engine at S=8 (`_lockstep`, f32 as loaded);
     kernel 4 must never launch."""
     from april_asr_tpu_torch.api import Model
@@ -1730,13 +1866,19 @@ def vocab_narrow(path: str, card):
     c = cuda_build.COUNTS
     k4 = {k: c[k] for k in ("chunk_decode", "chunk_decode_f32", "chunk_decode_simt",
                             "chunk_decode_simt_f32")}
-    if any(k4.values()) or not c["dec_joiner_f32"]:
+    # no block holds kernel 8's cluster slices either (W's would take
+    # 1.08 MB at C = 8): its route is the CUDA-core kernels
+    if DK.dj_route(8, J, d, V, wb) != "simt" or c["dec_joiner_f32"]:
+        raise AssertionError(f"vocab narrow: kernel 8's cluster route taken "
+                             f"({c['dec_joiner_f32']} launches)")
+    if any(k4.values()) or not c["dec_joiner_simt_f32"]:
         raise AssertionError(f"vocab narrow: kernel 4 launched {k4}, kernel 8 "
-                             f"{c['dec_joiner_f32']} times")
+                             f"{c['dec_joiner_simt_f32']} times")
     print(f"vocab narrow: d=J={d} V={V}, decode_plan None, route: per pull; the CUDA-core "
           f"kernel 4 block {DK.chunk_decode_smem(J, d, V, T)} bytes; lockstep in "
           f"{time.perf_counter() - t0:.1f} s, kernel 4 launched 0 times, kernel 8 "
-          f"{c['dec_joiner_f32']} times, kernel 9 {c['joiner_argmax_f32']} times ({card})")
+          f"{c['dec_joiner_simt_f32']} times on its CUDA-core route (dj_plan None), kernel 9 "
+          f"{c['joiner_argmax_f32']} times ({card})")
 
 
 def phase_vocab(models, path: str, narrow_path: str, card) -> dict:
@@ -2147,14 +2289,14 @@ def mm_bound(name: str, M: int, K: int, N: int):
     return bound_ms(n_bytes, {"bf16" if name == "mm_bf16" else "int8": 2 * M * K * N})
 
 
-def profiled(fn, n: int, key: str, tries: int = 3) -> tuple:
-    """`host_and_device_us` of `fn`'s kernels named `key`, asked again
-    where the profiler reported no device time (its sessions, one after
-    another, now and then return no events)."""
+def profiled(fn, n: int, key, tries: int = 3) -> tuple:
+    """`host_and_device_us` of `fn`'s kernels named `key` (or any of a tuple
+    of names), asked again where the profiler reported no device time (its
+    sessions, one after another, now and then return no events)."""
     from april_asr_tpu_torch.tools.profile_lstm_mma import host_and_device_us
 
     for _ in range(tries):
-        host, dev = host_and_device_us(fn, n=n, keys=(key,))
+        host, dev = host_and_device_us(fn, n=n, keys=(key,) if isinstance(key, str) else key)
         if dev > 0:
             break
     return host, dev
@@ -2453,6 +2595,7 @@ def tp_engine(model, path: str, prec: str, card, ticks: int = 3) -> dict:
         for k, cnt in enumerate(res["counts"]):
             half = "step" if k < ticks else "flush"
             require_launches(f"tp {prec} rank {r} {half} {k}", f"tp {prec}", half, cnt)
+            no_simt_joiner(f"tp {prec} rank {r} {half} {k}", cnt)
             pulls = res["events"][k]["ops"].shape[1] - (half == "flush")
             if cnt.get(gc) != pulls * L:
                 raise AssertionError(f"tp {prec} rank {r} {half} {k}: {gc} launched "
