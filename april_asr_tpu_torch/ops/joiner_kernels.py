@@ -18,8 +18,13 @@ Ports of april_asr_tpu/ops/joiner_pallas.py:
 The plain versions are the decode's only joiner and refresh: the whole-chunk
 decode's plain version (ops/decode_kernels.py) runs them too. Each wrapper
 takes the plain version for CPU tensors and launches a kernel for CUDA
-tensors; it never falls back. Kernel 9 is csrc/joiner.cu (counted as
-`joiner_argmax`/`joiner_argmax_f32` by weight type). Kernel 8 is
+tensors; it never falls back. Kernel 9 is csrc/joiner_stream.cu, one
+cooperative launch on the plan of ops/joiner_plan.py `joiner_plan`
+(counted as `joiner_argmax`/`joiner_argmax_f32` by weight type), and where
+that plan has none (J not a multiple of 32) the CUDA-core kernels it
+replaced, csrc/joiner.cu's `joiner_argmax` (counted as
+`joiner_argmax_simt`/`joiner_argmax_simt_f32`); the two are equal bit for
+bit. Kernel 8 is
 csrc/dec_joiner_cluster.cu, one launch of thread-block clusters on the
 plan of ops/decode_kernels.py `dj_plan` (counted as
 `dec_joiner`/`dec_joiner_f32`), and where no block holds a cluster slice
@@ -37,6 +42,7 @@ import torch
 
 from ..decode.greedy import NEG_INF
 from . import cuda_build, decode_kernels
+from . import joiner_plan as JP
 from .activations import dot_wd
 from .lstm_kernels import _check
 
@@ -87,24 +93,118 @@ def _outputs(S: int, dev):
             torch.empty(S, dtype=torch.int64, device=dev))
 
 
-def joiner_argmax_cuda(eout, dout, w_t, b, blank_id: int):
+def joiner_argmax_simt(eout, dout, w_t, b, blank_id: int):
+    """csrc/joiner.cu's three stream operations (a memset of the argmax
+    keys, the joiner tiles with their atomic keys, the finalization):
+    kernel 9's route where `joiner_plan` has none."""
     S, J = eout.shape
     V = w_t.shape[1]
-    w_f32 = _weight_type(w_t, "joiner_argmax")
+    w_f32 = _weight_type(w_t, "joiner_argmax_simt")
     for t, dt, shape, what in ((eout, torch.float32, (S, J), "eout"),
                                (dout, torch.float32, (S, J), "dout"),
                                (w_t, w_t.dtype, (J, V), "join_t"), (b, torch.float32, (V,), "join_b")):
-        _check(t, dt, shape, f"joiner_argmax {what}")
+        _check(t, dt, shape, f"joiner_argmax_simt {what}")
     mi, mv, bv, keys = _outputs(S, eout.device)
     fn = cuda_build.bind("joiner", "joiner_argmax", 8, 5)
-    cuda_build.COUNTS["joiner_argmax_f32" if w_f32 else "joiner_argmax"] += 1
+    cuda_build.COUNTS["joiner_argmax_simt_f32" if w_f32 else "joiner_argmax_simt"] += 1
     rc = fn(
         eout.data_ptr(), dout.data_ptr(), w_t.data_ptr(), b.data_ptr(),
         mi.data_ptr(), mv.data_ptr(), bv.data_ptr(), keys.data_ptr(), S, J, V, blank_id, w_f32,
         torch.cuda.current_stream(eout.device).cuda_stream,
     )
-    cuda_build.check(rc, "joiner_argmax")
+    cuda_build.check(rc, "joiner_argmax_simt")
     return mi, mv, bv
+
+
+_STREAM_FORMS: Dict[tuple, tuple] = {}
+_STREAM_BUFS: Dict[tuple, tuple] = {}
+_STREAM_FN: dict = {}  # the kernel's ctypes handle, bound once
+
+
+def stream_weight_form(w_t, b, Vc: int) -> torch.Tensor:
+    """W's column slices [ceil(V / Vc)][J][Vc] f32 as csrc/joiner_stream.cu's
+    blocks read them (slice i: columns [i Vc, (i + 1) Vc), zero past V; bf16
+    weights widened exactly), so that a slice's chunks of KC rows are
+    contiguous; laid out once per weights and slice width, cached by the
+    identity of `w_t` and `b`, whose checks (type, shape, contiguity) run
+    only when the form is made."""
+    key = (id(w_t), id(b), Vc)
+    hit = _STREAM_FORMS.get(key)
+    if hit is not None:
+        return hit[1]
+    J, V = w_t.shape
+    _weight_type(w_t, "joiner_argmax")
+    _check(w_t, w_t.dtype, (J, V), "joiner_argmax join_t")
+    _check(b, torch.float32, (V,), "joiner_argmax join_b")
+    n_vs = -(-V // Vc)
+    wp = torch.zeros((J, n_vs * Vc), dtype=torch.float32, device=w_t.device)
+    wp[:, :V] = w_t
+    form = wp.view(J, n_vs, Vc).permute(1, 0, 2).contiguous()
+    if len(_STREAM_FORMS) >= 16:
+        _STREAM_FORMS.clear()
+    _STREAM_FORMS[key] = ((w_t, b), form)  # holding the sources keeps their ids from reuse
+    return form
+
+
+def _stream_buffers(dev, S: int, J: int, TS: int, n_st: int) -> tuple:
+    """The kernel's [S + 1] u64 argmax keys (the last its ticket), zero and
+    left zero by every launch, and its t scratch [n_st][J][TS] f32, kept per
+    device and shape. A key buffer serves one stream at a time: calls of one
+    shape on two streams at once would share it."""
+    key = (dev, S, J, TS)
+    hit = _STREAM_BUFS.get(key)
+    if hit is None:
+        hit = _STREAM_BUFS[key] = (torch.zeros(S + 1, dtype=torch.int64, device=dev),
+                                   torch.empty(n_st * J * TS, dtype=torch.float32, device=dev))
+    return hit
+
+
+def joiner_argmax_stream(eout, dout, w_t, b, blank_id: int, *, plan, stamps=None):
+    """csrc/joiner_stream.cu on `plan` (ops/joiner_plan.py `joiner_plan`):
+    one launch, no memset, no finalization kernel. `stamps` (int64
+    [plan.blocks, 5 + 3 plan.rounds] on the card, or None) takes each
+    block's phase stamps (tools/profile_decode.py)."""
+    S, J = eout.shape
+    V = w_t.shape[1]
+    if (plan.S, plan.J, plan.V) != (S, J, V):
+        raise ValueError(f"joiner_argmax: a plan for S={plan.S}, J={plan.J}, V={plan.V} given "
+                         f"S={S}, J={J}, V={V}")
+    for t, what in ((eout, "eout"), (dout, "dout")):
+        if t.dtype != torch.float32 or t.shape != eout.shape or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"joiner_argmax: {what} must be contiguous 16-byte aligned f32 "
+                             f"[{S}, {J}], got {t.dtype} {tuple(t.shape)}")
+    wf = stream_weight_form(w_t, b, plan.Vc)
+    keys, tbuf = _stream_buffers(eout.device, S, J, plan.TS, plan.n_st)
+    out = torch.empty(3 * S, dtype=torch.int32, device=eout.device)
+    mi, mv, bv = out[:S], out[S:2 * S].view(torch.float32), out[2 * S:].view(torch.float32)
+    fn = _STREAM_FN.get("fn")
+    if fn is None:
+        fn = _STREAM_FN["fn"] = cuda_build.bind("joiner_stream", "joiner_stream", 10, 12)
+    w_f32 = int(w_t.dtype == torch.float32)
+    rc = fn(
+        eout.data_ptr(), dout.data_ptr(), wf.data_ptr(), b.data_ptr(), mi.data_ptr(),
+        mv.data_ptr(), bv.data_ptr(), tbuf.data_ptr(), keys.data_ptr(),
+        None if stamps is None else stamps.data_ptr(), S, J, V, blank_id, w_f32, plan.ti,
+        int(plan.w_resident), plan.Vc, plan.TS, plan.rounds, plan.blocks, plan.smem,
+        torch.cuda.current_stream(eout.device).cuda_stream,
+    )
+    if rc < 0:
+        raise ValueError(f"joiner_argmax: the kernel's layout needs {-rc} bytes of shared memory, "
+                         f"the plan {plan.smem} ({plan})")
+    cuda_build.check(rc, "joiner_argmax")
+    cuda_build.COUNTS["joiner_argmax_f32" if w_f32 else "joiner_argmax"] += 1
+    return mi, mv, bv
+
+
+def joiner_argmax_cuda(eout, dout, w_t, b, blank_id: int):
+    """Kernel 9 on the card's plan, else (J not a multiple of 32) the
+    CUDA-core kernels; the choice reads shapes only."""
+    S, J = eout.shape
+    plan = JP.device_joiner_plan(S, J, w_t.shape[1], w_t.element_size(), eout.device.index or 0)
+    if plan is None:
+        return joiner_argmax_simt(eout, dout, w_t, b, blank_id)
+    return joiner_argmax_stream(eout, dout, w_t, b, blank_id, plan=plan)
 
 
 def joiner_argmax_fused(eout, dout, w_t, b, *, blank_id: int):

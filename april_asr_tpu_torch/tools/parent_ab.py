@@ -3,7 +3,7 @@ it, e.g. with `git archive`) on one card, in turns: other, this, this,
 other.
 
     python -m april_asr_tpu_torch.tools.parent_ab --other build/parent \
-        [--out build/parent_ab] [--sass]
+        [--out build/parent_ab] [--sass] [--only k9]
 
 Each turn is a worker process that imports `april_asr_tpu_torch` and
 `chip_smoke.py` from one tree (its kernels built into that tree's build
@@ -34,6 +34,14 @@ directory) and, on the flagship random int8 model (seed 0):
   this tree; need_dec at a flush round's ~5% and at 50%), by CUDA events
   and the profiler's device time at ~5%, with the SHA-1 of its four outputs
   at both shares;
+* times kernel 9 (`joiner_argmax_fused`, the joiner and argmax, by its
+  route) on a 16,383-token flagship-width model's bf16 and f32 join
+  weights at S = 256 and 2048 on the inputs `profile_decode.k9_case` draws
+  (loaded from this tree), by CUDA events (one call, and 20 calls queued
+  back to back), the profiler's device time and the host's time a call
+  queued, with the SHA-1 of its three outputs;
+* records that model's engine event blobs at f32 (as loaded) and bf16 over
+  3 ticks and a flush (the per-pull decode through kernel 9);
 * runs chip_smoke's `engine` cell at int8 (10 ticks, 5 flushes, the step
   and flush programs, the profiler's step and flush), its lines relayed;
 * records the int8 engine's event blobs over the same 10 ticks and a flush
@@ -52,15 +60,18 @@ directory) and, on the flagship random int8 model (seed 0):
   (<turn>-<tree>-bf16-s<seed>.pkl).
 
 The main process then requires every turn's int8 blobs, the f32 and bf16
-engines' blobs (run on their kernels), and the outputs of kernels 1, 2, 3,
-4, 5, 7, 8, 12 and 16 to be equal, bit for bit; every session of a float
+engines' blobs (run on their kernels), the 16,383-token engines' blobs, and
+the outputs of kernels 1, 2, 3, 4, 5, 7, 8, 9, 12 and 16 to be equal, bit
+for bit; every session of a float
 engine whose events part from the first turn's to part at a near-tie
 decision (`testing.check_parting`, `testing.NEAR_TIE`; every session is
 counted, and each parting at or above it listed), counted per turn
 beside whether the blobs are equal (their f32 log-probabilities move by
 ulps where the encoder's sums change order); and kernel 10's outputs to be
 equal between the turns of one tree (it changes between the trees). It
-prints the times per turn. With `--sass`, it also runs `sass_diff` on
+prints the times per turn. With `--only k9` each turn runs kernel 9 and
+the 16,383-token engines alone, and only their outputs and blobs are
+compared. With `--sass`, it also runs `sass_diff` on
 csrc/lstm_mma.cu, lstm_i8.cu, lstm_step.cu, lstm_tp.cu, lstm_mma_float.cu,
 lstm_chunk_mma.cu, chunk_decode.cu, chunk_decode_cluster.cu, joiner.cu,
 fbank_i8.cu, fbank_bf16x3.cu and conv_embed.cu of the two trees (kernels 2,
@@ -98,10 +109,13 @@ FLOAT_RUNS = tuple((p, 0) for p in FLOATS) + tuple(("bf16", s) for s in BF16_SEE
 FBANK_SIZES = (256, 2048)
 K4_SIZES = (256, 2048)
 K8_SIZES = (256, 2048)
+K9_SIZES = (256, 2048)
 EQUAL_KEYS = tuple(k for p in FLOATS for k in (f"k12_{p}_sha", f"k12_{p}_gated_sha",
                                                  f"blob_{p}_kernels_sha")) + tuple(
     f"k4_{p}_S{S}_sha" for p in FLOATS for S in K4_SIZES) + tuple(
-    f"k8_{p}_S{S}_sha" for p in FLOATS for S in K8_SIZES)
+    f"k8_{p}_S{S}_sha" for p in FLOATS for S in K8_SIZES) + tuple(
+    f"k9_{p}_S{S}_sha" for p in FLOATS for S in K9_SIZES) + tuple(
+    f"blob_vocab_{p}_sha" for p in FLOATS)
 K4_STATE = ("context", "token_words", "head", "last_call", "time_ms", "last_emit_ms", "need_dec",
             "emitted_silence", "dout")
 # chip_smoke's engine line: each precision's step, flush and flush program
@@ -237,8 +251,65 @@ def kernel8_turn(CS, rt, prec: str, res: dict, card: str) -> None:
           f"device) ({card})", flush=True)
 
 
-def worker(root: str, out: str) -> None:
-    """One turn: everything measured from the tree at `root`."""
+def kernel9_turn(CS, vocab_path: str, audio, res: dict, card: str) -> None:
+    """Kernel 9 by its route on the 16,383-token model's bf16 and f32 join
+    weights at S = 256 and 2048 (`profile_decode.k9_case`): the SHA-1 of its
+    three outputs, its CUDA-event ms, the profiler's device us and the
+    host's us a call, into res["k9_<prec>_S<S>_*"]; then the model's engine
+    event blobs over the first 3 ticks of `audio` and a flush, into
+    res["blob_vocab_<prec>_sha"]."""
+    import numpy as np
+    import torch
+
+    from april_asr_tpu_torch.api import Model
+    from april_asr_tpu_torch.ops import joiner_kernels as JK
+    from april_asr_tpu_torch.testing import engine_run
+    from april_asr_tpu_torch.tools.profile_lstm_mma import host_and_device_us
+
+    case = _this_tree("profile_decode").k9_case
+    dev = torch.device("cuda")
+    keys = ("joiner_stream", "joiner_tile", "argmax_final", "Memset")
+    for prec in FLOATS:
+        rt = Model(vocab_path, precision=None if prec == "f32" else "bf16", device="cuda").runtime
+        w_t, b = rt.weights["join_t"], rt.weights["join_b"]
+        for S in K9_SIZES:
+            eout, dout = case(w_t, S, np.random.default_rng(S + 29), dev)
+            fn = lambda: JK.joiner_argmax_fused(eout, dout, w_t, b, blank_id=rt.blank_id)  # noqa: E731
+            res[f"k9_{prec}_S{S}_sha"] = [_sha(o) for o in fn()]
+            res[f"k9_{prec}_S{S}_ms"] = CS.cuda_ms(fn, 20)
+            res[f"k9_{prec}_S{S}_queued_us"] = queued_us(fn, 20)
+            res[f"k9_{prec}_S{S}_host_us"] = host_and_device_us(fn, n=50, keys=keys)[0]
+            res[f"k9_{prec}_S{S}_device_us"] = CS.profiled(fn, 5, keys)[1]
+        run = engine_run(dict(rt=rt, m=1, device="cuda", audio=audio[:3], ticks=3))
+        res[f"blob_vocab_{prec}_sha"] = _blob_sha(run["blobs"])
+        print("kernels: " + ", ".join(
+            f"k9 {prec} V=16383 S={S} {res[f'k9_{prec}_S{S}_ms']:.4f} ms "
+            f"({res[f'k9_{prec}_S{S}_queued_us']:.1f} us queued, "
+            f"{res[f'k9_{prec}_S{S}_device_us']:.1f} us device, "
+            f"{res[f'k9_{prec}_S{S}_host_us']:.1f} us host)" for S in K9_SIZES) + f" ({card})",
+            flush=True)
+        del rt
+
+
+def queued_us(fn, n: int) -> float:
+    """CUDA-event us a call over n calls queued back to back (after a
+    warm-up): the device's time a call where it exceeds the host's."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n * 1e3
+
+
+def worker(root: str, out: str, only: str = "") -> None:
+    """One turn: everything measured from the tree at `root` (with `only`
+    "k9", kernel 9 and the 16,383-token engines alone)."""
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -257,6 +328,15 @@ def worker(root: str, out: str) -> None:
     dev = torch.device("cuda")
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     with tempfile.TemporaryDirectory() as tmp:
+        if only == "k9":
+            from april_asr_tpu_torch.models.lstm_transducer import TransducerDims
+
+            bufs = CS._tone_bufs(CS.S_FLAG, CS.CHUNK_1S, 16000)
+            audio = np.stack([bufs[k % len(bufs)] for k in range(3)])
+            kernel9_turn(CS, CS.flagship_april(tmp, dims=TransducerDims(vocab=16383)), audio, res,
+                         card)
+            print(TAG + json.dumps(dict(res, card=card)), flush=True)
+            return
         path = CS.flagship_april(tmp)
         model = Model(path, precision="int8", device="cuda")
         rt = model.runtime
@@ -308,6 +388,10 @@ def worker(root: str, out: str) -> None:
         for seed in BF16_SEEDS:
             seed_path = CS.flagship_april(tempfile.mkdtemp(dir=tmp), seed=seed)
             float_turn(CS, seed_path, "bf16", audio, card, res, out, seed)
+        from april_asr_tpu_torch.models.lstm_transducer import TransducerDims
+
+        vocab_path = CS.flagship_april(tempfile.mkdtemp(dir=tmp), dims=TransducerDims(vocab=16383))
+        kernel9_turn(CS, vocab_path, audio, res, card)
     res["card"] = card
     print(TAG + json.dumps(res), flush=True)
 
@@ -403,9 +487,9 @@ def plain_decode_run(rt, audio) -> dict:
         ES.chunk_decode = orig
 
 
-def run_turn(i: int, label: str, root: Path, out_dir: Path) -> dict:
+def run_turn(i: int, label: str, root: Path, out_dir: Path, only: str = "") -> dict:
     out = out_dir / f"{i}-{label}.npz"
-    cmd = [sys.executable, str(HERE), "--worker", str(root), "--npz", str(out)]
+    cmd = [sys.executable, str(HERE), "--worker", str(root), "--npz", str(out), "--only", only]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                             cwd=str(root))
     res, ms = None, {k: {} for k in ENGINE_MS_KEYS}
@@ -462,16 +546,40 @@ def float_partings(out_dir: Path, turns: list, name: str) -> tuple:
     return found, over
 
 
+def k9_summary(turns: list, rows: list, out: Path, t0: float) -> int:
+    """`--only k9`: kernel 9's outputs and the 16,383-token engines' blobs
+    required equal across every turn; its times per turn."""
+    ref = turns[0]
+    keys = tuple(k for k in EQUAL_KEYS if k.startswith(("k9_", "blob_vocab_")))
+    bad = sorted({k for tr in turns for k in keys if tr[k] != ref[k]})
+    summary = {
+        "turns": [{k: tr[k] for k in ("label", "build_s") + tuple(
+            f"k9_{p}_S{S}_{u}" for p in FLOATS for S in K9_SIZES
+            for u in ("ms", "queued_us", "device_us", "host_us"))} for tr in turns],
+        "equal": not bad, "differ": bad,
+        "sass_differs": [f"{r['source']} {r['kernel']}" for r in rows if not r["same"]],
+        "card": ref["card"], "seconds": time.perf_counter() - t0,
+    }
+    (out / "summary.json").write_text(json.dumps(summary, indent=1))
+    print(json.dumps(summary))
+    if bad:
+        print(f"parent_ab: outputs differ between the trees: {bad}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, help="the other tree (e.g. the parent commit)")
     ap.add_argument("--out", type=Path, default=TREE / "build" / "parent_ab")
     ap.add_argument("--sass", action="store_true", help="also sass_diff the shared sources")
+    ap.add_argument("--only", default="", choices=("", "k9"),
+                    help="k9: kernel 9 and the 16,383-token engines alone")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--npz", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        worker(args.worker, args.npz)
+        worker(args.worker, args.npz, args.only)
         return 0
     if args.other is None:
         ap.error("--other is required")
@@ -482,9 +590,11 @@ def main(argv=None) -> int:
     turns = []
     for i, (label, root) in enumerate((("other", other), ("this", TREE), ("this", TREE),
                                        ("other", other))):
-        turns.append(dict(run_turn(i, label, root, args.out), label=label))
+        turns.append(dict(run_turn(i, label, root, args.out, args.only), label=label))
     rows = sass(other) if args.sass else []
     ref = turns[0]
+    if args.only == "k9":
+        return k9_summary(turns, rows, args.out, t0)
     equal_keys = ("k2_S256_sha", "k2_S2048_sha", "k3_S256_sha", "k3_S2048_sha", "k7_sha",
                   "k7_gated_sha", "blob_sha") + tuple(f"k{n}_S{S}_sha" for n in (1, 5, 16)
                                                       for S in FBANK_SIZES) + EQUAL_KEYS
@@ -524,7 +634,10 @@ def main(argv=None) -> int:
                    + tuple(f"k4_{p}_S{S}_{u}" for p in FLOATS for S in K4_SIZES
                            for u in ("ms", "device_us"))
                    + tuple(f"k8_{p}_S{S}_{u}" for p in FLOATS for S in K8_SIZES
-                           for u in ("ms", "device_us")) + ENGINE_MS_KEYS}
+                           for u in ("ms", "device_us"))
+                   + tuple(f"k9_{p}_S{S}_{u}" for p in FLOATS for S in K9_SIZES
+                           for u in ("ms", "queued_us", "device_us", "host_us"))
+                   + ENGINE_MS_KEYS}
                   for tr in turns],
         "equal": not bad, "differ": sorted(set(bad)), "blob_calls": len(ref["blob_sha"]),
         "floats": floats,

@@ -1,9 +1,28 @@
-"""Where kernels 4 and 8 spend their time: the phases of one launch of each
-cluster kernel (csrc/chunk_decode_cluster.cu, csrc/dec_joiner_cluster.cu)
-from each block's stamps (the global nanosecond timer), beside the
-CUDA-core kernel it replaced (`chunk_decode_simt`, `dec_joiner_simt`).
+"""Where kernels 4, 8 and 9 spend their time: the phases of one launch of
+each (csrc/chunk_decode_cluster.cu, csrc/dec_joiner_cluster.cu,
+csrc/joiner_stream.cu) from each block's stamps (the global nanosecond
+timer), beside the CUDA-core kernel it replaced (`chunk_decode_simt`,
+`dec_joiner_simt`, `joiner_argmax_simt`).
 
-    python -m april_asr_tpu_torch.tools.profile_decode [--S 256] [--P 27] [--kernel 4|8] [--ts N]
+    python -m april_asr_tpu_torch.tools.profile_decode [--S 256] [--P 27] [--kernel 4|8|9] [--ts N]
+    python -m april_asr_tpu_torch.tools.profile_decode --kernel 9 [--S 256] [--V 16383] \
+        [--ts 64,128] [--vc 64,128,256] [--tile 8,4] [--w resident,streamed]
+
+Kernel 9 (`--kernel 9`): the joiner and argmax at S sessions on
+flagship-width join weights (J = 512, V columns, blank logit +2.0) at bf16
+and f32 (`k9_case`: logit-scale eout, unit dout), on the card's plan and,
+where `--ts`, `--vc`, `--tile` or `--w` name other splits, on each of
+their combinations that a block holds (`joiner_plan.plan_for`: TS sessions
+a tile, Vc columns a slice, the register tile by its columns, W resident or
+streamed); each launch's outputs required equal bit for bit to
+`joiner_argmax_simt`'s, and per phase the critical path and the blocks'
+median: `tanh` (t for the block's share of the S x J values), `barrier`
+(the grid barrier), `load` (the first ring stage and W's first chunk
+landed), `product` (each tile's chains), `keys` (each thread's and warp's
+argmax keys of a tile), `merge` (the keys into device memory), `finalize`
+(the ticket, and the last block's outputs); beside them the
+CUDA-event time, the device time (profiler) and the host's time per call
+of the launch and of `joiner_argmax_simt`.
 
 Kernel 8 (`--kernel 8`; both by default): one decoder-joiner round at S
 sessions on flagship-width weights at bf16 and f32 (`dj_case`: need_dec at
@@ -263,24 +282,167 @@ def report(res: Dict[str, dict], S: int, P: int, card: str = "") -> None:
               + (f" ({card})" if card else ""))
 
 
+K9_V = 16383  # the vocab cells' vocabulary
+
+
+def k9_case(w_t, S: int, rng, dev) -> tuple:
+    """Kernel 9's eout and dout at S sessions: logit-scale eout and unit
+    dout [S, J] f32, drawn from `rng` in a fixed order."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    J = w_t.shape[0]
+    return (t((rng.normal(size=(S, J)) * 2.0).astype(np.float32)),
+            t(rng.normal(size=(S, J)).astype(np.float32)))
+
+
+def k9_weights(wd, device, V: int = K9_V, seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Flagship-width join weights at V tokens of type wd (the bias f32,
+    blank logit +2.0 as bench.py's model): (join_t, join_b, blank)."""
+    from april_asr_tpu_torch.models import lstm_transducer as TM
+
+    p = TM.init_transducer_params(seed, TM.TransducerDims(vocab=V))
+    p["join_b"][0] += 2.0
+    return p["join_t"].to(wd).to(device), p["join_b"].to(device), 0
+
+
+def k9_phases(rounds: int) -> List[Tuple[str, int, int]]:
+    """(phase, start stamp, end stamp) of one launch of kernel 9: stamps 0-3
+    end entry, tanh, the grid barrier and the load; 4 + 3 r, 5 + 3 r and 6 +
+    3 r end tile r's product, keys and merge; 4 + 3 rounds the finalize."""
+    out = [("tanh", 0, 1), ("barrier", 1, 2), ("load", 2, 3)]
+    prev = 3
+    for r in range(rounds):
+        b = 4 + 3 * r
+        out += [("product", prev, b), ("keys", b, b + 1), ("merge", b + 1, b + 2)]
+        prev = b + 2
+    return out + [("finalize", prev, 4 + 3 * rounds)]
+
+
+def k9_plans(S: int, J: int, V: int, wb: int, index: int, ts=(), vc=(), tiles=(), ws=()) -> list:
+    """The card's plan, then each combination of the named splits (TS, Vc,
+    the register tile's columns, "resident" / "streamed"; the plan's own
+    where a list is empty) that a block holds."""
+    import itertools
+
+    from april_asr_tpu_torch.ops import joiner_plan as JP
+
+    base = JP.device_joiner_plan(S, J, V, wb, index)
+    out = [base]
+    if not (ts or vc or tiles or ws):
+        return out
+    fit = JP.device_fit(index)
+    for rc, n_ts, n_vc, w in itertools.product(
+            tiles or (base.RC,), ts or (base.TS,), vc or (base.Vc,),
+            ws or (("resident" if base.w_resident else "streamed"),)):
+        ti = next(i for i, t in enumerate(JP.TILES) if t[0] == rc)
+        RC, RS = JP.TILES[ti]
+        TC, TSg = n_vc // RC, n_ts // RS
+        if n_vc % RC or n_ts % RS or TC < 1 or TSg < 1 or TC & (TC - 1):
+            continue
+        p = JP.plan_for(S, J, V, wb, fit, ti, TC, TSg, w == "resident")
+        if p is not None and p not in out:
+            out.append(p)
+    return out
+
+
+def profile_k9(S: int, device, V: int = K9_V, **splits) -> Dict[str, dict]:
+    """{"bf16 <split>" ...: {"plan", "equal", "total_us", "phases",
+    "event_ms", "device_us", "host_us", "simt_event_ms", "simt_device_us",
+    "simt_host_us"}} for kernel 9 at S sessions, on the card's plan and the
+    splits `k9_plans` names."""
+    from april_asr_tpu_torch.ops import joiner_kernels as JK
+
+    from .profile_lstm_mma import breakdown, event_ms, host_and_device_us
+
+    index = torch.device(device).index or 0
+    out = {}
+    for name, wd in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        w_t, b, blank = k9_weights(wd, device, V)
+        J, wb = w_t.shape[0], w_t.element_size()
+        eout, dout = k9_case(w_t, S, np.random.default_rng(S + 9), device)
+        simt = lambda: JK.joiner_argmax_simt(eout, dout, w_t, b, blank)  # noqa: E731
+        want = simt()
+        s_host, s_dev = host_and_device_us(simt, keys=("joiner_tile", "argmax_final", "Memset"))
+        s_ms = event_ms(simt)
+        for plan in k9_plans(S, J, V, wb, index, **splits):
+            run = lambda st, p=plan: JK.joiner_argmax_stream(  # noqa: E731
+                eout, dout, w_t, b, blank, plan=p, stamps=st)
+            got = run(None)
+            torch.cuda.synchronize()
+            res = {"plan": plan, "equal": all(torch.equal(g, x) for g, x in zip(got, want)),
+                   "event_ms": event_ms(lambda: run(None)), "simt_event_ms": s_ms,
+                   "simt_host_us": s_host, "simt_device_us": s_dev}
+            res["host_us"], res["device_us"] = host_and_device_us(
+                lambda: run(None), keys=("joiner_stream",))
+            st = torch.zeros((plan.blocks, 5 + 3 * plan.rounds), dtype=torch.int64,
+                             device=device)
+            run(st)
+            run(st)
+            torch.cuda.synchronize()
+            s = st.cpu().numpy()
+            res["total_us"] = float(s[:, -1].max() - s[:, 0].min()) / 1e3
+            res["phases"] = breakdown(s, k9_phases(plan.rounds))
+            out[f"{name} {k9_split(plan)}"] = res
+    return out
+
+
+def k9_split(plan) -> str:
+    return (f"tile {plan.RC}x{plan.RS} Vc={plan.Vc} TS={plan.TS} W "
+            f"{'resident' if plan.w_resident else 'streamed'}")
+
+
+def report_k9(res: Dict[str, dict], S: int, V: int, card: str = "") -> None:
+    for name, r in res.items():
+        p = r["plan"]
+        parts = "; ".join(f"{k} {v['critical_us']:.2f} us (x{v['n']}, blocks' median "
+                          f"{v['median_us']:.2f})" for k, v in r["phases"].items())
+        print(f"profile_decode kernel 9 {name} S={S} V={V}: {p.blocks} blocks ({p.n_vs} slices x "
+              f"{p.n_sg} session groups, {p.blocks_per_sm} an SM), {p.rounds} tiles a block, "
+              f"{p.smem} bytes of shared memory a block, cycles a k {p.cycles_per_k}; outputs "
+              f"{'equal' if r['equal'] else 'DIFFER from'} joiner_argmax_simt's; stamped launch "
+              f"{r['total_us']:.2f} us; without stamps: CUDA events {r['event_ms'] * 1e3:.2f} us a "
+              f"call, device time (profiler) {r['device_us']:.2f} us, host per call queued "
+              f"{r['host_us']:.2f} us; joiner_argmax_simt: CUDA events "
+              f"{r['simt_event_ms'] * 1e3:.2f} us, device time {r['simt_device_us']:.2f} us, host "
+              f"per call {r['simt_host_us']:.2f} us; critical path by phase: {parts}"
+              + (f" ({card})" if card else ""))
+
+
+def _ints(text: str) -> tuple:
+    return tuple(int(x) for x in text.split(",") if x) if text else ()
+
+
 def main(argv=None) -> Dict[str, dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--S", type=int, default=256)
     ap.add_argument("--P", type=int, default=27)
-    ap.add_argument("--kernel", type=int, choices=(4, 8), help="one kernel (default: both)")
-    ap.add_argument("--ts", type=int, help="kernel 8 on tiles of this many sessions (default: "
-                    "the plan's)")
+    ap.add_argument("--V", type=int, default=K9_V, help="kernel 9's vocabulary")
+    ap.add_argument("--kernel", type=int, choices=(4, 8, 9), help="one kernel (default: all)")
+    ap.add_argument("--ts", default="", help="kernel 8 on tiles of this many sessions; kernel 9 "
+                    "on tiles of each of these (comma-separated; default: the plan's)")
+    ap.add_argument("--vc", default="", help="kernel 9 on slices of each of these many columns")
+    ap.add_argument("--tile", default="", help="kernel 9 on register tiles of these columns")
+    ap.add_argument("--w", default="", help="kernel 9 with W resident and/or streamed")
     args = ap.parse_args(argv)
     res = {}
     if args.kernel in (None, 4):
         res["kernel 4"] = profile(args.S, args.P, torch.device("cuda"))
         report(res["kernel 4"], args.S, args.P)
     if args.kernel in (None, 8):
-        res["kernel 8"] = profile_dj(args.S, torch.device("cuda"), args.ts)
+        res["kernel 8"] = profile_dj(args.S, torch.device("cuda"),
+                                     int(args.ts) if args.ts and args.kernel == 8 else None)
         report_dj(res["kernel 8"], args.S)
         bad = [k for k, r in res["kernel 8"].items() if not r["equal"]]
         if bad:
             raise SystemExit(f"profile_decode: kernel 8 differs from dec_joiner_simt: {bad}")
+    if args.kernel in (None, 9):
+        res["kernel 9"] = profile_k9(
+            args.S, torch.device("cuda"), args.V,
+            ts=_ints(args.ts) if args.kernel == 9 else (), vc=_ints(args.vc),
+            tiles=_ints(args.tile), ws=tuple(w for w in args.w.split(",") if w))
+        report_k9(res["kernel 9"], args.S, args.V)
+        bad = [k for k, r in res["kernel 9"].items() if not r["equal"]]
+        if bad:
+            raise SystemExit(f"profile_decode: kernel 9 differs from joiner_argmax_simt: {bad}")
     return res
 
 

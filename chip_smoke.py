@@ -28,7 +28,8 @@ Phases (each fails the run on error):
              16's, HMMA in kernels 12 and 10 at bf16, FFMA and no
              tensor-core instruction at f32, HGMMA in kernel 23's bf16 form
              and IGMMA in its int8 forms, FFMA and no tensor-core
-             instruction in kernel 8's (csrc/dec_joiner_cluster.cu)
+             instruction in kernel 8's (csrc/dec_joiner_cluster.cu) and in
+             kernel 9's 16 (csrc/joiner_stream.cu)
   kernels    each kernel against its plain version: timed at S=256, P=27,
              F=101, checked again at S=3, P=5 (ragged tiles); kernels 2 and
              7 also bit for bit against kernel 13 and the three-pass step
@@ -43,7 +44,16 @@ Phases (each fails the run on error):
              at d 68 / H 260 / F 196 (bf16 weight rows 8-byte aligned); the
              int8 kernels on int8 weights, kernels 10 and 12 on f32 and on bf16
              weights, the chunk decode and kernels 8 and 9 on bf16 and on
-             f32 decode weights, kernel 9 again at V=16,383; kernel 4 (the
+             f32 decode weights, kernel 9 again at V=16,383, each beside
+             the CUDA-core kernel it replaced (joiner_argmax_simt); kernel 9
+             (csrc/joiner_stream.cu, one cooperative launch) bit for bit
+             against joiner_argmax_simt (max_idx, max_val, blank_val) at
+             S=3, 256 and 2048, V=500 and 16,383, bf16 and f32, and at the
+             narrow models' joiners (J=128, V=64 and 16,383), both held to
+             the plain version, both timed at V=16,383 (S=256, 2048) and
+             V=500 (S=256) by CUDA events, the profiler's device time and
+             the host's time a call, beside the plain version's device
+             time, the bound and the FFMA floor; kernel 4 (the
              thread-block-cluster kernel) bit for bit against the CUDA-core
              kernel it replaced (chunk_decode_simt; every event and state
              key) at S=3, 256 and 2048, both timed by CUDA events and the
@@ -89,7 +99,8 @@ Phases (each fails the run on error):
   vocab      a flagship-width model with 16,383 tokens, which kernel 4
              cannot hold: the CUDA engine vs the CPU engine at S=8 (f32),
              then BatchEngine S=256 at f32 and bf16, 3 ticks and a flush,
-             decoding through kernel 9 alone; and a 1-layer d = J = 128
+             decoding through kernel 9 alone (csrc/joiner_stream.cu:
+             joiner_argmax_simt never launched); and a 1-layer d = J = 128
              model with 16,383 tokens, which the JAX gate passes but no
              kernel 4 holds (no cluster plan, no CUDA-core block): CUDA vs
              CPU at S=8 (f32) through kernel 8, kernel 4 never launched
@@ -459,7 +470,9 @@ def phase_build(card):
 # FFMA, `<unsigned short>` bf16 on HMMA; kernel 23 (csrc/mm_wgmma.cu, three
 # forms x two tiles) on `wgmma`: bf16 HGMMA, the int8 forms IGMMA; kernel 8
 # (csrc/dec_joiner_cluster.cu, two weight types x dec_proj resident or
-# streamed) on FFMA alone, in dec_joiner_simt's order
+# streamed) on FFMA alone, in dec_joiner_simt's order; kernel 9
+# (csrc/joiner_stream.cu, two weight types x four register tiles x W
+# resident or streamed) on FFMA alone, in joiner.cu's order
 MMA_SOURCES = (
     ("lstm_mma.cu", ("_Z19lstm_rec_mma_kernel", "_Z20lstm_step_mma_kernel"), 6),
     ("lstm_mma_float.cu", ("_Z26lstm_step_float_mma_kernel",), 2),
@@ -470,6 +483,7 @@ MMA_SOURCES = (
     ("conv_embed_tile.cu", ("_Z17conv_stack_kernel", "_Z16conv_proj_kernel"), 3),
     ("mm_wgmma.cu", ("_Z15mm_wgmma_kernel",), 6),
     ("dec_joiner_cluster.cu", ("_Z25dec_joiner_cluster_kernel",), 4),
+    ("joiner_stream.cu", ("_Z20joiner_stream_kernel",), 16),
 )
 
 
@@ -477,7 +491,7 @@ def sass_rule(kernel: str, insns: list) -> str:
     """Why a persistent kernel's SASS is wrong ("" where it is right): the
     int8 kernels need IMMA; kernel 1 IMMA and FFMA (its residual and mel on
     the CUDA cores) and no HMMA; kernel 5 FFMA and no tensor-core
-    instruction (its sums keep fbank_bf16x3.cu's order), kernels 16 and 8
+    instruction (its sums keep fbank_bf16x3.cu's order), kernels 16, 8 and 9
     likewise (conv_embed.cu's and joiner.cu's orders); kernels 12 and 10 at bf16 HMMA, at f32 FFMA and
     no tensor-core instruction (no TF32); kernel 23 (mm_wgmma.cu) HGMMA at
     bf16 (`<0, ...>`), IGMMA in its int8 forms, and no other tensor-core
@@ -488,7 +502,7 @@ def sass_rule(kernel: str, insns: list) -> str:
         ok = n(mine) and not (n(other) or n("HMMA") or n("IMMA"))
         return "" if ok else f"not {mine} alone"
     if ("fbank_tile" in kernel or "conv_stack" in kernel or "conv_proj" in kernel
-            or "dec_joiner_cluster" in kernel):
+            or "dec_joiner_cluster" in kernel or "joiner_stream" in kernel):
         return "" if n("FFMA") and not n("HMMA") and not n("IMMA") else "not FFMA alone"
     if "fbank" in kernel:
         return "" if n("IMMA") and n("FFMA") and not n("HMMA") else "not IMMA and FFMA alone"
@@ -501,8 +515,8 @@ def sass_rule(kernel: str, insns: list) -> str:
 
 def check_mma_sass():
     """csrc/lstm_mma.cu, lstm_mma_float.cu, lstm_chunk_mma.cu, ffn_mma.cu,
-    fbank_mma.cu, fbank_bf16x3_tile.cu, conv_embed_tile.cu, mm_wgmma.cu and
-    dec_joiner_cluster.cu compiled again to cubins: each
+    fbank_mma.cu, fbank_bf16x3_tile.cu, conv_embed_tile.cu, mm_wgmma.cu,
+    dec_joiner_cluster.cu and joiner_stream.cu compiled again to cubins: each
     tiled kernel's registers, shared memory and spills (`-Xptxas -v`; a
     spill fails) and its SASS (`sass_rule`)."""
     from pathlib import Path
@@ -626,13 +640,15 @@ def _check_joiner(rt, S: int, rng, dev, t, refresh: bool) -> dict:
     order differ by f32 ulps of these unit-scale logits. Kernel 8's route
     (the cluster kernel where `dj_plan` has a plan) must equal the CUDA-core
     kernels it replaced (`dec_joiner_simt`) on all four outputs, bit for
-    bit, in the same call; both are held to the plain version. Returns
-    {row: (kernel call, plain call, max abs err, bound, shape)}: kernel 8's
-    route and `dec_joiner_simt`, or kernel 9."""
+    bit, in the same call, and kernel 9's (csrc/joiner_stream.cu where
+    `joiner_plan` has a plan) `joiner_argmax_simt` on its three; both are
+    held to the plain version. Returns {row: (kernel call, plain call, max
+    abs err, bound, shape)}: kernel 8's or 9's route and the CUDA-core
+    kernels it replaced."""
     from april_asr_tpu_torch.ops import cuda_build
     from april_asr_tpu_torch.ops import decode_kernels as DK
     from april_asr_tpu_torch.ops import joiner_kernels as JK
-    from april_asr_tpu_torch.ops.activations import dot_wd
+    from april_asr_tpu_torch.ops import joiner_plan as JP
 
     w, dims = rt.weights, rt.dims
     d, J, V, blank = dims.d_model, dims.joiner_dim, dims.vocab, rt.blank_id
@@ -653,6 +669,8 @@ def _check_joiner(rt, S: int, rng, dev, t, refresh: bool) -> dict:
     else:
         calls["joiner_argmax" + sfx] = lambda: JK.joiner_argmax_fused(  # noqa: E731
             eout, dout, w["join_t"], w["join_b"], blank_id=blank)
+        calls["joiner_argmax_simt" + sfx] = lambda: JK.joiner_argmax_simt(  # noqa: E731
+            eout, dout, w["join_t"], w["join_b"], blank)
         pf = lambda: JK.joiner_argmax_plain(eout, dout, w["join_t"], w["join_b"], blank)  # noqa: E731
     want = pf()
     got = {}
@@ -672,13 +690,14 @@ def _check_joiner(rt, S: int, rng, dev, t, refresh: bool) -> dict:
                    ("max_idx", "max_val", "blank_val", "dout'"),
                    f"kernel 8 {'f32' if f32 else 'bf16'} S={S} need_dec 50%: the cluster kernel "
                    f"against dec_joiner_simt")
-    logits = dot_wd(torch.tanh(eout + (want[3] if refresh else dout)), w["join_t"]) + w["join_b"]
-    logits[:, blank] = -float("inf")
-    top2 = logits.topk(2, dim=1).values
-    clear = (top2[:, 0] - top2[:, 1]) > 1e-4
-    if float(clear.float().mean()) < 0.9:
-        raise AssertionError(f"kernel {8 if refresh else 9}: only {int(clear.sum())} of {S} rows "
-                             f"clear of a near-tie")
+    else:
+        shape += "; " + k9_plan_line(JP.device_joiner_plan(S, J, V, wb, torch.device(dev).index or 0))
+        _bit_equal(got["joiner_argmax" + sfx], got["joiner_argmax_simt" + sfx],
+                   ("max_idx", "max_val", "blank_val"),
+                   f"kernel 9 {'f32' if f32 else 'bf16'} S={S} V={V}: the stream kernel against "
+                   f"joiner_argmax_simt")
+    clear = _clear_rows(eout, want[3] if refresh else dout, w["join_t"], w["join_b"], blank,
+                        f"kernel {8 if refresh else 9}")
     n_bytes = S * (2 * J * 4 + 12) + J * V * wb + V * 4
     ops = 2 * S * J * V
     if refresh:
@@ -697,6 +716,29 @@ def _check_joiner(rt, S: int, rng, dev, t, refresh: bool) -> dict:
             err = max(err, float((g[i] - want[i]).abs().max()))
         out[name] = (calls[name], pf, err, b, shape)
     return out
+
+
+def _clear_rows(eout, dout, w_t, b, blank: int, what: str, least: float = 0.9):
+    """The sessions whose top two non-blank logits (the plain version's)
+    differ by more than 1e-4, where max_idx is held; fails where fewer than
+    `least` of them are."""
+    from april_asr_tpu_torch.ops.activations import dot_wd
+
+    logits = dot_wd(torch.tanh(eout + dout), w_t) + b
+    logits[:, blank] = -float("inf")
+    top2 = logits.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-4
+    if float(clear.float().mean()) < least:
+        raise AssertionError(f"{what}: only {int(clear.sum())} of {len(clear)} rows clear of a "
+                             f"near-tie")
+    return clear
+
+
+def k9_plan_line(p) -> str:
+    """Kernel 9's plan (ops/joiner_plan.py `JoinerPlan`) in one line."""
+    return (f"plan tile {p.RC}x{p.RS}, Vc={p.Vc}, TS={p.TS}, {p.blocks} blocks ({p.n_vs} slices x "
+            f"{p.n_sg} session groups, {p.blocks_per_sm} an SM), {p.rounds} tiles a block, W "
+            f"{'resident' if p.w_resident else 'streamed'}, {p.smem} bytes of shared memory")
 
 
 # Kernels 10 and 12 against their plain versions. f32 weights: true f32
@@ -1139,13 +1181,15 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
                   f"ms={s_ms:.4f} at S={S}")
 
     # 8. dec_joiner (the cluster kernel, and dec_joiner_simt, bit for bit) and
-    # 9. joiner_argmax on bf16 and f32 decode weights, and kernel 9 on the
-    # 16,383-token model's bf16 and f32 weights
+    # 9. joiner_argmax (the stream kernel, and joiner_argmax_simt, bit for
+    # bit) on bf16 and f32 decode weights, and kernel 9 on the 16,383-token
+    # model's bf16 and f32 weights
     for prec, sfx in (("bf16", ""), ("f32", "_f32")):
         out.update(_check_joiner(models[prec].runtime, S, rng, dev, t, refresh=True))
         out.update(_check_joiner(models[prec].runtime, S, rng, dev, t, refresh=False))
-        out[f"joiner_argmax{sfx}_v16383"] = _check_joiner(
-            models["vocab " + prec].runtime, S, rng, dev, t, refresh=False)["joiner_argmax" + sfx]
+        v = _check_joiner(models["vocab " + prec].runtime, S, rng, dev, t, refresh=False)
+        for name in ("joiner_argmax", "joiner_argmax_simt"):
+            out[f"{name}{sfx}_v16383"] = v[name + sfx]
 
     # 16. conv_embed (and conv_embed_simt, bit for bit) and 17.
     # conv_embed_front: every window of the step from the front buffer [S,
@@ -1325,15 +1369,24 @@ SOURCES = {
                         "april_asr_tpu/ops/joiner_pallas.py:218"),
     "dec_joiner_simt_f32": ("april_asr_tpu_torch/csrc/joiner.cu",
                             "april_asr_tpu/ops/joiner_pallas.py:218"),
-    "joiner_argmax": ("april_asr_tpu_torch/csrc/joiner.cu", "april_asr_tpu/ops/joiner_pallas.py:74"),
+    "joiner_argmax": ("april_asr_tpu_torch/csrc/joiner_stream.cu",
+                      "april_asr_tpu/ops/joiner_pallas.py:74"),
     "dec_joiner_f32": ("april_asr_tpu_torch/csrc/dec_joiner_cluster.cu",
                        "april_asr_tpu/ops/joiner_pallas.py:218"),
-    "joiner_argmax_f32": ("april_asr_tpu_torch/csrc/joiner.cu",
+    "joiner_argmax_f32": ("april_asr_tpu_torch/csrc/joiner_stream.cu",
                           "april_asr_tpu/ops/joiner_pallas.py:74"),
-    "joiner_argmax_v16383": ("april_asr_tpu_torch/csrc/joiner.cu",
+    "joiner_argmax_v16383": ("april_asr_tpu_torch/csrc/joiner_stream.cu",
                              "april_asr_tpu/ops/joiner_pallas.py:74"),
-    "joiner_argmax_f32_v16383": ("april_asr_tpu_torch/csrc/joiner.cu",
+    "joiner_argmax_f32_v16383": ("april_asr_tpu_torch/csrc/joiner_stream.cu",
                                  "april_asr_tpu/ops/joiner_pallas.py:74"),
+    "joiner_argmax_simt": ("april_asr_tpu_torch/csrc/joiner.cu",
+                           "april_asr_tpu/ops/joiner_pallas.py:74"),
+    "joiner_argmax_simt_f32": ("april_asr_tpu_torch/csrc/joiner.cu",
+                               "april_asr_tpu/ops/joiner_pallas.py:74"),
+    "joiner_argmax_simt_v16383": ("april_asr_tpu_torch/csrc/joiner.cu",
+                                  "april_asr_tpu/ops/joiner_pallas.py:74"),
+    "joiner_argmax_simt_f32_v16383": ("april_asr_tpu_torch/csrc/joiner.cu",
+                                      "april_asr_tpu/ops/joiner_pallas.py:74"),
     "conv_embed": ("april_asr_tpu_torch/csrc/conv_embed_tile.cu",
                    "april_asr_tpu/ops/conv_embed_pallas.py:333"),
     "conv_embed_simt": ("april_asr_tpu_torch/csrc/conv_embed.cu",
@@ -1370,6 +1423,8 @@ SOURCES = {
 }
 # the launch counter of a row that times a kernel at a second shape or tile
 COUNT_KEY = {"joiner_argmax_v16383": "joiner_argmax", "joiner_argmax_f32_v16383": "joiner_argmax_f32",
+             "joiner_argmax_simt_v16383": "joiner_argmax_simt",
+             "joiner_argmax_simt_f32_v16383": "joiner_argmax_simt_f32",
              "rec_interleave_i8_ts2": "rec_interleave_i8"}
 # the row that takes a path's launches of a kernel whose own row (another
 # shape, no serving path) keeps that kernel's count name
@@ -1417,6 +1472,7 @@ def phase_kernels(models, card, reps: int = 20):
     print_mma_plans(models["int8"].runtime, S_FLAG, P)
     decode_times(models, card, P)
     dj_times(models, card)
+    k9_times(models, card)
     fbank_times(card)
     return rows
 
@@ -1510,6 +1566,75 @@ def dj_times(models, card):
                       f"(device {k_dev:.2f} us a call, host {k_host:.2f} us a call), "
                       f"dec_joiner_simt ms={s_ms:.4f} (device {s_dev:.2f} us, host {s_host:.2f} "
                       f"us) ({card})")
+
+
+def k9_times(models, card):
+    """Kernel 9 by its route (csrc/joiner_stream.cu on the card's
+    `joiner_plan`) on the flagship's and the 16,383-token model's bf16 and
+    f32 join weights and on the narrow models' joiners (J = 128 at V = 64
+    and 16,383, weights drawn from a numpy seed): at S = 3, 256 and 2048
+    its plan, its three outputs equal bit for bit to `joiner_argmax_simt`'s
+    and both held to the plain version as `_check_joiner` holds them (max_idx
+    on the rows clear of a near-tie, max_val and blank_val at atol 1e-4); at
+    V = 16,383 (S = 256 and 2048) and V = 500 (S = 256) both timed by CUDA
+    events, the profiler's device time a call and the host's time a call
+    (`host_us_turns`), beside the plain version's device time, the bound
+    and the design's FFMA floor (2 S J V at the f32 rate)."""
+    from april_asr_tpu_torch.ops import cuda_build
+    from april_asr_tpu_torch.ops import joiner_kernels as JK
+    from april_asr_tpu_torch.ops import joiner_plan as JP
+    from april_asr_tpu_torch.tools.profile_decode import k9_case
+
+    dev = torch.device(DEV)
+    cases = [(prec, models[key].runtime.weights["join_t"], models[key].runtime.weights["join_b"],
+              models[key].runtime.blank_id) for prec in ("bf16", "f32")
+             for key in (prec, "vocab " + prec)]
+    rng = np.random.default_rng(19)
+    for J, V in ((128, 64), (128, 16383)):  # the narrow models' joiners
+        w = (rng.normal(size=(J, V)) * J ** -0.5).astype(np.float32)
+        jb = torch.from_numpy((rng.normal(size=V) * 0.1).astype(np.float32)).to(DEV)
+        for prec, wd in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            cases.append((prec, torch.from_numpy(w).to(wd).to(DEV), jb, 0))
+    names = ("max_idx", "max_val", "blank_val")
+    for prec, w_t, b, blank in cases:
+        J, V = w_t.shape
+        wb, key = w_t.element_size(), "joiner_argmax" + ("_f32" if prec == "f32" else "")
+        for S in (3, 256, 2048):
+            p = JP.device_joiner_plan(S, J, V, wb, dev.index or 0)
+            eout, dout = k9_case(w_t, S, np.random.default_rng(S + V), dev)
+            kf = lambda: JK.joiner_argmax_fused(eout, dout, w_t, b, blank_id=blank)  # noqa: E731
+            sf = lambda: JK.joiner_argmax_simt(eout, dout, w_t, b, blank)  # noqa: E731
+            pf = lambda: JK.joiner_argmax_plain(eout, dout, w_t, b, blank)  # noqa: E731
+            before = cuda_build.COUNTS[key]
+            got = kf()
+            if p is None or cuda_build.COUNTS[key] != before + 1:
+                raise AssertionError(f"kernel 9 {prec} S={S} J={J} V={V}: the stream kernel did "
+                                     f"not launch ({p})")
+            what = f"kernel 9 {prec} S={S} J={J} V={V}"
+            _bit_equal(got, sf(), names, f"{what}: the stream kernel against joiner_argmax_simt "
+                       f"({k9_plan_line(p)})")
+            want = pf()
+            clear = _clear_rows(eout, dout, w_t, b, blank, what, 0.9 if S > 3 else 0.0)
+            if not torch.equal(got[0][clear], want[0][clear]):
+                raise AssertionError(f"{what}: max_idx differs from the plain version")
+            for i in (1, 2):
+                torch.testing.assert_close(got[i], want[i], atol=1e-4, rtol=0,
+                                           msg=f"{what} {names[i]}")
+            if J != 512 or S == 3 or (V == 500 and S == 2048):
+                continue
+            k_ms, s_ms = cuda_ms(kf, 20), cuda_ms(sf, 20)
+            k_dev = profiled(kf, 5, "joiner_stream")[1]
+            s_dev = profiled(sf, 5, ("joiner_tile", "argmax_final", "Memset"))[1]
+            p_dev = profiled(pf, 3, "")[1]
+            host = host_us_turns({"stream": kf, "simt": sf})
+            b_ms, b_by = bound_ms(S * (2 * J * 4 + 12) + J * V * wb + V * 4,
+                                  {"f32" if wb == 4 else "bf16": 2 * S * J * V})
+            floor = 2 * S * J * V / PEAK_OPS["f32"] * 1e3
+            print(f"kernel 9 {prec} S={S} V={V}: stream kernel ms={k_ms:.4f} (device "
+                  f"{k_dev:.2f} us a call, host {host['stream']:.2f} us a call), "
+                  f"joiner_argmax_simt ms={s_ms:.4f} (device {s_dev:.2f} us, host "
+                  f"{host['simt']:.2f} us), plain device {p_dev:.2f} us, bound_ms={b_ms:.4f} "
+                  f"({b_by}), FFMA floor {floor:.4f} ms; {k9_plan_line(p)} ({card})")
 
 
 def print_mma_plans(rt, S: int, P: int):
@@ -1892,6 +2017,7 @@ def phase_vocab(models, path: str, narrow_path: str, card) -> dict:
     from april_asr_tpu_torch.config import DecodeConfig
     from april_asr_tpu_torch.decode.greedy import init_decode_state, vocab_tables_device
     from april_asr_tpu_torch.engine.step import INNER_STEPS_EMIT
+    from april_asr_tpu_torch.ops import cuda_build
     from april_asr_tpu_torch.ops import decode_kernels as DK
 
     rt = models["vocab f32"].runtime
@@ -1910,13 +2036,28 @@ def phase_vocab(models, path: str, narrow_path: str, card) -> dict:
     if DK.chunk_decode_supported(S_FLAG, dims.joiner_dim, dims.d_model, dims.context, dims.vocab):
         raise AssertionError("vocab: the chunk decode gate passes V=16383")
     t0 = time.perf_counter()
+    cuda_build.reset_counts()
     _lockstep(rt, Model(path, device="cpu").runtime, S=8, chunk=CHUNK_1S, ticks=3, seed=5,
               what="vocab f32 lockstep", card=card)
+    k9_route("vocab f32 lockstep", dict(cuda_build.COUNTS), "joiner_argmax_f32")
     print(f"vocab: lockstep in {time.perf_counter() - t0:.1f} s")
     counts = _merge(phase_engine(models["vocab f32"], card, "vocab f32", ticks=3),
                     phase_engine(models["vocab bf16"], card, "vocab bf16", ticks=3))
+    k9_route("vocab engines", counts, "joiner_argmax_f32", "joiner_argmax")
     vocab_narrow(narrow_path, card)
     return counts
+
+
+def k9_route(what: str, counts: dict, *keys) -> None:
+    """Kernel 9 ran on its route (csrc/joiner_stream.cu) in `counts`: each
+    of `keys` launched, the CUDA-core kernels it replaced
+    (`joiner_argmax_simt`) never."""
+    simt = {k: counts.get(k, 0) for k in ("joiner_argmax_simt", "joiner_argmax_simt_f32")}
+    got = {k: counts.get(k, 0) for k in keys}
+    if any(simt.values()) or not all(got.values()):
+        raise AssertionError(f"{what}: kernel 9 launched {got}, joiner_argmax_simt {simt}")
+    print(f"{what}: kernel 9 on its route (csrc/joiner_stream.cu) {got} times, "
+          f"joiner_argmax_simt {simt}")
 
 
 def serve_once(model, path: str, S: int, ticks: int, card) -> dict:
