@@ -3,6 +3,11 @@
 // the model group (ops/lstm_tp_kernels.py, models/lstm_transducer.py
 // `_lstm_stack_step_tp`).
 //
+// Kernels 18 and 19 run as one launch each in csrc/lstm_tp_gates.cu; their
+// two-pass forms here are kept as `tp_gate_cell_proj_simt` and
+// `tp_gates_cell_i8_simt`, the yardstick those are held to bit for bit and
+// the route where their plans do not hold the shapes (ops/tp_plan.py).
+//
 // Replace april_asr_tpu/ops/lstm_tp_pallas.py:
 //   tp_gate_cell_proj (18) `lstm_gate_cell_proj` (`_gcp_kernel`), f32 or bf16
 //     weights: gates = dot(x, w_ih) + dot(h, w_hh) + b over the shard's
@@ -148,14 +153,15 @@ static cudaError_t ffn_partial(const float* y, const void* ff1, const void* f1b,
                                             0, st);
 }
 
-// Kernel 18. gate: [S] f32 or null (ungated). hc [S, Hs] is the wrapper's
-// scratch. Outputs hp [S, d] (ungated) and c2 [S, Hs]. w_bf16 selects the
-// weight type (1: bf16, 0: f32).
-extern "C" int tp_gate_cell_proj(const float* x, const float* h, const float* c,
-                                 const float* gate, const void* wih, const void* whh,
-                                 const void* bias, const void* whr, float* hc, float* hp,
-                                 float* c2, int S, int d, int Hs, int w_bf16, int bias_bf16,
-                                 void* stream) {
+// Kernel 18's two passes, kept as `tp_gate_cell_proj_simt` beside the one
+// launch that replaced them (csrc/lstm_tp_gates.cu). gate: [S] f32 or null
+// (ungated). hc [S, Hs] is the wrapper's scratch. Outputs hp [S, d]
+// (ungated) and c2 [S, Hs]. w_bf16 selects the weight type (1: bf16, 0: f32).
+extern "C" int tp_gate_cell_proj_simt(const float* x, const float* h, const float* c,
+                                      const float* gate, const void* wih, const void* whh,
+                                      const void* bias, const void* whr, float* hc, float* hp,
+                                      float* c2, int S, int d, int Hs, int w_bf16,
+                                      int bias_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(w_bf16 ? gate_cell_proj<uint16_t>(x, h, c, gate, wih, whh, bias, whr, hc, hp, c2,
                                                  S, d, Hs, bias_bf16, st)
@@ -163,11 +169,13 @@ extern "C" int tp_gate_cell_proj(const float* x, const float* h, const float* c,
                                               d, Hs, bias_bf16, st));
 }
 
-// Kernel 19. Outputs hc [S, Hs] (ungated) and c2 [S, Hs].
-extern "C" int tp_gates_cell_i8(const float* x, const float* h, const float* c,
-                                const float* gate, const int8_t* wih, const float* wihs,
-                                const int8_t* whh, const float* whhs, const void* bias, float* hc,
-                                float* c2, int S, int d, int Hs, int bias_bf16, void* stream) {
+// Kernel 19's gate pass, kept as `tp_gates_cell_i8_simt` (csrc/lstm_tp_gates.cu
+// replaced it). Outputs hc [S, Hs] (ungated) and c2 [S, Hs].
+extern "C" int tp_gates_cell_i8_simt(const float* x, const float* h, const float* c,
+                                     const float* gate, const int8_t* wih, const float* wihs,
+                                     const int8_t* whh, const float* whhs, const void* bias,
+                                     float* hc, float* c2, int S, int d, int Hs, int bias_bf16,
+                                     void* stream) {
   return (int)launch_gates<I8Ops>(x, h, c, gate, wih, wihs, whh, whhs, bias, hc, c2, S, d, Hs,
                                   bias_bf16, (cudaStream_t)stream);
 }

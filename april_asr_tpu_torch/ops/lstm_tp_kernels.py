@@ -24,20 +24,29 @@ width Hs = H/m. x, h and y are replicated rows, so the in-kernel _rowq8 of
 x, h and y is the single-device quantization exactly.
 
 Each wrapper takes the plain PyTorch version for CPU tensors and launches
-csrc/lstm_tp.cu for CUDA tensors (counted as `tp_gcp_f32`/`tp_gcp_bf16`,
-`tp_gc_i8`, `tp_ffn_f32`/`tp_ffn_bf16` and `tp_ffn_mid_i8`), at any S (the
-TPU kernels tile S by block_s; these take ragged session tiles); it never
-falls back. `gate` (optional [S]) blends c inside the kernels as
-`gt * c_new + (1 - gt) * c`; the outputs hp and hc are ungated.
+a kernel for CUDA tensors, at any S (the TPU kernels tile S by block_s;
+these take ragged session tiles); it never falls back. Kernels 18 and 19
+are one launch each of csrc/lstm_tp_gates.cu (counted as `tp_gcp_f32` /
+`tp_gcp_bf16` and `tp_gc_i8`) on ops/tp_plan.py's plans; where no plan
+holds the shapes (the route reads shapes only) they launch the two-pass
+kernels they replaced, kept in csrc/lstm_tp.cu as `tp_gate_cell_proj_simt`
+and `tp_gates_cell_i8_simt` (counted as `tp_gcp_simt_f32` / `_bf16` and
+`tp_gc_i8_simt`; chip_smoke.py holds the new kernels to them bit for bit).
+Kernels 20 and 21 are csrc/lstm_tp.cu's column passes (`tp_ffn_f32` /
+`tp_ffn_bf16`, `tp_ffn_mid_i8`). `gate` (optional [S]) blends c inside the
+kernels as `gt * c_new + (1 - gt) * c`; the outputs hp and hc are ungated.
 """
 
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
 
 from . import cuda_build
+from . import tp_plan as TP
 from .activations import dot_wd, double_swish, sigmoid
-from .lstm_kernels import _bias_flag, _check, _gate_arg, _gate_blend, _q8_mm
+from .lstm_kernels import _bias_flag, _check, _gate_arg, _gate_blend, _q8_mm, _smem_check
 
 
 def tp_smem(d: int, Hs: int, Fs: int, wbytes: int) -> dict:
@@ -107,21 +116,87 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def lstm_gate_cell_proj_cuda(x, h, c, w_ih, w_hh, bias, w_hr, gate=None):
+_FORMS: Dict[tuple, tuple] = {}
+_FN: dict = {}  # the one-launch kernels' ctypes handles, bound once
+
+
+def _fn(name: str, n_ptr: int, n_int: int):
+    fn = _FN.get(name)
+    if fn is None:
+        fn = _FN[name] = cuda_build.bind("lstm_tp_gates", name, n_ptr, n_int)
+    return fn
+
+
+def tp_weight_forms(w_ih, w_hh, w_hr) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 18's weight forms (csrc/lstm_tp_gates.cu): the gate form
+    [2][d][Hs][4] f32 (w_ih, then w_hh; a unit's four gate weights at a
+    depth side by side) and w_hr [Hs][d] as f32 (the tensor itself at f32);
+    bf16 weights widened exactly. Laid out once per weights, cached by the
+    address, shape, type and version of each (the cache holds the tensors,
+    so no address is reused while an entry lives)."""
+    key = (w_ih.data_ptr(), w_hh.data_ptr(), w_hr.data_ptr(), w_ih._version, w_hh._version,
+           w_hr._version, w_ih.dtype, w_ih.shape, w_hr.shape)
+    hit = _FORMS.get(key)
+    if hit is not None:
+        return hit[1]
+    d, G = w_ih.shape
+    wg = torch.stack((w_ih, w_hh)).float().view(2, d, 4, G // 4).transpose(2, 3).contiguous()
+    wr = w_hr.float().contiguous()
+    if len(_FORMS) >= 64:
+        _FORMS.clear()
+    _FORMS[key] = ((w_ih, w_hh, w_hr), (wg, wr))
+    return wg, wr
+
+
+def _gcp_args(x, h, c, w_ih, w_hh, bias, w_hr, gate, what: str):
     S, d = x.shape
     Hs = c.shape[1]
-    what = "tp_gate_cell_proj"
     w_bf16 = _float_flag(w_ih, what)
     _check_rows(what, S, d, Hs, x, h, c)
     _check_mats(what, ((w_ih, (d, 4 * Hs), "w_ih"), (w_hh, (d, 4 * Hs), "w_hh"),
                        (w_hr, (Hs, d), "w_hr")), w_ih.dtype, 16)
     _check(bias.reshape(-1), bias.dtype, (4 * Hs,), f"{what} bias")
-    g = _gate_arg(gate, S, what)
+    return S, d, Hs, w_bf16, _gate_arg(gate, S, what)
+
+
+def lstm_gate_cell_proj_cuda(x, h, c, w_ih, w_hh, bias, w_hr, gate=None, *, plan=None,
+                             stamps=None):
+    """Kernel 18 by its route: csrc/lstm_tp_gates.cu on `plan` (default the
+    card's `tp_plan.device_gcp_plan`), else, where no plan holds the shapes,
+    the kept two-pass kernel. `stamps` (int64 [nb, 4], or None) receives each
+    block's phase times (tools/profile_tp.py)."""
+    what = "tp_gate_cell_proj"
+    S, d, Hs, w_bf16, g = _gcp_args(x, h, c, w_ih, w_hh, bias, w_hr, gate, what)
+    if plan is None:
+        plan = TP.device_gcp_plan(S, d, Hs, x.device.index or 0)
+        if plan is None:
+            return lstm_gate_cell_proj_simt_cuda(x, h, c, w_ih, w_hh, bias, w_hr, gate)
+    wg, wr = tp_weight_forms(w_ih, w_hh, w_hr)
+    hc = torch.empty((S, Hs), dtype=torch.float32, device=x.device)
+    hp = torch.empty_like(x)
+    c2 = torch.empty_like(c)
+    fn = _fn(what, 11, 9)
+    cuda_build.COUNTS["tp_gcp_bf16" if w_bf16 else "tp_gcp_f32"] += 1
+    rc = fn(x.data_ptr(), h.data_ptr(), c.data_ptr(), None if g is None else g.data_ptr(),
+            wg.data_ptr(), bias.data_ptr(), wr.data_ptr(), hc.data_ptr(), hp.data_ptr(),
+            c2.data_ptr(), None if stamps is None else stamps.data_ptr(),
+            S, d, Hs, w_bf16, _bias_flag(bias, what), *plan.ints(), _stream(x))
+    _smem_check(rc, what, f"d={d}, hidden={Hs} ({plan})")
+    return hp, c2
+
+
+def lstm_gate_cell_proj_simt_cuda(x, h, c, w_ih, w_hh, bias, w_hr, gate=None):
+    """The two-pass kernel 18 replaced (csrc/lstm_tp.cu
+    `tp_gate_cell_proj_simt`: `step_gates` at Hs, then a `tp_cols` pass);
+    the oracle chip_smoke.py holds kernel 18 to, bit for bit, and its route
+    where kernel 18 has no plan."""
+    what = "tp_gate_cell_proj_simt"
+    S, d, Hs, w_bf16, g = _gcp_args(x, h, c, w_ih, w_hh, bias, w_hr, gate, what)
     hc = torch.empty((S, Hs), dtype=torch.float32, device=x.device)
     hp = torch.empty_like(x)
     c2 = torch.empty_like(c)
     fn = cuda_build.bind("lstm_tp", what, 11, 5)
-    cuda_build.COUNTS["tp_gcp_bf16" if w_bf16 else "tp_gcp_f32"] += 1
+    cuda_build.COUNTS["tp_gcp_simt_bf16" if w_bf16 else "tp_gcp_simt_f32"] += 1
     rc = fn(x.data_ptr(), h.data_ptr(), c.data_ptr(), None if g is None else g.data_ptr(),
             w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(), w_hr.data_ptr(),
             hc.data_ptr(), hp.data_ptr(), c2.data_ptr(),
@@ -130,21 +205,56 @@ def lstm_gate_cell_proj_cuda(x, h, c, w_ih, w_hh, bias, w_hr, gate=None):
     return hp, c2
 
 
-def lstm_gates_cell_i8_cuda(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, gate=None):
+def _gc_i8_args(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, gate, what: str):
     S, d = x.shape
     Hs = c.shape[1]
-    what = "tp_gates_cell_i8"
     _check_rows(what, S, d, Hs, x, h, c)
     _check_mats(what, ((w_ih_q, (d, 4 * Hs), "w_ih"), (w_hh_q, (d, 4 * Hs), "w_hh")),
                 torch.int8, 4)
     for s, name in ((w_ih_s, "w_ih scale"), (w_hh_s, "w_hh scale")):
         _check(s.reshape(-1), torch.float32, (4 * Hs,), f"{what} {name}")
     _check(bias.reshape(-1), bias.dtype, (4 * Hs,), f"{what} bias")
-    g = _gate_arg(gate, S, what)
+    return S, d, Hs, _gate_arg(gate, S, what)
+
+
+def lstm_gates_cell_i8_cuda(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, gate=None, *,
+                            plan=None, stamps=None):
+    """Kernel 19 by its route: csrc/lstm_tp_gates.cu on `plan` (default the
+    card's `tp_plan.device_gc_i8_plan`), its scratch in one workspace
+    (`GcI8Plan.scratch`), else the kept two-pass kernel. `stamps` (int64
+    [nb, 4], or None) receives each block's phase times."""
+    what = "tp_gates_cell_i8"
+    S, d, Hs, g = _gc_i8_args(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, gate, what)
+    if plan is None:
+        plan = TP.device_gc_i8_plan(S, d, Hs, x.device.index or 0)
+        if plan is None:
+            return lstm_gates_cell_i8_simt_cuda(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias,
+                                                gate)
+    hc = torch.empty_like(c)
+    c2 = torch.empty_like(c)
+    nbytes, offsets = plan.scratch()
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    fn = _fn(what, 16, 11)
+    cuda_build.COUNTS["tp_gc_i8"] += 1
+    rc = fn(x.data_ptr(), h.data_ptr(), c.data_ptr(), None if g is None else g.data_ptr(),
+            w_ih_q.data_ptr(), w_ih_s.data_ptr(), w_hh_q.data_ptr(), w_hh_s.data_ptr(),
+            bias.data_ptr(), hc.data_ptr(), c2.data_ptr(), *(ws.data_ptr() + o for o in offsets),
+            None if stamps is None else stamps.data_ptr(), S, d, Hs, _bias_flag(bias, what),
+            plan.sp, plan.dp, plan.ub, plan.nb, *plan.gate.ints(), _stream(x))
+    _smem_check(rc, what, f"d={d}, hidden={Hs}")
+    return hc, c2
+
+
+def lstm_gates_cell_i8_simt_cuda(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, gate=None):
+    """The kernel 19 replaced (csrc/lstm_tp.cu `tp_gates_cell_i8_simt`,
+    `step_gates` at Hs on the CUDA cores): kernel 19's oracle, bit for bit,
+    and its route where kernel 19 has no plan."""
+    what = "tp_gates_cell_i8_simt"
+    S, d, Hs, g = _gc_i8_args(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, gate, what)
     hc = torch.empty_like(c)
     c2 = torch.empty_like(c)
     fn = cuda_build.bind("lstm_tp", what, 11, 4)
-    cuda_build.COUNTS["tp_gc_i8"] += 1
+    cuda_build.COUNTS["tp_gc_i8_simt"] += 1
     rc = fn(x.data_ptr(), h.data_ptr(), c.data_ptr(), None if g is None else g.data_ptr(),
             w_ih_q.data_ptr(), w_ih_s.data_ptr(), w_hh_q.data_ptr(), w_hh_s.data_ptr(),
             bias.data_ptr(), hc.data_ptr(), c2.data_ptr(),
@@ -215,6 +325,19 @@ def lstm_gates_cell_i8(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, gate=None)
     model-global row scale and runs the w_hr product outside the kernel."""
     return _dispatch("tp_gates_cell_i8", x, lstm_gates_cell_i8_plain, lstm_gates_cell_i8_cuda,
                      x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, gate)
+
+
+def lstm_gate_cell_proj_simt(x, h, c, w_ih_t, w_hh_t, bias, w_hr_t, gate=None):
+    """Kernel 18 on the kept two-pass kernel (the plain version on the CPU)."""
+    return _dispatch("tp_gate_cell_proj_simt", x, lstm_gate_cell_proj_plain,
+                     lstm_gate_cell_proj_simt_cuda, x, h, c, w_ih_t, w_hh_t, bias, w_hr_t, gate)
+
+
+def lstm_gates_cell_i8_simt(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, gate=None):
+    """Kernel 19 on the kept two-pass kernel (the plain version on the CPU)."""
+    return _dispatch("tp_gates_cell_i8_simt", x, lstm_gates_cell_i8_plain,
+                     lstm_gates_cell_i8_simt_cuda, x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias,
+                     gate)
 
 
 def ffn_partial(y, ff1_t, ff1_b, ff2_t):

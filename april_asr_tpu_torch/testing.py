@@ -285,7 +285,12 @@ def engine_run(args: dict) -> dict:
     callbacks, the INT_DECODE state, the launch counts and the wall ms;
     with `args["margins"]`, also the plain decode's DecisionMargins per
     event cell (the decode must then run its plain versions: on the CPU, or
-    through a runtime whose `decoder_joiner_argmax` is the plain one)."""
+    through a runtime whose `decoder_joiner_argmax` is the plain one). With
+    `args["profile"]` (a CUDA run), the calls it names (indices) run under
+    torch.profiler: out["profile"][call] = {"kernels": {device kernel name:
+    (device us, launches)}, "wall_ms"}. With `args["tp_kernels"]` "simt",
+    the tensor-parallel step runs kernels 18 and 19 on the two-pass kernels
+    they replaced (the yardstick of a before-and-after breakdown)."""
     import torch
 
     from .config import EngineConfig
@@ -319,21 +324,31 @@ def engine_run(args: dict) -> dict:
     out = {"events": [], "blobs": [], "recs": [], "dec": [], "counts": [], "ms": [],
            "cells": [], "c_shape": tuple(eng.state["c"].shape)}
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
-    with margins if margins is not None else contextlib.nullcontext():
+    prof_calls = set(args.get("profile") or ()) if dev == "cuda" else set()
+    if prof_calls:
+        out["profile"] = {}
+    with margins if margins is not None else contextlib.nullcontext(), \
+            _tp_simt() if args.get("tp_kernels") == "simt" else contextlib.nullcontext():
         for k in range(args["ticks"] + 1):
             if margins is not None:
                 margins.reset()
             sync()
             cuda_build.reset_counts()
-            t0 = time.perf_counter()
-            if k < args["ticks"]:
-                for i in range(S):
-                    eng.feed(i, audio[k, i])
-                eng.tick()
-            else:
-                eng.flush(np.ones(S, bool))
-            sync()
-            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            prof = _profiler() if k in prof_calls else contextlib.nullcontext()
+            with prof:
+                t0 = time.perf_counter()
+                if k < args["ticks"]:
+                    for i in range(S):
+                        eng.feed(i, audio[k, i])
+                    eng.tick()
+                else:
+                    eng.flush(np.ones(S, bool))
+                sync()
+                out["ms"].append((time.perf_counter() - t0) * 1e3)
+            if k in prof_calls:
+                out["profile"][k] = {"wall_ms": out["ms"][-1], "kernels": {
+                    e.key: (e.self_device_time_total, e.count)
+                    for e in prof.key_averages() if e.self_device_time_total > 0}}
             out["counts"].append({c: v for c, v in cuda_build.COUNTS.items() if v})
             ev, blob = calls[-1]
             out["events"].append(ev)
@@ -343,6 +358,28 @@ def engine_run(args: dict) -> dict:
             if margins is not None:
                 out["cells"].append(margins.per_cell(ev["ops"].shape[1] * ev["ops"].shape[2]))
     return out
+
+
+def _profiler():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+@contextlib.contextmanager
+def _tp_simt():
+    """The tensor-parallel step's kernels 18 and 19 on their kept two-pass
+    kernels while the block runs."""
+    from .models import lstm_transducer as TM
+    from .ops import lstm_tp_kernels as TK
+
+    saved = TM.lstm_gate_cell_proj, TM.lstm_gates_cell_i8
+    TM.lstm_gate_cell_proj, TM.lstm_gates_cell_i8 = (TK.lstm_gate_cell_proj_simt,
+                                                      TK.lstm_gates_cell_i8_simt)
+    try:
+        yield
+    finally:
+        TM.lstm_gate_cell_proj, TM.lstm_gates_cell_i8 = saved
 
 
 def tp_cases(args: dict) -> list:

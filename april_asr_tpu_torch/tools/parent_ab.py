@@ -3,7 +3,7 @@ it, e.g. with `git archive`) on one card, in turns: other, this, this,
 other.
 
     python -m april_asr_tpu_torch.tools.parent_ab --other build/parent \
-        [--out build/parent_ab] [--sass] [--only k9]
+        [--out build/parent_ab] [--sass] [--only k9|tp]
 
 Each turn is a worker process that imports `april_asr_tpu_torch` and
 `chip_smoke.py` from one tree (its kernels built into that tree's build
@@ -71,6 +71,12 @@ ulps where the encoder's sums change order); and kernel 10's outputs to be
 equal between the turns of one tree (it changes between the trees). It
 prints the times per turn. With `--only k9` each turn runs kernel 9 and
 the 16,383-token engines alone, and only their outputs and blobs are
+compared. With `--only tp` each turn runs the tensor-parallel pieces alone
+(`tp_turn`): kernels 18-21 on rank 0's slices of the flagship model's layer
+0 (m = 2) at S = 256 and 2048 on numpy seed inputs, ungated and gated where
+the kernel takes a gate (the SHA-1 of their outputs, CUDA-event ms and the
+profiler's device us a call), and both two-rank TP engines' (int8, f32)
+event blobs over 3 ticks and a flush; only those outputs and blobs are
 compared. With `--sass`, it also runs `sass_diff` on
 csrc/lstm_mma.cu, lstm_i8.cu, lstm_step.cu, lstm_tp.cu, lstm_mma_float.cu,
 lstm_chunk_mma.cu, chunk_decode.cu, chunk_decode_cluster.cu, joiner.cu,
@@ -291,6 +297,83 @@ def kernel9_turn(CS, vocab_path: str, audio, res: dict, card: str) -> None:
         del rt
 
 
+TP_SIZES = (256, 2048)
+# the tensor-parallel kernels' device kernels in either tree (the one-launch
+# kernels 18 and 19, or the two-pass kernels and kernels 20 and 21)
+TP_KEYS = ("tp_gcp_kernel", "tp_gc_i8_kernel", "step_gates", "tp_cols")
+TP_KERNELS = ("k18_f32", "k18_bf16", "k19", "k20_f32", "k20_bf16", "k21")
+
+
+def tp_turn(CS, path: str, res: dict, card: str) -> None:
+    """Kernels 18-21 on rank 0's slices (m = 2, `chip_smoke._tp_shards`) of
+    the model at `path` (f32 and bf16 weights as served at those types, int8
+    copies) at S = 256 and 2048 on numpy seed inputs: the SHA-1 of their
+    outputs (18 and 19 also gated), CUDA-event ms and the profiler's device
+    us a call, into res["<kernel>_S<S>_*"]; then both two-rank TP engines'
+    event blobs over 3 ticks of tone bursts and a flush
+    (res["blob_tp_<prec>_sha"], required equal on both ranks) and their
+    rank-0 wall ms a call."""
+    import numpy as np
+    import torch
+
+    from april_asr_tpu_torch.api import Model
+    from april_asr_tpu_torch.ops import lstm_tp_kernels as TK
+    from april_asr_tpu_torch.testing import RankGroup
+
+    models = {"int8": Model(path, precision="int8", device="cuda"),
+              "bf16": Model(path, precision="bf16", device="cuda"),
+              "f32": Model(path, device="cuda")}
+    dims = models["int8"].runtime.dims
+    d, Hs = dims.d_model, dims.hidden // 2
+    fk, ik = CS.TP_FLOAT_KEYS, CS.TP_I8_KEYS
+    w = {p: CS._tp_shards(models[p].runtime.weights, fk, 2)[0] for p in ("f32", "bf16")}
+    q = CS._tp_shards(models["int8"].runtime.weights, ik, 2)[0]
+    dev = torch.device("cuda")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    for S in TP_SIZES:
+        rng = np.random.default_rng(S + 31)
+        x = t(rng.normal(size=(S, d)).astype(np.float32))
+        h = t((rng.normal(size=(S, d)) * 0.3).astype(np.float32))
+        c = t((rng.normal(size=(S, Hs)) * 0.3).astype(np.float32))
+        y = t(rng.normal(size=(S, d)).astype(np.float32))
+        gate = t(rng.random(S) < 0.5)
+        fns = {
+            "k18_f32": lambda g=None: TK.lstm_gate_cell_proj(
+                x, h, c, *(w["f32"][k] for k in fk[:4]), g),
+            "k18_bf16": lambda g=None: TK.lstm_gate_cell_proj(
+                x, h, c, *(w["bf16"][k] for k in fk[:4]), g),
+            "k19": lambda g=None: TK.lstm_gates_cell_i8(x, h, c, *(q[k] for k in ik[:5]), g),
+            "k20_f32": lambda g=None: TK.ffn_partial(y, *(w["f32"][k] for k in fk[4:])),
+            "k20_bf16": lambda g=None: TK.ffn_partial(y, *(w["bf16"][k] for k in fk[4:])),
+            "k21": lambda g=None: TK.ffn_mid_i8(y, q["ff1_t_q8"], q["ff1_t_q8s"], q["ff1_b"]),
+        }
+        for name, fn in fns.items():
+            outs = list(fn()) if name[:3] in ("k18", "k19") else [fn()]
+            if name[:3] in ("k18", "k19"):
+                outs += list(fn(gate))
+            res[f"{name}_S{S}_sha"] = [_sha(o) for o in outs]
+            res[f"{name}_S{S}_ms"] = CS.cuda_ms(fn, 20)
+            res[f"{name}_S{S}_device_us"] = CS.profiled(fn, 5, TP_KEYS)[1]
+        print("kernels: " + ", ".join(
+            f"{n} S={S} {res[f'{n}_S{S}_ms']:.4f} ms ({res[f'{n}_S{S}_device_us']:.1f} us device)"
+            for n in TP_KERNELS) + f" ({card})", flush=True)
+    audio = np.stack(CS._tone_bufs(CS.S_FLAG, CS.CHUNK_1S, models["int8"].runtime.sample_rate,
+                                   n=3, seed=21))
+    del models
+    for prec in ("int8", "f32"):
+        args = dict(path=path, precision="int8" if prec == "int8" else None, m=2, device="cuda",
+                    audio=audio, ticks=3)
+        ranks = RankGroup("april_asr_tpu_torch.testing:engine_run", args, world=2,
+                          timeout=600).join()
+        shas = [_blob_sha(r["blobs"]) for r in ranks]
+        if shas[0] != shas[1]:
+            raise AssertionError(f"tp engine {prec}: the ranks' blobs differ")
+        res[f"blob_tp_{prec}_sha"] = shas[0]
+        res[f"tp_{prec}_ms"] = ranks[0]["ms"]
+        print(f"tp engine {prec}: rank 0 ms a call {[round(v, 1) for v in ranks[0]['ms']]} "
+              f"({card})", flush=True)
+
+
 def queued_us(fn, n: int) -> float:
     """CUDA-event us a call over n calls queued back to back (after a
     warm-up): the device's time a call where it exceeds the host's."""
@@ -309,7 +392,8 @@ def queued_us(fn, n: int) -> float:
 
 def worker(root: str, out: str, only: str = "") -> None:
     """One turn: everything measured from the tree at `root` (with `only`
-    "k9", kernel 9 and the 16,383-token engines alone)."""
+    "k9", kernel 9 and the 16,383-token engines alone; "tp", the
+    tensor-parallel pieces alone)."""
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -335,6 +419,10 @@ def worker(root: str, out: str, only: str = "") -> None:
             audio = np.stack([bufs[k % len(bufs)] for k in range(3)])
             kernel9_turn(CS, CS.flagship_april(tmp, dims=TransducerDims(vocab=16383)), audio, res,
                          card)
+            print(TAG + json.dumps(dict(res, card=card)), flush=True)
+            return
+        if only == "tp":
+            tp_turn(CS, CS.flagship_april(tmp), res, card)
             print(TAG + json.dumps(dict(res, card=card)), flush=True)
             return
         path = CS.flagship_april(tmp)
@@ -568,13 +656,37 @@ def k9_summary(turns: list, rows: list, out: Path, t0: float) -> int:
     return 0
 
 
+def tp_summary(turns: list, rows: list, out: Path, t0: float) -> int:
+    """`--only tp`: kernels 18-21's outputs and both TP engines' blobs
+    required equal across every turn; their times per turn."""
+    ref = turns[0]
+    keys = tuple(f"{n}_S{S}_sha" for n in TP_KERNELS for S in TP_SIZES) + tuple(
+        f"blob_tp_{p}_sha" for p in ("int8", "f32"))
+    bad = sorted({k for tr in turns for k in keys if tr[k] != ref[k]})
+    summary = {
+        "turns": [{k: tr[k] for k in ("label", "build_s", "tp_int8_ms", "tp_f32_ms") + tuple(
+            f"{n}_S{S}_{u}" for n in TP_KERNELS for S in TP_SIZES
+            for u in ("ms", "device_us"))} for tr in turns],
+        "equal": not bad, "differ": bad,
+        "sass_differs": [f"{r['source']} {r['kernel']}" for r in rows if not r["same"]],
+        "card": ref["card"], "seconds": time.perf_counter() - t0,
+    }
+    (out / "summary.json").write_text(json.dumps(summary, indent=1))
+    print(json.dumps(summary))
+    if bad:
+        print(f"parent_ab: outputs differ between the trees: {bad}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, help="the other tree (e.g. the parent commit)")
     ap.add_argument("--out", type=Path, default=TREE / "build" / "parent_ab")
     ap.add_argument("--sass", action="store_true", help="also sass_diff the shared sources")
-    ap.add_argument("--only", default="", choices=("", "k9"),
-                    help="k9: kernel 9 and the 16,383-token engines alone")
+    ap.add_argument("--only", default="", choices=("", "k9", "tp"),
+                    help="k9: kernel 9 and the 16,383-token engines alone; tp: the "
+                         "tensor-parallel kernels 18-21 and engines alone")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--npz", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -595,6 +707,8 @@ def main(argv=None) -> int:
     ref = turns[0]
     if args.only == "k9":
         return k9_summary(turns, rows, args.out, t0)
+    if args.only == "tp":
+        return tp_summary(turns, rows, args.out, t0)
     equal_keys = ("k2_S256_sha", "k2_S2048_sha", "k3_S256_sha", "k3_S2048_sha", "k7_sha",
                   "k7_gated_sha", "blob_sha") + tuple(f"k{n}_S{S}_sha" for n in (1, 5, 16)
                                                       for S in FBANK_SIZES) + EQUAL_KEYS

@@ -140,17 +140,25 @@ Phases (each fails the run on error):
              forms at 2048 x 512 x 4096 timed with their plain versions and
              bounds, the other shapes' plain times and bounds, and each
              wrapper's refusal of a ragged shape
-  tp         tensor parallelism at m = 2: kernels 18-21 on one shard's
-             gate-shuffled slices at flagship widths (d 512, Hs 512, Fs
-             1024), 18 and 20 at f32 and bf16 weights, 19 and 21 on the int8
-             weights, against their plain versions, timed at S=256 and
-             checked again at S=3; both shards' partials summed against
-             kernel 7 (int8) and 12 (f32); then two rank processes on this
-             card (gloo, a file store) each serve BatchEngine(S=256,
+  tp         tensor parallelism: kernels 18-21 on one shard's
+             gate-shuffled slices at flagship widths (m = 2: d 512, Hs 512,
+             Fs 1024), 18 and 20 at f32 and bf16 weights, 19 and 21 on the
+             int8 weights, against their plain versions, timed at S=256 and
+             checked again at S=3 and at m = 4 (Hs 256, S=256 and 3);
+             kernels 18 and 19 (csrc/lstm_tp_gates.cu, one launch each)
+             bit for bit against the two-pass kernels they replaced
+             (`*_simt`, csrc/lstm_tp.cu) gated and ungated, both timed by
+             CUDA events, the profiler's device time and the host's time a
+             call; every shard's partials summed against kernel 7 (int8)
+             and 12 (f32); then two rank processes on this card (gloo, a
+             file store) each serve BatchEngine(S=256,
              mesh=make_mesh(model_parallel=2)) at int8 and at f32, 3 ticks
              and a flush: identical blobs on both ranks, exactly the
-             PATH_KERNELS["tp ..."] launches, and the events of the
-             single-card per-pull engine up to near-ties
+             PATH_KERNELS["tp ..."] launches (the two-pass kernels never),
+             the events of the single-card per-pull engine up to
+             near-ties, rank 0's device time of a step and the flush by
+             kernel (torch.profiler), and the same run on the two-pass
+             kernels with equal blobs, profiled alike
 
 Output: one line per kernel and per phase, then a JSON line
 {"kernels": [...]}, the `nvidia-smi` name and power limit, and as the last
@@ -472,7 +480,9 @@ def phase_build(card):
 # (csrc/dec_joiner_cluster.cu, two weight types x dec_proj resident or
 # streamed) on FFMA alone, in dec_joiner_simt's order; kernel 9
 # (csrc/joiner_stream.cu, two weight types x four register tiles x W
-# resident or streamed) on FFMA alone, in joiner.cu's order
+# resident or streamed) on FFMA alone, in joiner.cu's order; kernel 18
+# (csrc/lstm_tp_gates.cu, rounding x stage depth) on FFMA alone,
+# kernel 19 (three gate-item widths) on IMMA
 MMA_SOURCES = (
     ("lstm_mma.cu", ("_Z19lstm_rec_mma_kernel", "_Z20lstm_step_mma_kernel"), 6),
     ("lstm_mma_float.cu", ("_Z26lstm_step_float_mma_kernel",), 2),
@@ -484,6 +494,7 @@ MMA_SOURCES = (
     ("mm_wgmma.cu", ("_Z15mm_wgmma_kernel",), 6),
     ("dec_joiner_cluster.cu", ("_Z25dec_joiner_cluster_kernel",), 4),
     ("joiner_stream.cu", ("_Z20joiner_stream_kernel",), 16),
+    ("lstm_tp_gates.cu", ("_Z13tp_gcp_kernel", "_Z15tp_gc_i8_kernel"), 7),
 )
 
 
@@ -491,8 +502,9 @@ def sass_rule(kernel: str, insns: list) -> str:
     """Why a persistent kernel's SASS is wrong ("" where it is right): the
     int8 kernels need IMMA; kernel 1 IMMA and FFMA (its residual and mel on
     the CUDA cores) and no HMMA; kernel 5 FFMA and no tensor-core
-    instruction (its sums keep fbank_bf16x3.cu's order), kernels 16, 8 and 9
-    likewise (conv_embed.cu's and joiner.cu's orders); kernels 12 and 10 at bf16 HMMA, at f32 FFMA and
+    instruction (its sums keep fbank_bf16x3.cu's order), kernels 16, 8, 9
+    and 18 likewise (conv_embed.cu's, joiner.cu's and lstm_step.cuh's
+    orders); kernel 19 (`tp_gc_i8`) IMMA; kernels 12 and 10 at bf16 HMMA, at f32 FFMA and
     no tensor-core instruction (no TF32); kernel 23 (mm_wgmma.cu) HGMMA at
     bf16 (`<0, ...>`), IGMMA in its int8 forms, and no other tensor-core
     instruction."""
@@ -502,7 +514,7 @@ def sass_rule(kernel: str, insns: list) -> str:
         ok = n(mine) and not (n(other) or n("HMMA") or n("IMMA"))
         return "" if ok else f"not {mine} alone"
     if ("fbank_tile" in kernel or "conv_stack" in kernel or "conv_proj" in kernel
-            or "dec_joiner_cluster" in kernel or "joiner_stream" in kernel):
+            or "dec_joiner_cluster" in kernel or "joiner_stream" in kernel or "tp_gcp" in kernel):
         return "" if n("FFMA") and not n("HMMA") and not n("IMMA") else "not FFMA alone"
     if "fbank" in kernel:
         return "" if n("IMMA") and n("FFMA") and not n("HMMA") else "not IMMA and FFMA alone"
@@ -516,7 +528,7 @@ def sass_rule(kernel: str, insns: list) -> str:
 def check_mma_sass():
     """csrc/lstm_mma.cu, lstm_mma_float.cu, lstm_chunk_mma.cu, ffn_mma.cu,
     fbank_mma.cu, fbank_bf16x3_tile.cu, conv_embed_tile.cu, mm_wgmma.cu,
-    dec_joiner_cluster.cu and joiner_stream.cu compiled again to cubins: each
+    dec_joiner_cluster.cu, joiner_stream.cu and lstm_tp_gates.cu compiled again to cubins: each
     tiled kernel's registers, shared memory and spills (`-Xptxas -v`; a
     spill fails) and its SASS (`sass_rule`)."""
     from pathlib import Path
@@ -1413,9 +1425,18 @@ SOURCES = {
     "mm_bf16_sync": ("april_asr_tpu_torch/csrc/int8_mm.cu", "tools/profile_int8.py:66"),
     "mm_i8_sync": ("april_asr_tpu_torch/csrc/int8_mm.cu", "tools/profile_int8.py:66"),
     "mm_i8_dynq_sync": ("april_asr_tpu_torch/csrc/int8_mm.cu", "tools/profile_int8.py:66"),
-    "tp_gcp_f32": ("april_asr_tpu_torch/csrc/lstm_tp.cu", "april_asr_tpu/ops/lstm_tp_pallas.py:122"),
-    "tp_gcp_bf16": ("april_asr_tpu_torch/csrc/lstm_tp.cu", "april_asr_tpu/ops/lstm_tp_pallas.py:122"),
-    "tp_gc_i8": ("april_asr_tpu_torch/csrc/lstm_tp.cu", "april_asr_tpu/ops/lstm_tp_pallas.py:234"),
+    "tp_gcp_f32": ("april_asr_tpu_torch/csrc/lstm_tp_gates.cu",
+                   "april_asr_tpu/ops/lstm_tp_pallas.py:122"),
+    "tp_gcp_bf16": ("april_asr_tpu_torch/csrc/lstm_tp_gates.cu",
+                    "april_asr_tpu/ops/lstm_tp_pallas.py:122"),
+    "tp_gc_i8": ("april_asr_tpu_torch/csrc/lstm_tp_gates.cu",
+                 "april_asr_tpu/ops/lstm_tp_pallas.py:234"),
+    "tp_gcp_simt_f32": ("april_asr_tpu_torch/csrc/lstm_tp.cu",
+                        "april_asr_tpu/ops/lstm_tp_pallas.py:122"),
+    "tp_gcp_simt_bf16": ("april_asr_tpu_torch/csrc/lstm_tp.cu",
+                         "april_asr_tpu/ops/lstm_tp_pallas.py:122"),
+    "tp_gc_i8_simt": ("april_asr_tpu_torch/csrc/lstm_tp.cu",
+                      "april_asr_tpu/ops/lstm_tp_pallas.py:234"),
     "tp_ffn_f32": ("april_asr_tpu_torch/csrc/lstm_tp.cu", "april_asr_tpu/ops/lstm_tp_pallas.py:305"),
     "tp_ffn_bf16": ("april_asr_tpu_torch/csrc/lstm_tp.cu", "april_asr_tpu/ops/lstm_tp_pallas.py:305"),
     "tp_ffn_mid_i8": ("april_asr_tpu_torch/csrc/lstm_tp.cu",
@@ -2578,27 +2599,39 @@ def tp_layer_summed(w, shards, x, h, c_shards, gate, q: bool):
     else:
         hps, c2s = zip(*(TK.lstm_gate_cell_proj(x, h, ck, *(wk[k] for k in TP_FLOAT_KEYS[:4]), gate)
                          for wk, ck in zip(shards, c_shards)))
-        h_new = hps[0] + hps[1]
+        h_new = functools.reduce(torch.add, hps)
         y = x + h_new
         ffs = [TK.ffn_partial(y, *(wk[k] for k in TP_FLOAT_KEYS[4:])) for wk in shards]
-        ff = ffs[0] + ffs[1]
+        ff = functools.reduce(torch.add, ffs)
     yo = TM._basic_norm(y + (ff + w["ff2_b"][0].float()), w["norm_eps"][0])
     return yo, (h_new if gate is None else torch.where(gate[:, None], h_new, h)), torch.cat(c2s, 1)
 
 
+# kernels 18 and 19 (their count keys) beside the two-pass kernels they
+# replaced, and the device kernels the profiler names for each
+TP_PAIRS = (("tp_gcp_f32", "tp_gcp_simt_f32"), ("tp_gcp_bf16", "tp_gcp_simt_bf16"),
+            ("tp_gc_i8", "tp_gc_i8_simt"))
+TP_DEVICE = {"tp_gcp": ("tp_gcp_kernel",), "tp_gc_i8": ("tp_gc_i8_kernel",),
+             "simt": ("step_gates", "tp_cols")}
+
+
 def check_tp_kernels(models, S: int, seed: int, m: int = 2) -> dict:
-    """Kernels 18-21 on rank 0's slices (m = 2) of layer 0's gate-shuffled
-    weights (flagship: d 512, Hs 512, Fs 1024), gated and ungated where the
-    kernel takes a gate, against their plain versions (int8 to f32 ulps
-    except isolated int8 rounding flips; f32 and bf16 at kernel 12's
-    bounds); then both shards' pieces with their partials summed
-    (`tp_layer_summed`) against the unsharded layer, kernel 7 at int8 and
-    kernel 12 at f32: y, h and c within the JAX TP test's bounds (1e-5 int8,
-    2e-5 f32). Returns {name: (kernel call, plain call, max abs err, bound,
-    shape)}; bounds from the JAX kernels' CostEstimates (bytes plus the
-    bias, gate and scales they leave out; operations at the weight type's
-    rate)."""
+    """Kernels 18-21 on rank 0's slices of layer 0's gate-shuffled weights
+    at m shards (flagship, m = 2: d 512, Hs 512, Fs 1024), gated and
+    ungated where the kernel takes a gate, against their plain versions
+    (int8 to f32 ulps except isolated int8 rounding flips; f32 and bf16 at
+    kernel 12's bounds); kernels 18 (f32, bf16) and 19 by their route
+    (csrc/lstm_tp_gates.cu, each call required to launch it) equal bit for
+    bit to the two-pass kernels they replaced (`*_simt`), which are held to
+    the plain versions too; then every shard's pieces with their partials
+    summed (`tp_layer_summed`) against the unsharded layer, kernel 7 at
+    int8 and kernel 12 at f32: y, h and c within the JAX TP test's bounds
+    (1e-5 int8, 2e-5 f32). Returns {name: (kernel call, plain call, max abs
+    err, bound, shape)}; bounds from the JAX kernels' CostEstimates (bytes
+    plus the bias, gate and scales they leave out; operations at the weight
+    type's rate)."""
     from april_asr_tpu_torch.models import lstm_transducer as TM
+    from april_asr_tpu_torch.ops import cuda_build
     from april_asr_tpu_torch.ops import lstm_float_kernels as LF
     from april_asr_tpu_torch.ops import lstm_kernels as LK
     from april_asr_tpu_torch.ops import lstm_tp_kernels as TK
@@ -2639,22 +2672,25 @@ def check_tp_kernels(models, S: int, seed: int, m: int = 2) -> dict:
     for prec in ("f32", "bf16"):
         w0 = _tp_shards(models[prec].runtime.weights, TP_FLOAT_KEYS, m)[0]
         wb, bb = w0["w_ih_t"].element_size(), w0["bias"].element_size()
+        gcp = ((x, h0, cs[0]) + tuple(w0[k] for k in TP_FLOAT_KEYS[:4]), True,
+               (2 * d * 4 * Hs + Hs * d) * wb + 4 * Hs * bb + S * (3 * d + 2 * Hs) * 4 + S * 4,
+               2 * S * (2 * d * 4 * Hs + Hs * d))
         table += [
-            (f"tp_gcp_{prec}", prec, TK.lstm_gate_cell_proj, TK.lstm_gate_cell_proj_plain,
-             (x, h0, cs[0]) + tuple(w0[k] for k in TP_FLOAT_KEYS[:4]), True,
-             (2 * d * 4 * Hs + Hs * d) * wb + 4 * Hs * bb + S * (3 * d + 2 * Hs) * 4 + S * 4,
-             2 * S * (2 * d * 4 * Hs + Hs * d)),
+            (f"tp_gcp_{prec}", prec, TK.lstm_gate_cell_proj, TK.lstm_gate_cell_proj_plain) + gcp,
+            (f"tp_gcp_simt_{prec}", prec, TK.lstm_gate_cell_proj_simt,
+             TK.lstm_gate_cell_proj_plain) + gcp,
             (f"tp_ffn_{prec}", prec, TK.ffn_partial, TK.ffn_partial_plain,
              (y_in,) + tuple(w0[k] for k in TP_FLOAT_KEYS[4:]), False,
              2 * d * Fs * wb + Fs * w0["ff1_b"].element_size() + 2 * S * d * 4, 2 * S * d * Fs * 2),
         ]
     q0 = _tp_shards(models["int8"].runtime.weights, TP_I8_KEYS, m)[0]
     bb = q0["bias"].element_size()
+    gc = ((x, h0, cs[0]) + tuple(q0[k] for k in GC_I8), True,
+          2 * d * 4 * Hs + 2 * 4 * Hs * 4 + 4 * Hs * bb + S * (2 * d + 3 * Hs) * 4 + S * 4,
+          2 * S * d * 4 * Hs * 2)
     table += [
-        ("tp_gc_i8", "int8", TK.lstm_gates_cell_i8, TK.lstm_gates_cell_i8_plain,
-         (x, h0, cs[0]) + tuple(q0[k] for k in GC_I8), True,
-         2 * d * 4 * Hs + 2 * 4 * Hs * 4 + 4 * Hs * bb + S * (2 * d + 3 * Hs) * 4 + S * 4,
-         2 * S * d * 4 * Hs * 2),
+        ("tp_gc_i8", "int8", TK.lstm_gates_cell_i8, TK.lstm_gates_cell_i8_plain) + gc,
+        ("tp_gc_i8_simt", "int8", TK.lstm_gates_cell_i8_simt, TK.lstm_gates_cell_i8_plain) + gc,
         ("tp_ffn_mid_i8", "int8", TK.ffn_mid_i8, TK.ffn_mid_i8_plain,
          (y_in,) + tuple(q0[k] for k in MID_I8), False,
          d * Fs + Fs * 4 + Fs * q0["ff1_b"].element_size() + S * (d + Fs) * 4, 2 * S * d * Fs),
@@ -2667,7 +2703,18 @@ def check_tp_kernels(models, S: int, seed: int, m: int = 2) -> dict:
         pf = lambda g=None, pfn=pfn, a=a, gated=gated: pfn(*a, g) if gated else pfn(*a)  # noqa: E731
         out[name] = (kf, pf, held(name, prec, kf, pf, gated), bound_ms(n_bytes, {prec: ops}), shape)
 
-    # the shards' partials summed, against the unsharded layer
+    # kernels 18 and 19 by their route against the two-pass kernels, bit for bit
+    for new, simt in TP_PAIRS:
+        for g in (None, gate):
+            before = cuda_build.COUNTS[new]
+            got = out[new][0](g)
+            if cuda_build.COUNTS[new] != before + 1:
+                raise AssertionError(f"{new} S={S} m={m}: the one-launch kernel did not launch")
+            _bit_equal(got, out[simt][0](g), ("hc" if new == "tp_gc_i8" else "hp", "c'"),
+                       f"{new} S={S} m={m}{' gated' if g is not None else ''}: the one-launch "
+                       f"kernel against {simt}")
+
+    # every shard's partials summed, against the unsharded layer
     for prec, keys, whole, tol in (("int8", TP_I8_KEYS, LK.lstm_layer_fused_i8, 1e-5),
                                    ("f32", TP_FLOAT_KEYS, LF.lstm_layer_fused, 2e-5)):
         w = models[prec].runtime.weights
@@ -2688,19 +2735,80 @@ def check_tp_kernels(models, S: int, seed: int, m: int = 2) -> dict:
     return out
 
 
+def tp_times(checked: dict, card, d: int, Hs: int) -> None:
+    """Kernels 18 (f32, bf16) and 19 beside the two-pass kernels they
+    replaced, on `checked`'s inputs: each plan, the CUDA-event ms, the
+    profiler's device us a call and the host's us a call (`host_us_turns`),
+    beside the bound and, for kernel 18, the FFMA floor (its multiply-adds
+    at the f32 rate); then kernels 20 and 21's device us a call."""
+    from april_asr_tpu_torch.ops import tp_plan as TP
+
+    for new, simt in TP_PAIRS:
+        kf, sf = checked[new][0], checked[simt][0]
+        b_ms, b_by = checked[new][3]
+        k_ms, s_ms = cuda_ms(kf, 20), cuda_ms(sf, 20)
+        k_dev = profiled(kf, 5, TP_DEVICE["tp_gc_i8" if new == "tp_gc_i8" else "tp_gcp"])[1]
+        s_dev = profiled(sf, 5, TP_DEVICE["simt"])[1]
+        host = host_us_turns({"new": kf, "simt": sf})
+        if new == "tp_gc_i8":
+            plan, floor = TP.device_gc_i8_plan(S_FLAG, d, Hs, 0), ""
+        else:
+            plan = TP.device_gcp_plan(S_FLAG, d, Hs, 0)
+            floor = (f", FFMA floor "
+                     f"{S_FLAG * (2 * d * 4 * Hs + Hs * d) * 2 / PEAK_OPS['f32'] * 1e3:.4f} ms")
+        print(f"kernel {new} S={S_FLAG}: one launch ms={k_ms:.4f} (device {k_dev:.2f} us a call, "
+              f"host {host['new']:.2f} us a call), {simt} ms={s_ms:.4f} (device {s_dev:.2f} us, "
+              f"host {host['simt']:.2f} us), bound_ms={b_ms:.4f} ({b_by}){floor}; {plan} ({card})")
+    for name, keys in (("tp_ffn_f32", ("tp_cols",)), ("tp_ffn_bf16", ("tp_cols",)),
+                       ("tp_ffn_mid_i8", ("tp_cols",))):
+        dev = profiled(checked[name][0], 5, keys)[1]
+        print(f"kernel {name} S={S_FLAG}: device {dev:.2f} us a call ({card})")
+
+
+def no_simt_tp(what: str, counts: dict) -> None:
+    """Kernels 18 and 19 ran on their one-launch route: the two-pass kernels
+    they replaced launched no time in `counts`."""
+    n = {k: counts.get(k, 0) for _, k in TP_PAIRS}
+    if any(n.values()):
+        raise AssertionError(f"{what}: the two-pass kernels launched {n}")
+
+
+def tp_profile_lines(prof: dict, what: str, card, top: int = 10) -> dict:
+    """One rank's profiled calls (testing.engine_run "profile"): per call the
+    device ms, the busy share (device over wall) and the device ms of the
+    `top` kernels by name (launches in brackets); returns {call: (device ms,
+    wall ms)}."""
+    out = {}
+    for k, p in sorted(prof.items()):
+        rows = sorted(((us, n, name) for name, (us, n) in p["kernels"].items()), reverse=True)
+        busy = sum(us for us, _, _ in rows) / 1e3
+        parts = "; ".join(f"{re.sub(r'^void ', '', name).split('(')[0][:48]} {us / 1e3:.3f} ({n})"
+                          for us, n, name in rows[:top])
+        out[k] = (busy, p["wall_ms"])
+        print(f"{what} call {k}: device {busy:.3f} ms busy of {p['wall_ms']:.1f} ms wall "
+              f"(share {busy / p['wall_ms']:.3f}); by kernel, ms (launches): {parts} ({card})")
+    return out
+
+
 def tp_engine(model, path: str, prec: str, card, ticks: int = 3) -> dict:
     """Two rank processes on this card (gloo, a file store), each a
     `BatchEngine(rt, 256, mesh=make_mesh(model_parallel=2))` on the model
     at `path` and `prec`, over `ticks` 1 s ticks of tone bursts and a flush
-    (`testing.engine_run`). Fails unless both ranks exit, their event blobs
-    are identical, each rank's step and flush launched exactly the
+    (`testing.engine_run`), the second tick and the flush under
+    torch.profiler. Fails unless both ranks exit, their event blobs are
+    identical, each rank's step and flush launched exactly the
     PATH_KERNELS["tp " + prec] kernels, kernel 19 (int8) or 18 (f32)
-    P x L times a step and pulls x L a flush, and rank 0's events part from
-    the single-card engine's, on the same model and audio, only at near-ties
+    P x L times a step and pulls x L a flush (and the two-pass kernels they
+    replaced no time), and rank 0's events part from the single-card
+    engine's, on the same model and audio, only at near-ties
     (testing.NEAR_TIE). That reference takes the same per-pull route
     (`encoder_chunk` None: kernel 7 or 12 per layer) with its decode on the
     plain versions, so that DecisionMargins records every decision's
-    margin. Returns rank 0's launch counts over the run."""
+    margin. Then the ranks again with kernels 18 and 19 on the two-pass
+    kernels (`tp_kernels` "simt"), the same calls profiled: their blobs
+    must equal the first run's. Prints rank 0's device-time breakdown of a
+    step and the flush for both. Returns rank 0's launch counts over the
+    first run."""
     from april_asr_tpu_torch.ops import joiner_kernels as JK
     from april_asr_tpu_torch.testing import RankGroup, check_parting, engine_run
 
@@ -2709,8 +2817,10 @@ def tp_engine(model, path: str, prec: str, card, ticks: int = 3) -> dict:
     audio = np.stack(_tone_bufs(S_FLAG, CHUNK_1S, rt.sample_rate, n=ticks, seed=21))
     args = dict(path=path, precision="int8" if prec == "int8" else None, m=2, device=DEV,
                 audio=audio, ticks=ticks)
+    prof_calls = (1, ticks)  # a step after the first, and the flush
     t0 = time.perf_counter()
-    ranks = RankGroup("april_asr_tpu_torch.testing:engine_run", args, world=2, timeout=600).join()
+    ranks = RankGroup("april_asr_tpu_torch.testing:engine_run", dict(args, profile=prof_calls),
+                      world=2, timeout=600).join()
     t_ranks = time.perf_counter() - t0
     for k, (a, b) in enumerate(zip(ranks[0]["blobs"], ranks[1]["blobs"])):
         if not np.array_equal(a, b):
@@ -2737,6 +2847,7 @@ def tp_engine(model, path: str, prec: str, card, ticks: int = 3) -> dict:
             half = "step" if k < ticks else "flush"
             require_launches(f"tp {prec} rank {r} {half} {k}", f"tp {prec}", half, cnt)
             no_simt_joiner(f"tp {prec} rank {r} {half} {k}", cnt)
+            no_simt_tp(f"tp {prec} rank {r} {half} {k}", cnt)
             pulls = res["events"][k]["ops"].shape[1] - (half == "flush")
             if cnt.get(gc) != pulls * L:
                 raise AssertionError(f"tp {prec} rank {r} {half} {k}: {gc} launched "
@@ -2751,19 +2862,37 @@ def tp_engine(model, path: str, prec: str, card, ticks: int = 3) -> dict:
           f"{S_FLAG - len(parted)} of {S_FLAG} sessions identical to the reference, parted at "
           f"near-ties (step, cell, margin): {parted}; rank 0 step launches {json.dumps(c0[0])} "
           f"flush launches {json.dumps(c0[-1])} ({card})")
+    new = tp_profile_lines(ranks[0]["profile"], f"tp engine {prec} rank 0 (kernels 18/19 one "
+                           f"launch each)", card)
+    simt = RankGroup("april_asr_tpu_torch.testing:engine_run",
+                     dict(args, profile=prof_calls, tp_kernels="simt"), world=2,
+                     timeout=600).join()
+    for k, (a, b) in enumerate(zip(ranks[0]["blobs"], simt[0]["blobs"])):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"tp {prec}: the two-pass kernels' blobs differ at call {k}")
+    old = tp_profile_lines(simt[0]["profile"], f"tp engine {prec} rank 0 (kernels 18/19 on the "
+                           f"two-pass kernels)", card)
+    print(f"tp engine {prec}: blobs equal with the two-pass kernels; rank 0 device ms a step "
+          f"{old[1][0]:.3f} -> {new[1][0]:.3f}, a flush {old[ticks][0]:.3f} -> "
+          f"{new[ticks][0]:.3f} ({card})")
     return _merge(*c0)
 
 
 def phase_tp(models, path: str, card, reps: int = 20):
-    """Kernels 18-21 per shard at flagship widths, m = 2 (`check_tp_kernels`
-    at S=256, timed, and again at S=3), then the two-rank TP engine at int8
-    and at f32 (`tp_engine`). Returns (JSON rows, {precision: rank 0's
-    launch counts})."""
+    """Kernels 18-21 per shard at flagship widths (`check_tp_kernels`: m =
+    2 at S=256, timed, with kernels 18 and 19 beside the two-pass kernels
+    (`tp_times`); again at S=3, and at m = 4 (Hs 256) at S=256 and 3), then
+    the two-rank TP engine at int8 and at f32 (`tp_engine`). Returns (JSON
+    rows, {precision: rank 0's launch counts})."""
     t0 = time.perf_counter()
-    rows = time_rows(check_tp_kernels(models, S_FLAG, seed=13), card, reps)
-    ragged = check_tp_kernels(models, 3, seed=14)
-    print("tp kernels at ragged shapes S=3: " + ", ".join(
-        f"{n} max_abs_err={v[2]:.3g}" for n, v in ragged.items()))
+    checked = check_tp_kernels(models, S_FLAG, seed=13)
+    rows = time_rows(checked, card, reps)
+    dims = models["int8"].runtime.dims
+    tp_times(checked, card, dims.d_model, dims.hidden // 2)
+    for S, m, seed in ((3, 2, 14), (S_FLAG, 4, 15), (3, 4, 16)):
+        more = check_tp_kernels(models, S, seed=seed, m=m)
+        print(f"tp kernels at S={S}, m={m}: " + ", ".join(
+            f"{n} max_abs_err={v[2]:.3g}" for n, v in more.items()))
     counts = {prec: tp_engine(models[prec], path, prec, card) for prec in ("int8", "f32")}
     print(f"tp: {time.perf_counter() - t0:.1f} s")
     return rows, counts
