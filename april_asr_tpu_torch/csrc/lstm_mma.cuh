@@ -47,6 +47,8 @@
 
 #include <cooperative_groups.h>
 
+#include <mutex>
+
 #include "lstm_step.cuh"  // blend; the row helpers of common.cuh
 #include "mma_tc.cuh"
 
@@ -478,6 +480,36 @@ static int coop_launch(K kern, const A& args, int nb, size_t smem, void* stream)
   void* params[] = {const_cast<A*>(&args)};
   return (int)cudaLaunchCooperativeKernel((const void*)kern, dim3(nb), dim3(MMA_NT), params, smem,
                                           (cudaStream_t)stream);
+}
+
+// Readies the kernel `fn` (csrc/lstm_tp_gates.cu, csrc/lstm_tp_ffn.cu) for
+// `smem` bytes of dynamic shared memory on this device: 0, minus the bytes
+// where they exceed the device's opt-in limit, or a CUDA error. The
+// attribute is set to that limit once per function and device (a launch
+// then costs no attribute call).
+static int prepare_once(const void* fn, int smem) {
+  static std::mutex mu;
+  static const void* done_fn[64];
+  static int done_dev[64], limit[16], n = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (dev < 16 && limit[dev] == 0) {
+    err = cudaDeviceGetAttribute(&limit[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int lim = dev < 16 ? limit[dev] : 0;
+  if (smem > lim) return -smem;
+  for (int i = 0; i < n; ++i)
+    if (done_fn[i] == fn && done_dev[i] == dev) return 0;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, lim);
+  if (err != cudaSuccess) return (int)err;
+  if (n < 64) {
+    done_fn[n] = fn;
+    done_dev[n++] = dev;
+  }
+  return 0;
 }
 
 // ---- Kernel 12's pieces (csrc/lstm_mma_float.cu): float tile items ------

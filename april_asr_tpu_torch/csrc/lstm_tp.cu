@@ -3,9 +3,10 @@
 // the model group (ops/lstm_tp_kernels.py, models/lstm_transducer.py
 // `_lstm_stack_step_tp`).
 //
-// Kernels 18 and 19 run as one launch each in csrc/lstm_tp_gates.cu; their
-// two-pass forms here are kept as `tp_gate_cell_proj_simt` and
-// `tp_gates_cell_i8_simt`, the yardstick those are held to bit for bit and
+// Kernels 18 and 19 run as one launch each in csrc/lstm_tp_gates.cu, kernels
+// 20 and 21 in csrc/lstm_tp_ffn.cu; their column-pass forms here are kept as
+// `tp_gate_cell_proj_simt`, `tp_gates_cell_i8_simt`, `tp_ffn_partial_simt`
+// and `tp_ffn_mid_i8_simt`, the yardstick those are held to bit for bit and
 // the route where their plans do not hold the shapes (ops/tp_plan.py).
 //
 // Replace april_asr_tpu/ops/lstm_tp_pallas.py:
@@ -180,19 +181,21 @@ extern "C" int tp_gates_cell_i8_simt(const float* x, const float* h, const float
                                   bias_bf16, (cudaStream_t)stream);
 }
 
-// Kernel 20. mid [S, Fs] is the wrapper's scratch; out [S, d].
-extern "C" int tp_ffn_partial(const float* y, const void* ff1, const void* f1b, const void* ff2,
-                              float* mid, float* out, int S, int d, int Fs, int w_bf16,
-                              int f1b_bf16, void* stream) {
+// Kernel 20's two passes, kept as `tp_ffn_partial_simt` (csrc/lstm_tp_ffn.cu
+// replaced them). mid [S, Fs] is the wrapper's scratch; out [S, d].
+extern "C" int tp_ffn_partial_simt(const float* y, const void* ff1, const void* f1b,
+                                   const void* ff2, float* mid, float* out, int S, int d, int Fs,
+                                   int w_bf16, int f1b_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(w_bf16 ? ffn_partial<uint16_t>(y, ff1, f1b, ff2, mid, out, S, d, Fs, f1b_bf16, st)
                       : ffn_partial<float>(y, ff1, f1b, ff2, mid, out, S, d, Fs, f1b_bf16, st));
 }
 
-// Kernel 21. Outputs mid [S, Fs].
-extern "C" int tp_ffn_mid_i8(const float* y, const int8_t* ff1, const float* ff1s,
-                             const void* f1b, float* mid, int S, int d, int Fs, int f1b_bf16,
-                             void* stream) {
+// Kernel 21's column pass, kept as `tp_ffn_mid_i8_simt` (csrc/lstm_tp_ffn.cu
+// replaced it). Outputs mid [S, Fs].
+extern "C" int tp_ffn_mid_i8_simt(const float* y, const int8_t* ff1, const float* ff1s,
+                                  const void* f1b, float* mid, int S, int d, int Fs,
+                                  int f1b_bf16, void* stream) {
   return (int)launch_cols<I8Ops, EPI_DSWISH>(y, ff1, ff1s, f1b, mid, S, d, Fs, f1b_bf16,
                                              (cudaStream_t)stream);
 }

@@ -64,8 +64,6 @@
 // Numerics: f32 adds and multiplies outside the dots are rounded separately
 // (__fadd_rn/__fmul_rn) in the JAX op order; tanhf is CUDA's (no fast-math).
 
-#include <mutex>
-
 #include "lstm_mma.cuh"
 
 #define TPG_KC2 128              // depth of a projection stage
@@ -327,35 +325,6 @@ static const void* gcp_pick(int rnd, int kc) {
                : reinterpret_cast<const void*>(tp_gcp_kernel<false, 64>);
   return rnd ? reinterpret_cast<const void*>(tp_gcp_kernel<true, 32>)
              : reinterpret_cast<const void*>(tp_gcp_kernel<false, 32>);
-}
-
-// Readies `fn` for `smem` bytes of dynamic shared memory on this device: 0,
-// minus the bytes where they exceed the device's opt-in limit, or a CUDA
-// error. The attribute is set to that limit once per function and device
-// (a launch then costs no attribute call).
-static int prepare_once(const void* fn, int smem) {
-  static std::mutex mu;
-  static const void* done_fn[64];
-  static int done_dev[64], limit[16], n = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  std::lock_guard<std::mutex> lock(mu);
-  if (dev < 16 && limit[dev] == 0) {
-    err = cudaDeviceGetAttribute(&limit[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int lim = dev < 16 ? limit[dev] : 0;
-  if (smem > lim) return -smem;
-  for (int i = 0; i < n; ++i)
-    if (done_fn[i] == fn && done_dev[i] == dev) return 0;
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, lim);
-  if (err != cudaSuccess) return (int)err;
-  if (n < 64) {
-    done_fn[n] = fn;
-    done_dev[n++] = dev;
-  }
-  return 0;
 }
 
 // Kernel 18's shared memory for the plan's ub and stage depth kc (minus

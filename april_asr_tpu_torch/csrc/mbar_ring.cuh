@@ -1,6 +1,7 @@
 // A ring of shared-memory stages filled by the bulk-copy (TMA) engine and
 // guarded by mbarriers, for kernels of one producer warp and 8 consumer
-// warps (kernels 5 and 16: csrc/fbank_bf16x3_tile.cu, conv_embed_tile.cu).
+// warps (kernels 5 and 16: csrc/fbank_bf16x3_tile.cu, conv_embed_tile.cu;
+// kernel 20, csrc/lstm_tp_ffn.cu, fills its ring from thread 0).
 // Each slot has a `full` mbarrier, which completes when the stage's bytes
 // have landed (the producer's arrival plus the copies' byte count), and an
 // `empty` one, which completes when the consumer warps have released it.

@@ -72,6 +72,7 @@ from ..models.lstm_transducer import (
 )
 from ..models.loader import ModelRuntime
 from ..ops import lstm_mma
+from ..ops import tp_plan as TP
 from ..ops.decode_kernels import (
     EVENT_KEYS,
     chunk_decode,
@@ -268,10 +269,13 @@ def check_kernel_plans(rt: ModelRuntime, S: int, P: int, n_sm: int, m: int = 1,
     int8 route, or kernel 10; kernel 3 plans at every width; with
     `encoder_chunk` None the per-pull step's), its flush (kernel 7 or its
     route, or kernel 12) and, at m > 1 model shards, the tensor-parallel
-    kernels 18-21 at the shard's widths, which are not padded: their shards
-    must be multiples of 4. With `encoder_chunk` it also plans the step's
-    kernel 4 (ops/decode_kernels.py `decode_plan`, a token window of
-    `tokens`) with `max_clusters` (the card's cluster occupancy). Raises one
+    kernels 18 and 20 (float) or 19 and 21 (int8) at the shard's widths
+    padded likewise (`_lstm_stack_step_tp`): each by its route
+    (ops/tp_plan.py `tp_route`), its one-launch kernel's plan or else its
+    column-pass kernel's shared memory (`tp_smem`). With `encoder_chunk` it
+    also plans the step's kernel 4 (ops/decode_kernels.py `decode_plan`, a
+    token window of `tokens`) with `max_clusters` (the card's cluster
+    occupancy). Raises one
     ValueError naming the widths and the kernel where one has no plan (or
     the card places none of kernel 4's clusters), so that a model the card
     cannot serve is refused when its engine is built, not at its first
@@ -283,13 +287,21 @@ def check_kernel_plans(rt: ModelRuntime, S: int, P: int, n_sm: int, m: int = 1,
     d, H, F = layer_widths(w)
     widths = f"d_model={d}, hidden={H}, ffn={F}"
     if m > 1:
-        over = {k: v for k, v in tp_smem(d, H // m, F // m, wb).items() if v > lstm_mma.SMEM_LIMIT}
-        if over or d % 4 or (H // m) % 4 or (F // m) % 4:
-            raise ValueError(
-                f"build_engine: the {prec} tensor-parallel kernels ({'19, 21' if q else '18, 20'}) "
-                f"have no launch for {widths} at model_parallel={m}: shard widths must be "
-                f"multiples of 4 and each pass within {lstm_mma.SMEM_LIMIT} bytes of shared "
-                f"memory (over: {over})")
+        dp, Hs, Fs = round_up(d), round_up(H // m), round_up(F // m)
+        simt = tp_smem(dp, Hs, Fs, wb)
+        for k, kind, n, passes in (((19, "gc_i8", Hs, ("gates",)), (21, "mid_i8", Fs, ("ff1",)))
+                                   if q else ((18, "gcp", Hs, ("gates", "projection")),
+                                              (20, "ffn", Fs, ("ff1", "ff2")))):
+            if TP.tp_route(kind, S, dp, n, n_sm) == "fused":
+                continue
+            over = {p: simt[p] for p in passes if simt[p] > lstm_mma.SMEM_LIMIT}
+            if over:
+                raise ValueError(
+                    f"build_engine: the {prec} tensor-parallel kernel {k} has no launch for "
+                    f"{widths} at model_parallel={m} (shard d={dp}, "
+                    f"{'hidden' if k < 20 else 'ffn'}={n} padded to multiples of 4, S={S}, "
+                    f"{n_sm} SMs): its one-launch kernel has no plan and its column passes "
+                    f"need {over} bytes of shared memory, over {lstm_mma.SMEM_LIMIT}")
         return
     d, H, F = round_up(d), round_up(H), round_up(F)
     chunk = rt.encoder_chunk is not None

@@ -417,15 +417,16 @@ def tp_q8_contract(v, wq8, ws, mesh):
     return mesh.all_reduce(acc, "sum").float() * (s * ws)
 
 
-def _basic_norm(x, eps):
+def _basic_norm(x, eps, norm_d: int):
     """x * rsqrt(mean(x^2) + eps) (icefall BasicNorm inference form), the
     sum of squares taken in the order of the kernels' BasicNorm
     (csrc/ffn_norm.cuh `basic_norm_rows`): lane j of 32 adds x_k^2 for
     k = j, j + 32, ... in turn, a butterfly adds the 32 lanes, then the sum
-    is divided by d. So the TP layer's norm is kernel 7's bit for bit, and
-    the TP int8 layer decodes as the single-device one: int8 re-quantization
-    turns an ulp of the norm into whole int8 steps that 12 layers amplify
-    (chip_smoke's `tp` phase)."""
+    is divided by norm_d, the model's d_model (x may carry zero columns past
+    it: `padded_operands`). So the TP layer's norm is kernel 7's bit for
+    bit, and the TP int8 layer decodes as the single-device one: int8
+    re-quantization turns an ulp of the norm into whole int8 steps that 12
+    layers amplify (chip_smoke's `tp` phase)."""
     S, d = x.shape
     sq = torch.nn.functional.pad(x * x, (0, -d % 32)).reshape(S, -1, 32)
     ss = sq[:, 0]
@@ -434,7 +435,7 @@ def _basic_norm(x, eps):
     lane = torch.arange(32, device=x.device)
     for o in (16, 8, 4, 2, 1):
         ss = ss + ss[:, lane ^ o]
-    mean = ss[:, :1] / torch.tensor(float(d), device=x.device)
+    mean = ss[:, :1] / torch.tensor(float(norm_d), device=x.device)
     return x * torch.rsqrt(mean + eps.float())
 
 
@@ -456,33 +457,40 @@ def _lstm_stack_step_tp(params: Params, x, h, c, mesh, gate=None):
     kernels blend c. Numerics match the single-device path up to f32
     reduction order (float); at int8 every product is exact and the norm
     sums in the kernels' order, so on the card each layer equals kernel 7's
-    bit for bit."""
+    bit for bit.
+
+    A shard is a standard layer of width H/m, so at widths that are not
+    multiples of 4 it runs the same kernels zero-padded as one card's stack
+    does (`padded_operands`: the shard's leaves, x, h and its c slice; every
+    rank pads alike, so the all-reduced partials line up), with the norm
+    over the model's d_model; the outputs are cut back."""
     q = is_quantized(params)
+    d, Hs = h.shape[-1], c.shape[-1]
+    w, x, h, c, norm_d = padded_operands(params, x, h, c)
     hs, cs = [], []
     for l in range(h.shape[0]):
         h_l, c_l = h[l], c[l]
         if q:
             hc, c_new = lstm_gates_cell_i8(
-                x, h_l, c_l, params["w_ih_t_q8"][l], params["w_ih_t_q8s"][l],
-                params["w_hh_t_q8"][l], params["w_hh_t_q8s"][l], params["bias"][l], gate)
-            h_new = tp_q8_contract(hc, params["w_hr_t_q8"][l], params["w_hr_t_q8s"][l], mesh)
+                x, h_l, c_l, w["w_ih_t_q8"][l], w["w_ih_t_q8s"][l],
+                w["w_hh_t_q8"][l], w["w_hh_t_q8s"][l], w["bias"][l], gate)
+            h_new = tp_q8_contract(hc, w["w_hr_t_q8"][l], w["w_hr_t_q8s"][l], mesh)
             y = x + h_new
-            mid = ffn_mid_i8(y, params["ff1_t_q8"][l], params["ff1_t_q8s"][l], params["ff1_b"][l])
-            ff_sum = tp_q8_contract(mid, params["ff2_t_q8"][l], params["ff2_t_q8s"][l], mesh)
+            mid = ffn_mid_i8(y, w["ff1_t_q8"][l], w["ff1_t_q8s"][l], w["ff1_b"][l])
+            ff_sum = tp_q8_contract(mid, w["ff2_t_q8"][l], w["ff2_t_q8s"][l], mesh)
         else:
             hp, c_new = lstm_gate_cell_proj(
-                x, h_l, c_l, params["w_ih_t"][l], params["w_hh_t"][l], params["bias"][l],
-                params["w_hr_t"][l], gate)
+                x, h_l, c_l, w["w_ih_t"][l], w["w_hh_t"][l], w["bias"][l], w["w_hr_t"][l], gate)
             h_new = mesh.all_reduce(hp, "sum")
             y = x + h_new
             ff_sum = mesh.all_reduce(
-                ffn_partial(y, params["ff1_t"][l], params["ff1_b"][l], params["ff2_t"][l]), "sum")
-        x = _basic_norm(y + (ff_sum + params["ff2_b"][l].float()), params["norm_eps"][l])
+                ffn_partial(y, w["ff1_t"][l], w["ff1_b"][l], w["ff2_t"][l]), "sum")
+        x = _basic_norm(y + (ff_sum + w["ff2_b"][l].float()), w["norm_eps"][l], norm_d)
         if gate is not None:
             h_new = torch.where(gate[:, None], h_new, h_l)
         hs.append(h_new)
         cs.append(c_new)
-    return x, torch.stack(hs), torch.stack(cs)
+    return unpadded_outputs(x, torch.stack(hs), torch.stack(cs), d, Hs)
 
 
 def encoder_recurrent_tp(params: Params, y, h, c, mesh, gate=None):

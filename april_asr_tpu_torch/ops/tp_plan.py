@@ -1,8 +1,10 @@
-"""The launch plans of the tensor-parallel step's kernels 18 and 19 as one
-launch each (csrc/lstm_tp_gates.cu), and the route between them and the
-kept two-pass kernels (csrc/lstm_tp.cu `tp_gate_cell_proj_simt`,
-`tp_gates_cell_i8_simt`, counted as `tp_gcp_simt_f32` / `_bf16` and
-`tp_gc_i8_simt`).
+"""The launch plans of the tensor-parallel step's kernels 18 and 19
+(csrc/lstm_tp_gates.cu) and 20 and 21 (csrc/lstm_tp_ffn.cu) as one launch
+each, and the route between them and the kept column-pass kernels
+(csrc/lstm_tp.cu `tp_gate_cell_proj_simt`, `tp_gates_cell_i8_simt`,
+`tp_ffn_partial_simt`, `tp_ffn_mid_i8_simt`, counted as `tp_gcp_simt_f32` /
+`_bf16`, `tp_gc_i8_simt`, `tp_ffn_simt_f32` / `_bf16` and
+`tp_ffn_mid_i8_simt`).
 
 Kernel 18 (`GcpPlan`, f32 or bf16 weights): one cooperative grid of nb <=
 n_sm blocks of NT threads walks two phases of items (block b takes items
@@ -30,6 +32,31 @@ ops/lstm_mma.py `gate_split` (ub 4, 8 or 16; the split with the fewest rows
 an item, then the smaller ub), nb = the gate items, shared memory the gate
 slice and the A ring; None where no split fits the SMs and the shared
 memory.
+
+Kernel 20 (`FfnPlan`, f32 or bf16 weights): one cooperative grid of nb <=
+n_sm blocks, two phases of items with a grid barrier between: ff1 items
+(rows x columns of mid [S, Fs]), then ff2 items (of out [S, d]). An item's
+shape (`FfnTile`): its first wr x wc warps compute, a lane rm rows (1, 2 or
+4) x 4 nq columns (nq 1 or 2), so it is 4 wr rm rows x 32 nq wc columns.
+A 64-deep stage of an item's rows (y or mid, tiled [row tile][depth chunk]
+[TR][68] by the kernel) and weight columns (tiled on the host) is two bulk
+copies into a ring of three stages, whose size depends on the item shapes
+alone. The rule (`ffn_plan`): the fewest
+cycles of the two phases' waves (`FfnTile.cycles`: FFMA issue plus shared
+memory at 512 bytes an LDS.128, as the card's sweeps ranked the shapes),
+then the fewest bytes a block streams, the fewest blocks, the more
+computing warps. At S = 256, d = 512, Fs = 1024 on 132 SMs: 128 blocks,
+ff1 items of 64 x 32 on 4 warps, ff2 items of 32 x 32 on 2 warps, 4 x 4 a
+lane, 76,800 bytes a block.
+
+Kernel 21 (`MidPlan`, int8): items of tr rows x tc columns of mid on
+`mma.sync` (tr, tc in 16..128, (tr / 16)(tc / 8) = 8 NTW 8-column tiles a
+warp, NTW 1, 2 or 4): the item's ff1 columns and its rows' int8 values in
+shared memory, y quantized across the grid into int8 scratch before a grid
+barrier. The rule (`mid_plan`): the fewest waves of mma.sync a warp, then
+the fewest bytes a block reads (its int8 rows and its weight columns), then
+the fewest blocks, the fewer rows. At S = 256, d = 512, Fs = 1024 on 132
+SMs: 128 blocks of 32 x 64 items.
 """
 
 from __future__ import annotations
@@ -91,6 +118,10 @@ class GcpPlan:
         """The C entry's plan arguments: ub, kc, nb, smem."""
         return self.ub, self.kc, self.nb, self.smem
 
+    def scratch(self) -> Tuple[int, Tuple[int, ...]]:
+        """(bytes, offsets) of the C entry's hc [S][Hs] f32."""
+        return 4 * self.S * self.Hs, (0,)
+
     def gate_items(self, b: int) -> List[Tuple[range, range]]:
         """Block b's gate items in its order: (units, rows) each (units past
         Hs are the kernel's zero columns)."""
@@ -151,6 +182,11 @@ class GcI8Plan:
     def nb(self) -> int:
         return self.gate.items
 
+    def ints(self) -> Tuple[int, ...]:
+        """The C entry's plan arguments: sp, dp, ub, nb and the gate split's
+        rows, unit groups and items."""
+        return (self.sp, self.dp, self.ub, self.nb, *self.gate.ints())
+
     def scratch(self) -> Tuple[int, Tuple[int, ...]]:
         """(bytes, offsets) of the C entry's xq, hq [sp][dp] (int8), scl
         [2][sp] (f32) and amax [sp] (u32) in one workspace, each 256-byte
@@ -183,6 +219,199 @@ def gc_i8_plan(S: int, d: int, Hs: int, n_sm: int = cuda_build.SM_COUNT,
     return min(plans, key=lambda p: (p.gate.rows, p.ub)) if plans else None
 
 
+FFN_KC = 64  # depth of a kernel-20 ring stage (FFN_DK)
+FFN_STAGES = 3  # of the ring (FFN_ST)
+
+
+@dataclasses.dataclass(frozen=True)
+class FfnTile:
+    """A kernel-20 item shape (csrc/lstm_tp_ffn.cu `FfnTile`): the item's
+    first wr * wc warps compute, a lane rm rows x nq float4s of columns."""
+
+    rm: int  # rows a lane: 1, 2 or 4
+    nq: int  # float4s of columns a lane: 1 or 2
+    wr: int  # computing warps along the rows
+    wc: int  # ... along the columns
+
+    @property
+    def tr(self) -> int:
+        return 4 * self.wr * self.rm
+
+    @property
+    def tc(self) -> int:
+        return 32 * self.nq * self.wc
+
+    @property
+    def nw(self) -> int:
+        return self.wr * self.wc
+
+    def stage(self) -> int:
+        """Bytes of a ring stage: rows [tr][FFN_KC + 4], weight rows
+        [FFN_KC][tc], f32."""
+        return (self.tr * (FFN_KC + 4) + FFN_KC * self.tc) * 4
+
+    def cycles(self, K: int) -> int:
+        """An item's cost over depth K on one SM, in cycles: per 4 depths a
+        lane issues 16 rm nq FFMA (the item's warps on 4 schedulers) and
+        reads rm + 4 nq LDS.128, each 512 bytes of the 128 bytes a cycle
+        shared memory serves; the two added, as the H100 sweeps of the item
+        shapes ranked them (their sum, not the larger, ordered every shape
+        measured at S = 256 and 2048; PERF.md)."""
+        ffma = _cdiv(self.nw, 4) * 16 * self.rm * self.nq
+        lds = self.nw * (self.rm + 4 * self.nq) * 4
+        return _cdiv(K, 4) * (ffma + lds)
+
+
+FFN_TILES = tuple(FfnTile(rm, nq, wr, wc) for rm in (1, 2, 4) for nq in (1, 2)
+                  for wr in (1, 2, 4, 8) for wc in (1, 2, 4, 8) if wr * wc <= 8)
+
+
+def ffn_smem(t1: FfnTile, t2: FfnTile) -> int:
+    """Bytes of kernel 20's shared memory (csrc/lstm_tp_ffn.cu `ffn_stb`):
+    three ring stages, each the larger of the two phases' stages, then the
+    slots' mbarriers."""
+    return FFN_STAGES * max(t1.stage(), t2.stage()) + 8 * FFN_STAGES
+
+
+def ffn_tiled_rows(S: int, K: int, TR: int) -> int:
+    """Floats of rows tiled as kernel 20's stages take them: [row tile][depth
+    chunk][TR][FFN_KC + 4]."""
+    return _cdiv(S, TR) * _cdiv(K, FFN_KC) * TR * (FFN_KC + 4)
+
+
+def _tiles(S: int, N: int, TR: int, TC: int) -> List[Tuple[range, range]]:
+    """Items of TR rows x TC columns over S rows and N columns, item j at
+    column group j % ncg and row tile j // ncg: (columns, rows) each
+    (columns past N are zero)."""
+    ncg = _cdiv(N, TC)
+    return [(range((j % ncg) * TC, (j % ncg + 1) * TC),
+             range((j // ncg) * TR, min((j // ncg + 1) * TR, S)))
+            for j in range(ncg * _cdiv(S, TR))]
+
+
+@dataclasses.dataclass(frozen=True)
+class FfnPlan:
+    S: int
+    d: int
+    Fs: int
+    t1: FfnTile  # ff1 items (over Fs columns)
+    t2: FfnTile  # ff2 items (over d columns)
+    nb: int
+    smem: int
+
+    def ints(self) -> Tuple[int, ...]:
+        """The C entry's plan arguments: each phase's rm, nq, wr, wc; nb;
+        smem."""
+        return (*dataclasses.astuple(self.t1), *dataclasses.astuple(self.t2), self.nb,
+                self.smem)
+
+    def items(self, phase: int, b: int) -> List[Tuple[range, range]]:
+        """Block b's items of phase 1 (ff1, over Fs columns) or 2 (ff2, over
+        d) in its order: (columns, rows) each."""
+        t, N = (self.t1, self.Fs) if phase == 1 else (self.t2, self.d)
+        return _tiles(self.S, N, t.tr, t.tc)[b::self.nb]
+
+    def scratch(self) -> Tuple[int, Tuple[int, ...]]:
+        """(bytes, offsets) of the C entry's tiled y (ff1's row tiles over d)
+        and mid (ff2's row tiles over Fs), f32, 256-byte aligned."""
+        a = _cdiv(4 * ffn_tiled_rows(self.S, self.d, self.t1.tr), 256) * 256
+        return a + 4 * ffn_tiled_rows(self.S, self.Fs, self.t2.tr), (0, a)
+
+
+def ffn_plan(S: int, d: int, Fs: int, n_sm: int = cuda_build.SM_COUNT,
+             smem_limit: int = SMEM_LIMIT, tiles=FFN_TILES) -> Optional[FfnPlan]:
+    """Kernel 20's plan for S rows at the shard's widths d and Fs on a card
+    of n_sm SMs, among the item shapes `tiles`: the fewest cycles of the
+    two phases' waves (`FfnTile.cycles`), then the fewest bytes a block
+    streams, the fewest blocks, the more computing warps, the taller items;
+    None where none fits `smem_limit` or the widths are not multiples of
+    4."""
+    if min(S, d, Fs) < 1 or d % 4 or Fs % 4:
+        return None
+
+    def phase(t, N, K):
+        n = _cdiv(S, t.tr) * _cdiv(N, t.tc)
+        return n, t.cycles(K), (min(t.tr, S) * K + K * min(t.tc, N)) * 4
+
+    best = None
+    p1 = [(t, *phase(t, Fs, d)) for t in tiles]
+    p2 = [(t, *phase(t, d, Fs)) for t in tiles]
+    for (t1, n1, c1, b1), (t2, n2, c2, b2) in itertools.product(p1, p2):
+        smem = ffn_smem(t1, t2)
+        if smem > smem_limit:
+            continue
+        nb = min(n_sm, max(n1, n2))
+        w1, w2 = _cdiv(n1, nb), _cdiv(n2, nb)
+        key = (w1 * c1 + w2 * c2, w1 * b1 + w2 * b2, nb, -t1.nw, -t2.nw, t1.wc, t2.wc,
+               t1.rm, t2.rm, t1.nq, t2.nq)
+        if best is None or key < best[0]:
+            best = (key, FfnPlan(S, d, Fs, t1, t2, nb, smem))
+    return None if best is None else best[1]
+
+
+MID_TILES = (16, 32, 64, 128)  # rows and columns a kernel-21 item may take
+
+
+def mid_smem(tr: int, tc: int, dp: int) -> int:
+    """Bytes of kernel 21's shared memory (csrc/lstm_tp_ffn.cu `mid_smem`):
+    the item's ff1 columns [tc][dp + 16] and rows [tr][dp + 16] (int8), and
+    the rows' scales."""
+    return (tr + tc) * (dp + 16) + 4 * tr
+
+
+@dataclasses.dataclass(frozen=True)
+class MidPlan:
+    S: int
+    d: int
+    Fs: int
+    dp: int  # depth padded to 64
+    tr: int
+    tc: int
+    nb: int
+    smem: int
+
+    @property
+    def ntw(self) -> int:
+        """8-column tiles a warp."""
+        return (self.tr // 16) * (self.tc // 8) // 8
+
+    def ints(self) -> Tuple[int, ...]:
+        """The C entry's plan arguments: dp, tr, tc, nb, smem."""
+        return self.dp, self.tr, self.tc, self.nb, self.smem
+
+    def items(self, b: int) -> List[Tuple[range, range]]:
+        """Block b's items in its order: (columns, rows) each."""
+        return _tiles(self.S, self.Fs, self.tr, self.tc)[b::self.nb]
+
+    def scratch(self) -> Tuple[int, Tuple[int, ...]]:
+        """(bytes, offsets) of the C entry's yq [S][dp] (int8) and ys [S]
+        (f32) in one workspace, 256-byte aligned."""
+        n = _cdiv(self.S * self.dp, 256) * 256
+        return n + _cdiv(4 * self.S, 256) * 256, (0, n)
+
+
+def mid_plan(S: int, d: int, Fs: int, n_sm: int = cuda_build.SM_COUNT,
+             smem_limit: int = SMEM_LIMIT) -> Optional[MidPlan]:
+    """Kernel 21's plan for S rows at the shard's widths d and Fs; None where
+    no item fits `smem_limit` or the widths are not multiples of 4."""
+    if min(S, d, Fs) < 1 or d % 4 or Fs % 4:
+        return None
+    dp = _cdiv(d, 64) * 64
+    best = None
+    for tr, tc in itertools.product(MID_TILES, MID_TILES):
+        tiles = (tr // 16) * (tc // 8)
+        smem = mid_smem(tr, tc, dp)
+        if tiles not in (8, 16, 32) or smem > smem_limit:
+            continue
+        n = _cdiv(S, tr) * _cdiv(Fs, tc)
+        nb = min(n_sm, n)
+        w = _cdiv(n, nb)
+        key = (w * tiles // 8 * dp // 32, w * (min(tr, S) + min(tc, Fs)) * d, nb, tr)
+        if best is None or key < best[0]:
+            best = (key, MidPlan(S, d, Fs, dp, tr, tc, nb, smem))
+    return None if best is None else best[1]
+
+
 @functools.lru_cache(maxsize=256)
 def device_gcp_plan(S: int, d: int, Hs: int, index: int, ubs=UBS,
                     kcs=KCS) -> Optional[GcpPlan]:
@@ -196,11 +425,28 @@ def device_gc_i8_plan(S: int, d: int, Hs: int, index: int) -> Optional[GcI8Plan]
     return gc_i8_plan(S, d, Hs, LM._n_sm(index))
 
 
-def tp_route(kind: str, S: int, d: int, Hs: int, n_sm: int = cuda_build.SM_COUNT,
+@functools.lru_cache(maxsize=256)
+def device_ffn_plan(S: int, d: int, Fs: int, index: int,
+                    tiles=FFN_TILES) -> Optional[FfnPlan]:
+    """`ffn_plan` on card `index`'s SM count, cached per shape."""
+    return ffn_plan(S, d, Fs, LM._n_sm(index), tiles=tiles)
+
+
+@functools.lru_cache(maxsize=256)
+def device_mid_plan(S: int, d: int, Fs: int, index: int) -> Optional[MidPlan]:
+    """`mid_plan` on card `index`'s SM count, cached per shape."""
+    return mid_plan(S, d, Fs, LM._n_sm(index))
+
+
+PLANS = {"gcp": gcp_plan, "gc_i8": gc_i8_plan, "ffn": ffn_plan, "mid_i8": mid_plan}
+
+
+def tp_route(kind: str, S: int, d: int, n: int, n_sm: int = cuda_build.SM_COUNT,
              smem_limit: int = SMEM_LIMIT) -> str:
-    """The kernel that serves kernel 18 (`kind` "gcp") or 19 ("gc_i8") at
-    these shapes: "fused" (csrc/lstm_tp_gates.cu) where its plan exists,
-    else "simt" (csrc/lstm_tp.cu's two passes). Reads shapes only."""
-    plan = (gcp_plan(S, d, Hs, n_sm, smem_limit=smem_limit) if kind == "gcp"
-            else gc_i8_plan(S, d, Hs, n_sm, smem_limit=smem_limit))
+    """The kernel that serves kernel 18 (`kind` "gcp"), 19 ("gc_i8"), 20
+    ("ffn") or 21 ("mid_i8") at S rows and the shard's widths d and n (Hs
+    for 18 and 19, Fs for 20 and 21): "fused" (csrc/lstm_tp_gates.cu,
+    csrc/lstm_tp_ffn.cu) where its plan exists, else "simt" (csrc/lstm_tp.cu's
+    column passes). Reads shapes only."""
+    plan = PLANS[kind](S, d, n, n_sm, smem_limit=smem_limit)
     return "simt" if plan is None else "fused"

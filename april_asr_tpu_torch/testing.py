@@ -289,7 +289,7 @@ def engine_run(args: dict) -> dict:
     `args["profile"]` (a CUDA run), the calls it names (indices) run under
     torch.profiler: out["profile"][call] = {"kernels": {device kernel name:
     (device us, launches)}, "wall_ms"}. With `args["tp_kernels"]` "simt",
-    the tensor-parallel step runs kernels 18 and 19 on the two-pass kernels
+    the tensor-parallel step runs kernels 18-21 on the column-pass kernels
     they replaced (the yardstick of a before-and-after breakdown)."""
     import torch
 
@@ -366,20 +366,28 @@ def _profiler():
     return profile(activities=[ProfilerActivity.CUDA])
 
 
+# the tensor-parallel step's kernels (their names in the TP stack's module)
+# and the kept column-pass kernels they replaced
+TP_SIMT = {"lstm_gate_cell_proj": "lstm_gate_cell_proj_simt",
+           "lstm_gates_cell_i8": "lstm_gates_cell_i8_simt",
+           "ffn_partial": "ffn_partial_simt", "ffn_mid_i8": "ffn_mid_i8_simt"}
+
+
 @contextlib.contextmanager
 def _tp_simt():
-    """The tensor-parallel step's kernels 18 and 19 on their kept two-pass
+    """The tensor-parallel step's kernels 18-21 on their kept column-pass
     kernels while the block runs."""
     from .models import lstm_transducer as TM
     from .ops import lstm_tp_kernels as TK
 
-    saved = TM.lstm_gate_cell_proj, TM.lstm_gates_cell_i8
-    TM.lstm_gate_cell_proj, TM.lstm_gates_cell_i8 = (TK.lstm_gate_cell_proj_simt,
-                                                      TK.lstm_gates_cell_i8_simt)
+    saved = {k: getattr(TM, k) for k in TP_SIMT}
+    for k, v in TP_SIMT.items():
+        setattr(TM, k, getattr(TK, v))
     try:
         yield
     finally:
-        TM.lstm_gate_cell_proj, TM.lstm_gates_cell_i8 = saved
+        for k, v in saved.items():
+            setattr(TM, k, v)
 
 
 def tp_cases(args: dict) -> list:

@@ -299,8 +299,9 @@ def kernel9_turn(CS, vocab_path: str, audio, res: dict, card: str) -> None:
 
 TP_SIZES = (256, 2048)
 # the tensor-parallel kernels' device kernels in either tree (the one-launch
-# kernels 18 and 19, or the two-pass kernels and kernels 20 and 21)
-TP_KEYS = ("tp_gcp_kernel", "tp_gc_i8_kernel", "step_gates", "tp_cols")
+# kernels 18-21, or the column-pass kernels they replaced)
+TP_KEYS = ("tp_gcp_kernel", "tp_gc_i8_kernel", "tp_ffn_kernel", "tp_mid_i8_kernel", "step_gates",
+           "tp_cols")
 TP_KERNELS = ("k18_f32", "k18_bf16", "k19", "k20_f32", "k20_bf16", "k21")
 
 

@@ -118,7 +118,11 @@ Phases (each fails the run on error):
              10, 12 and 16 each held to its plain version at the model's own
              widths (the padded columns zero), then CUDA vs CPU engine at
              f32 and int8, then served at both, the layer kernels launched
-             (PATH_KERNELS "d66 ..."); kernel 16 again at an odd d_model
+             (PATH_KERNELS "d66 ..."); kernel 16 again at an odd d_model;
+             the tensor-parallel kernels 18 and 20 (f32) and 19 and 21
+             (int8) on each of the m = 2 shards (Hs 129, Fs 99) at S=8 on
+             the padded route, held to their plain versions at the
+             shard's own widths (`check_padded_tp`)
   chunk      the int8 chunk-layer variants at flagship widths, S=256, P=27:
              kernels 13, 14, 11 (one layer), 15 (a 6-layer wavefront slab)
              and 22 (the tile-interleaved core, on 4- and 2-session tiles)
@@ -144,20 +148,21 @@ Phases (each fails the run on error):
              gate-shuffled slices at flagship widths (m = 2: d 512, Hs 512,
              Fs 1024), 18 and 20 at f32 and bf16 weights, 19 and 21 on the
              int8 weights, against their plain versions, timed at S=256 and
-             checked again at S=3 and at m = 4 (Hs 256, S=256 and 3);
-             kernels 18 and 19 (csrc/lstm_tp_gates.cu, one launch each)
-             bit for bit against the two-pass kernels they replaced
-             (`*_simt`, csrc/lstm_tp.cu) gated and ungated, both timed by
-             CUDA events, the profiler's device time and the host's time a
-             call; every shard's partials summed against kernel 7 (int8)
-             and 12 (f32); then two rank processes on this card (gloo, a
-             file store) each serve BatchEngine(S=256,
-             mesh=make_mesh(model_parallel=2)) at int8 and at f32, 3 ticks
+             checked again at S=3 and at m = 4 (Hs 256, Fs 512, S=256 and
+             3); kernels 18 and 19 (csrc/lstm_tp_gates.cu) and 20 and 21
+             (csrc/lstm_tp_ffn.cu), one launch each, bit for bit against
+             the column-pass kernels they replaced (`*_simt`,
+             csrc/lstm_tp.cu), gated and ungated where they take a gate,
+             both timed by CUDA events, the profiler's device time and the
+             host's time a call; every shard's partials summed against
+             kernel 7 (int8) and 12 (f32); then two rank processes on this
+             card (gloo, a file store) each serve BatchEngine(S=256,
+             mesh=make_mesh(model_parallel=2)) at int8 and at f32, 2 ticks
              and a flush: identical blobs on both ranks, exactly the
-             PATH_KERNELS["tp ..."] launches (the two-pass kernels never),
-             the events of the single-card per-pull engine up to
+             PATH_KERNELS["tp ..."] launches (the column-pass kernels
+             never), the events of the single-card per-pull engine up to
              near-ties, rank 0's device time of a step and the flush by
-             kernel (torch.profiler), and the same run on the two-pass
+             kernel (torch.profiler), and the same run on the column-pass
              kernels with equal blobs, profiled alike
 
 Output: one line per kernel and per phase, then a JSON line
@@ -482,7 +487,9 @@ def phase_build(card):
 # (csrc/joiner_stream.cu, two weight types x four register tiles x W
 # resident or streamed) on FFMA alone, in joiner.cu's order; kernel 18
 # (csrc/lstm_tp_gates.cu, rounding x stage depth) on FFMA alone,
-# kernel 19 (three gate-item widths) on IMMA
+# kernel 19 (three gate-item widths) on IMMA; kernel 20 (csrc/lstm_tp_ffn.cu,
+# f32 and bf16) on FFMA alone, in tp_cols' order, kernel 21 (three
+# column-tile counts) on IMMA
 MMA_SOURCES = (
     ("lstm_mma.cu", ("_Z19lstm_rec_mma_kernel", "_Z20lstm_step_mma_kernel"), 6),
     ("lstm_mma_float.cu", ("_Z26lstm_step_float_mma_kernel",), 2),
@@ -495,6 +502,7 @@ MMA_SOURCES = (
     ("dec_joiner_cluster.cu", ("_Z25dec_joiner_cluster_kernel",), 4),
     ("joiner_stream.cu", ("_Z20joiner_stream_kernel",), 16),
     ("lstm_tp_gates.cu", ("_Z13tp_gcp_kernel", "_Z15tp_gc_i8_kernel"), 7),
+    ("lstm_tp_ffn.cu", ("_Z13tp_ffn_kernel", "_Z16tp_mid_i8_kernel"), 5),
 )
 
 
@@ -504,7 +512,8 @@ def sass_rule(kernel: str, insns: list) -> str:
     the CUDA cores) and no HMMA; kernel 5 FFMA and no tensor-core
     instruction (its sums keep fbank_bf16x3.cu's order), kernels 16, 8, 9
     and 18 likewise (conv_embed.cu's, joiner.cu's and lstm_step.cuh's
-    orders); kernel 19 (`tp_gc_i8`) IMMA; kernels 12 and 10 at bf16 HMMA, at f32 FFMA and
+    orders), and kernel 20 (`tp_ffn`, tp_cols' order); kernels 19 (`tp_gc_i8`) and 21
+    (`tp_mid_i8`) IMMA; kernels 12 and 10 at bf16 HMMA, at f32 FFMA and
     no tensor-core instruction (no TF32); kernel 23 (mm_wgmma.cu) HGMMA at
     bf16 (`<0, ...>`), IGMMA in its int8 forms, and no other tensor-core
     instruction."""
@@ -514,7 +523,8 @@ def sass_rule(kernel: str, insns: list) -> str:
         ok = n(mine) and not (n(other) or n("HMMA") or n("IMMA"))
         return "" if ok else f"not {mine} alone"
     if ("fbank_tile" in kernel or "conv_stack" in kernel or "conv_proj" in kernel
-            or "dec_joiner_cluster" in kernel or "joiner_stream" in kernel or "tp_gcp" in kernel):
+            or "dec_joiner_cluster" in kernel or "joiner_stream" in kernel or "tp_gcp" in kernel
+            or "tp_ffn" in kernel):
         return "" if n("FFMA") and not n("HMMA") and not n("IMMA") else "not FFMA alone"
     if "fbank" in kernel:
         return "" if n("IMMA") and n("FFMA") and not n("HMMA") else "not IMMA and FFMA alone"
@@ -528,7 +538,8 @@ def sass_rule(kernel: str, insns: list) -> str:
 def check_mma_sass():
     """csrc/lstm_mma.cu, lstm_mma_float.cu, lstm_chunk_mma.cu, ffn_mma.cu,
     fbank_mma.cu, fbank_bf16x3_tile.cu, conv_embed_tile.cu, mm_wgmma.cu,
-    dec_joiner_cluster.cu, joiner_stream.cu and lstm_tp_gates.cu compiled again to cubins: each
+    dec_joiner_cluster.cu, joiner_stream.cu, lstm_tp_gates.cu and lstm_tp_ffn.cu compiled
+    again to cubins: each
     tiled kernel's registers, shared memory and spills (`-Xptxas -v`; a
     spill fails) and its SASS (`sass_rule`)."""
     from pathlib import Path
@@ -1437,10 +1448,18 @@ SOURCES = {
                          "april_asr_tpu/ops/lstm_tp_pallas.py:122"),
     "tp_gc_i8_simt": ("april_asr_tpu_torch/csrc/lstm_tp.cu",
                       "april_asr_tpu/ops/lstm_tp_pallas.py:234"),
-    "tp_ffn_f32": ("april_asr_tpu_torch/csrc/lstm_tp.cu", "april_asr_tpu/ops/lstm_tp_pallas.py:305"),
-    "tp_ffn_bf16": ("april_asr_tpu_torch/csrc/lstm_tp.cu", "april_asr_tpu/ops/lstm_tp_pallas.py:305"),
-    "tp_ffn_mid_i8": ("april_asr_tpu_torch/csrc/lstm_tp.cu",
+    "tp_ffn_f32": ("april_asr_tpu_torch/csrc/lstm_tp_ffn.cu",
+                   "april_asr_tpu/ops/lstm_tp_pallas.py:305"),
+    "tp_ffn_bf16": ("april_asr_tpu_torch/csrc/lstm_tp_ffn.cu",
+                    "april_asr_tpu/ops/lstm_tp_pallas.py:305"),
+    "tp_ffn_mid_i8": ("april_asr_tpu_torch/csrc/lstm_tp_ffn.cu",
                       "april_asr_tpu/ops/lstm_tp_pallas.py:363"),
+    "tp_ffn_simt_f32": ("april_asr_tpu_torch/csrc/lstm_tp.cu",
+                        "april_asr_tpu/ops/lstm_tp_pallas.py:305"),
+    "tp_ffn_simt_bf16": ("april_asr_tpu_torch/csrc/lstm_tp.cu",
+                         "april_asr_tpu/ops/lstm_tp_pallas.py:305"),
+    "tp_ffn_mid_i8_simt": ("april_asr_tpu_torch/csrc/lstm_tp.cu",
+                           "april_asr_tpu/ops/lstm_tp_pallas.py:363"),
 }
 # the launch counter of a row that times a kernel at a second shape or tile
 COUNT_KEY = {"joiner_argmax_v16383": "joiner_argmax", "joiner_argmax_f32_v16383": "joiner_argmax_f32",
@@ -2248,6 +2267,89 @@ def check_padded_layers(rt, S: int, P: int, seed: int) -> str:
             f" at S={S}, P={P}: " + ", ".join(f"{k} max_abs_err {v:.3g}" for k, v in errs.items()))
 
 
+def check_padded_tp(rt, S: int, m: int, seed: int) -> str:
+    """The tensor-parallel kernels 18 and 20 (f32 or bf16 weights) or 19
+    and 21 (int8) at m shards of a model whose shard widths are not
+    multiples of 4, on the operands the TP stack gives them
+    (`padded_operands` of each rank's slices: layer 0's weights and the rows
+    zero-padded to the next multiples of 4), each call required to launch
+    its one-launch kernel, against the plain versions on the rank's own
+    slices and widths (`_ulp_close` at int8, FLOAT_TOL at float weights; 18
+    and 19 gated and ungated), every padded output column exactly zero.
+    Returns a summary of the largest differences."""
+    from april_asr_tpu_torch.models import lstm_transducer as TM
+    from april_asr_tpu_torch.ops import cuda_build
+    from april_asr_tpu_torch.ops import lstm_tp_kernels as TK
+    from april_asr_tpu_torch.ops.widths import zero_pad
+    from april_asr_tpu_torch.parallel import TPMesh, prepare_tp_weights
+
+    w = rt.weights
+    q = TM.is_quantized(w)
+    keys = TM.STEP_I8_KEYS if q else TM.STEP_KEYS
+    d = TM.layer_widths(w)[0]
+    prec = "int8" if q else ("bf16" if w["w_ih_t"].dtype == torch.bfloat16 else "f32")
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa: E731
+    errs, shapes = {}, []
+
+    def close(g, wv, what):
+        if q:
+            return _ulp_close(g, wv, what)
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{what}: non-finite values")
+        atol, rtol = FLOAT_TOL[prec]
+        torch.testing.assert_close(g, wv, atol=atol, rtol=rtol, msg=what)
+        return float((g - wv).abs().max())
+
+    def held(name, count, call, plain, widths):
+        before = cuda_build.COUNTS[count]
+        got, want = call(), plain()
+        if cuda_build.COUNTS[count] != before + 1:
+            raise AssertionError(f"padded tp {name}: {count} did not launch")
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        for g, wv, n in zip(got, want, widths):
+            torch.cuda.synchronize()
+            if torch.count_nonzero(g[..., n:]):
+                raise AssertionError(f"padded tp {name}: a padded column is not zero")
+            errs[name] = max(errs.get(name, 0.0),
+                             close(g[..., :n].contiguous(), wv, f"padded tp {name}"))
+
+    for r in range(m):
+        sh = prepare_tp_weights({k: w[k][:1] for k in keys}, TPMesh(None, r, m))
+        _, Hs, Fs = TM.layer_widths(sh)
+        x = t(rng.normal(size=(S, d)).astype(np.float32))
+        h = t((rng.normal(size=(1, S, d)) * 0.3).astype(np.float32))
+        c = t((rng.normal(size=(1, S, Hs)) * 0.3).astype(np.float32))
+        y = t(rng.normal(size=(S, d)).astype(np.float32))
+        gate = t(rng.random(S) < 0.5)
+        pw, xp, hp, cp, _ = TM.padded_operands(sh, x, h, c)
+        dp, Hp, Fp = xp.shape[-1], cp.shape[-1], pw["ff1_t_q8" if q else "ff1_t"].shape[-1]
+        if (dp, Hp, Fp) == (d, Hs, Fs):
+            raise AssertionError(f"padded tp: shard widths d={d}, Hs={Hs}, Fs={Fs} not padded")
+        shapes.append(f"rank {r}: d={d} Hs={Hs} Fs={Fs} padded to {dp}, {Hp}, {Fp}")
+        yp = zero_pad(y, (S, dp))
+        lw, lp = ({k: v[0] for k, v in sh.items()}, {k: v[0] for k, v in pw.items()})
+        if q:
+            for g in (None, gate):
+                held("kernel 19", "tp_gc_i8",
+                     lambda g=g: TK.lstm_gates_cell_i8(xp, hp[0], cp[0], *(lp[k] for k in GC_I8), g),
+                     lambda g=g: TK.lstm_gates_cell_i8_plain(x, h[0], c[0], *(lw[k] for k in GC_I8),
+                                                             g), (Hs, Hs))
+            held("kernel 21", "tp_ffn_mid_i8", lambda: TK.ffn_mid_i8(yp, *(lp[k] for k in MID_I8)),
+                 lambda: TK.ffn_mid_i8_plain(y, *(lw[k] for k in MID_I8)), (Fs,))
+        else:
+            gk, fk = TP_FLOAT_KEYS[:4], TP_FLOAT_KEYS[4:]
+            for g in (None, gate):
+                held("kernel 18", f"tp_gcp_{prec}",
+                     lambda g=g: TK.lstm_gate_cell_proj(xp, hp[0], cp[0], *(lp[k] for k in gk), g),
+                     lambda g=g: TK.lstm_gate_cell_proj_plain(x, h[0], c[0], *(lw[k] for k in gk),
+                                                              g), (d, Hs))
+            held("kernel 20", f"tp_ffn_{prec}", lambda: TK.ffn_partial(yp, *(lp[k] for k in fk)),
+                 lambda: TK.ffn_partial_plain(y, *(lw[k] for k in fk)), (d,))
+    return (f"{'; '.join(shapes)} at S={S}: "
+            + ", ".join(f"{k} max_abs_err {v:.3g}" for k, v in errs.items()))
+
+
 def check_embed_widths(rt, S: int, P: int, seed: int) -> str:
     """Kernel 16 (and 17) on `rt`'s bf16 embed weights, and again on random
     bf16 embed weights at an odd d_model (67), each held to `_embed_close`:
@@ -2279,10 +2381,11 @@ def phase_widths(tmp: str, card, reps: int = 10):
     the CPU engine at f32 (`_lockstep`), then `serve_once` at f32 and bf16.
     A model at d 66 / H 258 / F 198, conv channels (4, 12, 20) (`ODD`): its
     layer kernels on padded operands against their plain versions
-    (`check_padded_layers`, S=256, P=27) and kernel 16 (`check_embed_widths`)
-    at int8 and f32, then `_lockstep` and `serve_once` at f32 and int8 on
-    those kernels (PATH_KERNELS "d66 ..."). Returns (JSON rows, {path:
-    launch counts})."""
+    (`check_padded_layers`, S=256, P=27), the tensor-parallel kernels on
+    its m = 2 shards' padded operands (`check_padded_tp`, S=8) and kernel 16
+    (`check_embed_widths`) at int8 and f32, then `_lockstep` and
+    `serve_once` at f32 and int8 on those kernels (PATH_KERNELS "d66 ...").
+    Returns (JSON rows, {path: launch counts})."""
     from april_asr_tpu_torch.api import Model
     from april_asr_tpu_torch.models.lstm_transducer import TransducerDims
 
@@ -2313,6 +2416,7 @@ def phase_widths(tmp: str, card, reps: int = 10):
         p = None if prec == "f32" else prec
         rt = Model(odd, precision=p, device=DEV).runtime
         print(f"widths d66 {prec}: {check_padded_layers(rt, S_FLAG, 27, seed=18)}")
+        print(f"widths d66 {prec} tp (m=2): {check_padded_tp(rt, 8, 2, seed=20)}")
         if prec == "int8":
             print(f"widths d66 embed: {check_embed_widths(rt, S_FLAG, 27, seed=19)}")
         _lockstep(Model(odd, precision=p, device=DEV).runtime,
@@ -2603,16 +2707,26 @@ def tp_layer_summed(w, shards, x, h, c_shards, gate, q: bool):
         y = x + h_new
         ffs = [TK.ffn_partial(y, *(wk[k] for k in TP_FLOAT_KEYS[4:])) for wk in shards]
         ff = functools.reduce(torch.add, ffs)
-    yo = TM._basic_norm(y + (ff + w["ff2_b"][0].float()), w["norm_eps"][0])
+    yo = TM._basic_norm(y + (ff + w["ff2_b"][0].float()), w["norm_eps"][0], x.shape[1])
     return yo, (h_new if gate is None else torch.where(gate[:, None], h_new, h)), torch.cat(c2s, 1)
 
 
-# kernels 18 and 19 (their count keys) beside the two-pass kernels they
+# kernels 18-21 (their count keys) beside the column-pass kernels they
 # replaced, and the device kernels the profiler names for each
 TP_PAIRS = (("tp_gcp_f32", "tp_gcp_simt_f32"), ("tp_gcp_bf16", "tp_gcp_simt_bf16"),
-            ("tp_gc_i8", "tp_gc_i8_simt"))
-TP_DEVICE = {"tp_gcp": ("tp_gcp_kernel",), "tp_gc_i8": ("tp_gc_i8_kernel",),
+            ("tp_gc_i8", "tp_gc_i8_simt"), ("tp_ffn_f32", "tp_ffn_simt_f32"),
+            ("tp_ffn_bf16", "tp_ffn_simt_bf16"), ("tp_ffn_mid_i8", "tp_ffn_mid_i8_simt"))
+TP_DEVICE = {"tp_gcp_f32": ("tp_gcp_kernel",), "tp_gcp_bf16": ("tp_gcp_kernel",),
+             "tp_gc_i8": ("tp_gc_i8_kernel",), "tp_ffn_f32": ("tp_ffn_kernel",),
+             "tp_ffn_bf16": ("tp_ffn_kernel",), "tp_ffn_mid_i8": ("tp_mid_i8_kernel",),
              "simt": ("step_gates", "tp_cols")}
+# the outputs of each kernel of TP_PAIRS, and whether it takes a gate
+TP_OUTS = {"tp_gcp": (("hp", "c'"), True), "tp_gc_i8": (("hc", "c'"), True),
+           "tp_ffn": (("out",), False), "tp_ffn_mid_i8": (("mid",), False)}
+
+
+def tp_outs(name: str) -> tuple:
+    return TP_OUTS.get(name) or next(v for k, v in TP_OUTS.items() if name.startswith(k + "_"))
 
 
 def check_tp_kernels(models, S: int, seed: int, m: int = 2) -> dict:
@@ -2620,10 +2734,11 @@ def check_tp_kernels(models, S: int, seed: int, m: int = 2) -> dict:
     at m shards (flagship, m = 2: d 512, Hs 512, Fs 1024), gated and
     ungated where the kernel takes a gate, against their plain versions
     (int8 to f32 ulps except isolated int8 rounding flips; f32 and bf16 at
-    kernel 12's bounds); kernels 18 (f32, bf16) and 19 by their route
-    (csrc/lstm_tp_gates.cu, each call required to launch it) equal bit for
-    bit to the two-pass kernels they replaced (`*_simt`), which are held to
-    the plain versions too; then every shard's pieces with their partials
+    kernel 12's bounds); kernels 18 (f32, bf16), 19, 20 (f32, bf16) and 21
+    by their route (csrc/lstm_tp_gates.cu, csrc/lstm_tp_ffn.cu, each call
+    required to launch it) equal bit for bit to the column-pass kernels
+    they replaced (`*_simt`), gated and ungated where the kernel takes a
+    gate, which are held to the plain versions too; then every shard's pieces with their partials
     summed (`tp_layer_summed`) against the unsharded layer, kernel 7 at
     int8 and kernel 12 at f32: y, h and c within the JAX TP test's bounds
     (1e-5 int8, 2e-5 f32). Returns {name: (kernel call, plain call, max abs
@@ -2679,9 +2794,13 @@ def check_tp_kernels(models, S: int, seed: int, m: int = 2) -> dict:
             (f"tp_gcp_{prec}", prec, TK.lstm_gate_cell_proj, TK.lstm_gate_cell_proj_plain) + gcp,
             (f"tp_gcp_simt_{prec}", prec, TK.lstm_gate_cell_proj_simt,
              TK.lstm_gate_cell_proj_plain) + gcp,
-            (f"tp_ffn_{prec}", prec, TK.ffn_partial, TK.ffn_partial_plain,
-             (y_in,) + tuple(w0[k] for k in TP_FLOAT_KEYS[4:]), False,
-             2 * d * Fs * wb + Fs * w0["ff1_b"].element_size() + 2 * S * d * 4, 2 * S * d * Fs * 2),
+        ]
+        ffn = ((y_in,) + tuple(w0[k] for k in TP_FLOAT_KEYS[4:]), False,
+               2 * d * Fs * wb + Fs * w0["ff1_b"].element_size() + 2 * S * d * 4,
+               2 * S * d * Fs * 2)
+        table += [
+            (f"tp_ffn_{prec}", prec, TK.ffn_partial, TK.ffn_partial_plain) + ffn,
+            (f"tp_ffn_simt_{prec}", prec, TK.ffn_partial_simt, TK.ffn_partial_plain) + ffn,
         ]
     q0 = _tp_shards(models["int8"].runtime.weights, TP_I8_KEYS, m)[0]
     bb = q0["bias"].element_size()
@@ -2691,9 +2810,12 @@ def check_tp_kernels(models, S: int, seed: int, m: int = 2) -> dict:
     table += [
         ("tp_gc_i8", "int8", TK.lstm_gates_cell_i8, TK.lstm_gates_cell_i8_plain) + gc,
         ("tp_gc_i8_simt", "int8", TK.lstm_gates_cell_i8_simt, TK.lstm_gates_cell_i8_plain) + gc,
-        ("tp_ffn_mid_i8", "int8", TK.ffn_mid_i8, TK.ffn_mid_i8_plain,
-         (y_in,) + tuple(q0[k] for k in MID_I8), False,
-         d * Fs + Fs * 4 + Fs * q0["ff1_b"].element_size() + S * (d + Fs) * 4, 2 * S * d * Fs),
+    ]
+    mid = ((y_in,) + tuple(q0[k] for k in MID_I8), False,
+           d * Fs + Fs * 4 + Fs * q0["ff1_b"].element_size() + S * (d + Fs) * 4, 2 * S * d * Fs)
+    table += [
+        ("tp_ffn_mid_i8", "int8", TK.ffn_mid_i8, TK.ffn_mid_i8_plain) + mid,
+        ("tp_ffn_mid_i8_simt", "int8", TK.ffn_mid_i8_simt, TK.ffn_mid_i8_plain) + mid,
     ]
     out = {}
     shape = f"x[{S},{d}] Hs={Hs} Fs={Fs} (m={m})"
@@ -2703,14 +2825,16 @@ def check_tp_kernels(models, S: int, seed: int, m: int = 2) -> dict:
         pf = lambda g=None, pfn=pfn, a=a, gated=gated: pfn(*a, g) if gated else pfn(*a)  # noqa: E731
         out[name] = (kf, pf, held(name, prec, kf, pf, gated), bound_ms(n_bytes, {prec: ops}), shape)
 
-    # kernels 18 and 19 by their route against the two-pass kernels, bit for bit
+    # kernels 18-21 by their route against the column-pass kernels, bit for bit
     for new, simt in TP_PAIRS:
-        for g in (None, gate):
+        names, gated = tp_outs(new)
+        for g in (None, gate) if gated else (None,):
             before = cuda_build.COUNTS[new]
             got = out[new][0](g)
             if cuda_build.COUNTS[new] != before + 1:
                 raise AssertionError(f"{new} S={S} m={m}: the one-launch kernel did not launch")
-            _bit_equal(got, out[simt][0](g), ("hc" if new == "tp_gc_i8" else "hp", "c'"),
+            want = out[simt][0](g)
+            _bit_equal(got if gated else (got,), want if gated else (want,), names,
                        f"{new} S={S} m={m}{' gated' if g is not None else ''}: the one-launch "
                        f"kernel against {simt}")
 
@@ -2735,42 +2859,41 @@ def check_tp_kernels(models, S: int, seed: int, m: int = 2) -> dict:
     return out
 
 
-def tp_times(checked: dict, card, d: int, Hs: int) -> None:
-    """Kernels 18 (f32, bf16) and 19 beside the two-pass kernels they
-    replaced, on `checked`'s inputs: each plan, the CUDA-event ms, the
-    profiler's device us a call and the host's us a call (`host_us_turns`),
-    beside the bound and, for kernel 18, the FFMA floor (its multiply-adds
-    at the f32 rate); then kernels 20 and 21's device us a call."""
+def tp_times(checked: dict, card, d: int, Hs: int, Fs: int) -> None:
+    """Kernels 18 (f32, bf16), 19, 20 (f32, bf16) and 21 beside the
+    column-pass kernels they replaced, on `checked`'s inputs: each plan, the
+    CUDA-event ms, the profiler's device us a call and the host's us a call
+    (`host_us_turns`), beside the bound and, for kernels 18 and 20, the FFMA
+    floor (their multiply-adds at the f32 rate)."""
     from april_asr_tpu_torch.ops import tp_plan as TP
 
+    plan = {"tp_gcp": lambda: TP.device_gcp_plan(S_FLAG, d, Hs, 0),
+            "tp_gc_i8": lambda: TP.device_gc_i8_plan(S_FLAG, d, Hs, 0),
+            "tp_ffn": lambda: TP.device_ffn_plan(S_FLAG, d, Fs, 0),
+            "tp_ffn_mid_i8": lambda: TP.device_mid_plan(S_FLAG, d, Fs, 0)}
+    macs = {"tp_gcp": S_FLAG * (2 * d * 4 * Hs + Hs * d), "tp_ffn": 2 * S_FLAG * d * Fs}
     for new, simt in TP_PAIRS:
         kf, sf = checked[new][0], checked[simt][0]
         b_ms, b_by = checked[new][3]
         k_ms, s_ms = cuda_ms(kf, 20), cuda_ms(sf, 20)
-        k_dev = profiled(kf, 5, TP_DEVICE["tp_gc_i8" if new == "tp_gc_i8" else "tp_gcp"])[1]
+        k_dev = profiled(kf, 5, TP_DEVICE[new])[1]
         s_dev = profiled(sf, 5, TP_DEVICE["simt"])[1]
         host = host_us_turns({"new": kf, "simt": sf})
-        if new == "tp_gc_i8":
-            plan, floor = TP.device_gc_i8_plan(S_FLAG, d, Hs, 0), ""
-        else:
-            plan = TP.device_gcp_plan(S_FLAG, d, Hs, 0)
-            floor = (f", FFMA floor "
-                     f"{S_FLAG * (2 * d * 4 * Hs + Hs * d) * 2 / PEAK_OPS['f32'] * 1e3:.4f} ms")
+        kind = new if new in plan else next(k for k in plan if new.startswith(k + "_"))
+        floor = (f", FFMA floor {macs[kind] * 2 / PEAK_OPS['f32'] * 1e3:.4f} ms"
+                 if kind in macs else "")
         print(f"kernel {new} S={S_FLAG}: one launch ms={k_ms:.4f} (device {k_dev:.2f} us a call, "
               f"host {host['new']:.2f} us a call), {simt} ms={s_ms:.4f} (device {s_dev:.2f} us, "
-              f"host {host['simt']:.2f} us), bound_ms={b_ms:.4f} ({b_by}){floor}; {plan} ({card})")
-    for name, keys in (("tp_ffn_f32", ("tp_cols",)), ("tp_ffn_bf16", ("tp_cols",)),
-                       ("tp_ffn_mid_i8", ("tp_cols",))):
-        dev = profiled(checked[name][0], 5, keys)[1]
-        print(f"kernel {name} S={S_FLAG}: device {dev:.2f} us a call ({card})")
+              f"host {host['simt']:.2f} us), bound_ms={b_ms:.4f} ({b_by}){floor}; {plan[kind]()} "
+              f"({card})")
 
 
 def no_simt_tp(what: str, counts: dict) -> None:
-    """Kernels 18 and 19 ran on their one-launch route: the two-pass kernels
+    """Kernels 18-21 ran on their one-launch route: the column-pass kernels
     they replaced launched no time in `counts`."""
     n = {k: counts.get(k, 0) for _, k in TP_PAIRS}
     if any(n.values()):
-        raise AssertionError(f"{what}: the two-pass kernels launched {n}")
+        raise AssertionError(f"{what}: the column-pass kernels launched {n}")
 
 
 def tp_profile_lines(prof: dict, what: str, card, top: int = 10) -> dict:
@@ -2790,21 +2913,21 @@ def tp_profile_lines(prof: dict, what: str, card, top: int = 10) -> dict:
     return out
 
 
-def tp_engine(model, path: str, prec: str, card, ticks: int = 3) -> dict:
+def tp_engine(model, path: str, prec: str, card, ticks: int = 2) -> dict:
     """Two rank processes on this card (gloo, a file store), each a
     `BatchEngine(rt, 256, mesh=make_mesh(model_parallel=2))` on the model
     at `path` and `prec`, over `ticks` 1 s ticks of tone bursts and a flush
     (`testing.engine_run`), the second tick and the flush under
     torch.profiler. Fails unless both ranks exit, their event blobs are
     identical, each rank's step and flush launched exactly the
-    PATH_KERNELS["tp " + prec] kernels, kernel 19 (int8) or 18 (f32)
-    P x L times a step and pulls x L a flush (and the two-pass kernels they
-    replaced no time), and rank 0's events part from the single-card
-    engine's, on the same model and audio, only at near-ties
+    PATH_KERNELS["tp " + prec] kernels, kernels 19 and 21 (int8) or 18 and
+    20 (f32) P x L times a step and pulls x L a flush (and the column-pass
+    kernels they replaced no time), and rank 0's events part from the
+    single-card engine's, on the same model and audio, only at near-ties
     (testing.NEAR_TIE). That reference takes the same per-pull route
     (`encoder_chunk` None: kernel 7 or 12 per layer) with its decode on the
     plain versions, so that DecisionMargins records every decision's
-    margin. Then the ranks again with kernels 18 and 19 on the two-pass
+    margin. Then the ranks again with kernels 18-21 on the column-pass
     kernels (`tp_kernels` "simt"), the same calls profiled: their blobs
     must equal the first run's. Prints rank 0's device-time breakdown of a
     step and the flush for both. Returns rank 0's launch counts over the
@@ -2839,7 +2962,7 @@ def tp_engine(model, path: str, prec: str, card, ticks: int = 3) -> dict:
     n_cb = sum(len(r) for r in ref["recs"][-1])
     if n_cb == 0:
         raise AssertionError(f"tp {prec}: no callbacks")
-    gc = "tp_gc_i8" if prec == "int8" else "tp_gcp_f32"
+    layer_kernels = ("tp_gc_i8", "tp_ffn_mid_i8") if prec == "int8" else ("tp_gcp_f32", "tp_ffn_f32")
     for r, res in enumerate(ranks):
         if res["c_shape"] != (L, S_FLAG, rt.dims.hidden // 2):
             raise AssertionError(f"tp {prec} rank {r}: c is {res['c_shape']}")
@@ -2849,9 +2972,10 @@ def tp_engine(model, path: str, prec: str, card, ticks: int = 3) -> dict:
             no_simt_joiner(f"tp {prec} rank {r} {half} {k}", cnt)
             no_simt_tp(f"tp {prec} rank {r} {half} {k}", cnt)
             pulls = res["events"][k]["ops"].shape[1] - (half == "flush")
-            if cnt.get(gc) != pulls * L:
-                raise AssertionError(f"tp {prec} rank {r} {half} {k}: {gc} launched "
-                                     f"{cnt.get(gc)} times, not {pulls} pulls x {L} layers")
+            for gc in layer_kernels:
+                if cnt.get(gc) != pulls * L:
+                    raise AssertionError(f"tp {prec} rank {r} {half} {k}: {gc} launched "
+                                         f"{cnt.get(gc)} times, not {pulls} pulls x {L} layers")
     c0 = ranks[0]["counts"]
     print(f"tp engine {prec}: 2 ranks on one card (gloo through the host), S={S_FLAG} "
           f"chunk=1 s P={ranks[0]['events'][0]['ops'].shape[1]} L={L}, {ticks} ticks + flush, "
@@ -2862,17 +2986,22 @@ def tp_engine(model, path: str, prec: str, card, ticks: int = 3) -> dict:
           f"{S_FLAG - len(parted)} of {S_FLAG} sessions identical to the reference, parted at "
           f"near-ties (step, cell, margin): {parted}; rank 0 step launches {json.dumps(c0[0])} "
           f"flush launches {json.dumps(c0[-1])} ({card})")
-    new = tp_profile_lines(ranks[0]["profile"], f"tp engine {prec} rank 0 (kernels 18/19 one "
+    new = tp_profile_lines(ranks[0]["profile"], f"tp engine {prec} rank 0 (kernels 18-21 one "
                            f"launch each)", card)
     simt = RankGroup("april_asr_tpu_torch.testing:engine_run",
                      dict(args, profile=prof_calls, tp_kernels="simt"), world=2,
                      timeout=600).join()
     for k, (a, b) in enumerate(zip(ranks[0]["blobs"], simt[0]["blobs"])):
         if not np.array_equal(a, b):
-            raise AssertionError(f"tp {prec}: the two-pass kernels' blobs differ at call {k}")
-    old = tp_profile_lines(simt[0]["profile"], f"tp engine {prec} rank 0 (kernels 18/19 on the "
-                           f"two-pass kernels)", card)
-    print(f"tp engine {prec}: blobs equal with the two-pass kernels; rank 0 device ms a step "
+            raise AssertionError(f"tp {prec}: the column-pass kernels' blobs differ at call {k}")
+    for r, res in enumerate(simt):
+        for k, cnt in enumerate(res["counts"]):
+            if any(cnt.get(n, 0) for n, _ in TP_PAIRS):
+                raise AssertionError(f"tp {prec} simt rank {r} call {k}: a one-launch kernel "
+                                     f"launched: {json.dumps(cnt)}")
+    old = tp_profile_lines(simt[0]["profile"], f"tp engine {prec} rank 0 (kernels 18-21 on the "
+                           f"column-pass kernels)", card)
+    print(f"tp engine {prec}: blobs equal with the column-pass kernels; rank 0 device ms a step "
           f"{old[1][0]:.3f} -> {new[1][0]:.3f}, a flush {old[ticks][0]:.3f} -> "
           f"{new[ticks][0]:.3f} ({card})")
     return _merge(*c0)
@@ -2880,15 +3009,15 @@ def tp_engine(model, path: str, prec: str, card, ticks: int = 3) -> dict:
 
 def phase_tp(models, path: str, card, reps: int = 20):
     """Kernels 18-21 per shard at flagship widths (`check_tp_kernels`: m =
-    2 at S=256, timed, with kernels 18 and 19 beside the two-pass kernels
-    (`tp_times`); again at S=3, and at m = 4 (Hs 256) at S=256 and 3), then
-    the two-rank TP engine at int8 and at f32 (`tp_engine`). Returns (JSON
-    rows, {precision: rank 0's launch counts})."""
+    2 at S=256, timed, each beside the column-pass kernel it replaced
+    (`tp_times`); again at S=3, and at m = 4 (Hs 256, Fs 512) at S=256 and
+    3), then the two-rank TP engine at int8 and at f32 (`tp_engine`).
+    Returns (JSON rows, {precision: rank 0's launch counts})."""
     t0 = time.perf_counter()
     checked = check_tp_kernels(models, S_FLAG, seed=13)
     rows = time_rows(checked, card, reps)
     dims = models["int8"].runtime.dims
-    tp_times(checked, card, dims.d_model, dims.hidden // 2)
+    tp_times(checked, card, dims.d_model, dims.hidden // 2, dims.ffn // 2)
     for S, m, seed in ((3, 2, 14), (S_FLAG, 4, 15), (3, 4, 16)):
         more = check_tp_kernels(models, S, seed=seed, m=m)
         print(f"tp kernels at S={S}, m={m}: " + ", ".join(

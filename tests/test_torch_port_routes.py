@@ -12,11 +12,14 @@ port used to refuse.
   flush before it serves (`check_kernel_plans`); a model whose widths are
   not multiples of 4 (which the JAX package serves through XLA) is planned
   and served on the same kernels at its widths zero-padded to multiples of
-  4 (ops/widths.py), and the tensor-parallel engine at such shard widths is
-  refused with the widths and the kernels named.
+  4 (ops/widths.py), and so is the tensor-parallel engine at such shard
+  widths: the check plans its kernels by their routes at the padded shard
+  widths, and refuses only where no route has a launch, with the kernel and
+  the widths named.
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -30,7 +33,9 @@ from april_asr_tpu_torch.models.export import make_model_parameters
 from april_asr_tpu_torch.models.loader import native_runtime
 from april_asr_tpu_torch.models.lstm_transducer import TransducerDims, init_transducer_params
 from april_asr_tpu_torch.ops import lstm_mma as LM
+from april_asr_tpu_torch.ops import tp_plan as TP
 from april_asr_tpu_torch.ops.lstm_tp_kernels import tp_smem
+from april_asr_tpu_torch.parallel.mesh import TPMesh
 from april_asr_tpu_torch.testing import default_tokens
 
 
@@ -108,6 +113,9 @@ def test_plans_take_multiples_of_4(precision):
         ES.check_kernel_plans(rt, S, 27, n_sm=132)
 
 
+TP_KIND = {18: "gcp", 19: "gc_i8", 20: "ffn", 21: "mid_i8"}
+
+
 @pytest.mark.parametrize("precision, kernel", [
     (None, "f32 tensor-parallel kernels \\(18, 20\\)"),
     ("bf16", "bf16 tensor-parallel kernels \\(18, 20\\)"),
@@ -116,10 +124,12 @@ def test_plans_take_multiples_of_4(precision):
 def test_build_engine_refuses_at_load(precision, kernel, monkeypatch):
     """A CUDA runtime at d = 66 / H 130 / F 198 is served: its engine builds
     with every layer kernel planned at the widths padded to multiples of 4
-    (68, 132, 200), and only the tensor-parallel engine, whose shards are
-    not padded, is refused when it is built, with the widths and the
-    kernels in the message (the check reads shapes only, so a CPU runtime
-    stands in, its device set to CUDA and the SM count to the H100's)."""
+    (68, 132, 200), and so is its tensor-parallel engine at m = 2: the check
+    routes `kernel` at the shard's widths padded likewise (d 68, H/m 65 ->
+    68, F/m 99 -> 100), each to its one-launch kernel (the check reads shapes
+    only, so a CPU runtime stands in, its device set to CUDA and the SM
+    count to the H100's). The CPU engine at m = 2 builds at these widths
+    too (tests/test_torch_port_tp.py runs the TP stack there)."""
     rt = dataclasses.replace(_runtime(66, 130, 198, precision, layers=2),
                              device=torch.device("cuda"))
     monkeypatch.setattr(LM, "device_sm", lambda dev: 132)
@@ -130,19 +140,36 @@ def test_build_engine_refuses_at_load(precision, kernel, monkeypatch):
     ES.build_engine(rt, 4)
     assert len(planned) == (1 if precision == "int8" else 2)
     assert all(any(a[i:i + 3] == (68, 132, 200) for i in range(len(a))) for a in planned)
-    with pytest.raises(ValueError, match=f"{kernel}.*d_model=66, hidden=130, ffn=198"):
-        ES.check_kernel_plans(rt, 4, 27, n_sm=132, m=2)
+    routed, route = [], TP.tp_route
+    monkeypatch.setattr(TP, "tp_route", lambda *a: routed.append(a) or route(*a))
+    ES.check_kernel_plans(rt, 4, 27, n_sm=132, m=2)
+    ks = [int(k) for k in re.search(r"\((\d+), (\d+)\)", kernel.replace("\\", "")).groups()]
+    assert routed == [(TP_KIND[k], 4, 68, 68 if k < 20 else 100, 132) for k in ks]
+    assert all(route(*a) == "fused" for a in routed)
+    cpu = _runtime(66, 130, 198, precision, layers=2)
+    assert ES.build_engine(cpu, 4, mesh=TPMesh(None, 0, 2)).tp_axes == ("model",)
 
 
-def test_tp_plans_follow_the_shard_widths():
-    """Kernels 18 and 20 stage f32 activation rows: at d 1024 their gate
-    pass does not fit a block, so a TP engine at f32 is refused; kernels 19
-    and 21 stage int8 rows and fit even at d 1024 / Hs 2048 / Fs 4096."""
+def test_tp_plans_follow_the_shard_widths(monkeypatch):
+    """The column-pass kernels that 18 and 20 replaced staged f32 activation
+    rows, so at d 1024 their gate pass does not fit a block; kernels 18 and
+    20 stream their rows through rings that do not grow with d, so a TP
+    engine at f32 and d 1024 is planned on them. Where a one-launch kernel
+    has no plan, the check takes its column-pass kernel's shared memory: at
+    d 1024 kernel 18's does not fit (refused, kernel and widths named),
+    kernel 20's does (served). Kernels 19 and 21 stage int8 rows and fit
+    even at d 1024 / Hs 2048 / Fs 4096."""
     assert max(tp_smem(512, 512, 1024, 4).values()) <= LM.SMEM_LIMIT
     assert tp_smem(1024, 512, 1024, 4)["gates"] > LM.SMEM_LIMIT
     assert max(tp_smem(1024, 2048, 4096, 1).values()) <= LM.SMEM_LIMIT
     rt = _runtime(1024, 256, 512, None)
-    with pytest.raises(ValueError, match="tensor-parallel kernels \\(18, 20\\)"):
+    assert TP.tp_route("gcp", 4, 1024, 128) == TP.tp_route("ffn", 4, 1024, 256) == "fused"
+    ES.check_kernel_plans(rt, 4, 27, n_sm=132, m=2)
+    monkeypatch.setitem(TP.PLANS, "ffn", lambda *a, **kw: None)
+    ES.check_kernel_plans(rt, 4, 27, n_sm=132, m=2)
+    monkeypatch.setitem(TP.PLANS, "gcp", lambda *a, **kw: None)
+    with pytest.raises(ValueError, match="f32 tensor-parallel kernel 18 has no launch for "
+                                         "d_model=1024, hidden=256, ffn=512.*gates"):
         ES.check_kernel_plans(rt, 4, 27, n_sm=132, m=2)
     ES.check_kernel_plans(_runtime(128, 256, 512, "int8"), 4, 27, n_sm=132, m=2)
     np.testing.assert_equal(tp_smem(512, 512, 1024, 1)["gates"], 256 + 64 * 528 + 16384)

@@ -22,9 +22,14 @@ vocab 128, S = 128) and model_parallel m = 2.
   test_torch_port_engine.py holds the port's f32 stream; at int8 against
   the port's single-device int8 engine, at least 80% of sessions identical
   (the JAX TP test's criterion) and every parting a near tie; both ranks'
-  event blobs identical.
+  event blobs identical. The stack also at d 66 / hidden 130 / ffn 198
+  (`ODD`: shards of 65 hidden units and 99 ffn columns, not multiples of 4),
+  which the port runs on its kernels' widths zero-padded (the JAX package
+  on XLA), at the same bounds.
 * Refusals: a mesh with a data axis, and widths m does not divide.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -60,7 +65,10 @@ S, M, TICKS, CHUNK = 128, 2, 2, 3200
 F32_TOL = dict(atol=2e-5, rtol=2e-5)
 I8_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=2e-2, rtol=1e-3)
-STACK_CASES = [(q, gated) for q in (False, True) for gated in (False, True)]
+ODD = dataclasses.replace(DIMS, d_model=66, hidden=130, ffn=198)
+# (int8, gated, at ODD's widths)
+STACK_CASES = ([(q, gated, False) for q in (False, True) for gated in (False, True)]
+               + [(False, True, True), (True, True, True)])
 
 
 def _np_params(p):
@@ -79,11 +87,24 @@ def qparams(jparams):
     return JM.quantize_weights(jparams)
 
 
-def _stack_inputs(seed):
+@pytest.fixture(scope="module")
+def odd_params():
+    """The layer leaves at ODD's widths: (f32, int8)."""
+    p = JM.init_transducer_params(jax.random.PRNGKey(1), ODD)
+    return p, JM.quantize_weights(p)
+
+
+def _stack_params(q, odd, jparams, qparams, odd_params):
+    if odd:
+        return odd_params[int(q)]
+    return qparams if q else jparams
+
+
+def _stack_inputs(seed, dims=DIMS):
     rng = np.random.default_rng(seed)
-    x = rng.normal(size=(S, DIMS.d_model)).astype(np.float32)
-    h = (rng.normal(size=(DIMS.layers, S, DIMS.d_model)) * 0.1).astype(np.float32)
-    c = (rng.normal(size=(DIMS.layers, S, DIMS.hidden)) * 0.1).astype(np.float32)
+    x = rng.normal(size=(S, dims.d_model)).astype(np.float32)
+    h = (rng.normal(size=(dims.layers, S, dims.d_model)) * 0.1).astype(np.float32)
+    c = (rng.normal(size=(dims.layers, S, dims.hidden)) * 0.1).astype(np.float32)
     gate = rng.random(S) < 0.5
     return x, h, c, gate
 
@@ -102,12 +123,14 @@ def april(jparams, tmp_path_factory):
 
 
 @pytest.fixture(scope="module", autouse=True)
-def ranks(jparams, qparams, april):
+def ranks(jparams, qparams, odd_params, april):
     """Every port-side case in one pair of rank processes, started before
     the module's first test; `rank_results` joins them."""
-    x, h, c, gate = _stack_inputs(4)
-    cases = [dict(kind="stack", m=M, params=_np_params(qparams if q else jparams), x=x, h=h, c=c,
-                  gate=gate if gated else None) for q, gated in STACK_CASES]
+    cases = []
+    for q, gated, odd in STACK_CASES:
+        x, h, c, gate = _stack_inputs(4, ODD if odd else DIMS)
+        cases.append(dict(kind="stack", m=M, x=x, h=h, c=c, gate=gate if gated else None,
+                          params=_np_params(_stack_params(q, odd, jparams, qparams, odd_params))))
     audio = _audio()
     for prec in (None, "int8"):
         cases.append(dict(kind="engine", path=april, precision=prec, m=M, device="cpu",
@@ -292,11 +315,12 @@ def _jax_stack(params, x, h, c, gate):
 
 @pytest.mark.parametrize("case", range(len(STACK_CASES)),
                          ids=[f"{'int8' if q else 'f32'}-{'gated' if g else 'ungated'}"
-                              for q, g in STACK_CASES])
-def test_tp_stack_matches_jax_and_single(jparams, qparams, rank_results, case):
-    q, gated = STACK_CASES[case]
-    x, h, c, gate = _stack_inputs(4)
-    want = _jax_stack(qparams if q else jparams, x, h, c, gate if gated else None)
+                              f"{'-odd' if odd else ''}" for q, g, odd in STACK_CASES])
+def test_tp_stack_matches_jax_and_single(jparams, qparams, odd_params, rank_results, case):
+    q, gated, odd = STACK_CASES[case]
+    x, h, c, gate = _stack_inputs(4, ODD if odd else DIMS)
+    want = _jax_stack(_stack_params(q, odd, jparams, qparams, odd_params), x, h, c,
+                      gate if gated else None)
     tol = I8_TOL if q else F32_TOL
     outs = [r[case] for r in rank_results]
     y, h2, _ = outs[0]["tp"]
