@@ -1,9 +1,13 @@
-// Kernels 13, 14 and 22: recurrent cores of the int8 chunk layer, and the
-// CUDA-core form of kernel 3, its batched residual + FFN + BasicNorm (the
-// engine's kernel 3 is csrc/ffn_mma.cu). (Kernel 2, the engine's
-// core, computes the same function on the tensor cores: csrc/lstm_mma.cu;
-// where its stationary weights do not fit, the engine's calls take kernel
-// 14, ops/lstm_mma.py `rec_route`.)
+// Kernel 22 and the CUDA-core templates of kernels 13 and 14: recurrent
+// cores of the int8 chunk layer; and the CUDA-core form of kernel 3, its
+// batched residual + FFN + BasicNorm (the engine's kernel 3 is
+// csrc/ffn_mma.cu). (Kernel 2, the engine's core, computes the same
+// function on the tensor cores: csrc/lstm_mma.cu; kernels 13 and 14 are
+// csrc/lstm_hoist.cu, a hoisted x-side product and a persistent
+// recurrence, which also serves kernel 2's calls where its stationary
+// weights do not fit, ops/lstm_mma.py `rec_route`. The templates below
+// serve kernels 13 and 14 only where that plan has no launch, as
+// `lstm_rec_i8_simt` and `lstm_rec_stream_i8_simt`.)
 //
 // The recurrent cores replace april_asr_tpu/ops/lstm_pallas.py
 // `lstm_layer_chunk_rec_i8` (`_rec_kernel_i8`, 13) and
@@ -246,8 +250,11 @@ static int launch_interleave(const float* x, const float* h, const float* c, con
                               c2, P, S, d, H, bias_bf16, stream);                                \
   }
 
-REC_ENTRY(lstm_rec_i8, 2, X_STAGED)        // kernel 13
-REC_ENTRY(lstm_rec_stream_i8, 4, X_ASYNC)  // kernel 14 (x 16-byte aligned)
+// the templates of kernels 13 and 14 (csrc/lstm_hoist.cu redesigned both),
+// kept for shapes the new plan has no launch for and as chip_smoke.py's
+// yardstick
+REC_ENTRY(lstm_rec_i8_simt, 2, X_STAGED)        // kernel 13's
+REC_ENTRY(lstm_rec_stream_i8_simt, 4, X_ASYNC)  // kernel 14's (x 16-byte aligned)
 
 // kernel 22 on tiles of ts = 2 (kernel 13's) or 4 (kernel 14's) sessions
 extern "C" int rec_interleave_i8(const float* x, const float* h, const float* c,

@@ -10,8 +10,9 @@ and `lstm_layer_fused_i8` (`_layer_kernel_i8`).
 
 * `lstm_layer_chunk_rec_stream2_i8` (kernel 2, the engine's),
   `lstm_layer_chunk_rec_i8` (13) and `lstm_layer_chunk_rec_stream_i8` (14):
-  one function, the recurrent core of one layer over P steps, on three
-  schedules (csrc/lstm_mma.cu; csrc/lstm_i8.cu). Per step: `_rowq8` of x_t
+  one function, the recurrent core of one layer over P steps, on two
+  schedules (csrc/lstm_mma.cu; csrc/lstm_hoist.cu, which 13 and 14 share,
+  their CUDA-core templates kept in csrc/lstm_i8.cu). Per step: `_rowq8` of x_t
   and of h, the int8 gate dots against w_ih/w_hh, the f32 cell with the
   tanh-form sigmoid, `_rowq8` of hc and the int8 projection. A prefix mask `t < n_pulls` keeps
   the carried h/c. Returns (hseq [P, S, d] ungated, h', c').
@@ -37,15 +38,21 @@ model's d_model is zero-padded to a multiple of 4 (ops/widths.py); None
 means the whole row.
 
 Each wrapper takes the plain PyTorch version for CPU tensors and launches
-its kernel (csrc/lstm_mma.cu: 2, 7; csrc/ffn_mma.cu: 3; csrc/lstm_i8.cu:
+its kernel (csrc/lstm_mma.cu: 2, 7; csrc/ffn_mma.cu: 3; csrc/lstm_hoist.cu:
 13, 14; csrc/lstm_chunk_i8.cu: 11) for CUDA tensors; it never falls back. Kernels 2
 and 7 are persistent int8 tensor-core kernels, one cooperative launch each,
-planned by ops/lstm_mma.py `device_plan`; they equal kernel 13 and the
-three-pass step that preceded kernel 7 (`lstm_layer_fused_i8_simt`, kept
-for chip_smoke.py's bit-exact check) bit for bit. Where the widths leave
-kernels 2 and 7 no plan, their calls take kernel 14 and that three-pass
-step (ops/lstm_mma.py `int8_routes`, chosen from the widths before any
-launch). Kernel 3 is five tiled int8 tensor-core passes (`ffn_norm_cuda`,
+planned by ops/lstm_mma.py `device_plan`; they equal kernel 13's CUDA-core
+template and the three-pass step that preceded kernel 7
+(`lstm_layer_fused_i8_simt`, kept for chip_smoke.py's bit-exact check) bit
+for bit. Kernels 13 and 14 are one kernel (`_rec_hoist_cuda`): the x-side
+gate product over all P * S rows in tensor-core tiles, then kernel 2's
+persistent recurrence with only w_hh and w_hr stationary (planned by
+`rec_hoist_plan`); where that plan has no launch they take their CUDA-core
+templates (`lstm_layer_chunk_rec_i8_simt`, `_stream_i8_simt`, chosen by
+shape, never on an error). Where the widths leave kernels 2 and 7 no plan,
+their calls take kernel 14 and the three-pass step (ops/lstm_mma.py
+`int8_routes`, chosen from the widths before any launch). Kernel 3 is five
+tiled int8 tensor-core passes (`ffn_norm_cuda`,
 planned by ops/lstm_mma.py `ffn_plan`) with no width limit; it equals the
 CUDA-core kernel it replaced (`ffn_norm_i8_simt`, kept for chip_smoke.py)
 bit for bit. Kernels 2, 13 and 14
@@ -192,6 +199,8 @@ def _smem_check(rc: int, what: str, shape: str) -> None:
 
 
 def _rec_cuda(entry: str, x, h, c, n_pulls, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s):
+    """The CUDA-core templates of kernels 13 and 14 (csrc/lstm_i8.cu,
+    `entry` "lstm_rec_i8_simt" or "lstm_rec_stream_i8_simt")."""
     P, S, d = x.shape
     H = c.shape[1]
     rec = (w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s)
@@ -199,7 +208,7 @@ def _rec_cuda(entry: str, x, h, c, n_pulls, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias
     _check(x, torch.float32, (P, S, d), f"{entry} x")
     _check(h, torch.float32, (S, d), f"{entry} h")
     _check(c, torch.float32, (S, H), f"{entry} c")
-    if entry == "lstm_rec_stream_i8" and x.data_ptr() % 16:
+    if entry == "lstm_rec_stream_i8_simt" and x.data_ptr() % 16:
         raise ValueError(f"{entry} x: must be 16-byte aligned (cp.async copies)")
     n_pulls = _n_pulls_arg(n_pulls, S, P, x.device, entry)
     hseq = torch.empty((P, S, d), dtype=torch.float32, device=x.device)
@@ -254,20 +263,63 @@ def _rec_mma_cuda(x, h, c, n_pulls, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q
     return hseq, h2, c2
 
 
+def _rec_hoist_cuda(entry: str, x, h, c, n_pulls, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q,
+                    w_hr_s, plan=None, stamps=None):
+    """Kernels 14 and 13 (`entry` "lstm_rec_stream_i8" or "lstm_rec_i8",
+    the count it adds to): csrc/lstm_hoist.cu's phase A (x quantized, the
+    x-side gate product into gx [P][S][4H]) and phase B (one cooperative
+    launch of the recurrence), planned by `lstm_mma.rec_hoist_plan`, the
+    scratch in one workspace (`lstm_mma.hoist_scratch`). `plan` (None: the
+    device's `rec_hoist_plan`) and `stamps` (int64 [nb, 3 + 8 P], or None:
+    each block's phase B times) serve tools/profile_lstm_mma.py."""
+    P, S, d = x.shape
+    H = c.shape[1]
+    rec = (w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s)
+    _check_i8_weights(entry, (), d, H, rec)
+    _check(x, torch.float32, (P, S, d), f"{entry} x")
+    _check(h, torch.float32, (S, d), f"{entry} h")
+    _check(c, torch.float32, (S, H), f"{entry} c")
+    n_pulls = _n_pulls_arg(n_pulls, S, P, x.device, entry)
+    plan = plan or lstm_mma.device_hoist_plan(S, d, H, x.device)
+    hseq = torch.empty((P, S, d), dtype=torch.float32, device=x.device)
+    h2 = torch.empty_like(h)
+    c2 = torch.empty_like(c)
+    nbytes, offsets = lstm_mma.hoist_scratch(plan, P)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    fn = cuda_build.bind("lstm_hoist", "lstm_rec_hoist_i8", 22, 18)
+    cuda_build.COUNTS[entry] += 1
+    rc = fn(
+        x.data_ptr(), h.data_ptr(), c.data_ptr(), n_pulls.data_ptr(),
+        *(t.data_ptr() for t in rec), hseq.data_ptr(), h2.data_ptr(), c2.data_ptr(),
+        *(ws.data_ptr() + o for o in offsets), None if stamps is None else stamps.data_ptr(),
+        P, S, d, H, _bias_flag(bias, entry), plan.sp, plan.dp, plan.hp,
+        lstm_mma._up(P * S, lstm_mma.FFN_TILE), plan.ub, plan.nb, *plan.gate.ints(),
+        *plan.proj.ints(), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _smem_check(rc, entry, f"d={d}, hidden={H}")
+    return hseq, h2, c2
+
+
 def _rec(entry: str, x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s, n_pulls):
     args = (x, h, c, n_pulls, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s)
     if x.device.type == "cpu":
         return lstm_rec_plain(*args)
     if x.device.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {x.device}")
+    (P, S, d), H = x.shape, c.shape[1]
+    if entry.endswith("_simt"):
+        return _rec_cuda(entry, *args)
     if entry == "lstm_rec_stream2_i8":
         # kernel 2 where its stationary weights fit, else kernel 14 (the
         # same function bit for bit; ops/lstm_mma.py `rec_route`)
-        (P, S, d), H = x.shape, c.shape[1]
         if lstm_mma.device_route("rec", S, d, H, 0, x.device) == "mma":
             return _rec_mma_cuda(*args)
         entry = "lstm_rec_stream_i8"
-    return _rec_cuda(entry, *args)
+    # kernels 13 and 14 where their plan has a launch, else their CUDA-core
+    # templates: chosen by shape (ops/lstm_mma.py `hoist_route`)
+    if lstm_mma.device_route("hoist", S, d, H, 0, x.device) == "hoist":
+        return _rec_hoist_cuda(entry, *args)
+    return _rec_cuda(entry + "_simt", *args)
 
 
 def lstm_layer_chunk_rec_stream2_i8(
@@ -288,9 +340,10 @@ def lstm_layer_chunk_rec_i8(
     x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
     n_pulls: Optional[torch.Tensor] = None,
 ):
-    """Kernel 13: kernel 2's contract, with every step's `_rowq8(x)` staged
-    in the block's shared memory at its start (raises ValueError with the
-    bytes where a P does not fit)."""
+    """Kernel 13: kernel 2's contract with the whole chunk's x consumed
+    before the time loop (csrc/lstm_hoist.cu, as kernel 14; no limit on P
+    but the gx scratch). Where its plan has no launch, its CUDA-core
+    template (`lstm_layer_chunk_rec_i8_simt`)."""
     return _rec("lstm_rec_i8", x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
                 n_pulls)
 
@@ -299,9 +352,35 @@ def lstm_layer_chunk_rec_stream_i8(
     x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
     n_pulls: Optional[torch.Tensor] = None,
 ):
-    """Kernel 14: kernel 2's contract on 4-session tiles, x_{t+1} copied by
-    cp.async while step t computes (x must be 16-byte aligned)."""
+    """Kernel 14: kernel 2's contract as a hoisted x-side gate product and
+    one persistent recurrence launch (csrc/lstm_hoist.cu). Where its plan
+    has no launch, its CUDA-core template
+    (`lstm_layer_chunk_rec_stream_i8_simt`)."""
     return _rec("lstm_rec_stream_i8", x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q,
+                w_hr_s, n_pulls)
+
+
+def lstm_layer_chunk_rec_i8_simt(
+    x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
+    n_pulls: Optional[torch.Tensor] = None,
+):
+    """Kernel 13's CUDA-core template (csrc/lstm_i8.cu `<2, X_STAGED>`,
+    counted as `lstm_rec_i8_simt`): every step's `_rowq8(x)` staged in the
+    block's shared memory at its start (raises ValueError with the bytes
+    where a P does not fit); the plain version for CPU tensors."""
+    return _rec("lstm_rec_i8_simt", x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q,
+                w_hr_s, n_pulls)
+
+
+def lstm_layer_chunk_rec_stream_i8_simt(
+    x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
+    n_pulls: Optional[torch.Tensor] = None,
+):
+    """Kernel 14's CUDA-core template (csrc/lstm_i8.cu `<4, X_ASYNC>`,
+    counted as `lstm_rec_stream_i8_simt`): 4-session tiles, x_{t+1} copied
+    by cp.async while step t computes (x must be 16-byte aligned); the
+    plain version for CPU tensors."""
+    return _rec("lstm_rec_stream_i8_simt", x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q,
                 w_hr_s, n_pulls)
 
 

@@ -1,6 +1,8 @@
 """The launch plans of the layer kernels: the persistent int8 tensor-core
 kernels 2 and 7 (csrc/lstm_mma.cu, `mma_plan`; where they have none, the
-int8 routes, `int8_routes`); kernel 3's tiles
+int8 routes, `int8_routes`); kernels 14 and 13, the hoisted x-side gate
+product and the persistent recurrence (csrc/lstm_hoist.cu,
+`rec_hoist_plan`); kernel 3's tiles
 (csrc/ffn_mma.cu, `ffn_plan`); and the float kernels 12 and 10
 (csrc/lstm_mma_float.cu, csrc/lstm_chunk_mma.cu; `float_step_plan`,
 `float_chunk_plan`, below): how the layer's columns, and where they are
@@ -221,16 +223,92 @@ def mma_plan(S: int, d: int, H: int, F: int = 0, n_sm: int = 132,
                      f"within {smem_limit} bytes of shared memory ({'; '.join(tried)})")
 
 
+# -- kernels 14 and 13: the hoisted x-side product, then the recurrence -----
+#
+# csrc/lstm_hoist.cu computes kernel 2's function in two phases. Phase A
+# quantizes every x row and multiplies [P * S, d] x [d, 4H] in kernel 3's
+# 128 x 128 tiles (FFN_TILE, below) into gx f32 [P][S][4H]; it has no
+# width limit. Phase B is kernel 2's cooperative launch with only w_hh and
+# w_hr stationary: gate items of ub = 8, 16 or 32 hidden units (each gate in
+# whole 8-column mma tiles, so a lane runs its units' cells in registers)
+# over a row range, and kernel 2's projection items. A block's shared
+# memory: the w_hh slice [4 ub][dp + 16] and its [2][4 ub] f32 constants,
+# the projection item's slice and scales, the A ring.
+
+HOIST_UNITS = (8, 16, 32)  # hidden units per gate item
+
+
+def hoist_smem(gate: GateSplit, dp: int, hp: int, proj: ColSplit) -> int:
+    """Bytes of phase B's block (csrc/lstm_hoist.cu `hoist_smem`)."""
+    nc = 4 * gate.ub
+    return nc * (dp + 16) + 2 * nc * 4 + proj.smem(hp, 1) + STAGE_BYTES
+
+
+def rec_hoist_plan(S: int, d: int, H: int, n_sm: int = 132, smem_limit: int = SMEM_LIMIT,
+                   units: Tuple[int, ...] = HOIST_UNITS) -> MmaPlan:
+    """Phase B's plan for S rows at widths d, H on n_sm SMs (F = 0, its smem
+    `hoist_smem`): of the gate splits whose blocks fit the SMs and whose
+    shared memory fits, the one with the shortest chain of dependent mma
+    tiles a warp (its 128-row passes x ub), then the fewest rows an item
+    (the activation bytes a block streams), then the fewest units;
+    ValueError where none fits. (Measured on the H100 at d 512 / H 1024:
+    at S = 256, 16-unit items over 128 rows beat 32-unit items over 64,
+    which idle half the warps, by 15%; at S = 2048, 32-unit items over 512
+    rows beat 16 over 1024 by 5%; `units` narrows the widths tried, as
+    tools/profile_lstm_mma.py --ub does to time each.)"""
+    if min(S, d, H) < 1 or d % 4 or H % 4:
+        raise ValueError(f"lstm_rec_hoist: no plan for S={S}, d={d}, hidden={H}: rows must be "
+                         "positive and widths positive multiples of 4")
+    sp, dp, hp = _up(S, 16), _up(d, 64), _up(H, 64)
+    tried, plans = [], []
+    for ub in units:
+        gate = gate_split(H, ub, n_sm, sp)
+        if gate is None:
+            tried.append(f"ub={ub}: {-(-H // ub)} gate blocks")
+            continue
+        nb = min(n_sm, max(gate.items, -(-d // 8) * (sp // 16)))
+        for ct_max in (2, 1):
+            proj = col_split(d, nb, sp, ct_max)
+            smem = hoist_smem(gate, dp, hp, proj)
+            if smem <= smem_limit:
+                plans.append(MmaPlan(S, d, H, 0, sp, dp, hp, 0, gate, nb, proj, None, smem))
+                break
+        else:
+            tried.append(f"ub={ub}: {smem} bytes")
+    if plans:
+        return min(plans, key=lambda p: (-(-p.gate.rows // ROWS) * p.ub, p.gate.rows, p.ub))
+    raise ValueError(f"lstm_rec_hoist: no plan for S={S}, d={d}, hidden={H} on {n_sm} SMs within "
+                     f"{smem_limit} bytes of shared memory ({'; '.join(tried)})")
+
+
+def hoist_scratch(plan: MmaPlan, P: int) -> Tuple[int, Tuple[int, ...]]:
+    """(bytes, offsets) of csrc/lstm_hoist.cu's scratch in one workspace, in
+    its argument order, each 256-byte aligned: xq [rp][dp] int8 (rp = P * S
+    rounded up to FFN_TILE, phase A's tile), gx [P][S][4H] f32, hq [sp][dp] and hcq
+    [sp][hp] int8, hc [S][H] f32, the row scales [rp + 2 sp] f32 (x, h,
+    hc), the amax slots [4][sp]."""
+    sp, S, H = plan.sp, plan.S, plan.H
+    rp = _up(P * S, FFN_TILE)
+    sizes = (rp * plan.dp, 4 * P * S * 4 * H, sp * plan.dp, sp * plan.hp, 4 * S * H,
+             4 * (rp + 2 * sp), 4 * 4 * sp)
+    offsets, n = [], 0
+    for size in sizes:
+        offsets.append(n)
+        n += _up(size, 256)
+    return n, tuple(offsets)
+
+
 # -- the int8 routes: which kernel serves each int8 layer call -------------
 #
 # Kernels 2 and 7 keep the layer's weights stationary in shared memory, so
 # past the flagship widths they have no plan. Their calls then take kernels
-# that compute the same function bit for bit and stream their weights:
-# kernel 2's the recurrent core of kernel 14 (csrc/lstm_i8.cu `launch_rec<4,
-# X_ASYNC>`), kernel 7's the three-pass step (csrc/lstm_step.cu
-# `lstm_step_i8_simt`). Kernel 3 (`ffn_plan`, below) has no width limit.
-# The choice reads widths only (and S, through `mma_plan`), before any
-# launch; the byte counts mirror the C launches.
+# that compute the same function bit for bit: kernel 2's the hoisted kernel
+# 14 (`rec_hoist_plan`), or where that has no plan either kernel 14's
+# CUDA-core template (csrc/lstm_i8.cu `launch_rec<4, X_ASYNC>`, which
+# streams every weight from L2); kernel 7's the three-pass step
+# (csrc/lstm_step.cu `lstm_step_i8_simt`). Kernel 3 (`ffn_plan`, below) has
+# no width limit. The choice reads widths only (and S, through the plans),
+# before any launch; the byte counts mirror the C launches.
 
 STEP_FFN_ROWS = 4  # the three-pass step's FFN pass (csrc/lstm_step.cu FRT)
 
@@ -242,9 +320,9 @@ def ffn_i8_smem(rows: int, d: int, F: int) -> int:
 
 
 def rec_stream_smem(d: int, H: int) -> int:
-    """Bytes of kernel 14's block of 4 sessions (csrc/lstm_i8.cu
-    `launch_rec<4, X_ASYNC>`): h, c, hc, two x buffers and the scales f32,
-    the int8 h, hc and x rows."""
+    """Bytes of kernel 14's CUDA-core template's block of 4 sessions
+    (csrc/lstm_i8.cu `launch_rec<4, X_ASYNC>`, `lstm_rec_stream_i8_simt`):
+    h, c, hc, two x buffers and the scales f32, the int8 h, hc and x rows."""
     ts = 4
     return 4 * (ts * (d + 2 * H) + 2 * ts * d + 4 * ts) + ts * (d + H) + ts * d
 
@@ -262,19 +340,35 @@ def step_simt_smem(d: int, H: int, F: int) -> int:
 
 @dataclass(frozen=True)
 class Int8Routes:
-    rec: str  # kernel 2's call: "mma" (kernel 2) or "stream" (kernel 14)
+    rec: str  # kernel 2's call: "mma" (kernel 2), "stream" (kernel 14) or
+    # "stream_simt" (kernel 14's CUDA-core template)
     step: str  # kernel 7's call: "mma" (kernel 7) or "simt" (the three-pass step)
 
 
+def hoist_route(S: int, d: int, H: int, n_sm: int = 132, smem_limit: int = SMEM_LIMIT) -> str:
+    """Kernels 13's and 14's own calls: "hoist" (csrc/lstm_hoist.cu) where
+    `rec_hoist_plan` has a launch, else "simt" (their CUDA-core templates)."""
+    try:
+        rec_hoist_plan(S, d, H, n_sm, smem_limit)
+        return "hoist"
+    except ValueError:
+        return "simt"
+
+
 def rec_route(S: int, d: int, H: int, n_sm: int = 132, smem_limit: int = SMEM_LIMIT) -> str:
-    """Kernel 2's route for S rows at widths d, H."""
+    """Kernel 2's route for S rows at widths d, H: "mma" where `mma_plan`
+    fits, else "stream" (kernel 14) where `rec_hoist_plan` fits, else
+    "stream_simt" where kernel 14's template's block fits."""
     try:
         mma_plan(S, d, H, 0, n_sm, smem_limit)
         return "mma"
     except ValueError as e:
-        if rec_stream_smem(d, H) <= smem_limit:
+        if hoist_route(S, d, H, n_sm, smem_limit) == "hoist":
             return "stream"
-        raise ValueError(f"{e}; kernel 14 needs {rec_stream_smem(d, H)} bytes") from None
+        if rec_stream_smem(d, H) <= smem_limit:
+            return "stream_simt"
+        raise ValueError(f"{e}; kernel 14 has no plan; its template needs "
+                         f"{rec_stream_smem(d, H)} bytes") from None
 
 
 def step_route(S: int, d: int, H: int, F: int, n_sm: int = 132,
@@ -293,8 +387,9 @@ def step_route(S: int, d: int, H: int, F: int, n_sm: int = 132,
 def int8_routes(S: int, P: int, d: int, H: int, F: int, n_sm: int = 132,
                 smem_limit: int = SMEM_LIMIT) -> Int8Routes:
     """The route of kernel 2's and kernel 7's calls in an engine over S rows
-    and P steps (P does not change them: kernels 2 and 14 stream x by step):
-    ValueError where a call has none."""
+    and P steps (P does not change them: kernel 2 streams x by step, kernel
+    14's phase A has no width or row limit): ValueError where a call has
+    none."""
     if min(S, P, d, H, F) < 1 or d % 4 or H % 4 or F % 4:
         raise ValueError(f"int8 routes: no route for S={S}, P={P}, d={d}, hidden={H}, ffn={F}: "
                          "rows and steps must be positive and widths positive multiples of 4")
@@ -389,13 +484,25 @@ def device_plan(S: int, d: int, H: int, F: int, device: torch.device) -> MmaPlan
 
 @functools.lru_cache(maxsize=256)
 def _route_cached(kind: str, S: int, d: int, H: int, F: int, n_sm: int) -> str:
+    if kind == "hoist":
+        return hoist_route(S, d, H, n_sm)
     return rec_route(S, d, H, n_sm) if kind == "rec" else step_route(S, d, H, F, n_sm)
 
 
 def device_route(kind: str, S: int, d: int, H: int, F: int, device: torch.device) -> str:
-    """`rec_route` ("rec") or `step_route` ("step") for the SM count of
-    `device` (a CUDA device)."""
+    """`rec_route` ("rec"), `hoist_route` ("hoist") or `step_route` ("step")
+    for the SM count of `device` (a CUDA device)."""
     return _route_cached(kind, S, d, H, F, device_sm(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _hoist_cached(S: int, d: int, H: int, n_sm: int) -> MmaPlan:
+    return rec_hoist_plan(S, d, H, n_sm)
+
+
+def device_hoist_plan(S: int, d: int, H: int, device: torch.device) -> MmaPlan:
+    """`rec_hoist_plan` for the SM count of `device` (a CUDA device)."""
+    return _hoist_cached(S, d, H, device_sm(device))
 
 
 def device_sm(device: torch.device) -> int:

@@ -3,7 +3,7 @@ it, e.g. with `git archive`) on one card, in turns: other, this, this,
 other.
 
     python -m april_asr_tpu_torch.tools.parent_ab --other build/parent \
-        [--out build/parent_ab] [--sass] [--only k9|tp]
+        [--out build/parent_ab] [--sass] [--only k9|tp|k14]
 
 Each turn is a worker process that imports `april_asr_tpu_torch` and
 `chip_smoke.py` from one tree (its kernels built into that tree's build
@@ -77,12 +77,21 @@ compared. With `--only tp` each turn runs the tensor-parallel pieces alone
 the kernel takes a gate (the SHA-1 of their outputs, CUDA-event ms and the
 profiler's device us a call), and both two-rank TP engines' (int8, f32)
 event blobs over 3 ticks and a flush; only those outputs and blobs are
-compared. With `--sass`, it also runs `sass_diff` on
+compared. With `--only k14` each turn runs the int8 recurrent cores alone
+(`k14_turn`): kernels 14 and 13 (`lstm_layer_chunk_rec_stream_i8`,
+`lstm_layer_chunk_rec_i8`: csrc/lstm_hoist.cu here, their CUDA-core
+templates in a parent before it) on layer 0 of the flagship int8 model at
+S = 256 and 2048, P = 27, and kernel 14 on layer 0 of the widths phase's
+d 1024 / H 4096 / F 8192 int8 model at S = 256, on numpy seed inputs,
+ungated and gated (the SHA-1 of their outputs, CUDA-event ms and the
+profiler's device us a call), then that wide model's engine event blobs
+over 3 ticks and a flush (its step on kernel 14 there) with each call's
+wall ms; only those outputs and blobs are compared. With `--sass`, it also runs `sass_diff` on
 csrc/lstm_mma.cu, lstm_i8.cu, lstm_step.cu, lstm_tp.cu, lstm_mma_float.cu,
 lstm_chunk_mma.cu, chunk_decode.cu, chunk_decode_cluster.cu, joiner.cu,
-fbank_i8.cu, fbank_bf16x3.cu and conv_embed.cu of the two trees (kernels 2,
-3, 4, 7, 9, 12, 13, 14, 17, 18, 19, 22, the three-pass float step and the
-CUDA-core kernels 4, 8, 1, 5 and 16).
+fbank_i8.cu, fbank_bf16x3.cu, conv_embed.cu and ffn_mma.cu of the two trees
+(kernels 2, 3, 4, 7, 9, 12, 17, 18, 19, 22, the templates of 13 and 14, the
+three-pass float step and the CUDA-core kernels 3, 4, 8, 1, 5 and 16).
 Needs a CUDA device (and nvcc).
 """
 
@@ -105,7 +114,7 @@ HERE = Path(__file__).resolve()
 TREE = HERE.parents[2]
 SASS_SOURCES = ("lstm_mma.cu", "lstm_i8.cu", "lstm_step.cu", "lstm_tp.cu", "lstm_mma_float.cu",
                 "lstm_chunk_mma.cu", "chunk_decode.cu", "chunk_decode_cluster.cu", "joiner.cu",
-                "fbank_i8.cu", "fbank_bf16x3.cu", "conv_embed.cu")
+                "fbank_i8.cu", "fbank_bf16x3.cu", "conv_embed.cu", "ffn_mma.cu")
 FLOATS = ("f32", "bf16")
 BF16_SEEDS = (1, 2)  # more random models for the bf16 engine's partings
 # the float engines' runs compared between turns: (precision, model seed)
@@ -375,6 +384,69 @@ def tp_turn(CS, path: str, res: dict, card: str) -> None:
               f"({card})", flush=True)
 
 
+K14_SIZES = (256, 2048)
+# the recurrent cores' device kernels in either tree (csrc/lstm_hoist.cu's
+# three launches, or the CUDA-core template)
+K14_KEYS = ("hoist", "lstm_rec_kernel")
+K14_KERNELS = ("k14", "k13")
+
+
+def k14_turn(CS, tmp: str, res: dict, card: str) -> None:
+    """Kernels 14 and 13 on layer 0 of the flagship int8 model at S = 256
+    and 2048, kernel 14 on layer 0 of the wide int8 model (chip_smoke's
+    `WIDE`) at S = 256, P = 27, ungated and gated: the SHA-1 of their
+    outputs, CUDA-event ms and the profiler's device us a call (ungated),
+    into res["<kernel>_S<S>_*"] ("k14_wide_S256_*"); then the wide model's
+    engine event blobs over 3 ticks and a flush (res["blob_wide_sha"]) and
+    its wall ms a call (res["wide_ms"])."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from april_asr_tpu_torch.api import Model
+    from april_asr_tpu_torch.models.lstm_transducer import TransducerDims
+    from april_asr_tpu_torch.ops import lstm_kernels as LK
+    from april_asr_tpu_torch.testing import engine_run
+
+    dev = torch.device("cuda")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    wide_dir = os.path.join(tmp, "wide")
+    os.makedirs(wide_dir)
+    wide_path = CS.flagship_april(wide_dir, seed=9, dims=TransducerDims(**CS.WIDE))
+    cases = [(CS.flagship_april(tmp), S, K14_KERNELS, "") for S in K14_SIZES]
+    cases.append((wide_path, 256, ("k14",), "_wide"))
+    for path, S, kernels, tag in cases:
+        rt = Model(path, precision="int8", device="cuda").runtime
+        la = tuple(rt.weights[k][0] for k in LK.LAYER_I8_KEYS[:7])
+        d, H, P = rt.dims.d_model, rt.dims.hidden, 27
+        rng = np.random.default_rng(S + 14)
+        x = t(rng.normal(size=(P, S, d)).astype(np.float32))
+        h = t((rng.normal(size=(S, d)) * 0.3).astype(np.float32))
+        c = t((rng.normal(size=(S, H)) * 0.3).astype(np.float32))
+        n = t(rng.integers(0, P + 1, size=S).astype(np.int32))
+        for name in kernels:
+            fn = LK.lstm_layer_chunk_rec_stream_i8 if name == "k14" else LK.lstm_layer_chunk_rec_i8
+            call = lambda fn=fn, g=None: fn(x, h, c, *la, g)  # noqa: E731
+            key = f"{name}{tag}_S{S}"
+            res[f"{key}_sha"] = [_sha(o) for o in list(call()) + list(call(g=n))]
+            res[f"{key}_ms"] = CS.cuda_ms(call, 5 if S == 256 else 2, warmup=1)
+            res[f"{key}_device_us"] = CS.profiled(call, 2, K14_KEYS)[1]
+        del rt, x, h, c
+        print("kernels: " + ", ".join(
+            f"{k}{tag} S={S} {res[f'{k}{tag}_S{S}_ms']:.4f} ms "
+            f"({res[f'{k}{tag}_S{S}_device_us']:.1f} us device)" for k in kernels)
+            + f" ({card})", flush=True)
+    audio = np.stack(CS._tone_bufs(CS.S_FLAG, CS.CHUNK_1S, 16000, n=3, seed=22))
+    run = engine_run(dict(path=wide_path, precision="int8", m=1, device="cuda", audio=audio,
+                          ticks=3))
+    res["blob_wide_sha"] = _blob_sha(run["blobs"])
+    res["wide_ms"] = run["ms"]
+    res["wide_counts"] = run["counts"][0]
+    print(f"wide int8 engine: ms a call {[round(v, 1) for v in run['ms']]}; step launches "
+          f"{json.dumps(run['counts'][0])} ({card})", flush=True)
+
+
 def queued_us(fn, n: int) -> float:
     """CUDA-event us a call over n calls queued back to back (after a
     warm-up): the device's time a call where it exceeds the host's."""
@@ -424,6 +496,10 @@ def worker(root: str, out: str, only: str = "") -> None:
             return
         if only == "tp":
             tp_turn(CS, CS.flagship_april(tmp), res, card)
+            print(TAG + json.dumps(dict(res, card=card)), flush=True)
+            return
+        if only == "k14":
+            k14_turn(CS, tmp, res, card)
             print(TAG + json.dumps(dict(res, card=card)), flush=True)
             return
         path = CS.flagship_april(tmp)
@@ -680,14 +756,38 @@ def tp_summary(turns: list, rows: list, out: Path, t0: float) -> int:
     return 0
 
 
+def k14_summary(turns: list, rows: list, out: Path, t0: float) -> int:
+    """`--only k14`: kernels 13 and 14's outputs and the wide int8 engine's
+    blobs required equal across every turn; their times per turn."""
+    ref = turns[0]
+    sizes = [(k, "", S) for k in K14_KERNELS for S in K14_SIZES] + [("k14", "_wide", 256)]
+    keys = tuple(f"{k}{tag}_S{S}_sha" for k, tag, S in sizes) + ("blob_wide_sha",)
+    bad = sorted({k for tr in turns for k in keys if tr[k] != ref[k]})
+    summary = {
+        "turns": [{k: tr[k] for k in ("label", "build_s", "wide_ms", "wide_counts") + tuple(
+            f"{k}{tag}_S{S}_{u}" for k, tag, S in sizes for u in ("ms", "device_us"))}
+            for tr in turns],
+        "equal": not bad, "differ": bad,
+        "sass_differs": [f"{r['source']} {r['kernel']}" for r in rows if not r["same"]],
+        "card": ref["card"], "seconds": time.perf_counter() - t0,
+    }
+    (out / "summary.json").write_text(json.dumps(summary, indent=1))
+    print(json.dumps(summary))
+    if bad:
+        print(f"parent_ab: outputs differ between the trees: {bad}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, help="the other tree (e.g. the parent commit)")
     ap.add_argument("--out", type=Path, default=TREE / "build" / "parent_ab")
     ap.add_argument("--sass", action="store_true", help="also sass_diff the shared sources")
-    ap.add_argument("--only", default="", choices=("", "k9", "tp"),
+    ap.add_argument("--only", default="", choices=("", "k9", "tp", "k14"),
                     help="k9: kernel 9 and the 16,383-token engines alone; tp: the "
-                         "tensor-parallel kernels 18-21 and engines alone")
+                         "tensor-parallel kernels 18-21 and engines alone; k14: kernels 13 "
+                         "and 14 and the wide int8 engine alone")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--npz", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -710,6 +810,8 @@ def main(argv=None) -> int:
         return k9_summary(turns, rows, args.out, t0)
     if args.only == "tp":
         return tp_summary(turns, rows, args.out, t0)
+    if args.only == "k14":
+        return k14_summary(turns, rows, args.out, t0)
     equal_keys = ("k2_S256_sha", "k2_S2048_sha", "k3_S256_sha", "k3_S2048_sha", "k7_sha",
                   "k7_gated_sha", "blob_sha") + tuple(f"k{n}_S{S}_sha" for n in (1, 5, 16)
                                                       for S in FBANK_SIZES) + EQUAL_KEYS

@@ -1,10 +1,13 @@
-"""Where the time of the layer kernels 2, 7, 12, 10 and 3 goes: for the
+"""Where the time of the layer kernels 2, 7, 12, 10, 3 and 14 goes: for the
 persistent kernels 2, 7, 12 and 10 the phases and grid barriers of one
 launch, from each block's phase stamps (csrc/lstm_mma.cuh `Stamps`, the
 global nanosecond timer); for kernel 3 (csrc/ffn_mma.cu, five launches in
-stream order) each launch's device time.
+stream order) each launch's device time; for kernel 14 (csrc/lstm_hoist.cu,
+which kernel 13 shares) phase A's two launches by their device time and
+phase B's recurrence by its blocks' stamps, as kernel 2's.
 
-    python -m april_asr_tpu_torch.tools.profile_lstm_mma [--S 256] [--P 27]
+    python -m april_asr_tpu_torch.tools.profile_lstm_mma [--S 256] [--P 27] [--wide] \
+        [--ub 8,16,32]
 
 On the flagship int8 serving weights (`profile_chunk_split.build`, layer 0)
 and numpy seed inputs, it launches kernel 2 (P steps) and kernel 7 once
@@ -20,6 +23,14 @@ CUDA-event time of one call, the kernel's device time (torch.profiler) and
 the host's time per call queued without a synchronize. Kernel 3 runs over
 the P * S rows of the same layer: the whole call by CUDA events and each of
 its launches (yq, ff1, mq, ff2, norm) by its device time in the profiler.
+Kernel 14 runs on the same layer as kernel 2 (its stamps in kernel 2's
+layout: h0's quantization, then per step gates, hcq, projection, hq and
+their barriers); with --wide also on a one-layer int8 model at d 1024 / H
+4096 / F 8192 (the widths phase's `WIDE`, where kernel 2 has no plan),
+weights from `init_transducer_params` seed 0. With --ub, kernel 14 again on
+each gate-item width named where its plan fits (`rec_hoist_plan(...,
+units=(ub,))`), its outputs required equal to the default plan's bit for
+bit.
 Needs a CUDA device.
 """
 
@@ -77,8 +88,10 @@ def breakdown(stamps: np.ndarray, phases: List[Tuple[str, int, int]]) -> Dict[st
     return out
 
 
-def rec_phases(P: int) -> List[Tuple[str, int, int]]:
-    out = [("stage + rowq8 x, h0", 0, 1), ("barrier", 1, 2)]
+def rec_phases(P: int, first: str = "stage + rowq8 x, h0") -> List[Tuple[str, int, int]]:
+    """Kernel 2's stamps (and kernel 14's phase B, whose first phase is
+    `first`): the start, then per step REC_STEP."""
+    out = [(first, 0, 1), ("barrier", 1, 2)]
     for t in range(P):
         k0 = 3 + 8 * t
         for name, a, b in REC_STEP[: 5 if t == P - 1 else 8]:
@@ -152,6 +165,75 @@ def profile(S: int, P: int, device) -> Dict[str, dict]:
                      "host_us": host_us, "device_us": device_us,
                      "phases": breakdown(s, phases), "blocks": plan.nb, "smem": plan.smem}
     return out
+
+
+# kernel 14's launches by the names the profiler gives their device kernels
+HOIST_PASSES = (("phase A: rowq8 x", "hoist_xq_kernel"), ("phase A: gx tiles", "hoist_gx_kernel"),
+                ("phase B: recurrence", "lstm_rec_hoist_kernel"))
+WIDE = TM.TransducerDims(d_model=1024, hidden=4096, ffn=8192, layers=1)
+
+
+def profile_hoist(S: int, P: int, device, dims: TM.TransducerDims = TM.TransducerDims(),
+                  n: int = 3, ub: int = 0) -> dict:
+    """Kernel 14 on layer 0 of the int8 serving weights at `dims` (numpy
+    seed inputs, gated): phase B's per-block stamps (`rec_phases`), each
+    launch's device time (torch.profiler over n calls), the CUDA-event time
+    of a call, the host's time a call queued, the plan and the scratch:
+    {"total_us", "event_ms", "host_us", "device_us", "phases", "launches",
+    "blocks", "ub", "smem", "scratch"}. With `ub`, on the plan of that
+    gate-item width alone, its outputs held bit for bit to the default
+    plan's (ValueError where it has no plan)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    params = PCS.build(S, P, dims, device)[0]
+    layer = tuple(params[k][0] for k in LK.LAYER_I8_KEYS[:7])
+    d, H = dims.d_model, dims.hidden
+    rng = np.random.default_rng(6)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    x = t(rng.normal(size=(P, S, d)).astype(np.float32))
+    h = t((rng.normal(size=(S, d)) * 0.3).astype(np.float32))
+    c = t((rng.normal(size=(S, H)) * 0.3).astype(np.float32))
+    nn = t(rng.integers(0, P + 1, size=S).astype(np.int32))
+    plan = (LM.rec_hoist_plan(S, d, H, LM.device_sm(device), units=(ub,)) if ub
+            else LM.device_hoist_plan(S, d, H, device))
+    run = lambda st=None: LK._rec_hoist_cuda("lstm_rec_stream_i8", x, h, c, nn, *layer,  # noqa: E731
+                                             plan=plan, stamps=st)
+    if ub:
+        want = LK._rec_hoist_cuda("lstm_rec_stream_i8", x, h, c, nn, *layer)
+        if not all(torch.equal(a, b) for a, b in zip(run(), want)):
+            raise AssertionError(f"kernel 14 at {ub}-unit items differs from the default plan")
+    res = {"event_ms": event_ms(run, reps=5), "blocks": plan.nb, "ub": plan.ub,
+           "smem": plan.smem, "scratch": LM.hoist_scratch(plan, P)[0]}
+    res["host_us"], res["device_us"] = host_and_device_us(run, n=10, keys=("hoist",))
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    res["launches"] = {name: sum(e.self_device_time_total for e in rows if key in e.key) / n
+                       for name, key in HOIST_PASSES}
+    st = torch.zeros((plan.nb, 3 + 8 * P), dtype=torch.int64, device=device)
+    run(st)
+    run(st)
+    torch.cuda.synchronize()
+    s = st.cpu().numpy()
+    res["total_us"] = float(s[:, 8 * P - 1].max() - s[:, 0].min()) / 1e3
+    res["phases"] = breakdown(s, rec_phases(P, "stage + rowq8 h0"))
+    return res
+
+
+def report_hoist(r: dict, S: int, P: int, dims: TM.TransducerDims, card: str = "") -> None:
+    parts = "; ".join(f"{k} {v['critical_us']:.1f} us (x{v['n']}, blocks' median "
+                      f"{v['median_us']:.1f})" for k, v in r["phases"].items())
+    launches = "; ".join(f"{k} {v:.1f} us" for k, v in r["launches"].items())
+    print(f"profile_lstm_mma kernel 14 d={dims.d_model} H={dims.hidden} S={S} P={P}"
+          f"{' (forced)' if r.get('forced') else ''}: "
+          f"{r['blocks']} blocks of {r['ub']}-unit gate items, {r['smem']} bytes of shared memory, "
+          f"{r['scratch']} bytes of scratch; CUDA events {r['event_ms'] * 1e3:.1f} us a call, its "
+          f"kernels' device time (profiler) {r['device_us']:.1f} us, the host's per call queued "
+          f"{r['host_us']:.1f} us; device time by launch: {launches}; phase B stamped "
+          f"{r['total_us']:.1f} us, critical path by phase: {parts}"
+          + (f" ({card})" if card else ""))
 
 
 # kernel 3's launches by the names the profiler gives their device kernels
@@ -237,11 +319,28 @@ def main(argv=None) -> Dict[str, dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--S", type=int, default=256)
     ap.add_argument("--P", type=int, default=27)
+    ap.add_argument("--wide", action="store_true",
+                    help="also kernel 14 at d 1024 / H 4096 (kernel 2 has no plan there)")
+    ap.add_argument("--ub", default="", help="kernel 14 again at these gate-item widths (8,16,32)")
     args = ap.parse_args(argv)
-    res = profile(args.S, args.P, torch.device("cuda"))
+    dev = torch.device("cuda")
+    res = profile(args.S, args.P, dev)
     report(res, args.S, args.P)
-    res["kernel 3"] = profile_ffn(args.S, args.P, torch.device("cuda"))
+    res["kernel 3"] = profile_ffn(args.S, args.P, dev)
     report_ffn(res["kernel 3"], args.S, args.P)
+    res["kernel 14"] = profile_hoist(args.S, args.P, dev)
+    report_hoist(res["kernel 14"], args.S, args.P, TM.TransducerDims())
+    if args.wide:
+        res["kernel 14 wide"] = profile_hoist(args.S, args.P, dev, WIDE)
+        report_hoist(res["kernel 14 wide"], args.S, args.P, WIDE)
+    for ub in (int(u) for u in args.ub.split(",") if u):
+        try:
+            r = dict(profile_hoist(args.S, args.P, dev, ub=ub), forced=True)
+        except ValueError as e:
+            print(f"profile_lstm_mma kernel 14 at {ub}-unit items: no plan ({e})")
+            continue
+        res[f"kernel 14 ub={ub}"] = r
+        report_hoist(r, args.S, args.P, TM.TransducerDims())
     return res
 
 

@@ -29,13 +29,19 @@ Phases (each fails the run on error):
              tensor-core instruction at f32, HGMMA in kernel 23's bf16 form
              and IGMMA in its int8 forms, FFMA and no tensor-core
              instruction in kernel 8's (csrc/dec_joiner_cluster.cu) and in
-             kernel 9's 16 (csrc/joiner_stream.cu)
+             kernel 9's 16 (csrc/joiner_stream.cu); IMMA in kernels 14 and
+             13's (csrc/lstm_hoist.cu: the phase-A tile pass and the three
+             phase-B recurrences)
   kernels    each kernel against its plain version: timed at S=256, P=27,
              F=101, checked again at S=3, P=5 (ragged tiles); kernels 2 and
-             7 also bit for bit against kernel 13 and the three-pass step
-             they replaced (ungated and gated), with their launch plans,
-             and kernel 14 bit for bit against kernel 2 (the int8 route of
-             wide models); kernel 3 (tiled int8 tensor-core passes) bit for
+             7 also bit for bit against kernel 13's CUDA-core template and
+             the three-pass step they replaced (ungated and gated), with
+             their launch plans; kernels 14 and 13 (csrc/lstm_hoist.cu: the
+             hoisted x-side product and one persistent recurrence launch)
+             bit for bit against their CUDA-core templates
+             (lstm_rec_*_simt) and kernel 2, gated and ungated, all five
+             timed at S=256 by CUDA events and the profiler's device time;
+             kernel 3 (tiled int8 tensor-core passes) bit for
              bit against the CUDA-core kernel it replaced, on 16-, 8- and
              4-row tiles, timed beside it with its design's byte bound;
              kernels 12 and 10 beside the three-pass step and the two-kernel
@@ -108,8 +114,11 @@ Phases (each fails the run on error):
              H 4096 / F 8192 (kernels 2 and 7 have no plan) serves S=256,
              the flagship engine's batch, 3 ticks and a flush, on kernel 14,
              the three-pass int8 step and kernel 3 (each held to its plain
-             version at those widths, S=256, and timed; kernel 3 also bit
-             for bit against the CUDA-core kernel's 4-row tiles); a float
+             version at those widths, S=256, and timed; kernel 14 also bit
+             for bit against its CUDA-core template at S=256 and 2048 and
+             timed beside it, kernel 3 bit for bit against the CUDA-core
+             kernel's 4-row tiles), the step program timed and profiled with
+             kernel 14 launched and its template never; a float
              model at d 68 / H 260 / F 196 serves at f32 (CUDA vs CPU
              engine) and bf16; one at d 66 / H 258 / F 198 with conv
              channels (4, 12, 20), no width a multiple of 4 (the JAX package
@@ -124,7 +133,8 @@ Phases (each fails the run on error):
              the padded route, held to their plain versions at the
              shard's own widths (`check_padded_tp`)
   chunk      the int8 chunk-layer variants at flagship widths, S=256, P=27:
-             kernels 13, 14, 11 (one layer), 15 (a 6-layer wavefront slab)
+             kernels 13, 14 and their CUDA-core templates, 11 (one layer),
+             15 (a 6-layer wavefront slab)
              and 22 (the tile-interleaved core, on 4- and 2-session tiles)
              against their plain versions, gated, timed, and checked again
              at S=3, P=5; then every stack variant of the ported tools
@@ -489,7 +499,8 @@ def phase_build(card):
 # (csrc/lstm_tp_gates.cu, rounding x stage depth) on FFMA alone,
 # kernel 19 (three gate-item widths) on IMMA; kernel 20 (csrc/lstm_tp_ffn.cu,
 # f32 and bf16) on FFMA alone, in tp_cols' order, kernel 21 (three
-# column-tile counts) on IMMA
+# column-tile counts) on IMMA; kernels 14 and 13 (csrc/lstm_hoist.cu: phase
+# A's tile pass, phase B at 8-, 16- and 32-unit gate items) on IMMA
 MMA_SOURCES = (
     ("lstm_mma.cu", ("_Z19lstm_rec_mma_kernel", "_Z20lstm_step_mma_kernel"), 6),
     ("lstm_mma_float.cu", ("_Z26lstm_step_float_mma_kernel",), 2),
@@ -503,6 +514,7 @@ MMA_SOURCES = (
     ("joiner_stream.cu", ("_Z20joiner_stream_kernel",), 16),
     ("lstm_tp_gates.cu", ("_Z13tp_gcp_kernel", "_Z15tp_gc_i8_kernel"), 7),
     ("lstm_tp_ffn.cu", ("_Z13tp_ffn_kernel", "_Z16tp_mid_i8_kernel"), 5),
+    ("lstm_hoist.cu", ("_Z21lstm_rec_hoist_kernel", "_Z15hoist_gx_kernel"), 4),
 )
 
 
@@ -1031,6 +1043,52 @@ def fbank_times(card):
                   f"{s_dev:.1f} us), bound_ms={b_ms:.4f} ({b_by}){floor} ({card})")
 
 
+REC = ("hseq", "h", "c")
+# kernels 14 and 13 (csrc/lstm_hoist.cu), their CUDA-core templates
+# (csrc/lstm_i8.cu) and kernel 2: (name, wrapper, the profiler's kernel
+# names)
+REC_KERNELS = (
+    ("lstm_rec_stream_i8", "lstm_layer_chunk_rec_stream_i8", ("hoist",)),
+    ("lstm_rec_i8", "lstm_layer_chunk_rec_i8", ("hoist",)),
+    ("lstm_rec_stream_i8_simt", "lstm_layer_chunk_rec_stream_i8_simt", ("lstm_rec_kernel",)),
+    ("lstm_rec_i8_simt", "lstm_layer_chunk_rec_i8_simt", ("lstm_rec_kernel",)),
+    ("lstm_rec_stream2_i8", "lstm_layer_chunk_rec_stream2_i8", ("lstm_rec_mma_kernel",)),
+)
+
+
+def check_rec_hoist(x, h0, c0, la, n_pulls, k2, S: int, P: int) -> None:
+    """Kernels 14 and 13 bit for bit against their CUDA-core templates and
+    kernel 2 (`k2`: its outputs gated by n_pulls), gated and ungated; kernel
+    2 against kernel 13's template."""
+    from april_asr_tpu_torch.ops import lstm_kernels as LK
+
+    for g in (n_pulls, None):
+        tag = f"{'gated' if g is not None else 'ungated'} at S={S}, P={P}"
+        ref = k2 if g is not None else LK.lstm_layer_chunk_rec_stream2_i8(x, h0, c0, *la)
+        _bit_equal(LK.lstm_layer_chunk_rec_i8_simt(x, h0, c0, *la, g), ref, REC,
+                   f"lstm_rec_stream2_i8 vs kernel 13's template {tag}")
+        for k in (14, 13):
+            name = "lstm_layer_chunk_rec_stream_i8" if k == 14 else "lstm_layer_chunk_rec_i8"
+            got = getattr(LK, name)(x, h0, c0, *la, g)
+            _bit_equal(got, getattr(LK, name + "_simt")(x, h0, c0, *la, g), REC,
+                       f"kernel {k} vs its CUDA-core template {tag}")
+            _bit_equal(got, ref, REC, f"kernel {k} vs lstm_rec_stream2_i8 {tag}")
+
+
+def rec_times(x, h0, c0, la, n_pulls, shape: str, reps: int = 10) -> None:
+    """Prints the CUDA-event ms a call and the profiler's device ms a call
+    of the recurrent cores in REC_KERNELS, in that order."""
+    from april_asr_tpu_torch.ops import lstm_kernels as LK
+
+    out = {}
+    for name, fn, keys in REC_KERNELS:
+        call = lambda fn=fn: getattr(LK, fn)(x, h0, c0, *la, n_pulls)  # noqa: E731
+        ms = cuda_ms(call, reps, warmup=1)
+        out[name] = (ms, profiled(call, 3, keys)[1] / 1e3)
+    print("recurrent cores at " + shape + ": " + ", ".join(
+        f"{k} ms={v[0]:.4f} (device {v[1]:.4f})" for k, v in out.items()) + f" ({card_line()})")
+
+
 def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
     """Each kernel's wrapper and its plain version on the same inputs at S
     sessions and P pulls (F = 101 frames), held to the stated tolerances;
@@ -1103,19 +1161,17 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
     torch.cuda.synchronize()
     err = max(_ulp_close(g, wv, f"lstm_rec_stream2_i8 {k}")
               for g, wv, k in zip(got, want, ("hseq", "h", "c")))
-    # the tensor-core kernel 2 equals kernel 13 (the CUDA-core template it
-    # replaced on the step) bit for bit: the same exact int32 dots and f32
-    # op order
-    _bit_equal(got, LK.lstm_layer_chunk_rec_i8(x, h0, c0, *la, n_pulls), ("hseq", "h", "c"),
-               f"lstm_rec_stream2_i8 vs kernel 13 at S={S}, P={P}")
-    # kernel 14, kernel 2's route where its stationary weights do not fit,
-    # equals it bit for bit where both run
-    _bit_equal(LK.lstm_layer_chunk_rec_stream_i8(x, h0, c0, *la, n_pulls), got,
-               ("hseq", "h", "c"), f"kernel 14 (the wide route) vs lstm_rec_stream2_i8 at S={S}, "
-               f"P={P}")
+    # the tensor-core kernel 2 equals kernel 13's CUDA-core template (which
+    # it replaced on the step) bit for bit: the same exact int32 dots and f32
+    # op order; so do kernels 14 and 13 (csrc/lstm_hoist.cu; 14 is kernel
+    # 2's route where its stationary weights do not fit) and their
+    # templates, gated and ungated
+    check_rec_hoist(x, h0, c0, la, n_pulls, got, S, P)
     b = bound_ms(2 * P * S * d * 4 + 2 * S * (d + H) * 4 + 2 * d * 4 * H + H * d + (8 * H + d) * 4,
                  {"int8": 2 * P * S * (2 * d * 4 * H + H * d)})
     out["lstm_rec_stream2_i8"] = (kf, pf, err, b, f"x[{P},{S},{d}] H={H}")
+    if S == S_FLAG:
+        rec_times(x, h0, c0, la, n_pulls, f"S={S}, P={P}")
 
     # 3. ffn_norm_i8 over the flattened P*S rows (layer 0): the tensor-core
     # passes equal the CUDA-core kernel they replaced, on each of its row
@@ -1418,10 +1474,15 @@ SOURCES = {
                          "april_asr_tpu/ops/conv_embed_pallas.py:438"),
     "fbank_frames": ("april_asr_tpu_torch/csrc/fbank_bf16x3.cu",
                      "april_asr_tpu/ops/fbank_pallas.py:163"),
-    "lstm_rec_i8": ("april_asr_tpu_torch/csrc/lstm_i8.cu", "april_asr_tpu/ops/lstm_pallas.py:814"),
-    "lstm_rec_stream_i8": ("april_asr_tpu_torch/csrc/lstm_i8.cu",
+    "lstm_rec_i8": ("april_asr_tpu_torch/csrc/lstm_hoist.cu",
+                    "april_asr_tpu/ops/lstm_pallas.py:814"),
+    "lstm_rec_stream_i8": ("april_asr_tpu_torch/csrc/lstm_hoist.cu",
                            "april_asr_tpu/ops/lstm_pallas.py:973"),
-    "lstm_rec_stream_i8_wide": ("april_asr_tpu_torch/csrc/lstm_i8.cu",
+    "lstm_rec_stream_i8_wide": ("april_asr_tpu_torch/csrc/lstm_hoist.cu",
+                                "april_asr_tpu/ops/lstm_pallas.py:973"),
+    "lstm_rec_i8_simt": ("april_asr_tpu_torch/csrc/lstm_i8.cu",
+                         "april_asr_tpu/ops/lstm_pallas.py:814"),
+    "lstm_rec_stream_i8_simt": ("april_asr_tpu_torch/csrc/lstm_i8.cu",
                                 "april_asr_tpu/ops/lstm_pallas.py:973"),
     "lstm_chunk_i8": ("april_asr_tpu_torch/csrc/lstm_chunk_i8.cu",
                       "april_asr_tpu/ops/lstm_pallas.py:636"),
@@ -1678,13 +1739,14 @@ def k9_times(models, card):
 
 
 def print_mma_plans(rt, S: int, P: int):
-    """Kernels 2, 7, 3, 12 and 10's launch plans (ops/lstm_mma.py) at the
-    engine's shapes on this card."""
+    """Kernels 2, 7, 14, 3, 12 and 10's launch plans (ops/lstm_mma.py) at
+    the engine's shapes on this card."""
     from april_asr_tpu_torch.ops import lstm_mma as LM
 
     d, H, F = rt.dims.d_model, rt.dims.hidden, rt.dims.ffn
     for what, plan in (("kernel 2", LM.device_plan(S, d, H, 0, torch.device(DEV))),
-                       ("kernel 7", LM.device_plan(S, d, H, F, torch.device(DEV)))):
+                       ("kernel 7", LM.device_plan(S, d, H, F, torch.device(DEV))),
+                       ("kernel 14 (phase B)", LM.device_hoist_plan(S, d, H, torch.device(DEV)))):
         print(f"{what} plan at S={S}: {plan.nb} blocks; gate items of {plan.ub} units x "
               f"{plan.gate.rows} rows ({plan.gate.items}); projection items (tiles, rows, column "
               f"groups, items) {plan.proj.ints()}; ff1 {plan.ff1.ints() if plan.ff1 else None}; "
@@ -2100,11 +2162,13 @@ def k9_route(what: str, counts: dict, *keys) -> None:
           f"joiner_argmax_simt {simt}")
 
 
-def serve_once(model, path: str, S: int, ticks: int, card) -> dict:
+def serve_once(model, path: str, S: int, ticks: int, card, program: bool = False) -> dict:
     """BatchEngine(S) on `model`, 1 s chunks: `ticks` ticks of tone bursts
     and a flush of every slot, the step's and the flush's launches checked
-    apart (PATH_KERNELS[path]), the state finite, callbacks seen; returns
-    the launch counts of the steps and the flush."""
+    apart (PATH_KERNELS[path]), the state finite, callbacks seen; with
+    `program`, the step program alone timed (median of 3, wall with a
+    synchronize) and profiled on the live state. Returns the launch counts
+    of the steps and the flush."""
     from april_asr_tpu_torch.config import EngineConfig
     from april_asr_tpu_torch.engine.batch import BatchEngine
     from april_asr_tpu_torch.ops import cuda_build
@@ -2135,6 +2199,17 @@ def serve_once(model, path: str, S: int, ticks: int, card) -> dict:
             raise AssertionError(f"widths {path}: non-finite {name}")
     if n_cb[0] == 0:
         raise AssertionError(f"widths {path}: no callbacks")
+    if program:
+        audio = torch.from_numpy(bufs[0]).to(DEV)
+        n = torch.full((S,), CHUNK_1S, dtype=torch.int32, device=DEV)
+        run_step = lambda: eng.prog.step(eng.weights, eng.state, audio, n)  # noqa: E731
+        cuda_build.reset_counts()
+        step_ms = wall_ms(run_step, 3)
+        launched = require_launches(f"widths {path} step program", path, "step")
+        print(f"widths {path} step program: step_ms median={np.median(step_ms):.2f} "
+              f"(min {min(step_ms):.2f}, max {max(step_ms):.2f}, n {len(step_ms)}) "
+              f"launches={json.dumps(launched)} ({card})")
+        profile(run_step, card, f"widths {path} step")
     dims = rt.dims
     print(f"widths {path}: d={dims.d_model} H={dims.hidden} F={dims.ffn} L={dims.layers} S={S}: "
           f"{ticks} ticks in {t1 - t0:.2f} s, flush {t2 - t1:.2f} s, {n_cb[0]} callbacks, "
@@ -2147,9 +2222,10 @@ def check_wide_int8(rt, S: int, P: int, seed: int, card) -> dict:
     """The int8 routes at a model's widths (layer 0): kernel 2's call (kernel
     14 where kernel 2 has no plan), kernel 7's call (the three-pass step,
     ungated and gated) and kernel 3 against their plain versions, to
-    `_ulp_close`, kernel 3 also bit for bit against the CUDA-core kernel's
-    4-row tiles and timed beside them. Returns the JSON checks of the three
-    calls."""
+    `_ulp_close`; kernel 14 also bit for bit against its CUDA-core template
+    at S and at 2048 rows (`wide_rec_vs_template`), kernel 3 against the
+    CUDA-core kernel's 4-row tiles, each timed beside it. Returns the JSON
+    checks of the three calls."""
     from april_asr_tpu_torch.ops import lstm_kernels as LK
     from april_asr_tpu_torch.ops import lstm_mma as LM
 
@@ -2168,6 +2244,7 @@ def check_wide_int8(rt, S: int, P: int, seed: int, card) -> dict:
     torch.cuda.synchronize()
     err14 = max(_ulp_close(g, wv, f"wide kernel 2's route {k}")
                 for g, wv, k in zip(got, want, ("hseq", "h", "c")))
+    wide_rec_vs_template(sa[:7], S, P, d, H, x, h0, c0, n_pulls, card)
     b = bound_ms(2 * P * S * d * 4 + 2 * S * (d + H) * 4 + 2 * d * 4 * H + H * d + (8 * H + d) * 4,
                  {"int8": 2 * P * S * (2 * d * 4 * H + H * d)})
     out = {"lstm_rec_stream_i8_wide": (
@@ -2371,6 +2448,43 @@ def check_embed_widths(rt, S: int, P: int, seed: int) -> str:
     return "; ".join(out)
 
 
+def wide_rec_vs_template(la, S: int, P: int, d: int, H: int, x, h0, c0, n_pulls, card) -> None:
+    """Kernel 14 (csrc/lstm_hoist.cu) at a wide model's widths, bit for bit
+    against its CUDA-core template (`lstm_rec_stream_i8_simt`) at S rows and
+    at 2048 (the JAX tools' batch), gated, with its plan; kernel 14 timed by
+    CUDA events (5 calls) and the profiler's device time, the template by
+    CUDA events around the one call checked."""
+    from april_asr_tpu_torch.ops import lstm_kernels as LK
+    from april_asr_tpu_torch.ops import lstm_mma as LM
+
+    rng = np.random.default_rng(S + 2048)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa: E731
+    for Sw in (S, 2048):
+        if Sw != S:
+            x = t(rng.normal(size=(P, Sw, d)).astype(np.float32))
+            h0 = t((rng.normal(size=(Sw, d)) * 0.3).astype(np.float32))
+            c0 = t((rng.normal(size=(Sw, H)) * 0.3).astype(np.float32))
+            n_pulls = t(rng.integers(0, P + 1, size=Sw).astype(np.int32))
+        plan = LM.device_hoist_plan(Sw, d, H, torch.device(DEV))
+        call = lambda: LK.lstm_layer_chunk_rec_stream_i8(x, h0, c0, *la, n_pulls)  # noqa: E731
+        got = call()
+        ms = cuda_ms(call, 5, warmup=1)
+        dev_ms = profiled(call, 3, ("hoist",))[1] / 1e3
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        simt = LK.lstm_layer_chunk_rec_stream_i8_simt(x, h0, c0, *la, n_pulls)
+        b.record()
+        b.synchronize()
+        _bit_equal(got, simt, REC, f"widths kernel 14 vs its CUDA-core template at d={d}, H={H}, "
+                   f"S={Sw}, P={P}")
+        print(f"widths kernel 14 at d={d} H={H} S={Sw} P={P}: ms={ms:.4f} (device {dev_ms:.4f}); "
+              f"lstm_rec_stream_i8_simt ms={a.elapsed_time(b):.4f} (one call); plan: {plan.nb} "
+              f"blocks, gate items of {plan.ub} units x {plan.gate.rows} rows "
+              f"({plan.gate.items}), projection {plan.proj.ints()}, {plan.smem} bytes of shared "
+              f"memory a block, {LM.hoist_scratch(plan, P)[0]} bytes of scratch ({card})")
+        del got, simt
+
+
 def phase_widths(tmp: str, card, reps: int = 10):
     """Models the port once refused. A 2-layer int8 model at d 1024 / H
     4096 / F 8192, wider than kernels 2 and 7 hold: its routed kernels
@@ -2397,7 +2511,7 @@ def phase_widths(tmp: str, card, reps: int = 10):
                  device=DEV)
     print(f"widths: wide int8 model written and loaded in {time.perf_counter() - t0:.1f} s")
     rows = time_rows(check_wide_int8(wide.runtime, S_FLAG, 27, seed=15, card=card), card, reps)
-    counts["wide int8"] = serve_once(wide, "wide int8", S_FLAG, 3, card)
+    counts["wide int8"] = serve_once(wide, "wide int8", S_FLAG, 3, card, program=True)
     del wide
     narrow = TransducerDims(**NARROW)
     narrow_dir = os.path.join(tmp, "narrow68")
@@ -2429,8 +2543,8 @@ def phase_widths(tmp: str, card, reps: int = 10):
 
 
 def check_chunk_kernels(params, S: int, P: int, seed: int, Lk: int = 6) -> dict:
-    """Kernels 13, 14 and 22 (on 4- and 2-session tiles; layer 0's
-    recurrent core), 11 (layer 0 whole) and 15 (a slab of layers 0..Lk-1) on
+    """Kernels 13, 14, their CUDA-core templates and 22 (on 4- and 2-session
+    tiles; layer 0's recurrent core), 11 (layer 0 whole) and 15 (a slab of layers 0..Lk-1) on
     the int8 serving weights `params`, at S sessions and P pulls, gated by
     random n_pulls, against their plain versions: one layer to `_ulp_close`,
     the slab to `_stat_close`. Returns {name: (kernel call, plain call, max
@@ -2464,6 +2578,8 @@ def check_chunk_kernels(params, S: int, P: int, seed: int, Lk: int = 6) -> dict:
     # design, not bytes the function must move
     cores = (("lstm_rec_i8", LK.lstm_layer_chunk_rec_i8, ""),
              ("lstm_rec_stream_i8", LK.lstm_layer_chunk_rec_stream_i8, ""),
+             ("lstm_rec_i8_simt", LK.lstm_layer_chunk_rec_i8_simt, ""),
+             ("lstm_rec_stream_i8_simt", LK.lstm_layer_chunk_rec_stream_i8_simt, ""),
              ("rec_interleave_i8", functools.partial(rec_interleave_i8, block_s=512),
               f" tile={INTERLEAVE_TS[512]}"),
              ("rec_interleave_i8_ts2", functools.partial(rec_interleave_i8, block_s=256),
@@ -2538,7 +2654,9 @@ def phase_chunk(card, reps: int = 20):
                   f"launches_per_stack={json.dumps(launches)} vs stream2 (max, mean, p99) "
                   + " ".join(f"{k}=({v[0]:.3g}, {v[1]:.3g}, {v[2]:.3g})" for k, v in diff.items())
                   + f"{held} ({card})")
-    missing = [r["name"] for r in rows if not launched.get(COUNT_KEY.get(r["name"], r["name"]))]
+    # the templates of kernels 13 and 14 serve no tool at these widths
+    missing = [r["name"] for r in rows if not r["name"].endswith("_simt")
+               and not launched.get(COUNT_KEY.get(r["name"], r["name"]))]
     if missing:
         raise AssertionError(f"chunk: the tools never launched {missing}")
     print(f"chunk: {time.perf_counter() - t0:.1f} s")

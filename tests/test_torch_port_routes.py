@@ -4,7 +4,9 @@ port used to refuse.
 * The top package exports every name of the JAX package's `__all__` that
   the port defines (`MeshConfig` was missing).
 * int8: where kernels 2 and 7 keep no stationary plan, their calls take
-  kernel 14 and the three-pass step (ops/lstm_mma.py `int8_routes`); kernel
+  kernel 14 (csrc/lstm_hoist.cu, on its `rec_hoist_plan`; its CUDA-core
+  template only where that has none) and the three-pass step
+  (ops/lstm_mma.py `int8_routes`); kernel
   3 (`ffn_plan`, tiled tensor-core passes) has no width limit: every
   128-multiple model up to d 1024, H 4096 and F 8192 has a route at S = 1,
   3, 256 and 2048, and the flagship widths keep kernels 2 and 7.
@@ -64,6 +66,8 @@ def test_int8_routes_serve_every_f1_width(S, P):
         plan = LM.ffn_plan(P * S, d, F)
         assert plan.smem <= LM.SMEM_LIMIT and plan.grid(F)[1] * LM.FFN_TILE == plan.rp
         if r.rec == "stream":
+            # kernel 14 on its own plan; its template's block would fit too
+            assert LM.rec_hoist_plan(S, d, H).smem <= LM.SMEM_LIMIT
             assert LM.rec_stream_smem(d, H) <= LM.SMEM_LIMIT
         if r.step == "simt":
             assert LM.step_simt_smem(d, H, F) <= LM.SMEM_LIMIT
@@ -80,13 +84,24 @@ def test_int8_routes_keep_the_flagship_kernels(S):
 
 
 def test_int8_route_bytes():
-    """The C launches' byte counts at the widest F1 model: kernel 14's block
-    of 4 sessions, the int8 three-pass step's 4-row FFN tile; kernel 3's
+    """The C launches' byte counts at the widest F1 model: kernel 14's
+    phase-B block (a 32-unit item's w_hh slice, a one-tile projection item,
+    the A ring) beside its CUDA-core template's block of 4 sessions, the
+    int8 three-pass step's 4-row FFN tile; kernel 3's
     block (two stages of 128 x 80-byte A and B tiles and 128 amax slots) at
     every width, where the CUDA-core kernel 3 it replaced staged a [16][F]
     mid tile (204,928 bytes at the flagship, none fitting past d 512 / F
     2432 at 16 rows, d 4096 / F 16384 at any)."""
     assert LM.rec_stream_smem(1024, 4096) == 204_864
+    for S in (1, 3, 256, 2048):
+        assert LM.rec_hoist_plan(S, 1024, 4096).smem == 222_368 <= LM.SMEM_LIMIT
+        assert LM.hoist_route(S, 1024, 4096) == "hoist"
+    # kernel 14's template takes kernel 2's call only where neither plan
+    # fits: 136 32-unit gate items at H 4352 outnumber the SMs
+    assert LM.rec_route(256, 128, 4352) == "stream_simt"
+    assert LM.rec_stream_smem(128, 4352) == 163_904
+    with pytest.raises(ValueError, match="its template needs 323648 bytes"):
+        LM.rec_route(256, 512, 8192)
     assert LM.step_simt_smem(1024, 4096, 8192) == LM.ffn_i8_smem(4, 1024, 8192) == 184_352
     assert LM.FFN_SMEM == 2 * 2 * 128 * 80 + 512 == 41_472
     assert LM.ffn_i8_smem(16, 512, 2048) == 204_928
