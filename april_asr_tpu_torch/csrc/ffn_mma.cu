@@ -37,6 +37,9 @@
 //           b2), y recomputed from x and hseq, into out
 //   4 norm  one warp a row: BasicNorm of out in place, the mean over dn
 //           columns (d, or the model's d_model where d is zero-padded)
+// The passes' bodies are csrc/ffn_mma.cuh, which kernel 11
+// (csrc/lstm_hoist.cu) also runs as phases of its cooperative launch (the yq
+// and norm launches below keep copies of theirs: see the header).
 // The tiles are planned in Python by ops/lstm_mma.py `ffn_plan` (the grid
 // of each product and the scratch layout); the C entry computes the same
 // grids. Rows past R in the padded scratch are never initialised; their
@@ -49,39 +52,10 @@
 // sig_tanh's tanhf and rsqrtf (no fast-math), the norm's sum of squares in
 // basic_norm_rows' lane order.
 
-#include "mma_tile.cuh"  // the 128 x 128 tile loop (fm_load, fm_store, fm_mma)
+#include "ffn_mma.cuh"  // the passes' bodies, on mma_tile.cuh's tile loop
 
 #define FM_ROWS_A_BLOCK (FM_NT / 32)      // rows of a one-warp-a-row pass per block
 #define FM_PHASES 5
-
-struct FfnArgs {
-  const float *x, *hs;
-  const int8_t *ff1, *ff2;
-  const float *ff1s, *ff2s, *eps;
-  const void *f1b, *f2b;
-  float* out;
-  int8_t *yq, *mq;  // [rp][dp], [rp][fp]
-  float *ys, *mid, *ms;
-  unsigned* amax;
-  int R, d, F, dp, fp, f1b_bf16, f2b_bf16, dn;
-};
-
-__device__ __forceinline__ float4 add4(const float4 a, const float4 b) {
-  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
-                     __fadd_rn(a.w, b.w));
-}
-
-__device__ __forceinline__ float amax4(float m, const float4 v) {
-  return fmaxf(fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y))), fmaxf(fabsf(v.z), fabsf(v.w)));
-}
-
-// warp_rowq8's codes of four values
-__device__ __forceinline__ char4 q8x4(const float4 v, float inv) {
-  return make_char4((signed char)__float2int_rn(__fmul_rn(v.x, inv)),
-                    (signed char)__float2int_rn(__fmul_rn(v.y, inv)),
-                    (signed char)__float2int_rn(__fmul_rn(v.z, inv)),
-                    (signed char)__float2int_rn(__fmul_rn(v.w, inv)));
-}
 
 // Phase 0: _rowq8 of y = x + hseq, one warp a row
 __global__ void __launch_bounds__(FM_NT) ffn_yq_kernel(FfnArgs a) {
@@ -110,14 +84,7 @@ __global__ void __launch_bounds__(FM_NT) ffn_mq_kernel(FfnArgs a) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * FM_ROWS_A_BLOCK + (threadIdx.x >> 5);
   if (row >= a.R) return;
-  const float s = __fmul_rn(fmaxf(__uint_as_float(a.amax[row]), ROWQ_FLOOR), INV127);
-  const float inv = __frcp_rn(s);
-  const float4* m4 = reinterpret_cast<const float4*>(a.mid + (size_t)row * a.F);
-  char4* q4 = reinterpret_cast<char4*>(a.mq + (size_t)row * a.fp);
-  const int n4 = a.F >> 2;
-  for (int k = lane; k < (a.fp >> 2); k += 32)
-    q4[k] = k < n4 ? q8x4(m4[k], inv) : make_char4(0, 0, 0, 0);
-  if (lane == 0) a.ms[row] = s;
+  ffn_mq_row(a, row, lane);
 }
 
 // Phase 4: BasicNorm of out's rows in place (csrc/ffn_norm.cuh
@@ -140,92 +107,7 @@ template <bool FF1>
 __global__ void __launch_bounds__(FM_NT) ffn_mm_kernel(FfnArgs a) {
   __shared__ __align__(16) uint8_t smem[2][FM_STAGE];
   __shared__ unsigned rmax[FM_BM];  // ff1: the tile's |mid| amax of each row
-  const int8_t* A = FF1 ? a.yq : a.mq;
-  const int lda = FF1 ? a.dp : a.fp;
-  const int8_t* W = FF1 ? a.ff1 : a.ff2;
-  const int K = FF1 ? a.d : a.F, N = FF1 ? a.F : a.d;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.y * FM_BM, n0 = blockIdx.x * FM_BN;
-  if (FF1 && tid < FM_BM) rmax[tid] = 0u;  // published by the loop's barriers
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0;
-
-  const int KT = lda / FM_KT;
-  FmStaged st;
-  fm_load(st, A, lda, W, K, N, m0, n0, 0);
-  fm_store(st, smem[0]);
-  __syncthreads();
-  for (int kt = 0; kt < KT; ++kt) {
-    if (kt + 1 < KT) fm_load(st, A, lda, W, K, N, m0, n0, (kt + 1) * FM_KT);
-    fm_mma(acc, smem[kt & 1], wm, wn);
-    if (kt + 1 < KT) fm_store(st, smem[(kt + 1) & 1]);
-    __syncthreads();
-  }
-
-  const int g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int rl = wm * 64 + mi * 16 + g + h * 8, row = m0 + rl;
-      const bool live = row < a.R;
-      if (FF1) {
-        float mx = 0.f;
-        if (live) {
-          const float ys = a.ys[row];
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) {
-            const int col = n0 + wn * 32 + ni * 8 + q * 2;
-            if (col >= N) continue;
-            float v[2];
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float m = __fadd_rn(
-                  __fmul_rn((float)acc[mi][ni][2 * h + e], __fmul_rn(ys, a.ff1s[col + e])),
-                  load_vec(a.f1b, col + e, a.f1b_bf16));
-              v[e] = __fmul_rn(m, sig_tanh(__fsub_rn(m, 1.f)));
-              mx = fmaxf(mx, fabsf(v[e]));
-            }
-            *reinterpret_cast<float2*>(a.mid + (size_t)row * N + col) = make_float2(v[0], v[1]);
-          }
-        }
-        // the quad of lanes that share the row, then the block's warps
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        if (q == 0 && live) atomicMax(rmax + rl, __float_as_uint(mx));
-      } else if (live) {
-        const float ms = a.ms[row];
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int col = n0 + wn * 32 + ni * 8 + q * 2;
-          if (col >= N) continue;
-          const size_t o = (size_t)row * N + col;
-          const float2 xv = *reinterpret_cast<const float2*>(a.x + o);
-          const float2 hv = *reinterpret_cast<const float2*>(a.hs + o);
-          const float y[2] = {__fadd_rn(xv.x, hv.x), __fadd_rn(xv.y, hv.y)};
-          float r[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float ff = __fadd_rn(
-                __fmul_rn((float)acc[mi][ni][2 * h + e], __fmul_rn(ms, a.ff2s[col + e])),
-                load_vec(a.f2b, col + e, a.f2b_bf16));
-            r[e] = __fadd_rn(y[e], ff);
-          }
-          *reinterpret_cast<float2*>(a.out + o) = make_float2(r[0], r[1]);
-        }
-      }
-    }
-  if (FF1) {
-    __syncthreads();
-    if (tid < FM_BM && m0 + tid < a.R) atomicMax(a.amax + m0 + tid, rmax[tid]);
-  }
+  ffn_tile<FF1>(a, smem, rmax, blockIdx.y, blockIdx.x);
 }
 
 // Kernel 3: the five launches above in stream order (yq, ff1, mq, ff2,

@@ -1,6 +1,7 @@
-// Kernels 14 and 13 redesigned for the H100: the int8 recurrent core of the
-// chunk layer as a hoisted x-side gate product plus one persistent
-// recurrence launch.
+// Kernels 14, 13 and 22 redesigned for the H100: the int8 recurrent core of
+// the chunk layer as a hoisted x-side gate product plus one persistent
+// recurrence launch; and kernel 11, the whole int8 chunk layer, as the same
+// launches with kernel 3's FFN + BasicNorm as phases of the persistent one.
 //
 // Replaces april_asr_tpu/ops/lstm_pallas.py `lstm_layer_chunk_rec_stream_i8`
 // (`_rec_stream_kernel_i8`, 14) and `lstm_layer_chunk_rec_i8`
@@ -19,7 +20,10 @@
 // G, 0.26 ms at 1,979 TOP/s); its weights stay in the 50 MB L2. The
 // templates re-read all three weight matrices from L2 every step for every
 // 4-session tile and multiplied them on IMAD loops (212 ms a layer at those
-// widths on an H100, PERF.md).
+// widths on an H100, PERF.md). Kernel 11 adds the FFN's 4 P S d F
+// operations (29 G at the flagship, d 512 / F 2048, S = 256, P = 27: 15 us);
+// its template re-read every weight from L2 every step for every 2-session
+// tile (12.7 ms a layer at the flagship on an H100).
 // Kernel 2 (csrc/lstm_mma.cu) keeps w_ih, w_hh and w_hr stationary in shared
 // memory, which past the flagship widths no split holds. Here:
 //
@@ -48,14 +52,36 @@
 //     matrices are 37.7 MB); a 32-unit item's w_hh slice at d 1024 is 133
 //     KB, so the wide model fits one block an SM.
 //
+// Kernel 22 (tools/profile_chunk_split.py `rec_interleave_i8`) computes
+// kernel 13's function with time as the slow axis, which this launch is, so
+// it takes the same entry (its per-timestep template stays in
+// csrc/lstm_i8.cu, `rec_interleave_i8`).
+//
+// Kernel 11 (april_asr_tpu/ops/lstm_pallas.py `lstm_layer_chunk_fused_i8`,
+// `_chunk_kernel_i8`) is kernel 14's function followed by kernel 3's over
+// the P * S rows: no step's FFN feeds the recurrence, and y comes from the
+// ungated h_new, which is hseq. Its entry `lstm_chunk_hoist_i8` runs phase
+// A, then one cooperative launch: phase B with hseq into a scratch, a grid
+// barrier, the block's shared memory re-carved for two 128 x 128 tile
+// stages, then kernel 3's five passes (csrc/ffn_mma.cuh: yq | ff1 with
+// DoubleSwish and the row amax folded by atomicMax | mq | ff2 + the
+// residual | the norm) as phases separated by grid barriers, each walking
+// its rows or tiles over the launch's blocks. The TPU kernel runs each
+// step's FFN inside the time loop; at S = 256 that would leave ff1 32
+// tiles for 132 SMs, so here it runs after the loop over all P * S rows.
+// The template it replaced stays as csrc/lstm_chunk_i8.cu
+// (`lstm_chunk_i8_simt`), for shapes this plan has no launch for.
+//
 // Numerics: the integer dots are exact in any order; gx = fl(float(xdot) *
 // fl(xs * s_ih)), gh likewise, each gate fl(fl(gx + gh) + b), the cell and
 // the projection in the templates' op order (csrc/lstm_i8.cuh
 // `rec_gates_cell`, `rec_proj`), so the outputs equal theirs, and kernel
-// 2's, bit for bit; chip_smoke.py holds them to that.
+// 2's, bit for bit; kernel 11's FFN phases are kernel 3's passes, bit for
+// bit csrc/ffn_norm.cuh `ffn_norm_tile`, so it equals its template;
+// chip_smoke.py holds them to that.
 
+#include "ffn_mma.cuh"  // kernel 3's passes (kernel 11); mma_tile.cuh's tile loop
 #include "lstm_mma.cuh"
-#include "mma_tile.cuh"
 
 #define HX_ROWS (FM_NT / 32)  // rows of the x quantization a block, one warp a row
 
@@ -244,11 +270,13 @@ __device__ __forceinline__ void hoist_gates(const HoistArgs& a, const float* gxt
   }
 }
 
+// Phase B of one layer over the P steps, on the block's dynamic shared
+// memory `smem_f4`: stamps 0 .. 8 P - 1 (the last step ends at its
+// projection, stamp 8 P - 1)
 template <int NTG>
-__global__ void __launch_bounds__(MMA_NT, 1) lstm_rec_hoist_kernel(const HoistArgs a) {
+__device__ __forceinline__ void hoist_recurrence(const HoistArgs& a, float4* smem_f4,
+                                                 cg::grid_group& grid) {
   constexpr int UB = 2 * NTG, NC = 8 * NTG;
-  extern __shared__ float4 smem_f4[];
-  cg::grid_group grid = cg::this_grid();
   const int b = blockIdx.x, tid = threadIdx.x;
   const int S = a.S, d = a.d, H = a.H, Sp = a.Sp, dp = a.dp, hp = a.hp, P = a.P;
   const int ldh = dp + 16, ldp = hp + 16, pc = a.pj.ct * 8;
@@ -347,11 +375,48 @@ __global__ void __launch_bounds__(MMA_NT, 1) lstm_rec_hoist_kernel(const HoistAr
   }
 }
 
+template <int NTG>
+__global__ void __launch_bounds__(MMA_NT, 1) lstm_rec_hoist_kernel(const HoistArgs a) {
+  extern __shared__ float4 smem_f4[];
+  cg::grid_group grid = cg::this_grid();
+  hoist_recurrence<NTG>(a, smem_f4, grid);
+}
+
 // Bytes of phase B's shared memory (ops/lstm_mma.py `hoist_smem`): the w_hh
 // slice [4 ub][dp + 16] and its [2][4 ub] f32 constants, the projection
 // item's slice [ct * 8][hp + 16] and its f32 column scales, the A ring.
 static size_t hoist_smem(int ub, int dp, int hp, int pj_ct) {
   return (size_t)4 * ub * (dp + 16) + (size_t)2 * 4 * ub * 4 + item_smem(pj_ct, hp, 1) + MMA_RING;
+}
+
+// Phase A's two launches on `st`, after checking the widths and the plan's
+// paddings; fills `a` with phase B's arguments (stamps of nstamp a block).
+// Returns 0, or the first failing launch's CUDA error.
+static int hoist_phase_a(HoistArgs& a, const float* x, const float* h, const float* c,
+                         const int* npulls, const int8_t* wih, const float* wihs,
+                         const int8_t* whh, const float* whhs, const void* bias, const int8_t* whr,
+                         const float* whrs, float* hseq, float* h2, float* c2, int8_t* xq,
+                         float* gx, int8_t* hq, int8_t* hcq, float* hcf, float* scl,
+                         unsigned* amax, unsigned long long* stamps, int nstamp, int P, int S,
+                         int d, int H, int bias_bf16, int Sp, int dp, int hp, int rp, int g_rows,
+                         int g_ngu, int g_items, int pj_ct, int pj_rows, int pj_ncg, int pj_items,
+                         cudaStream_t st) {
+  const int R = P * S, N = 4 * H;
+  if (P < 1 || S < 1 || d < 4 || H < 4 || d % 4 || H % 4 || dp % FM_KT || hp % FM_KT || dp < d ||
+      hp < H || rp % FM_BM || rp < R || Sp % 16 || Sp < S)
+    return (int)cudaErrorInvalidValue;
+  const HoistA pa{x, wih, wihs, xq, scl, gx, R, d, N, dp};
+  hoist_xq_kernel<<<(R + HX_ROWS - 1) / HX_ROWS, FM_NT, 0, st>>>(pa);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  hoist_gx_kernel<<<dim3((N + FM_BN - 1) / FM_BN, rp / FM_BM), FM_NT, 0, st>>>(pa);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  a = HoistArgs{h, c, gx, npulls, whh, whr, whhs, whrs, bias, hseq, h2, c2, hq, hcq, hcf,
+                scl + rp, amax, P, S, d, H, bias_bf16, Sp, dp, hp,
+                GateSplit{g_rows, g_ngu, g_items}, ColSplit{pj_ct, pj_rows, pj_ncg, pj_items},
+                Stamps{stamps, nstamp}};
+  return 0;
 }
 
 // Kernels 14 and 13: phase A (two launches) then phase B (one cooperative
@@ -373,27 +438,108 @@ extern "C" int lstm_rec_hoist_i8(const float* x, const float* h, const float* c,
                                  int bias_bf16, int Sp, int dp, int hp, int rp, int ub, int nb,
                                  int g_rows, int g_ngu, int g_items, int pj_ct, int pj_rows,
                                  int pj_ncg, int pj_items, void* stream) {
-  const int R = P * S, N = 4 * H;
-  if (P < 1 || S < 1 || d < 4 || H < 4 || d % 4 || H % 4 || dp % FM_KT || hp % FM_KT || dp < d ||
-      hp < H || rp % FM_BM || rp < R || Sp % 16 || Sp < S)
-    return (int)cudaErrorInvalidValue;
   const size_t smem = hoist_smem(ub, dp, hp, pj_ct);
   const int fit = smem_fits(smem);
   if (fit) return fit;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const HoistA pa{x, wih, wihs, xq, scl, gx, R, d, N, dp};
-  hoist_xq_kernel<<<(R + HX_ROWS - 1) / HX_ROWS, FM_NT, 0, st>>>(pa);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  hoist_gx_kernel<<<dim3((N + FM_BN - 1) / FM_BN, rp / FM_BM), FM_NT, 0, st>>>(pa);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const HoistArgs a{h, c, gx, npulls, whh, whr, whhs, whrs, bias, hseq, h2, c2, hq, hcq, hcf,
-                    scl + rp, amax, P, S, d, H, bias_bf16, Sp, dp, hp,
-                    GateSplit{g_rows, g_ngu, g_items}, ColSplit{pj_ct, pj_rows, pj_ncg, pj_items},
-                    Stamps{stamps, 3 + 8 * P}};
+  HoistArgs a;
+  const int rc = hoist_phase_a(a, x, h, c, npulls, wih, wihs, whh, whhs, bias, whr, whrs, hseq, h2,
+                               c2, xq, gx, hq, hcq, hcf, scl, amax, stamps, 3 + 8 * P, P, S, d, H,
+                               bias_bf16, Sp, dp, hp, rp, g_rows, g_ngu, g_items, pj_ct, pj_rows,
+                               pj_ncg, pj_items, (cudaStream_t)stream);
+  if (rc) return rc;
   if (ub == 8) return coop_launch(lstm_rec_hoist_kernel<4>, a, nb, smem, stream);
   if (ub == 16) return coop_launch(lstm_rec_hoist_kernel<8>, a, nb, smem, stream);
   if (ub == 32) return coop_launch(lstm_rec_hoist_kernel<16>, a, nb, smem, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---- Kernel 11: the whole layer in one cooperative launch ----------------
+
+struct ChunkArgs {
+  HoistArgs r;  // phase B; its stamps 3 + 8 P + CH_STAMPS a block
+  FfnArgs f;    // kernel 3's passes over the P S rows: x the layer's input, hs phase B's hseq
+};
+
+#define CH_STAMPS 10  // of the FFN phases: after the barrier, after the phase, five times
+
+// Phase B over the P steps, then kernel 3's five passes as phases, a grid
+// barrier before each: yq (rows by warps across the grid) | ff1 (the 128 x
+// 128 tiles, tile i = ry * nx + cx on block i mod nb, as ops/lstm_mma.py
+// `FfnPlan.tiles` orders them) | mq | ff2 | norm. Each buffer a phase reads
+// was written by other blocks before a grid barrier and is read by no block
+// before it, so plain loads see it.
+template <int NTG>
+__global__ void __launch_bounds__(MMA_NT, 1)
+    lstm_chunk_hoist_kernel(const __grid_constant__ ChunkArgs a) {
+  extern __shared__ float4 smem_f4[];
+  cg::grid_group grid = cg::this_grid();
+  hoist_recurrence<NTG>(a.r, smem_f4, grid);
+  const FfnArgs& f = a.f;
+  const int k0 = 3 + 8 * a.r.P, lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * (MMA_NT / 32) + (threadIdx.x >> 5);
+  const int rstride = gridDim.x * (MMA_NT / 32);
+  const int mt = (f.R + FM_BM - 1) / FM_BM, n1 = (f.F + FM_BN - 1) / FM_BN,
+            n2 = (f.d + FM_BN - 1) / FM_BN;
+  // the shared memory re-carved: two depth stages and a tile's row amax slots
+  uint8_t(*stage)[FM_STAGE] = reinterpret_cast<uint8_t(*)[FM_STAGE]>(smem_f4);
+  unsigned* rmax = reinterpret_cast<unsigned*>(stage + 2);
+  grid.sync();
+  a.r.stamp(k0);
+  for (int row = row0; row < f.R; row += rstride) ffn_yq_row(f, row, lane);
+  a.r.stamp(k0 + 1);
+  grid.sync();
+  a.r.stamp(k0 + 2);
+  for (int i = blockIdx.x; i < mt * n1; i += gridDim.x)
+    ffn_tile<true>(f, stage, rmax, i / n1, i % n1);
+  a.r.stamp(k0 + 3);
+  grid.sync();
+  a.r.stamp(k0 + 4);
+  for (int row = row0; row < f.R; row += rstride) ffn_mq_row(f, row, lane);
+  a.r.stamp(k0 + 5);
+  grid.sync();
+  a.r.stamp(k0 + 6);
+  for (int i = blockIdx.x; i < mt * n2; i += gridDim.x)
+    ffn_tile<false>(f, stage, rmax, i / n2, i % n2);
+  a.r.stamp(k0 + 7);
+  grid.sync();
+  a.r.stamp(k0 + 8);
+  for (int row = row0; row < f.R; row += rstride) ffn_norm_row(f, row, lane);
+  a.r.stamp(k0 + 9);
+}
+
+// Kernel 11: phase A (two launches), then one cooperative launch of phase B
+// and the FFN phases, on the caller's stream. Scratch from the wrapper
+// (ops/lstm_mma.py `ChunkPlan.scratch`): kernel 14's (as above), hseq [P S][d]
+// f32, then kernel 3's (yq [rp][dp] int8, ys [rp] f32, mid [P S][F] f32,
+// famax [rp], mq [rp][fp] int8, ms [rp] f32); stamps null, or [nb][3 + 8 P +
+// CH_STAMPS]; the plan (`chunk_hoist_plan`): phase B's, fp = F rounded up to
+// 64, nb blocks (at least phase B's). The shared memory is the larger of
+// phase B's and a product tile's. Returns as kernel 14's entry.
+extern "C" int lstm_chunk_hoist_i8(
+    const float* x, const float* h, const float* c, const int* npulls, const int8_t* wih,
+    const float* wihs, const int8_t* whh, const float* whhs, const void* bias, const int8_t* whr,
+    const float* whrs, const int8_t* ff1, const float* ff1s, const void* f1b, const int8_t* ff2,
+    const float* ff2s, const void* f2b, const float* eps, float* y, float* h2, float* c2,
+    int8_t* xq, float* gx, int8_t* hq, int8_t* hcq, float* hcf, float* scl, unsigned* amax,
+    float* hseq, int8_t* yq, float* ys, float* mid, unsigned* famax, int8_t* mq, float* ms,
+    unsigned long long* stamps, int P, int S, int d, int H, int F, int bias_bf16, int f1b_bf16,
+    int f2b_bf16, int Sp, int dp, int hp, int fp, int rp, int ub, int nb, int g_rows, int g_ngu,
+    int g_items, int pj_ct, int pj_rows, int pj_ncg, int pj_items, void* stream) {
+  if (F < 4 || F % 4 || fp % FM_KT || fp < F) return (int)cudaErrorInvalidValue;
+  const size_t hb = hoist_smem(ub, dp, hp, pj_ct), smem = hb > FM_TILE_SMEM ? hb : FM_TILE_SMEM;
+  const int fit = smem_fits(smem);
+  if (fit) return fit;
+  ChunkArgs a;
+  const int rc = hoist_phase_a(a.r, x, h, c, npulls, wih, wihs, whh, whhs, bias, whr, whrs, hseq,
+                               h2, c2, xq, gx, hq, hcq, hcf, scl, amax, stamps,
+                               3 + 8 * P + CH_STAMPS, P, S, d, H, bias_bf16, Sp, dp, hp, rp,
+                               g_rows, g_ngu, g_items, pj_ct, pj_rows, pj_ncg, pj_items,
+                               (cudaStream_t)stream);
+  if (rc) return rc;
+  a.f = FfnArgs{x, hseq, ff1, ff2, ff1s, ff2s, eps, f1b, f2b, y, yq, mq, ys, mid, ms, famax,
+                P * S, d, F, dp, fp, f1b_bf16, f2b_bf16, d};
+  if (ub == 8) return coop_launch(lstm_chunk_hoist_kernel<4>, a, nb, smem, stream);
+  if (ub == 16) return coop_launch(lstm_chunk_hoist_kernel<8>, a, nb, smem, stream);
+  if (ub == 32) return coop_launch(lstm_chunk_hoist_kernel<16>, a, nb, smem, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -60,6 +60,7 @@ COUNTS: Dict[str, int] = {
     "joiner_argmax_simt": 0, "joiner_argmax_simt_f32": 0, "tp_gcp_simt_f32": 0,
     "tp_gcp_simt_bf16": 0, "tp_gc_i8_simt": 0, "tp_ffn_simt_f32": 0, "tp_ffn_simt_bf16": 0,
     "tp_ffn_mid_i8_simt": 0, "lstm_rec_i8_simt": 0, "lstm_rec_stream_i8_simt": 0,
+    "lstm_chunk_i8_simt": 0, "rec_interleave_i8_simt": 0, "rec_interleave_i8_ts2_simt": 0,
 }
 
 

@@ -19,9 +19,12 @@ and `lstm_layer_fused_i8` (`_layer_kernel_i8`).
 * `ffn_norm_i8`: y = x + hseq, int8 ff1, DoubleSwish, int8 ff2, residual,
   then BasicNorm `y * rsqrt(mean(y^2) + eps)` over flattened rows.
 
-* `lstm_layer_chunk_fused_i8` (kernel 11): the recurrent core and
-  `ffn_norm_i8` of every step inside one time loop (csrc/lstm_chunk_i8.cu):
-  (y [P, S, d], h', c'), y from the ungated h_new.
+* `lstm_layer_chunk_fused_i8` (kernel 11): the recurrent core, then
+  `ffn_norm_i8` over the P * S rows (no step's FFN feeds the recurrence):
+  (y [P, S, d], h', c'), y from the ungated h_new. On the card kernel 14's
+  launches with kernel 3's passes as phases of the cooperative one
+  (csrc/lstm_hoist.cu); its template (csrc/lstm_chunk_i8.cu) runs the FFN
+  inside the time loop, as the TPU kernel does.
 * `lstm_layer_fused_i8`: one timestep of the whole layer (the per-pull
   encoder and the flush): `_rowq8` of x, h, hc, y and mid, exact int32
   dots, the cell, the projection, then `ffn_norm_i8`'s residual, FFN and
@@ -39,7 +42,7 @@ means the whole row.
 
 Each wrapper takes the plain PyTorch version for CPU tensors and launches
 its kernel (csrc/lstm_mma.cu: 2, 7; csrc/ffn_mma.cu: 3; csrc/lstm_hoist.cu:
-13, 14; csrc/lstm_chunk_i8.cu: 11) for CUDA tensors; it never falls back. Kernels 2
+13, 14, 11) for CUDA tensors; it never falls back. Kernels 2
 and 7 are persistent int8 tensor-core kernels, one cooperative launch each,
 planned by ops/lstm_mma.py `device_plan`; they equal kernel 13's CUDA-core
 template and the three-pass step that preceded kernel 7
@@ -55,7 +58,11 @@ their calls take kernel 14 and the three-pass step (ops/lstm_mma.py
 tiled int8 tensor-core passes (`ffn_norm_cuda`,
 planned by ops/lstm_mma.py `ffn_plan`) with no width limit; it equals the
 CUDA-core kernel it replaced (`ffn_norm_i8_simt`, kept for chip_smoke.py)
-bit for bit. Kernels 2, 13 and 14
+bit for bit. Kernel 11 is one cooperative launch after kernel 14's phase
+A (`_chunk_hoist_cuda`, planned by `lstm_mma.chunk_hoist_plan`): kernel
+14's recurrence, then kernel 3's five passes as phases; where that plan has
+no launch, its CUDA-core template (`lstm_layer_chunk_fused_i8_simt`,
+csrc/lstm_chunk_i8.cu, chosen by shape). Kernels 2, 13 and 14
 share one plain version, `lstm_rec_plain`; kernel 11's composes it with
 `ffn_norm_plain`.
 """
@@ -486,32 +493,76 @@ def lstm_chunk_i8_plain(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w
     return y.reshape(P, S, d), h2, c2
 
 
-def lstm_chunk_i8_cuda(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
-                       ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, n_pulls=None):
+def _chunk_args(what: str, x, h, c, rec, ffn, n_pulls):
+    """Checks kernel 11's operands; returns (P, S, d, H, F, n_pulls as i32)."""
     P, S, d = x.shape
     H = c.shape[1]
-    F = ff1_q.shape[1]
+    F = ffn[0].shape[1]
+    _check_i8_weights(what, (), d, H, rec, ffn)
+    _check(x, torch.float32, (P, S, d), f"{what} x")
+    _check(h, torch.float32, (S, d), f"{what} h")
+    _check(c, torch.float32, (S, H), f"{what} c")
+    return P, S, d, H, F, _n_pulls_arg(n_pulls, S, P, x.device, what)
+
+
+def _chunk_hoist_cuda(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
+                      ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, n_pulls=None, plan=None,
+                      stamps=None):
+    """Kernel 11 (csrc/lstm_hoist.cu `lstm_chunk_hoist_i8`): kernel 14's
+    phase A, then one cooperative launch of its phase B and kernel 3's five
+    passes, planned by `lstm_mma.chunk_hoist_plan`, the scratch in one
+    workspace (`ChunkPlan.scratch`). `plan` (None: the device's) and
+    `stamps` (int64 [nb, 13 + 8 P], or None: each block's phase times)
+    serve tools/profile_lstm_mma.py."""
+    entry = "lstm_chunk_i8"
     rec = (w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s)
     ffn = (ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps)
-    _check_i8_weights("lstm_chunk_i8", (), d, H, rec, ffn)
-    _check(x, torch.float32, (P, S, d), "lstm_chunk_i8 x")
-    _check(h, torch.float32, (S, d), "lstm_chunk_i8 h")
-    _check(c, torch.float32, (S, H), "lstm_chunk_i8 c")
-    n_pulls = _n_pulls_arg(n_pulls, S, P, x.device, "lstm_chunk_i8")
+    P, S, d, H, F, n_pulls = _chunk_args(entry, x, h, c, rec, ffn, n_pulls)
+    if x.data_ptr() % 16:
+        raise ValueError(f"{entry} x: must be 16-byte aligned (float4 rows)")
+    plan = plan or lstm_mma.device_chunk_hoist_plan(S, P, d, H, F, x.device)
+    rp = plan.rec
+    y = torch.empty_like(x)
+    h2 = torch.empty_like(h)
+    c2 = torch.empty_like(c)
+    nbytes, offsets = plan.scratch()
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    fn = cuda_build.bind("lstm_hoist", "lstm_chunk_hoist_i8", 36, 22)
+    cuda_build.COUNTS[entry] += 1
+    rc = fn(
+        x.data_ptr(), h.data_ptr(), c.data_ptr(), n_pulls.data_ptr(),
+        *(t.data_ptr() for t in rec + ffn), y.data_ptr(), h2.data_ptr(), c2.data_ptr(),
+        *(ws.data_ptr() + o for o in offsets), None if stamps is None else stamps.data_ptr(),
+        P, S, d, H, F, _bias_flag(bias, entry), _bias_flag(ff1_b, entry),
+        _bias_flag(ff2_b, entry), rp.sp, rp.dp, rp.hp, plan.ffn.fp, plan.ffn.rp, rp.ub, plan.nb,
+        *rp.gate.ints(), *rp.proj.ints(), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _smem_check(rc, entry, f"d={d}, hidden={H}, ffn={F}")
+    return y, h2, c2
+
+
+def _chunk_simt_cuda(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
+                     ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, n_pulls=None):
+    """Kernel 11's CUDA-core template (csrc/lstm_chunk_i8.cu: one block a
+    2-session tile for all P steps, the FFN inside the time loop)."""
+    entry = "lstm_chunk_i8_simt"
+    rec = (w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s)
+    ffn = (ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps)
+    P, S, d, H, F, n_pulls = _chunk_args(entry, x, h, c, rec, ffn, n_pulls)
     y = torch.empty_like(x)
     h2 = torch.empty_like(h)
     c2 = torch.empty_like(c)
     fn = cuda_build.bind("lstm_chunk_i8", "lstm_chunk_i8", 21, 8)
-    cuda_build.COUNTS["lstm_chunk_i8"] += 1
+    cuda_build.COUNTS[entry] += 1
     rc = fn(
         x.data_ptr(), h.data_ptr(), c.data_ptr(), n_pulls.data_ptr(),
         *(t.data_ptr() for t in rec + ffn),
         y.data_ptr(), h2.data_ptr(), c2.data_ptr(),
-        P, S, d, H, F, _bias_flag(bias, "lstm_chunk_i8"), _bias_flag(ff1_b, "lstm_chunk_i8"),
-        _bias_flag(ff2_b, "lstm_chunk_i8"),
+        P, S, d, H, F, _bias_flag(bias, entry), _bias_flag(ff1_b, entry),
+        _bias_flag(ff2_b, entry),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _smem_check(rc, "lstm_chunk_i8", f"d={d}, hidden={H}, ffn={F}")
+    _smem_check(rc, entry, f"d={d}, hidden={H}, ffn={F}")
     return y, h2, c2
 
 
@@ -519,14 +570,34 @@ def lstm_layer_chunk_fused_i8(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_h
                               ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, n_pulls=None):
     """Kernel 11, the whole int8 chunk layer: x [P, S, d], h [S, d], c [S, H],
     n_pulls optional [S] i32 -> (y [P, S, d], h' [S, d], c' [S, H]). y comes
-    from the ungated h_new; h/c are kept where t >= n_pulls."""
+    from the ungated h_new; h/c are kept where t >= n_pulls. On CUDA one
+    persistent launch after kernel 14's phase A (csrc/lstm_hoist.cu); where
+    its plan has no launch, its template (`lstm_layer_chunk_fused_i8_simt`),
+    chosen by shape (ops/lstm_mma.py `chunk_route`)."""
     args = (x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
             ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, n_pulls)
     if x.device.type == "cpu":
         return lstm_chunk_i8_plain(*args)
     if x.device.type != "cuda":
         raise ValueError(f"lstm_chunk_i8: unsupported device {x.device}")
-    return lstm_chunk_i8_cuda(*args)
+    (P, S, d), H, F = x.shape, c.shape[1], ff1_q.shape[-1]
+    if lstm_mma.device_route("chunk", S, d, H, F, x.device) == "hoist":
+        return _chunk_hoist_cuda(*args)
+    return _chunk_simt_cuda(*args)
+
+
+def lstm_layer_chunk_fused_i8_simt(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
+                                   ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, n_pulls=None):
+    """Kernel 11's CUDA-core template (csrc/lstm_chunk_i8.cu, counted as
+    `lstm_chunk_i8_simt`): the TPU kernel's schedule, each step's FFN inside
+    the time loop; the plain version for CPU tensors."""
+    args = (x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
+            ff1_q, ff1_s, ff1_b, ff2_q, ff2_s, ff2_b, eps, n_pulls)
+    if x.device.type == "cpu":
+        return lstm_chunk_i8_plain(*args)
+    if x.device.type != "cuda":
+        raise ValueError(f"lstm_chunk_i8_simt: unsupported device {x.device}")
+    return _chunk_simt_cuda(*args)
 
 
 def _gate_blend(gate, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:

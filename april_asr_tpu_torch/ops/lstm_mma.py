@@ -3,7 +3,9 @@ kernels 2 and 7 (csrc/lstm_mma.cu, `mma_plan`; where they have none, the
 int8 routes, `int8_routes`); kernels 14 and 13, the hoisted x-side gate
 product and the persistent recurrence (csrc/lstm_hoist.cu,
 `rec_hoist_plan`); kernel 3's tiles
-(csrc/ffn_mma.cu, `ffn_plan`); and the float kernels 12 and 10
+(csrc/ffn_mma.cu, `ffn_plan`); kernel 11, kernel 14's launches with kernel
+3's passes as phases of the cooperative one (csrc/lstm_hoist.cu,
+`chunk_hoist_plan`); and the float kernels 12 and 10
 (csrc/lstm_mma_float.cu, csrc/lstm_chunk_mma.cu; `float_step_plan`,
 `float_chunk_plan`, below): how the layer's columns, and where they are
 fewer than the blocks its rows, are split over one block per SM, and the
@@ -467,6 +469,84 @@ def ffn_launch(R: int, d: int, F: int) -> Tuple[FfnPlan, int, Tuple[int, ...]]:
     return (plan, *plan.scratch())
 
 
+# -- kernel 11: kernel 14's launches with kernel 3's passes as phases -------
+#
+# csrc/lstm_hoist.cu `lstm_chunk_hoist_i8` runs kernel 14's phase A, then one
+# cooperative launch: phase B over the P steps (`rec_hoist_plan`, hseq into
+# a scratch), then kernel 3's five passes over the P * S rows (`ffn_plan`'s
+# tiles and scratch), each a phase after a grid barrier. The launch takes
+# the more blocks of phase B's and the ff1 tiles' (within the SMs); the
+# blocks past phase B's items idle through it. A block's shared memory is
+# the larger of phase B's and a product tile's (FFN_SMEM), re-carved
+# between them.
+
+ROWS_A_BLOCK = 8  # rows of a one-warp-a-row phase a block and round (its warps)
+
+
+@dataclass(frozen=True)
+class ChunkPlan:
+    P: int
+    rec: MmaPlan  # phase B (kernel 14's plan)
+    ffn: FfnPlan  # the FFN phases over the P * S rows
+    nb: int  # blocks of the launch
+    smem: int
+
+    def tile_blocks(self, n: int):
+        """(block, rows, columns) of each tile of an n-column product (ff1: n
+        = F, ff2: n = d) in `FfnPlan.tiles` order, tile i on block i % nb."""
+        for i, (rows, cols) in enumerate(self.ffn.tiles(n)):
+            yield i % self.nb, rows, cols
+
+    def row_blocks(self):
+        """(block, row) of each row of the one-warp-a-row phases (yq, mq,
+        the norm): rows r, r + 8 nb, ... on warp r % 8 of block r // 8 % nb."""
+        for r in range(self.ffn.R):
+            yield r // ROWS_A_BLOCK % self.nb, r
+
+    def scratch(self) -> Tuple[int, Tuple[int, ...]]:
+        """(bytes, offsets) of the C entry's scratch in one workspace, in its
+        argument order, each 256-byte aligned: kernel 14's
+        (`hoist_scratch`), hseq [P * S][d] f32, then kernel 3's
+        (`FfnPlan.scratch`)."""
+        n, offsets = hoist_scratch(self.rec, self.P)
+        hseq = n
+        n += _up(4 * self.ffn.R * self.ffn.d, 256)
+        m, ffn = self.ffn.scratch()
+        return n + m, offsets + (hseq,) + tuple(n + o for o in ffn)
+
+
+def chunk_hoist_plan(S: int, P: int, d: int, H: int, F: int, n_sm: int = 132,
+                     smem_limit: int = SMEM_LIMIT) -> ChunkPlan:
+    """Kernel 11's plan for P steps of S rows at widths d, H, F on n_sm SMs:
+    `rec_hoist_plan` and `ffn_plan` over P * S rows, nb the more blocks of
+    phase B's and the ff1 tiles' within n_sm; ValueError where phase B has
+    no plan or the widths are not positive multiples of 4."""
+    if min(S, P, d, H, F) < 1 or d % 4 or H % 4 or F % 4:
+        raise ValueError(f"lstm_chunk_hoist: no plan for S={S}, P={P}, d={d}, hidden={H}, "
+                         f"ffn={F}: rows and steps must be positive and widths positive "
+                         "multiples of 4")
+    rec = rec_hoist_plan(S, d, H, n_sm, smem_limit)
+    ffn = ffn_plan(P * S, d, F)
+    nx, ny = ffn.grid(F)
+    smem = max(rec.smem, ffn.smem)
+    if smem > smem_limit:
+        raise ValueError(f"lstm_chunk_hoist: {smem} bytes of shared memory a block, more than "
+                         f"{smem_limit}")
+    return ChunkPlan(P, rec, ffn, min(n_sm, max(rec.nb, nx * ny)), smem)
+
+
+def chunk_route(S: int, d: int, H: int, F: int, n_sm: int = 132,
+                smem_limit: int = SMEM_LIMIT) -> str:
+    """Kernel 11's route: "hoist" (csrc/lstm_hoist.cu `lstm_chunk_hoist_i8`)
+    where `chunk_hoist_plan` has a launch, else "simt" (its template,
+    csrc/lstm_chunk_i8.cu). P changes only the scratch."""
+    try:
+        chunk_hoist_plan(S, 1, d, H, F, n_sm, smem_limit)
+        return "hoist"
+    except ValueError:
+        return "simt"
+
+
 @functools.lru_cache(maxsize=None)
 def _n_sm(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -486,12 +566,14 @@ def device_plan(S: int, d: int, H: int, F: int, device: torch.device) -> MmaPlan
 def _route_cached(kind: str, S: int, d: int, H: int, F: int, n_sm: int) -> str:
     if kind == "hoist":
         return hoist_route(S, d, H, n_sm)
+    if kind == "chunk":
+        return chunk_route(S, d, H, F, n_sm)
     return rec_route(S, d, H, n_sm) if kind == "rec" else step_route(S, d, H, F, n_sm)
 
 
 def device_route(kind: str, S: int, d: int, H: int, F: int, device: torch.device) -> str:
-    """`rec_route` ("rec"), `hoist_route` ("hoist") or `step_route` ("step")
-    for the SM count of `device` (a CUDA device)."""
+    """`rec_route` ("rec"), `hoist_route` ("hoist"), `step_route` ("step") or
+    `chunk_route` ("chunk") for the SM count of `device` (a CUDA device)."""
     return _route_cached(kind, S, d, H, F, device_sm(device))
 
 
@@ -503,6 +585,17 @@ def _hoist_cached(S: int, d: int, H: int, n_sm: int) -> MmaPlan:
 def device_hoist_plan(S: int, d: int, H: int, device: torch.device) -> MmaPlan:
     """`rec_hoist_plan` for the SM count of `device` (a CUDA device)."""
     return _hoist_cached(S, d, H, device_sm(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _chunk_cached(S: int, P: int, d: int, H: int, F: int, n_sm: int) -> ChunkPlan:
+    return chunk_hoist_plan(S, P, d, H, F, n_sm)
+
+
+def device_chunk_hoist_plan(S: int, P: int, d: int, H: int, F: int,
+                            device: torch.device) -> ChunkPlan:
+    """`chunk_hoist_plan` for the SM count of `device` (a CUDA device)."""
+    return _chunk_cached(S, P, d, H, F, device_sm(device))
 
 
 def device_sm(device: torch.device) -> int:

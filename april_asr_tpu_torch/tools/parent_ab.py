@@ -3,7 +3,7 @@ it, e.g. with `git archive`) on one card, in turns: other, this, this,
 other.
 
     python -m april_asr_tpu_torch.tools.parent_ab --other build/parent \
-        [--out build/parent_ab] [--sass] [--only k9|tp|k14]
+        [--out build/parent_ab] [--sass] [--only k9|tp|k14|k11]
 
 Each turn is a worker process that imports `april_asr_tpu_torch` and
 `chip_smoke.py` from one tree (its kernels built into that tree's build
@@ -86,12 +86,23 @@ d 1024 / H 4096 / F 8192 int8 model at S = 256, on numpy seed inputs,
 ungated and gated (the SHA-1 of their outputs, CUDA-event ms and the
 profiler's device us a call), then that wide model's engine event blobs
 over 3 ticks and a flush (its step on kernel 14 there) with each call's
-wall ms; only those outputs and blobs are compared. With `--sass`, it also runs `sass_diff` on
+wall ms; only those outputs and blobs are compared. With `--only k11` each
+turn runs kernels 11 and 22 and those whose code they share (`k11_turn`:
+`lstm_layer_chunk_fused_i8` and `rec_interleave_i8` at block_s 512 and
+256, csrc/lstm_hoist.cu here, their CUDA-core templates in a parent before
+it; kernel 3, whose passes kernel 11 runs; kernels 14 and 13) on layer 0
+of the flagship int8 model at S = 256 and 2048, P = 27, on numpy seed
+inputs, ungated and gated (the SHA-1 of their outputs, CUDA-event ms and
+the profiler's device us a call), then the flagship and wide int8
+engines' event blobs and launch counts over 3 ticks and a flush; only
+those are compared. With
+`--sass`, it also runs `sass_diff` on
 csrc/lstm_mma.cu, lstm_i8.cu, lstm_step.cu, lstm_tp.cu, lstm_mma_float.cu,
 lstm_chunk_mma.cu, chunk_decode.cu, chunk_decode_cluster.cu, joiner.cu,
-fbank_i8.cu, fbank_bf16x3.cu, conv_embed.cu and ffn_mma.cu of the two trees
-(kernels 2, 3, 4, 7, 9, 12, 17, 18, 19, 22, the templates of 13 and 14, the
-three-pass float step and the CUDA-core kernels 3, 4, 8, 1, 5 and 16).
+fbank_i8.cu, fbank_bf16x3.cu, conv_embed.cu, ffn_mma.cu, lstm_wavefront.cu
+and lstm_chunk_i8.cu of the two trees (kernels 2, 3, 4, 7, 9, 12, 15, 17,
+18, 19, the templates of 11, 13, 14 and 22, the three-pass float step and
+the CUDA-core kernels 3, 4, 8, 1, 5 and 16).
 Needs a CUDA device (and nvcc).
 """
 
@@ -114,7 +125,8 @@ HERE = Path(__file__).resolve()
 TREE = HERE.parents[2]
 SASS_SOURCES = ("lstm_mma.cu", "lstm_i8.cu", "lstm_step.cu", "lstm_tp.cu", "lstm_mma_float.cu",
                 "lstm_chunk_mma.cu", "chunk_decode.cu", "chunk_decode_cluster.cu", "joiner.cu",
-                "fbank_i8.cu", "fbank_bf16x3.cu", "conv_embed.cu", "ffn_mma.cu")
+                "fbank_i8.cu", "fbank_bf16x3.cu", "conv_embed.cu", "ffn_mma.cu",
+                "lstm_wavefront.cu", "lstm_chunk_i8.cu")
 FLOATS = ("f32", "bf16")
 BF16_SEEDS = (1, 2)  # more random models for the bf16 engine's partings
 # the float engines' runs compared between turns: (precision, model seed)
@@ -447,6 +459,90 @@ def k14_turn(CS, tmp: str, res: dict, card: str) -> None:
           f"{json.dumps(run['counts'][0])} ({card})", flush=True)
 
 
+K11_SIZES = (256, 2048)
+# kernels 11 and 22's device kernels in either tree (csrc/lstm_hoist.cu's
+# launches, or the CUDA-core templates: csrc/lstm_chunk_i8.cu, and
+# csrc/lstm_i8.cu's per-timestep step); kernel 3's (csrc/ffn_mma.cu)
+K11_KEYS = ("hoist", "lstm_chunk_i8_kernel", "lstm_rec_kernel")
+K3_KEYS = ("ffn_yq_kernel", "ffn_mm_kernel", "ffn_mq_kernel", "ffn_norm_rows_kernel")
+# (result key, device kernel names) of each kernel the turn times
+K11_KERNELS = (("k11", K11_KEYS), ("k22", K11_KEYS), ("k22_ts2", K11_KEYS), ("k3", K3_KEYS),
+               ("k14", K11_KEYS), ("k13", K11_KEYS))
+# the int8 engines whose kernels share csrc/lstm_hoist.cu's and
+# csrc/ffn_mma.cu's code: the flagship (kernel 3) and the wide (14 and 3)
+K11_ENGINES = ("int8", "wide")
+
+
+def k11_turn(CS, tmp: str, res: dict, card: str) -> None:
+    """Kernel 11 (`lstm_layer_chunk_fused_i8`), kernel 22
+    (`profile_chunk_split.rec_interleave_i8`, block_s 512 and 256: "k22",
+    "k22_ts2"), and the kernels whose code they share, kernel 3
+    (`ffn_norm_i8` over the P * S rows), 14 and 13, on layer 0 of the
+    flagship int8 model at S = 256 and 2048, P = 27, on numpy seed inputs,
+    ungated and gated where they take n_pulls: the SHA-1 of their outputs,
+    CUDA-event ms and the profiler's device us a call (ungated), into
+    res["<kernel>_S<S>_*"]; then the flagship and the wide (chip_smoke's
+    `WIDE`) int8 engines' event blobs and launch counts over 3 ticks and a
+    flush (res["blob_<engine>_sha"], res["<engine>_counts"])."""
+    import functools
+    import os
+
+    import numpy as np
+    import torch
+
+    from april_asr_tpu_torch.api import Model
+    from april_asr_tpu_torch.models.lstm_transducer import TransducerDims
+    from april_asr_tpu_torch.ops import lstm_kernels as LK
+    from april_asr_tpu_torch.testing import engine_run
+    from april_asr_tpu_torch.tools import profile_chunk_split as PCS
+
+    dev = torch.device("cuda")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    path = CS.flagship_april(tmp)
+    rt = Model(path, precision="int8", device="cuda").runtime
+    w = tuple(rt.weights[k][0] for k in LK.LAYER_I8_KEYS)
+    d, H, P = rt.dims.d_model, rt.dims.hidden, 27
+    for S in K11_SIZES:
+        rng = np.random.default_rng(S + 11)
+        x = t(rng.normal(size=(P, S, d)).astype(np.float32))
+        h = t((rng.normal(size=(S, d)) * 0.3).astype(np.float32))
+        c = t((rng.normal(size=(S, H)) * 0.3).astype(np.float32))
+        n = t(rng.integers(0, P + 1, size=S).astype(np.int32))
+        hs = t(rng.normal(size=(P * S, d)).astype(np.float32))
+        calls = {
+            "k11": lambda g: LK.lstm_layer_chunk_fused_i8(x, h, c, *w, g),
+            "k22": lambda g: PCS.rec_interleave_i8(x, h, c, *w[:7], g, block_s=512),
+            "k22_ts2": lambda g: PCS.rec_interleave_i8(x, h, c, *w[:7], g, block_s=256),
+            "k3": lambda g: (LK.ffn_norm_i8(x.reshape(P * S, d), hs, *w[7:]),),
+            "k14": lambda g: LK.lstm_layer_chunk_rec_stream_i8(x, h, c, *w[:7], g),
+            "k13": lambda g: LK.lstm_layer_chunk_rec_i8(x, h, c, *w[:7], g),
+        }
+        for name, keys in K11_KERNELS:
+            call = functools.partial(calls[name], None)
+            key = f"{name}_S{S}"
+            outs = list(call()) + (list(calls[name](n)) if name != "k3" else [])
+            res[f"{key}_sha"] = [_sha(o) for o in outs]
+            res[f"{key}_ms"] = CS.cuda_ms(call, 5 if S == 256 else 2, warmup=1)
+            res[f"{key}_device_us"] = CS.profiled(call, 2, keys)[1]
+        del x, h, c, hs
+        print("kernels: " + ", ".join(
+            f"{k} S={S} {res[f'{k}_S{S}_ms']:.4f} ms ({res[f'{k}_S{S}_device_us']:.1f} us device)"
+            for k, _ in K11_KERNELS) + f" ({card})", flush=True)
+    del rt
+    wide_dir = os.path.join(tmp, "wide")
+    os.makedirs(wide_dir)
+    paths = {"int8": path,
+             "wide": CS.flagship_april(wide_dir, seed=9, dims=TransducerDims(**CS.WIDE))}
+    audio = np.stack(CS._tone_bufs(CS.S_FLAG, CS.CHUNK_1S, 16000, n=3, seed=22))
+    for name in K11_ENGINES:
+        run = engine_run(dict(path=paths[name], precision="int8", m=1, device="cuda", audio=audio,
+                              ticks=3))
+        res[f"blob_{name}_sha"] = _blob_sha(run["blobs"])
+        res[f"{name}_counts"] = run["counts"]
+        print(f"{name} engine: ms a call {[round(v, 1) for v in run['ms']]}; step launches "
+              f"{json.dumps(run['counts'][0])} ({card})", flush=True)
+
+
 def queued_us(fn, n: int) -> float:
     """CUDA-event us a call over n calls queued back to back (after a
     warm-up): the device's time a call where it exceeds the host's."""
@@ -500,6 +596,10 @@ def worker(root: str, out: str, only: str = "") -> None:
             return
         if only == "k14":
             k14_turn(CS, tmp, res, card)
+            print(TAG + json.dumps(dict(res, card=card)), flush=True)
+            return
+        if only == "k11":
+            k11_turn(CS, tmp, res, card)
             print(TAG + json.dumps(dict(res, card=card)), flush=True)
             return
         path = CS.flagship_april(tmp)
@@ -779,15 +879,39 @@ def k14_summary(turns: list, rows: list, out: Path, t0: float) -> int:
     return 0
 
 
+def k11_summary(turns: list, rows: list, out: Path, t0: float) -> int:
+    """`--only k11`: kernels 11, 22, 3, 14 and 13's outputs and the int8
+    engines' blobs and launch counts required equal across every turn;
+    their times per turn."""
+    ref = turns[0]
+    sizes = [(k, S) for k, _ in K11_KERNELS for S in K11_SIZES]
+    keys = tuple(f"{k}_S{S}_sha" for k, S in sizes) + tuple(
+        k for e in K11_ENGINES for k in (f"blob_{e}_sha", f"{e}_counts"))
+    bad = sorted({k for tr in turns for k in keys if tr[k] != ref[k]})
+    summary = {
+        "turns": [{k: tr[k] for k in ("label", "build_s") + tuple(
+            f"{k}_S{S}_{u}" for k, S in sizes for u in ("ms", "device_us"))} for tr in turns],
+        "equal": not bad, "differ": bad,
+        "sass_differs": [f"{r['source']} {r['kernel']}" for r in rows if not r["same"]],
+        "card": ref["card"], "seconds": time.perf_counter() - t0,
+    }
+    (out / "summary.json").write_text(json.dumps(summary, indent=1))
+    print(json.dumps(summary))
+    if bad:
+        print(f"parent_ab: outputs differ between the trees: {bad}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, help="the other tree (e.g. the parent commit)")
     ap.add_argument("--out", type=Path, default=TREE / "build" / "parent_ab")
     ap.add_argument("--sass", action="store_true", help="also sass_diff the shared sources")
-    ap.add_argument("--only", default="", choices=("", "k9", "tp", "k14"),
+    ap.add_argument("--only", default="", choices=("", "k9", "tp", "k14", "k11"),
                     help="k9: kernel 9 and the 16,383-token engines alone; tp: the "
                          "tensor-parallel kernels 18-21 and engines alone; k14: kernels 13 "
-                         "and 14 and the wide int8 engine alone")
+                         "and 14 and the wide int8 engine alone; k11: kernels 11 and 22 alone")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--npz", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -812,6 +936,8 @@ def main(argv=None) -> int:
         return tp_summary(turns, rows, args.out, t0)
     if args.only == "k14":
         return k14_summary(turns, rows, args.out, t0)
+    if args.only == "k11":
+        return k11_summary(turns, rows, args.out, t0)
     equal_keys = ("k2_S256_sha", "k2_S2048_sha", "k3_S256_sha", "k3_S2048_sha", "k7_sha",
                   "k7_gated_sha", "blob_sha") + tuple(f"k{n}_S{S}_sha" for n in (1, 5, 16)
                                                       for S in FBANK_SIZES) + EQUAL_KEYS

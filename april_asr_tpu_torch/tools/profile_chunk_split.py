@@ -15,10 +15,13 @@ Port of tools/profile_chunk_split.py, `main` and `main2`. Variants, each the
                     card)
     stream          kernel 14, then kernel 3 (`stack_split_pallas(stream=True)`)
     stream2         kernel 2, then kernel 3: the shipped `_lstm_stack_chunk_q8`
-    interleave-ts4  kernel 22 (`rec_interleave_i8`: one launch per timestep
-                    over every tile, h/c carried in device memory) on tiles
-                    of 4 sessions, then kernel 3: JAX's `interleave-512`
-    interleave-ts2  the same on tiles of 2 sessions: JAX's `interleave-256`
+    interleave-ts4  kernel 22 (`rec_interleave_i8`: kernel 14's launches,
+                    whose persistent grid takes each timestep over every
+                    session in turn; its template, one launch per timestep
+                    on tiles of 4 sessions), then kernel 3: JAX's
+                    `interleave-512`
+    interleave-ts2  the same (the template on tiles of 2 sessions): JAX's
+                    `interleave-256`
 
 Each variant's time is the median of `--reps` stacks timed with CUDA events
 after one warm-up stack (the JAX tool's K=1/K=3 readback differencing
@@ -43,6 +46,7 @@ from ..device import resolve_device
 from ..models import lstm_transducer as TM
 from ..ops import cuda_build
 from ..ops import lstm_kernels as LK
+from ..ops import lstm_mma as LM
 
 # small widths for a CPU run of the tools (--tiny)
 TINY = TM.TransducerDims(d_model=16, hidden=32, ffn=24, layers=4, vocab=32, decoder_groups=16)
@@ -113,18 +117,27 @@ stack_split_xla = functools.partial(stack_split, LK.lstm_layer_chunk_rec_i8,
 stack_plain = functools.partial(stack_split, _rec_plain, ffn=LK.ffn_norm_plain)
 
 
-# kernel 22's session tile per JAX block_s: the tiles of the shared step
-# template (kernel 14's 4 sessions, kernel 2's 2)
+# kernel 22's template's session tile per JAX block_s: the tiles of the
+# shared step template (kernel 14's 4 sessions, kernel 2's 2), and the count
+# of each
 INTERLEAVE_TS = {512: 4, 256: 2}
+INTERLEAVE_SIMT = {512: "rec_interleave_i8_simt", 256: "rec_interleave_i8_ts2_simt"}
+
+
+def _block_s(block_s: int, entry: str) -> int:
+    if block_s not in INTERLEAVE_TS:
+        raise ValueError(f"{entry}: block_s {block_s}; the card's tiles serve "
+                         f"{sorted(INTERLEAVE_TS)}")
+    return block_s
 
 
 def _interleave_cuda(x, h, c, n_pulls, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
                      block_s):
-    entry = "rec_interleave_i8"
+    """Kernel 22's template: csrc/lstm_i8.cu `rec_interleave_i8`, one launch
+    per timestep over every session tile, h/c carried in device memory."""
+    entry = INTERLEAVE_SIMT[_block_s(block_s, "rec_interleave_i8_simt")]
     P, S, d = x.shape
     H = c.shape[1]
-    if block_s not in INTERLEAVE_TS:
-        raise ValueError(f"{entry}: block_s {block_s}; the card's tiles serve {sorted(INTERLEAVE_TS)}")
     if P < 1:
         raise ValueError(f"{entry}: needs at least one timestep")
     rec = (w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s)
@@ -136,7 +149,7 @@ def _interleave_cuda(x, h, c, n_pulls, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_h
     hseq = torch.empty((P, S, d), dtype=torch.float32, device=x.device)
     hbuf = torch.empty((2, S, d), dtype=torch.float32, device=x.device)
     cbuf = torch.empty((2, S, H), dtype=torch.float32, device=x.device)
-    fn = cuda_build.bind("lstm_i8", entry, 14, 6)
+    fn = cuda_build.bind("lstm_i8", "rec_interleave_i8", 14, 6)
     cuda_build.COUNTS[entry] += P  # one launch per timestep
     rc = fn(
         x.data_ptr(), h.data_ptr(), c.data_ptr(), n_pulls.data_ptr(),
@@ -153,14 +166,35 @@ def rec_interleave_i8(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_h
     """Kernel 22, the tile-interleaved recurrent core: kernel 13's contract
     (x [P, S, d], h [S, d], c [S, H], n_pulls optional [S] i32 -> (hseq
     [P, S, d] ungated, h', c')) with time the slow axis: every session tile
-    takes step t before any takes step t + 1. On the card, one launch per
-    timestep (csrc/lstm_i8.cu `rec_interleave_i8`), on tiles of 4 sessions
-    for block_s 512 and of 2 for 256; on the CPU, `LK.lstm_rec_plain`."""
+    takes step t before any takes step t + 1. On the card kernel 14's
+    launches (csrc/lstm_hoist.cu: phase A, then one persistent launch whose
+    grid takes each step in turn), counted as `rec_interleave_i8`; where
+    their plan has no launch, the template (`rec_interleave_i8_simt`, whose
+    tiles `block_s` names), chosen by shape (ops/lstm_mma.py `hoist_route`);
+    on the CPU, `LK.lstm_rec_plain`."""
     args = (x, h, c, n_pulls, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s)
     if x.device.type == "cpu":
         return LK.lstm_rec_plain(*args)
     if x.device.type != "cuda":
         raise ValueError(f"rec_interleave_i8: unsupported device {x.device}")
+    _block_s(block_s, "rec_interleave_i8")
+    (P, S, d), H = x.shape, c.shape[1]
+    if LM.device_route("hoist", S, d, H, 0, x.device) == "hoist":
+        return LK._rec_hoist_cuda("rec_interleave_i8", *args)
+    return _interleave_cuda(*args, block_s)
+
+
+def rec_interleave_i8_simt(x, h, c, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s,
+                           n_pulls=None, *, block_s: int = 512):
+    """Kernel 22's CUDA-core template (csrc/lstm_i8.cu `rec_interleave_i8`:
+    `<4, X_STEP>` for block_s 512, `<2, X_STEP>` for 256, once per timestep;
+    counted as `rec_interleave_i8_simt` and `rec_interleave_i8_ts2_simt`);
+    the plain version for CPU tensors."""
+    args = (x, h, c, n_pulls, w_ih_q, w_ih_s, w_hh_q, w_hh_s, bias, w_hr_q, w_hr_s)
+    if x.device.type == "cpu":
+        return LK.lstm_rec_plain(*args)
+    if x.device.type != "cuda":
+        raise ValueError(f"rec_interleave_i8_simt: unsupported device {x.device}")
     return _interleave_cuda(*args, block_s)
 
 

@@ -4,7 +4,10 @@ launch, from each block's phase stamps (csrc/lstm_mma.cuh `Stamps`, the
 global nanosecond timer); for kernel 3 (csrc/ffn_mma.cu, five launches in
 stream order) each launch's device time; for kernel 14 (csrc/lstm_hoist.cu,
 which kernel 13 shares) phase A's two launches by their device time and
-phase B's recurrence by its blocks' stamps, as kernel 2's.
+phase B's recurrence by its blocks' stamps, as kernel 2's; for kernel 11
+(csrc/lstm_hoist.cu `lstm_chunk_hoist_i8`) phase A likewise and its
+cooperative launch's recurrence and FFN phases (yq, ff1, mq, ff2, norm and
+their barriers) by its blocks' stamps.
 
     python -m april_asr_tpu_torch.tools.profile_lstm_mma [--S 256] [--P 27] [--wide] \
         [--ub 8,16,32]
@@ -222,18 +225,75 @@ def profile_hoist(S: int, P: int, device, dims: TM.TransducerDims = TM.Transduce
     return res
 
 
-def report_hoist(r: dict, S: int, P: int, dims: TM.TransducerDims, card: str = "") -> None:
+def report_hoist(r: dict, S: int, P: int, dims: TM.TransducerDims, card: str = "",
+                 kernel: str = "kernel 14", stamped: str = "phase B") -> None:
     parts = "; ".join(f"{k} {v['critical_us']:.1f} us (x{v['n']}, blocks' median "
                       f"{v['median_us']:.1f})" for k, v in r["phases"].items())
     launches = "; ".join(f"{k} {v:.1f} us" for k, v in r["launches"].items())
-    print(f"profile_lstm_mma kernel 14 d={dims.d_model} H={dims.hidden} S={S} P={P}"
+    print(f"profile_lstm_mma {kernel} d={dims.d_model} H={dims.hidden} S={S} P={P}"
           f"{' (forced)' if r.get('forced') else ''}: "
           f"{r['blocks']} blocks of {r['ub']}-unit gate items, {r['smem']} bytes of shared memory, "
           f"{r['scratch']} bytes of scratch; CUDA events {r['event_ms'] * 1e3:.1f} us a call, its "
           f"kernels' device time (profiler) {r['device_us']:.1f} us, the host's per call queued "
-          f"{r['host_us']:.1f} us; device time by launch: {launches}; phase B stamped "
+          f"{r['host_us']:.1f} us; device time by launch: {launches}; {stamped} stamped "
           f"{r['total_us']:.1f} us, critical path by phase: {parts}"
           + (f" ({card})" if card else ""))
+
+
+# kernel 11's launches by the names the profiler gives their device kernels
+CHUNK_PASSES = (("phase A: rowq8 x", "hoist_xq_kernel"), ("phase A: gx tiles", "hoist_gx_kernel"),
+                ("recurrence + FFN", "lstm_chunk_hoist_kernel"))
+# kernel 11's FFN phases after phase B's stamps (3 + 8 P ..): a barrier, then
+# each phase and the barrier after it
+CHUNK_FFN = (("yq", 0, 1), ("barrier", 1, 2), ("ff1", 2, 3), ("barrier", 3, 4), ("mq", 4, 5),
+             ("barrier", 5, 6), ("ff2", 6, 7), ("barrier", 7, 8), ("norm", 8, 9))
+
+
+def chunk_hoist_phases(P: int) -> List[Tuple[str, int, int]]:
+    """Kernel 11's stamps: phase B's (`rec_phases`), the barrier after its
+    last projection (stamp 8 P - 1), then CHUNK_FFN from stamp 3 + 8 P."""
+    k = 3 + 8 * P
+    return (rec_phases(P, "stage + rowq8 h0") + [("barrier", 8 * P - 1, k)]
+            + [(name, k + a, k + b) for name, a, b in CHUNK_FFN])
+
+
+def profile_chunk_hoist(S: int, P: int, device, n: int = 3) -> dict:
+    """Kernel 11 on layer 0 of the flagship int8 serving weights (numpy seed
+    inputs, gated): its launch's per-block stamps (`chunk_hoist_phases`),
+    each launch's device time (torch.profiler over n calls), the CUDA-event
+    time of a call, the host's time a call queued, the plan and the
+    scratch, as `profile_hoist` returns them."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    params = PCS.build(S, P, TM.TransducerDims(), device)[0]
+    layer = tuple(params[k][0] for k in LK.LAYER_I8_KEYS)
+    d, H, F = layer[0].shape[0], layer[5].shape[0], layer[7].shape[1]
+    rng = np.random.default_rng(7)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    x = t(rng.normal(size=(P, S, d)).astype(np.float32))
+    h = t((rng.normal(size=(S, d)) * 0.3).astype(np.float32))
+    c = t((rng.normal(size=(S, H)) * 0.3).astype(np.float32))
+    nn = t(rng.integers(0, P + 1, size=S).astype(np.int32))
+    plan = LM.device_chunk_hoist_plan(S, P, d, H, F, device)
+    run = lambda st=None: LK._chunk_hoist_cuda(x, h, c, *layer, nn, stamps=st)  # noqa: E731
+    res = {"event_ms": event_ms(run, reps=5), "blocks": plan.nb, "ub": plan.rec.ub,
+           "smem": plan.smem, "scratch": plan.scratch()[0]}
+    res["host_us"], res["device_us"] = host_and_device_us(run, n=10, keys=("hoist",))
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    res["launches"] = {name: sum(e.self_device_time_total for e in rows if key in e.key) / n
+                       for name, key in CHUNK_PASSES}
+    st = torch.zeros((plan.nb, 13 + 8 * P), dtype=torch.int64, device=device)
+    run(st)
+    run(st)
+    torch.cuda.synchronize()
+    s = st.cpu().numpy()
+    res["total_us"] = float(s[:, 12 + 8 * P].max() - s[:, 0].min()) / 1e3
+    res["phases"] = breakdown(s, chunk_hoist_phases(P))
+    return res
 
 
 # kernel 3's launches by the names the profiler gives their device kernels
@@ -330,6 +390,9 @@ def main(argv=None) -> Dict[str, dict]:
     report_ffn(res["kernel 3"], args.S, args.P)
     res["kernel 14"] = profile_hoist(args.S, args.P, dev)
     report_hoist(res["kernel 14"], args.S, args.P, TM.TransducerDims())
+    res["kernel 11"] = profile_chunk_hoist(args.S, args.P, dev)
+    report_hoist(res["kernel 11"], args.S, args.P, TM.TransducerDims(), kernel="kernel 11",
+                 stamped="the cooperative launch")
     if args.wide:
         res["kernel 14 wide"] = profile_hoist(args.S, args.P, dev, WIDE)
         report_hoist(res["kernel 14 wide"], args.S, args.P, WIDE)

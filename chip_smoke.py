@@ -133,15 +133,19 @@ Phases (each fails the run on error):
              the padded route, held to their plain versions at the
              shard's own widths (`check_padded_tp`)
   chunk      the int8 chunk-layer variants at flagship widths, S=256, P=27:
-             kernels 13, 14 and their CUDA-core templates, 11 (one layer),
-             15 (a 6-layer wavefront slab)
-             and 22 (the tile-interleaved core, on 4- and 2-session tiles)
-             against their plain versions, gated, timed, and checked again
-             at S=3, P=5; then every stack variant of the ported tools
+             kernels 13, 14 and their CUDA-core templates, 11 (one layer,
+             csrc/lstm_hoist.cu) and its template (csrc/lstm_chunk_i8.cu),
+             15 (a 6-layer wavefront slab), 22 (the tile-interleaved core
+             on kernel 14's launches, as JAX's block_s 512 and 256) and its
+             template (on 4- and 2-session tiles) against their plain
+             versions, gated, timed, 11 and 22 bit for bit against their
+             templates, gated and ungated, and checked again at S=3, P=5;
+             then every stack variant of the ported tools
              (profile_chunk_split: fused, split, stream, stream2, split-xla,
              interleave-ts4, interleave-ts2; profile_wavefront: slabs of 6,
-             4 and 12) against the shipped stack (kernels 2 + 3), each new
-             kernel launched by them
+             4 and 12) against the shipped stack (kernels 2 + 3; fused and
+             the interleave stacks bit for bit, launching only kernels 11,
+             or 22 and 3), each new kernel launched by them, no template
   matmul     kernel 23 (profile_int8's bf16, int8 and dynamic-int8 bodies;
              csrc/mm_wgmma.cu, persistent, on wgmma and TMA): the ported
              tool at its five shapes (each body's plan, each body checked
@@ -500,7 +504,9 @@ def phase_build(card):
 # kernel 19 (three gate-item widths) on IMMA; kernel 20 (csrc/lstm_tp_ffn.cu,
 # f32 and bf16) on FFMA alone, in tp_cols' order, kernel 21 (three
 # column-tile counts) on IMMA; kernels 14 and 13 (csrc/lstm_hoist.cu: phase
-# A's tile pass, phase B at 8-, 16- and 32-unit gate items) on IMMA
+# A's tile pass, phase B at 8-, 16- and 32-unit gate items) and kernel 11
+# (phase B and kernel 3's passes in one launch, at the same three widths)
+# on IMMA
 MMA_SOURCES = (
     ("lstm_mma.cu", ("_Z19lstm_rec_mma_kernel", "_Z20lstm_step_mma_kernel"), 6),
     ("lstm_mma_float.cu", ("_Z26lstm_step_float_mma_kernel",), 2),
@@ -514,7 +520,8 @@ MMA_SOURCES = (
     ("joiner_stream.cu", ("_Z20joiner_stream_kernel",), 16),
     ("lstm_tp_gates.cu", ("_Z13tp_gcp_kernel", "_Z15tp_gc_i8_kernel"), 7),
     ("lstm_tp_ffn.cu", ("_Z13tp_ffn_kernel", "_Z16tp_mid_i8_kernel"), 5),
-    ("lstm_hoist.cu", ("_Z21lstm_rec_hoist_kernel", "_Z15hoist_gx_kernel"), 4),
+    ("lstm_hoist.cu", ("_Z21lstm_rec_hoist_kernel", "_Z15hoist_gx_kernel",
+                       "_Z23lstm_chunk_hoist_kernel"), 7),
 )
 
 
@@ -1484,13 +1491,20 @@ SOURCES = {
                          "april_asr_tpu/ops/lstm_pallas.py:814"),
     "lstm_rec_stream_i8_simt": ("april_asr_tpu_torch/csrc/lstm_i8.cu",
                                 "april_asr_tpu/ops/lstm_pallas.py:973"),
-    "lstm_chunk_i8": ("april_asr_tpu_torch/csrc/lstm_chunk_i8.cu",
+    "lstm_chunk_i8": ("april_asr_tpu_torch/csrc/lstm_hoist.cu",
                       "april_asr_tpu/ops/lstm_pallas.py:636"),
+    "lstm_chunk_i8_simt": ("april_asr_tpu_torch/csrc/lstm_chunk_i8.cu",
+                           "april_asr_tpu/ops/lstm_pallas.py:636"),
     "lstm_wavefront_i8": ("april_asr_tpu_torch/csrc/lstm_wavefront.cu",
                           "april_asr_tpu/ops/lstm_wavefront_pallas.py:223"),
-    "rec_interleave_i8": ("april_asr_tpu_torch/csrc/lstm_i8.cu", "tools/profile_chunk_split.py:248"),
-    "rec_interleave_i8_ts2": ("april_asr_tpu_torch/csrc/lstm_i8.cu",
+    "rec_interleave_i8": ("april_asr_tpu_torch/csrc/lstm_hoist.cu",
+                          "tools/profile_chunk_split.py:248"),
+    "rec_interleave_i8_ts2": ("april_asr_tpu_torch/csrc/lstm_hoist.cu",
                               "tools/profile_chunk_split.py:248"),
+    "rec_interleave_i8_simt": ("april_asr_tpu_torch/csrc/lstm_i8.cu",
+                               "tools/profile_chunk_split.py:248"),
+    "rec_interleave_i8_ts2_simt": ("april_asr_tpu_torch/csrc/lstm_i8.cu",
+                                   "tools/profile_chunk_split.py:248"),
     "mm_bf16": ("april_asr_tpu_torch/csrc/mm_wgmma.cu", "tools/profile_int8.py:66"),
     "mm_i8": ("april_asr_tpu_torch/csrc/mm_wgmma.cu", "tools/profile_int8.py:66"),
     "mm_i8_dynq": ("april_asr_tpu_torch/csrc/mm_wgmma.cu", "tools/profile_int8.py:66"),
@@ -1523,6 +1537,9 @@ SOURCES = {
                            "april_asr_tpu/ops/lstm_tp_pallas.py:363"),
 }
 # the launch counter of a row that times a kernel at a second shape or tile
+# (kernel 22's 2-session row names the JAX block_s its template's tile
+# serves; both rows launch kernel 14's entry, counted as
+# `rec_interleave_i8`, while the templates count under their own names)
 COUNT_KEY = {"joiner_argmax_v16383": "joiner_argmax", "joiner_argmax_f32_v16383": "joiner_argmax_f32",
              "joiner_argmax_simt_v16383": "joiner_argmax_simt",
              "joiner_argmax_simt_f32_v16383": "joiner_argmax_simt_f32",
@@ -2543,15 +2560,19 @@ def phase_widths(tmp: str, card, reps: int = 10):
 
 
 def check_chunk_kernels(params, S: int, P: int, seed: int, Lk: int = 6) -> dict:
-    """Kernels 13, 14, their CUDA-core templates and 22 (on 4- and 2-session
-    tiles; layer 0's recurrent core), 11 (layer 0 whole) and 15 (a slab of layers 0..Lk-1) on
-    the int8 serving weights `params`, at S sessions and P pulls, gated by
-    random n_pulls, against their plain versions: one layer to `_ulp_close`,
-    the slab to `_stat_close`. Returns {name: (kernel call, plain call, max
-    abs err, bound, shape)}."""
+    """Kernels 13, 14, their CUDA-core templates, 22 (kernel 14's launches,
+    as JAX's 512 and 256 block_s) and its template (on 4- and 2-session
+    tiles; layer 0's recurrent core), 11 (layer 0 whole) and its template,
+    and 15 (a slab of layers 0..Lk-1) on the int8 serving weights
+    `params`, at S sessions and P pulls, gated by random n_pulls, against
+    their plain versions: one layer to `_ulp_close`, the slab to
+    `_stat_close`; then kernels 11 and 22 bit for bit against their
+    templates, gated and ungated (`check_chunk_templates`). Returns {name:
+    (kernel call, plain call, max abs err, bound, shape)}."""
     from april_asr_tpu_torch.ops import lstm_kernels as LK
     from april_asr_tpu_torch.ops import lstm_wavefront_kernels as LW
-    from april_asr_tpu_torch.tools.profile_chunk_split import INTERLEAVE_TS, rec_interleave_i8
+    from april_asr_tpu_torch.tools.profile_chunk_split import (
+        INTERLEAVE_TS, rec_interleave_i8, rec_interleave_i8_simt)
 
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa: E731
@@ -2573,31 +2594,39 @@ def check_chunk_kernels(params, S: int, P: int, seed: int, Lk: int = 6) -> dict:
     ffn_ops = 2 * P * S * 2 * d * Fn
     shape = f"x[{P},{S},{d}] H={H}"
     out = {}
-    # kernel 22 (on 4- and 2-session tiles) computes kernel 13's function and
-    # shares its bound: the h/c carry between its launches is a cost of that
-    # design, not bytes the function must move
+    # kernel 22 computes kernel 13's function and shares its bound: the h/c
+    # carry between its template's launches is a cost of that design, not
+    # bytes the function must move
+    ts = {b: f" tile={INTERLEAVE_TS[b]}" for b in INTERLEAVE_TS}
     cores = (("lstm_rec_i8", LK.lstm_layer_chunk_rec_i8, ""),
              ("lstm_rec_stream_i8", LK.lstm_layer_chunk_rec_stream_i8, ""),
              ("lstm_rec_i8_simt", LK.lstm_layer_chunk_rec_i8_simt, ""),
              ("lstm_rec_stream_i8_simt", LK.lstm_layer_chunk_rec_stream_i8_simt, ""),
              ("rec_interleave_i8", functools.partial(rec_interleave_i8, block_s=512),
-              f" tile={INTERLEAVE_TS[512]}"),
+              " block_s=512"),
              ("rec_interleave_i8_ts2", functools.partial(rec_interleave_i8, block_s=256),
-              f" tile={INTERLEAVE_TS[256]}"))
+              " block_s=256"),
+             ("rec_interleave_i8_simt", functools.partial(rec_interleave_i8_simt, block_s=512),
+              ts[512]),
+             ("rec_interleave_i8_ts2_simt",
+              functools.partial(rec_interleave_i8_simt, block_s=256), ts[256]))
     for name, fn, tile in cores:
         kf = lambda fn=fn: fn(x, hs[0], cs[0], *layer[:7], n_pulls)  # noqa: E731
         pf = lambda: LK.lstm_rec_plain(x, hs[0], cs[0], n_pulls, *layer[:7])  # noqa: E731
         got, want = kf(), pf()
         torch.cuda.synchronize()
-        err = max(_ulp_close(g, wv, f"{name} {k}") for g, wv, k in zip(got, want, ("hseq", "h", "c")))
+        err = max(_ulp_close(g, wv, f"{name} {k}") for g, wv, k in zip(got, want, REC))
         out[name] = (kf, pf, err, bound_ms(io + rec_w, {"int8": rec_ops}), shape + tile)
-    kf = lambda: LK.lstm_layer_chunk_fused_i8(x, hs[0], cs[0], *layer, n_pulls)  # noqa: E731
     pf = lambda: LK.lstm_chunk_i8_plain(x, hs[0], cs[0], *layer, n_pulls)  # noqa: E731
-    got, want = kf(), pf()
-    torch.cuda.synchronize()
-    err = max(_ulp_close(g, wv, f"lstm_chunk_i8 {k}") for g, wv, k in zip(got, want, "yhc"))
-    out["lstm_chunk_i8"] = (kf, pf, err, bound_ms(io + rec_w + ffn_w, {"int8": rec_ops + ffn_ops}),
-                            f"{shape} ffn={Fn}")
+    for name, fn in (("lstm_chunk_i8", LK.lstm_layer_chunk_fused_i8),
+                     ("lstm_chunk_i8_simt", LK.lstm_layer_chunk_fused_i8_simt)):
+        kf = lambda fn=fn: fn(x, hs[0], cs[0], *layer, n_pulls)  # noqa: E731
+        got, want = kf(), pf()
+        torch.cuda.synchronize()
+        err = max(_ulp_close(g, wv, f"{name} {k}") for g, wv, k in zip(got, want, "yhc"))
+        out[name] = (kf, pf, err, bound_ms(io + rec_w + ffn_w, {"int8": rec_ops + ffn_ops}),
+                     f"{shape} ffn={Fn}")
+    check_chunk_templates(x, hs[0], cs[0], layer, n_pulls, S, P)
     kf = lambda: LW.lstm_slab_wavefront_i8(x, hs, cs, *slab, n_pulls)  # noqa: E731
     pf = lambda: LW.lstm_slab_wavefront_plain(x, hs, cs, *slab, n_pulls=n_pulls)  # noqa: E731
     got, want = kf(), pf()
@@ -2613,14 +2642,57 @@ def check_chunk_kernels(params, S: int, P: int, seed: int, Lk: int = 6) -> dict:
     return out
 
 
+def check_chunk_templates(x, h0, c0, layer, n_pulls, S: int, P: int) -> None:
+    """Kernel 11 (csrc/lstm_hoist.cu) bit for bit against its CUDA-core
+    template (csrc/lstm_chunk_i8.cu), and kernel 22 (kernel 14's launches)
+    against its template on both tiles, gated by n_pulls and ungated; each
+    new kernel's launch counted, its template's not, and the other way
+    round."""
+    from april_asr_tpu_torch.ops import cuda_build
+    from april_asr_tpu_torch.ops import lstm_kernels as LK
+    from april_asr_tpu_torch.tools.profile_chunk_split import (
+        INTERLEAVE_SIMT, rec_interleave_i8, rec_interleave_i8_simt)
+
+    pairs = [("lstm_chunk_i8", "lstm_chunk_i8_simt",
+              lambda g: LK.lstm_layer_chunk_fused_i8(x, h0, c0, *layer, g),
+              lambda g: LK.lstm_layer_chunk_fused_i8_simt(x, h0, c0, *layer, g), "yhc")]
+    for b, simt in INTERLEAVE_SIMT.items():
+        pairs.append(("rec_interleave_i8", simt,
+                      lambda g, b=b: rec_interleave_i8(x, h0, c0, *layer[:7], g, block_s=b),
+                      lambda g, b=b: rec_interleave_i8_simt(x, h0, c0, *layer[:7], g, block_s=b),
+                      REC))
+    for new, simt, kf, tf, names in pairs:
+        for g in (n_pulls, None):
+            tag = f"{'gated' if g is not None else 'ungated'} at S={S}, P={P}"
+            cuda_build.reset_counts()
+            got = kf(g)
+            mine = dict(cuda_build.COUNTS)
+            cuda_build.reset_counts()
+            want = tf(g)
+            theirs = dict(cuda_build.COUNTS)
+            if not mine[new] or mine[simt] or theirs[new] or not theirs[simt]:
+                raise AssertionError(f"{new} vs {simt} {tag}: launches {mine[new]}, {mine[simt]} "
+                                     f"then {theirs[new]}, {theirs[simt]}")
+            _bit_equal(got, want, names, f"chunk {new} vs its template {simt} {tag}")
+
+
+# the tool stacks that run kernels 11 and 22 and the kernels each launches
+STACK_LAUNCHES = {"fused": {"lstm_chunk_i8"},
+                  "interleave-ts4": {"rec_interleave_i8", "ffn_norm_i8"},
+                  "interleave-ts2": {"rec_interleave_i8", "ffn_norm_i8"}}
+
+
 def phase_chunk(card, reps: int = 20):
     """The int8 chunk-layer variants at flagship widths, S=256, P=27: each
-    new kernel against its plain version (`check_chunk_kernels`), timed, and
-    checked again at S=3, P=5; then every stack variant of the ported tools
-    on the tools' own inputs, held to `_stat_close` against the shipped
-    stack (kernel 2 + 3; split-xla, whose FFN is plain tensor code, against
-    the plain stack), with its time and launches per stack. No engine
-    path runs these kernels: their JSON rows keep 0 launches."""
+    new kernel against its plain version (`check_chunk_kernels`; kernels 11
+    and 22 also bit for bit against their templates), timed, and checked
+    again at S=3, P=5; then every stack variant of the ported tools on the
+    tools' own inputs, held to `_stat_close` against the shipped stack
+    (kernel 2 + 3; split-xla, whose FFN is plain tensor code, against the
+    plain stack), with its time and launches per stack; the stacks of
+    kernels 11 and 22 equal to it bit for bit and launching exactly
+    STACK_LAUNCHES, no stack a template. No engine path runs these kernels:
+    their JSON rows keep 0 launches."""
     from april_asr_tpu_torch.models.lstm_transducer import TransducerDims
     from april_asr_tpu_torch.tools import profile_chunk_split as PCS
     from april_asr_tpu_torch.tools import profile_wavefront as PWF
@@ -2647,6 +2719,11 @@ def phase_chunk(card, reps: int = 20):
             for g, wv, k in zip(got, want, "yhc"):
                 _stat_close(g, wv, f"{tool} {name} {k} vs {against}")
             launched = _merge(launched, launches)
+            if name in STACK_LAUNCHES:
+                if set(launches) != STACK_LAUNCHES[name]:
+                    raise AssertionError(f"chunk {tool} {name}: launched {launches}, not "
+                                         f"{sorted(STACK_LAUNCHES[name])}")
+                _bit_equal(got, ref, ("y", "h", "c"), f"chunk {tool} {name} vs stream2")
             held = "" if want is ref else " vs plain stack (max, mean, p99) " + " ".join(
                 f"{k}=({v[0]:.3g}, {v[1]:.3g}, {v[2]:.3g})" for k, v in PCS.diffs(got, plain).items())
             diff = PCS.diffs(got, ref)
@@ -2654,11 +2731,14 @@ def phase_chunk(card, reps: int = 20):
                   f"launches_per_stack={json.dumps(launches)} vs stream2 (max, mean, p99) "
                   + " ".join(f"{k}=({v[0]:.3g}, {v[1]:.3g}, {v[2]:.3g})" for k, v in diff.items())
                   + f"{held} ({card})")
-    # the templates of kernels 13 and 14 serve no tool at these widths
+    # the templates of kernels 11, 13, 14 and 22 serve no tool at these
+    # widths: their counts are their own, never the new kernels'
     missing = [r["name"] for r in rows if not r["name"].endswith("_simt")
                and not launched.get(COUNT_KEY.get(r["name"], r["name"]))]
-    if missing:
-        raise AssertionError(f"chunk: the tools never launched {missing}")
+    templates = sorted(k for k, v in launched.items() if v and k.endswith("_simt"))
+    if missing or templates:
+        raise AssertionError(f"chunk: the tools never launched {missing}; they launched the "
+                             f"templates {templates}")
     print(f"chunk: {time.perf_counter() - t0:.1f} s")
     return rows
 
