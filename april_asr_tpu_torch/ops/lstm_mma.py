@@ -5,7 +5,9 @@ product and the persistent recurrence (csrc/lstm_hoist.cu,
 `rec_hoist_plan`); kernel 3's tiles
 (csrc/ffn_mma.cu, `ffn_plan`); kernel 11, kernel 14's launches with kernel
 3's passes as phases of the cooperative one (csrc/lstm_hoist.cu,
-`chunk_hoist_plan`); and the float kernels 12 and 10
+`chunk_hoist_plan`); kernel 15, the wavefront slab as one cooperative
+launch of tile phases (csrc/lstm_wavefront_hoist.cu, `wavefront_plan`);
+and the float kernels 12 and 10
 (csrc/lstm_mma_float.cu, csrc/lstm_chunk_mma.cu; `float_step_plan`,
 `float_chunk_plan`, below): how the layer's columns, and where they are
 fewer than the blocks its rows, are split over one block per SM, and the
@@ -547,6 +549,131 @@ def chunk_route(S: int, d: int, H: int, F: int, n_sm: int = 132,
         return "simt"
 
 
+# -- kernel 15: the wavefront slab as one cooperative launch ------------------
+#
+# csrc/lstm_wavefront_hoist.cu walks the P + Lk - 1 diagonals of an Lk-layer
+# slab in one launch. At diagonal D the live layers l (0 <= D - l < P) run
+# their steps as phases, each over every live layer's tiles or rows with a
+# grid barrier after it: the gate tiles (layer, 128-row band, 32 hidden
+# units: their four gates are the tile's 128 columns), hcq by rows, the
+# projection tiles (layer, band, 128 columns of d), then kernel 3's passes
+# (yq | ff1 | mq | ff2 | norm) over each live layer's S rows, the norm's rows
+# quantized as the next layer's input and the next diagonal's x and h rows
+# in the same phase. Tile i of a phase is (live layer lo + i // T, band,
+# column tile), T tiles a layer in (band, column) order, on block i % nb.
+# Every weight streams from L2 as 128 x 128 tiles, once per band and
+# diagonal; none stays in shared memory, which holds kernel 3's two tile
+# stages and a tile's row amax slots (FFN_SMEM) and the gate tile's x-side
+# gates, 64 f32 a thread, parked there while it runs the h-side dot
+# (WF_SMEM, the same at every shape). By bytes no weight earns a place
+# beside them: at the flagship widths w_hh and w_hr, held once across 132
+# blocks, fit the 125,440 bytes left a block only as items of at most 16
+# hidden units at Lk = 4, at most 4 at Lk = 6, and not at Lk = 12; an item
+# holding a slice reads every row of its layer's hq, which at the coarsest
+# grain that fits moves as many bytes from L2 as the streamed h-side tiles
+# and their weights (Lk = 4) or four times as many (Lk = 6)
+# (tests/test_torch_port_wavefront_hoist.py).
+
+WF_UNITS = 32  # hidden units of a gate tile
+WF_STAMPS = 16  # per-block stamps a diagonal: after each of its 8 phases and barriers
+WF_SMEM = FFN_SMEM + 64 * 256 * 4  # csrc/lstm_wavefront_hoist.cu WF_SMEM
+
+
+@dataclass(frozen=True)
+class WavefrontPlan:
+    S: int
+    P: int
+    d: int
+    H: int
+    F: int
+    Lk: int
+    sp: int  # rows padded to FFN_TILE: the int8 scratch rows a tile reads
+    dp: int  # depths padded to FFN_KT
+    hp: int
+    fp: int
+    nb: int  # blocks of the launch
+
+    @property
+    def diagonals(self) -> int:
+        return self.P + self.Lk - 1
+
+    @property
+    def n_stamps(self) -> int:
+        """Stamps a block: the start, the first rows, their barrier, then
+        WF_STAMPS a diagonal."""
+        return 3 + WF_STAMPS * self.diagonals
+
+    def live(self, D: int) -> range:
+        """The layers live at diagonal D (none past the last)."""
+        return range(max(0, D - self.P + 1), min(D, self.Lk - 1) + 1)
+
+    def grid(self, kind: str) -> Tuple[int, int, int, int]:
+        """(column tiles, row bands, columns a tile, width) of a layer's
+        tiles in phase `kind`: "gates" (hidden units, 32 a tile), "proj" and
+        "ff2" (d), "ff1" (F)."""
+        step, n = {"gates": (WF_UNITS, self.H), "proj": (FFN_TILE, self.d),
+                   "ff1": (FFN_TILE, self.F), "ff2": (FFN_TILE, self.d)}[kind]
+        return -(-n // step), self.sp // FFN_TILE, step, n
+
+    def tiles(self, kind: str, D: int):
+        """(block, layer, rows, columns) of each tile of phase `kind` at
+        diagonal D in the launch's order, cut at S rows and the width (a
+        gate tile's columns are its hidden units)."""
+        nx, ny, step, n = self.grid(kind)
+        live, T = self.live(D), nx * ny
+        for i in range(len(live) * T):
+            by, bx = divmod(i % T, nx)
+            r0, c0 = by * FFN_TILE, bx * step
+            yield (i % self.nb, live.start + i // T, range(r0, min(r0 + FFN_TILE, self.S)),
+                   range(c0, min(c0 + step, n)))
+
+    def rows(self, D: int):
+        """(block, kind, layer, row) of each row of the phase that ends
+        diagonal D, row r on warp r % 8 of block r // 8 % nb: every live
+        layer's output rows normed ("norm", then quantized as layer l + 1's
+        input), x[D + 1]'s rows ("x", layer 0's input) where D + 1 < P, the
+        carried h rows of every layer live at D + 1 ("h")."""
+        items = [("norm", l, s) for l in self.live(D) for s in range(self.S)]
+        if D + 1 < self.P:
+            items += [("x", 0, s) for s in range(self.S)]
+        items += [("h", l, s) for l in self.live(D + 1) for s in range(self.S)]
+        for r, (kind, l, s) in enumerate(items):
+            yield r // ROWS_A_BLOCK % self.nb, kind, l, s
+
+    def scratch(self) -> Tuple[int, Tuple[int, ...]]:
+        """(bytes, offsets) of the C entry's scratch in one workspace, in its
+        argument order, each 256-byte aligned: xq, hq [Lk][sp][dp], hcq
+        [Lk][sp][hp], yq [Lk][sp][dp], mq [Lk][sp][fp] int8, the row scales
+        [5][Lk][sp] f32 (x, h, hc, y, mid), mid's amax slots [Lk][sp], hc
+        [Lk][S][H], hseq [Lk][S][d], mid [Lk][S][F] and the ring
+        [2][Lk][S][d] f32."""
+        L, sp, S = self.Lk, self.sp, self.S
+        sizes = (L * sp * self.dp, L * sp * self.dp, L * sp * self.hp, L * sp * self.dp,
+                 L * sp * self.fp, 4 * 5 * L * sp, 4 * L * sp, 4 * L * S * self.H,
+                 4 * L * S * self.d, 4 * L * S * self.F, 4 * 2 * L * S * self.d)
+        offsets, n = [], 0
+        for size in sizes:
+            offsets.append(n)
+            n += _up(size, 256)
+        return n, tuple(offsets)
+
+
+def wavefront_plan(S: int, P: int, d: int, H: int, F: int, Lk: int,
+                   n_sm: int = 132) -> WavefrontPlan:
+    """Kernel 15's plan for an Lk-layer slab over P steps of S rows at
+    widths d, H, F on n_sm SMs: nb the most tiles a phase has at the most
+    live layers (min(Lk, P)), within n_sm; ValueError where the widths are
+    not positive multiples of 4."""
+    if min(S, P, d, H, F, Lk) < 1 or d % 4 or H % 4 or F % 4:
+        raise ValueError(f"lstm_wavefront: no plan for S={S}, P={P}, d={d}, hidden={H}, ffn={F}, "
+                         f"slab={Lk}: rows, steps and layers must be positive and widths "
+                         "positive multiples of 4")
+    sp = _up(S, FFN_TILE)
+    work = sp // FFN_TILE * max(-(-H // WF_UNITS), -(-d // FFN_TILE), -(-F // FFN_TILE))
+    return WavefrontPlan(S, P, d, H, F, Lk, sp, _up(d, FFN_KT), _up(H, FFN_KT), _up(F, FFN_KT),
+                         min(n_sm, min(Lk, P) * work))
+
+
 @functools.lru_cache(maxsize=None)
 def _n_sm(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -596,6 +723,18 @@ def device_chunk_hoist_plan(S: int, P: int, d: int, H: int, F: int,
                             device: torch.device) -> ChunkPlan:
     """`chunk_hoist_plan` for the SM count of `device` (a CUDA device)."""
     return _chunk_cached(S, P, d, H, F, device_sm(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _wavefront_cached(S: int, P: int, d: int, H: int, F: int, Lk: int,
+                      n_sm: int) -> WavefrontPlan:
+    return wavefront_plan(S, P, d, H, F, Lk, n_sm)
+
+
+def device_wavefront_plan(S: int, P: int, d: int, H: int, F: int, Lk: int,
+                          device: torch.device) -> WavefrontPlan:
+    """`wavefront_plan` for the SM count of `device` (a CUDA device)."""
+    return _wavefront_cached(S, P, d, H, F, Lk, device_sm(device))
 
 
 def device_sm(device: torch.device) -> int:

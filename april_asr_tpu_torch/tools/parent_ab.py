@@ -3,7 +3,7 @@ it, e.g. with `git archive`) on one card, in turns: other, this, this,
 other.
 
     python -m april_asr_tpu_torch.tools.parent_ab --other build/parent \
-        [--out build/parent_ab] [--sass] [--only k9|tp|k14|k11]
+        [--out build/parent_ab] [--sass] [--only k9|tp|k14|k11|k15]
 
 Each turn is a worker process that imports `april_asr_tpu_torch` and
 `chip_smoke.py` from one tree (its kernels built into that tree's build
@@ -95,14 +95,21 @@ of the flagship int8 model at S = 256 and 2048, P = 27, on numpy seed
 inputs, ungated and gated (the SHA-1 of their outputs, CUDA-event ms and
 the profiler's device us a call), then the flagship and wide int8
 engines' event blobs and launch counts over 3 ticks and a flush; only
-those are compared. With
+those are compared. With `--only k15` each turn runs kernel 15 alone
+(`k15_turn`: `lstm_slab_wavefront_i8`, csrc/lstm_wavefront_hoist.cu here,
+its CUDA-core template csrc/lstm_wavefront.cu in a parent before it) on
+layers 0-5 of the flagship int8 model at S = 256 and 2048, P = 27, on numpy
+seed inputs, ungated and gated (the SHA-1 of its outputs, CUDA-event ms and
+the profiler's device us a call), then the flagship and wide int8 engines'
+event blobs and launch counts over 3 ticks and a flush; only those are
+compared. With
 `--sass`, it also runs `sass_diff` on
 csrc/lstm_mma.cu, lstm_i8.cu, lstm_step.cu, lstm_tp.cu, lstm_mma_float.cu,
 lstm_chunk_mma.cu, chunk_decode.cu, chunk_decode_cluster.cu, joiner.cu,
-fbank_i8.cu, fbank_bf16x3.cu, conv_embed.cu, ffn_mma.cu, lstm_wavefront.cu
-and lstm_chunk_i8.cu of the two trees (kernels 2, 3, 4, 7, 9, 12, 15, 17,
-18, 19, the templates of 11, 13, 14 and 22, the three-pass float step and
-the CUDA-core kernels 3, 4, 8, 1, 5 and 16).
+fbank_i8.cu, fbank_bf16x3.cu, conv_embed.cu, ffn_mma.cu, lstm_wavefront.cu,
+lstm_chunk_i8.cu and lstm_hoist.cu of the two trees (kernels 2, 3, 4, 7, 9,
+11, 12, 13, 14, 17, 18, 19, 22, the templates of 11, 13, 14, 15 and 22, the
+three-pass float step and the CUDA-core kernels 3, 4, 8, 1, 5 and 16).
 Needs a CUDA device (and nvcc).
 """
 
@@ -126,7 +133,7 @@ TREE = HERE.parents[2]
 SASS_SOURCES = ("lstm_mma.cu", "lstm_i8.cu", "lstm_step.cu", "lstm_tp.cu", "lstm_mma_float.cu",
                 "lstm_chunk_mma.cu", "chunk_decode.cu", "chunk_decode_cluster.cu", "joiner.cu",
                 "fbank_i8.cu", "fbank_bf16x3.cu", "conv_embed.cu", "ffn_mma.cu",
-                "lstm_wavefront.cu", "lstm_chunk_i8.cu")
+                "lstm_wavefront.cu", "lstm_chunk_i8.cu", "lstm_hoist.cu")
 FLOATS = ("f32", "bf16")
 BF16_SEEDS = (1, 2)  # more random models for the bf16 engine's partings
 # the float engines' runs compared between turns: (precision, model seed)
@@ -481,19 +488,14 @@ def k11_turn(CS, tmp: str, res: dict, card: str) -> None:
     flagship int8 model at S = 256 and 2048, P = 27, on numpy seed inputs,
     ungated and gated where they take n_pulls: the SHA-1 of their outputs,
     CUDA-event ms and the profiler's device us a call (ungated), into
-    res["<kernel>_S<S>_*"]; then the flagship and the wide (chip_smoke's
-    `WIDE`) int8 engines' event blobs and launch counts over 3 ticks and a
-    flush (res["blob_<engine>_sha"], res["<engine>_counts"])."""
+    res["<kernel>_S<S>_*"]; then the int8 engines (`int8_engines`)."""
     import functools
-    import os
 
     import numpy as np
     import torch
 
     from april_asr_tpu_torch.api import Model
-    from april_asr_tpu_torch.models.lstm_transducer import TransducerDims
     from april_asr_tpu_torch.ops import lstm_kernels as LK
-    from april_asr_tpu_torch.testing import engine_run
     from april_asr_tpu_torch.tools import profile_chunk_split as PCS
 
     dev = torch.device("cuda")
@@ -529,6 +531,20 @@ def k11_turn(CS, tmp: str, res: dict, card: str) -> None:
             f"{k} S={S} {res[f'{k}_S{S}_ms']:.4f} ms ({res[f'{k}_S{S}_device_us']:.1f} us device)"
             for k, _ in K11_KERNELS) + f" ({card})", flush=True)
     del rt
+    int8_engines(CS, tmp, path, res, card)
+
+
+def int8_engines(CS, tmp: str, path: str, res: dict, card: str) -> None:
+    """The flagship (the model at `path`) and the wide (chip_smoke's `WIDE`)
+    int8 engines' event blobs and launch counts over 3 ticks and a flush
+    (res["blob_<engine>_sha"], res["<engine>_counts"])."""
+    import os
+
+    import numpy as np
+
+    from april_asr_tpu_torch.models.lstm_transducer import TransducerDims
+    from april_asr_tpu_torch.testing import engine_run
+
     wide_dir = os.path.join(tmp, "wide")
     os.makedirs(wide_dir)
     paths = {"int8": path,
@@ -541,6 +557,51 @@ def k11_turn(CS, tmp: str, res: dict, card: str) -> None:
         res[f"{name}_counts"] = run["counts"]
         print(f"{name} engine: ms a call {[round(v, 1) for v in run['ms']]}; step launches "
               f"{json.dumps(run['counts'][0])} ({card})", flush=True)
+
+
+K15_SIZES = (256, 2048)
+K15_LAYERS = 6
+# kernel 15's device kernels in either tree: the cooperative launch
+# (csrc/lstm_wavefront_hoist.cu) or the template's per-diagonal launches
+# (csrc/lstm_wavefront.cu)
+K15_KEYS = ("wavefront",)
+
+
+def k15_turn(CS, tmp: str, res: dict, card: str) -> None:
+    """Kernel 15 (`lstm_slab_wavefront_i8`) on layers 0-5 of the flagship
+    int8 model at S = 256 and 2048, P = 27, on numpy seed inputs, ungated
+    and gated: the SHA-1 of its outputs, CUDA-event ms and the profiler's
+    device us a call (ungated), into res["k15_S<S>_*"]; then the int8
+    engines (`int8_engines`)."""
+    import numpy as np
+    import torch
+
+    from april_asr_tpu_torch.api import Model
+    from april_asr_tpu_torch.ops import lstm_kernels as LK
+    from april_asr_tpu_torch.ops import lstm_wavefront_kernels as LW
+
+    dev = torch.device("cuda")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    path = CS.flagship_april(tmp)
+    rt = Model(path, precision="int8", device="cuda").runtime
+    slab = tuple(rt.weights[k][:K15_LAYERS] for k in LK.LAYER_I8_KEYS)
+    d, H, P, L = rt.dims.d_model, rt.dims.hidden, 27, K15_LAYERS
+    for S in K15_SIZES:
+        rng = np.random.default_rng(S + 15)
+        x = t(rng.normal(size=(P, S, d)).astype(np.float32))
+        h = t((rng.normal(size=(L, S, d)) * 0.3).astype(np.float32))
+        c = t((rng.normal(size=(L, S, H)) * 0.3).astype(np.float32))
+        n = t(rng.integers(0, P + 1, size=S).astype(np.int32))
+        call = lambda g=None: LW.lstm_slab_wavefront_i8(x, h, c, *slab, g)  # noqa: E731
+        key = f"k15_S{S}"
+        res[f"{key}_sha"] = [_sha(o) for o in list(call()) + list(call(n))]
+        res[f"{key}_ms"] = CS.cuda_ms(call, 5 if S == 256 else 2, warmup=1)
+        res[f"{key}_device_us"] = CS.profiled(call, 2, K15_KEYS)[1]
+        print(f"kernel 15 S={S}: {res[f'{key}_ms']:.4f} ms ({res[f'{key}_device_us']:.1f} us "
+              f"device) ({card})", flush=True)
+        del x, h, c
+    del rt, slab
+    int8_engines(CS, tmp, path, res, card)
 
 
 def queued_us(fn, n: int) -> float:
@@ -600,6 +661,10 @@ def worker(root: str, out: str, only: str = "") -> None:
             return
         if only == "k11":
             k11_turn(CS, tmp, res, card)
+            print(TAG + json.dumps(dict(res, card=card)), flush=True)
+            return
+        if only == "k15":
+            k15_turn(CS, tmp, res, card)
             print(TAG + json.dumps(dict(res, card=card)), flush=True)
             return
         path = CS.flagship_april(tmp)
@@ -903,15 +968,38 @@ def k11_summary(turns: list, rows: list, out: Path, t0: float) -> int:
     return 0
 
 
+def k15_summary(turns: list, rows: list, out: Path, t0: float) -> int:
+    """`--only k15`: kernel 15's outputs and the int8 engines' blobs and
+    launch counts required equal across every turn; its times per turn."""
+    ref = turns[0]
+    keys = tuple(f"k15_S{S}_sha" for S in K15_SIZES) + tuple(
+        k for e in K11_ENGINES for k in (f"blob_{e}_sha", f"{e}_counts"))
+    bad = sorted({k for tr in turns for k in keys if tr[k] != ref[k]})
+    summary = {
+        "turns": [{k: tr[k] for k in ("label", "build_s") + tuple(
+            f"k15_S{S}_{u}" for S in K15_SIZES for u in ("ms", "device_us"))} for tr in turns],
+        "equal": not bad, "differ": bad,
+        "sass_differs": [f"{r['source']} {r['kernel']}" for r in rows if not r["same"]],
+        "card": ref["card"], "seconds": time.perf_counter() - t0,
+    }
+    (out / "summary.json").write_text(json.dumps(summary, indent=1))
+    print(json.dumps(summary))
+    if bad:
+        print(f"parent_ab: outputs differ between the trees: {bad}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, help="the other tree (e.g. the parent commit)")
     ap.add_argument("--out", type=Path, default=TREE / "build" / "parent_ab")
     ap.add_argument("--sass", action="store_true", help="also sass_diff the shared sources")
-    ap.add_argument("--only", default="", choices=("", "k9", "tp", "k14", "k11"),
+    ap.add_argument("--only", default="", choices=("", "k9", "tp", "k14", "k11", "k15"),
                     help="k9: kernel 9 and the 16,383-token engines alone; tp: the "
                          "tensor-parallel kernels 18-21 and engines alone; k14: kernels 13 "
-                         "and 14 and the wide int8 engine alone; k11: kernels 11 and 22 alone")
+                         "and 14 and the wide int8 engine alone; k11: kernels 11 and 22 alone; "
+                         "k15: kernel 15 and the int8 engines alone")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--npz", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -938,6 +1026,8 @@ def main(argv=None) -> int:
         return k14_summary(turns, rows, args.out, t0)
     if args.only == "k11":
         return k11_summary(turns, rows, args.out, t0)
+    if args.only == "k15":
+        return k15_summary(turns, rows, args.out, t0)
     equal_keys = ("k2_S256_sha", "k2_S2048_sha", "k3_S256_sha", "k3_S2048_sha", "k7_sha",
                   "k7_gated_sha", "blob_sha") + tuple(f"k{n}_S{S}_sha" for n in (1, 5, 16)
                                                       for S in FBANK_SIZES) + EQUAL_KEYS

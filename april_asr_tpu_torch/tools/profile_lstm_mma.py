@@ -1,4 +1,4 @@
-"""Where the time of the layer kernels 2, 7, 12, 10, 3 and 14 goes: for the
+"""Where the time of the layer kernels 2, 7, 12, 10, 3, 14, 11 and 15 goes: for the
 persistent kernels 2, 7, 12 and 10 the phases and grid barriers of one
 launch, from each block's phase stamps (csrc/lstm_mma.cuh `Stamps`, the
 global nanosecond timer); for kernel 3 (csrc/ffn_mma.cu, five launches in
@@ -7,10 +7,15 @@ which kernel 13 shares) phase A's two launches by their device time and
 phase B's recurrence by its blocks' stamps, as kernel 2's; for kernel 11
 (csrc/lstm_hoist.cu `lstm_chunk_hoist_i8`) phase A likewise and its
 cooperative launch's recurrence and FFN phases (yq, ff1, mq, ff2, norm and
-their barriers) by its blocks' stamps.
+their barriers) by its blocks' stamps; for kernel 15
+(csrc/lstm_wavefront_hoist.cu, one cooperative launch a slab) its phases
+(gates, hcq, projection, yq, ff1, mq, ff2, the norm and the next rows, and
+their barriers) summed over the diagonals by its blocks' stamps, and the
+gate phase a diagonal by its count of live layers, beside its
+template's time.
 
     python -m april_asr_tpu_torch.tools.profile_lstm_mma [--S 256] [--P 27] [--wide] \
-        [--ub 8,16,32]
+        [--ub 8,16,32] [--slab 6]
 
 On the flagship int8 serving weights (`profile_chunk_split.build`, layer 0)
 and numpy seed inputs, it launches kernel 2 (P steps) and kernel 7 once
@@ -296,6 +301,88 @@ def profile_chunk_hoist(S: int, P: int, device, n: int = 3) -> dict:
     return res
 
 
+# kernel 15's phases at each diagonal (stamps 3 + 16 D ..), each followed
+# by a grid barrier
+WAVE_DIAG = ("gates", "hcq", "projection", "yq", "ff1", "mq", "ff2", "norm + next rows")
+
+
+def wavefront_phases(diagonals: int) -> List[Tuple[str, int, int]]:
+    """Kernel 15's stamps: h2 / c2 copied and layer 0's first rows
+    quantized, a barrier, then per diagonal WAVE_DIAG, each phase from the
+    barrier before it and followed by a grid barrier."""
+    out = [("copy + first rows", 0, 1), ("barrier", 1, 2)]
+    for D in range(diagonals):
+        k0 = 3 + LM.WF_STAMPS * D
+        for j, name in enumerate(WAVE_DIAG):
+            out += [(name, k0 + 2 * j - 1, k0 + 2 * j), ("barrier", k0 + 2 * j, k0 + 2 * j + 1)]
+    return out
+
+
+def profile_wavefront_hoist(S: int, P: int, device, Lk: int = 6) -> dict:
+    """Kernel 15 (csrc/lstm_wavefront_hoist.cu) on layers 0..Lk-1 of the
+    flagship int8 serving weights (numpy seed inputs, gated): its launch's
+    per-block stamps summed per phase over the diagonals
+    (`wavefront_phases`), the CUDA-event time and the device time
+    (torch.profiler) of a call, the host's time a call queued, and the same
+    times of its CUDA-core template (`lstm_wavefront_i8_simt`), and the
+    gate phase's mean critical path a diagonal by its number of live layers
+    ("gates_by_live"); the stamped launch's outputs are required equal to
+    the template's."""
+    from ..ops import lstm_wavefront_kernels as LW
+
+    params = PCS.build(S, P, TM.TransducerDims(), device)[0]
+    slab = tuple(params[k][:Lk] for k in LK.LAYER_I8_KEYS)
+    d, H, F = slab[0].shape[1], slab[5].shape[1], slab[7].shape[2]
+    rng = np.random.default_rng(8)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    x = t(rng.normal(size=(P, S, d)).astype(np.float32))
+    h = t((rng.normal(size=(Lk, S, d)) * 0.3).astype(np.float32))
+    c = t((rng.normal(size=(Lk, S, H)) * 0.3).astype(np.float32))
+    nn = t(rng.integers(0, P + 1, size=S).astype(np.int32))
+    plan = LM.device_wavefront_plan(S, P, d, H, F, Lk, device)
+    run = lambda st=None: LW._wavefront_hoist_cuda(x, h, c, *slab, n_pulls=nn,  # noqa: E731
+                                                   stamps=st)
+    simt = lambda: LW.lstm_wavefront_i8_simt(x, h, c, *slab, nn)  # noqa: E731
+    res = {"event_ms": event_ms(run, reps=5), "blocks": plan.nb, "smem": LM.WF_SMEM,
+           "scratch": plan.scratch()[0], "diagonals": plan.diagonals, "Lk": Lk}
+    res["host_us"], res["device_us"] = host_and_device_us(run, n=5, keys=("wavefront_hoist",))
+    res["simt_event_ms"] = event_ms(simt, reps=3)
+    res["simt_host_us"], res["simt_device_us"] = host_and_device_us(
+        simt, n=2, keys=("wavefront_kernel",))
+    st = torch.zeros((plan.nb, plan.n_stamps), dtype=torch.int64, device=device)
+    run(st)
+    got = run(st)
+    want = simt()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("profile_lstm_mma kernel 15: the stamped launch differs from its "
+                             "template")
+    s = st.cpu().numpy()
+    res["total_us"] = float(s[:, -1].max() - s[:, 0].min()) / 1e3
+    res["phases"] = breakdown(s, wavefront_phases(plan.diagonals))
+    last = s.max(axis=0).astype(np.float64)
+    by_live: Dict[int, List[float]] = {}
+    for D in range(plan.diagonals):
+        k0 = 3 + LM.WF_STAMPS * D
+        by_live.setdefault(len(plan.live(D)), []).append((last[k0] - last[k0 - 1]) / 1e3)
+    res["gates_by_live"] = {n: float(np.mean(v)) for n, v in sorted(by_live.items())}
+    return res
+
+
+def report_wavefront(r: dict, S: int, P: int, card: str = "") -> None:
+    parts = "; ".join(f"{k} {v['critical_us']:.1f} us (x{v['n']}, blocks' median "
+                      f"{v['median_us']:.1f})" for k, v in r["phases"].items())
+    gates = ", ".join(f"{n} {v:.1f} us" for n, v in r["gates_by_live"].items())
+    print(f"profile_lstm_mma kernel 15 S={S} P={P} slab={r['Lk']} ({r['diagonals']} diagonals): "
+          f"{r['blocks']} blocks, {r['smem']} bytes of shared memory, {r['scratch']} bytes of "
+          f"scratch; CUDA events {r['event_ms'] * 1e3:.1f} us a call (template "
+          f"{r['simt_event_ms'] * 1e3:.1f}), device time (profiler) {r['device_us']:.1f} us "
+          f"(template {r['simt_device_us']:.1f}), the host's per call queued {r['host_us']:.1f} "
+          f"us; the stamped launch {r['total_us']:.1f} us, critical path by phase: {parts}; "
+          f"the gate phase's mean critical path a diagonal by live layers: {gates}"
+          + (f" ({card})" if card else ""))
+
+
 # kernel 3's launches by the names the profiler gives their device kernels
 FFN_PASSES = (("yq", "ffn_yq_kernel"), ("ff1", "ffn_mm_kernel<true>"), ("mq", "ffn_mq_kernel"),
               ("ff2", "ffn_mm_kernel<false>"), ("norm", "ffn_norm_rows_kernel"))
@@ -382,6 +469,7 @@ def main(argv=None) -> Dict[str, dict]:
     ap.add_argument("--wide", action="store_true",
                     help="also kernel 14 at d 1024 / H 4096 (kernel 2 has no plan there)")
     ap.add_argument("--ub", default="", help="kernel 14 again at these gate-item widths (8,16,32)")
+    ap.add_argument("--slab", type=int, default=6, help="kernel 15's layers (default 6)")
     args = ap.parse_args(argv)
     dev = torch.device("cuda")
     res = profile(args.S, args.P, dev)
@@ -393,6 +481,8 @@ def main(argv=None) -> Dict[str, dict]:
     res["kernel 11"] = profile_chunk_hoist(args.S, args.P, dev)
     report_hoist(res["kernel 11"], args.S, args.P, TM.TransducerDims(), kernel="kernel 11",
                  stamped="the cooperative launch")
+    res["kernel 15"] = profile_wavefront_hoist(args.S, args.P, dev, args.slab)
+    report_wavefront(res["kernel 15"], args.S, args.P)
     if args.wide:
         res["kernel 14 wide"] = profile_hoist(args.S, args.P, dev, WIDE)
         report_hoist(res["kernel 14 wide"], args.S, args.P, WIDE)

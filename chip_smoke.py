@@ -31,7 +31,8 @@ Phases (each fails the run on error):
              instruction in kernel 8's (csrc/dec_joiner_cluster.cu) and in
              kernel 9's 16 (csrc/joiner_stream.cu); IMMA in kernels 14 and
              13's (csrc/lstm_hoist.cu: the phase-A tile pass and the three
-             phase-B recurrences)
+             phase-B recurrences) and kernel 15's
+             (csrc/lstm_wavefront_hoist.cu: one cooperative launch a slab)
   kernels    each kernel against its plain version: timed at S=256, P=27,
              F=101, checked again at S=3, P=5 (ragged tiles); kernels 2 and
              7 also bit for bit against kernel 13's CUDA-core template and
@@ -135,17 +136,19 @@ Phases (each fails the run on error):
   chunk      the int8 chunk-layer variants at flagship widths, S=256, P=27:
              kernels 13, 14 and their CUDA-core templates, 11 (one layer,
              csrc/lstm_hoist.cu) and its template (csrc/lstm_chunk_i8.cu),
-             15 (a 6-layer wavefront slab), 22 (the tile-interleaved core
-             on kernel 14's launches, as JAX's block_s 512 and 256) and its
-             template (on 4- and 2-session tiles) against their plain
-             versions, gated, timed, 11 and 22 bit for bit against their
-             templates, gated and ungated, and checked again at S=3, P=5;
-             then every stack variant of the ported tools
-             (profile_chunk_split: fused, split, stream, stream2, split-xla,
-             interleave-ts4, interleave-ts2; profile_wavefront: slabs of 6,
-             4 and 12) against the shipped stack (kernels 2 + 3; fused and
-             the interleave stacks bit for bit, launching only kernels 11,
-             or 22 and 3), each new kernel launched by them, no template
+             15 (a 6-layer wavefront slab, csrc/lstm_wavefront_hoist.cu)
+             and its template (csrc/lstm_wavefront.cu), 22 (the
+             tile-interleaved core on kernel 14's launches, as JAX's
+             block_s 512 and 256) and its template (on 4- and 2-session
+             tiles) against their plain versions, gated, timed, 11, 15 and
+             22 bit for bit against their templates, gated and ungated, and
+             checked again at S=3, P=5; then every stack variant of the
+             ported tools (profile_chunk_split: fused, split, stream,
+             stream2, split-xla, interleave-ts4, interleave-ts2;
+             profile_wavefront: slabs of 6, 4 and 12) against the shipped
+             stack (kernels 2 + 3; fused, the interleave and the wavefront
+             stacks bit for bit, launching only kernels 11, 22 and 3, or
+             15), each new kernel launched by them, no template
   matmul     kernel 23 (profile_int8's bf16, int8 and dynamic-int8 bodies;
              csrc/mm_wgmma.cu, persistent, on wgmma and TMA): the ported
              tool at its five shapes (each body's plan, each body checked
@@ -506,7 +509,8 @@ def phase_build(card):
 # column-tile counts) on IMMA; kernels 14 and 13 (csrc/lstm_hoist.cu: phase
 # A's tile pass, phase B at 8-, 16- and 32-unit gate items) and kernel 11
 # (phase B and kernel 3's passes in one launch, at the same three widths)
-# on IMMA
+# on IMMA; kernel 15 (csrc/lstm_wavefront_hoist.cu, one launch a slab) on
+# IMMA
 MMA_SOURCES = (
     ("lstm_mma.cu", ("_Z19lstm_rec_mma_kernel", "_Z20lstm_step_mma_kernel"), 6),
     ("lstm_mma_float.cu", ("_Z26lstm_step_float_mma_kernel",), 2),
@@ -522,6 +526,7 @@ MMA_SOURCES = (
     ("lstm_tp_ffn.cu", ("_Z13tp_ffn_kernel", "_Z16tp_mid_i8_kernel"), 5),
     ("lstm_hoist.cu", ("_Z21lstm_rec_hoist_kernel", "_Z15hoist_gx_kernel",
                        "_Z23lstm_chunk_hoist_kernel"), 7),
+    ("lstm_wavefront_hoist.cu", ("_Z27lstm_wavefront_hoist_kernel",), 1),
 )
 
 
@@ -1495,8 +1500,10 @@ SOURCES = {
                       "april_asr_tpu/ops/lstm_pallas.py:636"),
     "lstm_chunk_i8_simt": ("april_asr_tpu_torch/csrc/lstm_chunk_i8.cu",
                            "april_asr_tpu/ops/lstm_pallas.py:636"),
-    "lstm_wavefront_i8": ("april_asr_tpu_torch/csrc/lstm_wavefront.cu",
+    "lstm_wavefront_i8": ("april_asr_tpu_torch/csrc/lstm_wavefront_hoist.cu",
                           "april_asr_tpu/ops/lstm_wavefront_pallas.py:223"),
+    "lstm_wavefront_i8_simt": ("april_asr_tpu_torch/csrc/lstm_wavefront.cu",
+                               "april_asr_tpu/ops/lstm_wavefront_pallas.py:223"),
     "rec_interleave_i8": ("april_asr_tpu_torch/csrc/lstm_hoist.cu",
                           "tools/profile_chunk_split.py:248"),
     "rec_interleave_i8_ts2": ("april_asr_tpu_torch/csrc/lstm_hoist.cu",
@@ -2563,10 +2570,10 @@ def check_chunk_kernels(params, S: int, P: int, seed: int, Lk: int = 6) -> dict:
     """Kernels 13, 14, their CUDA-core templates, 22 (kernel 14's launches,
     as JAX's 512 and 256 block_s) and its template (on 4- and 2-session
     tiles; layer 0's recurrent core), 11 (layer 0 whole) and its template,
-    and 15 (a slab of layers 0..Lk-1) on the int8 serving weights
-    `params`, at S sessions and P pulls, gated by random n_pulls, against
-    their plain versions: one layer to `_ulp_close`, the slab to
-    `_stat_close`; then kernels 11 and 22 bit for bit against their
+    and 15 (a slab of layers 0..Lk-1) and its template on the int8 serving
+    weights `params`, at S sessions and P pulls, gated by random n_pulls,
+    against their plain versions: one layer to `_ulp_close`, the slab to
+    `_stat_close`; then kernels 11, 15 and 22 bit for bit against their
     templates, gated and ungated (`check_chunk_templates`). Returns {name:
     (kernel call, plain call, max abs err, bound, shape)}."""
     from april_asr_tpu_torch.ops import lstm_kernels as LK
@@ -2626,36 +2633,45 @@ def check_chunk_kernels(params, S: int, P: int, seed: int, Lk: int = 6) -> dict:
         err = max(_ulp_close(g, wv, f"{name} {k}") for g, wv, k in zip(got, want, "yhc"))
         out[name] = (kf, pf, err, bound_ms(io + rec_w + ffn_w, {"int8": rec_ops + ffn_ops}),
                      f"{shape} ffn={Fn}")
-    check_chunk_templates(x, hs[0], cs[0], layer, n_pulls, S, P)
-    kf = lambda: LW.lstm_slab_wavefront_i8(x, hs, cs, *slab, n_pulls)  # noqa: E731
+    check_chunk_templates(x, hs, cs, slab, n_pulls, S, P)
     pf = lambda: LW.lstm_slab_wavefront_plain(x, hs, cs, *slab, n_pulls=n_pulls)  # noqa: E731
-    got, want = kf(), pf()
-    torch.cuda.synchronize()
-    for g, wv, k in zip(got, want, "yhc"):
-        if not torch.isfinite(g).all():
-            raise AssertionError(f"lstm_wavefront_i8 {k}: non-finite values")
-        _stat_close(g, wv, f"lstm_wavefront_i8 {k}")
-    err = max(float((g - wv).abs().max()) for g, wv in zip(got, want))
     b = bound_ms(2 * P * S * d * 4 + Lk * (2 * S * (d + H) * 4 + rec_w + ffn_w) + S * 4,
                  {"int8": Lk * (rec_ops + ffn_ops)})
-    out["lstm_wavefront_i8"] = (kf, pf, err, b, f"{shape} ffn={Fn} slab={Lk}")
+    for name, fn in (("lstm_wavefront_i8", LW.lstm_slab_wavefront_i8),
+                     ("lstm_wavefront_i8_simt", LW.lstm_wavefront_i8_simt)):
+        kf = lambda fn=fn: fn(x, hs, cs, *slab, n_pulls)  # noqa: E731
+        got, want = kf(), pf()
+        torch.cuda.synchronize()
+        for g, wv, k in zip(got, want, "yhc"):
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"{name} {k}: non-finite values")
+            _stat_close(g, wv, f"{name} {k}")
+        err = max(float((g - wv).abs().max()) for g, wv in zip(got, want))
+        out[name] = (kf, pf, err, b, f"{shape} ffn={Fn} slab={Lk}")
     return out
 
 
-def check_chunk_templates(x, h0, c0, layer, n_pulls, S: int, P: int) -> None:
+def check_chunk_templates(x, hs, cs, slab, n_pulls, S: int, P: int) -> None:
     """Kernel 11 (csrc/lstm_hoist.cu) bit for bit against its CUDA-core
-    template (csrc/lstm_chunk_i8.cu), and kernel 22 (kernel 14's launches)
-    against its template on both tiles, gated by n_pulls and ungated; each
-    new kernel's launch counted, its template's not, and the other way
-    round."""
+    template (csrc/lstm_chunk_i8.cu) on layer 0, kernel 15
+    (csrc/lstm_wavefront_hoist.cu) against its template
+    (csrc/lstm_wavefront.cu) on the slab, and kernel 22 (kernel 14's
+    launches) against its template on both tiles, gated by n_pulls and
+    ungated; each new kernel's launch counted, its template's not, and the
+    other way round."""
     from april_asr_tpu_torch.ops import cuda_build
     from april_asr_tpu_torch.ops import lstm_kernels as LK
+    from april_asr_tpu_torch.ops import lstm_wavefront_kernels as LW
     from april_asr_tpu_torch.tools.profile_chunk_split import (
         INTERLEAVE_SIMT, rec_interleave_i8, rec_interleave_i8_simt)
 
+    h0, c0, layer = hs[0], cs[0], tuple(w[0] for w in slab)
     pairs = [("lstm_chunk_i8", "lstm_chunk_i8_simt",
               lambda g: LK.lstm_layer_chunk_fused_i8(x, h0, c0, *layer, g),
-              lambda g: LK.lstm_layer_chunk_fused_i8_simt(x, h0, c0, *layer, g), "yhc")]
+              lambda g: LK.lstm_layer_chunk_fused_i8_simt(x, h0, c0, *layer, g), "yhc"),
+             ("lstm_wavefront_i8", "lstm_wavefront_i8_simt",
+              lambda g: LW.lstm_slab_wavefront_i8(x, hs, cs, *slab, g),
+              lambda g: LW.lstm_wavefront_i8_simt(x, hs, cs, *slab, g), "yhc")]
     for b, simt in INTERLEAVE_SIMT.items():
         pairs.append(("rec_interleave_i8", simt,
                       lambda g, b=b: rec_interleave_i8(x, h0, c0, *layer[:7], g, block_s=b),
@@ -2676,21 +2692,22 @@ def check_chunk_templates(x, h0, c0, layer, n_pulls, S: int, P: int) -> None:
             _bit_equal(got, want, names, f"chunk {new} vs its template {simt} {tag}")
 
 
-# the tool stacks that run kernels 11 and 22 and the kernels each launches
+# the tool stacks that run kernels 11, 22 and 15 and the kernels each launches
 STACK_LAUNCHES = {"fused": {"lstm_chunk_i8"},
                   "interleave-ts4": {"rec_interleave_i8", "ffn_norm_i8"},
-                  "interleave-ts2": {"rec_interleave_i8", "ffn_norm_i8"}}
+                  "interleave-ts2": {"rec_interleave_i8", "ffn_norm_i8"},
+                  **{f"wavefront-{n}": {"lstm_wavefront_i8"} for n in (6, 4, 12)}}
 
 
 def phase_chunk(card, reps: int = 20):
     """The int8 chunk-layer variants at flagship widths, S=256, P=27: each
-    new kernel against its plain version (`check_chunk_kernels`; kernels 11
-    and 22 also bit for bit against their templates), timed, and checked
+    new kernel against its plain version (`check_chunk_kernels`; kernels 11,
+    15 and 22 also bit for bit against their templates), timed, and checked
     again at S=3, P=5; then every stack variant of the ported tools on the
     tools' own inputs, held to `_stat_close` against the shipped stack
     (kernel 2 + 3; split-xla, whose FFN is plain tensor code, against the
     plain stack), with its time and launches per stack; the stacks of
-    kernels 11 and 22 equal to it bit for bit and launching exactly
+    kernels 11, 22 and 15 equal to it bit for bit and launching exactly
     STACK_LAUNCHES, no stack a template. No engine path runs these kernels:
     their JSON rows keep 0 launches."""
     from april_asr_tpu_torch.models.lstm_transducer import TransducerDims
@@ -2731,7 +2748,7 @@ def phase_chunk(card, reps: int = 20):
                   f"launches_per_stack={json.dumps(launches)} vs stream2 (max, mean, p99) "
                   + " ".join(f"{k}=({v[0]:.3g}, {v[1]:.3g}, {v[2]:.3g})" for k, v in diff.items())
                   + f"{held} ({card})")
-    # the templates of kernels 11, 13, 14 and 22 serve no tool at these
+    # the templates of kernels 11, 13, 14, 15 and 22 serve no tool at these
     # widths: their counts are their own, never the new kernels'
     missing = [r["name"] for r in rows if not r["name"].endswith("_simt")
                and not launched.get(COUNT_KEY.get(r["name"], r["name"]))]
