@@ -1,11 +1,13 @@
-// Kernel 16: the step's conv embed of every pull window (front buffer [S, W,
-// mel] -> [P, S, d]) for the H100, on the CUDA cores, bit for bit the kernel
-// it replaces.
+// Kernels 16 and 17: the step's conv embed of every pull window (front
+// buffer [S, W, mel] -> [P, S, d]) for the H100, on the CUDA cores, each bit
+// for bit the kernel it replaces.
 //
 // Replaces april_asr_tpu/ops/conv_embed_pallas.py `conv_embed_windows`
-// (`_win_kernel`). The CUDA-core kernel it displaces stays as
-// `conv_embed_simt` (csrc/conv_embed.cu) for the shapes no plan holds; the
-// outputs of the two are equal bit for bit.
+// (`_win_kernel`, kernel 16: conv_stack_kernel) and `conv_embed_from_front`
+// (`_kernel`, kernel 17: conv_front_kernel). The CUDA-core kernel they
+// displace stays as `conv_embed_simt` / `conv_embed_front_simt`
+// (csrc/conv_embed.cu) for the shapes no plan holds; the outputs of each
+// pair are equal bit for bit.
 //
 // The function, per window (each zero-padded on its own): conv1 (3x3, pad
 // 1) -> DoubleSwish -> bf16, conv2 (3x3, stride 2) -> DoubleSwish -> bf16,
@@ -52,6 +54,20 @@
 //       ring slot's `full` mbarrier, the 8 consumer warps release a slot on
 //       its `empty` mbarrier (kernel 5's ring, csrc/mbar_ring.cuh).
 //
+// Kernel 17 differs in conv1 alone. conv_embed.cu computes its conv1 once
+// per buffer row over all nine taps (the rows above and below a window read
+// as they lie in the buffer, zero outside [0, W)) and corrects a window's
+// top row (and, at seg = 7, where conv3 reads it, its bottom row) by
+// subtracting the leaked taps' fmaf chain before the DoubleSwish. A row's
+// value does not depend on the window that reads it, so conv_front_kernel
+// stages each window's R1 + 2 buffer rows from the one above it, computes
+// conv1 rows 0..R1-1 per window in that order (acc over all nine (dt, df)
+// taps from 0, + b1; row 0 minus the dt = 0 taps' chain, row seg - 1 at seg
+// = 7 minus the dt = 2 taps'), and runs kernel 16's conv2, conv3 and
+// projection unchanged: the same bits as the CUDA-core kernel. A window's
+// rows are its own session's (a group may span sessions), zero past the
+// buffer's first and last rows.
+//
 // The parent re-read the whole projection weight from L2 in every 9-window
 // block (~478 MB a launch at S = 256) and ran conv2 and conv3 at 8 fmaf per
 // three shared-memory reads; here a staged weight serves every window of a
@@ -62,7 +78,7 @@
 // equal `conv_embed_simt`'s bit for bit. No atomics, no fast-math.
 //
 // The groups and the shared memory are planned in Python by
-// ops/conv_embed_kernels.py `conv_embed_plan`; the C entry recomputes the
+// ops/conv_embed_kernels.py `conv_embed_plan` (`front` for kernel 17); the C entry recomputes the
 // bytes and refuses a plan that disagrees. With `stamps`, thread 0 of each
 // block adds each phase's global-timer nanoseconds after a block barrier
 // (tools/profile_embed.py): rows [0, blocks) the conv stack's blocks, then
@@ -112,14 +128,15 @@ __host__ __device__ inline CtDims ct_dims(int c1, int c2, int c3, int mel, int s
 
 // Byte offsets in shared memory (ops/conv_embed_kernels.py `conv_embed_smem`
 // computes the same total): conv1's taps [9][C1], the biases, w2 [9 C1][c2]
-// and w3 [9 c2][c3] f32; then per window the staged rows [seg][mel + 2] f32,
-// which conv2's output [R2][2][h2][p2] bf16 (+ 8) reuses, and conv1's
-// output [R1][2][h1][C1] bf16.
+// and w3 [9 c2][c3] f32; then per window the staged rows [xrows][mel + 2]
+// f32 (kernel 16: the window's seg rows; kernel 17: R1 + 2 rows from the
+// one above it), which conv2's output [R2][2][h2][p2] bf16 (+ 8) reuses,
+// and conv1's output [R1][2][h1][C1] bf16.
 struct CtLayout {
   size_t w1, b1, b2, b3, w2, w3, xa, a1, total;
 };
 
-__host__ __device__ inline CtLayout ct_layout(const CtDims& g) {
+__host__ __device__ inline CtLayout ct_layout(const CtDims& g, int xrows) {
   CtLayout L;
   L.w1 = 0;
   L.b1 = L.w1 + al16((size_t)9 * g.c1 * 4);
@@ -128,7 +145,7 @@ __host__ __device__ inline CtLayout ct_layout(const CtDims& g) {
   L.w2 = L.b3 + al16((size_t)g.c3 * 4);
   L.w3 = L.w2 + al16((size_t)9 * g.c1 * g.c2 * 4);
   L.xa = L.w3 + al16((size_t)9 * g.c2 * g.c3 * 4);
-  const size_t xw = (size_t)g.seg * (g.mel + 2) * 4, y2w = (size_t)g.ws2 * 2;
+  const size_t xw = (size_t)xrows * (g.mel + 2) * 4, y2w = (size_t)g.ws2 * 2;
   L.a1 = L.xa + al16((size_t)g.nw * (xw > y2w ? xw : y2w));
   L.total = L.a1 + al16((size_t)g.nw * CT_R1 * 2 * g.h1 * g.c1 * 2);
   return L;
@@ -232,26 +249,30 @@ __device__ __forceinline__ void widen(float* dst, const uint16_t* src, int n8) {
   }
 }
 
-template <int C1>
-__global__ void __launch_bounds__(CT_NT, 1) conv_stack_kernel(const CtArgs a) {
+// The conv stack of kernel 16 (FRONT false) or kernel 17 (FRONT true).
+template <int C1, bool FRONT>
+__device__ __forceinline__ void conv_stack(const CtArgs& a) {
   extern __shared__ float4 smem_f4[];
   char* base = reinterpret_cast<char*>(smem_f4);
   const CtDims g = a.g;
-  const CtLayout L = ct_layout(g);
+  const CtLayout L = ct_layout(g, FRONT ? CT_R1 + 2 : g.seg);
   float* w1s = reinterpret_cast<float*>(base + L.w1);  // [9][C1]
   float* b1s = reinterpret_cast<float*>(base + L.b1);
   float* b2s = reinterpret_cast<float*>(base + L.b2);
   float* b3s = reinterpret_cast<float*>(base + L.b3);
   float* w2s = reinterpret_cast<float*>(base + L.w2);  // [9 C1][c2]
   float* w3s = reinterpret_cast<float*>(base + L.w3);  // [9 c2][c3]
-  float* xw = reinterpret_cast<float*>(base + L.xa);   // [nw][seg][mel + 2]
+  float* xw = reinterpret_cast<float*>(base + L.xa);   // [nw][xrows][mel + 2]
   uint16_t* y2 = reinterpret_cast<uint16_t*>(base + L.xa);  // [nw][ws2]: [R2][2][h2][p2]
   uint16_t* a1 = reinterpret_cast<uint16_t*>(base + L.a1);  // [nw][R1][2][h1][C1]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c2 = g.c2, c3 = g.c3, mel = g.mel, seg = g.seg, mp = mel + 2;
   const int f2 = g.f2, f3 = g.f3, h1 = g.h1, h2 = g.h2, p2 = g.p2, ws2 = g.ws2;
-  const int K = f3 * c3, M = a.P * a.S, xn = seg * mp;
+  // the rows staged a window: its seg rows, or (kernel 17) the buffer rows
+  // j step - 1 .. j step + R1 that its conv1 rows 0..R1-1 read
+  const int xrows = FRONT ? CT_R1 + 2 : seg;
+  const int K = f3 * c3, M = a.P * a.S, xn = xrows * mp;
   unsigned long long* row = a.stamps ? a.stamps + (size_t)blockIdx.x * CE_NSTAMP : nullptr;
   unsigned long long last = 0;
   if (row != nullptr && tid == 0) stamp(row, last, 0);
@@ -271,17 +292,26 @@ __global__ void __launch_bounds__(CT_NT, 1) conv_stack_kernel(const CtArgs a) {
     const int m0 = grp * g.nw, nw = min(g.nw, M - m0);
 
     // staging: window m = j S + s is rows j step .. j step + seg - 1 of
-    // session s; column col holds frequency col - 1
+    // session s (kernel 17: from row j step - 1, zero outside [0, W));
+    // column col holds frequency col - 1
     if (mel % 4 == 0) {  // runs of 4 frequencies, CT_STAGE_U loads in flight a thread
-      const int q4 = mel / 4, n4 = nw * seg * q4;
+      const int q4 = mel / 4, n4 = nw * xrows * q4;
       for (int i0 = tid; i0 < n4; i0 += CT_STAGE_U * CT_NT) {
         float4 v[CT_STAGE_U];
 #pragma unroll
         for (int u = 0; u < CT_STAGE_U; ++u) {
           const int i = min(i0 + u * CT_NT, n4 - 1), rr = i / q4, c4 = i - rr * q4;
-          const int jl = rr / seg, r = rr - jl * seg, m = m0 + jl, j = m / a.S, s = m - j * a.S;
-          v[u] = __ldg(reinterpret_cast<const float4*>(
-                           a.front + ((size_t)s * a.W + j * a.step + r) * mel) + c4);
+          const int jl = rr / xrows, r = rr - jl * xrows, m = m0 + jl, j = m / a.S, s = m - j * a.S;
+          if constexpr (FRONT) {
+            const int br = j * a.step + r - 1;
+            v[u] = br >= 0 && br < a.W
+                       ? __ldg(reinterpret_cast<const float4*>(
+                                   a.front + ((size_t)s * a.W + br) * mel) + c4)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+          } else {
+            v[u] = __ldg(reinterpret_cast<const float4*>(
+                             a.front + ((size_t)s * a.W + j * a.step + r) * mel) + c4);
+          }
         }
 #pragma unroll
         for (int u = 0; u < CT_STAGE_U; ++u) {
@@ -294,14 +324,21 @@ __global__ void __launch_bounds__(CT_NT, 1) conv_stack_kernel(const CtArgs a) {
           x[3] = round_bf16(v[u].w);
         }
       }
-      for (int i = tid; i < nw * seg; i += CT_NT) xw[i * mp] = xw[i * mp + mel + 1] = 0.f;
+      for (int i = tid; i < nw * xrows; i += CT_NT) xw[i * mp] = xw[i * mp + mel + 1] = 0.f;
     } else {
       for (int i = tid; i < nw * xn; i += CT_NT) {
         const int jl = i / xn, rem = i - jl * xn, r = rem / mp, col = rem - r * mp;
         const int m = m0 + jl, j = m / a.S, s = m - j * a.S, f = col - 1;
-        xw[i] = (f >= 0 && f < mel)
-                    ? round_bf16(__ldg(a.front + ((size_t)s * a.W + j * a.step + r) * mel + f))
-                    : 0.f;
+        if constexpr (FRONT) {
+          const int br = j * a.step + r - 1;
+          xw[i] = (f >= 0 && f < mel && br >= 0 && br < a.W)
+                      ? round_bf16(__ldg(a.front + ((size_t)s * a.W + br) * mel + f))
+                      : 0.f;
+        } else {
+          xw[i] = (f >= 0 && f < mel)
+                      ? round_bf16(__ldg(a.front + ((size_t)s * a.W + j * a.step + r) * mel + f))
+                      : 0.f;
+        }
       }
     }
     phase_end(row, last, 1);
@@ -313,14 +350,14 @@ __global__ void __launch_bounds__(CT_NT, 1) conv_stack_kernel(const CtArgs a) {
       float acc[C1];
 #pragma unroll
       for (int c = 0; c < C1; ++c) acc[c] = 0.f;
+      if constexpr (FRONT) {
+        // conv_embed.cu's buffer row: all nine taps (staged rows t .. t + 2),
+        // + b1, then the leaked row's taps off a window's top row (and its
+        // bottom row at seg = 7, where conv3 reads it)
 #pragma unroll
-      for (int dt = 0; dt < 3; ++dt) {
-        const int wr = t + dt - 1;  // the window's row; outside it, the zero pad
-        if (wr < 0 || wr >= seg) continue;
-#pragma unroll
-        for (int df = 0; df < 3; ++df) {
-          const float x = xr[wr * mp + df];
-          const float* wp = w1s + (dt * 3 + df) * C1;
+        for (int tap = 0; tap < 9; ++tap) {
+          const float x = xr[(t + tap / 3) * mp + tap % 3];
+          const float* wp = w1s + tap * C1;
 #pragma unroll
           for (int c = 0; c < C1; c += 4) {
             const float4 w = *reinterpret_cast<const float4*>(wp + c);
@@ -330,12 +367,44 @@ __global__ void __launch_bounds__(CT_NT, 1) conv_stack_kernel(const CtArgs a) {
             acc[c + 3] = fmaf(x, w.w, acc[c + 3]);
           }
         }
+#pragma unroll
+        for (int c = 0; c < C1; ++c) acc[c] = __fadd_rn(acc[c], b1s[c]);
+        const int dt = t == 0 ? 0 : (seg - 1 < CT_R1 && t == seg - 1) ? 2 : -1;
+        if (dt >= 0) {
+#pragma unroll
+          for (int c = 0; c < C1; ++c) {
+            float e = 0.f;
+#pragma unroll
+            for (int df = 0; df < 3; ++df) e = fmaf(xr[(t + dt) * mp + df], w1s[(dt * 3 + df) * C1 + c], e);
+            acc[c] = __fsub_rn(acc[c], e);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int dt = 0; dt < 3; ++dt) {
+          const int wr = t + dt - 1;  // the window's row; outside it, the zero pad
+          if (wr < 0 || wr >= seg) continue;
+#pragma unroll
+          for (int df = 0; df < 3; ++df) {
+            const float x = xr[wr * mp + df];
+            const float* wp = w1s + (dt * 3 + df) * C1;
+#pragma unroll
+            for (int c = 0; c < C1; c += 4) {
+              const float4 w = *reinterpret_cast<const float4*>(wp + c);
+              acc[c] = fmaf(x, w.x, acc[c]);
+              acc[c + 1] = fmaf(x, w.y, acc[c + 1]);
+              acc[c + 2] = fmaf(x, w.z, acc[c + 2]);
+              acc[c + 3] = fmaf(x, w.w, acc[c + 3]);
+            }
+          }
+        }
       }
+      // the pre-activation: kernel 17's is complete, kernel 16's takes b1
+      auto pre = [&](int c) { return FRONT ? acc[c] : __fadd_rn(acc[c], b1s[c]); };
       uint32_t wv[C1 / 2];
 #pragma unroll
       for (int c = 0; c < C1; c += 2)
-        wv[c / 2] = bf16_bits(dswish(__fadd_rn(acc[c], b1s[c]))) |
-                    (bf16_bits(dswish(__fadd_rn(acc[c + 1], b1s[c + 1]))) << 16);
+        wv[c / 2] = bf16_bits(dswish(pre(c))) | (bf16_bits(dswish(pre(c + 1))) << 16);
       uint16_t* dst = a1 + ((size_t)((jl * CT_R1 + t) * 2 + (f & 1)) * h1 + (f >> 1)) * C1;
       if constexpr (C1 == 8)
         *reinterpret_cast<uint4*>(dst) = make_uint4(wv[0], wv[1], wv[2], wv[3]);
@@ -448,6 +517,16 @@ __global__ void __launch_bounds__(CT_NT, 1) conv_stack_kernel(const CtArgs a) {
   if (row != nullptr && tid == 0) stamp(row, last, CE_NSTAMP - 1);
 }
 
+template <int C1>
+__global__ void __launch_bounds__(CT_NT, 1) conv_stack_kernel(const CtArgs a) {
+  conv_stack<C1, false>(a);
+}
+
+template <int C1>
+__global__ void __launch_bounds__(CT_NT, 1) conv_front_kernel(const CtArgs a) {
+  conv_stack<C1, true>(a);
+}
+
 __global__ void __launch_bounds__(PJ_NT + 32, 1) conv_proj_kernel(const PjArgs a) {
   extern __shared__ float4 smem_f4[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_f4);           // [RING]
@@ -543,26 +622,30 @@ __global__ void __launch_bounds__(PJ_NT + 32, 1) conv_proj_kernel(const PjArgs a
 static size_t pj_smem() { return PJ_BARS + (size_t)PJ_RING * PJ_STAGE * 4; }
 
 template <int C1>
-static int ct_launch(const CtArgs& a, int blocks, size_t smem, cudaStream_t stream) {
-  cudaError_t err = allow_smem(conv_stack_kernel<C1>, smem);
+static int ct_launch(const CtArgs& a, int blocks, size_t smem, bool front, cudaStream_t stream) {
+  cudaError_t err = allow_smem(front ? conv_front_kernel<C1> : conv_stack_kernel<C1>, smem);
   if (err != cudaSuccess) return (int)err;
-  conv_stack_kernel<C1><<<blocks, CT_NT, smem, stream>>>(a);
+  if (front)
+    conv_front_kernel<C1><<<blocks, CT_NT, smem, stream>>>(a);
+  else
+    conv_stack_kernel<C1><<<blocks, CT_NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// Kernel 16 on a plan of ops/conv_embed_kernels.py `conv_embed_plan`: the
-// conv stack on `blocks` persistent blocks of groups of nw windows (smem:
-// the plan's bytes a block), then the projection. c2, c3 and dp are the
-// padded widths of `embed_weight_forms`; np the weight's columns (dp rounded
-// up to PJ_BN); y3t the scratch of ceil(P S / PJ_BM) x K x PJ_BM floats.
-// Returns cudaGetLastError() of the launches; -1 for a shape the kernel does
-// not take, -2 where the plan's shared-memory bytes differ from this file's.
+// Kernel 16 (from_front 0) or 17 (1) on a plan of ops/conv_embed_kernels.py
+// `conv_embed_plan`: the conv stack on `blocks` persistent blocks of groups
+// of nw windows (smem: the plan's bytes a block), then the projection. c2,
+// c3 and dp are the padded widths of `embed_weight_forms`; np the weight's
+// columns (dp rounded up to PJ_BN); y3t the scratch of ceil(P S / PJ_BM) x
+// K x PJ_BM floats. Returns cudaGetLastError() of the launches; -1 for a
+// shape the kernel does not take, -2 where the plan's shared-memory bytes
+// differ from this file's.
 extern "C" int conv_embed_tile(const float* front, const float* w1, const float* b1,
                                const void* w2k, const float* b2, const void* w3k, const float* b3,
                                const float* wo, const float* bo, float* y3t, float* out,
                                void* stamps, int S, int W, int mel, int P, int step, int seg,
                                int c1, int c2, int c3, int dp, int np, int nw, int blocks, int smem,
-                               void* stream) {
+                               int from_front, void* stream) {
   if ((c1 != 4 && c1 != 8) || c2 % CT_CG || c3 % CT_CG || c2 < CT_CG || c3 < CT_CG || dp % 2 ||
       np % PJ_BN || np < dp || nw < 1 || blocks < 1 || S < 1 || P < 1 || mel < 5 ||
       (seg != 7 && seg != 9) || W != (P - 1) * step + seg)
@@ -576,10 +659,11 @@ extern "C" int conv_embed_tile(const float* front, const float* w1, const float*
   const int M = P * S;
   a.groups = (M + nw - 1) / nw;
   if (blocks > a.groups) return -1;
-  const size_t need = ct_layout(a.g).total;
+  const size_t need = ct_layout(a.g, from_front ? CT_R1 + 2 : seg).total;
   if ((size_t)smem != need) return -2;
   cudaStream_t st = (cudaStream_t)stream;
-  int rc = c1 == 8 ? ct_launch<8>(a, blocks, need, st) : ct_launch<4>(a, blocks, need, st);
+  const bool fr = from_front != 0;
+  int rc = c1 == 8 ? ct_launch<8>(a, blocks, need, fr, st) : ct_launch<4>(a, blocks, need, fr, st);
   if (rc != 0) return rc;
 
   PjArgs p;

@@ -10,16 +10,18 @@ windows computes it, with the TPU kernels' numerics: activations rounded to
 bf16 before each product (x, the conv1 taps, the conv1 activations, y2, y3)
 and f32 sums. At bf16 conv weights these are exactly the rounding points of
 the stacked embed. Kernel 16 recomputes conv1 per window; kernel 17 computes
-it once per buffer row and corrects each window's edge rows, so the two agree
-to f32 rounding, not bit for bit.
+it as if once per buffer row and corrects each window's edge rows, so the
+two agree to f32 rounding, not bit for bit.
 
-Kernel 16 on the card is csrc/conv_embed_tile.cu (count `conv_embed`): a
-persistent conv-stack launch over groups of windows, planned by
-`conv_embed_plan`, then a tiled projection launch; its every sum is the
-CUDA-core kernel's fmaf chain in its order, so the outputs are equal bit
-for bit. That kernel, csrc/conv_embed.cu, stays as `conv_embed_simt` (count
-`conv_embed_simt`) for the shapes no plan holds, and serves kernel 17
-(count `conv_embed_front`). The route reads shapes only. The plain version,
+Both on the card are csrc/conv_embed_tile.cu (counts `conv_embed`,
+`conv_embed_front`): a persistent conv-stack launch over groups of windows,
+planned by `conv_embed_plan` (`front` for kernel 17, which stages each
+window's rows from the one above it and runs the CUDA-core kernel's
+full-buffer conv1 chain per window), then a tiled projection launch; its
+every sum is the CUDA-core kernel's fmaf chain in its order, so the outputs
+are equal bit for bit. That kernel, csrc/conv_embed.cu, stays as
+`conv_embed_simt` / `conv_embed_front_simt` (counts of the same names) for
+the shapes no plan holds. The route reads shapes only. The plain version,
 which a CPU tensor takes, is the stacked windows through `conv_subsample`
 with the conv and projection weights as bf16: the same function. A CUDA
 tensor launches a kernel or raises; it never falls back.
@@ -135,15 +137,25 @@ def conv_tile_dims(mel: int, c2: int) -> tuple:
     return f2, f3, (mel + 1) // 2, h2, p2, 6 * h2 * p2 + 8
 
 
-def conv_embed_smem(nw: int, mel: int, seg: int, c1: int, c2: int, c3: int) -> int:
+def staged_rows(seg: int, front: bool) -> int:
+    """The front rows csrc/conv_embed_tile.cu stages a window: kernel 16 its
+    seg rows; kernel 17 the CT_R1 + 2 buffer rows its conv1 rows 0..CT_R1-1
+    read, from the one above the window (at seg 7 the last is the one
+    below it; at seg 9 the window's last row, which no conv1 row that conv3
+    reads touches, is left out)."""
+    return CT_R1 + 2 if front else seg
+
+
+def conv_embed_smem(nw: int, mel: int, seg: int, c1: int, c2: int, c3: int,
+                    front: bool = False) -> int:
     """csrc/conv_embed_tile.cu `ct_layout`: the conv stack's shared-memory
     bytes for groups of nw windows: conv1's taps, the biases, w2 and w3 as
-    f32; per window the staged rows (f32) or conv2's output (bf16), which
-    share a region, and conv1's output (bf16)."""
+    f32; per window the staged rows (f32, `staged_rows`) or conv2's output
+    (bf16), which share a region, and conv1's output (bf16)."""
     _, _, h1, _, _, ws2 = conv_tile_dims(mel, c2)
     weights = (_al16(9 * c1 * 4) + _al16(c1 * 4) + _al16(c2 * 4) + _al16(c3 * 4)
                + _al16(9 * c1 * c2 * 4) + _al16(9 * c2 * c3 * 4))
-    rows = _al16(nw * max(seg * (mel + 2) * 4, ws2 * 2))
+    rows = _al16(nw * max(staged_rows(seg, front) * (mel + 2) * 4, ws2 * 2))
     return weights + rows + _al16(nw * CT_R1 * 2 * h1 * c1 * 2)
 
 
@@ -164,14 +176,16 @@ class ConvEmbedPlan:
     cols: int       # the f32 weight's columns: ntiles * PJ_BN
 
 
-def _group_cost(nw: int, mel: int, seg: int, c1: int, c2: int, c3: int) -> int:
+def _group_cost(nw: int, mel: int, seg: int, c1: int, c2: int, c3: int,
+                front: bool = False) -> int:
     """One group's issue slots on a thread of the conv stack, phase by
-    phase as the kernel deals its items: conv1 items over the threads,
-    conv2's and conv3's warp items over the CT_NT / 32 warps."""
+    phase as the kernel deals its items: the staged rows (`staged_rows`)
+    and conv1 items over the threads, conv2's and conv3's warp items over
+    the CT_NT / 32 warps."""
     f2, f3 = conv_tile_dims(mel, c2)[:2]
     up = lambda n, k: -(-n // k)  # noqa: E731
     warps = CT_NT // 32
-    stage = up(nw * seg * (mel + 2), CT_NT) * 4
+    stage = up(nw * staged_rows(seg, front) * (mel + 2), CT_NT) * 4
     conv1 = up(nw * CT_R1 * mel, CT_NT) * c1 * (9 + DSWISH_COST)
     items2 = up(nw * CT_R2 * f2, 32 * CT_PP2) * (c2 // CT_CG)
     conv2 = up(items2, warps) * CT_PP2 * CT_CG * (9 * c1 + DSWISH_COST)
@@ -181,16 +195,17 @@ def _group_cost(nw: int, mel: int, seg: int, c1: int, c2: int, c3: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def conv_embed_plan(S: int, P: int, mel: int, seg: int, c1: int, c2: int, c3: int, d: int
-                    ) -> Optional[ConvEmbedPlan]:
-    """Kernel 16's launches on csrc/conv_embed_tile.cu for S sessions of P
-    windows at the padded widths of `embed_weight_forms` (c2, c3 multiples of
-    8, d even), or None where the kernel does not take the shapes (conv1
-    widths other than CT_C1, a geometry off the JAX gate) or no block holds
-    one window's intermediates; the route then takes `conv_embed_simt`. Of
-    the group sizes whose shared memory fits, the one with the least
-    rounds x `_group_cost` over the persistent blocks (one an SM, at most
-    one a group); on a tie the larger group."""
+def conv_embed_plan(S: int, P: int, mel: int, seg: int, c1: int, c2: int, c3: int, d: int,
+                    front: bool = False) -> Optional[ConvEmbedPlan]:
+    """Kernel 16's (or with `front`, kernel 17's) launches on
+    csrc/conv_embed_tile.cu for S sessions of P windows at the padded widths
+    of `embed_weight_forms` (c2, c3 multiples of 8, d even), or None where
+    the kernel does not take the shapes (conv1 widths other than CT_C1, a
+    geometry off the JAX gate) or no block holds one window's
+    intermediates; the route then takes `conv_embed_simt` (or
+    `conv_embed_front_simt`). Of the group sizes whose shared memory fits,
+    the one with the least rounds x `_group_cost` over the persistent blocks
+    (one an SM, at most one a group); on a tie the larger group."""
     # seg 7 or 9 and mel >= 5: the geometries `front_embed_supported` passes
     if (c1 not in CT_C1 or c2 % CT_CG or c3 % CT_CG or c2 < CT_CG or c3 < CT_CG or d % 2
             or S < 1 or P < 1 or seg not in (7, 9) or mel < 5):
@@ -198,12 +213,12 @@ def conv_embed_plan(S: int, P: int, mel: int, seg: int, c1: int, c2: int, c3: in
     M = P * S
     best, best_cost = None, None
     for nw in range(1, M + 1):
-        smem = conv_embed_smem(nw, mel, seg, c1, c2, c3)
+        smem = conv_embed_smem(nw, mel, seg, c1, c2, c3, front)
         if smem > cuda_build.SMEM_PER_BLOCK:
             break
         groups = -(-M // nw)
         blocks = min(groups, cuda_build.SM_COUNT)
-        cost = -(-groups // blocks) * _group_cost(nw, mel, seg, c1, c2, c3)
+        cost = -(-groups // blocks) * _group_cost(nw, mel, seg, c1, c2, c3, front)
         if best_cost is None or cost <= best_cost:
             best, best_cost = (nw, groups, blocks, smem), cost
     if best is None:
@@ -212,13 +227,14 @@ def conv_embed_plan(S: int, P: int, mel: int, seg: int, c1: int, c2: int, c3: in
     return ConvEmbedPlan(*best, mtiles=-(-M // PJ_BM), ntiles=ntiles, cols=ntiles * PJ_BN)
 
 
-def embed_plan_for(params, S: int, P: int, mel: int, seg: int) -> Optional[ConvEmbedPlan]:
+def embed_plan_for(params, S: int, P: int, mel: int, seg: int, front: bool = False
+                   ) -> Optional[ConvEmbedPlan]:
     """`conv_embed_plan` at the padded widths of `params`' weight forms: the
-    route of kernel 16 for a CUDA front of S sessions and P windows (None:
-    `conv_embed_simt`)."""
+    route of kernel 16 (or 17, `front`) for a CUDA front of S sessions and P
+    windows (None: `conv_embed_simt` / `conv_embed_front_simt`)."""
     w = embed_weight_forms(params)
     return conv_embed_plan(S, P, mel, seg, w["w1"].shape[0], w["w2k"].shape[1],
-                           w["w3k"].shape[1], w["wo"].shape[1])
+                           w["w3k"].shape[1], w["wo"].shape[1], front)
 
 
 def conv_embed_plain(params, front: torch.Tensor, P: int, step: int, seg: int) -> torch.Tensor:
@@ -248,13 +264,11 @@ def _cuda_forms(params, front: torch.Tensor, P: int, step: int, seg: int, name: 
     return w
 
 
-def conv_embed_simt(params, front: torch.Tensor, *, P: int, step: int, seg: int,
-                    from_front: bool = False) -> torch.Tensor:
-    """csrc/conv_embed.cu on a CUDA front: kernel 16 on the CUDA cores, one
-    block per (session, 9 windows) (count `conv_embed_simt`), the route for
-    shapes `conv_embed_plan` does not hold; with `from_front`, kernel 17
-    (count `conv_embed_front`)."""
-    name = "conv_embed_front" if from_front else "conv_embed_simt"
+def _simt(params, front: torch.Tensor, P: int, step: int, seg: int,
+          from_front: bool) -> torch.Tensor:
+    """csrc/conv_embed.cu on a CUDA front, one block per (session, 9
+    windows): kernel 16, or with `from_front` kernel 17."""
+    name = "conv_embed_front_simt" if from_front else "conv_embed_simt"
     w = _cuda_forms(params, front, P, step, seg, name)
     S, W, mel = front.shape
     c1, c2, c3 = w["w1"].shape[0], w["w2k"].shape[1], w["w3k"].shape[1]
@@ -281,12 +295,31 @@ def conv_embed_simt(params, front: torch.Tensor, *, P: int, step: int, seg: int,
     return out if d == d_model else out[..., :d_model].contiguous()
 
 
+def conv_embed_simt(params, front: torch.Tensor, *, P: int, step: int, seg: int) -> torch.Tensor:
+    """Kernel 16 on the CUDA cores (csrc/conv_embed.cu, count
+    `conv_embed_simt`): the route for shapes `conv_embed_plan` does not
+    hold."""
+    return _simt(params, front, P, step, seg, from_front=False)
+
+
+def conv_embed_front_simt(params, front: torch.Tensor, *, P: int, step: int, seg: int
+                          ) -> torch.Tensor:
+    """Kernel 17 on the CUDA cores (csrc/conv_embed.cu with `from_front`,
+    count `conv_embed_front_simt`): the route for shapes the `front` plan
+    does not hold."""
+    return _simt(params, front, P, step, seg, from_front=True)
+
+
 def conv_embed_tile(params, front: torch.Tensor, *, P: int, step: int, seg: int,
-                    plan: ConvEmbedPlan, stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Kernel 16 on csrc/conv_embed_tile.cu on `plan` (count `conv_embed`);
-    with `stamps` (int64 [plan.blocks + plan.mtiles * plan.ntiles,
-    CE_NSTAMP], zeroed), each block's phase clock (tools/profile_embed.py)."""
-    w = _cuda_forms(params, front, P, step, seg, "conv_embed")
+                    plan: ConvEmbedPlan, stamps: Optional[torch.Tensor] = None,
+                    from_front: bool = False) -> torch.Tensor:
+    """Kernel 16 (or with `from_front`, kernel 17, on a `front` plan) on
+    csrc/conv_embed_tile.cu on `plan` (count `conv_embed`, or
+    `conv_embed_front`); with `stamps` (int64 [plan.blocks + plan.mtiles *
+    plan.ntiles, CE_NSTAMP], zeroed), each block's phase clock
+    (tools/profile_embed.py)."""
+    name = "conv_embed_front" if from_front else "conv_embed"
+    w = _cuda_forms(params, front, P, step, seg, name)
     S, W, mel = front.shape
     c1, c2, c3 = w["w1"].shape[0], w["w2k"].shape[1], w["w3k"].shape[1]
     d = w["wo"].shape[1]
@@ -296,21 +329,21 @@ def conv_embed_tile(params, front: torch.Tensor, *, P: int, step: int, seg: int,
         front = front.clone()
     y3t = torch.empty(plan.mtiles * K * PJ_BM, dtype=torch.float32, device=front.device)
     out = torch.empty((P, S, d), dtype=torch.float32, device=front.device)
-    fn = cuda_build.bind("conv_embed_tile", "conv_embed_tile", 12, 14)
+    fn = cuda_build.bind("conv_embed_tile", "conv_embed_tile", 12, 15)
     rc = fn(
         front.data_ptr(), w["w1"].data_ptr(), w["b1"].data_ptr(), w["w2k"].data_ptr(),
         w["b2"].data_ptr(), w["w3k"].data_ptr(), w["b3"].data_ptr(), w["wo32"].data_ptr(),
         w["bo"].data_ptr(), y3t.data_ptr(), out.data_ptr(),
         0 if stamps is None else stamps.data_ptr(),
         S, W, mel, P, step, seg, c1, c2, c3, d, plan.cols, plan.nw, plan.blocks, plan.smem,
-        torch.cuda.current_stream(front.device).cuda_stream,
+        int(from_front), torch.cuda.current_stream(front.device).cuda_stream,
     )
     if rc < 0:
-        raise RuntimeError(f"conv_embed: csrc/conv_embed_tile.cu refuses S={S} P={P} mel={mel} "
+        raise RuntimeError(f"{name}: csrc/conv_embed_tile.cu refuses S={S} P={P} mel={mel} "
                            f"seg={seg} c=({c1}, {c2}, {c3}) d={d} on {plan} "
                            f"({'shape' if rc == -1 else 'shared-memory bytes'})")
-    cuda_build.check(rc, f"conv_embed (S={S}, P={P}, {plan})")
-    cuda_build.COUNTS["conv_embed"] += 1
+    cuda_build.check(rc, f"{name} (S={S}, P={P}, {plan})")
+    cuda_build.COUNTS[name] += 1
     return out if d == d_model else out[..., :d_model].contiguous()
 
 
@@ -319,13 +352,13 @@ def _dispatch(params, front, P, step, seg, from_front):
         return conv_embed_plain(params, front, P, step, seg)
     if front.device.type != "cuda":
         raise ValueError(f"conv_embed: unsupported device {front.device}")
-    if from_front:
-        return conv_embed_simt(params, front, P=P, step=step, seg=seg, from_front=True)
     S, _, mel = front.shape
-    plan = embed_plan_for(params, S, P, mel, seg) if S else None
+    plan = embed_plan_for(params, S, P, mel, seg, from_front) if S else None
     if plan is None:
-        return conv_embed_simt(params, front, P=P, step=step, seg=seg)
-    return conv_embed_tile(params, front, P=P, step=step, seg=seg, plan=plan)
+        simt = conv_embed_front_simt if from_front else conv_embed_simt
+        return simt(params, front, P=P, step=step, seg=seg)
+    return conv_embed_tile(params, front, P=P, step=step, seg=seg, plan=plan,
+                           from_front=from_front)
 
 
 def conv_embed_windows(params, front: torch.Tensor, *, P: int, step: int, seg: int) -> torch.Tensor:
@@ -335,6 +368,8 @@ def conv_embed_windows(params, front: torch.Tensor, *, P: int, step: int, seg: i
 
 
 def conv_embed_from_front(params, front: torch.Tensor, *, P: int, step: int, seg: int) -> torch.Tensor:
-    """Kernel 17: [S, W, mel] front -> [P, S, d], conv1 once per buffer row
-    with each window's edge rows corrected."""
+    """Kernel 17: [S, W, mel] front -> [P, S, d], conv1 as if once per buffer
+    row with each window's edge rows corrected; on the card
+    csrc/conv_embed_tile.cu on its `front` plan, else
+    `conv_embed_front_simt`."""
     return _dispatch(params, front, P, step, seg, from_front=True)

@@ -31,7 +31,8 @@ SOURCES = ("fbank_i8", "lstm_i8", "chunk_decode", "fbank_bf16x3", "lstm_chunk", 
            "joiner", "conv_embed", "lstm_chunk_i8", "lstm_wavefront", "int8_mm", "lstm_tp",
            "lstm_mma", "lstm_mma_float", "lstm_chunk_mma", "ffn_mma", "chunk_decode_cluster",
            "fbank_mma", "fbank_bf16x3_tile", "conv_embed_tile", "mm_wgmma", "dec_joiner_cluster",
-           "joiner_stream", "lstm_tp_gates", "lstm_tp_ffn", "lstm_hoist", "lstm_wavefront_hoist")
+           "joiner_stream", "lstm_tp_gates", "lstm_tp_ffn", "lstm_hoist", "lstm_wavefront_hoist",
+           "fbank_frames_tile")
 SMEM_PER_BLOCK = 232_448  # bytes of shared memory one H100 block may opt in to
 SM_COUNT = 132  # streaming multiprocessors of one H100
 NVCC_FLAGS = (
@@ -61,7 +62,7 @@ COUNTS: Dict[str, int] = {
     "tp_gcp_simt_bf16": 0, "tp_gc_i8_simt": 0, "tp_ffn_simt_f32": 0, "tp_ffn_simt_bf16": 0,
     "tp_ffn_mid_i8_simt": 0, "lstm_rec_i8_simt": 0, "lstm_rec_stream_i8_simt": 0,
     "lstm_chunk_i8_simt": 0, "rec_interleave_i8_simt": 0, "rec_interleave_i8_ts2_simt": 0,
-    "lstm_wavefront_i8_simt": 0,
+    "lstm_wavefront_i8_simt": 0, "fbank_frames_simt": 0, "conv_embed_front_simt": 0,
 }
 
 

@@ -31,12 +31,17 @@ Kernel 6, port of `logmel_rows_fused` (`_kernel`), the same DSP on frames
 formed beforehand ([S, F, padded], `frames_from_buf`): one full-f32 product
 with the folded DFT (HIGHEST on the TPU), then the same power, mel and log.
 The frontend takes it only for a buffer too short for in-kernel framing,
-which no `FbankLayout.build` layout gives (frontend/fbank.py).
+which no `FbankLayout.build` layout gives (frontend/fbank.py). On the card
+each (row, column) is one fmaf chain over k in order, over tiles of frame
+rows (csrc/fbank_frames_tile.cu, planned by `frames_plan`, its table laid
+out by `t6_stream`); shapes no plan holds take the CUDA-core kernel
+`fbank_frames_simt` (csrc/fbank_bf16x3.cu `fbank_frames`). The two give the
+same rows, bit for bit.
 
 Each dispatcher takes the plain PyTorch version for a CPU tensor and
 launches its CUDA kernel (csrc/fbank_mma.cu or csrc/fbank_i8.cu,
-csrc/fbank_bf16x3_tile.cu or csrc/fbank_bf16x3.cu; kernel 6 is the second
-entry of the latter) for a CUDA tensor; it never falls back.
+csrc/fbank_bf16x3_tile.cu or csrc/fbank_bf16x3.cu, csrc/fbank_frames_tile.cu
+or csrc/fbank_bf16x3.cu) for a CUDA tensor; it never falls back.
 """
 
 from __future__ import annotations
@@ -301,6 +306,81 @@ def bf16x3_plan_for(c: dict, S: int, F: int) -> Optional[Bf16x3Plan]:
     return bf16x3_plan(S, F, c["shift"], c["padded"], c["nfft"])
 
 
+# Kernel 6 on the H100 (csrc/fbank_frames_tile.cu): a block of 8 warps and
+# a producer warp takes WR x 4 R frame rows (R one of T6_ROWS, chosen by
+# `frames_plan`; WR = 8 / (2 nfft / 64) warp rows; R = 10 spills at the 168
+# registers a thread of a 9-warp block has), streams the f32 DFT
+# through T6_RING stages of T6_SK k ([2 runs of 4 k][2 nfft slots][4 k])
+# behind T6_BARS bytes of mbarriers.
+T6_SK, T6_RING, T6_BARS, T6_ROWS, T6_NFFT = 8, 4, 128, (6, 7, 8, 9), (128, 256)
+
+
+def t6_columns(nfft: int) -> np.ndarray:
+    """[2 nfft] DFT column of each slot of csrc/fbank_frames_tile.cu's stages:
+    slot 64 w + 8 j + t is warp column w's column j of thread t, the re (j
+    even) or im (j odd) column of bin 32 w + 8 (j // 2) + t."""
+    s = np.arange(2 * nfft)
+    w, j, t = s // 64, (s % 64) // 8, s % 8
+    bins = 32 * w + 8 * (j // 2) + t
+    return np.where(j % 2 == 0, bins, nfft + bins)
+
+
+def t6_stream(dft: np.ndarray) -> np.ndarray:
+    """Kernel 6's table stream for csrc/fbank_frames_tile.cu from the folded
+    DFT [padded, 2 nfft] f32: [padded / T6_SK stages][2 runs][2 nfft slots
+    (`t6_columns`)][4 k]."""
+    padded, n2 = dft.shape
+    x = np.asarray(dft, np.float32)[:, t6_columns(n2 // 2)]       # [padded, slots]
+    x = x.reshape(padded // T6_SK, 2, 4, n2)                      # [st, u, kk, s]
+    return np.ascontiguousarray(x.transpose(0, 1, 3, 2))
+
+
+@dataclasses.dataclass(frozen=True)
+class FramesPlan:
+    rows: int    # R: rows a thread holds; a block takes tile = WR x 4 R frame rows
+    tile: int    # frame rows a block
+    smem: int    # dynamic shared memory a block
+    blocks: int
+
+
+def frames_smem(tile: int, padded: int, nfft: int) -> int:
+    """csrc/fbank_frames_tile.cu `t6_smem`: the mbarriers, the ring, and the
+    frames' rows at a pitch of padded + 4 floats, whose space the power rows
+    (hi, lo) reuse."""
+    return (T6_BARS + T6_RING * T6_SK * 2 * nfft * 4
+            + max(tile * (padded + 4) * 4, tile * nfft * 8))
+
+
+@functools.lru_cache(maxsize=None)
+def frames_plan(S: int, F: int, padded: int, nfft: int) -> Optional[FramesPlan]:
+    """Kernel 6's launch on csrc/fbank_frames_tile.cu for S sessions of F
+    frames, or None where the kernel does not take the shapes (padded not a
+    multiple of T6_SK, nfft other than T6_NFFT: the DFT's columns are one
+    chunk of 4 or 8 warps' 64) or no block holds its tile. Of the row counts
+    T6_ROWS whose tiles fit, the one whose tiles fill the H100's SMs' waves
+    best, as `bf16x3_plan` chooses: the least waves x (R + 1/4); on a tie
+    the larger R (fewer table reads)."""
+    if S < 1 or F < 1 or padded % T6_SK or nfft not in T6_NFFT:
+        return None
+    wr = 8 // (2 * nfft // 64)
+    best, best_cost = None, None
+    for R in T6_ROWS:
+        tile = wr * 4 * R
+        smem = frames_smem(tile, padded, nfft)
+        if smem > cuda_build.SMEM_PER_BLOCK:
+            continue
+        blocks = -(-S * F // tile)
+        cost = -(-blocks // cuda_build.SM_COUNT) * (R + 0.25)
+        if best_cost is None or cost <= best_cost:
+            best, best_cost = FramesPlan(R, tile, smem, blocks), cost
+    return best
+
+
+def frames_plan_for(c: dict, S: int, F: int) -> Optional[FramesPlan]:
+    """`frames_plan` for the layout's constants `c`."""
+    return frames_plan(S, F, c["padded"], c["nfft"])
+
+
 _CONSTS: dict = {}
 
 
@@ -340,6 +420,7 @@ def fbank_constants(layout, device) -> dict:
         "mel_lo": mel_lo.contiguous().to(device),
         **{k: torch.from_numpy(v).to(device) for k, v in tc.items() if k != "tc_mel_span"},
         "t5": torch.from_numpy(t5_stream(d_hi, d_lo, padded)).to(device),
+        "t6": torch.from_numpy(t6_stream(dft)).to(device),
         "tc_mel_span": tc["tc_mel_span"],
         "padded": padded,
         "n_views": n_views,
@@ -575,24 +656,67 @@ def logmel_rows_fused_plain(c: dict, frames: torch.Tensor) -> torch.Tensor:
     return torch.log(torch.clamp_min(mel, float(K_EPS))).reshape(S, F, -1)
 
 
-def logmel_rows_fused_cuda(c: dict, frames: torch.Tensor) -> torch.Tensor:
+def _frames_checks(c: dict, frames: torch.Tensor, what: str) -> torch.Tensor:
     S, F, padded = frames.shape
     if frames.dtype != torch.float32 or not frames.is_contiguous():
-        raise ValueError("fbank_frames: frames must be contiguous float32")
+        raise ValueError(f"{what}: frames must be contiguous float32")
     if padded != c["padded"]:
-        raise ValueError(f"fbank_frames: frames of {padded} samples, the DFT takes {c['padded']}")
-    out = torch.empty((S, F, c["bins"]), dtype=torch.float32, device=frames.device)
-    if S == 0 or F == 0:
-        return out
+        raise ValueError(f"{what}: frames of {padded} samples, the DFT takes {c['padded']}")
+    return torch.empty((S, F, c["bins"]), dtype=torch.float32, device=frames.device)
+
+
+def fbank_frames_simt(c: dict, frames: torch.Tensor) -> torch.Tensor:
+    """Kernel 6 on the CUDA cores (csrc/fbank_bf16x3.cu `fbank_frames`): 16
+    frames of one session a block, one bin a thread. The route for shapes
+    `frames_plan` does not hold."""
+    S, F, padded = frames.shape
+    out = _frames_checks(c, frames, "fbank_frames_simt")
     fn = cuda_build.bind("fbank_bf16x3", "fbank_frames", 5, 5)
     rc = fn(
         frames.data_ptr(), c["dft"].data_ptr(), c["mel_hi"].data_ptr(), c["mel_lo"].data_ptr(),
         out.data_ptr(), S, F, padded, c["nfft"], c["bins"],
         torch.cuda.current_stream(frames.device).cuda_stream,
     )
-    cuda_build.check(rc, "fbank_frames")
+    cuda_build.check(rc, f"fbank_frames_simt (S={S}, F={F}, padded={padded})")
+    cuda_build.COUNTS["fbank_frames_simt"] += 1
+    return out
+
+
+def fbank_frames_tile(c: dict, frames: torch.Tensor, plan: FramesPlan,
+                      stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel 6 on csrc/fbank_frames_tile.cu on `plan`; with `stamps` (int64
+    [plan.blocks, 6], zeroed), each block's phase clock
+    (tools/profile_fbank.py)."""
+    S, F, padded = frames.shape
+    out = _frames_checks(c, frames, "fbank_frames")
+    if frames.data_ptr() % 16:  # the rows arrive by 16-byte bulk copies
+        frames = frames.clone()
+    fn = cuda_build.bind("fbank_frames_tile", "fbank_frames_tile", 7, 6)
+    rc = fn(
+        frames.data_ptr(), c["t6"].data_ptr(), c["mel_hi"].data_ptr(), c["mel_lo"].data_ptr(),
+        c["tc_mel_plan"].data_ptr(), out.data_ptr(), 0 if stamps is None else stamps.data_ptr(),
+        S * F, padded, c["nfft"], c["bins"], plan.rows, plan.smem,
+        torch.cuda.current_stream(frames.device).cuda_stream,
+    )
+    if rc < 0:
+        raise RuntimeError(f"fbank_frames: csrc/fbank_frames_tile.cu refuses S={S}, F={F}, "
+                           f"padded={padded}, nfft={c['nfft']}, bins={c['bins']} on {plan} "
+                           f"({'shape' if rc == -1 else 'shared-memory bytes'})")
+    cuda_build.check(rc, f"fbank_frames (S={S}, F={F}, {plan})")
     cuda_build.COUNTS["fbank_frames"] += 1
     return out
+
+
+def logmel_rows_fused_cuda(c: dict, frames: torch.Tensor) -> torch.Tensor:
+    """Kernel 6 on the card: csrc/fbank_frames_tile.cu on its plan, else the
+    CUDA-core kernel; it never falls back."""
+    S, F, _ = frames.shape
+    if S * F == 0:
+        return _frames_checks(c, frames, "fbank_frames")
+    plan = frames_plan_for(c, S, F)
+    if plan is None:
+        return fbank_frames_simt(c, frames)
+    return fbank_frames_tile(c, frames, plan)
 
 
 def logmel_rows_fused(layout, frames: torch.Tensor) -> torch.Tensor:

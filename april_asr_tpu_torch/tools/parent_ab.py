@@ -3,7 +3,7 @@ it, e.g. with `git archive`) on one card, in turns: other, this, this,
 other.
 
     python -m april_asr_tpu_torch.tools.parent_ab --other build/parent \
-        [--out build/parent_ab] [--sass] [--only k9|tp|k14|k11|k15]
+        [--out build/parent_ab] [--sass] [--only k9|tp|k14|k11|k15|front]
 
 Each turn is a worker process that imports `april_asr_tpu_torch` and
 `chip_smoke.py` from one tree (its kernels built into that tree's build
@@ -102,14 +102,25 @@ layers 0-5 of the flagship int8 model at S = 256 and 2048, P = 27, on numpy
 seed inputs, ungated and gated (the SHA-1 of its outputs, CUDA-event ms and
 the profiler's device us a call), then the flagship and wide int8 engines'
 event blobs and launch counts over 3 ticks and a flush; only those are
-compared. With
+compared. With `--only front` each turn runs kernels 6 and 17 alone
+(`front_turn`: `logmel_rows_fused` on frames of the 1 s layout's hop-row
+buffers at S = 256 and 2048, `conv_embed_from_front` on the flagship
+model's bf16 embed weights at S = 256 and 2048, P = 27, seg 9, and at S =
+256, seg 7, each by its route: csrc/fbank_frames_tile.cu and
+csrc/conv_embed_tile.cu here, their CUDA-core templates in a parent
+before it; the SHA-1 of their outputs, CUDA-event ms and the profiler's
+device us a call), then the flagship engines' event blobs and launch
+counts at int8 and bf16 over 3 ticks and a flush; only those are compared.
+With
 `--sass`, it also runs `sass_diff` on
 csrc/lstm_mma.cu, lstm_i8.cu, lstm_step.cu, lstm_tp.cu, lstm_mma_float.cu,
 lstm_chunk_mma.cu, chunk_decode.cu, chunk_decode_cluster.cu, joiner.cu,
 fbank_i8.cu, fbank_bf16x3.cu, conv_embed.cu, ffn_mma.cu, lstm_wavefront.cu,
-lstm_chunk_i8.cu and lstm_hoist.cu of the two trees (kernels 2, 3, 4, 7, 9,
-11, 12, 13, 14, 17, 18, 19, 22, the templates of 11, 13, 14, 15 and 22, the
-three-pass float step and the CUDA-core kernels 3, 4, 8, 1, 5 and 16).
+lstm_chunk_i8.cu, lstm_hoist.cu, fbank_bf16x3_tile.cu and conv_embed_tile.cu
+of the two trees (kernels 2, 3, 4, 5, 7, 9, 11, 12, 13, 14, 16, 18, 19, 22,
+the templates of 6, 11, 13, 14, 15, 17 and 22, the three-pass float step
+and the CUDA-core kernels 3, 4, 8, 1, 5 and 16); a kernel only this tree
+builds (kernel 17's `conv_front_kernel`) is listed as new, not as differing.
 Needs a CUDA device (and nvcc).
 """
 
@@ -133,7 +144,8 @@ TREE = HERE.parents[2]
 SASS_SOURCES = ("lstm_mma.cu", "lstm_i8.cu", "lstm_step.cu", "lstm_tp.cu", "lstm_mma_float.cu",
                 "lstm_chunk_mma.cu", "chunk_decode.cu", "chunk_decode_cluster.cu", "joiner.cu",
                 "fbank_i8.cu", "fbank_bf16x3.cu", "conv_embed.cu", "ffn_mma.cu",
-                "lstm_wavefront.cu", "lstm_chunk_i8.cu", "lstm_hoist.cu")
+                "lstm_wavefront.cu", "lstm_chunk_i8.cu", "lstm_hoist.cu", "fbank_bf16x3_tile.cu",
+                "conv_embed_tile.cu")
 FLOATS = ("f32", "bf16")
 BF16_SEEDS = (1, 2)  # more random models for the bf16 engine's partings
 # the float engines' runs compared between turns: (precision, model seed)
@@ -604,6 +616,69 @@ def k15_turn(CS, tmp: str, res: dict, card: str) -> None:
     int8_engines(CS, tmp, path, res, card)
 
 
+FRONT_SIZES = (256, 2048)
+FRONT_ENGINES = ("int8", "bf16")
+
+
+def front_turn(CS, tmp: str, res: dict, card: str) -> None:
+    """Kernels 6 and 17 by their routes: kernel 6 (`logmel_rows_fused`) on
+    frames of the 1 s layout's numpy-seeded hop-row buffers and kernel 17
+    (`conv_embed_from_front`) on the flagship model's bf16 embed weights, P =
+    27, at S = 256 and 2048 (seg 9), kernel 17 also at S = 256, seg 7: the
+    SHA-1 of each output, CUDA-event ms and the profiler's device us a call,
+    into res["k6_S<S>_*"], res["k17_S<S>_*"] and res["k17s7_S256_*"]; then
+    the flagship engines at int8 and bf16, their event blobs and launch
+    counts over 3 ticks and a flush (res["blob_<precision>_sha"],
+    res["<precision>_counts"])."""
+    import numpy as np
+    import torch
+
+    from april_asr_tpu_torch.api import Model
+    from april_asr_tpu_torch.frontend.fbank import FbankLayout
+    from april_asr_tpu_torch.ops import conv_embed_kernels as CE
+    from april_asr_tpu_torch.ops import fbank_kernels as FK
+    from april_asr_tpu_torch.testing import engine_run
+    from april_asr_tpu_torch.tools.profile_lstm_mma import host_and_device_us
+
+    path = CS.flagship_april(tmp)
+    rt = Model(path, precision="int8", device="cuda").runtime
+    layout = FbankLayout.build(rt.fbank_opts, CS.CHUNK_1S)
+    step = rt.dims.segment_step
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+
+    def timed(key, fn, keys, reps):
+        res[f"{key}_sha"] = _sha(fn())
+        res[f"{key}_ms"] = CS.cuda_ms(fn, reps)
+        res[f"{key}_device_us"] = host_and_device_us(fn, n=3, keys=keys)[1]
+        print(f"kernels: {key} {res[f'{key}_ms']:.4f} ms ({res[f'{key}_device_us']:.1f} us "
+              f"device) ({card})", flush=True)
+
+    for S in FRONT_SIZES:
+        rng = np.random.default_rng(S + 6)
+        pcm = (rng.normal(0, 0.25, (S, layout.buf_len)) * 32768).clip(-32768, 32767)
+        buf = torch.from_numpy(pcm.astype(np.int16).astype(np.float32) / 32768.0).cuda()
+        frames = FK.frames_from_buf(layout, buf)
+        timed(f"k6_S{S}", lambda: FK.logmel_rows_fused(layout, frames), ("fbank_frames",),
+              20 if S == 256 else 5)
+        for seg in ((9, 7) if S == 256 else (9,)):
+            W = 26 * step + seg
+            front = t((np.random.default_rng(S + seg).normal(size=(S, W, rt.dims.mel)) * 2.0
+                       - 6.0).astype(np.float32))
+            timed(f"k17_S{S}" if seg == 9 else f"k17s7_S{S}",
+                  lambda: CE.conv_embed_from_front(rt.weights, front, P=27, step=step, seg=seg),
+                  ("conv_",), 20 if S == 256 else 5)
+        del buf, frames, front
+    del rt
+    audio = np.stack(CS._tone_bufs(CS.S_FLAG, CS.CHUNK_1S, 16000, n=3, seed=25))
+    for prec in FRONT_ENGINES:
+        run = engine_run(dict(path=path, precision=prec, m=1, device="cuda", audio=audio,
+                              ticks=3))
+        res[f"blob_{prec}_sha"] = _blob_sha(run["blobs"])
+        res[f"{prec}_counts"] = run["counts"]
+        print(f"{prec} engine: ms a call {[round(v, 1) for v in run['ms']]}; step launches "
+              f"{json.dumps(run['counts'][0])} ({card})", flush=True)
+
+
 def queued_us(fn, n: int) -> float:
     """CUDA-event us a call over n calls queued back to back (after a
     warm-up): the device's time a call where it exceeds the host's."""
@@ -665,6 +740,10 @@ def worker(root: str, out: str, only: str = "") -> None:
             return
         if only == "k15":
             k15_turn(CS, tmp, res, card)
+            print(TAG + json.dumps(dict(res, card=card)), flush=True)
+            return
+        if only == "front":
+            front_turn(CS, tmp, res, card)
             print(TAG + json.dumps(dict(res, card=card)), flush=True)
             return
         path = CS.flagship_april(tmp)
@@ -847,9 +926,9 @@ def sass(other: Path) -> list:
         with tempfile.TemporaryDirectory() as da, tempfile.TemporaryDirectory() as db:
             found = sass_diff.compare(sass_diff.build(a, Path(da)), sass_diff.build(b, Path(db)))
         for r in found:
+            state = "same" if r["same"] else "new" if r["insns"][0] is None else "differs"
             print(f"sass {src} {r['kernel'][:48]}: registers {r['regs'][0]} -> {r['regs'][1]}, "
-                  f"instructions {r['insns'][0]} -> {r['insns'][1]}, "
-                  f"SASS {'same' if r['same'] else 'differs'}", flush=True)
+                  f"instructions {r['insns'][0]} -> {r['insns'][1]}, SASS {state}", flush=True)
         rows += [dict(r, source=src) for r in found]
     return rows
 
@@ -990,16 +1069,45 @@ def k15_summary(turns: list, rows: list, out: Path, t0: float) -> int:
     return 0
 
 
+def front_summary(turns: list, rows: list, out: Path, t0: float) -> int:
+    """`--only front`: kernels 6 and 17's outputs and the int8 and bf16
+    engines' blobs and launch counts required equal across every turn;
+    their times per turn; the shared sources' SASS, kernels only this tree
+    builds apart."""
+    ref = turns[0]
+    timed = tuple(f"k6_S{S}" for S in FRONT_SIZES) + tuple(
+        f"k17_S{S}" for S in FRONT_SIZES) + ("k17s7_S256",)
+    keys = tuple(f"{k}_sha" for k in timed) + tuple(
+        k for e in FRONT_ENGINES for k in (f"blob_{e}_sha", f"{e}_counts"))
+    bad = sorted({k for tr in turns for k in keys if tr[k] != ref[k]})
+    summary = {
+        "turns": [{k: tr[k] for k in ("label", "build_s") + tuple(
+            f"{n}_{u}" for n in timed for u in ("ms", "device_us"))} for tr in turns],
+        "equal": not bad, "differ": bad,
+        "sass_differs": [f"{r['source']} {r['kernel']}" for r in rows
+                         if not r["same"] and r["insns"][0] is not None],
+        "sass_new": [f"{r['source']} {r['kernel']}" for r in rows if r["insns"][0] is None],
+        "card": ref["card"], "seconds": time.perf_counter() - t0,
+    }
+    (out / "summary.json").write_text(json.dumps(summary, indent=1))
+    print(json.dumps(summary))
+    if bad:
+        print(f"parent_ab: outputs differ between the trees: {bad}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, help="the other tree (e.g. the parent commit)")
     ap.add_argument("--out", type=Path, default=TREE / "build" / "parent_ab")
     ap.add_argument("--sass", action="store_true", help="also sass_diff the shared sources")
-    ap.add_argument("--only", default="", choices=("", "k9", "tp", "k14", "k11", "k15"),
+    ap.add_argument("--only", default="", choices=("", "k9", "tp", "k14", "k11", "k15", "front"),
                     help="k9: kernel 9 and the 16,383-token engines alone; tp: the "
                          "tensor-parallel kernels 18-21 and engines alone; k14: kernels 13 "
                          "and 14 and the wide int8 engine alone; k11: kernels 11 and 22 alone; "
-                         "k15: kernel 15 and the int8 engines alone")
+                         "k15: kernel 15 and the int8 engines alone; front: kernels 6 and 17 "
+                         "and the int8 and bf16 engines alone")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--npz", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -1028,6 +1136,8 @@ def main(argv=None) -> int:
         return k11_summary(turns, rows, args.out, t0)
     if args.only == "k15":
         return k15_summary(turns, rows, args.out, t0)
+    if args.only == "front":
+        return front_summary(turns, rows, args.out, t0)
     equal_keys = ("k2_S256_sha", "k2_S2048_sha", "k3_S256_sha", "k3_S2048_sha", "k7_sha",
                   "k7_gated_sha", "blob_sha") + tuple(f"k{n}_S{S}_sha" for n in (1, 5, 16)
                                                       for S in FBANK_SIZES) + EQUAL_KEYS

@@ -1,9 +1,10 @@
 """Where the fbank kernels' time goes: the phases of one launch of kernel
-1 (csrc/fbank_mma.cu) and of kernel 5 (csrc/fbank_bf16x3_tile.cu) from
-each block's phase clock (the global nanosecond timer), beside the
-CUDA-core kernel each displaces (`fbank_i8_simt`, `fbank_bf16x3_simt`).
+1 (csrc/fbank_mma.cu), of kernel 5 (csrc/fbank_bf16x3_tile.cu) and of
+kernel 6 (csrc/fbank_frames_tile.cu) from each block's phase clock (the
+global nanosecond timer), beside the CUDA-core kernel each displaces
+(`fbank_i8_simt`, `fbank_bf16x3_simt`, `fbank_frames_simt`).
 
-    python -m april_asr_tpu_torch.tools.profile_fbank [--S 256] [--chunk 16000] [--kernel 1,5]
+    python -m april_asr_tpu_torch.tools.profile_fbank [--S 256] [--chunk 16000] [--kernel 1,5,6]
 
 On hop-row buffers of PCM16 values drawn from a numpy seed, at the 16 kHz
 layout of `chunk`-sample chunks (F = 101 frames at 1 s), it launches the
@@ -20,7 +21,10 @@ Kernel 5's phases: `staging` (the hop rows read and split into the x_hi and
 x_lo planes), `dft` (the three bf16 passes' fmaf chains over both column
 chunks, the table ring's waits included), `power` (the power split into its
 rows) and `mel` (the mel filters' fmaf chains, the log and the rows'
-writes). The phase clock adds a block barrier at each phase boundary.
+writes). Kernel 6's (on frames formed from the same buffers by
+`frames_from_buf`): `staging` (the wait for the rows' bulk copies), `dft`
+(the f32 fmaf chains, the table ring's waits included), `power` and `mel`.
+The phase clock adds a block barrier at each phase boundary.
 Beside it, without stamps: the CUDA-event time of one call, the kernel's
 device time (torch.profiler) and the host's time per call, for the kernel
 and the CUDA-core kernel it displaces. Needs a CUDA device.
@@ -42,7 +46,7 @@ PHASES5 = ("staging", "dft", "power", "mel")
 
 def profile(S: int, chunk: int, device, rate: int = 16000, seed: int = 0, kernel: int = 1
             ) -> dict:
-    """Kernel 1 or 5: {"plan", "F", "span_us", "block_us", "phases",
+    """Kernel 1, 5 or 6: {"plan", "F", "span_us", "block_us", "phases",
     "event_ms", "device_us", "host_us", "simt_event_ms", "simt_device_us"}."""
     from april_asr_tpu_torch.config import FbankOptions
     from april_asr_tpu_torch.frontend.fbank import FbankLayout
@@ -60,11 +64,17 @@ def profile(S: int, chunk: int, device, rate: int = 16000, seed: int = 0, kernel
         plan, phases, keys = FK.plan_for(c, S, F), PHASES, ("fbank_mma_kernel", "fbank_kernel")
         run = lambda st: FK.fbank_mma(c, buf, F, plan, stamps=st)  # noqa: E731
         simt = lambda: FK.fbank_i8_simt(c, buf, F)  # noqa: E731
-    else:
+    elif kernel == 5:
         plan, phases = FK.bf16x3_plan_for(c, S, F), PHASES5
         keys = ("fbank_tile_kernel", "fbank_bf16x3_kernel")
         run = lambda st: FK.fbank_bf16x3_tile(c, buf, F, plan, stamps=st)  # noqa: E731
         simt = lambda: FK.fbank_bf16x3_simt(c, buf, F)  # noqa: E731
+    else:
+        frames = FK.frames_from_buf(layout, buf)
+        plan, phases = FK.frames_plan_for(c, S, F), PHASES5
+        keys = ("fbank_frames_tile_kernel", "fbank_frames_kernel")
+        run = lambda st: FK.fbank_frames_tile(c, frames, plan, stamps=st)  # noqa: E731
+        simt = lambda: FK.fbank_frames_simt(c, frames)  # noqa: E731
     if plan is None:
         raise ValueError(f"kernel {kernel} has no plan at S={S}, F={F}")
     res = {"plan": plan, "F": F, "event_ms": event_ms(lambda: run(None)),
@@ -93,8 +103,10 @@ def report(r: Dict, S: int, card: str = "", kernel: int = 1) -> None:
                       for k, v in r["phases"].items())
     if kernel == 1:
         tile, ring = f"{FK.FB_M} frame rows", FK.FB_RING
-    else:
+    elif kernel == 5:
         tile, ring = f"{4 * p.rows} frame rows", FK.T5_RING
+    else:
+        tile, ring = f"{p.tile} frame rows", FK.T6_RING
     print(f"profile_fbank kernel {kernel} S={S} F={r['F']}: {p.blocks} blocks of {tile}, "
           f"{p.smem} bytes of shared memory a block, a {ring}-stage ring; stamped launch "
           f"{r['span_us']:.1f} us, a block's median {r['block_us']:.1f} us; without stamps: CUDA "
@@ -109,7 +121,7 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--S", type=int, default=256)
     ap.add_argument("--chunk", type=int, default=16000)
-    ap.add_argument("--kernel", default="1,5", help="which kernels, of 1 and 5")
+    ap.add_argument("--kernel", default="1,5", help="which kernels, of 1, 5 and 6")
     args = ap.parse_args(argv)
     out = {}
     for k in (int(x) for x in args.kernel.split(",")):

@@ -422,8 +422,15 @@ def host_and_device_us(fn, n: int = 50, keys=("mma_kernel",)) -> Tuple[float, fl
     """The host's time per call of `fn` over n calls queued without a
     synchronize (its enqueue cost where that exceeds the device's), and the
     device time per call of its kernels (whose names hold one of `keys`)
-    from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
+    from torch.profiler over 5 calls, after a warm-up step of 5 in the same
+    session whose records are dropped. CUPTI loses a launch's record now
+    and then (in a process that has profiled many times, the first one or
+    two launches of a session, which read a one-launch kernel's time as 3/5
+    of its own), so each kernel counts as its recorded launches' mean times
+    its launches a call: its records over the 5 calls, rounded up (`fn`
+    launches the same kernels each call; fewer than 5 of a kernel's records
+    lost)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile, schedule
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -431,13 +438,15 @@ def host_and_device_us(fn, n: int = 50, keys=("mma_kernel",)) -> Tuple[float, fl
         fn()
     host = (time.perf_counter() - t0) / n * 1e6
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            fn()
-        torch.cuda.synchronize()
-    dev = sum(e.self_device_time_total for e in prof.key_averages()
-              if any(k in e.key for k in keys))
-    return host, dev / 5
+    with tprofile(activities=[ProfilerActivity.CUDA],
+                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):  # the warm-up step, then the recorded one
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return host, sum(e.self_device_time_total / e.count * -(-e.count // 5)
+                     for e in prof.key_averages() if e.count and any(k in e.key for k in keys))
 
 
 def report(res: Dict[str, dict], S: int, P: int, card: str = "") -> None:

@@ -21,11 +21,11 @@ Phases (each fails the run on error):
   build      nvcc for every csrc/*.cu, all started at once; then
              csrc/lstm_mma.cu, lstm_mma_float.cu, lstm_chunk_mma.cu,
              ffn_mma.cu, fbank_mma.cu, fbank_bf16x3_tile.cu,
-             conv_embed_tile.cu and mm_wgmma.cu again to cubins: kernels 2,
-             7, 12, 10, 3, 1, 5, 16 and 23's registers and spills (none
-             allowed), IMMA in 2, 7 and 3's SASS, IMMA and FFMA in kernel
-             1's, FFMA and no tensor-core instruction in kernel 5's and
-             16's, HMMA in kernels 12 and 10 at bf16, FFMA and no
+             fbank_frames_tile.cu, conv_embed_tile.cu and mm_wgmma.cu again
+             to cubins: kernels 2, 7, 12, 10, 3, 1, 5, 6, 16, 17 and 23's
+             registers and spills (none allowed), IMMA in 2, 7 and 3's SASS,
+             IMMA and FFMA in kernel 1's, FFMA and no tensor-core
+             instruction in kernels 5, 6, 16 and 17's, HMMA in kernels 12 and 10 at bf16, FFMA and no
              tensor-core instruction at f32, HGMMA in kernel 23's bf16 form
              and IGMMA in its int8 forms, FFMA and no tensor-core
              instruction in kernel 8's (csrc/dec_joiner_cluster.cu) and in
@@ -71,15 +71,21 @@ Phases (each fails the run on error):
              need_dec at 50% and ~5%, its plans at S=1, 3, 256 and 2048,
              both timed at 256 and 2048 by CUDA events, the profiler's
              device time and the host's time a call; both conv-embed
-             entries (16, 17) on bf16 weights, kernel 16 (csrc/
-             conv_embed_tile.cu) by its route bit for bit against the
-             CUDA-core kernel it replaced (conv_embed_simt) at S=256 and 2048
-             of 1 s chunks, S=1 and 256 of 200 ms chunks and S=3, P=5 (each
-             entry held to its plain version by the derived flip bound), both
-             timed by CUDA events and the profiler's device time a launch
-             beside the stacked embed they displace, the bound and kernel
-             16's FFMA floor; kernel 6 on frames formed from the fbank
-             buffers;
+             entries (16, 17) on bf16 weights, each by its route on
+             csrc/conv_embed_tile.cu bit for bit against the CUDA-core kernel
+             it replaced (conv_embed_simt, conv_embed_front_simt) at S=256
+             and 2048 of 1 s chunks, S=1 and 256 of 200 ms chunks and S=3,
+             P=5, kernel 17 at seg 9 and 7 (each entry held to its plain
+             version by the derived flip bound), all four timed at S=256 and
+             2048 by CUDA events and the profiler's device time a launch
+             beside the stacked embed 16 displaces, the bound and each
+             design's FFMA floor; kernel 6 (csrc/fbank_frames_tile.cu) on
+             frames formed from the fbank buffers, by its route, against its
+             plain version at the fbank bound and fbank_frames_simt bit for
+             bit at 16 and 8 kHz, S=1 and 256 of 200 ms chunks, S=3, 256 and
+             2048 of 1 s chunks and full-scale samples, silent sessions
+             exactly log(K_EPS), both timed at S=256 and 2048 beside the
+             bound, its FFMA floor and torch.mm of its DFT product;
              kernels 1 (csrc/fbank_mma.cu) and 5 (csrc/fbank_bf16x3_tile.cu),
              each by its route, against its plain version at the fbank
              bound and the CUDA-core kernel it displaces (fbank_i8_simt,
@@ -178,7 +184,8 @@ Phases (each fails the run on error):
              and a flush: identical blobs on both ranks, exactly the
              PATH_KERNELS["tp ..."] launches (the column-pass kernels
              never), the events of the single-card per-pull engine up to
-             near-ties, rank 0's device time of a step and the flush by
+             near-ties (the engines at the flagship's widths and 4 layers,
+             TP_ENGINE), rank 0's device time of a step and the flush by
              kernel (torch.profiler), and the same run on the column-pass
              kernels with equal blobs, profiled alike
 
@@ -220,6 +227,9 @@ WIDE = dict(d_model=1024, hidden=4096, ffn=8192, layers=2)
 NARROW = dict(d_model=68, hidden=260, ffn=196, joiner_dim=128, vocab=64, layers=2,
               decoder_groups=4)
 ODD = dict(NARROW, d_model=66, hidden=258, ffn=198, decoder_groups=2, conv_channels=(4, 12, 20))
+# the `tp` phase's two-rank engines: the flagship's widths at a third of its
+# depth (each layer a step costs the ranks' gloo all-reduces through the host)
+TP_ENGINE = dict(layers=4)
 
 
 def card_line() -> str:
@@ -337,18 +347,20 @@ def embed_amax(params, front, P: int, step: int, seg: int, chunk: int = 8192) ->
     return tuple(amax)
 
 
-def _embed_close(got, want, what, flip: float) -> tuple:
+def _embed_close(got, want, what, flip: float, window_stats: bool = True) -> tuple:
     """[P, S, d] embeddings with the same bf16 rounding points and f32 sums
     in another order, held per element to `flip` (`embed_flip_bound`: the
     largest move one flipped bf16 rounding of an activation can make, from
     the weights and the run's activations, at any number of windows; the
     gains sum every path in absolute value, so the few flips one window
-    holds stay inside it), the mean to 2e-4, and at least a quarter of the
-    windows within 1e-5 everywhere (a flip moves some of a window's outputs;
-    a wrong index or a missed edge correction moves every window; 58% are
-    clean at S = 256, P = 27, and the ragged check has only 15). Returns
-    (max abs err, a summary)."""
+    holds stay inside it), finite, and with `window_stats` the mean to 2e-4
+    and at least a quarter of the windows within 1e-5 everywhere (a flip
+    moves some of a window's outputs; a wrong index or a missed edge
+    correction moves every window; 58% are clean at S = 256, P = 27, and
+    the ragged check has only 15). Returns (max abs err, a summary)."""
     mx, mean, clean, stats = _embed_stats(got, want)
+    if not window_stats:
+        mean, clean = 0.0, 1.0
     if mx > flip or mean > 2e-4 or clean < 0.25 or not torch.isfinite(got).all():
         raise AssertionError(f"{what}: max {mx:.3g} (flip bound {flip:.3g}), {stats}")
     return mx, f"{stats}, flip bound {flip:.3g}"
@@ -493,8 +505,9 @@ def phase_build(card):
 # the tensor-core kernels, by source and the start of their mangled names:
 # kernels 2 and 7 (csrc/lstm_mma.cu) and kernel 3's two product passes
 # (csrc/ffn_mma.cu, ff1 and ff2), int8 on IMMA; kernel 1 (csrc/fbank_mma.cu)
-# on IMMA and FFMA; kernel 5 (csrc/fbank_bf16x3_tile.cu, R = 6 and 7) and
-# kernel 16 (csrc/conv_embed_tile.cu: the conv stack at c1 = 4 and 8, the
+# on IMMA and FFMA; kernel 5 (csrc/fbank_bf16x3_tile.cu, R = 6 and 7), kernel
+# 6 (csrc/fbank_frames_tile.cu, R = 6..9) and kernels 16 and 17
+# (csrc/conv_embed_tile.cu: the two conv stacks at c1 = 4 and 8, the
 # projection) on FFMA alone; kernels 12
 # (csrc/lstm_mma_float.cu) and 10 (csrc/lstm_chunk_mma.cu): `<float>` on
 # FFMA, `<unsigned short>` bf16 on HMMA; kernel 23 (csrc/mm_wgmma.cu, three
@@ -518,7 +531,9 @@ MMA_SOURCES = (
     ("ffn_mma.cu", ("_Z13ffn_mm_kernel",), 2),
     ("fbank_mma.cu", ("_Z16fbank_mma_kernel",), 1),
     ("fbank_bf16x3_tile.cu", ("_Z17fbank_tile_kernel",), 2),
-    ("conv_embed_tile.cu", ("_Z17conv_stack_kernel", "_Z16conv_proj_kernel"), 3),
+    ("fbank_frames_tile.cu", ("_Z24fbank_frames_tile_kernel",), 4),
+    ("conv_embed_tile.cu", ("_Z17conv_stack_kernel", "_Z17conv_front_kernel",
+                            "_Z16conv_proj_kernel"), 5),
     ("mm_wgmma.cu", ("_Z15mm_wgmma_kernel",), 6),
     ("dec_joiner_cluster.cu", ("_Z25dec_joiner_cluster_kernel",), 4),
     ("joiner_stream.cu", ("_Z20joiner_stream_kernel",), 16),
@@ -533,9 +548,9 @@ MMA_SOURCES = (
 def sass_rule(kernel: str, insns: list) -> str:
     """Why a persistent kernel's SASS is wrong ("" where it is right): the
     int8 kernels need IMMA; kernel 1 IMMA and FFMA (its residual and mel on
-    the CUDA cores) and no HMMA; kernel 5 FFMA and no tensor-core
-    instruction (its sums keep fbank_bf16x3.cu's order), kernels 16, 8, 9
-    and 18 likewise (conv_embed.cu's, joiner.cu's and lstm_step.cuh's
+    the CUDA cores) and no HMMA; kernels 5 and 6 FFMA and no tensor-core
+    instruction (their sums keep fbank_bf16x3.cu's order), kernels 16, 17,
+    8, 9 and 18 likewise (conv_embed.cu's, joiner.cu's and lstm_step.cuh's
     orders), and kernel 20 (`tp_ffn`, tp_cols' order); kernels 19 (`tp_gc_i8`) and 21
     (`tp_mid_i8`) IMMA; kernels 12 and 10 at bf16 HMMA, at f32 FFMA and
     no tensor-core instruction (no TF32); kernel 23 (mm_wgmma.cu) HGMMA at
@@ -546,7 +561,8 @@ def sass_rule(kernel: str, insns: list) -> str:
         mine, other = ("HGMMA", "IGMMA") if "ILi0E" in kernel else ("IGMMA", "HGMMA")
         ok = n(mine) and not (n(other) or n("HMMA") or n("IMMA"))
         return "" if ok else f"not {mine} alone"
-    if ("fbank_tile" in kernel or "conv_stack" in kernel or "conv_proj" in kernel
+    if ("fbank_tile" in kernel or "frames_tile" in kernel or "conv_stack" in kernel
+            or "conv_front" in kernel or "conv_proj" in kernel
             or "dec_joiner_cluster" in kernel or "joiner_stream" in kernel or "tp_gcp" in kernel
             or "tp_ffn" in kernel):
         return "" if n("FFMA") and not n("HMMA") and not n("IMMA") else "not FFMA alone"
@@ -561,19 +577,25 @@ def sass_rule(kernel: str, insns: list) -> str:
 
 def check_mma_sass():
     """csrc/lstm_mma.cu, lstm_mma_float.cu, lstm_chunk_mma.cu, ffn_mma.cu,
-    fbank_mma.cu, fbank_bf16x3_tile.cu, conv_embed_tile.cu, mm_wgmma.cu,
+    fbank_mma.cu, fbank_bf16x3_tile.cu, fbank_frames_tile.cu,
+    conv_embed_tile.cu, mm_wgmma.cu,
     dec_joiner_cluster.cu, joiner_stream.cu, lstm_tp_gates.cu and lstm_tp_ffn.cu compiled
-    again to cubins: each
+    again to cubins, all at once: each
     tiled kernel's registers, shared memory and spills (`-Xptxas -v`; a
     spill fails) and its SASS (`sass_rule`)."""
+    from concurrent.futures import ThreadPoolExecutor
     from pathlib import Path
 
     from april_asr_tpu_torch.ops import cuda_build
     from april_asr_tpu_torch.tools import sass_diff
 
-    for src, prefixes, count in MMA_SOURCES:
+    def compiled(src):
         with tempfile.TemporaryDirectory() as tmp:
-            log, funcs = sass_diff.compile_sass(cuda_build.CSRC / src, Path(tmp))
+            return sass_diff.compile_sass(cuda_build.CSRC / src, Path(tmp))
+
+    with ThreadPoolExecutor(len(MMA_SOURCES)) as pool:
+        built = list(pool.map(compiled, [src for src, _, _ in MMA_SOURCES]))
+    for (src, prefixes, count), (log, funcs) in zip(MMA_SOURCES, built):
         props = sass_diff.ptxas_properties(log)
         found = [k for k in funcs if k.startswith(prefixes)]
         if len(found) < count:
@@ -990,6 +1012,50 @@ def check_fbank(kernel: int, layout, S: int, rng, dev, buf=None) -> dict:
             "err_simt": float((got - simt).abs().max())}
 
 
+def check_frames(layout, S: int, rng, dev, buf=None) -> dict:
+    """Kernel 6 at S sessions of `layout`'s frames, formed from hop-row
+    buffers (`frames_from_buf`): the route launches csrc/fbank_frames_tile.cu
+    on its plan (its count, and no CUDA-core launch), held at the fbank
+    bound to the plain version and bit for bit to `fbank_frames_simt`; every
+    other session silent gives rows of exactly log(K_EPS), and a second
+    launch equals the first bit for bit. `buf`, where given, replaces the
+    random samples (its odd sessions silenced all the same). Returns {"F",
+    "plan", "err_plain", "err_simt"}."""
+    from april_asr_tpu_torch.frontend.oracle import K_EPS
+    from april_asr_tpu_torch.ops import cuda_build
+    from april_asr_tpu_torch.ops import fbank_kernels as FK
+
+    c = FK.fbank_constants(layout, dev)
+    F = layout.max_frames
+    buf = fbank_buffer(S, layout.buf_len, rng, dev) if buf is None else buf
+    buf[1::2] = 0.0
+    frames = FK.frames_from_buf(layout, buf)
+    before = dict(cuda_build.COUNTS)
+    got = FK.logmel_rows_fused(layout, frames)
+    again = FK.logmel_rows_fused(layout, frames)
+    launched = {n: cuda_build.COUNTS[n] - before[n] for n in ("fbank_frames", "fbank_frames_simt")}
+    plan = FK.frames_plan_for(c, S, F)
+    what = f"fbank_frames {layout.opts.sample_freq:g} Hz S={S} F={F}"
+    if launched != {"fbank_frames": 2, "fbank_frames_simt": 0} or plan is None:
+        raise AssertionError(f"{what}: the route launched {launched} ({plan}), not "
+                             "csrc/fbank_frames_tile.cu twice")
+    want = FK.logmel_rows_fused_plain(c, frames)
+    simt = FK.fbank_frames_simt(c, frames)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4, msg=f"{what} vs plain")
+    if not torch.equal(got, simt):
+        raise AssertionError(f"{what}: differs from fbank_frames_simt (max abs "
+                             f"{float((got - simt).abs().max()):.3g} in "
+                             f"{int((got != simt).sum())} of {got.numel()}), not bit for bit")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two launches differ")
+    silent = torch.log(torch.tensor(float(K_EPS), dtype=torch.float32, device=dev))
+    if not bool((got[1::2] == silent).all()):
+        raise AssertionError(f"{what}: silent sessions are not log(K_EPS) bit for bit")
+    return {"F": F, "plan": plan, "err_plain": float((got - want).abs().max()),
+            "err_simt": float((got - simt).abs().max())}
+
+
 def fbank5_ffma_ms(S: int, F: int, padded: int, N2: int) -> float:
     """Kernel 5's design floor: its DFT's 3 x padded x 2 nfft f32 multiply-
     adds a frame at the card's f32 peak (two operations each)."""
@@ -997,13 +1063,14 @@ def fbank5_ffma_ms(S: int, F: int, padded: int, N2: int) -> float:
 
 
 def fbank_times(card):
-    """Kernels 1 and 5 beyond `check_kernels`' S = 256 and 3 of 16 kHz 1 s
+    """Kernels 1, 5 and 6 beyond `check_kernels`' S = 256 and 3 of 16 kHz 1 s
     chunks: at 16 and 8 kHz, 200 ms chunks at S = 1 and 256 and 1 s chunks at
-    S = 3 and 2048, each checked by `check_fbank`, and full-scale samples at
-    S = 3; then at S = 256 and 2048 of 16 kHz 1 s chunks each tiled kernel
-    and the CUDA-core kernel it displaces timed by CUDA events and by the
-    profiler's device time a launch, beside the bound (and kernel 5's
-    design's FFMA floor)."""
+    S = 3 and 2048, each checked by `check_fbank` (`check_frames`), and
+    full-scale samples at S = 3; then at S = 256 and 2048 of 16 kHz 1 s
+    chunks each tiled kernel and the CUDA-core kernel it displaces timed by
+    CUDA events and by the profiler's device time a launch, beside the bound
+    (and kernels 5's and 6's design's FFMA floor; kernel 6 also beside
+    `torch.mm` of its DFT product alone, f32, no TF32)."""
     from april_asr_tpu_torch.config import FbankOptions
     from april_asr_tpu_torch.frontend.fbank import FbankLayout
     from april_asr_tpu_torch.ops import fbank_kernels as FK
@@ -1027,6 +1094,19 @@ def fbank_times(card):
             print(f"kernel {kernel} {rate} Hz full-scale samples S=3: max abs err "
                   f"{r['err_plain']:.3g} against the plain version; bit for bit "
                   f"{FBANK[kernel]['simt']}")
+    for rate in (16000, 8000):
+        opts = FbankOptions(sample_freq=rate)
+        for S, seconds in ((1, 0.2), (S_FLAG, 0.2), (3, 1.0), (2048, 1.0)):
+            r = check_frames(FbankLayout.build(opts, int(rate * seconds)), S, rng, dev)
+            print(f"kernel 6 {rate} Hz S={S} F={r['F']} ({r['plan']}): max abs err "
+                  f"{r['err_plain']:.3g} against the plain version, {r['err_simt']:.3g} against "
+                  f"fbank_frames_simt (bit for bit); silent sessions log(K_EPS) bit for bit; two "
+                  f"launches equal")
+        layout = FbankLayout.build(opts, rate)
+        full = torch.from_numpy(rng.choice(edge, size=(3, layout.buf_len)).astype(np.float32))
+        r = check_frames(layout, 3, rng, dev, buf=full.to(dev))
+        print(f"kernel 6 {rate} Hz full-scale samples S=3: max abs err {r['err_plain']:.3g} "
+              f"against the plain version; bit for bit fbank_frames_simt")
     opts = FbankOptions()
     layout = FbankLayout.build(opts, CHUNK_1S)
     c, F, K = FK.fbank_constants(layout, dev), layout.max_frames, opts.padded_window_size
@@ -1053,6 +1133,24 @@ def fbank_times(card):
             print(f"kernel {kernel} S={S} F={F}: {k['source']} ms={k_ms:.4f} (device "
                   f"{k_dev:.1f} us a launch; {plan}), {k['simt']} ms={s_ms:.4f} (device "
                   f"{s_dev:.1f} us), bound_ms={b_ms:.4f} ({b_by}){floor} ({card})")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the DFT product in full f32, as kernel 6
+    for S in (S_FLAG, 2048):
+        frames = FK.frames_from_buf(layout, fbank_buffer(S, layout.buf_len, rng, dev))
+        plan = FK.frames_plan_for(c, S, F)
+        kf = lambda: FK.logmel_rows_fused(layout, frames)  # noqa: E731
+        sf = lambda: FK.fbank_frames_simt(c, frames)  # noqa: E731
+        mm = lambda: torch.mm(frames.reshape(S * F, K), c["dft"])  # noqa: E731
+        k_ms, s_ms, mm_ms = cuda_ms(kf, 10), cuda_ms(sf, 3, warmup=1), cuda_ms(mm, 10)
+        _, k_dev = host_and_device_us(kf, n=5, keys=("fbank_frames_tile_kernel",))
+        _, s_dev = host_and_device_us(sf, n=2, keys=("fbank_frames_kernel",))
+        mel_ops = 3 * 2 * S * F * nfft * nb
+        b_ms, b_by = bound_ms(S * F * K * 4 + S * F * nb * 4 + K * N2 * 4 + nfft * nb * 4,
+                              {"f32": 2 * S * F * K * N2, "bf16": mel_ops})
+        floor = 2 * S * F * K * N2 / PEAK_OPS["f32"] * 1e3
+        print(f"kernel 6 S={S} F={F}: csrc/fbank_frames_tile.cu ms={k_ms:.4f} (device "
+              f"{k_dev:.1f} us a launch; {plan}), fbank_frames_simt ms={s_ms:.4f} (device "
+              f"{s_dev:.1f} us), bound_ms={b_ms:.4f} ({b_by}), the design's FFMA floor "
+              f"{floor:.4f} ms, torch.mm of the DFT product alone (f32) ms={mm_ms:.4f} ({card})")
 
 
 REC = ("hseq", "h", "c")
@@ -1288,17 +1386,21 @@ def check_kernels(models: dict, S: int, P: int, seed: int) -> dict:
     # the stacked windows through conv_subsample
     out.update(check_conv_embed(models["bf16"].runtime, S, P, rng, t))
 
-    # 6. fbank_frames: the DSP on frames formed from the hop-row buffers,
-    # the DFT one f32 product; the fbank kernel bound, as kernels 1 and 5
+    # 6. fbank_frames (csrc/fbank_frames_tile.cu, by its route) and
+    # fbank_frames_simt (the CUDA-core kernel it displaces): the DSP on frames
+    # formed from the hop-row buffers, the DFT one f32 product; the fbank
+    # kernel bound, as kernels 1 and 5
     frames = FK.frames_from_buf(layout, buf)
-    kf = lambda: FK.logmel_rows_fused(layout, frames)  # noqa: E731
     pf = lambda: FK.logmel_rows_fused_plain(c, frames)  # noqa: E731
-    got, want = kf(), pf()
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
     b = bound_ms(S * F * K * 4 + S * F * nb * 4 + K * N2 * 4 + nfft * nb * 4,
                  {"f32": 2 * S * F * K * N2, "bf16": mel_ops})
-    out["fbank_frames"] = (kf, pf, float((got - want).abs().max()), b, f"frames[{S},{F},{K}]")
+    for name, kf in (("fbank_frames", lambda: FK.logmel_rows_fused(layout, frames)),
+                     ("fbank_frames_simt", lambda: FK.fbank_frames_simt(c, frames))):
+        got, want = kf(), pf()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+        out[name] = (kf, pf, float((got - want).abs().max()), b, f"frames[{S},{F},{K}]")
+    check_frames(layout, S, np.random.default_rng(seed + 41), dev)
     return out
 
 
@@ -1318,81 +1420,126 @@ def stacked_embed(rt, front, P: int):
     return rt.encoder_embed(rt.weights, windows.reshape(P * S, seg, -1)).reshape(P, S, -1)
 
 
-def embed_bound(rt, S: int, P: int) -> tuple:
-    """(multiply-adds a window, bound_ms, bound_by) of kernel 16 on `rt`'s
-    geometry: each window's work as the function defines it (conv1 rows
-    0..6, conv2 rows 0..2, conv3, the projection) at the bf16 rate, and the
-    front, output and weights once."""
+def embed_bound(rt, S: int, P: int, front: bool = False) -> tuple:
+    """(multiply-adds of the call, bound_ms, bound_by) on `rt`'s geometry,
+    each at the bf16 rate, with the front, output and weights moved once.
+    Kernel 16: each window's work as the function defines it (conv1 rows
+    0..6, conv2 rows 0..2, conv3, the projection). Kernel 17 (`front`):
+    conv1 once per buffer row that a window reads (rows 0..(P - 1) step +
+    6: conv2 reads a window's conv1 rows 0..6), three taps more for each
+    window's corrected top row and, where conv2 reads it (seg 7), its
+    corrected bottom row (row seg - 1), then kernel 16's conv2, conv3 and
+    projection a window."""
     dims = rt.dims
     seg, step, mel, d = dims.segment_size, dims.segment_step, dims.mel, dims.d_model
     c1, c2, c3 = dims.conv_channels
     f2 = (mel - 3) // 2 + 1
     f3 = (f2 - 3) // 2 + 1
-    macs = 7 * mel * c1 * 9 + 3 * f2 * c2 * 9 * c1 + f3 * c3 * 9 * c2 + f3 * c3 * d
+    tail = 3 * f2 * c2 * 9 * c1 + f3 * c3 * 9 * c2 + f3 * c3 * d
     W = (P - 1) * step + seg
+    if front:
+        rows = min(W, (P - 1) * step + 7)
+        edges = 1 + (seg - 1 < 7)
+        macs = S * rows * mel * c1 * 9 + P * S * (edges * 3 * mel * c1 + tail)
+    else:
+        macs = P * S * (7 * mel * c1 * 9 + tail)
     n_bytes = S * W * mel * 4 + P * S * d * 4 + c1 * 9 * 4 + (9 * c1 * c2 + 9 * c2 * c3
                                                              + f3 * c3 * d) * 2
-    return (macs, *bound_ms(n_bytes, {"bf16": 2 * P * S * macs}))
+    return (macs, *bound_ms(n_bytes, {"bf16": 2 * macs}))
 
 
-def embed_ffma_ms(macs: int, S: int, P: int) -> float:
-    """Kernel 16's design floor: its multiply-adds on the CUDA cores at the
-    card's f32 peak (two operations each)."""
-    return 2 * P * S * macs / PEAK_OPS["f32"] * 1e3
+def embed_ffma_ms(macs: int) -> float:
+    """A conv embed design's floor: its `macs` multiply-adds on the CUDA
+    cores at the card's f32 peak (two operations each)."""
+    return 2 * macs / PEAK_OPS["f32"] * 1e3
 
 
 def check_conv_embed(rt, S: int, P: int, rng, t) -> dict:
-    """Kernels 16 and 17 on `rt`'s bf16 weights. Kernel 16 by its route
-    launches csrc/conv_embed_tile.cu on its plan (its count, and no
-    CUDA-core launch), bit for bit the CUDA-core kernel it replaced
-    (`conv_embed_simt`); each of the three held to `_embed_close` against
-    the plain version, at the flip bound of `rt`'s weights and this front's
-    activations. The time bound: `embed_bound`."""
+    """Kernels 16 and 17 on `rt`'s bf16 weights. Each by its route launches
+    csrc/conv_embed_tile.cu on its plan (its count, and no CUDA-core
+    launch), bit for bit the CUDA-core kernel it replaced (`conv_embed_simt`,
+    `conv_embed_front_simt`); kernel 17 again so at seg 7, where conv3 reads
+    a window's corrected bottom row. Each of the four held to `_embed_close`
+    against the plain version, at the flip bound of `rt`'s weights and this
+    front's activations; kernel 17 at seg 7 at its flip bound and finite
+    everywhere, and to its mean and clean share where the run has at least
+    S_FLAG windows (they are window statistics: on 7 windows one flipped
+    high-gain activation can move the mean past 2e-4, as the template, with
+    the same bits, does, and as JAX's `conv_embed_from_front` does on the
+    CPU, PERF.md PR 25). The time bound:
+    `embed_bound`, kernel 17's with `front`."""
     from april_asr_tpu_torch.ops import conv_embed_kernels as CE
-    from april_asr_tpu_torch.ops import cuda_build
 
     w, dims = rt.weights, rt.dims
     seg, step, mel = dims.segment_size, dims.segment_step, dims.mel
     front = front_buffer(rt, S, P, rng, t)
     pf = lambda: CE.conv_embed_plain(w, front, P, step, seg)  # noqa: E731
-    _, *b = embed_bound(rt, S, P)
-    plan = CE.embed_plan_for(w, S, P, mel, seg)
-    what = f"conv_embed S={S} P={P} d={dims.d_model} c={dims.conv_channels}"
+    bounds = {k: tuple(embed_bound(rt, S, P, front=k)[1:]) for k in (False, True)}
+    what = f"S={S} P={P} d={dims.d_model} c={dims.conv_channels}"
     entries = (("conv_embed", CE.conv_embed_windows), ("conv_embed_simt", CE.conv_embed_simt),
-               ("conv_embed_front", CE.conv_embed_from_front))
-    before = dict(cuda_build.COUNTS)
-    got = {"conv_embed": CE.conv_embed_windows(w, front, P=P, step=step, seg=seg)}
-    launched = {n: cuda_build.COUNTS[n] - before[n] for n in ("conv_embed", "conv_embed_simt")}
-    if plan is None or launched != {"conv_embed": 1, "conv_embed_simt": 0}:
-        raise AssertionError(f"{what}: the route launched {launched} ({plan}), not "
-                             "csrc/conv_embed_tile.cu once")
-    for name, entry in entries[1:]:
-        got[name] = entry(w, front, P=P, step=step, seg=seg)
-    _bit_equal([got["conv_embed"]], [got["conv_embed_simt"]], ("embed",),
-               f"{what} ({plan}) against conv_embed_simt")
+               ("conv_embed_front", CE.conv_embed_from_front),
+               ("conv_embed_front_simt", CE.conv_embed_front_simt))
+    got = {}
+    for k in (0, 2):
+        (name, entry), (simt, simt_entry) = entries[k], entries[k + 1]
+        got[name] = routed_embed(w, front, P, step, seg, name, entry, f"{name} {what}")
+        got[simt] = simt_entry(w, front, P=P, step=step, seg=seg)
+        _bit_equal([got[name]], [got[simt]], ("embed",), f"{name} {what} against {simt}")
     want = pf()
     flip = embed_flip_bound(w, embed_amax(w, front, P, step, seg))
     out = {}
     for name, entry in entries:
         kf = lambda entry=entry: entry(w, front, P=P, step=step, seg=seg)  # noqa: E731
         err, stats = _embed_close(got[name], want, name, flip)
-        out[name] = (kf, pf, err, tuple(b), f"front[{S},{front.shape[1]},{mel}] P={P}: {stats}")
+        out[name] = (kf, pf, err, bounds["front" in name],
+                     f"front[{S},{front.shape[1]},{mel}] P={P}: {stats}")
+    if seg != 7:  # kernel 17 at seg 7 on the same weights
+        W7 = (P - 1) * step + 7
+        f7 = t((rng.normal(size=(S, W7, mel)) * 2.0 - 6.0).astype(np.float32))
+        what7 = f"conv_embed_front seg=7 {what}"
+        g7 = routed_embed(w, f7, P, step, 7, "conv_embed_front", CE.conv_embed_from_front, what7)
+        _bit_equal([g7], [CE.conv_embed_front_simt(w, f7, P=P, step=step, seg=7)], ("embed",),
+                   f"{what7} against conv_embed_front_simt")
+        err, stats = _embed_close(g7, CE.conv_embed_plain(w, f7, P, step, 7), what7,
+                                  embed_flip_bound(w, embed_amax(w, f7, P, step, 7)),
+                                  window_stats=S * P >= S_FLAG)
+        print(f"{what7}: max abs err {err:.3g} against the plain version ({stats}"
+              f"{'' if S * P >= S_FLAG else '; the flip bound alone on so few windows'})")
+    return out
+
+
+def routed_embed(w, front, P: int, step: int, seg: int, name: str, entry, what: str):
+    """`entry` (kernel 16's or 17's route) on `front`: it must launch
+    csrc/conv_embed_tile.cu on its plan once (count `name`) and its
+    CUDA-core kernel (`name`_simt) no time. Returns the output."""
+    from april_asr_tpu_torch.ops import conv_embed_kernels as CE
+    from april_asr_tpu_torch.ops import cuda_build
+
+    simt = name + "_simt" if name == "conv_embed_front" else "conv_embed_simt"
+    plan = CE.embed_plan_for(w, front.shape[0], P, front.shape[2], seg, name == "conv_embed_front")
+    before = dict(cuda_build.COUNTS)
+    out = entry(w, front, P=P, step=step, seg=seg)
+    launched = {n: cuda_build.COUNTS[n] - before[n] for n in (name, simt)}
+    if plan is None or launched != {name: 1, simt: 0}:
+        raise AssertionError(f"{what}: the route launched {launched} ({plan}), not "
+                             "csrc/conv_embed_tile.cu once")
     return out
 
 
 def embed_times(models, card):
-    """Kernel 16 beyond `check_kernels`' S = 256 and 3: at S = 2048 of 1 s
-    chunks and at S = 1 and 256 of the session's 200 ms chunks, each checked
-    by `check_conv_embed` (at S = 2048, 55,296 windows, as everywhere: the
-    flip bound holds at any number of windows). Then at S = 256 and 2048 of
-    1 s chunks the tiled
-    kernel, `conv_embed_simt` and the stacked embed it displaced in the step
-    (windows stacked, then three cuDNN convolutions and the projection)
-    timed by CUDA events, the two kernels also by the profiler's device time
-    a call, beside the bound and the design's FFMA floor."""
+    """Kernels 16 and 17 beyond `check_kernels`' S = 256 and 3: at S = 2048
+    of 1 s chunks and at S = 1 and 256 of the session's 200 ms chunks, each
+    checked by `check_conv_embed` (at S = 2048, 55,296 windows, as
+    everywhere: the flip bound holds at any number of windows). Then at S =
+    256 and 2048 of 1 s chunks kernel 16's tiled kernel, `conv_embed_simt`
+    and the stacked embed it displaced in the step (windows stacked, then
+    three cuDNN convolutions and the projection) timed by CUDA events, and
+    kernel 17's tiled kernel and `conv_embed_front_simt`, the four kernels
+    also by the profiler's device time a call, beside the bound and the
+    designs' FFMA floors."""
     from april_asr_tpu_torch.frontend.fbank import FbankLayout
     from april_asr_tpu_torch.ops import conv_embed_kernels as CE
-    from april_asr_tpu_torch.tools.profile_embed import PROJ_KEYS, SIMT_KEYS, STACK_KEYS
+    from april_asr_tpu_torch.tools.profile_embed import FRONT_KEYS, PROJ_KEYS, SIMT_KEYS, STACK_KEYS
     from april_asr_tpu_torch.tools.profile_lstm_mma import host_and_device_us
 
     rt = models["bf16"].runtime
@@ -1405,7 +1552,9 @@ def embed_times(models, card):
     for S, P in ((2048, P1), (1, P200), (S_FLAG, P200)):
         r = check_conv_embed(rt, S, P, rng, t)
         print(f"kernel 16 S={S} P={P}: max abs err {r['conv_embed'][2]:.3g} against the plain "
-              f"version ({r['conv_embed'][4]}); bit for bit conv_embed_simt")
+              f"version ({r['conv_embed'][4]}); bit for bit conv_embed_simt; kernel 17 max abs "
+              f"err {r['conv_embed_front'][2]:.3g} ({r['conv_embed_front'][4]}); bit for bit "
+              f"conv_embed_front_simt")
     for S in (S_FLAG, 2048):
         front = front_buffer(rt, S, P1, rng, t)
         plan = CE.embed_plan_for(w, S, P1, mel, seg)
@@ -1419,7 +1568,22 @@ def embed_times(models, card):
         print(f"kernel 16 S={S} P={P1}: csrc/conv_embed_tile.cu ms={k_ms:.4f} (device "
               f"{k_dev:.1f} us a call; {plan}), conv_embed_simt ms={s_ms:.4f} (device "
               f"{s_dev:.1f} us), stacked embed ms={st_ms:.4f}, bound_ms={b_ms:.4f} ({b_by}), the "
-              f"design's FFMA floor {embed_ffma_ms(macs, S, P1):.4f} ms ({card})")
+              f"design's FFMA floor {embed_ffma_ms(macs):.4f} ms ({card})")
+        plan = CE.embed_plan_for(w, S, P1, mel, seg, front=True)
+        kf = lambda: CE.conv_embed_from_front(w, front, P=P1, step=step, seg=seg)  # noqa: E731
+        sf = lambda: CE.conv_embed_front_simt(w, front, P=P1, step=step, seg=seg)  # noqa: E731
+        k_ms, s_ms = cuda_ms(kf, 10), cuda_ms(sf, 5, warmup=1)
+        _, k_dev = host_and_device_us(kf, n=5, keys=FRONT_KEYS + PROJ_KEYS)
+        _, s_dev = host_and_device_us(sf, n=2, keys=SIMT_KEYS)
+        # the design's floor: kernel 16's multiply-adds (conv1 on a window's
+        # own seven rows) and each window's top row correction, three taps a
+        # (freq, channel)
+        floor = embed_ffma_ms(macs + P1 * S * 3 * mel * dims.conv_channels[0])
+        _, b_ms, b_by = embed_bound(rt, S, P1, front=True)
+        print(f"kernel 17 S={S} P={P1}: csrc/conv_embed_tile.cu ms={k_ms:.4f} (device "
+              f"{k_dev:.1f} us a call; {plan}), conv_embed_front_simt ms={s_ms:.4f} (device "
+              f"{s_dev:.1f} us), bound_ms={b_ms:.4f} ({b_by}), the design's FFMA floor "
+              f"{floor:.4f} ms ({card})")
 
 
 SOURCES = {
@@ -1482,10 +1646,14 @@ SOURCES = {
                    "april_asr_tpu/ops/conv_embed_pallas.py:333"),
     "conv_embed_simt": ("april_asr_tpu_torch/csrc/conv_embed.cu",
                         "april_asr_tpu/ops/conv_embed_pallas.py:333"),
-    "conv_embed_front": ("april_asr_tpu_torch/csrc/conv_embed.cu",
+    "conv_embed_front": ("april_asr_tpu_torch/csrc/conv_embed_tile.cu",
                          "april_asr_tpu/ops/conv_embed_pallas.py:438"),
-    "fbank_frames": ("april_asr_tpu_torch/csrc/fbank_bf16x3.cu",
+    "conv_embed_front_simt": ("april_asr_tpu_torch/csrc/conv_embed.cu",
+                              "april_asr_tpu/ops/conv_embed_pallas.py:438"),
+    "fbank_frames": ("april_asr_tpu_torch/csrc/fbank_frames_tile.cu",
                      "april_asr_tpu/ops/fbank_pallas.py:163"),
+    "fbank_frames_simt": ("april_asr_tpu_torch/csrc/fbank_bf16x3.cu",
+                          "april_asr_tpu/ops/fbank_pallas.py:163"),
     "lstm_rec_i8": ("april_asr_tpu_torch/csrc/lstm_hoist.cu",
                     "april_asr_tpu/ops/lstm_pallas.py:814"),
     "lstm_rec_stream_i8": ("april_asr_tpu_torch/csrc/lstm_hoist.cu",
@@ -3222,12 +3390,16 @@ def tp_engine(model, path: str, prec: str, card, ticks: int = 2) -> dict:
     return _merge(*c0)
 
 
-def phase_tp(models, path: str, card, reps: int = 20):
+def phase_tp(models, tmp: str, card, reps: int = 20):
     """Kernels 18-21 per shard at flagship widths (`check_tp_kernels`: m =
     2 at S=256, timed, each beside the column-pass kernel it replaced
     (`tp_times`); again at S=3, and at m = 4 (Hs 256, Fs 512) at S=256 and
-    3), then the two-rank TP engine at int8 and at f32 (`tp_engine`).
-    Returns (JSON rows, {precision: rank 0's launch counts})."""
+    3), then the two-rank TP engine at int8 and at f32 (`tp_engine`) on a
+    random model at the flagship's widths and TP_ENGINE's depth, written
+    under `tmp`. Returns (JSON rows, {precision: rank 0's launch counts})."""
+    from april_asr_tpu_torch.api import Model
+    from april_asr_tpu_torch.models.lstm_transducer import TransducerDims
+
     t0 = time.perf_counter()
     checked = check_tp_kernels(models, S_FLAG, seed=13)
     rows = time_rows(checked, card, reps)
@@ -3237,7 +3409,11 @@ def phase_tp(models, path: str, card, reps: int = 20):
         more = check_tp_kernels(models, S, seed=seed, m=m)
         print(f"tp kernels at S={S}, m={m}: " + ", ".join(
             f"{n} max_abs_err={v[2]:.3g}" for n, v in more.items()))
-    counts = {prec: tp_engine(models[prec], path, prec, card) for prec in ("int8", "f32")}
+    tp_dir = os.path.join(tmp, "tp")
+    os.makedirs(tp_dir)
+    path = flagship_april(tp_dir, dims=TransducerDims(**TP_ENGINE))
+    counts = {prec: tp_engine(Model(path, precision="int8" if prec == "int8" else None,
+                                    device=DEV), path, prec, card) for prec in ("int8", "f32")}
     print(f"tp: {time.perf_counter() - t0:.1f} s")
     return rows, counts
 
@@ -3273,9 +3449,17 @@ def main(argv=None) -> int:
                 launches.setdefault(PATH_ROW.get(path, {}).get(k, k), counts[k])
 
     t_start = time.perf_counter()
+    last = [t_start]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        print(f"phase {name}: {now - last[0]:.1f} s")
+        last[0] = now
+
     with tempfile.TemporaryDirectory() as tmp:
         if "build" in phases:
             phase_build(card)
+            phase_done("build")
         models, vocab_path = {}, None
         if {"kernels", "engine", "session", "tp"} & set(phases):
             t0 = time.perf_counter()
@@ -3294,16 +3478,20 @@ def main(argv=None) -> int:
                   f"f32 and bf16 in {time.perf_counter() - t0:.1f} s")
         if "kernels" in phases:
             kernels = phase_kernels(models, card)
+            phase_done("kernels")
         if "reference" in phases:
             for prec in ("int8", "bf16", "f32"):
                 phase_reference(card, prec)
+            phase_done("reference")
         if "engine" in phases:
             for prec in ("int8", "bf16", "f32"):
                 record(phase_engine(models[prec], card, prec, ab=prec != "f32"), prec)
+            phase_done("engine")
         if "session" in phases:
             record(phase_session(models["int8"], card, "int8"), "int8")
             # Model(path) with no precision: the weights as loaded (f32)
             record(phase_session(models["f32"], card, "f32"), "f32")
+            phase_done("session")
         if "vocab" in phases:
             narrow_dir = os.path.join(tmp, "narrow")
             os.makedirs(narrow_dir)
@@ -3313,20 +3501,25 @@ def main(argv=None) -> int:
             counts = phase_vocab(models, vocab_path, narrow_path, card)
             record(counts, "vocab f32")
             record(counts, "vocab bf16")
+            phase_done("vocab")
         if "widths" in phases:
             rows, counts = phase_widths(tmp, card)
             kernels += rows
             for p, c in counts.items():
                 record(c, p)
+            phase_done("widths")
         if "chunk" in phases:
             kernels += phase_chunk(card)
+            phase_done("chunk")
         if "matmul" in phases:
             kernels += phase_matmul(card)
+            phase_done("matmul")
         if "tp" in phases:
-            rows, counts = phase_tp(models, path, card)
+            rows, counts = phase_tp(models, tmp, card)
             kernels += rows
             for prec, c in counts.items():
                 record(c, f"tp {prec}")
+            phase_done("tp")
     for k in kernels:
         k["launches"] = launches.get(COUNT_KEY.get(k["name"], k["name"]), 0)
     print(f"total: {time.perf_counter() - t_start:.1f} s")

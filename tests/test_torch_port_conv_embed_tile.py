@@ -163,18 +163,37 @@ def _widths(w: dict) -> tuple:
     return w["w1"].shape[0], w["w2k"].shape[1], w["w3k"].shape[1], w["wo"].shape[1]
 
 
-def emulate_tile(w: dict, front: torch.Tensor, P: int, step: int, seg: int, nw_max: int
-                 ) -> torch.Tensor:
+def stage_windows(front: torch.Tensor, m0: int, nw: int, step: int, seg: int,
+                  from_front: bool = False) -> torch.Tensor:
+    """A group's staged rows [nw, rows, mel + 2] as csrc/conv_embed_tile.cu
+    stages them: window m = j S + s is session s's rows from j step (kernel
+    17: from j step - 1, `CE.staged_rows` of them, zero outside [0, W)),
+    bf16-rounded, with a zero column each side."""
+    S, W, mel = front.shape
+    rows, r0 = CE.staged_rows(seg, from_front), -1 if from_front else 0
+    xw = torch.zeros(nw, rows, mel + 2)
+    for jl in range(nw):
+        j, s = divmod(m0 + jl, S)
+        for r in range(rows):
+            br = j * step + r0 + r
+            if 0 <= br < W:
+                xw[jl, r, 1:mel + 1] = _bf(front[s, br])
+    return xw
+
+
+def emulate_tile(w: dict, front: torch.Tensor, P: int, step: int, seg: int, nw_max: int,
+                 from_front: bool = False) -> torch.Tensor:
     """csrc/conv_embed_tile.cu on groups of `nw_max` windows, launch by
     launch: the conv stack group by group (phase by phase, conv2 and conv3
     warp item by warp item, each lane's positions and offsets as the kernel
     computes them, on flat buffers in the kernel's layouts), then the
-    projection tile by tile, stage by stage. [P, S, dp]."""
+    projection tile by tile, stage by stage. With `from_front`, kernel 17's
+    conv stack (`conv_front_kernel`): its staged rows and conv1. [P, S, dp]."""
     S, W, mel = front.shape
     c1, c2, c3, dp = _widths(w)
     f2, f3, h1, h2, p2, ws2 = CE.conv_tile_dims(mel, c2)
     K, M, mp = f3 * c3, P * S, mel + 2
-    xn, BM, BN, BK = seg * mp, CE.PJ_BM, CE.PJ_BN, CE.PJ_BK
+    xn, BM, BN, BK = CE.staged_rows(seg, from_front) * mp, CE.PJ_BM, CE.PJ_BN, CE.PJ_BK
     mtiles, cols = -(-M // BM), -(-dp // BN) * BN
     w1s = w["w1"].t().reshape(-1)  # [9][c1], as staged
     w2s, w3s = w["w2k"].float().reshape(-1), w["w3k"].float().reshape(-1)
@@ -184,25 +203,36 @@ def emulate_tile(w: dict, front: torch.Tensor, P: int, step: int, seg: int, nw_m
         m0 = grp * nw_max
         nw = min(nw_max, M - m0)
         # staging
-        xw = torch.zeros(nw, seg, mp)
-        for jl in range(nw):
-            j, s = divmod(m0 + jl, S)
-            xw[jl, :, 1:mel + 1] = _bf(front[s, j * step: j * step + seg])
-        xw = xw.reshape(-1)
+        xw = stage_windows(front, m0, nw, step, seg, from_front).reshape(-1)
         # conv1: items (window, row, freq), their c1 channels
         i = torch.arange(nw * R1 * mel)
         jl, t, f = i // (R1 * mel), (i % (R1 * mel)) // mel, i % mel
         acc = torch.zeros(len(i), c1)
-        for dt in range(3):
-            wr = t + dt - 1
-            live = ((wr >= 0) & (wr < seg))[:, None]
-            for df in range(3):
-                x = xw[jl * xn + f + wr.clamp(0, seg - 1) * mp + df]
-                tap = w1s[(dt * 3 + df) * c1: (dt * 3 + df + 1) * c1]
-                acc = torch.where(live, acc + x[:, None] * tap, acc)
+        tap = lambda dt, df: w1s[(dt * 3 + df) * c1: (dt * 3 + df + 1) * c1]  # noqa: E731
+        if from_front:
+            # all nine taps over staged rows t .. t + 2, + b1; a window's top
+            # row less its dt = 0 taps' chain, at seg 7 its row seg - 1 less
+            # its dt = 2 taps'
+            for dt in range(3):
+                for df in range(3):
+                    acc = acc + xw[jl * xn + f + (t + dt) * mp + df][:, None] * tap(dt, df)
+            acc = acc + b1
+            for dt, rows in ((0, t == 0), (2, (t == seg - 1) & (seg - 1 < R1))):
+                e = torch.zeros(len(i), c1)
+                for df in range(3):
+                    e = e + xw[jl * xn + f + (t + dt) * mp + df][:, None] * tap(dt, df)
+                acc = torch.where(rows[:, None], acc - e, acc)
+        else:
+            for dt in range(3):
+                wr = t + dt - 1
+                live = ((wr >= 0) & (wr < seg))[:, None]
+                for df in range(3):
+                    x = xw[jl * xn + f + wr.clamp(0, seg - 1) * mp + df]
+                    acc = torch.where(live, acc + x[:, None] * tap(dt, df), acc)
+            acc = acc + b1
         a1 = torch.full((nw * R1 * 2 * h1 * c1,), float("nan"))
         dst = (((jl * R1 + t) * 2 + (f & 1)) * h1 + (f >> 1)) * c1
-        a1[dst[:, None] + torch.arange(c1)] = _bf(_dswish(acc + b1))
+        a1[dst[:, None] + torch.arange(c1)] = _bf(_dswish(acc))
         # conv2: warp items (channel group, position block)
         y2 = torch.full((nw * ws2,), float("nan"))
         n_pos, n_cg, pp = nw * R2 * f2, c2 // 8, CE.CT_PP2
@@ -270,8 +300,7 @@ def emulate_simt(w: dict, front: torch.Tensor, P: int, step: int, seg: int) -> t
     bias; each DoubleSwish and bf16 rounded; the projection from bo over k.
     [P, S, dp]."""
     S, W, mel = front.shape
-    c1, c2, c3, dp = _widths(w)
-    f2, f3 = CE.conv_tile_dims(mel, c2)[:2]
+    c1 = _widths(w)[0]
     x = torch.stack([front[:, j * step: j * step + seg] for j in range(P)])  # [P, S, seg, mel]
     x = torch.nn.functional.pad(_bf(x), (1, 1))
     w1 = w["w1"]
@@ -285,6 +314,17 @@ def emulate_simt(w: dict, front: torch.Tensor, P: int, step: int, seg: int) -> t
             for df in range(3):
                 acc = acc + x[:, :, wr, df: df + mel, None] * w1[:, dt * 3 + df]
         a1[:, :, t] = _bf(_dswish(acc + w["b1"]))
+    return simt_tail(w, a1)
+
+
+def simt_tail(w: dict, a1: torch.Tensor) -> torch.Tensor:
+    """csrc/conv_embed.cu after conv1, from its activations a1 [P, S, R1,
+    mel, c1]: conv2 and conv3 from 0 over (dt, df, ci), then the bias, each
+    DoubleSwish and bf16 rounded; the projection from bo over k. [P, S,
+    dp]."""
+    P, S, _, mel, c1 = a1.shape
+    _, c2, c3, dp = _widths(w)
+    f2, f3 = CE.conv_tile_dims(mel, c2)[:2]
     w2, w3 = w["w2k"].float(), w["w3k"].float()
     acc = torch.zeros(P, S, R2, f2, c2)
     for dt in range(3):
