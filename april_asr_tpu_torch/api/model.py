@@ -4,6 +4,7 @@ bindings/python/april_asr/_april.py:59-96, april_api.h:58-74)."""
 
 from __future__ import annotations
 
+import logging
 import os
 import threading
 from typing import Dict, Optional, Tuple
@@ -14,18 +15,28 @@ from ..config import DecodeConfig, EngineConfig
 from ..models.lstm_transducer import cast_weights, quantize_weights
 from ..models.loader import ModelRuntime, load_model
 
+log = logging.getLogger(__name__)
+
 
 def apply_precision(weights, precision: Optional[str]):
     """The serving precision policy: "f32" (or None/"": the weights as
     loaded), "bf16" (matrix weights cast to bf16, f32 accumulation), or
     "int8" (per-channel int8 copies of the encoder layer matrices, quantized
-    from the f32 originals, then the matrices cast to bf16)."""
+    from the f32 originals, then the matrices cast to bf16). As in the JAX
+    package, the interpreter's weights ({"enc", "dec", "joi"} of
+    initializers) serve only as loaded: "bf16" and "int8" raise
+    AttributeError there, "int8" after its warning that no matrix
+    quantizes."""
     if precision in (None, "", "f32", "float32"):
         return weights
     if precision in ("bf16", "bfloat16"):
         return cast_weights(weights, torch.bfloat16)
     if precision == "int8":
-        return cast_weights(quantize_weights(weights), torch.bfloat16)
+        w = quantize_weights(weights)  # quantizes from the f32 originals
+        if not any(k.endswith("_q8") for k in w):
+            log.warning("precision=int8: no quantizable encoder matrices found for this "
+                        "model family; serving with bf16 numerics")
+        return cast_weights(w, torch.bfloat16)
     raise ValueError(f"unknown precision {precision!r} (f32 | bf16 | int8)")
 
 

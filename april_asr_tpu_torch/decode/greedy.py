@@ -1,7 +1,10 @@
 """Batched frame-synchronous greedy transducer decode (port of
 april_asr_tpu/decode/greedy.py).
 
-`decode_step_pre` is one aas_process_logits step (src/april_session.c:306-429)
+`decode_step` is one aas_process_logits step from [S, V] logits (the
+interpreter's route): `greedy_prologue` takes them to (max_idx, max_val,
+blank_val), then `decode_step_pre`. `decode_step_pre` is one
+aas_process_logits step (src/april_session.c:306-429)
 over the session batch from the joiner prologue (max_idx, max_val,
 blank_val): early-emit ramp, repeat guard, punctuation margin, digit-dot
 exception, sentence-forced finalize, 72-token window with word-split
@@ -104,6 +107,25 @@ def _shift_left(words: torch.Tensor, shift: torch.Tensor, head: torch.Tensor) ->
 
 def _w(cond, a, b):
     return torch.where(cond, a, b)
+
+
+def greedy_prologue(logits: torch.Tensor, blank_id: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """[S, V] logits -> (max_idx, max_val, blank_val), the only three values
+    the greedy heuristics consume (april_session.c:311-320): the best
+    non-blank token (first of equals), its logit, and the blank's."""
+    V = logits.shape[1]
+    vocab_iota = torch.arange(V, device=logits.device)[None, :]
+    masked = torch.where(vocab_iota == blank_id, NEG_INF, logits)
+    return masked.argmax(dim=1).to(torch.int32), masked.amax(dim=1), logits[:, blank_id]
+
+
+def decode_step(
+    state, logits, active, early_emit: float, blank_id: int, vt: Dict[str, np.ndarray],
+    cfg: DecodeConfig,
+) -> Tuple[dict, dict, torch.Tensor, torch.Tensor]:
+    """One aas_process_logits step over the batch (logits form)."""
+    max_idx, max_val, blank_val = greedy_prologue(logits, blank_id)
+    return decode_step_pre(state, max_idx, max_val, blank_val, active, early_emit, blank_id, vt, cfg)
 
 
 def decode_step_pre(

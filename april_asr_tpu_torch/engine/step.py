@@ -19,7 +19,11 @@ the JAX package's (see the layout note below).
 
 A runtime without `encoder_chunk` takes the per-pull recurrent scan
 instead of the chunk encoder and its decode: for each pull, `time_ms`,
-`encoder_recurrent` gated by the pull mask, then `inner_decode`. The
+`encoder_recurrent` gated by the pull mask, then `inner_decode`. A runtime
+without a split encoder (`encoder_embed` None: the ONNX interpreter's,
+models/loader.py `kind="interp"`) steps as the flush does, P rounds of
+`pull_once` (JAX step.py:607-615), and decodes from its joiner's logits
+(`inner_decode`'s third branch); its frontend is kernel 5. The
 tensor-parallel programs (`build_engine(..., mesh=)`, one process per model
 shard over torch.distributed) are such a runtime: the encoder runs kernels
 18 and 20 (float) or 19 and 21 (int8) per layer on this shard with the
@@ -245,7 +249,10 @@ def init_engine_state(prog: EngineProgram, weights=None) -> Dict:
     rt = prog.rt
     w = rt.weights if weights is None else weights
     S, dev, dims = prog.batch, rt.device, rt.dims
-    dstate = init_decode_state(S, dims.context, dims.joiner_dim, rt.blank_id, prog.dcfg, dev)
+    # the interpreter's dims carry joiner_dim 0; its first decoder step
+    # below gives dout its width (JAX step.py engine_state_init_fn)
+    dstate = init_decode_state(S, dims.context, max(dims.joiner_dim, 1), rt.blank_id, prog.dcfg,
+                               dev)
     dstate["dout"] = rt.decoder_step(w, dstate["context"])
     dstate["dout_init"] = torch.ones(S, dtype=torch.bool, device=dev)
     (L, dh), (_, dc) = rt.state_shapes
@@ -367,13 +374,15 @@ def build_engine(
     layout = FbankLayout.build(rt.fbank_opts, cfg.chunk_samples)
     P = layout.max_pulls_per_step
     dev = rt.device
-    if torch.device(dev).type == "cuda":
+    native = rt.kind == "native"
+    if native and torch.device(dev).type == "cuda":
         check_kernel_plans(rt, batch, P, lstm_mma.device_sm(torch.device(dev)),
                            mesh.model_parallel if tp_axes else 1, dcfg.max_active_tokens,
                            device_max_clusters(dev, rt.weights["join_t"].element_size()))
     # int8-serving engines (weights with `_q8` copies) run the int8-DFT
-    # frontend, every other engine the bf16x3 one (JAX engine/step.py:481-486)
-    dft_i8 = is_quantized(rt.weights)
+    # frontend, every other engine (the interpreter's too) the bf16x3 one
+    # (JAX engine/step.py:481-486)
+    dft_i8 = native and is_quantized(rt.weights)
     vt = vocab_tables_device(rt.vocab)
     blank = rt.blank_id
     stride = layout.opts.segment_stride_ms
@@ -390,18 +399,35 @@ def build_engine(
 
     def inner_decode(weights, eout, can, dstate):
         """The <= 3-symbol masked inner loop of one pull (JAX step.py
-        `inner_decode`, its decoder_joiner_argmax branch): events {key: [S, 3]}."""
+        `inner_decode`): events {key: [S, 3]}. Its three branches, by what the
+        runtime has: the lazy-dout `decoder_joiner_argmax`; `joiner_argmax`
+        then the decoder step where the context changed; the joiner's
+        logits (the interpreter's), `decode_step`, then the decoder step."""
         dstate = dict(dstate)
         done = ~can
         evts = []
         for ee in INNER_STEPS_EMIT:
-            mi, mv, bv, dstate["dout"] = rt.decoder_joiner_argmax(
-                weights, dstate["context"], dstate["need_dec"], dstate["dout"], eout
-            )
-            dstate, evt, is_blank, need_dec = greedy.decode_step_pre(
-                dstate, mi, mv, bv, ~done, ee, blank, vt, dcfg
-            )
-            dstate["need_dec"] = need_dec
+            if rt.decoder_joiner_argmax is not None:
+                mi, mv, bv, dstate["dout"] = rt.decoder_joiner_argmax(
+                    weights, dstate["context"], dstate["need_dec"], dstate["dout"], eout
+                )
+                dstate, evt, is_blank, need_dec = greedy.decode_step_pre(
+                    dstate, mi, mv, bv, ~done, ee, blank, vt, dcfg
+                )
+                dstate["need_dec"] = need_dec
+            else:
+                if rt.joiner_argmax is not None:
+                    mi, mv, bv = rt.joiner_argmax(weights, eout, dstate["dout"])
+                    dstate, evt, is_blank, need_dec = greedy.decode_step_pre(
+                        dstate, mi, mv, bv, ~done, ee, blank, vt, dcfg
+                    )
+                else:
+                    logits = rt.joiner(weights, eout, dstate["dout"])
+                    dstate, evt, is_blank, need_dec = greedy.decode_step(
+                        dstate, logits, ~done, ee, blank, vt, dcfg
+                    )
+                new_dout = rt.decoder_step(weights, dstate["context"])
+                dstate["dout"] = torch.where(need_dec[:, None], new_dout, dstate["dout"])
             done = done | is_blank
             evts.append(evt)
         return dstate, {k: torch.stack([e[k] for e in evts], dim=1) for k in EVENT_KEYS}
@@ -426,12 +452,12 @@ def build_engine(
             per_pull.append(e)
         return dstate, {k: torch.stack([e[k] for e in per_pull]) for k in EVENT_KEYS}
 
-    def step(weights, state, audio_i16, n):
-        audio = audio_i16.to(torch.float32) / 32768.0  # april_session.c:520-522
-        n = n.to(torch.int32)
-        fb = fbank_accept_batch(layout, state["fbank"], audio, n, dft_i8)
-        h, c, dstate = state["h"], state["c"], state["decode"]
-        S = n.shape[0]
+    def split_pulls(weights, fb, h, c, dstate):
+        """Every pull of a step through the split encoder: one ring read of
+        every window, one batched embed, the chunk encoder and its decode (or
+        the per-pull recurrent scan), one advance. Returns the states and the
+        events {key: [P, S, 3]}."""
+        S = fb["fifo_len"].shape[0]
         W = (P - 1) * step_rows + seg
         front = fbank_front_batch(layout, fb, W)  # [S, W, mel]
         can = fb["fifo_len"][None, :] >= (
@@ -460,6 +486,23 @@ def build_engine(
             torch.div(fb["fifo_len"] - seg, step_rows, rounding_mode="floor") + 1, 0, P
         )
         fb = fbank_advance_n(layout, fb, n_pulled)
+        return fb, h, c, dstate, events
+
+    def step(weights, state, audio_i16, n):
+        audio = audio_i16.to(torch.float32) / 32768.0  # april_session.c:520-522
+        n = n.to(torch.int32)
+        fb = fbank_accept_batch(layout, state["fbank"], audio, n, dft_i8)
+        h, c, dstate = state["h"], state["c"], state["decode"]
+        if rt.encoder_embed is None:
+            # no split encoder: P pulls, each its own peek, encoder step,
+            # decode and advance (JAX step.py:607-615)
+            per_pull = []
+            for _ in range(P):
+                fb, h, c, dstate, e = pull_once(weights, fb, h, c, dstate)
+                per_pull.append(e)
+            events = {k: torch.stack([e[k] for e in per_pull]) for k in EVENT_KEYS}
+        else:
+            fb, h, c, dstate, events = split_pulls(weights, fb, h, c, dstate)
         events = {k: v.permute(1, 0, 2) for k, v in events.items()}  # [S, P, 3]
         new_state = {"fbank": fb, "h": h, "c": c, "decode": dstate}
         return new_state, pack_events(events, state["decode"]["time_ms"], stride,

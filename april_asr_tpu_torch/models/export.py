@@ -1,6 +1,10 @@
-"""Model export to `.april` (port of april_asr_tpu/models/export.py), native
-form only: a single safetensors blob of the f32 weights plus dims metadata
-(model type 64). The ONNX form waits for the ONNX slice.
+"""Model export to `.april` (port of april_asr_tpu/models/export.py, the
+LSTM family), with two output forms:
+
+  * ONNX form (model type 1): three opset-11 graphs built by io/onnx_build.py,
+    the reference library's format; the same bytes as the JAX package's.
+  * native form (model type 64): a single safetensors blob of the f32
+    weights plus dims metadata, the fastest to load.
 """
 
 from __future__ import annotations
@@ -11,7 +15,13 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ..io.container import MODEL_NATIVE_TRANSDUCER_TPU, AprilContainer, write_container
+from ..io.container import (
+    MODEL_LSTM_TRANSDUCER_STATELESS,
+    MODEL_NATIVE_TRANSDUCER_TPU,
+    AprilContainer,
+    write_container,
+)
+from ..io.onnx_build import build_transducer_graphs
 from ..io.params import ModelParameters
 from ..io.safetensors import save_safetensors_bytes
 from .lstm_transducer import TransducerDims, is_derived
@@ -53,21 +63,27 @@ def save_april(
     language: str = "en-us",
     form: str = "native",
 ) -> None:
-    """Write a native-form `.april` from a weights dict (tensors or arrays);
-    derived entries (decoder tables, int8 copies) are not written."""
-    if form != "native":
-        raise NotImplementedError(
-            "only form='native' is ported; the ONNX form (io/onnx_build.py) "
-            "waits for the ONNX slice"
-        )
+    """Write a `.april` from a weights dict (tensors or arrays); derived
+    entries (decoder tables, int8 copies) are not written.
+
+    form="native": the port's default, type 64 (safetensors payload).
+    form="onnx": reference-compatible, type 1 (3 ONNX networks)."""
     np_params = {k: _np(v) for k, v in params.items() if not is_derived(k)}
-    meta = {"dims": dataclasses.asdict(dims), "arch": "lstm"}
+    if form == "onnx":
+        networks = list(build_transducer_graphs(dims, np_params))
+        model_type = MODEL_LSTM_TRANSDUCER_STATELESS
+    elif form == "native":
+        meta = {"dims": dataclasses.asdict(dims), "arch": "lstm"}
+        networks = [save_safetensors_bytes(np_params, metadata=meta)]
+        model_type = MODEL_NATIVE_TRANSDUCER_TPU
+    else:
+        raise ValueError(f"unknown export form {form!r}")
     container = AprilContainer(
         language=language,
         name=name,
         description=description,
-        model_type=MODEL_NATIVE_TRANSDUCER_TPU,
+        model_type=model_type,
         params=model_params,
-        networks=[save_safetensors_bytes(np_params, metadata=meta)],
+        networks=networks,
     )
     write_container(path, container)

@@ -58,8 +58,9 @@ def default_tokens(vocab: int, blank_id: int = 0) -> List[bytes]:
 
 class DecisionMargins:
     """Records, for every round of the plain greedy decode (the plain joiner
-    `ops/joiner_kernels.joiner_argmax_plain`, then `decode_step_pre`, in the
-    whole-chunk decode and in the per-pull `inner_decode` alike) and every
+    `ops/joiner_kernels.joiner_argmax_plain`, or the interpreter's logits
+    through `decode/greedy.py` `greedy_prologue`, then `decode_step_pre`, in
+    the whole-chunk decode and in the per-pull `inner_decode` alike) and every
     session, the smallest margin by which a float decision was taken: blank
     against the best token (with the early-emit bonus), the best token
     against the second best, and the punctuation and confident-blank
@@ -92,27 +93,36 @@ class DecisionMargins:
         from .ops import joiner_kernels as jk
 
         self._mods = (jk, greedy)
-        self._orig = (jk.joiner_argmax_plain, greedy.decode_step_pre)
+        self._orig = (jk.joiner_argmax_plain, greedy.decode_step_pre, greedy.greedy_prologue)
         self._gap = None
-        orig_prologue, orig_step = self._orig
+        orig_prologue, orig_step, orig_logits_prologue = self._orig
 
-        def prologue(eout, dout, w_t, b, blank_id):
-            logits = jk.joiner_logits_plain(eout, dout, w_t, b)
+        def top2_gap(logits, blank_id):
+            logits = logits.clone()
             logits[:, blank_id] = float("-inf")
             top2 = logits.topk(2, dim=1).values
             self._gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+
+        def prologue(eout, dout, w_t, b, blank_id):
+            top2_gap(jk.joiner_logits_plain(eout, dout, w_t, b), blank_id)
             return orig_prologue(eout, dout, w_t, b, blank_id)
+
+        def logits_prologue(logits, blank_id):
+            # the interpreter's route: the joiner's logits, then decode_step
+            top2_gap(logits, blank_id)
+            return orig_logits_prologue(logits, blank_id)
 
         def step(state, max_idx, max_val, blank_val, active, early_emit, blank_id, vt, cfg):
             self._record(state, max_idx, max_val, blank_val, active, early_emit, blank_id, vt, cfg)
             return orig_step(state, max_idx, max_val, blank_val, active, early_emit, blank_id, vt, cfg)
 
-        jk.joiner_argmax_plain, greedy.decode_step_pre = prologue, step
+        jk.joiner_argmax_plain, greedy.decode_step_pre, greedy.greedy_prologue = (
+            prologue, step, logits_prologue)
         return self
 
     def __exit__(self, *exc):
         jk, greedy = self._mods
-        jk.joiner_argmax_plain, greedy.decode_step_pre = self._orig
+        jk.joiner_argmax_plain, greedy.decode_step_pre, greedy.greedy_prologue = self._orig
 
     def _record(self, state, mi, mv, bv, active, early_emit, blank_id, vt, cfg):
         from .decode.greedy import MASK_PUNCT

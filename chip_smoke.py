@@ -5,7 +5,9 @@ Builds the port's CUDA kernels from csrc/, holds each against its plain
 PyTorch version at the flagship serving shapes, checks the streaming engine
 against the CPU (plain) engine on a small model at int8, bf16 and f32, drives a
 flagship BatchEngine at int8, bf16 and f32 and a synchronous Session at int8
-and at f32 (the weights as loaded), serves a flagship-width model with a
+and at f32 (the weights as loaded), loads the flagship's ONNX form (verified
+on the card, served beside its native form) and serves a model through the
+ONNX interpreter, serves a flagship-width model with a
 16,383-token vocabulary and a narrow one that no kernel 4 holds,
 serves models at the widths the port once refused (an int8 model wider than
 kernels 2 and 7 hold, a float model at d = 68, one at d = 66 whose widths
@@ -109,6 +111,15 @@ Phases (each fails the run on error):
              turns, with the device kernels that left the step
   session    one synchronous Session, 200 ms feeds over 3 s, then flush: at
              int8, and from Model(path) with no precision (f32 as loaded)
+  onnx       ONNX-form models: the flagship's weights written by the port
+             in both forms, the ONNX form loaded at int8 (extracted, then
+             verified on the card: kernel 12 must launch during the load;
+             kind "native", weights bit for bit the native form's) and both
+             served at S=256, 1 s chunks, 3 ticks and a flush with equal
+             blobs, each form's load seconds by stage; then the reference
+             model through the interpreter (prefer_native=False), CUDA vs
+             CPU engine over 5 ticks and a flush at S=8, its step and flush
+             ms and device kernels a step
   vocab      a flagship-width model with 16,383 tokens, which kernel 4
              cannot hold: the CUDA engine vs the CPU engine at S=8 (f32),
              then BatchEngine S=256 at f32 and bf16, 3 ticks and a flush,
@@ -211,8 +222,8 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("build", "kernels", "reference", "engine", "session", "vocab", "widths", "chunk", "matmul",
-          "tp")
+PHASES = ("build", "kernels", "reference", "engine", "session", "onnx", "vocab", "widths", "chunk",
+          "matmul", "tp")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory bytes/s and ops/s by type
 HBM_BPS = 3.35e12
@@ -384,9 +395,10 @@ def _stat_close(got, want, what, mean_tol=5e-3, p99_tol=0.05):
         raise AssertionError(f"{what}: mean {d.mean():.5f} p99 {np.percentile(d, 99):.5f}")
 
 
-def flagship_april(tmp: str, seed: int = 0, dims=None) -> str:
-    """A flagship-width random native .april (blank logit biased +2.0 as
-    bench.py does), written with the port's save_april; returns its path."""
+def flagship_april(tmp: str, seed: int = 0, dims=None, form: str = "native") -> str:
+    """A flagship-width random .april (blank logit biased +2.0 as bench.py
+    does), written with the port's save_april in `form` ("native", or
+    "onnx": the reference's three graphs); returns its path."""
     from april_asr_tpu_torch.models.export import make_model_parameters, save_april
     from april_asr_tpu_torch.models.lstm_transducer import TransducerDims, init_transducer_params
     from april_asr_tpu_torch.testing import default_tokens
@@ -394,9 +406,9 @@ def flagship_april(tmp: str, seed: int = 0, dims=None) -> str:
     dims = dims or TransducerDims()
     p = init_transducer_params(seed, dims)
     p["join_b"][0] += 2.0
-    path = os.path.join(tmp, f"flagship-v{dims.vocab}.april")
+    path = os.path.join(tmp, f"flagship-v{dims.vocab}{'-onnx' if form == 'onnx' else ''}.april")
     save_april(path, dims, p, make_model_parameters(dims, default_tokens(dims.vocab)),
-               name="flagship-random")
+               name="flagship-random", form=form)
     return path
 
 
@@ -445,6 +457,8 @@ PATH_KERNELS = {
                 "flush": ("fbank_i8", "tp_gc_i8", "tp_ffn_mid_i8", "dec_joiner")},
     "tp f32": {"step": ("fbank_bf16x3", "tp_gcp_f32", "tp_ffn_f32", "dec_joiner_f32"),
                "flush": ("fbank_bf16x3", "tp_gcp_f32", "tp_ffn_f32", "dec_joiner_f32")},
+    # the ONNX interpreter's engine: kernel 5, every graph node plain torch
+    "onnx interp": {"step": ("fbank_bf16x3",), "flush": ("fbank_bf16x3",)},
 }
 
 
@@ -2029,6 +2043,20 @@ def _lockstep(rt_dev, rt_cpu, S: int, chunk: int, ticks: int, seed: int, what: s
           f"(step, cell, margin): {parted} ({card})")
 
 
+def reference_model() -> tuple:
+    """The `reference` phase's tiny model (3 layers, d 128, seed 3, blank
+    logit +2.0): (dims, f32 params, ModelParameters)."""
+    from april_asr_tpu_torch.models.export import make_model_parameters
+    from april_asr_tpu_torch.models.lstm_transducer import TransducerDims, init_transducer_params
+    from april_asr_tpu_torch.testing import default_tokens
+
+    dims = TransducerDims(d_model=128, hidden=128, ffn=256, joiner_dim=128, vocab=64,
+                          layers=3, decoder_groups=32, conv_channels=(4, 8, 8))
+    p = init_transducer_params(3, dims)
+    p["join_b"][0] += 2.0
+    return dims, p, make_model_parameters(dims, default_tokens(dims.vocab))
+
+
 def phase_reference(card, precision: str, ticks: int = 6):
     """A tiny model (3 layers, d 128), S=8, 200 ms chunks: `_lockstep` at
     `precision`. The steps run the chunk kernels and, at int8 and bf16,
@@ -2036,17 +2064,10 @@ def phase_reference(card, precision: str, ticks: int = 6):
     nothing is re-quantized or rounded to bf16, so every session is expected
     identical end to end; at bf16 a session may part only at a near-tie."""
     from april_asr_tpu_torch.api.model import apply_precision
-    from april_asr_tpu_torch.models.export import make_model_parameters
     from april_asr_tpu_torch.models.loader import native_runtime
-    from april_asr_tpu_torch.models.lstm_transducer import TransducerDims, init_transducer_params
     from april_asr_tpu_torch.ops import cuda_build
-    from april_asr_tpu_torch.testing import default_tokens
 
-    dims = TransducerDims(d_model=128, hidden=128, ffn=256, joiner_dim=128, vocab=64,
-                          layers=3, decoder_groups=32, conv_channels=(4, 8, 8))
-    p = init_transducer_params(3, dims)
-    p["join_b"][0] += 2.0
-    mp = make_model_parameters(dims, default_tokens(dims.vocab))
+    dims, p, mp = reference_model()
     rts = [native_runtime("ref", "", "en-us", mp, dims,
                           apply_precision({k: v.to(dev) for k, v in p.items()}, precision), dev)
            for dev in (DEV, "cpu")]
@@ -2251,6 +2272,157 @@ def phase_session(model, card, precision: str):
           f"(feeds {feed_s:.2f} s, flush {flush_s:.2f} s), P={P}, callbacks={kinds}, "
           f"step_launches={json.dumps(step_counts)} flush_launches={json.dumps(flush_counts)} ({card})")
     return _merge(step_counts, flush_counts)
+
+
+def onnx_flagship(tmp: str, card, dims=None, S: int = S_FLAG, ticks: int = 3) -> None:
+    """The `engine` phase's flagship weights written by the port's save_april
+    in both forms and loaded at int8 on the card: the ONNX form must extract
+    and verify (kind "native", kernel 12 launched by the load's
+    verification), with weights bit for bit the native form's; both serve
+    S sessions of 1 s chunks, `ticks` ticks of the engine phase's audio and
+    a flush, their event blobs equal call by call, the ONNX engine on the
+    int8 path's kernels."""
+    from april_asr_tpu_torch.api import Model
+    from april_asr_tpu_torch.config import EngineConfig
+    from april_asr_tpu_torch.engine.batch import BatchEngine
+    from april_asr_tpu_torch.ops import cuda_build
+    from april_asr_tpu_torch.testing import capture_events
+
+    d = os.path.join(tmp, "onnx")
+    os.makedirs(d, exist_ok=True)
+    models = {}
+    for form in ("native", "onnx"):
+        t0 = time.perf_counter()
+        path = flagship_april(d, dims=dims, form=form)
+        write_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        cuda_build.reset_counts()
+        t0 = time.perf_counter()
+        models[form] = Model(path, precision="int8", device=DEV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rt = models[form].runtime
+        k12 = cuda_build.COUNTS["lstm_step_f32"]
+        stages = ", ".join(f"{k} {v:.3f}" for k, v in rt.load_seconds.items())
+        print(f"onnx flagship {form} form ({os.path.getsize(path) / 2**20:.1f} MiB, written in "
+              f"{write_s:.2f} s): kind {rt.kind}, Model(precision='int8') in {wall:.3f} s, the load "
+              f"by stage (s): {stages}; kernel 12 (f32) launches in the load {k12}"
+              + (f"; verification's max |native - interpreter|: {json.dumps(rt.verify_max_diff)}"
+                 if rt.verify_max_diff else "") + f" ({card})")
+        if form == "onnx" and (rt.kind != "native" or k12 == 0):
+            raise AssertionError(f"onnx flagship: kind {rt.kind}, kernel 12 launched {k12} times "
+                                 f"by the load's verification")
+    wn, wo = models["native"].runtime.weights, models["onnx"].runtime.weights
+    if wn.keys() != wo.keys():
+        raise AssertionError(f"onnx flagship: weight keys differ: {set(wn) ^ set(wo)}")
+    differ = [k for k in wn if wn[k].dtype != wo[k].dtype or not torch.equal(wn[k], wo[k])]
+    if differ:
+        raise AssertionError(f"onnx flagship: weights differ from the native form's: {differ}")
+
+    chunk = CHUNK_1S
+    bufs = _tone_bufs(S, chunk, models["native"].runtime.sample_rate)
+    blobs, ms = {}, {}
+    for form, model in models.items():
+        eng = BatchEngine(model.runtime, batch=S, cfg=EngineConfig(chunk_samples=chunk))
+        blobs[form] = []
+        capture_events(eng.prog, lambda packed: packed.blob.cpu(), blobs[form])
+        for _ in range(S):
+            eng.alloc(lambda r, toks: None)
+        torch.cuda.synchronize()
+        cuda_build.reset_counts()
+        ms[form] = []
+        for k in range(ticks):
+            for s in range(S):
+                eng.feed(s, bufs[k % len(bufs)][s])
+            t0 = time.perf_counter()
+            eng.tick()
+            torch.cuda.synchronize()
+            ms[form].append((time.perf_counter() - t0) * 1e3)
+        step_counts = require_launches(f"onnx flagship {form} step", "int8", "step")
+        cuda_build.reset_counts()
+        t0 = time.perf_counter()
+        eng.flush(np.ones(S, bool))
+        torch.cuda.synchronize()
+        ms[form].append((time.perf_counter() - t0) * 1e3)
+        flush_counts = require_launches(f"onnx flagship {form} flush", "int8", "flush")
+        no_simt_joiner(f"onnx flagship {form}", _merge(step_counts, flush_counts))
+    if len(blobs["onnx"]) != ticks + 1 or len(blobs["native"]) != ticks + 1:
+        raise AssertionError("onnx flagship: a step or the flush was not captured")
+    for k, (a, b) in enumerate(zip(blobs["onnx"], blobs["native"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"onnx flagship: call {k} blobs differ from the native form's")
+    n_ev = sum(int(b[4 : 4 + S].sum()) for b in blobs["native"])
+    print(f"onnx flagship int8: S={S} chunk 1 s, {ticks} ticks + flush, blobs equal to the native "
+          f"form's at every call ({n_ev} events); tick ms ONNX form "
+          f"{[round(x, 2) for x in ms['onnx'][:-1]]} native form "
+          f"{[round(x, 2) for x in ms['native'][:-1]]}; flush ms {ms['onnx'][-1]:.1f} / "
+          f"{ms['native'][-1]:.1f} ({card})")
+
+
+def onnx_interp(tmp: str, card, S: int = 8, chunk: int = 3200, ticks: int = 5) -> None:
+    """The `reference` phase's model in ONNX form, loaded with
+    prefer_native=False on the card and on the CPU: the interpreter's CUDA
+    engine in lockstep with its CPU engine over `ticks` ticks and a flush
+    (`_lockstep`), on kernel 5 alone of the port's kernels; then on the
+    card its step ms, flush ms, wrapper launches and device kernels a step
+    (torch.profiler)."""
+    from april_asr_tpu_torch.config import EngineConfig
+    from april_asr_tpu_torch.engine.batch import BatchEngine
+    from april_asr_tpu_torch.models.export import save_april
+    from april_asr_tpu_torch.models.loader import load_model
+    from april_asr_tpu_torch.ops import cuda_build
+
+    dims, p, mp = reference_model()
+    path = os.path.join(tmp, "reference-onnx.april")
+    save_april(path, dims, p, mp, name="ref", form="onnx")
+    rts = [load_model(path, prefer_native=False, device=dev) for dev in (DEV, "cpu")]
+    if any(rt.kind != "interp" for rt in rts):
+        raise AssertionError(f"onnx interp: kinds {[rt.kind for rt in rts]}")
+    cuda_build.reset_counts()
+    _lockstep(*rts, S=S, chunk=chunk, ticks=ticks, seed=4, what="onnx interp", card=card)
+    require_launches("onnx interp lockstep", "onnx interp", "step")
+
+    rt = rts[0]
+    eng = BatchEngine(rt, batch=S, cfg=EngineConfig(chunk_samples=chunk))
+    for _ in range(S):
+        eng.alloc(lambda r, toks: None)
+    bufs = _tone_bufs(S, chunk, rt.sample_rate, seed=4)
+    torch.cuda.synchronize()
+    cuda_build.reset_counts()
+    tick_ms = []
+    for k in range(ticks):
+        for s in range(S):
+            eng.feed(s, bufs[k % len(bufs)][s])
+        t0 = time.perf_counter()
+        eng.tick()
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+    step_counts = require_launches("onnx interp step", "onnx interp", "step")
+    audio = torch.from_numpy(bufs[0]).to(DEV)
+    n = torch.full((S,), chunk, dtype=torch.int32, device=DEV)
+    run_step = lambda: eng.prog.step(eng.weights, eng.state, audio, n)  # noqa: E731
+    step_ms = wall_ms(run_step, 5)
+    prof = profile(run_step, card, "onnx interp step", n=1)
+    cuda_build.reset_counts()
+    t0 = time.perf_counter()
+    eng.flush(np.ones(S, bool))
+    torch.cuda.synchronize()
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    flush_counts = require_launches("onnx interp flush", "onnx interp", "flush")
+    print(f"onnx interp: S={S} chunk {chunk / rt.sample_rate:g} s P={eng.prog.layout.max_pulls_per_step} "
+          f"tick ms {[round(x, 1) for x in tick_ms]} step_ms median={np.median(step_ms):.1f} "
+          f"{[round(x, 1) for x in step_ms]} flush_ms {flush_ms:.1f}; wrapper launches a step "
+          f"{json.dumps({k: v / ticks for k, v in step_counts.items()})}, in the flush "
+          f"{json.dumps(flush_counts)}; device kernels a step "
+          f"{sum(c for _, c in prof.values()) if prof else 'not measured'} ({card})")
+
+
+def phase_onnx(tmp: str, card) -> None:
+    """ONNX-form models: the flagship extracted and verified on the card and
+    served at int8 beside its native form (`onnx_flagship`), then the
+    interpreter's engine against the CPU (`onnx_interp`)."""
+    onnx_flagship(tmp, card)
+    onnx_interp(tmp, card)
 
 
 def vocab_narrow(path: str, card):
@@ -3492,6 +3664,9 @@ def main(argv=None) -> int:
             # Model(path) with no precision: the weights as loaded (f32)
             record(phase_session(models["f32"], card, "f32"), "f32")
             phase_done("session")
+        if "onnx" in phases:
+            phase_onnx(tmp, card)
+            phase_done("onnx")
         if "vocab" in phases:
             narrow_dir = os.path.join(tmp, "narrow")
             os.makedirs(narrow_dir)

@@ -23,7 +23,8 @@
 * Trained model: the tiny tone-coded model trained with the JAX trainer, as
   tests/test_trained_e2e.py does, served by the port's Model at int8, bf16
   and f32 and a synchronous Session, must give exactly the training
-  transcripts at every precision.
+  transcripts at every precision; so must its ONNX form, written by the
+  port, both extracted (kind "native") and through the interpreter.
 """
 
 import numpy as np
@@ -236,12 +237,30 @@ def trained(tmp_path_factory):
     return str(native_april), pairs
 
 
-@pytest.mark.parametrize("precision", ["int8", "bf16", "f32"])
-def test_trained_int8_session_exact_transcripts(trained, precision):
+@pytest.fixture(scope="module")
+def trained_onnx(trained, tmp_path_factory):
+    """The trained model's ONNX form (the reference's format), written by
+    the port's save_april from the native file's weights: no second
+    training."""
+    from april_asr_tpu_torch.io.container import read_container
+    from april_asr_tpu_torch.io.safetensors import load_safetensors_bytes
+    from april_asr_tpu_torch.models.export import save_april
+    from april_asr_tpu_torch.models.lstm_transducer import TransducerDims
+
+    c = read_container(trained[0])
+    tensors, meta = load_safetensors_bytes(c.networks[0])
+    dims = TransducerDims(**{k: (tuple(v) if k == "conv_channels" else v)
+                             for k, v in meta["dims"].items()})
+    path = tmp_path_factory.mktemp("port_trained_onnx") / "trained_onnx.april"
+    save_april(path, dims, tensors, c.params, name=c.name, form="onnx")
+    return str(path)
+
+
+def _decode_all(model, pairs):
+    """Each utterance through a synchronous Session in 200 ms feeds and a
+    flush: its FINAL texts joined, else its last PARTIAL."""
     from april_asr_tpu.io.wav import read_wav
 
-    path, pairs = trained
-    model = Model(path, precision=precision, device="cpu")
     hyps = []
     for wav, _ in pairs:
         samples, _ = read_wav(wav)
@@ -260,7 +279,29 @@ def test_trained_int8_session_exact_transcripts(trained, precision):
         sess.flush()
         sess.close()
         hyps.append((" ".join(finals) if finals else partial[0]).strip())
+    return hyps
+
+
+@pytest.mark.parametrize("precision", ["int8", "bf16", "f32"])
+def test_trained_int8_session_exact_transcripts(trained, precision):
+    path, pairs = trained
+    model = Model(path, precision=precision, device="cpu")
+    hyps = _decode_all(model, pairs)
     refs = [ref for _, ref in pairs]
+    assert hyps == refs, f"\nhyp: {hyps}\nref: {refs}"
+
+
+@pytest.mark.parametrize("prefer_native,kind", [(True, "native"), (False, "interp")])
+def test_trained_onnx_form_exact_transcripts(trained, trained_onnx, monkeypatch, prefer_native,
+                                             kind):
+    """The ONNX form, extracted and verified (kind "native") and through the
+    interpreter (prefer_native=False), decodes the training transcripts
+    exactly, as tests/test_trained_e2e.py:133-154 holds the JAX package."""
+    monkeypatch.delenv("APRIL_PRECISION", raising=False)
+    model = Model(trained_onnx, prefer_native=prefer_native, device="cpu")
+    assert model.runtime.kind == kind
+    hyps = _decode_all(model, trained[1])
+    refs = [ref for _, ref in trained[1]]
     assert hyps == refs, f"\nhyp: {hyps}\nref: {refs}"
 
 

@@ -8,9 +8,9 @@
   (and no APRIL_PRECISION) serves the weights as loaded (f32), "bf16" casts
   the matrices, "int8" adds the int8 copies; every key and dtype equal, and
   f32 and bf16 models serve a Session through flush.
-* The port imports neither jax nor april_asr_tpu (nor does chip_smoke.py),
-  never runs on the CPU unless asked, and raises (never falls back) on what
-  it does not serve: ONNX-form models.
+* The port imports neither jax nor april_asr_tpu (nor does chip_smoke.py)
+  and never runs on the CPU unless asked. ONNX-form models:
+  tests/test_torch_port_onnx.py.
 """
 
 import ast
@@ -152,16 +152,6 @@ def test_default_precision(jax_native, monkeypatch):
         _same_weights_policy(w, JModel(path).runtime.weights)
         assert (w["w_ih_t"].dtype, "w_ih_t_q8" in w) == (dtype, q8), env
     assert Model(path, precision="f32", device="cpu").runtime.weights["w_ih_t"].dtype == torch.float32
-
-
-def test_onnx_form_raises(tmp_path):
-    dims = JM.TransducerDims(**DIMS_KW)
-    params = JM.init_transducer_params(jax.random.PRNGKey(2), dims)
-    path = str(tmp_path / "onnx.april")
-    j_save_april(path, dims, {k: np.asarray(v) for k, v in params.items()},
-                 j_mmp(dims, default_tokens(dims.vocab)), form="onnx")
-    with pytest.raises(NotImplementedError, match="ONNX"):
-        load_model(path, device="cpu")
 
 
 def test_import_guard():
