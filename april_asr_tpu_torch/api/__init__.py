@@ -1,4 +1,4 @@
-"""Public API: Model, synchronous Session, Result, Token."""
+"""Public API: Model, Session (sync, asynchronous, speaker), Result, Token."""
 
 from .model import Model
 from .session import Session

@@ -18,6 +18,11 @@ class Result(IntEnum):
     FINAL_RECOGNITION = 2
     ERROR_CANT_KEEP_UP = 3
     SILENCE = 4
+    # Framework extension (JAX api/types.py:20-24): the session's device
+    # state was lost to a contained engine failure and reset (the reference
+    # would abort() the process, ort_util.h:29-38). The session remains
+    # usable from fresh state.
+    SESSION_ERROR = 5
 
 
 class Token:

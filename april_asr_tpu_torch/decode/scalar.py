@@ -10,6 +10,9 @@ RESULT_PARTIAL = 1
 RESULT_FINAL = 2
 RESULT_CANT_KEEP_UP = 3
 RESULT_SILENCE = 4
+# the session's state was lost to a contained engine failure and reset
+# (engine/batch.py `_contain`, `scrub`); the reference aborts instead
+RESULT_SESSION_ERROR = 5
 
 
 @dataclasses.dataclass

@@ -7,24 +7,47 @@ and replays the returned event blob into per-session callbacks. Staged audio
 beyond `max_buffered_seconds` is dropped and the session's handler gets
 ERROR_CANT_KEEP_UP (reference: audio_provider.c:59-64,
 april_session.c:485-492).
+
+A failed step or flush is contained (JAX batch.py:365-446): the programs
+leave the state they are given unchanged, so the engine sweeps that state
+for non-finite rows, evicts just those slots (SESSION_ERROR) and runs the
+program again for the others; only where the retry fails too does every
+session restart from fresh state. Failures, retries and recoveries are
+logged through `logging` and counted in `CONTAINED` (the JAX package counts
+them as metrics). A tensor-parallel engine does not contain: a failure on
+one rank re-raises there, since the sweep is a collective that the other
+ranks, already in their next step's collectives, would not join.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
 from ..config import DecodeConfig, EngineConfig
-from ..decode.scalar import RESULT_CANT_KEEP_UP, ScalarToken
+from ..decode.scalar import RESULT_CANT_KEEP_UP, RESULT_SESSION_ERROR, ScalarToken
 from ..models.loader import ModelRuntime
 from .replay import EventReplayer
 from .step import EngineProgram, PackedEvents, build_engine, init_engine_state
 
 log = logging.getLogger(__name__)
+
+# Program failures caught by tick or flush ("failures") and restarts of a
+# whole engine ("recoveries"), by every engine of this process: plain ints
+# until the port has the JAX package's metrics counters. A run that must not
+# have failed reads them (testing.engine_run, chip_smoke.py).
+CONTAINED = {"failures": 0, "recoveries": 0}
+_contained_lock = threading.Lock()
+
+
+def _count(key: str) -> None:
+    with _contained_lock:
+        CONTAINED[key] += 1
 
 
 def replay_packed(packed, slots) -> int:
@@ -143,8 +166,97 @@ class BatchEngine:
         self._init_state = _map(self.state, lambda t: t.clone())
         self.slots: List[Optional[_Slot]] = [None] * batch
         self.max_staged = int(self.cfg.max_buffered_seconds * rt.sample_rate)
+        # realtime-speedup estimate (april_session.c:456-462: speed_needed =
+        # 0.9 old + 0.1 (1.1 elapsed / audio), EMA'd per inference round;
+        # here per engine tick over the batched chunk)
+        self._speed_ema = 1.0
         self._lock = threading.Lock()
+        # serialises every state transition (step, flush, slot reset, speaker
+        # snapshots); an RLock because flush drains through tick
         self._step_lock = threading.RLock()
+
+    # -- failure containment -----------------------------------------------
+
+    def _contain(self, exc: Exception, run) -> bool:
+        """Per-slot containment of a step or flush failure (JAX batch.py
+        `_contain`). The programs leave the state they are given unchanged,
+        so the pre-step state survived: sweep it for poisoned slots, evict
+        just those, then run the program again (`run(bad)`) for the others,
+        whose streams go on as if the failure had not happened. Where the
+        sweep or the retry fails too, `_recover`. Returns True when the
+        retry produced a result (stored by `run`). On a tensor-parallel
+        engine, re-raises `exc` instead."""
+        _count("failures")
+        if self.prog.tp_axes:
+            raise exc
+        log.error("engine program failed (%s: %s); scrubbing and retrying",
+                  type(exc).__name__, exc)
+        try:
+            bad = self._scrub_impl()
+            if bad:
+                log.warning("containment: evicted %d poisoned slot(s)", len(bad))
+            run(bad)
+            return True
+        except Exception as exc2:  # noqa: BLE001 - any program failure
+            self._recover(exc2)
+            return False
+
+    def _recover(self, exc: Exception) -> None:
+        """Last resort after a failed step or flush (JAX batch.py
+        `_recover`): the state is rebuilt from the initial template, every
+        live session's handler receives SESSION_ERROR, staged audio is
+        dropped, and the engine keeps serving. The reference aborts the
+        process instead (ort_util.h:29-38)."""
+        log.error("engine program failed (%s: %s); recovering", type(exc).__name__, exc)
+        _count("recoveries")
+        with self._step_lock:
+            self.state = _map(self._init_state, lambda t: t.clone())
+        with self._lock:
+            live = [s for s in self.slots if s is not None]
+        for s in live:
+            self._evict(s)
+
+    def _evict(self, s: _Slot) -> None:
+        """Drop a session's staged audio and decode history and tell its
+        handler (outside the staging lock, which a handler may take)."""
+        with self._lock:
+            s.staged = np.zeros(0, np.int16)
+            s.was_flushed = False
+            s.replayer = EventReplayer(self.rt.params, s.handler)
+        s.handler(RESULT_SESSION_ERROR, [])
+
+    def scrub(self) -> int:
+        """Sweep for silent numerical corruption (JAX batch.py `scrub`):
+        slots whose carried state (LSTM h and c, decoder output) holds a
+        non-finite value are reset to the initial template and their
+        handlers get SESSION_ERROR; the other sessions are untouched.
+        Returns the number of slots evicted. On a tensor-parallel engine
+        every rank calls it together (the verdict is all-reduced); its
+        failed programs are not contained."""
+        return len(self._scrub_impl())
+
+    def _scrub_impl(self) -> list:
+        """scrub()'s body; returns the evicted slot indices."""
+        with self._step_lock:
+            evicted = [int(i) for i in np.nonzero(self._bad_slots())[0]]
+            for i in evicted:
+                self._reset_slot_state(i)
+                if self.slots[i] is not None:
+                    self._evict(self.slots[i])
+        return evicted
+
+    def _bad_slots(self) -> np.ndarray:
+        """[S] bool: a non-finite h, c or dout row, one reduction on the
+        state's device (over every rank's slice of c on a TP engine)."""
+        with torch.no_grad():
+            st = self.state
+            ok = (torch.isfinite(st["h"]).all(dim=2).all(dim=0)
+                  & torch.isfinite(st["c"]).all(dim=2).all(dim=0)
+                  & torch.isfinite(st["decode"]["dout"]).all(dim=1))
+            bad = (~ok).to(torch.int32)
+            if self.prog.tp_axes:
+                bad = self.prog.mesh.all_reduce(bad, "max")
+            return bad.cpu().numpy() != 0
 
     # -- slot lifecycle ----------------------------------------------------
 
@@ -197,9 +309,25 @@ class BatchEngine:
         s = self.slots[slot]
         return len(s.staged) if s else 0
 
+    def rt_speedup(self, slot: Optional[int] = None) -> float:
+        """Per-session realtime-speedup estimate (aas_realtime_get_speedup,
+        april_api.h:188-192; JAX batch.py `rt_speedup`): how much faster
+        than realtime this session's audio must be consumed for the engine
+        to keep up. The base is the tick EMA of 1.1 tick time / chunk time;
+        a slot with staged audio must also drain it within the buffer
+        bound, so its estimate scales by (1 + backlog / buffer). An ASYNC_RT
+        Session reports it and sets its time stretcher from it."""
+        v = self._speed_ema
+        if slot is not None and 0 <= slot < self.batch:
+            s = self.slots[slot]
+            if s is not None and self.max_staged > 0:
+                v *= 1.0 + len(s.staged) / float(self.max_staged)
+        return float(v)
+
     def tick(self) -> bool:
         """Run one chunk step for all slots with staged audio. Returns True
-        if any session had samples to process."""
+        if any session had samples to process (and the step, or its retry
+        after containment, ran)."""
         chunk = self.cfg.chunk_samples
         audio = np.zeros((self.batch, chunk), np.int16)
         n = np.zeros(self.batch, np.int32)
@@ -214,12 +342,32 @@ class BatchEngine:
         if not n.any():
             return False
         dev = self.rt.device
+        t0 = time.perf_counter()
         with self._step_lock:
-            self.state, events = self.prog.step(
-                self.weights, self.state,
-                torch.from_numpy(audio).to(dev), torch.from_numpy(n).to(dev),
-            )
+            out = {}
+
+            def run(bad=()):
+                # evicted slots must not take the chunk the failed step was
+                # fed: their streams restarted at SESSION_ERROR
+                nn = n
+                if len(bad):
+                    nn = n.copy()
+                    nn[list(bad)] = 0
+                out["v"] = self.prog.step(
+                    self.weights, self.state,
+                    torch.from_numpy(audio).to(dev), torch.from_numpy(nn).to(dev),
+                )
+
+            try:
+                run()
+            except Exception as e:  # noqa: BLE001 - any program failure
+                if not self._contain(e, run):
+                    return False
+            self.state, events = out["v"]
         replay_packed(events, self.slots)
+        dt = time.perf_counter() - t0
+        chunk_s = chunk / self.rt.sample_rate
+        self._speed_ema = (self._speed_ema * 9.0 + (dt * 1.1) / chunk_s) / 10.0
         return True
 
     def flush(self, slot_mask: np.ndarray) -> None:
@@ -240,9 +388,23 @@ class BatchEngine:
                         self.slots[i].was_flushed = True
             if not slot_mask.any():
                 return
-            self.state, events = self.prog.flush(
-                self.weights, self.state, torch.from_numpy(slot_mask).to(self.rt.device)
-            )
+            out = {}
+
+            def run(bad=()):
+                m = slot_mask
+                if len(bad):
+                    m = slot_mask.copy()
+                    m[list(bad)] = False
+                out["v"] = self.prog.flush(
+                    self.weights, self.state, torch.from_numpy(m).to(self.rt.device)
+                )
+
+            try:
+                run()
+            except Exception as e:  # noqa: BLE001 - any program failure
+                if not self._contain(e, run):
+                    return
+            self.state, events = out["v"]
         replay_packed(events, self.slots)
 
 

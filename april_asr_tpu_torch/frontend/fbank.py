@@ -3,9 +3,12 @@ april_asr_tpu/frontend/fbank.py).
 
 Each engine step accepts one audio chunk per session, forms the hop-aligned
 sample buffer (leftover + phase-rolled chunk), runs the frame DSP for every
-session at once (kernel 5, or kernel 1 for int8 engines, or kernel 6 on a
-buffer too short to frame in the kernel; ops/fbank_kernels.py)
-and appends the new log-mel rows to a fixed-capacity ring per session. State
+session at once and appends the new log-mel rows to a fixed-capacity ring
+per session. The frame DSP follows the JAX package's route by shape: where
+S is a multiple of the kernels' 8-session tile (`fused_supported`), kernel
+5, or kernel 1 for int8 engines, or kernel 6 on a buffer too short to frame
+in the kernel (ops/fbank_kernels.py); at any other S the f32 DFT products
+of `_frame_dsp` (JAX `fbank_accept`), with no fbank kernel. State
 is a dict of tensors with a leading session axis S:
 
   leftover     f32 [S, leftover_cap]  zero-padded beyond leftover_len
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from ..config import FbankOptions
-from .oracle import K_EPS
+from .oracle import K_EPS, mel_banks, povey_window
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,33 +142,106 @@ def fbank_accept_batch(
     dft_i8: bool = False,
 ) -> FbankState:
     """Accept up to `layout.chunk` samples per session (`wave[s, :n[s]]`
-    valid). The frame DSP is the bf16x3 DFT (kernel 5), or with `dft_i8`
-    the int8 DFT (kernel 1), which the engine selects for int8 engines as
-    engine/step.py of the JAX package does. A buffer too short for in-kernel
-    framing takes JAX's other branch, frames formed first and kernel 6 at
-    either setting; no `FbankLayout.build` layout is that short, and where
-    one were, `frames_from_buf` raises in both packages."""
+    valid), on the JAX package's route: where `fused_supported(layout, S)`
+    holds (S a multiple of 8, frames to compute), the frame DSP is the
+    bf16x3 DFT (kernel 5), or with `dft_i8` the int8 DFT (kernel 1), which
+    the engine selects for int8 engines as engine/step.py of the JAX package
+    does; a buffer too short for in-kernel framing takes JAX's other branch,
+    frames formed first and kernel 6 at either setting (no
+    `FbankLayout.build` layout is that short, and where one were,
+    `frames_from_buf` raises in both packages). At every other S the
+    sessions take `fbank_accept`'s f32 DFT, as JAX does."""
     from ..ops.fbank_kernels import (
         frames_from_buf,
+        fused_supported,
         logmel_rows_from_buf,
         logmel_rows_from_buf_i8,
         logmel_rows_fused,
     )
 
-    shift = layout.opts.window_shift
-    n = n.to(torch.int32)
-    pos = torch.arange(layout.chunk, device=wave.device)[None, :]
-    wave = torch.where(pos < n[:, None], wave.float(), torch.zeros((), device=wave.device))
-    # hop-phase alignment: the leftover is stored start-aligned, so the new
-    # samples are rolled by leftover_len % shift and then placed row-wise
-    phi = torch.remainder(state["leftover_len"], shift)
-    wave_p = _roll_right(_pad_to_rows(layout, wave), phi)
+    if not fused_supported(layout, wave.shape[0]):
+        return fbank_accept(layout, state, wave, n)
+    wave_p, n = _aligned(layout, state, wave, n)
     buf, total = _accept_assemble(layout, state, wave_p, n)
-    if buf.shape[1] // shift >= layout.max_frames + layout.n_views - 1:
+    if buf.shape[1] // layout.opts.window_shift >= layout.max_frames + layout.n_views - 1:
         rows = (logmel_rows_from_buf_i8 if dft_i8 else logmel_rows_from_buf)(layout, buf)
     else:
         rows = logmel_rows_fused(layout, frames_from_buf(layout, buf))
     return _accept_commit(layout, state, buf, rows, total)
+
+
+def fbank_accept(
+    layout: FbankLayout, state: FbankState, wave: torch.Tensor, n: torch.Tensor,
+) -> FbankState:
+    """Accept up to `layout.chunk` samples per session through the f32 DFT
+    (JAX `fbank_accept`, there one session under vmap): frames formed from
+    the hop-aligned buffer (`frames_from_buf`), then `_frame_dsp`."""
+    from ..ops.fbank_kernels import frames_from_buf
+
+    wave_p, n = _aligned(layout, state, wave, n)
+    buf, total = _accept_assemble(layout, state, wave_p, n)
+    rows = _frame_dsp(layout, frames_from_buf(layout, buf))
+    return _accept_commit(layout, state, buf, rows, total)
+
+
+def _aligned(layout: FbankLayout, state: FbankState, wave: torch.Tensor,
+             n: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the chunk masked to its n[s] samples, padded to whole hop rows and
+    phase-rolled, n as int32). The leftover is stored start-aligned, so the
+    new samples are rolled by leftover_len % shift and then placed row-wise."""
+    n = n.to(torch.int32)
+    pos = torch.arange(layout.chunk, device=wave.device)[None, :]
+    wave = torch.where(pos < n[:, None], wave.float(), torch.zeros((), device=wave.device))
+    phi = torch.remainder(state["leftover_len"], layout.opts.window_shift)
+    return _roll_right(_pad_to_rows(layout, wave), phi), n
+
+
+def _dft_matrices(padded: int, num_fft_bins: int):
+    """Real-DFT basis [padded, num_fft_bins] as numpy constants (float64
+    trig, f32 storage; JAX `_dft_matrices`)."""
+    t = np.arange(padded)[:, None]
+    k = np.arange(num_fft_bins)[None, :]
+    ang = 2.0 * np.pi * t * k / padded
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+_DSP_CONSTS: dict = {}
+
+
+def _dsp_constants(opts: FbankOptions, device) -> tuple:
+    """(window [padded], cos [padded, nfft], sin, mel [nfft, bins]) on
+    `device`, built once per options and device."""
+    key = (opts, str(device))
+    c = _DSP_CONSTS.get(key)
+    if c is None:
+        padded = opts.padded_window_size
+        mel_t = mel_banks(opts.num_bins, opts.num_fft_bins, padded, opts.sample_freq,
+                          opts.mel_low, opts.mel_high).T
+        c = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in
+                  (povey_window(padded), *_dft_matrices(padded, opts.num_fft_bins), mel_t))
+        _DSP_CONSTS[key] = c
+    return c
+
+
+def _frame_dsp(layout: FbankLayout, frames: torch.Tensor) -> torch.Tensor:
+    """[S, F, padded] raw frames -> [S, F, num_bins] log-mel rows (JAX
+    `_frame_dsp`, fbank.c:241-295): DC removal, pre-emphasis with the
+    data[0] quirk, the Povey window, then the cos and sin DFT products, the
+    power (bins 0..num_fft_bins-1: no Nyquist bin, the DC imaginary zero),
+    the mel product and log(max(K_EPS, .)), all in f32. Plain products, as
+    in JAX, where they are XLA's outside any kernel."""
+    o = layout.opts
+    window, cos_m, sin_m, mel_t = _dsp_constants(o, frames.device)
+    x = frames
+    if o.remove_dc_offset:
+        x = x - x.mean(dim=-1, keepdim=True)
+    if o.preemph_coeff > 0.0:
+        shifted = torch.cat([x[..., :1], x[..., :-1]], dim=-1)
+        x = x - float(np.float32(o.preemph_coeff)) * shifted
+    x = x * window
+    re, im = x @ cos_m, x @ sin_m
+    power = re * re + im * im
+    return torch.log(torch.clamp_min(power @ mel_t, float(K_EPS)))
 
 
 def _accept_assemble(

@@ -41,6 +41,7 @@ NVCC_FLAGS = (
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_loaded_by: Dict[str, str] = {}  # library -> the thread that opened it
 _lock = threading.Lock()
 
 # Launch counts per kernel: each wrapper adds one where it launches its
@@ -132,7 +133,23 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+            _loaded_by[name] = threading.current_thread().name
         return _libs[name]
+
+
+def loaded_by() -> Dict[str, str]:
+    """Each library opened since the last `unload()`, and the name of the
+    thread that opened it."""
+    with _lock:
+        return dict(_loaded_by)
+
+
+def unload() -> None:
+    """Forget every library handle: the next use of each opens it again, on
+    the thread that makes it (a built library is not built again)."""
+    with _lock:
+        _libs.clear()
+        _loaded_by.clear()
 
 
 def bind(name: str, fn: str, n_ptr: int, n_int: int, n_float: int = 0):

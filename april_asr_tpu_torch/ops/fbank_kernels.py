@@ -38,6 +38,10 @@ out by `t6_stream`); shapes no plan holds take the CUDA-core kernel
 `fbank_frames_simt` (csrc/fbank_bf16x3.cu `fbank_frames`). The two give the
 same rows, bit for bit.
 
+As in the JAX package, the frontend takes kernels 1, 5 and 6 only where
+`fused_supported` holds (S a multiple of 8); at other S it computes the f32
+DFT with plain products (frontend/fbank.py `_frame_dsp`).
+
 Each dispatcher takes the plain PyTorch version for a CPU tensor and
 launches its CUDA kernel (csrc/fbank_mma.cu or csrc/fbank_i8.cu,
 csrc/fbank_bf16x3_tile.cu or csrc/fbank_bf16x3.cu, csrc/fbank_frames_tile.cu
@@ -629,6 +633,17 @@ def logmel_rows_from_buf(layout, buf: torch.Tensor) -> torch.Tensor:
     if buf.device.type != "cuda":
         raise ValueError(f"fbank_bf16x3: unsupported device {buf.device}")
     return logmel_rows_from_buf_cuda(c, buf, F)
+
+
+# the JAX kernels' session tile (fbank_pallas.py `fused_supported`): the
+# frontend takes kernels 1, 5 and 6 only at S a multiple of it
+BLOCK_S = 8
+
+
+def fused_supported(layout, S: int) -> bool:
+    """The JAX package's gate on its fbank kernels (fbank_pallas.py:190-191):
+    S a multiple of the session tile, and frames to compute."""
+    return S % BLOCK_S == 0 and layout.max_frames > 0
 
 
 def frames_from_buf(layout, buf: torch.Tensor) -> torch.Tensor:

@@ -192,14 +192,18 @@ def lstm_layer_chunk_simt_cuda(x, h, c, w_ih, w_hh, bias, w_hr, ff1, ff1_b, ff2,
     return y, h2, c2
 
 
-def lstm_layer_chunk_simt(*args):
+def lstm_layer_chunk_simt(*args, norm_d=None):
     """`lstm_layer_chunk_fused`'s contract on the two-kernel chunk layer
-    (CUDA tensors; the plain version for CPU tensors)."""
+    (CUDA tensors; the plain version for CPU tensors). The kernel's norm
+    spans the whole width, so `norm_d` may only name it."""
     x = args[0]
     if x.device.type == "cpu":
-        return lstm_layer_chunk_plain(*args)
+        return lstm_layer_chunk_plain(*args, norm_d=norm_d)
     if x.device.type != "cuda":
         raise ValueError(f"lstm_chunk_simt: unsupported device {x.device}")
+    if norm_d not in (None, x.shape[2]):
+        raise ValueError(f"lstm_chunk_simt: a norm over {norm_d} of {x.shape[2]} columns "
+                         "(padded widths) is not this kernel's")
     return lstm_layer_chunk_simt_cuda(*args)
 
 

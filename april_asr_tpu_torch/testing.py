@@ -151,6 +151,15 @@ class DecisionMargins:
 # cross-implementation bound of tests/test_lstm_int8.py:69-80); a logit
 # moves by as much.
 NEAR_TIE = 0.05
+# The same for two bf16 engines. Their states are bf16-rounded at every
+# product, so two valid f32 sum orders (kernel 10, the two-kernel layer it
+# replaced, the plain layers) move a logit margin further than the int8
+# states' p99 bound: tools/parting_witness.py over seeds 0-4 (the flagship
+# random model at bf16, S = 256, 10 ticks of 1 s and a flush; NVIDIA H100
+# 80GB HBM3, 700 W) measured a largest margin shift of 0.0683 between two
+# valid orders (seed 0, plain layers against the two-kernel layer, in step)
+# and partings at margins up to 0.0504; 0.0683 rounded up.
+NEAR_TIE_BF16 = 0.07
 EVENT_FIELDS = ("ops", "tok", "flags", "final_k")
 INT_DECODE = ("context", "token_words", "head", "last_call", "time_ms", "last_emit_ms",
               "need_dec", "emitted_silence")
@@ -170,17 +179,25 @@ def capture_events(prog, unpack, sink: list) -> None:
         setattr(prog, name, wrapped)
 
 
+def near_tie(precision: str | None) -> float:
+    """The margin under which two engines serving at `precision` ("int8",
+    "bf16", "f32", or None for the weights as loaded) may take a decision
+    apart: NEAR_TIE_BF16 at bf16, NEAR_TIE otherwise."""
+    return NEAR_TIE_BF16 if precision == "bf16" else NEAR_TIE
+
+
 def check_parting(step, ev_ref, ev, cells, recs_ref, recs, dec_ref, dec, parted: dict,
-                  over: list | None = None) -> None:
+                  over: list | None = None, precision: str | None = None) -> None:
     """One engine step of a lockstep comparison of two engines on the same
-    audio. A session whose event cells (pull-major, round-minor) first
-    differ in this step is entered in `parted` as (step, cell, margin) and
-    must have been decided by less than NEAR_TIE there (`cells` [n, S] from
-    DecisionMargins on the plain side); a session still in step must have
-    equal callbacks `recs` and integer decode state (`dec`: INT_DECODE keys
-    to host arrays). Raises AssertionError otherwise; with `over`, a parting
-    at or above NEAR_TIE is appended there (as its session) and the check
-    goes on."""
+    audio, both serving at `precision`. A session whose event cells
+    (pull-major, round-minor) first differ in this step is entered in
+    `parted` as (step, cell, margin) and must have been decided by less than
+    `near_tie(precision)` there (`cells` [n, S] from DecisionMargins on the
+    plain side); a session still in step must have equal callbacks `recs`
+    and integer decode state (`dec`: INT_DECODE keys to host arrays). Raises
+    AssertionError otherwise; with `over`, a parting at or above the bound
+    is appended there (as its session) and the check goes on."""
+    tie = near_tie(precision)
     for s in range(ev_ref["ops"].shape[0]):
         if s in parted:
             continue
@@ -190,12 +207,12 @@ def check_parting(step, ev_ref, ev, cells, recs_ref, recs, dec_ref, dec, parted:
         if differ.any():
             first = int(np.argmax(differ))
             parted[s] = (step, first, float(cells[first, s]))
-            if cells[first, s] >= NEAR_TIE and over is not None:
+            if cells[first, s] >= tie and over is not None:
                 over.append(s)
-            elif cells[first, s] >= NEAR_TIE:
+            elif cells[first, s] >= tie:
                 raise AssertionError(
                     f"session {s} parted at step {step}, event cell {first}, where the "
-                    f"plain decode's margin was {cells[first, s]:.4f} >= {NEAR_TIE}")
+                    f"plain decode's margin was {cells[first, s]:.4f} >= {tie} ({precision})")
             continue
         if recs_ref[s] != recs[s]:
             raise AssertionError(f"session {s}: callbacks differ while the events agree")
@@ -300,11 +317,13 @@ def engine_run(args: dict) -> dict:
     torch.profiler: out["profile"][call] = {"kernels": {device kernel name:
     (device us, launches)}, "wall_ms"}. With `args["tp_kernels"]` "simt",
     the tensor-parallel step runs kernels 18-21 on the column-pass kernels
-    they replaced (the yardstick of a before-and-after breakdown)."""
+    they replaced (the yardstick of a before-and-after breakdown). Raises
+    where the engine caught a program failure (engine/batch.py
+    `CONTAINED`): every call must run on its first try."""
     import torch
 
     from .config import EngineConfig
-    from .engine.batch import BatchEngine
+    from .engine.batch import CONTAINED, BatchEngine
     from .engine.step import unpack_events_np
     from .ops import cuda_build
 
@@ -323,6 +342,7 @@ def engine_run(args: dict) -> dict:
         mesh = make_mesh(model_parallel=args["m"])
     audio = args["audio"]
     S = audio.shape[1]
+    contained = dict(CONTAINED)
     eng = BatchEngine(rt, batch=S, cfg=EngineConfig(chunk_samples=audio.shape[2]), mesh=mesh)
     calls = []
     capture_events(eng.prog, lambda p: (unpack_events_np(p), _np(p.blob)), calls)
@@ -367,7 +387,105 @@ def engine_run(args: dict) -> dict:
             out["dec"].append({key: _np(eng.state["decode"][key]) for key in INT_DECODE})
             if margins is not None:
                 out["cells"].append(margins.per_cell(ev["ops"].shape[1] * ev["ops"].shape[2]))
+    if CONTAINED != contained:
+        raise RuntimeError(f"engine_run: the engine caught program failures ({contained} -> "
+                           f"{CONTAINED})")
     return out
+
+
+def speaker_run(args: dict) -> dict:
+    """A rank function for RankGroup (or a call in one process at m = 1):
+    the engine of the model at `args["path"]` and `args["precision"]`
+    (tensor-parallel over `make_mesh(model_parallel=args["m"])` when m > 1)
+    over `args["audio"]` ([ticks, S, chunk] int16), then every slot's state
+    saved under `args["model"]` and the speaker keys "spk<slot>"
+    (engine/speaker.py; on a TP engine a collective). Then a fresh engine of
+    the same mesh restores "spk0" into its last slot. Returns the rows the
+    save wrote for slot 0 ("snapshot", read back from its file), and this
+    rank's h, c (its slice on a TP engine), context and dout rows of the
+    restored slot ("restored")."""
+    import torch
+
+    from .api.model import Model
+    from .config import EngineConfig
+    from .engine.batch import BatchEngine
+    from .engine.speaker import restore_speaker_state, save_speaker_state, speaker_path
+
+    rt = Model(args["path"], precision=args["precision"], device="cpu").runtime
+    mesh = None
+    if args["m"] > 1:
+        from .parallel import make_mesh
+
+        mesh = make_mesh(model_parallel=args["m"])
+    audio = args["audio"]
+    S = audio.shape[1]
+    cfg = EngineConfig(chunk_samples=audio.shape[2])
+    eng = BatchEngine(rt, batch=S, cfg=cfg, mesh=mesh)
+    for _ in range(S):
+        eng.alloc(lambda r, toks: None)
+    for k in range(audio.shape[0]):
+        for i in range(S):
+            eng.feed(i, audio[k, i])
+        eng.tick()
+    saved = [save_speaker_state(eng, i, args["model"], f"spk{i}") for i in range(S)]
+    with np.load(speaker_path(args["model"], "spk0")) as f:
+        snapshot = {k: np.asarray(f[k]) for k in f.files}
+    fresh = BatchEngine(rt, batch=S, cfg=cfg, prog=eng.prog, mesh=mesh)
+    applied = restore_speaker_state(fresh, S - 1, args["model"], "spk0")
+    st = fresh.state
+    with torch.no_grad():
+        restored = {"h": _np(st["h"][:, S - 1]), "c": _np(st["c"][:, S - 1]),
+                    "context": _np(st["decode"]["context"][S - 1]),
+                    "dout": _np(st["decode"]["dout"][S - 1])}
+    return {"saved": saved, "applied": applied, "snapshot": snapshot, "restored": restored,
+            "rank": 0 if mesh is None else mesh.rank}
+
+
+def contain_run(args: dict) -> dict:
+    """A rank function for RankGroup: the tensor-parallel CPU engine of the
+    model at `args["path"]` and `args["precision"]` over
+    `make_mesh(model_parallel=args["m"])` ticks `args["audio"]` ([ticks, S,
+    chunk] int16). On rank `args["fail_rank"]` alone the last tick's step
+    program raises after it has run (its collectives met), as a failure
+    local to one process would. Then every rank scrubs, together. Returns
+    this rank's rank, what its last tick did ("ticked" or the error's
+    text), the failures and recoveries it counted (engine/batch.py
+    `CONTAINED`), its SESSION_ERROR callbacks and the scrub's evictions."""
+    import dataclasses
+
+    from .api.model import Model
+    from .config import EngineConfig
+    from .decode.scalar import RESULT_SESSION_ERROR
+    from .engine.batch import CONTAINED, BatchEngine
+    from .parallel import make_mesh
+
+    rt = Model(args["path"], precision=args["precision"], device="cpu").runtime
+    mesh = make_mesh(model_parallel=args["m"])
+    audio = args["audio"]
+    S, ticks = audio.shape[1], audio.shape[0]
+    eng = BatchEngine(rt, batch=S, cfg=EngineConfig(chunk_samples=audio.shape[2]), mesh=mesh)
+    errors = []
+    for _ in range(S):
+        eng.alloc(lambda r, toks: errors.append(r) if r == RESULT_SESSION_ERROR else None)
+    before = dict(CONTAINED)
+    last = "ticked"
+    for k in range(ticks):
+        if k == ticks - 1 and mesh.rank == args["fail_rank"]:
+            orig = eng.prog.step
+
+            def step(*a, orig=orig):
+                orig(*a)
+                raise RuntimeError("injected failure on one rank")
+
+            eng.prog = dataclasses.replace(eng.prog, step=step)
+        for i in range(S):
+            eng.feed(i, audio[k, i])
+        try:
+            eng.tick()
+        except RuntimeError as e:
+            last = str(e)
+    return {"rank": mesh.rank, "last": last, "errors": len(errors), "scrubbed": eng.scrub(),
+            "counted": {k: CONTAINED[k] - before[k] for k in CONTAINED}}
 
 
 def _profiler():

@@ -64,7 +64,8 @@ engines' blobs (run on their kernels), the 16,383-token engines' blobs, and
 the outputs of kernels 1, 2, 3, 4, 5, 7, 8, 9, 12 and 16 to be equal, bit
 for bit; every session of a float
 engine whose events part from the first turn's to part at a near-tie
-decision (`testing.check_parting`, `testing.NEAR_TIE`; every session is
+decision (`testing.check_parting` at the engine's precision,
+`testing.near_tie`: NEAR_TIE_BF16 at bf16; every session is
 counted, and each parting at or above it listed), counted per turn
 beside whether the blobs are equal (their f32 log-probabilities move by
 ulps where the encoder's sums change order); and kernel 10's outputs to be
@@ -933,11 +934,12 @@ def sass(other: Path) -> list:
     return rows
 
 
-def float_partings(out_dir: Path, turns: list, name: str) -> tuple:
+def float_partings(out_dir: Path, turns: list, name: str, precision: str) -> tuple:
     """Sessions of each turn's plain-decode float engine run `name` (a
     precision, with "-s<seed>" for another model) that part from the first
-    turn's, by `testing.check_parting`: {turn: {session: (call, cell,
-    margin)}}, and {turn: [sessions that parted at or above NEAR_TIE]}."""
+    turn's, by `testing.check_parting` at `precision`: {turn: {session:
+    (call, cell, margin)}}, and {turn: [sessions that parted at or above
+    the precision's bound, `testing.near_tie`]}."""
     from april_asr_tpu_torch.testing import check_parting
 
     runs = []
@@ -950,7 +952,8 @@ def float_partings(out_dir: Path, turns: list, name: str) -> tuple:
         parted, over[i] = {}, []
         for k in range(len(ref["events"])):
             check_parting(k, ref["events"][k], run["events"][k], ref["cells"][k], ref["recs"][k],
-                          run["recs"][k], ref["dec"][k], run["dec"][k], parted, over[i])
+                          run["recs"][k], ref["dec"][k], run["dec"][k], parted, over[i],
+                          precision)
         found[i] = parted
     return found, over
 
@@ -1147,16 +1150,18 @@ def main(argv=None) -> int:
     for label in ("other", "this"):
         mine = [tr for tr in turns if tr["label"] == label]
         bad += [f"{k} ({label})" for k in float_keys if any(tr[k] != mine[0][k] for tr in mine)]
+    from april_asr_tpu_torch.testing import near_tie
+
     floats = {}
     for p, seed in FLOAT_RUNS:
         name = _run_name(p, seed)
         try:
-            parted, over = float_partings(args.out, turns, name)
+            parted, over = float_partings(args.out, turns, name, p)
         except AssertionError as e:
             bad.append(f"{name} engine: {e}")
             parted, over = {}, {}
         bad += [f"{name} engine: turn {i} session {s} parted at margin {parted[i][s][2]:.4f} "
-                f">= NEAR_TIE" for i, ss in over.items() for s in ss]
+                f">= {near_tie(p)}" for i, ss in over.items() for s in ss]
         floats[name] = [{"blobs_equal": tr[f"blob_{name}_sha"] == ref[f"blob_{name}_sha"],
                          "sessions_parted": len(parted.get(i, {})),
                          "largest_margin": max((m for _, _, m in parted.get(i, {}).values()),

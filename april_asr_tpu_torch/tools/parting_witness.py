@@ -19,9 +19,9 @@ times, the encoder's float layers on:
   products summed by cuBLAS.
 
 For each pair of runs it counts the sessions that part
-(`testing.check_parting`, partings at or above `NEAR_TIE` listed, not
-raised) and the largest difference of the two runs' margins over the
-decisions that both took in step: how far two sum orders move a logit gap
+(`testing.check_parting` at bf16, partings at or above `NEAR_TIE_BF16`
+listed, not raised) and the largest difference of the two runs' margins
+over the decisions that both took in step: how far two sum orders move a logit gap
 before any decision parts. For each session where kernel and simt part,
 it says which of them the plain run follows to the end (or neither, with
 its own first parting from each), with the three runs' margins at the
@@ -64,10 +64,11 @@ def engine(rt, audio, run: str) -> dict:
         TM.lstm_layer_chunk_fused, TM.lstm_layer_fused = orig
 
 
-def partings(a: dict, b: dict) -> tuple:
+def partings(a: dict, b: dict, precision: str | None = None) -> tuple:
     """Sessions of `b` that part from `a`: {session: (call, cell, margin in
-    a)}, the sessions among them at or above NEAR_TIE, and the largest
-    |margin a - margin b| over the calls each session spent wholly in step."""
+    a)}, the sessions among them at or above `testing.near_tie(precision)`,
+    and the largest |margin a - margin b| over the calls each session spent
+    wholly in step."""
     import numpy as np
 
     from april_asr_tpu_torch.testing import check_parting
@@ -75,7 +76,7 @@ def partings(a: dict, b: dict) -> tuple:
     parted, over, gap = {}, [], 0.0
     for k in range(len(a["events"])):
         check_parting(k, a["events"][k], b["events"][k], a["cells"][k], a["recs"][k],
-                      b["recs"][k], a["dec"][k], b["dec"][k], parted, over)
+                      b["recs"][k], a["dec"][k], b["dec"][k], parted, over, precision)
         live = [s for s in range(a["cells"][k].shape[1]) if s not in parted]
         ca, cb = a["cells"][k][:, live], b["cells"][k][:, live]
         both = np.isfinite(ca) & np.isfinite(cb)
@@ -112,7 +113,7 @@ def witness(seed: int, ticks: int, tmp: str) -> dict:
     out = {"seed": seed, "sessions": int(audio.shape[1]), "ticks": ticks, "pairs": {}}
     found = {}
     for a, b in PAIRS:
-        parted, over, gap = partings(runs[a], runs[b])
+        parted, over, gap = partings(runs[a], runs[b], "bf16")
         found[(a, b)] = parted
         out["pairs"][f"{a}-{b}"] = {
             "sessions_parted": len(parted), "over_near_tie": sorted(over),

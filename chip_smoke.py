@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (april_asr_tpu_torch) on one GPU.
 
-Builds the port's CUDA kernels from csrc/, holds each against its plain
+Builds the port's CUDA kernels from csrc/ and its host runtime from
+native/april_native.cc, holds each kernel against its plain
 PyTorch version at the flagship serving shapes, checks the streaming engine
 against the CPU (plain) engine on a small model at int8, bf16 and f32, drives a
 flagship BatchEngine at int8, bf16 and f32 and a synchronous Session at int8
-and at f32 (the weights as loaded), loads the flagship's ONNX form (verified
+and at f32 (the weights as loaded), then asynchronous, ASYNC_RT and speaker
+Sessions and the engine's failure containment, loads the flagship's ONNX form (verified
 on the card, served beside its native form) and serves a model through the
 ONNX interpreter, serves a flagship-width model with a
 16,383-token vocabulary and a narrow one that no kernel 4 holds,
@@ -20,7 +22,8 @@ and a two-rank tensor-parallel engine, and prints the results.
     python3 chip_smoke.py --phases build,kernels
 
 Phases (each fails the run on error):
-  build      nvcc for every csrc/*.cu, all started at once; then
+  build      nvcc for every csrc/*.cu, all started at once, and g++ for
+             the host runtime (native/april_native.cc, printed); then
              csrc/lstm_mma.cu, lstm_mma_float.cu, lstm_chunk_mma.cu,
              ffn_mma.cu, fbank_mma.cu, fbank_bf16x3_tile.cu,
              fbank_frames_tile.cu, conv_embed_tile.cu and mm_wgmma.cu again
@@ -110,7 +113,22 @@ Phases (each fails the run on error):
              bf16 the step again on the stacked embed (kernel 16 off), in
              turns, with the device kernels that left the step
   session    one synchronous Session, 200 ms feeds over 3 s, then flush: at
-             int8, and from Model(path) with no precision (f32 as loaded)
+             int8, and from Model(path) with no precision (f32 as loaded);
+             batch-1 engines take no fbank kernel (S = 1 is no multiple of
+             8: the f32 DFT, JAX's route). At int8 an asynchronous no_rt
+             Session whose callbacks must equal the sync one's (its worker
+             thread loading the kernel libraries it launches), an ASYNC_RT
+             Session at ~1.4x realtime (get_rt_speedup > 1.05, the
+             stretcher above 1x, no ERROR_CANT_KEEP_UP, a FINAL), a speaker
+             round trip (the restored rows equal the snapshot bit for bit);
+             the int8 engine at S=256 with a transient step failure (blobs
+             equal a clean run's) and with a NaN slot and a failed step
+             (that slot alone gets SESSION_ERROR, the others' events equal
+             the clean run's; exactly those two failures counted); and the
+             S=256 engines at int8, bf16 and f32: prog.step and prog.flush
+             leave their input state unchanged. Every other engine and
+             Session of the run must take no SESSION_ERROR, and each phase
+             ends with no program failure caught (engine/batch.py CONTAINED)
   onnx       ONNX-form models: the flagship's weights written by the port
              in both forms, the ONNX form loaded at int8 (extracted, then
              verified on the card: kernel 12 must launch during the load;
@@ -459,6 +477,13 @@ PATH_KERNELS = {
                "flush": ("fbank_bf16x3", "tp_gcp_f32", "tp_ffn_f32", "dec_joiner_f32")},
     # the ONNX interpreter's engine: kernel 5, every graph node plain torch
     "onnx interp": {"step": ("fbank_bf16x3",), "flush": ("fbank_bf16x3",)},
+    # a Session's batch-1 engine: S = 1 is no multiple of the fbank kernels'
+    # 8-session tile, so its frontend is the f32 DFT, as JAX routes it
+    # (frontend/fbank.py `fused_supported`); its chunk decode is kernel 4
+    "session int8": {"step": ("conv_embed", "lstm_rec_stream2_i8", "ffn_norm_i8", "chunk_decode"),
+                     "flush": ("lstm_step_i8", "dec_joiner")},
+    "session f32": {"step": ("lstm_chunk_mma_f32", "chunk_decode_f32"),
+                    "flush": ("lstm_step_f32", "dec_joiner_f32")},
 }
 
 
@@ -513,6 +538,13 @@ def phase_build(card):
             if "Used" in line or "error" in line.lower():
                 print(f"  nvcc {name}{entry}: {line.strip()}")
     print(f"build: {len(logs)} sources in {dt:.1f} s ({card})")
+    from april_asr_tpu_torch import native
+
+    path, log, secs = native.build_native()
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True).stdout.splitlines()
+    print(f"build: host runtime native/april_native.cc -> {path.name} with g++ "
+          f"{' '.join(native.GXX_FLAGS)} in {secs:.1f} s ({gxx[0] if gxx else 'g++'})"
+          f"{': ' + log.strip() if log.strip() else ''}")
     check_mma_sass()
 
 
@@ -1985,15 +2017,17 @@ def _tone_bufs(S, chunk, rate, n=8, seed=0):
     return bufs
 
 
-def _lockstep(rt_dev, rt_cpu, S: int, chunk: int, ticks: int, seed: int, what: str, card):
+def _lockstep(rt_dev, rt_cpu, S: int, chunk: int, ticks: int, seed: int, what: str, card,
+              precision: str | None = None):
     """The CUDA engine (kernels) and the CPU engine (plain versions) on the
     same weights and audio, in lockstep over `ticks` steps and a flush:
     fbank rows within the fbank kernels' bound, h/c within the repo's
     cross-implementation bound, and every session's events, callbacks and
     integer decode state equal up to the first decision the plain decode
-    took by a near-tie (testing.NEAR_TIE): random weights are chaotic, and
-    tanhf on the card and PyTorch's CPU tanh differ by ulps, which int8
-    re-quantization can amplify."""
+    took by a near-tie (testing.near_tie(precision): NEAR_TIE_BF16 for two
+    bf16 engines, else NEAR_TIE): random weights are chaotic, and tanhf on
+    the card and PyTorch's CPU tanh differ by ulps, which int8
+    re-quantization and bf16 rounding can amplify."""
     from april_asr_tpu_torch.config import EngineConfig
     from april_asr_tpu_torch.engine.batch import BatchEngine
     from april_asr_tpu_torch.engine.step import unpack_events_np
@@ -2034,6 +2068,7 @@ def _lockstep(rt_dev, rt_cpu, S: int, chunk: int, ticks: int, seed: int, what: s
             k, evs["cpu"][-1], evs["dev"][-1], margins.per_cell(n_cells), recs["cpu"], recs["dev"],
             {key: b["decode"][key].numpy() for key in INT_DECODE},
             {key: a["decode"][key].cpu().numpy() for key in INT_DECODE}, parted,
+            precision=precision,
         )
     n = sum(len(r) for r in recs["cpu"])
     if n == 0:
@@ -2072,7 +2107,8 @@ def phase_reference(card, precision: str, ticks: int = 6):
                           apply_precision({k: v.to(dev) for k, v in p.items()}, precision), dev)
            for dev in (DEV, "cpu")]
     cuda_build.reset_counts()
-    _lockstep(*rts, S=8, chunk=3200, ticks=ticks, seed=4, what=f"reference {precision}", card=card)
+    _lockstep(*rts, S=8, chunk=3200, ticks=ticks, seed=4, what=f"reference {precision}", card=card,
+              precision=precision)
     if (cuda_build.COUNTS["conv_embed"] > 0) != (precision in ("int8", "bf16")):
         raise AssertionError(f"reference {precision}: kernel 16 launched "
                              f"{cuda_build.COUNTS['conv_embed']} times")
@@ -2129,6 +2165,7 @@ def phase_engine(model, card, path: str, ticks: int = 10, flushes: int = 5, ab: 
     times (median and range), and the profiler's view of one step and one
     flush. With `ab`, `embed_ab` on the live state."""
     from april_asr_tpu_torch.config import EngineConfig
+    from april_asr_tpu_torch.decode.scalar import RESULT_SESSION_ERROR
     from april_asr_tpu_torch.engine.batch import BatchEngine
     from april_asr_tpu_torch.ops import cuda_build
     from april_asr_tpu_torch.tools.profile_lstm_mma import FFN_PASSES_KERNELS
@@ -2137,10 +2174,12 @@ def phase_engine(model, card, path: str, ticks: int = 10, flushes: int = 5, ab: 
     S, chunk = S_FLAG, CHUNK_1S
     bufs = _tone_bufs(S, chunk, rt.sample_rate)
     eng = BatchEngine(rt, batch=S, cfg=EngineConfig(chunk_samples=chunk))
-    n_cb = [0]
+    n_cb, errors = [0], []
 
     def handler(r, toks):
         n_cb[0] += 1
+        if r == RESULT_SESSION_ERROR:
+            errors.append(r)
 
     slots = [eng.alloc(handler) for _ in range(S)]
     torch.cuda.synchronize()
@@ -2150,7 +2189,8 @@ def phase_engine(model, card, path: str, ticks: int = 10, flushes: int = 5, ab: 
         for s in slots:
             eng.feed(s, bufs[k % len(bufs)][s])
         t0 = time.perf_counter()
-        eng.tick()
+        if not eng.tick():
+            raise AssertionError(f"engine {path}: tick {k} ran no step")
         torch.cuda.synchronize()
         tick_ms.append((time.perf_counter() - t0) * 1e3)
     step_counts = require_launches(f"engine {path} step", path, "step")
@@ -2176,6 +2216,9 @@ def phase_engine(model, card, path: str, ticks: int = 10, flushes: int = 5, ab: 
             raise AssertionError(f"engine: non-finite {name}")
     if n_cb[0] == 0:
         raise AssertionError("engine: no callbacks")
+    if errors:
+        raise AssertionError(f"engine {path}: {len(errors)} SESSION_ERROR callbacks")
+    no_containment(f"engine {path}")
 
     # the device programs alone (no staging, no host replay), on the live state
     audio = torch.from_numpy(bufs[0]).to(DEV)
@@ -2206,6 +2249,17 @@ def phase_engine(model, card, path: str, ticks: int = 10, flushes: int = 5, ab: 
     if ab:
         embed_ab(rt, run_step, prof_step, card, path)
     return _merge(step_counts, flush_counts)
+
+
+def no_containment(what: str) -> None:
+    """Fails where an engine of this process caught a program failure or
+    restarted (engine/batch.py `CONTAINED`): outside `engine_containment`,
+    which injects its failures and counts them, every step and flush must
+    run on its first try."""
+    from april_asr_tpu_torch.engine.batch import CONTAINED
+
+    if any(CONTAINED.values()):
+        raise AssertionError(f"{what}: engines caught program failures {CONTAINED}")
 
 
 def profile(run, card, what: str, n: int = 2) -> dict:
@@ -2255,7 +2309,7 @@ def phase_session(model, card, precision: str):
         sess.feed_pcm16(pcm[off : off + 3200].tobytes())
     torch.cuda.synchronize()
     feed_s = time.perf_counter() - t0
-    step_counts = require_launches(f"session {precision} feeds", precision, "step")
+    step_counts = require_launches(f"session {precision} feeds", f"session {precision}", "step")
     cuda_build.reset_counts()
     t1 = time.perf_counter()
     sess.flush()
@@ -2263,15 +2317,272 @@ def phase_session(model, card, precision: str):
     flush_s = time.perf_counter() - t1
     P = sess._engine.prog.layout.max_pulls_per_step
     sess.close()
-    flush_counts = require_launches(f"session {precision} flush", precision, "flush")
+    flush_counts = require_launches(f"session {precision} flush", f"session {precision}", "flush")
     no_simt_joiner(f"session {precision}", _merge(step_counts, flush_counts))
     if not got:
         raise AssertionError("session: no callbacks")
+    if any(r == Result.SESSION_ERROR for r, _ in got):
+        raise AssertionError(f"session {precision}: a SESSION_ERROR callback")
+    no_containment(f"session {precision}")
     kinds = {Result(r).name: sum(1 for x in got if x[0] == r) for r in {x[0] for x in got}}
     print(f"session {precision}: 3 s in 200 ms feeds + flush in {feed_s + flush_s:.2f} s "
           f"(feeds {feed_s:.2f} s, flush {flush_s:.2f} s), P={P}, callbacks={kinds}, "
           f"step_launches={json.dumps(step_counts)} flush_launches={json.dumps(flush_counts)} ({card})")
     return _merge(step_counts, flush_counts)
+
+
+def _session_run(model, pcm, block: int, gap_s: float = 0.0, prep=None, **kw) -> tuple:
+    """A Session fed `pcm` in `block`-sample feeds (`gap_s` apart), then
+    flushed: (callbacks [(result, tokens)], feed s, flush s, session).
+    `prep(session)` runs before the first feed. Fails on a SESSION_ERROR."""
+    from april_asr_tpu_torch.api import Result, Session
+
+    got = []
+    sess = Session(model, lambda r, toks: got.append(
+        (int(r), tuple((t.token, t.time_ms) for t in toks))), **kw)
+    if prep is not None:
+        prep(sess)
+    t0 = time.perf_counter()
+    for off in range(0, len(pcm), block):
+        sess.feed_pcm16(pcm[off : off + block].tobytes())
+        if gap_s:
+            time.sleep(gap_s)
+    feed_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    sess.flush()
+    torch.cuda.synchronize()
+    flush_s = time.perf_counter() - t1
+    if int(Result.SESSION_ERROR) in [r for r, _ in got]:
+        raise AssertionError(f"session {kw}: a SESSION_ERROR callback")
+    return got, feed_s, flush_s, sess
+
+
+def session_async(model, card) -> None:
+    """At int8: an asynchronous no_rt Session (3 s in 200 ms feeds) whose
+    callbacks must equal a synchronous Session's, its worker thread loading
+    every kernel library it launches (`cuda_build.unload()` first, so each
+    first use goes through cuda_build's lock off the main thread). Prints
+    the feed and flush wall times of both."""
+    from april_asr_tpu_torch.api import Result
+    from april_asr_tpu_torch.ops import cuda_build
+
+    rate = model.get_sample_rate()
+    pcm = _tone_bufs(1, 3 * rate, rate, n=1, seed=9)[0][0]
+    block = rate // 5
+    sync, s_feed, s_flush, sess = _session_run(model, pcm, block)
+    sess.close()
+    cuda_build.unload()
+    asyn, a_feed, a_flush, sess = _session_run(model, pcm, block, asynchronous=True, no_rt=True)
+    worker = sess._worker.name
+    sess.close()
+    loaded_by = cuda_build.loaded_by()
+    if asyn != sync:
+        raise AssertionError(f"session int8 async: callbacks differ from the sync session's "
+                             f"({len(asyn)} against {len(sync)})")
+    if not loaded_by or any(t != worker for t in loaded_by.values()):
+        raise AssertionError(f"session int8 async: kernel libraries loaded by {loaded_by}, "
+                             f"not the worker {worker}")
+    if int(Result.FINAL_RECOGNITION) not in [r for r, _ in sync]:
+        raise AssertionError("session int8: no FINAL")
+    print(f"session int8 async no_rt: {len(asyn)} callbacks equal to the sync session's; feeds "
+          f"{a_feed:.3f} s, flush {a_flush:.3f} s (sync: feeds {s_feed:.3f} s, flush "
+          f"{s_flush:.3f} s); {len(loaded_by)} kernel libraries first loaded on the worker "
+          f"thread ({', '.join(sorted(loaded_by))}) ({card})")
+
+
+def session_async_rt(model, card) -> None:
+    """At int8: an ASYNC_RT Session whose ticks are slowed to ~1.4x
+    realtime (its step program takes 0.28 s a 0.2 s chunk, 3 s fed in 200 ms
+    feeds 0.3 s apart): get_rt_speedup, the stretcher's speed and the
+    callbacks printed, no ERROR_CANT_KEEP_UP allowed, a FINAL required."""
+    from april_asr_tpu_torch.api import Result
+
+    rate = model.get_sample_rate()
+    pcm = _tone_bufs(1, 3 * rate, rate, n=1, seed=9)[0][0]
+    block = rate // 5
+
+    def slow(sess):
+        orig = sess._engine.prog.step
+
+        def step(*a):
+            t0 = time.monotonic()
+            out = orig(*a)
+            torch.cuda.synchronize()
+            dt = time.monotonic() - t0
+            if dt < 0.28:
+                time.sleep(0.28 - dt)
+            return out
+
+        sess._engine.prog = dataclasses.replace(sess._engine.prog, step=step)
+
+    got, feed_s, flush_s, sess = _session_run(model, pcm, block, gap_s=0.3, prep=slow,
+                                              asynchronous=True)
+    speedup, speed = sess.get_rt_speedup(), sess._stretcher.speed
+    sess.close()
+    kinds = {Result(r).name: sum(1 for x in got if x[0] == r) for r in {x[0] for x in got}}
+    print(f"session int8 ASYNC_RT at ~1.4x realtime: get_rt_speedup {speedup:.3f}, stretcher "
+          f"{speed:.3f}x, callbacks {kinds}; feeds {feed_s:.2f} s, flush {flush_s:.2f} s ({card})")
+    if "ERROR_CANT_KEEP_UP" in kinds or "FINAL_RECOGNITION" not in kinds:
+        raise AssertionError(f"session int8 ASYNC_RT: callbacks {kinds}")
+    if not (speedup > 1.05 and speed > 1.0):
+        raise AssertionError(f"session int8 ASYNC_RT: speedup {speedup}, stretcher {speed}")
+
+
+def session_speaker(model, card, tmp: str) -> None:
+    """A speaker Session at int8 (1 s of audio, then close) and a new one
+    with the same key: its slot's rows equal the snapshot's bit for bit."""
+    from april_asr_tpu_torch.api import Session
+    from april_asr_tpu_torch.engine.speaker import speaker_path
+
+    rate = model.get_sample_rate()
+    pcm = _tone_bufs(1, rate, rate, n=1, seed=13)[0][0]
+    old = os.environ.get("APRIL_SPEAKER_CACHE")
+    os.environ["APRIL_SPEAKER_CACHE"] = os.path.join(tmp, "speakers")
+    try:
+        t0 = time.perf_counter()
+        _, _, _, sess = _session_run(model, pcm, rate // 5, speaker_name="smoke")
+        sess.close()
+        save_s = time.perf_counter() - t0
+        with np.load(speaker_path(model.get_name(), "smoke")) as f:
+            saved = {k: np.asarray(f[k]) for k in f.files}
+        sess = Session(model, lambda r, toks: None, speaker_name="smoke")
+        st, i = sess._engine.state, sess._slot
+        rows = {"h": st["h"][:, i], "c": st["c"][:, i], "context": st["decode"]["context"][i],
+                "dout": st["decode"]["dout"][i]}
+        sess.close()
+    finally:
+        if old is None:
+            os.environ.pop("APRIL_SPEAKER_CACHE")
+        else:
+            os.environ["APRIL_SPEAKER_CACHE"] = old
+    for k, v in rows.items():
+        if not np.array_equal(v.cpu().numpy(), saved[k]):
+            raise AssertionError(f"session speaker: restored {k} differs from the snapshot")
+    if not np.abs(saved["c"]).max() > 0:
+        raise AssertionError("session speaker: the snapshot's c is zero")
+    print(f"session int8 speaker: {sorted(saved)} saved ({saved['h'].shape} h, "
+          f"{saved['c'].shape} c) and restored bit for bit; session with snapshot "
+          f"{save_s:.2f} s ({card})")
+
+
+def engine_containment(model, card, ticks: int = 3) -> None:
+    """The int8 engine at S = 256, 1 s chunks, `ticks` ticks and a flush,
+    three times: clean; with the second step failing once (a transient
+    failure: every blob must equal the clean run's and no SESSION_ERROR
+    fire); with slot 7's h poisoned by NaN after the first tick and the
+    second step failing once (only slot 7 gets SESSION_ERROR, and every
+    other session's events and callbacks equal the clean run's)."""
+    from april_asr_tpu_torch.config import EngineConfig
+    from april_asr_tpu_torch.decode.scalar import RESULT_SESSION_ERROR
+    from april_asr_tpu_torch.engine.batch import CONTAINED, BatchEngine
+    from april_asr_tpu_torch.engine.step import unpack_events_np
+    from april_asr_tpu_torch.testing import EVENT_FIELDS, capture_events
+
+    no_containment("before engine int8 containment")
+    S, chunk, bad = S_FLAG, CHUNK_1S, 7
+    bufs = _tone_bufs(S, chunk, model.get_sample_rate(), seed=23)
+
+    def run(fail: bool, poison: bool) -> tuple:
+        eng = BatchEngine(model.runtime, batch=S, cfg=EngineConfig(chunk_samples=chunk))
+        calls, recs = [], [[] for _ in range(S)]
+        capture_events(eng.prog, lambda p: (p.blob.clone(), unpack_events_np(p)), calls)
+        for i in range(S):
+            eng.alloc(lambda r, toks, i=i: recs[i].append(
+                (int(r), tuple((t.token_id, t.time_ms) for t in toks))))
+        failed = []
+        for k in range(ticks):
+            if k == 1 and fail:
+                orig = eng.prog.step
+
+                def step_once(*a, orig=orig):
+                    if not failed:
+                        failed.append(True)
+                        raise RuntimeError("injected step failure")
+                    return orig(*a)
+
+                eng.prog = dataclasses.replace(eng.prog, step=step_once)
+            if k == 1 and poison:
+                st = dict(eng.state)
+                st["h"] = st["h"].clone()
+                st["h"][:, bad] = float("nan")
+                eng.state = st
+            for i in range(S):
+                eng.feed(i, bufs[k % len(bufs)][i])
+            eng.tick()
+        eng.flush(np.ones(S, bool))
+        torch.cuda.synchronize()
+        return calls, recs, failed
+
+    t0 = time.perf_counter()
+    clean, clean_recs, _ = run(False, False)
+    transient, t_recs, t_failed = run(True, False)
+    if not t_failed or len(transient) != len(clean) or not all(
+            torch.equal(a[0], b[0]) for a, b in zip(clean, transient)):
+        raise AssertionError("engine int8 containment: a transient step failure changed the blobs")
+    if t_recs != clean_recs:
+        raise AssertionError("engine int8 containment: a transient failure changed the callbacks")
+    poisoned, p_recs, p_failed = run(True, True)
+    errs = [i for i in range(S) if any(r == RESULT_SESSION_ERROR for r, _ in p_recs[i])]
+    if not p_failed or errs != [bad]:
+        raise AssertionError(f"engine int8 containment: SESSION_ERROR went to {errs}, not [{bad}]")
+    keep = [i for i in range(S) if i != bad]
+    for k, (a, b) in enumerate(zip(clean, poisoned)):
+        for f in EVENT_FIELDS + ("logprob",):
+            if not np.array_equal(a[1][f][keep], b[1][f][keep]):
+                raise AssertionError(f"engine int8 containment: call {k} {f} of a healthy "
+                                     "session differs from the clean run's")
+    if [p_recs[i] for i in keep] != [clean_recs[i] for i in keep]:
+        raise AssertionError("engine int8 containment: a healthy session's callbacks differ")
+    if CONTAINED != {"failures": 2, "recoveries": 0}:
+        raise AssertionError(f"engine int8 containment: counted {CONTAINED}, not the two "
+                             "injected failures and no recovery")
+    CONTAINED.update(failures=0, recoveries=0)
+    n_ev = sum(int((c[1]["ops"] != 0).sum()) for c in clean)
+    print(f"engine int8 containment (S={S}, {ticks} ticks + flush, {n_ev} events): a transient "
+          f"step failure left every blob equal to the clean run's; NaN in slot {bad} and a "
+          f"failed step evicted slot {bad} alone, the other {len(keep)} sessions' events and "
+          f"callbacks equal; 3 runs in {time.perf_counter() - t0:.1f} s ({card})")
+
+
+def programs_keep_state(models, card) -> None:
+    """For the S = 256 engines at int8, bf16 and f32 after a tick: every
+    leaf of the state handed to prog.step and prog.flush is bit for bit
+    unchanged by the call (containment retries on it)."""
+    from april_asr_tpu_torch.config import EngineConfig
+    from april_asr_tpu_torch.engine.batch import BatchEngine, _map
+
+    S, chunk = S_FLAG, CHUNK_1S
+    for prec in ("int8", "bf16", "f32"):
+        rt = models[prec].runtime
+        bufs = _tone_bufs(S, chunk, rt.sample_rate, n=2, seed=29)
+        eng = BatchEngine(rt, batch=S, cfg=EngineConfig(chunk_samples=chunk))
+        for i in range(S):
+            eng.alloc(lambda r, toks: None)
+            eng.feed(i, bufs[0][i])
+        eng.tick()
+        audio = torch.from_numpy(bufs[1]).to(DEV)
+        n = torch.full((S,), chunk, dtype=torch.int32, device=DEV)
+        do = torch.ones(S, dtype=torch.bool, device=DEV)
+        for name, call in (("step", lambda st: eng.prog.step(eng.weights, st, audio, n)),
+                           ("flush", lambda st: eng.prog.flush(eng.weights, st, do))):
+            before = _map(eng.state, lambda t: t.clone())
+            call(eng.state)
+            torch.cuda.synchronize()
+            moved = [key for key, now, was in _leaves(eng.state, before)
+                     if not torch.equal(now, was)]
+            if moved:
+                raise AssertionError(f"engine {prec}: prog.{name} wrote into its input state "
+                                     f"at {moved}")
+    print(f"engines int8, bf16, f32 (S={S}): prog.step and prog.flush leave their input state "
+          f"unchanged, every leaf bit for bit ({card})")
+
+
+def _leaves(a, b, path=""):
+    if isinstance(a, dict):
+        for k in a:
+            yield from _leaves(a[k], b[k], f"{path}/{k}")
+    else:
+        yield path, a, b
 
 
 def onnx_flagship(tmp: str, card, dims=None, S: int = S_FLAG, ticks: int = 3) -> None:
@@ -3513,7 +3824,8 @@ def tp_engine(model, path: str, prec: str, card, ticks: int = 2) -> dict:
     parted = {}
     for k in range(ticks + 1):
         check_parting(k, ref["events"][k], ranks[0]["events"][k], ref["cells"][k],
-                      ref["recs"][k], ranks[0]["recs"][k], ref["dec"][k], ranks[0]["dec"][k], parted)
+                      ref["recs"][k], ranks[0]["recs"][k], ref["dec"][k], ranks[0]["dec"][k], parted,
+                      precision=prec)
     n_cb = sum(len(r) for r in ref["recs"][-1])
     if n_cb == 0:
         raise AssertionError(f"tp {prec}: no callbacks")
@@ -3624,6 +3936,7 @@ def main(argv=None) -> int:
     last = [t_start]
 
     def phase_done(name):
+        no_containment(f"phase {name}")
         now = time.perf_counter()
         print(f"phase {name}: {now - last[0]:.1f} s")
         last[0] = now
@@ -3660,9 +3973,14 @@ def main(argv=None) -> int:
                 record(phase_engine(models[prec], card, prec, ab=prec != "f32"), prec)
             phase_done("engine")
         if "session" in phases:
-            record(phase_session(models["int8"], card, "int8"), "int8")
+            record(phase_session(models["int8"], card, "int8"), "session int8")
             # Model(path) with no precision: the weights as loaded (f32)
-            record(phase_session(models["f32"], card, "f32"), "f32")
+            record(phase_session(models["f32"], card, "f32"), "session f32")
+            session_async(models["int8"], card)
+            session_async_rt(models["int8"], card)
+            session_speaker(models["int8"], card, tmp)
+            engine_containment(models["int8"], card)
+            programs_keep_state(models, card)
             phase_done("session")
         if "onnx" in phases:
             phase_onnx(tmp, card)

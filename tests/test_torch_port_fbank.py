@@ -138,3 +138,53 @@ def _check_oracle(dft_i8):
         got = np.stack(rows[s])
         assert got.shape == ref.shape
         assert np.abs(got - ref).max() < 2e-3
+
+
+@pytest.mark.parametrize("dft_i8", [True, False])
+@pytest.mark.parametrize("n_sessions,kernel", [(1, False), (4, False), (8, True), (16, True)])
+def test_accept_route_follows_jax_gate(monkeypatch, n_sessions, kernel, dft_i8):
+    """The JAX package's gate (`fused_supported`, fbank_pallas.py:190-191):
+    at S a multiple of 8 the frontend takes kernel 1 (`dft_i8`) or kernel 5;
+    at any other S the f32 DFT (`_frame_dsp`), as JAX's `fbank_accept`."""
+    from april_asr_tpu_torch.ops import fbank_kernels as FK
+
+    calls = []
+    for name in ("logmel_rows_from_buf_i8", "logmel_rows_from_buf", "logmel_rows_fused"):
+        orig = getattr(FK, name)
+        monkeypatch.setattr(FK, name, lambda *a, orig=orig, name=name: (
+            calls.append(name), orig(*a))[1])
+    orig_dsp = tfb._frame_dsp
+    monkeypatch.setattr(tfb, "_frame_dsp", lambda *a: (calls.append("_frame_dsp"), orig_dsp(*a))[1])
+    tl = tfb.FbankLayout.build(FbankOptions(), 3200)
+    assert FK.fused_supported(tl, n_sessions) == kernel
+    w = _pcm((n_sessions, 3200), seed=n_sessions)
+    st = tfb.fbank_accept_batch(tl, tfb.fbank_init(tl, n_sessions, "cpu"), torch.from_numpy(w),
+                                torch.full((n_sessions,), 3200, dtype=torch.int32), dft_i8)
+    want = ("logmel_rows_from_buf_i8" if dft_i8 else "logmel_rows_from_buf") if kernel \
+        else "_frame_dsp"
+    assert calls == [want]
+    assert (st["fifo_len"] > 0).all()
+
+
+def test_frame_dsp_matches_jax():
+    """The f32 DFT route against JAX's `fbank_accept` under vmap (its route
+    at S % 8 != 0 with or without APRIL_PALLAS) on hop-unaligned feeds: the
+    integer state equal, the rows within the fbank bound."""
+    S, chunk, sizes = 3, 3200, [3200, 777, 3200, 1501]
+    jl = jfb.FbankLayout.build(JFbankOptions(), chunk)
+    tl = tfb.FbankLayout.build(FbankOptions(), chunk)
+    waves = _pcm((S, sum(sizes)), seed=21)
+    jaccept = jax.jit(jax.vmap(lambda s, w, n: jfb.fbank_accept(jl, s, w, n)))
+    jst = jax.vmap(lambda _: jfb.fbank_init(jl))(jnp.arange(S))
+    tst = tfb.fbank_init(tl, S, "cpu")
+    o = 0
+    for sz in sizes:
+        w = np.zeros((S, chunk), np.float32)
+        w[:, :sz] = waves[:, o : o + sz]
+        o += sz
+        n = np.full(S, sz, np.int32)
+        jst = jaccept(jst, jnp.asarray(w), jnp.asarray(n))
+        tst = tfb.fbank_accept(tl, tst, torch.from_numpy(w), torch.from_numpy(n))
+    for k in ("fifo_len", "fifo_off", "fifo_len_f", "leftover_len", "dropped"):
+        np.testing.assert_array_equal(tst[k].numpy(), np.asarray(jst[k]), err_msg=k)
+    np.testing.assert_allclose(tst["fifo"].numpy(), np.asarray(jst["fifo"]), atol=2e-5, rtol=1e-4)

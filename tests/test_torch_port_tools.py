@@ -284,3 +284,29 @@ def test_parting_counts_every_session():
     parted, over, gap = partings(a, b)
     assert sorted(parted) == [0, 1] and over == [1] and gap == pytest.approx(0.1)
     assert same_events(a, b, 2) and not same_events(a, b, 0)
+
+
+@pytest.mark.parametrize("precision", ["int8", "bf16", "f32", None])
+def test_parting_bound_by_precision(precision):
+    """`check_parting` holds two bf16 engines to NEAR_TIE_BF16 (from the
+    parting witness on the card) and every other pair to NEAR_TIE: a
+    parting at a margin between the two bounds passes at bf16 alone, and
+    one at the larger bound fails at every precision."""
+    from april_asr_tpu_torch.testing import NEAR_TIE, NEAR_TIE_BF16, check_parting, near_tie
+
+    assert NEAR_TIE < NEAR_TIE_BF16 < 2 * NEAR_TIE
+    assert near_tie(precision) == (NEAR_TIE_BF16 if precision == "bf16" else NEAR_TIE)
+    between = (NEAR_TIE + NEAR_TIE_BF16) / 2
+    for margin, parts in ((NEAR_TIE / 2, True), (between, precision == "bf16"),
+                          (NEAR_TIE_BF16, False)):
+        cells = [[0.5, 0.5, 0.5], [0.3, margin, 0.4], [1.0, 1.0, 1.0], [1.0, 1.0, 1.0]]
+        a = _run([[1, 2, 3, 4]] * 3, cells)
+        b = _run([[1, 2, 3, 4], [1, 9, 3, 4], [1, 2, 3, 4]], cells)
+        args = (0, a["events"][0], b["events"][0], a["cells"][0], a["recs"][0], b["recs"][0],
+                a["dec"][0], b["dec"][0])
+        parted, over = {}, []
+        check_parting(*args, parted, over, precision=precision)
+        assert parted == {1: (0, 1, margin)} and over == ([] if parts else [1])
+        if not parts:
+            with pytest.raises(AssertionError, match=f">= {near_tie(precision)}"):
+                check_parting(*args, {}, precision=precision)
